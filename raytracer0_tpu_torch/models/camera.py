@@ -35,7 +35,7 @@ class Camera:
 
     @classmethod
     def make(cls, origin=(0.0, 0.0, 2.8), lookat=(0.0, 0.0, -1.0), fov=50.0,
-             aperture=0.0, focal_length=3.5, device="cpu"):
+             aperture=0.0, focal_length=3.5, device="cuda"):
         vals = dict(origin=origin, lookat=lookat, fov=fov, aperture=aperture,
                     focal_length=focal_length)
         return cls.from_arrays({k: np.asarray(v, np.float32)

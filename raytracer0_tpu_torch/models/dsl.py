@@ -14,7 +14,7 @@ from __future__ import annotations
 import re
 from typing import Sequence
 
-from raytracer0_tpu.models.materials import MeshType, SdfShape
+from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
 from raytracer0_tpu_torch.models.scene import Scene, SceneBuilder
 
 _VEC_RE = re.compile(r"vec([234])\s*\(([^)]*)\)")
@@ -33,7 +33,7 @@ def _parse_vec(token: str, n: int) -> tuple:
 
 
 def parse_scene(text: str, sdf_shapes: Sequence[SdfShape] = (),
-                device="cpu", **builder_kw) -> Scene:
+                device="cuda", **builder_kw) -> Scene:
     """Parse DSL text into a Scene on `device`.  `sdf_shapes[i]` selects the
     shape of the i-th SDF line (reference dropdown semantics)."""
     sb = SceneBuilder()

@@ -7,7 +7,7 @@ items 7-11).
 
 from __future__ import annotations
 
-from raytracer0_tpu.config import OFFLINE_CONFIG, RenderConfig
+from raytracer0_tpu_torch.config import OFFLINE_CONFIG, RenderConfig
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
 
@@ -16,7 +16,7 @@ def _cfg(base: RenderConfig = OFFLINE_CONFIG, **kw) -> RenderConfig:
     return base.replace(**kw)
 
 
-def cornell_default(device="cpu", **cfg_kw):
+def cornell_default(device="cuda", **cfg_kw):
     """The viewport's built-in Cornell box (index.js:54-95): 5 planes,
     sphere light, two boxes; procedural-sky define on but fully enclosed."""
     scene = parse_scene("""

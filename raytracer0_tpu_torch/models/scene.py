@@ -23,7 +23,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from raytracer0_tpu.models.materials import (
+from raytracer0_tpu_torch.models.materials import (
     MATERIALS, Material, MeshType, SdfShape, TexType,
 )
 from raytracer0_tpu_torch import rng as _rng
@@ -114,6 +114,11 @@ class Scene:
     def device(self) -> torch.device:
         return self.pos.device
 
+    def replace(self, **kw) -> "Scene":
+        """A copy with the given fields replaced (the JAX Scene's
+        `replace`); tensors keep their autograd history."""
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_arrays(cls, arrays: Mapping[str, np.ndarray], static: Mapping,
                     device) -> "Scene":
@@ -178,7 +183,7 @@ class SceneBuilder:
         self._explicit_lights = list(indices)
         return self
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
         rows = self._rows + self._sdf_rows
         n = len(rows)
         if n == 0:

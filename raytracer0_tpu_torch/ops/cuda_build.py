@@ -1,10 +1,11 @@
 """Build the package's CUDA C++ sources with nvcc and load them with ctypes.
 
 Each library is compiled on first use into `build/kernels/<name>-<hash>/`
-at the repository root, keyed by a hash of its sources and flags, so a
-changed source builds anew and an unchanged one loads from the cache.  The
-sources have a plain C interface (no PyTorch headers), which keeps a build
-to seconds.
+at the repository root, keyed by a hash of the flags, the library's sources
+and every other file in `csrc/` (the headers the sources include), so a
+changed source or header builds anew and an unchanged tree loads from the
+cache.  The sources have a plain C interface (no PyTorch headers), which
+keeps a build to seconds.
 
 No fast math, and FMA contraction off: fast division, fast sqrt or a fused
 multiply-add can flip branches that hinge on ULP-close compares, which
@@ -52,17 +53,25 @@ def nvcc_path() -> str:
     return path
 
 
+def build_dir(name: str, sources: tuple[str, ...], csrc_dir: Path = CSRC_DIR) -> Path:
+    """The cache directory of library `name`: keyed by the flags, the list
+    of sources to compile and the bytes of every file under `csrc_dir`,
+    so an edit to an included header changes it too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(sources).encode())
+    for p in sorted(q for q in csrc_dir.rglob("*") if q.is_file()):
+        digest.update(p.relative_to(csrc_dir).as_posix().encode())
+        digest.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
+
+
 def load(name: str, sources: tuple[str, ...]):
     """Build (or reuse) `lib<name>.so` from `csrc/<sources>` and load it.
     Returns (ctypes.CDLL, BuildInfo).  Raises if nvcc is missing or fails."""
     if name in _LOADED:
         return _LOADED[name]
     paths = [CSRC_DIR / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
+    out_dir = build_dir(name, sources)
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "build.log"
 

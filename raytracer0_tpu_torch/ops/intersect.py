@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from raytracer0_tpu.models.materials import MeshType
+from raytracer0_tpu_torch.models.materials import MeshType
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 

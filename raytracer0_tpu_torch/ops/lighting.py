@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracer0_tpu.models.materials import MatType
+from raytracer0_tpu_torch.models.materials import MatType
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import intersect as isect
 from raytracer0_tpu_torch.ops import sampling as smp

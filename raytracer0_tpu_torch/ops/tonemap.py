@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracer0_tpu.config import RenderConfig, TonemapOp
+from raytracer0_tpu_torch.config import RenderConfig, TonemapOp
 
 
 def reinhard(x):

@@ -27,8 +27,8 @@ from typing import Optional
 
 import torch
 
-from raytracer0_tpu.config import RenderConfig, RenderMode
-from raytracer0_tpu.models.materials import MatType, MeshType
+from raytracer0_tpu_torch.config import RenderConfig, RenderMode
+from raytracer0_tpu_torch.models.materials import MatType, MeshType
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import bsdf as bsdf_ops
 from raytracer0_tpu_torch.ops import intersect as isect

@@ -6,6 +6,13 @@ CUDA device through the K1 kernel (`ops/megakernel.py`), on the CPU
 through the plain integrator.  A CUDA device with a (scene, cfg) the
 kernel does not cover raises; it never falls back to the plain version.
 
+`sample_radiance` and `render_pass` are differentiable on both devices:
+the pass is a sum of `trace_fn` calls, so a loss on the image
+back-propagates to the scene's parameters (and to the camera, through the
+rays) by the plain integrator's autograd on the CPU and by K2, the adjoint
+kernel behind `megakernel.trace_forward`, on CUDA.  A render that needs
+no gradient launches K1 alone.
+
 The kernel masks the ragged edge itself, so no padding to a block shape is
 needed.  `render_scan` (one launch for a chain of passes) waits for a CUDA
 graph port.
@@ -16,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracer0_tpu.config import RenderConfig, RenderMode
+from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays

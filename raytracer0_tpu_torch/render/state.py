@@ -17,7 +17,7 @@ class RenderState:
     passes: int = 0       # completed passes
 
     @classmethod
-    def create(cls, height: int, width: int, device="cpu"):
+    def create(cls, height: int, width: int, device="cuda"):
         return cls(accum=torch.zeros((height, width, 3), dtype=torch.float32,
                                      device=device))
 

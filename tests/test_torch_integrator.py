@@ -38,7 +38,7 @@ def assert_parity(out, ref):
 
 def _inputs(h, w, **cfg_kw):
     js, jc, jcfg = jpresets.cornell_default(use_mis=True)
-    ts, _, _ = tpresets.cornell_default(use_mis=True)
+    ts, _, _ = tpresets.cornell_default(device="cpu", use_mis=True)
     cfg = jcfg.replace(**cfg_kw)
     ro, rd = jcam.generate_rays(jc, h, w, 1)
     ro, rd = np.asarray(ro), np.asarray(rd)
@@ -98,14 +98,14 @@ def test_plain_raises_outside_the_class():
         MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
         MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
-    """)
-    _, _, cfg = tpresets.cornell_default()
+    """, device="cpu")
+    _, _, cfg = tpresets.cornell_default(device="cpu")
     ro = torch.zeros(2, 2, 3)
     rd = torch.zeros(2, 2, 3)
     rd[..., 2] = -1.0
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         tint.trace(scene, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
-    ts, _, _ = tpresets.cornell_default()
+    ts, _, _ = tpresets.cornell_default(device="cpu")
     for kw, item in [(dict(use_restir=True), "11"), (dict(use_spectral=True), "10"),
                      (dict(use_cubemap=True, use_procedural_sky=False), "9"),
                      (dict(use_biased_sampling=False), "7")]:

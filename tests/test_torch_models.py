@@ -6,6 +6,8 @@ per operation in both frameworks (sqrt, tan, sin, cos may differ by one
 ULP), so they are compared within 1e-6, about 8 ULP at unit length.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -44,10 +46,10 @@ def assert_scene_equal(ts, js):
 
 
 def test_cornell_default_matches_jax():
-    ts, tc, tcfg = tpresets.cornell_default(use_mis=True)
+    ts, tc, tcfg = tpresets.cornell_default(device="cpu", use_mis=True)
     js, jc, jcfg = jpresets.cornell_default(use_mis=True)
     assert_scene_equal(ts, js)
-    assert tcfg == jcfg
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     for k in ("origin", "lookat", "fov", "aperture", "focal_length"):
         np.testing.assert_array_equal(getattr(tc, k).numpy(),
                                       np.asarray(getattr(jc, k)))
@@ -63,11 +65,11 @@ def test_parse_scene_matches_jax():
         MAT_WHITE, SDF, vec3(0.0, -1.6, -0.2), vec4(1.5, 0.1, 1.5, 0.0)
     """
     shapes = [SdfShape.SPHERE, SdfShape.BOX]
-    ts = tdsl.parse_scene(text, sdf_shapes=shapes, lights=[1, 0])
+    ts = tdsl.parse_scene(text, sdf_shapes=shapes, lights=[1, 0], device="cpu")
     js = jdsl.parse_scene(text, sdf_shapes=shapes, lights=[1, 0])
     assert_scene_equal(ts, js)
     with pytest.raises(ValueError):
-        tdsl.parse_scene("MAT_WHITE, CONE, vec3(0.0), vec4(1.0)")
+        tdsl.parse_scene("MAT_WHITE, CONE, vec3(0.0), vec4(1.0)", device="cpu")
 
 
 def test_from_arrays_matches_jax():
@@ -95,7 +97,7 @@ def test_generate_rays_matches_jax(kw):
     h = w = 24
     jro, jrd = jcam.generate_rays(jcam.Camera.make(**cam_kw), h, w, pass_idx,
                                   sample_idx=1, **kw)
-    tro, trd = tcam.generate_rays(tcam.Camera.make(**cam_kw), h, w, pass_idx,
+    tro, trd = tcam.generate_rays(tcam.Camera.make(**cam_kw, device="cpu"), h, w, pass_idx,
                                   sample_idx=1, **kw)
     assert tro.shape == (h, w, 3) and tro.dtype == torch.float32
     np.testing.assert_allclose(tro.numpy(), np.asarray(jro), rtol=0, atol=RAY_TOL)
@@ -104,7 +106,7 @@ def test_generate_rays_matches_jax(kw):
 
 def test_camera_basis_and_tent_match_jax():
     jc = jcam.Camera.make(lookat=(0.3, -0.2, -1.0))
-    tc = tcam.Camera.make(lookat=(0.3, -0.2, -1.0))
+    tc = tcam.Camera.make(lookat=(0.3, -0.2, -1.0), device="cpu")
     for a, b in zip(tc.basis(), jc.basis()):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-7)
     r = np.random.default_rng(0).random(1000, dtype=np.float32)

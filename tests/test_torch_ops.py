@@ -106,7 +106,7 @@ def _cornell_rays(n, seed):
 
 
 def test_intersect_matches_jax():
-    ts, _, cfg = tpresets.cornell_default()
+    ts, _, cfg = tpresets.cornell_default(device="cpu")
     js, _, _ = jpresets.cornell_default()
     ro, rd = _cornell_rays(N, 11)
     th = tisect.intersect(ts, torch.from_numpy(ro), torch.from_numpy(rd), cfg)
@@ -120,7 +120,7 @@ def test_intersect_matches_jax():
 
 def test_sample_lights_nee_matches_jax():
     """Sphere-cone NEE with MIS from points on the Cornell walls."""
-    ts, _, cfg = tpresets.cornell_default(use_mis=True)
+    ts, _, cfg = tpresets.cornell_default(device="cpu", use_mis=True)
     js, _, _ = jpresets.cornell_default(use_mis=True)
     ro, rd = _cornell_rays(512, 21)
     jh = jisect.intersect(js, jnp.asarray(ro), jnp.asarray(rd), cfg)

@@ -32,7 +32,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_renderer_matches_jax_renderer():
     js, jc, cfg = jpresets.cornell_default(use_mis=True)
-    ts, tc, _ = tpresets.cornell_default(use_mis=True)
+    ts, tc, _ = tpresets.cornell_default(device="cpu", use_mis=True)
     cfg = cfg.replace(max_bounces=3)
     jr = jren.Renderer(js, jc, cfg, H, W)
     tr = tren.Renderer(ts, tc, cfg, H, W)
@@ -66,7 +66,7 @@ def test_display_image_matches_jax(op):
 
 
 def test_route():
-    scene, _, cfg = tpresets.cornell_default(use_mis=True)
+    scene, _, cfg = tpresets.cornell_default(device="cpu", use_mis=True)
     assert tren._route("cuda", scene, cfg) == "kernel"
     assert tren._route("cpu", scene, cfg) == "plain"
     mis_style = parse_scene("""
@@ -74,7 +74,7 @@ def test_route():
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
         MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
         MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
-    """)
+    """, device="cpu")
     with pytest.raises(NotImplementedError):
         tren._route("cuda", mis_style, cfg)
     animated = cfg.replace(render_mode=RenderMode.ANIMATED)
@@ -84,7 +84,7 @@ def test_route():
 
 
 def test_cpu_render_launches_no_kernel():
-    scene, cam, cfg = tpresets.cornell_default(use_mis=True)
+    scene, cam, cfg = tpresets.cornell_default(device="cpu", use_mis=True)
     before = tmk.LAUNCHES
     img = tren.Renderer(scene, cam, cfg.replace(max_bounces=2), 8, 16).render(2)
     assert tmk.LAUNCHES == before == 0
@@ -92,8 +92,8 @@ def test_cpu_render_launches_no_kernel():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module loads neither jax nor any JAX-package
-    module other than the shared pure-Python config and materials."""
+    """Importing every port module loads neither jax nor any module of the
+    JAX package: the port has its own config and materials."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "raytracer0_tpu_torch").rglob("*.py"))
@@ -105,5 +105,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=300).stdout
     assert len(mods) > 15
-    assert eval(out) == ["raytracer0_tpu", "raytracer0_tpu.config",
-                         "raytracer0_tpu.models", "raytracer0_tpu.models.materials"]
+    assert eval(out) == []
