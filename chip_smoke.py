@@ -36,7 +36,26 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    median and quartiles of 9 after warm-up), prints rays/s, the kernels'
    device time from torch.profiler and each route's peak memory; then runs
    `optimize.fit` of the light's emission at 128x128 for 20 steps and
-   checks that the loss falls and K2 ran once per step.
+   checks that the loss falls and K2 ran once per step;
+9. holds the widened K1 against its plain version on the card: on
+   `cubemap_demo` and the config-2 scene (REFR_SCHLICK, a mirror and COAT
+   under MIS, tests/test_golden_cornell.py:66-79) at 16x128 with 3 bounces
+   (parity contract) and at 512x512 with 12 bounces (golden contract); on
+   the directional-sun scene of tests/test_megakernel.py:685-698 with and
+   without MIS, and on `cornell_default` with uniform hemisphere sampling,
+   at both sizes; checks that the cubemap shows: pixels whose primary ray
+   escapes, or escapes after the mirror, equal the cubemap's texels in
+   that direction, in K1 and in the plain version alike; times K1 (CUDA
+   events, and device time from torch.profiler) and the plain version on
+   config 2 and `cubemap_demo`, and prints their path events and K1's
+   bound;
+10. drives the cubemap main path, `Renderer(cubemap_demo).render(16)` at
+   512x512, and checks that it launched K1 16 times and K2 never and that
+   the image is finite and not black; times one `sample_radiance` pass
+   through K1 and through the plain version, and prints K1's device time
+   within a pass from torch.profiler;
+11. asks for a gradient through `cubemap_demo` on the card and checks that
+   it raises NotImplementedError and launches neither kernel.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -60,6 +79,19 @@ FD_TOL = 0.05                            # tests/test_golden_cornell.py:112
 H = W = 512
 PASSES = 16
 GRAD_STEPS = 3
+# tests/test_golden_cornell.py:66-79 (config 2): no preset in either package
+CONFIG2 = """
+    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+    MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+    MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
+    MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
+    MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
+"""
 LEAVES = ("color", "emission", "pos", "joker")
 ADJ_CONFIGS = [                          # tests/test_torch_cuda.py
     (16, 128, dict(max_bounces=3)),
@@ -74,25 +106,36 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
 # Float operations per event of K1, counted from csrc/megakernel.cu and
-# trace_common.cuh: each add, sub, mul, compare, min, max, sqrt, division,
-# sin and cos counts one (so the count, and the bound, are lower bounds);
-# the integer RNG hashing is not counted.
+# trace_common.cuh: each add, sub, mul, compare, min, max, abs, floor, sqrt,
+# division, sin and cos counts one (so the count, and the bound, are lower
+# bounds); the integer RNG hashing and the texel index arithmetic are not
+# counted.
 OPS_MESH = {0: 26, 1: 22, 2: 44}  # one ray against one sphere, plane, box
 OPS_HIT = 29        # x = o + d t, normal, the two clamps, `inside`
 OPS_DIFFUSE = 76    # draws, nl, cosine sample about nl, mask, o', cutoff
-OPS_NEE = 108       # per light: cone toward the light, shadow-ray setup, contribution
-OPS_NEE_MIS = 43    # per light under MIS: energy gate, both pdfs, heuristic
+OPS_REFLECT = 29    # non-DIFF hits: e * rand_dir, reflect, normalize
+OPS_REFRACT = 42    # REFR hits: IOR ratio, refract, roughened normalize
+OPS_SCHLICK = 17    # REFR_SCHLICK and COAT hits: the Schlick reflectance
+OPS_FRESNEL = 36    # REFR_FRESNEL hits: the full Fresnel reflectance
+OPS_GATHER = 67     # gather ray on a diffuse vertex: draws, direction, origin
+OPS_FETCH = 67      # cubemap fetch: face select, bilinear weights and lerp, acc
+OPS_NEE = 108       # per sphere light: cone toward the light, shadow-ray setup, contribution
+OPS_NEE_MIS = 43    # per sphere light under MIS: energy gate, both pdfs, heuristic
+OPS_NEE_DIR = 32    # per directional light without MIS: direction, origin, contribution
 OPS_LIGHT = 12      # emissive hit: acc += mask c e w
 OPS_LIGHT_MIS = 48  # its BSDF-side MIS weight
 OPS_MISS = 28       # procedural sky and acc
+# extra operations of a BSDF sample by material code, on top of OPS_DIFFUSE
+OPS_BSDF = {2: 0, 3: OPS_REFLECT, 4: OPS_REFLECT + OPS_REFRACT + OPS_FRESNEL,
+            5: OPS_REFLECT + OPS_REFRACT + OPS_SCHLICK, 6: OPS_REFLECT + OPS_SCHLICK}
 
 
-def compare(name, out, ref, tol, frac):
+def compare(name, out, ref, tol, frac, phase=3):
     """Max-over-RGB abs error per pixel; raise unless the contract holds."""
     err = (out - ref).abs().amax(dim=-1)
     mx, med = err.max().item(), err.median().item()
     share_ok = (err < tol).float().mean().item()
-    print(f"phase 3: {name}: max abs err {mx:.3e}, median {med:.3e}, "
+    print(f"phase {phase}: {name}: max abs err {mx:.3e}, median {med:.3e}, "
           f"share of pixels beyond {tol:g}: {1.0 - share_ok:.5f}")
     if not (med < MEDIAN_TOL and share_ok >= frac):
         raise AssertionError(f"{name}: K1 disagrees with the plain version "
@@ -146,43 +189,82 @@ def grad_errors(got, want):
 
 
 def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
-    """Events of every pixel's path, counted over the image: intersections
-    by mesh type, diffuse bounces, shadow rays, emissive hits (and those
-    with a MIS weight) and misses.  Replays K1's decisions with the plain
-    version's functions, which make the same ones bit for bit."""
+    """Events of every pixel's path, counted over the image: rays by mesh
+    scan, BSDF samples by material and by outcome (diffuse, specular,
+    transmitted), shadow rays to sphere and to directional lights, gather
+    rays, cubemap fetches, emissive hits (and those with a MIS weight) and
+    procedural-sky misses.  Replays K1's decisions with the plain
+    version's functions (`bsdf.sample` among them), which make the same
+    ones bit for bit."""
     from raytracer0_tpu_torch import rng
-    from raytracer0_tpu_torch.ops import bsdf, intersect, vecmath
+    from raytracer0_tpu_torch.ops import bsdf, intersect, lighting, sampling, vecmath
 
     n = ro.shape[:-1].numel()
-    live_lights = sum(1 for li in scene.lights_static if li >= 0)
-    ev = dict(rays=0, diffuse=0, shadow=0, light=0, light_mis=0, miss=0)
+    kinds = [lighting.slot_kind(scene, i) for i in range(scene.num_lights)]
+    n_sphere, n_dir = kinds.count("sphere"), kinds.count("dir")
+    ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0,
+              gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
+              bsdf={})
     o, d = ro, rd
+    shape = ro.shape[:-1]
     mask = torch.ones_like(ro)
-    active = torch.ones(ro.shape[:-1], dtype=torch.bool, device=ro.device)
-    n_diff = torch.zeros(ro.shape[:-1], dtype=torch.int32, device=ro.device)
+    active = torch.ones(shape, dtype=torch.bool, device=ro.device)
+    specular = active.clone()
+    counts = [torch.zeros(shape, dtype=torch.int32, device=ro.device) for _ in range(3)]
     for depth in range(cfg.max_bounces):
         hit = intersect.intersect(scene, o, d, cfg)
-        is_light = ~hit.missed & (scene.mat_type[hit.idx] == 0)
-        diffuse = active & ~hit.missed & ~is_light
-        n_light = int((active & is_light).sum())
+        mat = scene.mat_type[hit.idx]
+        missed = active & hit.missed
+        is_light = active & ~hit.missed & (mat == 0)
+        is_dir = active & ~hit.missed & (mat == 1)
+        surf = active & ~hit.missed & ~is_light & ~is_dir
         ev["rays"] += int(active.sum())
-        ev["miss"] += int((active & hit.missed).sum())
-        ev["light"] += n_light
+        ev["miss"] += int(missed.sum())
+        env = int((missed & (specular | (not cfg.sample_lights))).sum())
+        if cfg.use_cubemap:
+            ev["fetch"] += env
+        elif cfg.use_procedural_sky:
+            ev["sky"] += env
+        ev["light"] += int(is_light.sum())
+        ev["dir_hit"] += int(is_dir.sum())
         if cfg.use_mis and cfg.sample_lights and depth > 0:
-            ev["light_mis"] += n_light
-        ev["diffuse"] += int(diffuse.sum())
-        if cfg.sample_lights:
-            ev["shadow"] += int(diffuse.sum()) * live_lights
+            ev["light_mis"] += int((is_light & ~specular).sum())
+        for code in torch.unique(mat[surf]).tolist():
+            ev["bsdf"][code] = ev["bsdf"].get(code, 0) + int((surf & (mat == code)).sum())
         c = torch.clamp_min(scene.color[hit.idx], 0.001)
+        e = torch.clamp_min(scene.emission[hit.idx], 0.001)
         inside = torch.where(vecmath.vdot(d, hit.n) > 0.0, -1.0, 1.0)
         u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
-        bs = bsdf.sample(cfg, hit, c, inside, u1, u2)
-        sel = diffuse[..., None]
+        uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
+        bs = bsdf.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
+        diffuse = surf & ~bs.specular
+        transmit = surf & (bs.scatter_inc > 0)
+        ev["diffuse"] += int(diffuse.sum())
+        ev["transmit"] += int(transmit.sum())
+        ev["specular"] += int((surf & bs.specular & ~transmit).sum())
+        n_diffuse = int(diffuse.sum())
+        if cfg.sample_lights:
+            ev["shadow"] += n_diffuse * n_sphere
+            if not cfg.use_mis:
+                ev["shadow_dir"] += n_diffuse * n_dir
+        if cfg.use_cubemap:
+            nl = hit.n * inside[..., None]
+            eu1, eu2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.ENV_DIR)
+            env_dir = sampling.random_direction(nl, eu1, eu2, cfg.use_biased_sampling)
+            env_hit = intersect.intersect(scene, hit.pos + nl * cfg.epsilon, env_dir, cfg,
+                                          need_normal=False)
+            ev["gather"] += n_diffuse
+            ev["fetch"] += int((diffuse & env_hit.missed).sum())
+        sel = surf[..., None]
         o = torch.where(sel, bs.o, o)
         d = torch.where(sel, bs.d, d)
-        mask = torch.where(sel, mask * c, mask)
-        n_diff = n_diff + diffuse.to(torch.int32)
-        active = diffuse & ~(mask.amax(-1) < 0.01) & (n_diff < cfg.max_diff_bounces)
+        mask = torch.where(sel, mask * bs.mask_mult, mask)
+        specular = torch.where(surf, bs.specular, specular)
+        for k, inc in enumerate((bs.diff_inc, bs.spec_inc, bs.scatter_inc)):
+            counts[k] = counts[k] + torch.where(surf, inc, 0)
+        capped = ((counts[0] >= cfg.max_diff_bounces) | (counts[1] >= cfg.max_spec_bounces)
+                  | (counts[2] >= cfg.max_scattering_events))
+        active = surf & ~(mask.amax(-1) < 0.01) & ~capped
         if not bool(active.any()):
             break
     ev["pixels"] = n
@@ -192,22 +274,28 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
 def bound(ev, scene, cfg, adjoint):
     """(bound_ms, bound_by) of K1 (or K2 when `adjoint`) for these events:
     the larger of the bytes over the HBM rate and the float operations over
-    the float32 rate.  K2 replays each slot's forward and runs its adjoint,
-    which takes at least as many operations, on top of a forward sweep
-    without NEE."""
+    the float32 rate.  The bytes are each input read once (rays, pixel ids,
+    the scene table and, under a cubemap, the whole cubemap) and each
+    output written once.  K2 replays each slot's forward and runs its
+    adjoint, which takes at least as many operations, on top of a forward
+    sweep without NEE."""
     types = [int(t) for t in scene.mesh_types_static]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     nee = OPS_NEE + (OPS_NEE_MIS if cfg.use_mis else 0)
-    hits = ev["diffuse"] + ev["light"]
-    sweep = ev["rays"] * per_ray + hits * OPS_HIT + ev["diffuse"] * OPS_DIFFUSE
-    fwd = (sweep + ev["shadow"] * (per_ray + nee) + ev["light"] * OPS_LIGHT
-           + ev["light_mis"] * OPS_LIGHT_MIS + ev["miss"] * OPS_MISS)
+    samples = sum(ev["bsdf"].values())
+    hits = samples + ev["light"] + ev["dir_hit"]
+    sweep = (ev["rays"] * per_ray + hits * OPS_HIT + samples * OPS_DIFFUSE
+             + sum(k * OPS_BSDF.get(code, 0) for code, k in ev["bsdf"].items()))
+    fwd = (sweep + ev["shadow"] * (per_ray + nee) + ev["shadow_dir"] * (per_ray + OPS_NEE_DIR)
+           + ev["gather"] * (per_ray + OPS_GATHER) + ev["fetch"] * OPS_FETCH
+           + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS)
     table = 4 * scene.num_meshes * 36
+    cube = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
     px = ev["pixels"]
     if adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
         ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
-    else:         # ro, rd, pix in; radiance out
-        ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table
+    else:         # ro, rd, pix, table, cubemap in; radiance out
+        ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + cube
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -241,7 +329,12 @@ def main() -> int:
     try:
         from raytracer0_tpu_torch import optimize, rng
         from raytracer0_tpu_torch.models.camera import generate_rays
-        from raytracer0_tpu_torch.models.presets import cornell_default
+        from raytracer0_tpu_torch.models.camera import Camera
+        from raytracer0_tpu_torch.models.dsl import parse_scene
+        from raytracer0_tpu_torch.models.materials import MeshType
+        from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
+        from raytracer0_tpu_torch.models.scene import SceneBuilder
+        from raytracer0_tpu_torch.ops import bsdf, intersect, sky
         from raytracer0_tpu_torch.ops import megakernel
         from raytracer0_tpu_torch.render import integrator
         from raytracer0_tpu_torch.render.renderer import Renderer, sample_radiance
@@ -487,15 +580,152 @@ def main() -> int:
     if not losses[-1] < losses[0] or megakernel.BWD_LAUNCHES != fit_steps:
         raise AssertionError("the fit did not lower the loss through K2 once per step")
 
+    # ---- phase 9: the widened K1 against its plain version ----
+    def sun_scene():
+        sb = SceneBuilder()
+        sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
+        sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
+        sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
+        sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
+        sb.lights([3])
+        cam9 = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=dev)
+        return sb.build(device=dev), cam9
+
+    cube_scene, cube_cam, cube_cfg = cubemap_demo(device=dev)
+    cases = {
+        "cubemap_demo": (cube_scene, cube_cam, cube_cfg),
+        "config2": (parse_scene(CONFIG2, device=dev),
+                    Camera.make(origin=(0, 0, 1.99), lookat=(0, 0, -1), fov=60.0, device=dev),
+                    cfg.replace(use_procedural_sky=False)),
+        "dir": sun_scene() + (cfg.replace(use_mis=False),),
+        "dir_mis": sun_scene() + (cfg,),
+        "cornell_uniform": (scene, cam, cfg.replace(use_biased_sampling=False)),
+    }
+    widened_err = {}
+    for name, (s9, c9, cfg9) in cases.items():
+        if megakernel.unsupported(s9, cfg9) is not None or megakernel.unsupported_bwd(s9, cfg9) is None:
+            raise AssertionError(f"{name}: expected inside K1's class and outside K2's")
+        for h, w, nb, tol, frac in ((16, 128, 3, PARITY_TOL, PARITY_FRAC),
+                                    (H, W, cfg9.max_bounces, GOLDEN_TOL, GOLDEN_FRAC)):
+            c = cfg9.replace(max_bounces=nb)
+            ro9, rd9 = generate_rays(c9, h, w, 1)
+            pix9 = rng.pixel_ids(h, w, device=dev)
+            out = megakernel.trace_forward(s9, c, ro9, rd9, pix9, 1, 0)
+            ref = integrator.trace(s9, c, ro9, rd9, pix9, 1, 0)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()) or not ref.max().item() > 0.1:
+                raise AssertionError(f"{name}: K1 output not finite, or the plain one dark")
+            widened_err[(name, h)] = compare(f"{name} {h}x{w}, {nb} bounces", out, ref,
+                                             tol, frac, phase=9)
+
+    # the cubemap shows: direct sky pixels and sky seen in the mirror
+    ro9, rd9 = generate_rays(cube_cam, H, W, 1)
+    pix9 = rng.pixel_ids(H, W, device=dev)
+    out = megakernel.trace_forward(cube_scene, cube_cfg, ro9, rd9, pix9, 1, 0)
+    ref = integrator.trace(cube_scene, cube_cfg, ro9, rd9, pix9, 1, 0)
+    hit0 = intersect.intersect(cube_scene, ro9, rd9, cube_cfg)
+    direct = hit0.missed
+    mirror = ~hit0.missed & (cube_scene.mat_type[hit0.idx] == 3)
+    inside0 = torch.where((rd9 * hit0.n).sum(-1) > 0.0, -1.0, 1.0)
+    u1, u2 = rng.uniform2(pix9, 1, 0, 0, rng.Stream.BSDF_DIR)
+    uc = rng.uniform(pix9, 1, 0, 0, rng.Stream.BSDF_CHOICE)
+    bs0 = bsdf.sample(cube_scene, cube_cfg, hit0,
+                      torch.clamp_min(cube_scene.color[hit0.idx], 0.001),
+                      torch.clamp_min(cube_scene.emission[hit0.idx], 0.001),
+                      inside0, rd9, u1, u2, uc)
+    via = mirror & intersect.intersect(cube_scene, bs0.o, bs0.d, cube_cfg).missed
+    for name, sel, dirs in (("direct", direct, rd9), ("via the mirror", via, bs0.d)):
+        texel = sky.sample_cubemap(cube_scene.cubemap, dirs)[sel]
+        k1, plain = out[sel], ref[sel]
+        n_sel = int(sel.sum())
+        gap = max((k1 - texel).abs().max().item(), (plain - texel).abs().max().item())
+        print(f"phase 9: cubemap_demo {H}x{W}: {n_sel} pixels see the sky {name}; "
+              f"min K1 value {k1.min().item():.4f}; max |K1 - texel|, |plain - texel| {gap:.3e}")
+        if n_sel < 100 or not k1.min().item() > 0.0 or gap > 1e-6:
+            raise AssertionError(f"the cubemap does not show {name}")
+    del out, ref
+
+    k1_ms, plain_ms, k1_dev_ms, k1_bound9 = {}, {}, {}, {}
+    for name in ("config2", "cubemap_demo"):
+        s9, c9, cfg9 = cases[name]
+        ro9, rd9 = generate_rays(c9, H, W, 0)
+        k1_ms[name] = time_ms(torch, lambda: megakernel.trace_forward(s9, cfg9, ro9, rd9, pix9, 0, 0))
+        plain_ms[name] = time_ms(torch, lambda: integrator.trace(s9, cfg9, ro9, rd9, pix9, 0, 0))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                megakernel.trace_forward(s9, cfg9, ro9, rd9, pix9, 0, 0)
+            torch.cuda.synchronize()
+        dev9, _ = device_times_ms(prof, ("fwd_kernel",))
+        k1_dev_ms[name] = None if dev9["fwd_kernel"] is None else dev9["fwd_kernel"] / 3
+        ev9 = path_events(torch, s9, cfg9, ro9, rd9, pix9, 0, 0)
+        k1_bound9[name] = bound(ev9, s9, cfg9, adjoint=False)
+        print(f"phase 9: path events of {name} at {H}x{W}: {json.dumps(ev9)}")
+        print(f"phase 9: {card}: {name} trace at {H}x{W}, {cfg9.max_bounces} bounces: "
+              f"K1 {k1_ms[name]:.3f} ms (device "
+              + ("not measured" if k1_dev_ms[name] is None else f"{k1_dev_ms[name]:.4f} ms")
+              + f", profiler), plain {plain_ms[name]:.3f} ms; bound {k1_bound9[name][0]:.6f} ms "
+              f"({k1_bound9[name][1]})")
+
+    # ---- phase 10: the cubemap main path ----
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    img = Renderer(cube_scene, cube_cam, cube_cfg, H, W).render(PASSES)
+    torch.cuda.synchronize()
+    launches_cube, bwd_cube = megakernel.LAUNCHES, megakernel.BWD_LAUNCHES
+    print(f"phase 10: Renderer(cubemap_demo).render({PASSES}) at {H}x{W}: {launches_cube} "
+          f"K1 launches, {bwd_cube} K2 launches; image mean {img.mean().item():.4f}")
+    if launches_cube != PASSES or bwd_cube != 0:
+        raise AssertionError(f"expected {PASSES} K1 and 0 K2 launches, saw "
+                             f"{launches_cube} and {bwd_cube}")
+    if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()) \
+            or not img.mean().item() > 0.05:
+        raise AssertionError("the cubemap image is not finite, or black")
+
+    def plain_cube_pass():
+        ro10, rd10 = generate_rays(cube_cam, H, W, 0)
+        return integrator.trace(cube_scene, cube_cfg, ro10, rd10, pix9, 0, 0)
+
+    ms_cube_pass = time_ms(torch, lambda: sample_radiance(cube_scene, cube_cfg, cube_cam, H, W, 0))
+    plain_cube_pass_ms = time_ms(torch, plain_cube_pass)
+    print(f"phase 10: {card}: cubemap_demo sample_radiance at {H}x{W}, "
+          f"{cube_cfg.max_bounces} bounces: K1 {ms_cube_pass:.3f} ms/pass, plain "
+          f"{plain_cube_pass_ms:.3f} ms/pass")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sample_radiance(cube_scene, cube_cfg, cube_cam, H, W, 0)
+        torch.cuda.synchronize()
+    cube_dev, cube_total = device_times_ms(prof, ("fwd_kernel",))
+    cube_dev_ms = None if cube_dev["fwd_kernel"] is None else cube_dev["fwd_kernel"] / 3
+    cube_bound, cube_by = k1_bound9["cubemap_demo"]
+    print(f"phase 10: {card}: K1 in a cubemap_demo pass: device time "
+          + ("not measured" if cube_dev_ms is None else
+             f"{cube_dev_ms:.4f} ms of {cube_total / 3:.4f} ms on the device per pass")
+          + f" (profiler, 3 passes), bound {cube_bound:.6f} ms ({cube_by})")
+
+    # ---- phase 11: no gradient outside K2's class ----
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    em = cube_scene.emission.clone().requires_grad_(True)
+    try:
+        sample_radiance(cube_scene.replace(emission=em), cube_cfg, cube_cam, 16, 16, 0)
+    except NotImplementedError as exc:
+        print(f"phase 11: a gradient through cubemap_demo raises NotImplementedError: {exc}")
+    else:
+        raise AssertionError("a gradient through cubemap_demo did not raise")
+    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
+        raise AssertionError("the refused gradient launched a kernel")
+
     common = dict(route="cuda", library_ms=None)
     print(json.dumps({"kernels": [
         {"name": "K1 forward megakernel", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2357",
          "launches": launches,
-         "launches_by_path": {"render": launches, "gradient": launches_grad},
+         "launches_by_path": {"render": launches, "gradient": launches_grad,
+                              "cubemap_render": launches_cube},
          "max_abs_err": max_abs_err, "ms": ms_trace, "plain_ms": plain_ms_trace,
-         "bound_ms": k1_bound, "bound_by": k1_by},
+         "bound_ms": k1_bound, "bound_by": k1_by,
+         "ms_config2": k1_ms["config2"], "device_ms_config2": k1_dev_ms["config2"],
+         "plain_ms_config2": plain_ms["config2"], "bound_ms_config2": k1_bound9["config2"][0],
+         "max_abs_err_config2": widened_err[("config2", H)]},
         {"name": "K2 adjoint megakernel", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2545",
@@ -505,6 +735,13 @@ def main() -> int:
          "launches_by_path": {"render": bwd_render, "gradient": bwd_launches},
          "max_abs_err": k2_abs, "max_rel_err": k2_rel, "ms": ms_k2,
          "plain_ms": plain_ms_bwd, "bound_ms": k2_bound, "bound_by": k2_by},
+        {"name": "K9 env forward, served by K1", **common,
+         "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3414",
+         "launches": launches_cube,
+         "max_abs_err": widened_err[("cubemap_demo", H)], "ms": k1_ms["cubemap_demo"],
+         "device_ms": k1_dev_ms["cubemap_demo"], "plain_ms": plain_ms["cubemap_demo"],
+         "bound_ms": cube_bound, "bound_by": cube_by},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,9 +25,13 @@ Layout:
   optimize.py  — inverse rendering: fit scene parameters with Adam
   csrc/        — CUDA C++ sources of the kernels
 
-The port covers the Cornell class (analytic primitives, DIFF and LIGHT
-materials, sphere-light NEE with optional MIS, procedural sky), forward
-and gradient; other features raise NotImplementedError.
+The forward pass covers analytic primitives with every surface material
+(DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT), sphere and directional
+lights with optional MIS, cosine or uniform sampling, and a cubemap or the
+procedural sky.  Gradients cover that class on the CPU (plain autograd)
+and its Cornell subset on CUDA (K2: DIFF and LIGHT materials, sphere
+lights, no cubemap, cosine sampling).  Other features raise
+NotImplementedError naming the ROADMAP item that adds them.
 """
 
 from raytracer0_tpu_torch.config import (  # noqa: F401

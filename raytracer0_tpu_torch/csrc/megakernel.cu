@@ -1,21 +1,32 @@
 // megakernel.cu — forward path-tracing megakernel K1 for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-// raytracer0_tpu/ops/megakernel.py::_fwd_kernel_body (launched by `_forward`),
-// for the Cornell class: analytic SPHERE/PLANE/BOX meshes, DIFF and LIGHT
-// materials, sphere-light NEE with optional power-heuristic MIS, the
-// procedural sky, the luminance cutoff and the per-type bounce caps.
+// Replaces the Pallas TPU kernels
+// raytracer0_tpu/ops/megakernel.py::_fwd_kernel_body (launched by `_forward`)
+// and ::_env_kernel_body (launched by `_env_forward`, photographic cubemaps),
+// for analytic SPHERE/PLANE/BOX meshes and every surface material: the BSDF
+// dispatch over DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK and COAT (cosine or
+// uniform hemisphere sampling), DIR_LIGHT surfaces that end a path, sphere-
+// and directional-light NEE with optional power-heuristic MIS, the cubemap
+// or procedural-sky environment, the cubemap gather ray on diffuse bounces,
+// the luminance cutoff and the per-type bounce caps.
+//
+// The Pallas env kernel records a (weight, direction) pair per cubemap fetch
+// and resolves the records afterwards with XLA gathers, because Mosaic has no
+// per-lane gather.  Here each thread fetches its texels itself
+// (trace_common.cuh::sample_cubemap): a 256x256 cubemap is 4.7 MB and stays in
+// the 50 MB L2, and the records, and the second pass over them, are gone.
 // Its plain PyTorch version is raytracer0_tpu_torch/render/integrator.py::trace;
 // the kernel follows that function's operations in the same order, so on the
 // same inputs the two agree to the last bit except where a libm call rounds
 // differently.
 //
 // What bounds it: each pixel reads 28 bytes (ray origin, direction, id) and
-// writes 12, so device memory is not the limit.  The time goes into a long,
-// data-dependent loop per pixel: up to `max_bounces` bounces, each a scan over
-// all meshes for the hit plus one shadow-ray scan per light, with branches
-// that diverge as paths terminate at different depths.  The kernel is bound
-// by instruction latency and warp divergence.
+// writes 12, plus the cubemap's texels, read from L2, so device memory is not
+// the limit.  The time goes into a long, data-dependent loop per pixel: up to
+// `max_bounces` bounces, each a scan over all meshes for the hit plus one
+// shadow-ray scan per light and one gather-ray scan under a cubemap, with
+// branches that diverge by material and as paths terminate at different
+// depths.  The kernel is bound by instruction latency and warp divergence.
 //
 // What the design does about that:
 //  * one thread per pixel, the whole bounce loop in registers (the state of
@@ -46,6 +57,62 @@ namespace {
 
 constexpr int THREADS = 128;
 
+// One BSDF sample (ops/bsdf.py::sample) for a hit of material `mat`.
+struct Bounce {
+  V3 o, d, mult;   // next origin and direction, throughput multiplier
+  bool specular;   // NEE and the gather ray skip specular bounces
+  int dif, spec, scat;  // bounce-counter increments
+};
+
+__device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x, V3 nl, V3 d, V3 c,
+                                              V3 e, float inside, float u1, float u2, float uc,
+                                              float eps, bool biased) {
+  const int mat = s.mat[idx];
+  const V3 rand_dir = random_direction(nl, u1, u2, biased);
+  Bounce b = {x + nl * eps, rand_dir, c, false, 1, 0, 0};  // DIFF
+  if (mat == MAT_DIFF) return b;
+  // emission doubles as glossiness: e >= 0.001, so a mirror keeps a little
+  const V3 rough = e * rand_dir;
+  const V3 refl = normalize(rough + reflect(d, nl));
+  const V3 one = {1.0f, 1.0f, 1.0f};
+  if (mat == MAT_SPEC) {
+    b.d = refl;
+    b.specular = true;
+    b.dif = 0;
+    b.spec = 1;
+    return b;
+  }
+  const float nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+  if (mat == MAT_REFR_FRESNEL || mat == MAT_REFR_SCHLICK) {
+    const float nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
+    bool tir;
+    const V3 tdir = normalize(rough + refract(d, nl, nnt, tir));
+    const float re = mat == MAT_REFR_FRESNEL ? fresnel(d, nl, IOR_AIR, nt, tdir)
+                                             : schlick(d, nl, IOR_AIR, nt);
+    b.specular = true;
+    b.dif = 0;
+    if (tir || uc < re) {  // reflect
+      b.d = refl;
+      b.mult = one;
+      b.spec = 1;
+    } else {               // transmit: SCATTERING_EVENTS, as the reference counts it
+      b.o = x - nl * eps;
+      b.d = tdir;
+      b.scat = 1;
+    }
+    return b;
+  }
+  // COAT: specular by Schlick, else diffuse
+  if (uc < schlick(d, nl, IOR_AIR, nt)) {
+    b.d = refl;
+    b.mult = one;
+    b.specular = true;
+    b.dif = 0;
+    b.spec = 1;
+  }
+  return b;
+}
+
 __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
   extern __shared__ float smem[];
   const SceneSmem s = load_scene(a, smem);
@@ -68,9 +135,14 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
     int idx;
     intersect(s, o, d, a.eps, tmin, idx);
 
-    // ---- miss: sky, suppressed for non-specular paths under NEE ----
+    // ---- miss: environment, suppressed for non-specular paths under NEE ----
     if (!(tmin < a.inf)) {
-      if (a.use_sky && (specular || !a.sample_lights)) acc = acc + mask * procedural_sky(d);
+      if (specular || !a.sample_lights) {
+        if (a.use_cubemap)
+          acc = acc + mask * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, d);
+        else if (a.use_sky)
+          acc = acc + mask * procedural_sky(d);
+      }
       break;
     }
 
@@ -81,7 +153,8 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
     float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
 
     // ---- emissive hit: BSDF-side MIS weight from prev_nl, terminate ----
-    if (s.mat[idx] == MAT_LIGHT) {
+    const int mat = s.mat[idx];
+    if (mat == MAT_LIGHT) {
       float mis_w = 1.0f;
       if (a.use_mis && a.sample_lights && depth > 0 && !specular) {
         V3 light_dir = normalize(x - o);
@@ -94,23 +167,42 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
       break;
     }
 
-    // ---- DIFF bounce: cosine-weighted about the oriented normal ----
+    // a DIR_LIGHT surface has no BSDF: the path ends
+    if (mat == MAT_DIR_LIGHT) break;
+
+    // ---- BSDF sample ----
     const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
     const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
-    V3 nl = n * inside;
-    V3 new_d = sample_biased(nl, u01(h_dir), u01(pcg(h_dir)));
-    V3 mask_after = mask * c;
+    const V3 nl = n * inside;
+    const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
+                                 u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+    const V3 mask_after = mask * b.mult;
 
-    // ---- NEE on the diffuse vertex ----
-    if (a.sample_lights) acc = acc + shade_nee(s, x, nl, h_depth, a.eps, a.inf, a.use_mis) * mask_after;
+    if (!b.specular) {
+      // ---- cubemap gather ray on the diffuse vertex ----
+      if (a.use_cubemap) {
+        const uint32_t h_env = fold_step(h_depth, S_ENV_DIR, 4u);
+        const V3 env_dir = random_direction(nl, u01(h_env), u01(pcg(h_env)), a.use_biased);
+        float te;
+        int ie;
+        intersect(s, x + nl * a.eps, env_dir, a.eps, te, ie);
+        if (!(te < a.inf))
+          acc = acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
+      }
+      // ---- NEE on the diffuse vertex ----
+      if (a.sample_lights)
+        acc = acc + shade_nee(s, x, nl, h_depth, a.eps, a.inf, a.use_mis) * mask_after;
+    }
 
     // ---- commit ----
-    o = x + nl * a.eps;
-    d = new_d;
+    o = b.o;
+    d = b.d;
     mask = mask_after;
-    specular = false;
+    specular = b.specular;
     prev_nl = nl;
-    ndif += 1;
+    ndif += b.dif;
+    nspec += b.spec;
+    nscat += b.scat;
 
     // ---- luminance cutoff + per-type caps ----
     if (fmaxf(fmaxf(mask.x, mask.y), mask.z) < 0.01f || ndif >= a.max_diff ||
@@ -132,11 +224,13 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
                                  unsigned pass_idx, unsigned sample_idx, int max_bounces,
                                  int max_diff, int max_spec, int max_scatter, float eps,
                                  float inf, int sample_lights, int use_mis, int use_sky,
-                                 void *stream) {
+                                 const float *cubemap, int cube_h, int cube_w, int use_cubemap,
+                                 int use_biased, void *stream) {
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
-                 inf,     sample_lights, use_mis, use_sky};
+                 inf,     sample_lights, use_mis, use_sky, cubemap, cube_h, cube_w,
+                 use_cubemap, use_biased};
   if (n_pix <= 0) return 0;
   const size_t smem = scene_smem_bytes(n_mesh, n_lights);
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);

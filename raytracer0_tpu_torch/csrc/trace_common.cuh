@@ -1,7 +1,8 @@
 // trace_common.cuh — device code shared by the forward megakernel K1
 // (megakernel.cu) and its adjoint K2 (megakernel_bwd.cu): vec3 helpers, the
 // counter RNG, the scene in shared memory, intersection, normals, direction
-// sampling, the MIS pdfs, the procedural sky and sphere-light NEE.
+// sampling, reflection, refraction and the Fresnel models, the MIS pdfs, the
+// procedural sky, the cubemap fetch and sphere/directional-light NEE.
 //
 // Both kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the
@@ -23,13 +24,16 @@ constexpr float EPS = 1e-12f;
 
 // scene table columns (raytracer0_tpu/ops/megakernel.py::_scene_table)
 constexpr int NCOLS = 36;
-constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10;
+constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13;
 
 // raytracer0_tpu_torch/models/materials.py codes
 constexpr int MESH_SPHERE = 0, MESH_PLANE = 1, MESH_BOX = 2;
-constexpr int MAT_LIGHT = 0;
+constexpr int MAT_LIGHT = 0, MAT_DIR_LIGHT = 1, MAT_DIFF = 2, MAT_SPEC = 3, MAT_REFR_FRESNEL = 4,
+              MAT_REFR_SCHLICK = 5, MAT_COAT = 6;
 // raytracer0_tpu_torch/rng.py Stream codes
-constexpr uint32_t S_BSDF_DIR = 3u, S_NEE_CONE = 5u;
+constexpr uint32_t S_BSDF_DIR = 3u, S_BSDF_CHOICE = 4u, S_NEE_CONE = 5u, S_ENV_DIR = 7u;
+// nc in brdf (ops/bsdf.py IOR_AIR)
+constexpr float IOR_AIR = 1.00029f;
 
 struct TraceArgs {
   const float *table;      // [n_mesh, 36]
@@ -45,6 +49,10 @@ struct TraceArgs {
   int max_bounces, max_diff, max_spec, max_scatter;
   float eps, inf;          // cfg.epsilon, cfg.infinity
   int sample_lights, use_mis, use_sky;
+  // K1 only (last, so K2's positional initialiser leaves them zero)
+  const float *cubemap;    // [6, cube_h, cube_w, 3]
+  int cube_h, cube_w;
+  int use_cubemap, use_biased;
 };
 
 // ------------------------------------------------------------------ vec3
@@ -109,6 +117,7 @@ struct SceneSmem {
     const float *r = tab + i * NCOLS + C_ER;
     return {r[0], r[1], r[2]};
   }
+  __device__ __forceinline__ float ior(int i) const { return tab[i * NCOLS + C_IOR]; }
 };
 
 // Closest analytic hit (ops/intersect.py::analytic_min): first index of the
@@ -221,6 +230,42 @@ __device__ __forceinline__ V3 sample_cone(V3 w, float extent, float u1, float u2
   return around(w, u1, safe_sqrt(1.0f - r_y * r_y), r_y);
 }
 
+// sampling.random_direction: cosine-weighted, or the uniform hemisphere.
+__device__ __forceinline__ V3 random_direction(V3 n, float u1, float u2, bool biased) {
+  return biased ? sample_biased(n, u1, u2) : sample_cone(n, 1.0f, u1, u2);
+}
+
+// vecmath.reflect: d - 2 dot(d, n) n
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) { return d - n * (2.0f * dot(d, n)); }
+
+// vecmath.refract: GLSL refract, the zero vector and tir = true on total
+// internal reflection.
+__device__ __forceinline__ V3 refract(V3 d, V3 n, float eta, bool &tir) {
+  float cos_i = dot(d, n);
+  float k = 1.0f - eta * eta * (1.0f - cos_i * cos_i);
+  tir = k < 0.0f;
+  if (tir) return {0.0f, 0.0f, 0.0f};
+  return d * eta - n * (eta * cos_i + safe_sqrt(k));
+}
+
+// sampling.schlick: r0 + (1 - r0) c^5, with c^5 = c (c^2 c^2)
+__device__ __forceinline__ float schlick(V3 d, V3 n, float nc, float nt) {
+  float q = (nc - nt) / (nc + nt);
+  float r0 = q * q;
+  float c = fminf(fmaxf(1.0f + dot(n, d), 0.0f), 1.0f);
+  float c2 = c * c;
+  return r0 + (1.0f - r0) * (c * (c2 * c2));
+}
+
+// sampling.fresnel: unpolarized (Rs + Rp) / 2
+__device__ __forceinline__ float fresnel(V3 d, V3 n, float nc, float nt, V3 refr) {
+  float cos_i = dot(d, n);
+  float cos_t = dot(n, refr);
+  float rs = safe_div(nc * cos_i - nt * cos_t, nc * cos_i + nt * cos_t);
+  float rp = safe_div(nc * cos_t - nt * cos_i, nc * cos_t + nt * cos_i);
+  return fminf(fmaxf((rs * rs + rp * rp) * 0.5f, 0.0f), 1.0f);
+}
+
 // sampling.power_heuristic(1, f, 1, g)
 __device__ __forceinline__ float power_heuristic(float f, float g) {
   float denom = f * f + g * g;
@@ -246,14 +291,68 @@ __device__ __forceinline__ V3 procedural_sky(V3 d) {
           0.5f + 0.5f * cosf(TWO_PI * (0.409f + 0.8f * h))};
 }
 
+// sky.sample_cubemap: face select (GL order +x, -x, +y, -y, +z, -z, with
+// the plain version's ties), then a bilinear fetch from f32[6, ch, cw, 3] in
+// device memory.  Software bilinear on purpose: the texture unit's filter
+// keeps its weights in 8-bit fixed point.
+__device__ __forceinline__ V3 sample_cubemap(const float *__restrict__ cube, int ch, int cw, V3 d) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  int face;
+  float ma, sc, tc;
+  if (ax >= ay && ax >= az) {
+    face = d.x > 0.0f ? 0 : 1;
+    ma = ax;
+    sc = d.x > 0.0f ? -d.z : d.z;
+    tc = -d.y;
+  } else if (ay > ax && ay >= az) {
+    face = d.y > 0.0f ? 2 : 3;
+    ma = ay;
+    sc = d.x;
+    tc = d.y > 0.0f ? d.z : -d.z;
+  } else {
+    face = d.z > 0.0f ? 4 : 5;
+    ma = az;
+    sc = d.z > 0.0f ? d.x : -d.x;
+    tc = -d.y;
+  }
+  ma = fmaxf(ma, 1e-9f);
+  const float u = 0.5f * (sc / ma + 1.0f), v = 0.5f * (tc / ma + 1.0f);
+  const float xp = fminf(fmaxf(u * (float)cw - 0.5f, 0.0f), (float)(cw - 1));
+  const float yp = fminf(fmaxf(v * (float)ch - 0.5f, 0.0f), (float)(ch - 1));
+  const int x0 = (int)floorf(xp), y0 = (int)floorf(yp);
+  const int x1 = x0 + 1 < cw ? x0 + 1 : cw - 1, y1 = y0 + 1 < ch ? y0 + 1 : ch - 1;
+  const float fx = xp - (float)x0, fy = yp - (float)y0;
+  const float *f = cube + (size_t)face * ch * cw * 3;
+  auto texel = [&](int y, int x) -> V3 {
+    const float *t = f + ((size_t)y * cw + x) * 3;
+    return {__ldg(t), __ldg(t + 1), __ldg(t + 2)};
+  };
+  return (texel(y0, x0) * (1.0f - fx) + texel(y0, x1) * fx) * (1.0f - fy) +
+         (texel(y1, x0) * (1.0f - fx) + texel(y1, x1) * fx) * fy;
+}
+
 // lighting.sample_lights_nee without the throughput factor: the sum over
-// sphere-light slots of the cone-sampled, shadow-tested contribution.
+// light slots of the shadow-tested contribution.  A sphere light is sampled
+// by a uniform cone; a directional light (its pos is the direction) is lit
+// where the occlusion ray escapes, and under MIS its weight is 0 (its light
+// pdf is 0), so it adds nothing; any other slot adds nothing.
 __device__ V3 shade_nee(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, float eps, float inf,
                         bool use_mis) {
   V3 total = {0.0f, 0.0f, 0.0f};
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
     if (li < 0) continue;  // sentinel slot: no light
+    if (s.mat[li] == MAT_DIR_LIGHT) {
+      if (use_mis) continue;
+      V3 lp = s.p(li);
+      float ts;
+      int hidx;
+      intersect(s, x + nl * eps, normalize(lp), eps, ts, hidx);
+      if (ts < inf) continue;  // occluded
+      total = total + s.c(li) * s.e(li) * fmaxf(dot(lp, nl), 0.001f);
+      continue;
+    }
+    if (s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
     uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_NEE_CONE, 5u);
     float u1 = u01(h), u2 = u01(pcg(h));
     V3 lp = s.p(li);

@@ -1,34 +1,61 @@
-"""Next-event estimation with sphere lights (port of the sphere-cone
-branch of ops/lighting.py; raytracer.glsl:1174-1262, 1947-1975).
+"""Next-event estimation with sphere and directional lights (port of
+ops/lighting.py; raytracer.glsl:1174-1262, 1947-1975).
 
-Each light slot is sampled with a uniform cone toward the sphere and
-verified by a shadow re-trace; under MIS the sample is weighted by the
-power heuristic against the cosine BSDF pdf.  SDF-bound and directional
-lights come with ROADMAP queue 1 item 7; `integrator.unsupported` keeps
-scenes with such slots off this path.
+A sphere-light slot is sampled with a uniform cone toward the sphere and
+verified by a shadow re-trace; a directional slot (DIR_LIGHT material, its
+`pos` is the direction) is lit where an occlusion ray toward it escapes.
+Under MIS each sample is weighted by the power heuristic against the
+cosine BSDF pdf; a directional light's sampling pdf is 0, so under MIS it
+contributes nothing, as in the JAX package.  SDF-bound lights come with
+ROADMAP queue 1 item 8 (`integrator.unsupported` keeps them off this
+path); a slot that is neither kind contributes nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracer0_tpu_torch.models.materials import MatType
+from raytracer0_tpu_torch.models.materials import MatType, MeshType
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import intersect as isect
 from raytracer0_tpu_torch.ops import sampling as smp
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 
+def slot_kind(scene, slot):
+    """"sphere", "dir" or None: how light slot `slot` is sampled."""
+    li = scene.lights_static[slot]
+    if li < 0:
+        return None
+    mat = scene.mat_types_static[li]
+    if mat == int(MatType.DIR_LIGHT):
+        return "dir"
+    if mat == int(MatType.LIGHT) and scene.mesh_types_static[li] == int(MeshType.SPHERE):
+        return "sphere"
+    return None
+
+
 def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth):
-    """Direct lighting from sphere-light slot `slot` at shading points `x`
-    with oriented normals `nl`.
+    """Direct lighting from light slot `slot` (a sphere or directional
+    light) at shading points `x` with oriented normals `nl`.
 
     Returns (contribution f32[..., 3], light_dir f32[..., 3] toward the
-    light center).  `light_dir` feeds the MIS pdfs, which use the *center*
-    direction, not the sampled cone direction.
+    light's position).  `light_dir` feeds the MIS pdfs, which use the
+    *center* direction, not the sampled cone direction.
     """
     li = scene.lights_static[slot]
     l_pos = scene.pos[li]
+    if slot_kind(scene, slot) == "dir":
+        # mesh.pos *is* the direction (raytracer.glsl:1220-1225); lit where
+        # the occlusion ray escapes to infinity
+        sr_dir = vm.normalize(l_pos.expand_as(x))
+        hit = isect.intersect(scene, x + nl * cfg.epsilon, sr_dir, cfg,
+                              need_normal=False)
+        cos_term = torch.clamp_min(vm.vdot(l_pos, nl), 0.001)
+        contrib = scene.color[li] * scene.emission[li] * cos_term[..., None]
+        contrib = vm.where3(hit.missed, contrib, torch.zeros_like(contrib))
+        return contrib, vm.normalize(l_pos - x)
+
     r = scene.joker[li, 0]
 
     u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, slot,
@@ -53,9 +80,11 @@ def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
 
 
 def light_pdf_slot(scene, slot, x):
-    """Light-sampling pdf of sphere slot `slot` for MIS
-    (raytracer.glsl:1246-1262)."""
+    """Light-sampling pdf of slot `slot` for MIS (raytracer.glsl:1246-1262):
+    the cone pdf of a sphere light, 0 for a directional one."""
     li = scene.lights_static[slot]
+    if slot_kind(scene, slot) == "dir":
+        return torch.zeros_like(x[..., 0])
     return smp.sphere_light_pdf(scene.pos[li], scene.joker[li, 0], x)
 
 
@@ -67,9 +96,9 @@ def sample_lights_nee(scene, cfg, x, nl, mask, pix, pass_idx, sample_idx, depth)
     Returns the radiance to add to the accumulator (already multiplied by
     the path throughput `mask`)."""
     total = torch.zeros_like(x)
-    for slot, li in enumerate(scene.lights_static):
-        if li < 0:
-            continue  # sentinel slot: no light
+    for slot in range(scene.num_lights):
+        if slot_kind(scene, slot) is None:
+            continue  # sentinel or non-light slot: no contribution
         contrib, light_dir = direct_light_slot(
             scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
         if cfg.use_mis:

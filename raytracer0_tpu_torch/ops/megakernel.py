@@ -1,17 +1,21 @@
 """The megakernel pair on Hopper: K1 (forward, `csrc/megakernel.cu`) and its
 adjoint K2 (`csrc/megakernel_bwd.cu`), joined in a `torch.autograd.Function`.
 
-K1 replaces the Pallas TPU kernel
+K1 replaces the Pallas TPU kernels
 `raytracer0_tpu/ops/megakernel.py::_fwd_kernel_body` (launched by
-`_forward`); K2 replaces `_bwd_slotted_kernel_body` (launched by
-`_backward`) and computes the same outputs as its whole-trace twin
-`_bwd_kernel_body`.  `_TraceCore` pairs them as the JAX `_trace_core`
-custom_vjp does: forward launches K1, backward launches K2.  Both cover
-the Cornell class that `integrator.unsupported` states.  Their plain
-PyTorch version is `render/integrator.py::trace` (K1) and its
-`torch.autograd` backward (K2); on the same inputs K1 traces the same
-paths, pixel for pixel, and K2 gives the same gradients up to float32
-rounding.
+`_forward`) and `_env_kernel_body` (launched by `_env_forward`,
+photographic cubemaps, whose fetches K1 makes itself); K2 replaces
+`_bwd_slotted_kernel_body` (launched by `_backward`) and computes the same
+outputs as its whole-trace twin `_bwd_kernel_body`.  `_TraceCore` pairs
+them as the JAX `_trace_core` custom_vjp does: forward launches K1,
+backward launches K2.  K1 covers the class that `integrator.unsupported`
+states (every surface material, sphere and directional lights, cubemaps,
+uniform sampling: `unsupported`); K2 covers its Cornell subset (DIFF and
+LIGHT materials, sphere-light slots, no cubemap, cosine sampling;
+`unsupported_bwd`).  Their plain PyTorch version is
+`render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
+on the same inputs K1 traces the same paths, pixel for pixel, and K2
+gives the same gradients up to float32 rounding.
 
 What bounds them on the H100: a pixel reads 28 bytes and writes 12 (K2: 40
 and 24), so neither is memory-bound.  They are latency- and
@@ -31,7 +35,8 @@ The kernels are built with nvcc on first use (`cuda_build`) and launched
 through ctypes on PyTorch's current stream.  On CPU tensors
 `trace_forward` is the plain version and plain autograd gives the
 gradient; on CUDA tensors it launches the kernels or raises, forward and
-backward alike.
+backward alike.  A gradient on CUDA for a scene outside K2's class
+raises before anything is launched; it never runs the plain backward.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from typing import Optional
 import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
-from raytracer0_tpu_torch.ops import cuda_build
+from raytracer0_tpu_torch.models.materials import MatType
+from raytracer0_tpu_torch.ops import cuda_build, lighting
 from raytracer0_tpu_torch.render import integrator
 
 #: K1 launches since import (or since a caller reset it to 0).
@@ -74,6 +80,8 @@ _ARGTYPES = (
     _c_int, _c_int, _c_int, _c_int,               # bounce budgets
     _c_float, _c_float,                           # epsilon, infinity
     _c_int, _c_int, _c_int,                       # sample_lights, use_mis, sky
+    _c_void_p, _c_int, _c_int,                    # cubemap, its height, width
+    _c_int, _c_int,                               # use_cubemap, use_biased
     _c_void_p,                                    # stream
 )
 _BWD_ARGTYPES = (
@@ -106,8 +114,8 @@ def smem_bytes(scene) -> int:
 
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
-    """Why K1 cannot render (scene, cfg), or None when it can: the Cornell
-    class of `integrator.unsupported`, with a table that fits the shared
+    """Why K1 cannot render (scene, cfg), or None when it can: the class
+    of `integrator.unsupported`, with a table that fits the shared
     memory."""
     reason = integrator.unsupported(scene, cfg)
     if reason is None and smem_bytes(scene) > _SMEM_LIMIT:
@@ -138,11 +146,33 @@ def bwd_threads(scene) -> Optional[int]:
     return None
 
 
+_K2_MATS = (int(MatType.DIFF), int(MatType.LIGHT))
+_K2_ITEM = "ROADMAP queue 1 item 14"
+
+
+def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
+    """What of (scene, cfg) K2's adjoint does not model: it replays DIFF
+    bounces with cosine sampling, sphere-light NEE and the procedural sky
+    (every slot that does not end a path is diffuse, `bwd_slots`)."""
+    if any(m not in _K2_MATS for m in scene.mat_types_static):
+        return f"SPEC/REFR/COAT/DIR_LIGHT materials: {_K2_ITEM}"
+    for slot, li in enumerate(scene.lights_static):
+        if li >= 0 and lighting.slot_kind(scene, slot) != "sphere":
+            return f"light slots that are not LIGHT spheres: {_K2_ITEM}"
+    if cfg.use_cubemap:
+        return f"cubemap environments (texel cotangents): {_K2_ITEM}"
+    if not cfg.use_biased_sampling:
+        return f"uniform hemisphere sampling: {_K2_ITEM}"
+    return None
+
+
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
-    class, a stash of at most MAX_SLOTS slots, and accumulators that fit
-    the shared memory of a block of 32 threads."""
-    reason = unsupported(scene, cfg)
+    class narrowed to the Cornell class K2 models (DIFF and LIGHT
+    materials, LIGHT-sphere slots, no cubemap, cosine sampling), a stash of
+    at most MAX_SLOTS slots, and accumulators that fit the shared memory of
+    a block of 32 threads."""
+    reason = unsupported(scene, cfg) or _outside_k2_class(scene, cfg)
     if reason is None and bwd_slots(cfg) > MAX_SLOTS:
         reason = (f"paths of {bwd_slots(cfg)} slots, more than K2's stash of "
                   f"{MAX_SLOTS}")
@@ -199,6 +229,9 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
     global LAUNCHES
     h, w = pix.shape
     mesh, mat, lights = _codes(scene)
+    cube = scene.cubemap
+    _check("cubemap", cube, torch.float32, (6,) + tuple(cube.shape[1:3]) + (3,),
+           ro.device)
     out = torch.empty_like(ro)
     fn, _ = build()
     with torch.cuda.device(ro.device):
@@ -206,7 +239,9 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
         rc = fn(table.data_ptr(), mesh.data_ptr(), mat.data_ptr(),
                 scene.num_meshes, lights.data_ptr(), scene.num_lights,
                 ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), out.data_ptr(),
-                h * w, *_cfg_args(cfg, pass_idx, sample_idx), stream)
+                h * w, *_cfg_args(cfg, pass_idx, sample_idx),
+                cube.data_ptr(), cube.shape[1], cube.shape[2],
+                int(cfg.use_cubemap), int(cfg.use_biased_sampling), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -1,9 +1,12 @@
-"""Direction sampling and MIS weights (port of the ops/sampling.py
-functions the Cornell class uses).
+"""Direction sampling, the Fresnel models and MIS weights (port of
+ops/sampling.py; raytracer.glsl:480-492, 1109-1141, 1233-1262).
 
-Cosine-weighted hemisphere and uniform cone sampling consume explicit
-uniforms from `rng` streams.  Uniform-hemisphere, Henyey-Greenstein and
-the Fresnel models come with ROADMAP queue 1 items 7 and 10.
+Cosine-weighted and uniform hemisphere and uniform cone sampling consume
+explicit uniforms from `rng` streams.  The uniform sphere direction (SDF
+lights, ROADMAP queue 1 item 8) and Henyey-Greenstein sampling (media,
+item 10) come with their slices.  Integer powers are written out as
+products in the order JAX's `integer_pow` multiplies, which the CUDA
+kernel follows too.
 """
 
 from __future__ import annotations
@@ -45,6 +48,33 @@ def sample_cone(w, extent, u1, u2):
     r_y = 1.0 - u2 * extent
     oneminus = vm.safe_sqrt(1.0 - r_y * r_y)
     return _around(w, u, v, ang, oneminus, r_y)
+
+
+def random_direction(n, u1, u2, biased: bool):
+    """Bounce direction about normal `n` (raytracer.glsl:1135-1141):
+    cosine-weighted when USE_BIASED_SAMPLING, else uniform hemisphere."""
+    if biased:
+        return sample_biased(n, 1.0, u1, u2)
+    return sample_cone(n, 1.0, u1, u2)
+
+
+def schlick(d, n, nc, nt):
+    """Schlick reflectance (raytracer.glsl:480-483); `d` the incident
+    direction, `n` the oriented normal.  r0 = q**2 and c**5 as products."""
+    q = (nc - nt) / (nc + nt)
+    r0 = q * q
+    c = torch.clamp(1.0 + vm.vdot(n, d), 0.0, 1.0)
+    c2 = c * c
+    return r0 + (1.0 - r0) * (c * (c2 * c2))
+
+
+def fresnel(d, n, nc, nt, refr):
+    """Full unpolarized Fresnel (Rs+Rp)/2 (raytracer.glsl:485-492)."""
+    cos_i = vm.vdot(d, n)
+    cos_t = vm.vdot(n, refr)
+    rs = vm.safe_div(nc * cos_i - nt * cos_t, nc * cos_i + nt * cos_t)
+    rp = vm.safe_div(nc * cos_t - nt * cos_i, nc * cos_t + nt * cos_i)
+    return torch.clamp((rs * rs + rp * rp) * 0.5, 0.0, 1.0)
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

@@ -33,6 +33,27 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def reflect(d, n):
+    """GLSL reflect: d - 2*dot(d,n)*n (d incident, n unit normal)."""
+    return d - (2.0 * vdot(d, n))[..., None] * n
+
+
+def refract(d, n, eta):
+    """GLSL refract semantics (raytracer.glsl:1839): (t, tir) with the
+    refracted direction, zero where total internal reflection occurred
+    (`tir` True).  `eta` [...] is n_incident / n_transmitted."""
+    cos_i = vdot(d, n)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k < 0.0
+    t = eta[..., None] * d - (eta * cos_i + safe_sqrt(k))[..., None] * n
+    return torch.where(tir[..., None], torch.zeros_like(t), t), tir
+
+
+def mix(a, b, t):
+    """GLSL mix/lerp; t may be scalar, [...] or [..., k]."""
+    return a + (b - a) * t
+
+
 def max3(c):
     """max(r, g, b) — the mask-cutoff test."""
     return torch.amax(c, dim=-1)

@@ -1,5 +1,5 @@
 """Wavefront path-tracing integrator: the plain PyTorch version of the
-forward megakernel K1 (port of render/integrator.py, Cornell class).
+forward megakernel K1 (port of render/integrator.py).
 
 The reference's `radiance()` loop (raytracer.glsl:1986-2105) as a Python
 loop over bounce depth with per-lane active masks over [H, W] tensors.
@@ -7,9 +7,13 @@ It keeps the JAX integrator's mask order and RNG coordinates, so it traces
 the same paths as `raytracer0_tpu.render.integrator.trace` and as the CUDA
 kernel (`ops/megakernel.py`), pixel for pixel:
 
-  * miss → procedural sky, suppressed for non-specular paths under NEE
-  * emissive termination with the BSDF-side MIS weight from `prev_nl`
-  * DIFF bounce, sphere-light NEE with optional power-heuristic MIS
+  * miss → environment (cubemap or procedural sky), suppressed for
+    non-specular paths under NEE
+  * emissive termination with the BSDF-side MIS weight from `prev_nl`;
+    DIR_LIGHT surfaces end the path
+  * the BSDF dispatch (DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT)
+  * the cubemap gather ray and sphere/directional-light NEE on diffuse
+    bounces, with optional power-heuristic MIS
   * luminance cutoff and per-type bounce caps
 
 Differentiability: discrete events (winner index, light validity) are
@@ -38,37 +42,29 @@ from raytracer0_tpu_torch.ops import sky
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 _ANALYTIC = (int(MeshType.SPHERE), int(MeshType.PLANE), int(MeshType.BOX))
-_MATS = (int(MatType.DIFF), int(MatType.LIGHT))
 
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
-    The class: analytic SPHERE/PLANE/BOX meshes, DIFF and LIGHT materials,
-    no textures, light slots that are LIGHT spheres, cosine-weighted
-    sampling, procedural sky or none, static accumulation.
+    The class: analytic SPHERE/PLANE/BOX meshes, every surface material
+    (the IOR taken as |ior|), no textures, sphere and directional light
+    slots, cosine-weighted or uniform sampling, a cubemap, the procedural
+    sky or no environment, static accumulation.  (SDF-bound light slots
+    need SDF meshes, which item 8 adds.)
     """
     if cfg.use_restir:
         return "ReSTIR: ROADMAP queue 1 item 11"
     if cfg.use_spectral or cfg.use_volumetrics:
         return "spectral transport and media: ROADMAP queue 1 item 10"
-    if cfg.use_cubemap:
-        return "cubemap environments: ROADMAP queue 1 item 9"
-    if not cfg.use_biased_sampling:
-        return "uniform hemisphere sampling: ROADMAP queue 1 item 7"
     if int(cfg.render_mode) != int(RenderMode.STATIC):
         return "ANIMATED render mode: ROADMAP queue 1 item 12"
     if scene.num_sdfs or any(t not in _ANALYTIC for t in scene.mesh_types_static):
-        return "SDF meshes: ROADMAP queue 1 item 8"
+        return "SDF meshes and SDF-bound lights: ROADMAP queue 1 item 8"
     if scene.tex_types_used:
         return "textures: ROADMAP queue 1 item 9"
-    if any(m not in _MATS for m in scene.mat_types_static):
-        return "SPEC/REFR/COAT/DIR_LIGHT materials: ROADMAP queue 1 item 7"
-    for li in scene.lights_static:
-        if li >= 0 and (li >= scene.num_meshes
-                        or scene.mesh_types_static[li] != int(MeshType.SPHERE)
-                        or scene.mat_types_static[li] != int(MatType.LIGHT)):
-            return "non-sphere light slots: ROADMAP queue 1 item 7"
+    if any(li >= scene.num_meshes for li in scene.lights_static):
+        return "a light slot names no mesh of the scene"
     return None
 
 
@@ -114,10 +110,9 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         missed = surface & hit.missed
         # non-specular env hits double-count NEE
         env_allowed = specular if cfg.sample_lights else ~false
-        if cfg.use_procedural_sky:
-            acc = acc + vm.where3(missed & env_allowed,
-                                  mask * sky.procedural_sky(d),
-                                  torch.zeros_like(acc))
+        acc = acc + vm.where3(missed & env_allowed,
+                              mask * sky.environment(scene, d, cfg),
+                              torch.zeros_like(acc))
         active = active & ~missed
         surface = surface & ~hit.missed
 
@@ -129,7 +124,8 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         inside = torch.where(inside == 0.0, torch.ones_like(inside), inside)
 
         # ---- emissive hit: MIS-weighted accumulate + terminate (2079-2090) ----
-        is_light = surface & (scene.mat_type[hit.idx] == MatType.LIGHT)
+        mat_type = scene.mat_type[hit.idx]
+        is_light = surface & (mat_type == MatType.LIGHT)
         contrib = mask * c * e
         if cfg.use_mis and cfg.sample_lights and depth > 0:
             # depth-0 and specular-path hits keep weight 1
@@ -143,12 +139,31 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         active = active & ~is_light
         surface = surface & ~is_light
 
-        # ---- BSDF sample (brdf, 1804-1884): DIFF ----
-        u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
-        bs = bsdf_ops.sample(cfg, hit, c, inside, u1, u2)
+        # DIR_LIGHT surfaces have no brdf case (the reference's dispatch
+        # falls through, 1826-1884): the path ends
+        is_dirlight = surface & (mat_type == MatType.DIR_LIGHT)
+        active = active & ~is_dirlight
+        surface = surface & ~is_dirlight
+
+        # ---- BSDF sample (brdf, 1804-1884) ----
         new_prev_nl = hit.n * inside[..., None]
+        u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
+        uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
+        bs = bsdf_ops.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
         mask_after = mask * bs.mask_mult
         diffuse_lane = surface & ~bs.specular
+
+        # ---- cubemap gather on diffuse bounces (1888-1897) ----
+        if cfg.use_cubemap:
+            eu1, eu2 = rng.uniform2(pix, pass_idx, sample_idx, depth,
+                                    rng.Stream.ENV_DIR)
+            env_dir = smp.random_direction(new_prev_nl, eu1, eu2,
+                                           cfg.use_biased_sampling)
+            env_hit = isect.intersect(scene, hit.pos + new_prev_nl * cfg.epsilon,
+                                      env_dir, cfg, need_normal=False)
+            env_rad = sky.sample_cubemap(scene.cubemap, env_dir)
+            acc = acc + vm.where3(diffuse_lane & env_hit.missed,
+                                  mask_after * env_rad, torch.zeros_like(acc))
 
         # ---- NEE on diffuse bounces (1899-1976) ----
         if cfg.sample_lights:

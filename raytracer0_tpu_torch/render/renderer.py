@@ -6,12 +6,16 @@ CUDA device through the K1 kernel (`ops/megakernel.py`), on the CPU
 through the plain integrator.  A CUDA device with a (scene, cfg) the
 kernel does not cover raises; it never falls back to the plain version.
 
-`sample_radiance` and `render_pass` are differentiable on both devices:
-the pass is a sum of `trace_fn` calls, so a loss on the image
-back-propagates to the scene's parameters (and to the camera, through the
-rays) by the plain integrator's autograd on the CPU and by K2, the adjoint
-kernel behind `megakernel.trace_forward`, on CUDA.  A render that needs
-no gradient launches K1 alone.
+`sample_radiance` and `render_pass` are differentiable: the pass is a sum
+of `trace_fn` calls, so a loss on the image back-propagates to the scene's
+parameters (and to the camera, through the rays).  On the CPU the plain
+integrator's autograd serves every class the integrator renders.  On CUDA
+K2, the adjoint kernel behind `megakernel.trace_forward`, serves the
+Cornell class only (DIFF and LIGHT materials, sphere-light slots, no
+cubemap, cosine sampling: `megakernel.unsupported_bwd`); a gradient
+through any other scene on CUDA, `cubemap_demo` for one, raises
+NotImplementedError before anything is launched.  A render that needs no
+gradient launches K1 alone.
 
 The kernel masks the ragged edge itself, so no padding to a block shape is
 needed.  `render_scan` (one launch for a chain of passes) waits for a CUDA

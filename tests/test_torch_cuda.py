@@ -1,5 +1,7 @@
 """K1 and its adjoint K2 on the GPU against their plain versions on the
-same card.
+same card: K1 on the Cornell class and on the widened class (mirror, glass
+and coat, directional lights, cubemaps, uniform sampling), K2 on the
+Cornell class, and the refusal of gradients outside K2's class.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -20,8 +22,11 @@ import torch
 
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.models.camera import generate_rays
+from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
-from raytracer0_tpu_torch.models.presets import cornell_default
+from raytracer0_tpu_torch.models.materials import MeshType
+from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
+from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import megakernel
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
@@ -70,7 +75,7 @@ def test_kernel_matches_plain(cuda, h, w, kw):
 
 def test_kernel_raises_outside_the_class(cuda):
     scene = parse_scene("""
-        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
         MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
     """, device=cuda)
@@ -178,3 +183,93 @@ def test_adjoint_raises_outside_the_class(cuda):
         megakernel.trace_forward(
             cornell.replace(emission=cornell.emission.clone().requires_grad_(True)),
             deep, ro, rd, rng.pixel_ids(8, 8, device=cuda), 0, 0)
+
+
+CONFIG2 = """
+    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+    MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+    MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
+    MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
+    MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
+"""
+
+
+def _widened(where, dev):
+    """(scene, camera, cfg): cubemap_demo, config 2
+    (tests/test_golden_cornell.py:66-79), the directional-sun scene
+    (tests/test_megakernel.py:685-698) or Cornell."""
+    if where == "cubemap":
+        return cubemap_demo(device=dev)
+    if where == "config2":
+        cam = Camera.make(origin=(0, 0, 1.99), lookat=(0, 0, -1), fov=60.0, device=dev)
+        return (parse_scene(CONFIG2, device=dev), cam,
+                cornell_default(device=dev, use_mis=True, use_procedural_sky=False)[2])
+    if where == "dir":
+        sb = SceneBuilder()
+        sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
+        sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
+        sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
+        sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
+        sb.lights([3])
+        cam = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=dev)
+        return sb.build(device=dev), cam, cornell_default(device=dev)[2]
+    return cornell_default(device=dev)
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("cubemap", dict(max_bounces=3)),
+    ("cubemap", dict(max_bounces=12, use_biased_sampling=False)),
+    ("config2", dict(max_bounces=3)),
+    ("config2", dict(max_bounces=12)),
+    ("dir", dict(max_bounces=3)),
+    ("dir", dict(max_bounces=3, use_mis=True)),
+    ("cornell", dict(max_bounces=3, use_mis=True, use_biased_sampling=False)),
+], ids=["cubemap", "cubemap_uniform_12", "config2", "config2_12", "dir", "dir_mis",
+        "cornell_uniform"])
+def test_widened_kernel_matches_plain(cuda, where, kw):
+    """K1 beyond the Cornell class, one launch each."""
+    scene, cam, cfg = _widened(where, cuda)
+    cfg = cfg.replace(**kw)
+    h, w = 16, 128
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = megakernel.LAUNCHES
+    out = megakernel.trace_forward(scene, cfg, ro, rd, pix, 2, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.1
+    _parity(out, ref)
+
+
+def test_cubemap_render_goes_through_kernel_only(cuda):
+    """Renderer(cubemap_demo) launches K1 once per pass and K2 never, and
+    the cubemap shows."""
+    scene, cam, cfg = cubemap_demo(device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    img = Renderer(scene, cam, cfg, 32, 48).render(3)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 3, before[1])
+    assert img.shape == (32, 48, 3) and bool(torch.isfinite(img).all())
+    assert img[:4].mean().item() > 0.2   # the top rows see the sky
+
+
+def test_gradient_outside_k2_class_launches_nothing(cuda):
+    """A gradient through cubemap_demo on the card raises before K1 or K2
+    is launched; it never falls back to the plain backward."""
+    scene, cam, cfg = cubemap_demo(device=cuda)
+    em = scene.emission.clone().requires_grad_(True)
+    ro, rd = generate_rays(cam, 8, 8, 0)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
+                                 rng.pixel_ids(8, 8, device=cuda), 0, 0)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        render_pass(scene.replace(emission=em), cam, cfg,
+                    RenderState.create(8, 8, device=cuda), 8, 8)
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before

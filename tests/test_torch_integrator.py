@@ -23,6 +23,8 @@ from raytracer0_tpu.render import integrator as jint
 from raytracer0_tpu_torch import rng as trng
 from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.models.dsl import parse_scene
+from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
+from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import megakernel as tmk
 from raytracer0_tpu_torch.render import integrator as tint
 
@@ -94,20 +96,38 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 
 def test_plain_raises_outside_the_class():
-    scene = parse_scene("""
-        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+    """What the port does not render yet raises, naming its ROADMAP item:
+    SDF meshes (8), textures (9), spectral transport (10), ReSTIR (11).
+    Mirrors, glass, coats, directional lights, cubemaps and uniform
+    sampling are inside the class."""
+    sdf = SceneBuilder()
+    sdf.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    sdf.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
+    sdf.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
+            sdf_shape=SdfShape.ROUND_BOX)
+    sdf = sdf.build(device="cpu")
+    textured = parse_scene("""
+        MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
-        MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
     """, device="cpu")
     _, _, cfg = tpresets.cornell_default(device="cpu")
     ro = torch.zeros(2, 2, 3)
     rd = torch.zeros(2, 2, 3)
     rd[..., 2] = -1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tint.trace(scene, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
+    for scene, item in [(sdf, "8"), (textured, "9")]:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+            tint.trace(scene, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
     ts, _, _ = tpresets.cornell_default(device="cpu")
     for kw, item in [(dict(use_restir=True), "11"), (dict(use_spectral=True), "10"),
-                     (dict(use_cubemap=True, use_procedural_sky=False), "9"),
-                     (dict(use_biased_sampling=False), "7")]:
+                     (dict(use_volumetrics=True), "10")]:
         assert f"item {item}" in tint.unsupported(ts, cfg.replace(**kw))
     assert tint.unsupported(ts, cfg) is None
+    mirror = parse_scene("""
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+        MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
+    """, device="cpu")
+    assert tint.unsupported(mirror, cfg) is None
+    for kw in (dict(use_cubemap=True, use_procedural_sky=False),
+               dict(use_biased_sampling=False)):
+        assert tint.unsupported(ts, cfg.replace(**kw)) is None

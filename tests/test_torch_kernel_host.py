@@ -33,7 +33,9 @@ import torch
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays
 from raytracer0_tpu_torch.models.dsl import parse_scene
-from raytracer0_tpu_torch.models.presets import cornell_default
+from raytracer0_tpu_torch.models.materials import MeshType
+from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
+from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
 from raytracer0_tpu_torch.ops import megakernel
 from raytracer0_tpu_torch.render import integrator
@@ -61,6 +63,7 @@ inline std::barrier<> *g_bar = nullptr;
 inline std::vector<float> g_smem;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+template <class T> inline T __ldg(const T *p) { return *p; }  // g++ knows __restrict__
 typedef void *cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -218,3 +221,75 @@ def test_host_adjoint_small_blocks_and_determinism(kernels_on_cpu, monkeypatch):
         assert torch.equal(wide[k], again[k]), k
         scale = max(wide[k].abs().max().item(), 1e-12)
         assert (narrow[k] - wide[k]).abs().max().item() / scale < 1e-5, k
+
+
+def _widened_scene(where):
+    """(scene, camera) of the scenes only the widened K1 renders: mirror,
+    glass and coat in a closed box (tests/test_golden_cornell.py:66-79), a
+    directional sun (tests/test_megakernel.py:685-698), a cubemap."""
+    if where == "cubemap":
+        scene, cam, _ = cubemap_demo(device="cpu")
+        return scene, cam
+    if where == "config2":
+        scene = parse_scene("""
+            MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+            MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+            MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+            MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+            MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+            MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+            MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+            MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
+            MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
+            MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
+            MAT_REFR_CLEAR, SPHERE, vec3(0.5, 0.4, -1.2), vec4(0.3)
+        """, device="cpu")
+        return scene, Camera.make(origin=(0, 0, 1.99), lookat=(0, 0, -1), fov=60.0,
+                                  device="cpu")
+    sb = SceneBuilder()
+    sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
+    sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
+    sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
+    sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
+    sb.add("MAT_LIGHT_4", MeshType.SPHERE, (-0.5, 0.9, -0.8), (0.2,))
+    sb.lights([3, 4])
+    return sb.build(device="cpu"), Camera.make(origin=(0.0, 0.3, 2.0),
+                                               lookat=(0.0, -0.6, -1.0), device="cpu")
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("cubemap", dict(max_bounces=6)),
+    ("cubemap", dict(max_bounces=5, use_mis=True, use_biased_sampling=False)),
+    ("cubemap", dict(max_bounces=4, sample_lights=False)),
+    ("config2", dict(max_bounces=8, use_mis=True)),
+    ("config2", dict(max_bounces=6, max_spec_bounces=2)),
+    ("dir", dict(max_bounces=5)),
+    ("dir", dict(max_bounces=5, use_mis=True)),
+    ("cornell", dict(max_bounces=5, use_mis=True, use_biased_sampling=False)),
+], ids=["cubemap", "cubemap_uniform_mis", "cubemap_bsdf_only", "config2",
+        "config2_spec_cap", "dir", "dir_mis", "cornell_uniform"])
+def test_host_widened_forward_matches_plain(kernels_on_cpu, where, kw):
+    """The widened K1 (BSDF dispatch, directional lights, cubemap fetches
+    and gather rays, uniform sampling), one launch, against the plain
+    version under the parity contract."""
+    if where == "cornell":
+        scene, cam, cfg = cornell_default(device="cpu")
+    else:
+        scene, cam = _widened_scene(where)
+        cfg = cubemap_demo(device="cpu")[2] if where == "cubemap" else \
+            cornell_default(device="cpu", use_procedural_sky=where == "dir")[2]
+    cfg = cfg.replace(**kw)
+    assert megakernel.unsupported(scene, cfg) is None
+    h, w = 16, 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene),
+                                     ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    assert bool(torch.isfinite(out).all())
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+        err.max().item()
+    assert ref.max().item() > 0.1

@@ -75,8 +75,18 @@ def test_route():
         MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
         MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
     """, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tren._route("cuda", mis_style, cfg)
+    cube, _, cube_cfg = tpresets.cubemap_demo(device="cpu")
+    for s, c in [(mis_style, cfg), (cube, cube_cfg)]:
+        assert tren._route("cuda", s, c) == "kernel"
+        assert tren._route("cpu", s, c) == "plain"
+    textured = parse_scene("""
+        MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+    """, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tren._route("cuda", textured, cfg)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tren._route("cuda", scene, cfg.replace(use_restir=True))
     animated = cfg.replace(render_mode=RenderMode.ANIMATED)
     for device_type in ("cuda", "cpu"):
         with pytest.raises(NotImplementedError, match="item 12"):
