@@ -55,7 +55,25 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    through K1 and through the plain version, and prints K1's device time
    within a pass from torch.profiler;
 11. asks for a gradient through `cubemap_demo` on the card and checks that
-   it raises NotImplementedError and launches neither kernel.
+   it raises NotImplementedError and launches neither kernel;
+12. holds K1 against its plain version on the card on the textured scenes:
+   `textured_cornell`, `textured_emitter`, `textured_gloss`, `cornell_box`,
+   the procedural scene of tests/test_megakernel.py:168-202 (CHECK, METAL,
+   VORONOI, VALUE_NOISE, RIPPLE), a GRADIENT_NOISE floor and a CHECK
+   sphere, at 16x128 with 3 bounces (parity contract) and at 512x512 with
+   12 bounces (golden contract), printing the max abs error and the count
+   of differing pixels; the scenes whose textures involve no libm call
+   (no sin, asin or atan2) must agree bit for bit; then asks for a gradient
+   through `textured_cornell` and checks that it raises
+   NotImplementedError and launches neither kernel;
+13. drives the texture main path, `Renderer(textured_cornell).render(16)`
+   at 512x512, and checks 16 K1 launches, no K2, and a finite, non-black
+   image whose textured-sphere pixels vary; then `textured_gloss` (the
+   texel steers the SPEC bounce) for 16 passes, one K1 launch each;
+14. times K1 and the plain version on `textured_cornell` and
+   `textured_gloss` at 512x512 with 12 bounces (CUDA events, and K1's
+   device time from torch.profiler), and prints their path events and
+   K1's bound.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -125,6 +143,14 @@ OPS_NEE_DIR = 32    # per directional light without MIS: direction, origin, cont
 OPS_LIGHT = 12      # emissive hit: acc += mask c e w
 OPS_LIGHT_MIS = 48  # its BSDF-side MIS weight
 OPS_MISS = 28       # procedural sky and acc
+OPS_BLEND = 24      # textured hit: c and e mixed toward texel * mask by alpha
+OPS_UV = {0: 14, 1: 9, 2: 9}  # UV of a sphere (asin, atan2), a plane, a box
+# one texel by TexType code: bilinear image, CHECK, RIPPLE, VORONOI (27
+# cells), GRADIENT_NOISE (8 hashed corners, 3 sin each), VALUE_NOISE (two
+# bilinear LUT channels), METAL (3 octaves of value noise)
+OPS_TEXEL = {0: 50, 1: 50, 2: 50, 3: 50, 4: 737, 5: 399, 6: 51, 7: 9, 8: 13, 9: 170}
+TEX_UV = (0, 1, 2, 3, 7, 8)   # the image and pattern types read a UV
+TEX_LUT = (4, 6, 9)           # Voronoi, value noise and metal read the LUT
 # extra operations of a BSDF sample by material code, on top of OPS_DIFFUSE
 OPS_BSDF = {2: 0, 3: OPS_REFLECT, 4: OPS_REFLECT + OPS_REFRACT + OPS_FRESNEL,
             5: OPS_REFLECT + OPS_REFRACT + OPS_SCHLICK, 6: OPS_REFLECT + OPS_SCHLICK}
@@ -188,23 +214,77 @@ def grad_errors(got, want):
     return errs
 
 
+def textured_scenes(dev):
+    """{name: (scene, camera, cfg)} of phase 12: the four textured presets
+    and the scenes of tests/test_torch_texture_scenes.py (the procedural
+    types of tests/test_megakernel.py:168-202, its GRADIENT_NOISE floor of
+    :247-266 and its CHECK sphere of :795-806)."""
+    from raytracer0_tpu_torch.config import OFFLINE_CONFIG
+    from raytracer0_tpu_torch.models import materials as m
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models.camera import Camera
+    from raytracer0_tpu_torch.models.scene import SceneBuilder
+
+    def tex(t, params, c=(0.4, 0.4, 0.4)):
+        return m.Material(c=c, t=m.MatType.DIFF, tex=m.Texture(params=params, t=t),
+                          opts=(True, False, False, False))
+
+    procedural = SceneBuilder()
+    procedural.add("MAT_CHECK_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    procedural.add("MAT_METAL", m.MeshType.BOX, (0.6, -1.4, -0.5), (1.2,))
+    procedural.add(tex(m.TexType.VORONOI, (2.0, 2.0, 2.0, 0.0)),
+                   m.MeshType.BOX, (-1.2, -1.4, 0.2), (1.0,))
+    procedural.add("MAT_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (2.0,))
+    procedural.add(tex(m.TexType.VALUE_NOISE, (16.0, 16.0, 16.0, 0.0), c=(0.2, 0.5, 0.3)),
+                   m.MeshType.PLANE, (1.0, 0.0, 0.0), (2.0,))
+    procedural.add(tex(m.TexType.RIPPLE, (0.0, 0.0, 8.0, 2.0), c=(0.6, 0.6, 0.1)),
+                   m.MeshType.PLANE, (-1.0, 0.0, 0.0), (2.0,))
+    procedural.add("MAT_LIGHT_4", m.MeshType.SPHERE, (0.0, 1.5, 0.0), (0.4,))
+    noise = SceneBuilder()
+    noise.add(tex(m.TexType.GRADIENT_NOISE, (3.0, 3.0, 3.0, 0.0), c=(0.5, 0.3, 0.2)),
+              m.MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    noise.add("MAT_LIGHT_4", m.MeshType.SPHERE, (0.0, 1.5, 0.0), (0.4,))
+    check = SceneBuilder()
+    check.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (1.5,))
+    check.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (2.5,))
+    check.add("MAT_LIGHT_4", m.MeshType.SPHERE, (0.0, 1.4, -1.2), (0.3,))
+    check.add(m.Material(c=(0.8, 0.6, 0.4), t=m.MatType.DIFF,
+                         tex=m.Texture(t=m.TexType.CHECK, params=(8.0, 8.0, 2.0, 2.0)),
+                         opts=(True, False, False, False)),
+              m.MeshType.SPHERE, (0.0, -0.6, -1.2), (0.6,))
+    sky = OFFLINE_CONFIG.replace(use_procedural_sky=True)
+    cases = {name: getattr(presets, name)(device=dev) for name in
+             ("textured_cornell", "textured_emitter", "textured_gloss", "cornell_box")}
+    cases["procedural"] = (procedural.build(device=dev), Camera.make(
+        origin=(0.0, 0.0, 1.9), lookat=(0.0, -0.4, -1.0), fov=60.0, device=dev), sky)
+    cases["gradient_noise"] = (noise.build(device=dev), Camera.make(
+        origin=(0.0, 0.5, 1.9), lookat=(0.0, -0.5, -1.0), fov=60.0, device=dev), sky)
+    cases["check_sphere"] = (check.build(device=dev), Camera.make(
+        origin=(0.0, -0.5, 0.0), lookat=(0.0, -0.6, -1.2), fov=8.0, device=dev), OFFLINE_CONFIG)
+    return cases
+
+
 def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
     """Events of every pixel's path, counted over the image: rays by mesh
     scan, BSDF samples by material and by outcome (diffuse, specular,
     transmitted), shadow rays to sphere and to directional lights, gather
-    rays, cubemap fetches, emissive hits (and those with a MIS weight) and
-    procedural-sky misses.  Replays K1's decisions with the plain
-    version's functions (`bsdf.sample` among them), which make the same
-    ones bit for bit."""
+    rays, cubemap fetches, emissive hits (and those with a MIS weight),
+    procedural-sky misses, and texels by texture type and UVs by mesh type
+    (at hits on meshes that blend a texture).  Replays K1's decisions with
+    the plain version's functions (`bsdf.sample`,
+    `integrator.hit_color_emission` among them), which make the same ones
+    bit for bit."""
     from raytracer0_tpu_torch import rng
     from raytracer0_tpu_torch.ops import bsdf, intersect, lighting, sampling, vecmath
+    from raytracer0_tpu_torch.render import integrator
 
     n = ro.shape[:-1].numel()
     kinds = [lighting.slot_kind(scene, i) for i in range(scene.num_lights)]
     n_sphere, n_dir = kinds.count("sphere"), kinds.count("dir")
     ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0,
               gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
-              bsdf={})
+              bsdf={}, texel={}, uv={})
+    blends = scene.tex_type.ne(-1) & (scene.opts[:, 0] | scene.opts[:, 1])
     o, d = ro, rd
     shape = ro.shape[:-1]
     mask = torch.ones_like(ro)
@@ -231,8 +311,15 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
             ev["light_mis"] += int((is_light & ~specular).sum())
         for code in torch.unique(mat[surf]).tolist():
             ev["bsdf"][code] = ev["bsdf"].get(code, 0) + int((surf & (mat == code)).sum())
-        c = torch.clamp_min(scene.color[hit.idx], 0.001)
-        e = torch.clamp_min(scene.emission[hit.idx], 0.001)
+        textured = active & ~hit.missed & blends[hit.idx]
+        ttype, mtype = scene.tex_type[hit.idx], scene.mesh_type[hit.idx]
+        for code in torch.unique(ttype[textured]).tolist():
+            sel = textured & (ttype == code)
+            ev["texel"][code] = ev["texel"].get(code, 0) + int(sel.sum())
+            if code in TEX_UV:
+                for m in torch.unique(mtype[sel]).tolist():
+                    ev["uv"][m] = ev["uv"].get(m, 0) + int((sel & (mtype == m)).sum())
+        c, e = integrator.hit_color_emission(scene, hit)
         inside = torch.where(vecmath.vdot(d, hit.n) > 0.0, -1.0, 1.0)
         u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
         uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
@@ -275,8 +362,8 @@ def bound(ev, scene, cfg, adjoint):
     """(bound_ms, bound_by) of K1 (or K2 when `adjoint`) for these events:
     the larger of the bytes over the HBM rate and the float operations over
     the float32 rate.  The bytes are each input read once (rays, pixel ids,
-    the scene table and, under a cubemap, the whole cubemap) and each
-    output written once.  K2 replays each slot's forward and runs its
+    the scene table and, where this run reads them, the whole cubemap, the
+    images and the noise LUT) and each output written once.  K2 replays each slot's forward and runs its
     adjoint, which takes at least as many operations, on top of a forward
     sweep without NEE."""
     types = [int(t) for t in scene.mesh_types_static]
@@ -288,14 +375,18 @@ def bound(ev, scene, cfg, adjoint):
              + sum(k * OPS_BSDF.get(code, 0) for code, k in ev["bsdf"].items()))
     fwd = (sweep + ev["shadow"] * (per_ray + nee) + ev["shadow_dir"] * (per_ray + OPS_NEE_DIR)
            + ev["gather"] * (per_ray + OPS_GATHER) + ev["fetch"] * OPS_FETCH
-           + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS)
+           + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS
+           + sum(k * (OPS_TEXEL[code] + OPS_BLEND) for code, k in ev["texel"].items())
+           + sum(k * OPS_UV[m] for m, k in ev["uv"].items()))
     table = 4 * scene.num_meshes * 36
-    cube = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
+    assets = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
+    assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
+    assets += 4 * scene.noise.numel() if any(t in TEX_LUT for t in ev["texel"]) else 0
     px = ev["pixels"]
     if adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
         ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
-    else:         # ro, rd, pix, table, cubemap in; radiance out
-        ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + cube
+    else:         # ro, rd, pix, table, cubemap, images, LUT in; radiance out
+        ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + assets
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -713,6 +804,110 @@ def main() -> int:
     if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
         raise AssertionError("the refused gradient launched a kernel")
 
+    # ---- phase 12: K1 against its plain version on textured scenes ----
+    tex_cases = textured_scenes(dev)
+    # no libm call in their texture paths: CHECK/RIPPLE on planes, the LUT types
+    exact_scenes = ("procedural",)
+    # sin (gradient noise) or asin/atan2 (sphere UV) decide a pattern: held to
+    # the golden contract at both sizes
+    libm_scenes = ("gradient_noise", "check_sphere")
+    tex_err = {}
+    for name, (s12, c12, cfg12) in tex_cases.items():
+        if megakernel.unsupported(s12, cfg12) is not None:
+            raise AssertionError(f"{name}: expected inside K1's class")
+        small = (PARITY_TOL, PARITY_FRAC) if name not in libm_scenes else (GOLDEN_TOL, GOLDEN_FRAC)
+        for h, w, nb, tol, frac in ((16, 128, 3) + small,
+                                    (H, W, cfg12.max_bounces, GOLDEN_TOL, GOLDEN_FRAC)):
+            c = cfg12.replace(max_bounces=nb)
+            ro12, rd12 = generate_rays(c12, h, w, 1)
+            pix12 = rng.pixel_ids(h, w, device=dev)
+            out = megakernel.trace_forward(s12, c, ro12, rd12, pix12, 1, 0)
+            ref = integrator.trace(s12, c, ro12, rd12, pix12, 1, 0)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()) or not ref.max().item() > 0.02:
+                raise AssertionError(f"{name}: K1 output not finite, or the plain one dark")
+            n_diff = int((out != ref).any(dim=-1).sum())
+            print(f"phase 12: {name} {h}x{w}: {n_diff} of {h * w} pixels differ from the "
+                  "plain version")
+            tex_err[(name, h)] = compare(f"{name} {h}x{w}, {nb} bounces", out, ref, tol, frac,
+                                         phase=12)
+            if name in exact_scenes and tex_err[(name, h)] != 0.0:
+                raise AssertionError(f"{name}: K1 is not bit-identical to the plain version")
+    del out, ref
+
+    # a gradient through a textured scene is refused before any launch
+    t_scene, t_cam, t_cfg = tex_cases["textured_cornell"]
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    for leaf in ("color", "images"):
+        grad_leaf = getattr(t_scene, leaf).clone().requires_grad_(True)
+        try:
+            sample_radiance(t_scene.replace(**{leaf: grad_leaf}), t_cfg, t_cam, 16, 16, 0)
+        except NotImplementedError as exc:
+            print(f"phase 12: a gradient w.r.t. {leaf} through textured_cornell raises "
+                  f"NotImplementedError: {exc}")
+        else:
+            raise AssertionError(f"a gradient w.r.t. {leaf} through textured_cornell did not raise")
+    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
+        raise AssertionError("the refused textured gradient launched a kernel")
+
+    # ---- phase 13: the texture main path ----
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    img = Renderer(t_scene, t_cam, t_cfg, H, W).render(PASSES)
+    torch.cuda.synchronize()
+    launches_tex, bwd_tex = megakernel.LAUNCHES, megakernel.BWD_LAUNCHES
+    ro13, rd13 = generate_rays(t_cam, H, W, 0)
+    hit13 = intersect.intersect(t_scene, ro13, rd13, t_cfg)
+    on_sphere = ~hit13.missed & (t_scene.tex_type[hit13.idx] >= 0)
+    sphere_px = img[on_sphere]
+    print(f"phase 13: Renderer(textured_cornell).render({PASSES}) at {H}x{W}: {launches_tex} K1 "
+          f"launches, {bwd_tex} K2 launches; image mean {img.mean().item():.4f}; "
+          f"{int(on_sphere.sum())} textured-sphere pixels, RGB std "
+          f"{[round(v, 4) for v in sphere_px.std(dim=0).tolist()]}")
+    if launches_tex != PASSES or bwd_tex != 0:
+        raise AssertionError(f"expected {PASSES} K1 and 0 K2 launches, saw "
+                             f"{launches_tex} and {bwd_tex}")
+    if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()) \
+            or not img.mean().item() > 0.05:
+        raise AssertionError("the textured image is not finite, or black")
+    if int(on_sphere.sum()) < 1000 or not sphere_px.std(dim=0).min().item() > 0.01:
+        raise AssertionError("the textured sphere's pixels do not vary")
+
+    g_scene, g_cam, g_cfg = tex_cases["textured_gloss"]
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    img = Renderer(g_scene, g_cam, g_cfg, H, W).render(PASSES)
+    torch.cuda.synchronize()
+    launches_gloss, bwd_gloss = megakernel.LAUNCHES, megakernel.BWD_LAUNCHES
+    print(f"phase 13: Renderer(textured_gloss).render({PASSES}) at {H}x{W}: {launches_gloss} "
+          f"K1 launches, {bwd_gloss} K2 launches; image mean {img.mean().item():.4f}")
+    if launches_gloss != PASSES or bwd_gloss != 0 or not bool(torch.isfinite(img).all()) \
+            or not img.mean().item() > 0.05:
+        raise AssertionError("textured_gloss did not render through K1 once per pass")
+    del img
+
+    # ---- phase 14: K1 and the plain version on the textured scenes, timed ----
+    tex_ms, tex_plain_ms, tex_dev_ms, tex_bound = {}, {}, {}, {}
+    for name in ("textured_cornell", "textured_gloss"):
+        s14, c14, cfg14 = tex_cases[name]
+        ro14, rd14 = generate_rays(c14, H, W, 0)
+        tex_ms[name] = time_ms(torch, lambda: megakernel.trace_forward(
+            s14, cfg14, ro14, rd14, pix9, 0, 0))
+        tex_plain_ms[name] = time_ms(torch, lambda: integrator.trace(
+            s14, cfg14, ro14, rd14, pix9, 0, 0), runs=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                megakernel.trace_forward(s14, cfg14, ro14, rd14, pix9, 0, 0)
+            torch.cuda.synchronize()
+        dev14, _ = device_times_ms(prof, ("fwd_kernel",))
+        tex_dev_ms[name] = None if dev14["fwd_kernel"] is None else dev14["fwd_kernel"] / 3
+        ev14 = path_events(torch, s14, cfg14, ro14, rd14, pix9, 0, 0)
+        tex_bound[name] = bound(ev14, s14, cfg14, adjoint=False)
+        print(f"phase 14: path events of {name} at {H}x{W}: {json.dumps(ev14)}")
+        print(f"phase 14: {card}: {name} trace at {H}x{W}, {cfg14.max_bounces} bounces: "
+              f"K1 {tex_ms[name]:.3f} ms (device "
+              + ("not measured" if tex_dev_ms[name] is None else f"{tex_dev_ms[name]:.4f} ms")
+              + f", profiler), plain {tex_plain_ms[name]:.3f} ms; bound "
+              f"{tex_bound[name][0]:.6f} ms ({tex_bound[name][1]})")
+
     common = dict(route="cuda", library_ms=None)
     print(json.dumps({"kernels": [
         {"name": "K1 forward megakernel", **common,
@@ -720,7 +915,8 @@ def main() -> int:
          "replaces": "raytracer0_tpu/ops/megakernel.py:2357",
          "launches": launches,
          "launches_by_path": {"render": launches, "gradient": launches_grad,
-                              "cubemap_render": launches_cube},
+                              "cubemap_render": launches_cube, "texture_render": launches_tex,
+                              "gloss_render": launches_gloss},
          "max_abs_err": max_abs_err, "ms": ms_trace, "plain_ms": plain_ms_trace,
          "bound_ms": k1_bound, "bound_by": k1_by,
          "ms_config2": k1_ms["config2"], "device_ms_config2": k1_dev_ms["config2"],
@@ -742,6 +938,23 @@ def main() -> int:
          "max_abs_err": widened_err[("cubemap_demo", H)], "ms": k1_ms["cubemap_demo"],
          "device_ms": k1_dev_ms["cubemap_demo"], "plain_ms": plain_ms["cubemap_demo"],
          "bound_ms": cube_bound, "bound_by": cube_by},
+        {"name": "K10 image-texture forward, served by K1", **common,
+         "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3586",
+         "launches": launches_tex,
+         "max_abs_err": tex_err[("textured_cornell", H)], "ms": tex_ms["textured_cornell"],
+         "device_ms": tex_dev_ms["textured_cornell"],
+         "plain_ms": tex_plain_ms["textured_cornell"],
+         "bound_ms": tex_bound["textured_cornell"][0],
+         "bound_by": tex_bound["textured_cornell"][1]},
+        {"name": "K11 gloss suffix-resume forward, served by K1", **common,
+         "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3969",
+         "launches": launches_gloss,
+         "max_abs_err": tex_err[("textured_gloss", H)], "ms": tex_ms["textured_gloss"],
+         "device_ms": tex_dev_ms["textured_gloss"], "plain_ms": tex_plain_ms["textured_gloss"],
+         "bound_ms": tex_bound["textured_gloss"][0],
+         "bound_by": tex_bound["textured_gloss"][1]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,13 +8,24 @@
 // uniform hemisphere sampling), DIR_LIGHT surfaces that end a path, sphere-
 // and directional-light NEE with optional power-heuristic MIS, the cubemap
 // or procedural-sky environment, the cubemap gather ray on diffuse bounces,
-// the luminance cutoff and the per-type bounce caps.
+// textures of all ten types blended into a hit's color and emission, the
+// luminance cutoff and the per-type bounce caps.  It also replaces
+// ::_imgtex_kernel_body (launched by `_imgtex_forward`, image textures) and
+// ::_gloss_kernel_body (launched by `_gloss_launch`, image textures on the
+// glossiness of a SPEC surface).
 //
 // The Pallas env kernel records a (weight, direction) pair per cubemap fetch
 // and resolves the records afterwards with XLA gathers, because Mosaic has no
 // per-lane gather.  Here each thread fetches its texels itself
 // (trace_common.cuh::sample_cubemap): a 256x256 cubemap is 4.7 MB and stays in
 // the 50 MB L2, and the records, and the second pass over them, are gone.
+// The same holds for image textures: the Pallas imgtex kernel shades with a
+// 0.5-gray placeholder texel and divides the true texel back in on the host,
+// and the gloss split exports a record at each textured SPEC vertex and
+// relaunches the path suffixes.  Here each thread fetches its own texel
+// (trace_common.cuh::get_texel) before the emissive test and the BSDF
+// sample, so the textured color, emission and glossiness enter the path
+// where they are used, in one launch; the 1 MiB noise LUT is read from L2.
 // Its plain PyTorch version is raytracer0_tpu_torch/render/integrator.py::trace;
 // the kernel follows that function's operations in the same order, so on the
 // same inputs the two agree to the last bit except where a libm call rounds
@@ -113,8 +124,27 @@ __device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x,
   return b;
 }
 
+// The texture codes and blend flags of the meshes, in shared memory after
+// what load_scene() fills (K1 only, so K2's view of the scene is unchanged).
+struct TexCodes {
+  const int *tex, *blend;
+};
+
+// Copy the texture codes into shared memory.  It does not synchronise: call
+// it before load_scene(), whose __syncthreads() covers both.
+__device__ __forceinline__ TexCodes load_tex_codes(const TraceArgs &a, float *smem) {
+  int *s_tex = reinterpret_cast<int *>(smem) + scene_smem_bytes(a.n_mesh, a.n_lights) / sizeof(int);
+  int *s_blend = s_tex + a.n_mesh;
+  for (int i = threadIdx.x; i < a.n_mesh; i += blockDim.x) {
+    s_tex[i] = a.tex[i];
+    s_blend[i] = a.blend[i];
+  }
+  return {s_tex, s_blend};
+}
+
 __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
   extern __shared__ float smem[];
+  const TexCodes tx = load_tex_codes(a, smem);
   const SceneSmem s = load_scene(a, smem);
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.n_pix) return;  // ragged edge
@@ -148,8 +178,20 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
 
     V3 x = o + d * tmin;
     V3 n = normal_at(s, idx, x);
-    V3 c = vmax(s.c(idx), 0.001f);
-    V3 e = vmax(s.e(idx), 0.001f);
+    V3 c = s.c(idx);
+    V3 e = s.e(idx);
+    // ---- textured color / emission: the texel's alpha blends it in ----
+    if (a.use_tex && tx.blend[idx]) {
+      const V4 t = get_texel(tx.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
+                             a.img_w, a.noise, a.noise_n);
+      const V3 tc = {t.x, t.y, t.z};
+      const float bc = (tx.blend[idx] & 1) ? t.w : 0.0f, be = (tx.blend[idx] & 2) ? t.w : 0.0f;
+      const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
+      c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
+      e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
+    }
+    c = vmax(c, 0.001f);
+    e = vmax(e, 0.001f);
     float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
 
     // ---- emissive hit: BSDF-side MIS weight from prev_nl, terminate ----
@@ -225,14 +267,17 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
                                  int max_diff, int max_spec, int max_scatter, float eps,
                                  float inf, int sample_lights, int use_mis, int use_sky,
                                  const float *cubemap, int cube_h, int cube_w, int use_cubemap,
-                                 int use_biased, void *stream) {
+                                 int use_biased, const int32_t *tex, const int32_t *blend,
+                                 const float *images, int img_h, int img_w, const float *noise,
+                                 int noise_n, int use_tex, void *stream) {
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
                  inf,     sample_lights, use_mis, use_sky, cubemap, cube_h, cube_w,
-                 use_cubemap, use_biased};
+                 use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
+                 use_tex};
   if (n_pix <= 0) return 0;
-  const size_t smem = scene_smem_bytes(n_mesh, n_lights);
+  const size_t smem = scene_smem_bytes(n_mesh, n_lights) + sizeof(int) * 2 * n_mesh;
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
   fwd_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

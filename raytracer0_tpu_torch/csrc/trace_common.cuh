@@ -2,7 +2,8 @@
 // (megakernel.cu) and its adjoint K2 (megakernel_bwd.cu): vec3 helpers, the
 // counter RNG, the scene in shared memory, intersection, normals, direction
 // sampling, reflection, refraction and the Fresnel models, the MIS pdfs, the
-// procedural sky, the cubemap fetch and sphere/directional-light NEE.
+// procedural sky, the cubemap fetch, sphere/directional-light NEE, and the
+// texel of a hit (image, UV-pattern and noise textures, K1 only).
 //
 // Both kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the
@@ -24,12 +25,16 @@ constexpr float EPS = 1e-12f;
 
 // scene table columns (raytracer0_tpu/ops/megakernel.py::_scene_table)
 constexpr int NCOLS = 36;
-constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13;
+constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13, C_TP = 26, C_CM = 30,
+              C_EM = 33;
 
 // raytracer0_tpu_torch/models/materials.py codes
 constexpr int MESH_SPHERE = 0, MESH_PLANE = 1, MESH_BOX = 2;
 constexpr int MAT_LIGHT = 0, MAT_DIR_LIGHT = 1, MAT_DIFF = 2, MAT_SPEC = 3, MAT_REFR_FRESNEL = 4,
               MAT_REFR_SCHLICK = 5, MAT_COAT = 6;
+constexpr int TEX_IMAGE3 = 3, TEX_VORONOI = 4, TEX_GRADIENT_NOISE = 5, TEX_VALUE_NOISE = 6,
+              TEX_CHECK = 7, TEX_RIPPLE = 8, TEX_METAL = 9;
+constexpr float PI = 3.14159265f;
 // raytracer0_tpu_torch/rng.py Stream codes
 constexpr uint32_t S_BSDF_DIR = 3u, S_BSDF_CHOICE = 4u, S_NEE_CONE = 5u, S_ENV_DIR = 7u;
 // nc in brdf (ops/bsdf.py IOR_AIR)
@@ -53,6 +58,13 @@ struct TraceArgs {
   const float *cubemap;    // [6, cube_h, cube_w, 3]
   int cube_h, cube_w;
   int use_cubemap, use_biased;
+  const int32_t *tex;      // [n_mesh] TexType codes, -1 = none
+  const int32_t *blend;    // [n_mesh] bit 0: texel into color, bit 1: into emission
+  const float *images;     // [4, img_h, img_w, 4]
+  int img_h, img_w;
+  const float *noise;      // [noise_n, noise_n, 4] value-noise LUT
+  int noise_n;
+  int use_tex;             // some mesh blends a texture
 };
 
 // ------------------------------------------------------------------ vec3
@@ -118,6 +130,7 @@ struct SceneSmem {
     return {r[0], r[1], r[2]};
   }
   __device__ __forceinline__ float ior(int i) const { return tab[i * NCOLS + C_IOR]; }
+  __device__ __forceinline__ const float *col(int i, int c) const { return tab + i * NCOLS + c; }
 };
 
 // Closest analytic hit (ops/intersect.py::analytic_min): first index of the
@@ -329,6 +342,177 @@ __device__ __forceinline__ V3 sample_cubemap(const float *__restrict__ cube, int
   };
   return (texel(y0, x0) * (1.0f - fx) + texel(y0, x1) * fx) * (1.0f - fy) +
          (texel(y1, x0) * (1.0f - fx) + texel(y1, x1) * fx) * fy;
+}
+
+// ------------------------------------------------------------------ textures
+// ops/textures.py and ops/noise.py, operation for operation.
+struct V4 {
+  float x, y, z, w;
+};
+
+// Non-negative integer wrap: torch.remainder of an int by a positive int.
+__device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
+
+// torch.remainder of floats on CUDA (ATen): fmod, moved to the sign of b.
+__device__ __forceinline__ float float_remainder(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+
+// textures.bilinear_wrap: GL REPEAT, u*w - 0.5, the flat row take, from
+// f32[h, w, 4] in device memory through the read-only path.  Software
+// bilinear on purpose, as for the cubemap.
+__device__ __forceinline__ V4 bilinear_wrap(const float *__restrict__ img, int h, int w, float uu,
+                                            float vv) {
+  const float u = uu - floorf(uu), v = vv - floorf(vv);
+  const float x = u * (float)w - 0.5f, y = v * (float)h - 0.5f;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int x0 = wrap((int)x0f, w), y0 = wrap((int)y0f, h);
+  const int x1 = wrap(x0 + 1, w), y1 = wrap(y0 + 1, h);
+  const float *t00 = img + ((size_t)y0 * w + x0) * 4, *t01 = img + ((size_t)y0 * w + x1) * 4;
+  const float *t10 = img + ((size_t)y1 * w + x0) * 4, *t11 = img + ((size_t)y1 * w + x1) * 4;
+  float r[4];
+  for (int k = 0; k < 4; ++k)
+    r[k] = (__ldg(t00 + k) * (1.0f - fx) + __ldg(t01 + k) * fx) * (1.0f - fy) +
+           (__ldg(t10 + k) * (1.0f - fx) + __ldg(t11 + k) * fx) * fy;
+  return {r[0], r[1], r[2], r[3]};
+}
+
+// noise._gradient_hash: iq's sin hash in [-1, 1]^3.
+__device__ __forceinline__ V3 gradient_hash(V3 p) {
+  const float d0 = p.x * 127.1f + p.y * 311.7f + p.z * 74.7f;
+  const float d1 = p.x * 269.5f + p.y * 183.3f + p.z * 246.1f;
+  const float d2 = p.x * 113.5f + p.y * 271.9f + p.z * 124.6f;
+  const float s0 = sinf(d0) * 43758.5453f, s1 = sinf(d1) * 43758.5453f,
+              s2 = sinf(d2) * 43758.5453f;
+  return {-1.0f + 2.0f * (s0 - floorf(s0)), -1.0f + 2.0f * (s1 - floorf(s1)),
+          -1.0f + 2.0f * (s2 - floorf(s2))};
+}
+
+__device__ __forceinline__ float mix1(float a, float b, float t) { return a + (b - a) * t; }
+
+// noise.gradient_noise
+__device__ __forceinline__ float gradient_noise(V3 p) {
+  const V3 i = {floorf(p.x), floorf(p.y), floorf(p.z)};
+  const V3 f = p - i;
+  const V3 u = {f.x * f.x * (3.0f - 2.0f * f.x), f.y * f.y * (3.0f - 2.0f * f.y),
+                f.z * f.z * (3.0f - 2.0f * f.z)};
+  auto g = [&](float ox, float oy, float oz) {
+    const V3 off = {ox, oy, oz};
+    return dot(gradient_hash(i + off), f - off);
+  };
+  return mix1(mix1(mix1(g(0, 0, 0), g(1, 0, 0), u.x), mix1(g(0, 1, 0), g(1, 1, 0), u.x), u.y),
+              mix1(mix1(g(0, 0, 1), g(1, 0, 1), u.x), mix1(g(0, 1, 1), g(1, 1, 1), u.x), u.y),
+              u.z);
+}
+
+// noise.value_noise: channels 1 and 0 (the .yx swizzle) of the LUT,
+// bilinear under REPEAT at z-sheared coordinates, lerped along z.
+__device__ __forceinline__ float value_noise(const float *__restrict__ lut, int n, V3 x) {
+  const V3 p = {floorf(x.x), floorf(x.y), floorf(x.z)};
+  V3 f = x - p;
+  f = {f.x * f.x * (3.0f - 2.0f * f.x), f.y * f.y * (3.0f - 2.0f * f.y),
+       f.z * f.z * (3.0f - 2.0f * f.z)};
+  const float u = (p.x + 37.0f * p.z) + f.x, v = (p.y + 17.0f * p.z) + f.y;
+  const float x0f = floorf(u), y0f = floorf(v);
+  const float fx = u - x0f, fy = v - y0f;
+  const int x0 = wrap((int)x0f, n), y0 = wrap((int)y0f, n);
+  const int x1 = wrap(x0 + 1, n), y1 = wrap(y0 + 1, n);
+  auto fetch = [&](int ch) {
+    const float c00 = __ldg(lut + ((size_t)y0 * n + x0) * 4 + ch);
+    const float c01 = __ldg(lut + ((size_t)y0 * n + x1) * 4 + ch);
+    const float c10 = __ldg(lut + ((size_t)y1 * n + x0) * 4 + ch);
+    const float c11 = __ldg(lut + ((size_t)y1 * n + x1) * 4 + ch);
+    return (c00 * (1.0f - fx) + c01 * fx) * (1.0f - fy) + (c10 * (1.0f - fx) + c11 * fx) * fy;
+  };
+  const float g = fetch(1), r = fetch(0);
+  return g + (r - g) * f.z;
+}
+
+// noise.voronoi: (sqrt F1, sqrt F2, |cell id|) over the 3x3x3 cells, the
+// jitter the LUT texel at (x + 3z, y + z).
+__device__ __forceinline__ V4 voronoi(const float *__restrict__ lut, int n, V3 x) {
+  const V3 p = {floorf(x.x), floorf(x.y), floorf(x.z)};
+  const V3 f = x - p;
+  float f1 = 100.0f, f2 = 100.0f, cid = 0.0f;
+  for (int k = -1; k <= 1; ++k)
+    for (int j = -1; j <= 1; ++j)
+      for (int i = -1; i <= 1; ++i) {
+        const V3 b = {(float)i, (float)j, (float)k};
+        const V3 hx = p + b;
+        const int tx = wrap((int)floorf(hx.x + 3.0f * hx.z), n);
+        const int ty = wrap((int)floorf(hx.y + 1.0f * hx.z), n);
+        const float *t = lut + ((size_t)ty * n + tx) * 4;
+        const V3 r = (b - f) + V3{__ldg(t), __ldg(t + 1), __ldg(t + 2)};
+        const float d = dot(r, r);
+        const float new_id = fabsf(hx.x + hx.y * 57.0f + hx.z * 113.0f);
+        const bool closer = d < f1;
+        f2 = closer ? f1 : (d < f2 ? d : f2);
+        cid = closer ? new_id : cid;
+        f1 = closer ? d : f1;
+      }
+  return {sqrtf(f1), sqrtf(f2), cid, 0.0f};
+}
+
+// noise.metal_fbm: three octaves of value noise along (-1.2, 1.99, -1.6).
+__device__ __forceinline__ float metal_fbm(const float *__restrict__ lut, int n, V3 q) {
+  const V3 m = {-1.2f, 1.99f, -1.6f};
+  float f = 0.5f * value_noise(lut, n, q);
+  q = m * q * 2.01f;
+  f = f + 0.25f * value_noise(lut, n, q);
+  q = m * q * 2.02f;
+  f = f + 0.125f * value_noise(lut, n, q);
+  return f;
+}
+
+// textures.get_texel for a hit at `x` with geometric normal `n` of a mesh
+// of texture type `t`, mesh type `mesh` and texture params `tp` (the UV of
+// intersect.parse_hit for the image and pattern types).  No texture gives
+// zeros.  Inlined: as a call it cost the bounce loop 96 registers against
+// 80 inline, and was slower on every scene measured (PERF.md).
+__device__ __forceinline__ V4 get_texel(int t, int mesh, const float *tp, V3 x, V3 n,
+                                        const float *__restrict__ images, int img_h, int img_w,
+                                        const float *__restrict__ lut, int lut_n) {
+  if (t < 0 || t > TEX_METAL) return {0.0f, 0.0f, 0.0f, 0.0f};
+  if (t <= TEX_IMAGE3 || t == TEX_CHECK || t == TEX_RIPPLE) {
+    float uu, vv;
+    if (mesh == MESH_SPHERE) {
+      // spherical UV from the *world* hit position (the reference's quirk)
+      const float rho = sqrtf(fmaxf(dot(x, x), EPS));
+      const float phi = asinf(fminf(fmaxf(x.y / rho, -0.999999f), 0.999999f));
+      uu = phi / PI;
+      vv = atan2f(x.z, x.x) / TWO_PI;
+    } else {  // planar by the dominant normal axis
+      const float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+      const bool x_dom = ax > ay && ax > az, y_dom = ay > ax && ay > az;
+      uu = x_dom ? -x.z : x.x;
+      vv = x_dom ? -x.y : (y_dom ? x.z : -x.y);
+    }
+    if (t <= TEX_IMAGE3)
+      return bilinear_wrap(images + (size_t)t * img_h * img_w * 4, img_h, img_w, uu, vv);
+    float val;
+    if (t == TEX_CHECK) {
+      val = float_remainder(floorf(tp[0] * uu) + floorf(tp[1] * vv), fmaxf(tp[2], 1e-6f));
+    } else {
+      const float du = uu - tp[0], dv = vv - tp[1];
+      val = float_remainder(ceilf(sqrtf(du * du + dv * dv) * tp[2]), fmaxf(tp[3], 1e-6f));
+    }
+    return {val, val, val, val};
+  }
+  const V3 scaled = {tp[0] * x.x, tp[1] * x.y, tp[2] * x.z};
+  if (t == TEX_VORONOI) return voronoi(lut, lut_n, scaled);
+  float val;
+  if (t == TEX_GRADIENT_NOISE) {
+    const float tt = fminf(fmaxf((gradient_noise(scaled) + 0.7f) / 1.4f, 0.0f), 1.0f);
+    val = tt * tt * (3.0f - 2.0f * tt);  // smoothstep(-0.7, 0.7, f)
+  } else if (t == TEX_VALUE_NOISE) {
+    val = value_noise(lut, lut_n, scaled);
+  } else {
+    val = metal_fbm(lut, lut_n, scaled);
+  }
+  return {val, val, val, val};
 }
 
 // lighting.sample_lights_nee without the throughput factor: the sum over

@@ -1,9 +1,10 @@
-"""Scene presets (port of models/presets.py: `_cfg`, `cornell_default` and
-`cubemap_demo`).
+"""Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
+`cornell_box`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
+`textured_emitter`).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
-items 8-11).
+items 8 and 10-11).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 from raytracer0_tpu_torch.config import OFFLINE_CONFIG, RenderConfig
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
+from raytracer0_tpu_torch.models.materials import TEX_1, Material, MatType, MeshType
+from raytracer0_tpu_torch.models.scene import SceneBuilder
 
 
 def _cfg(base: RenderConfig = OFFLINE_CONFIG, **kw) -> RenderConfig:
@@ -37,6 +40,93 @@ def cornell_default(device="cuda", **cfg_kw):
                          fov=50.0, aperture=0.0, focal_length=3.5,
                          device=device)
     return scene, camera, _cfg(**cfg_kw)
+
+
+def cornell_box(device="cuda", **cfg_kw):
+    """Preset 1 (index.html:789-820): closed Cornell box with a textured
+    sphere light and an orange glass sphere."""
+    scene = parse_scene("""
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+        MAT_LIGHT_4_TEX, SPHERE, vec3(0.0, 1.5, -1.5), vec4(0.5)
+        MAT_REFR_CLEAR, SPHERE, vec3(0.0), vec4(0.5)
+    """, device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def synthetic_texture(blue="wave"):
+    """The deterministic f32[4, 64, 64, 4] image stack of the JAX textured
+    presets: ones, with IMAGE1's red rising along the columns, green down
+    the rows, and blue a sine-cosine wave (`blue="wave"`) or 0.5."""
+    g = np.linspace(0.0, 1.0, 64, dtype=np.float32)
+    images = np.ones((4, 64, 64, 4), np.float32)
+    images[1, ..., 0] = 0.3 + 0.7 * g[None, :]
+    images[1, ..., 1] = 0.3 + 0.7 * g[:, None]
+    images[1, ..., 2] = (0.5 + 0.5 * np.sin(g[:, None] * 19.0) * np.cos(g[None, :] * 23.0)
+                         if blue == "wave" else 0.5)
+    return images
+
+
+def _textured_box(sb, light):
+    """The closed box of `textured_cornell` and `textured_emitter`: six
+    walls, `light` (a material name or Material) at the ceiling, and the
+    IMAGE1-textured diffuse sphere."""
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, -1.0, 0.0), (2.0,))
+    sb.add("MAT_GREEN", MeshType.PLANE, (1.0, 0.0, 0.0), (2.0,))
+    sb.add("MAT_RED", MeshType.PLANE, (-1.0, 0.0, 0.0), (2.0,))
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 0.0, 1.0), (2.0,))
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 0.0, -1.0), (2.0,))
+    sb.add(light, MeshType.SPHERE, (0.0, 1.6, 0.0), (0.3,))
+    sb.add("MAT_TEST", MeshType.SPHERE, (0.0, -0.8, 0.0), (0.7,))
+    return sb.images(synthetic_texture())
+
+
+def textured_cornell(device="cuda", **cfg_kw):
+    """The Cornell box with an IMAGE1-textured diffuse sphere (the
+    reference's image-texture path, raytracer.glsl:726-772, with the
+    spherical UV of 1055-1059), under the synthetic 64² texture."""
+    scene = _textured_box(SceneBuilder(), "MAT_LIGHT_4").build(device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.9), lookat=(0.0, -0.4, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def textured_gloss(device="cuda", **cfg_kw):
+    """A Cornell box with an IMAGE1-textured SPEC sphere whose texel drives
+    both its color and its emission-as-glossiness (raytracer.glsl:1812-1813):
+    the texel steers the bounce direction."""
+    gloss = Material(c=(0.9, 0.9, 0.9), e=(0.35, 0.35, 0.35), t=MatType.SPEC,
+                     tex=TEX_1, opts=(True, True, False, False))
+    sb = SceneBuilder()
+    sb.add("MAT_CORNELL_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (1.5,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.PLANE, (0.0, -1.0, 0.0), (1.5,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.PLANE, (0.0, 0.0, 1.0), (2.5,))
+    sb.add("MAT_CORNELL_RED", MeshType.PLANE, (1.0, 0.0, 0.0), (1.5,))
+    sb.add("MAT_CORNELL_GREEN", MeshType.PLANE, (-1.0, 0.0, 0.0), (1.5,))
+    sb.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.4, -1.2), (0.3,))
+    sb.add(gloss, MeshType.SPHERE, (0.0, -0.7, -1.2), (0.6,))
+    scene = sb.images(synthetic_texture(blue="flat")).build(device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 2.8), lookat=(0.0, 0.0, -1.0), fov=50.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def textured_emitter(device="cuda", **cfg_kw):
+    """`textured_cornell` whose LIGHT sphere carries IMAGE1 on its color and
+    its emission (raytracer.glsl:2071-2090)."""
+    light = Material(c=(1.0, 1.0, 1.0), e=(8.0, 7.0, 6.0), t=MatType.LIGHT,
+                     tex=TEX_1, opts=(True, True, False, False))
+    scene = _textured_box(SceneBuilder(), light).build(device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.9), lookat=(0.0, -0.4, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
 
 
 def synthetic_sky(n: int = 256):

@@ -5,7 +5,7 @@ Every ray is tested against every mesh in one broadcast computation over a
 trailing [..., N] mesh axis; the winner is an argmin, which picks the first
 of equal distances exactly like the reference's sequential accept-if-closer
 loop (raytracer.glsl:997-1082).  SDF marching comes with ROADMAP queue 1
-item 8 and UV parsing (textures) with item 9.
+item 8.
 
 Hit `t` stays differentiable w.r.t. scene geometry; only the winner index
 is discrete.
@@ -19,6 +19,7 @@ import torch
 
 from raytracer0_tpu_torch.models.materials import MeshType
 from raytracer0_tpu_torch.ops import vecmath as vm
+from raytracer0_tpu_torch.ops.sampling import PI, TWO_PI
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +30,7 @@ class Hit:
     idx: torch.Tensor     # i64[...] winning mesh index (0 on miss)
     pos: torch.Tensor     # f32[..., 3]
     n: torch.Tensor       # f32[..., 3] geometric normal (0 on miss)
+    uv: torch.Tensor      # f32[..., 2] texture coordinates (-1 on miss)
     missed: torch.Tensor  # bool[...]
 
 
@@ -111,9 +113,11 @@ def analytic_min(scene, ro, rd, eps):
     return tmin, idx, torch.isfinite(tmin)
 
 
-def parse_hit(scene, ro, rd, tmin, idx, missed, infinity, need_normal=True):
+def parse_hit(scene, ro, rd, tmin, idx, missed, infinity, need_normal=True,
+              need_uv=True):
     """Fill the hit record for the winning mesh (raytracer.glsl:1048-1079).
-    `need_normal=False` (shadow rays) skips the normal."""
+    `need_normal=False` (shadow rays) skips the normal and `need_uv=False`
+    (texture-free scenes, shadow rays) the UV, which is then -1."""
     t_eff = torch.where(missed, torch.full_like(tmin, infinity), tmin)
     hit_pos = ro + rd * t_eff[..., None]
     zero3 = torch.zeros_like(hit_pos)
@@ -130,12 +134,39 @@ def parse_hit(scene, ro, rd, tmin, idx, missed, infinity, need_normal=True):
     else:
         n = zero3
 
+    minus1 = torch.full(hit_pos.shape[:-1] + (2,), -1.0, dtype=torch.float32,
+                        device=hit_pos.device)
+    if need_uv:
+        # spherical UV of spheres from the *world* hit position, the
+        # reference's quirk (raytracer.glsl:1055-1059)
+        rho = vm.safe_length(hit_pos)
+        phi = torch.asin(torch.clamp(hit_pos[..., 1] / rho, -1.0 + 1e-6, 1.0 - 1e-6))
+        theta = torch.atan2(hit_pos[..., 2], hit_pos[..., 0])
+        uv_sph = torch.stack([phi / torch.full_like(phi, PI),
+                              theta / torch.full_like(theta, TWO_PI)], dim=-1)
+        # dominant-normal-axis planar UV of the other meshes (1070-1076)
+        na = torch.abs(n)
+        x_dom = (na[..., 0] > na[..., 1]) & (na[..., 0] > na[..., 2])
+        y_dom = (na[..., 1] > na[..., 0]) & (na[..., 1] > na[..., 2])
+        px, py, pz = hit_pos[..., 0], hit_pos[..., 1], hit_pos[..., 2]
+        uv_x = torch.stack([-pz, -py], dim=-1)
+        uv_y = torch.stack([px, pz], dim=-1)
+        uv_z = torch.stack([px, -py], dim=-1)
+        uv = vm.where3(x_dom, uv_x, vm.where3(y_dom, uv_y, uv_z))
+        uv = vm.where3(scene.mesh_type[idx] == MeshType.SPHERE, uv_sph, uv)
+        uv = vm.where3(missed, minus1, uv)
+    else:
+        uv = minus1
+
     return Hit(t=t_eff, idx=torch.where(missed, torch.zeros_like(idx), idx),
-               pos=vm.where3(missed, zero3, hit_pos), n=n, missed=missed)
+               pos=vm.where3(missed, zero3, hit_pos), n=n, uv=uv, missed=missed)
 
 
-def intersect(scene, ro, rd, cfg, need_normal=True):
-    """Top-level analytic intersection (raytracer.glsl:997-1082)."""
+def intersect(scene, ro, rd, cfg, need_normal=True, need_uv=None):
+    """Top-level analytic intersection (raytracer.glsl:997-1082).  The UV
+    is computed when `need_uv`, by default when the scene has textures."""
+    if need_uv is None:
+        need_uv = bool(scene.tex_types_used)
     if scene.num_sdfs:
         raise NotImplementedError(
             "SDF intersection is not ported yet: ROADMAP queue 1 item 8")
@@ -143,4 +174,4 @@ def intersect(scene, ro, rd, cfg, need_normal=True):
     missed = ~hit_any | ~(tmin < cfg.infinity)
     tmin = torch.where(missed, torch.full_like(tmin, cfg.infinity), tmin)
     return parse_hit(scene, ro, rd, tmin, idx, missed, cfg.infinity,
-                     need_normal=need_normal)
+                     need_normal=need_normal, need_uv=need_uv)

@@ -50,7 +50,7 @@ def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
         # the occlusion ray escapes to infinity
         sr_dir = vm.normalize(l_pos.expand_as(x))
         hit = isect.intersect(scene, x + nl * cfg.epsilon, sr_dir, cfg,
-                              need_normal=False)
+                              need_normal=False, need_uv=False)
         cos_term = torch.clamp_min(vm.vdot(l_pos, nl), 0.001)
         contrib = scene.color[li] * scene.emission[li] * cos_term[..., None]
         contrib = vm.where3(hit.missed, contrib, torch.zeros_like(contrib))
@@ -69,7 +69,7 @@ def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
 
     # shadow re-trace (raytracer.glsl:1193); the contribution uses sr_dir
     hit = isect.intersect(scene, x + nl * cfg.epsilon, sr_dir, cfg,
-                          need_normal=False)
+                          need_normal=False, need_uv=False)
     hit_is_light = (scene.mat_type[hit.idx] == MatType.LIGHT) & ~hit.missed
     lit_c = torch.clamp_min(scene.color[hit.idx], 0.001)
     cos_term = torch.clamp_min(vm.vdot(sr_dir, nl), 0.001)

@@ -3,16 +3,20 @@ adjoint K2 (`csrc/megakernel_bwd.cu`), joined in a `torch.autograd.Function`.
 
 K1 replaces the Pallas TPU kernels
 `raytracer0_tpu/ops/megakernel.py::_fwd_kernel_body` (launched by
-`_forward`) and `_env_kernel_body` (launched by `_env_forward`,
-photographic cubemaps, whose fetches K1 makes itself); K2 replaces
+`_forward`), `_env_kernel_body` (launched by `_env_forward`,
+photographic cubemaps), `_imgtex_kernel_body` (launched by
+`_imgtex_forward`, image textures) and `_gloss_kernel_body` (launched by
+`_gloss_launch`, image textures on a SPEC surface's glossiness): it
+fetches the cubemap's and the images' texels itself, where the Pallas
+kernels export records that the host resolves; K2 replaces
 `_bwd_slotted_kernel_body` (launched by `_backward`) and computes the same
 outputs as its whole-trace twin `_bwd_kernel_body`.  `_TraceCore` pairs
 them as the JAX `_trace_core` custom_vjp does: forward launches K1,
 backward launches K2.  K1 covers the class that `integrator.unsupported`
-states (every surface material, sphere and directional lights, cubemaps,
-uniform sampling: `unsupported`); K2 covers its Cornell subset (DIFF and
-LIGHT materials, sphere-light slots, no cubemap, cosine sampling;
-`unsupported_bwd`).  Their plain PyTorch version is
+states (every surface material, textures of all ten types, sphere and
+directional lights, cubemaps, uniform sampling: `unsupported`); K2 covers
+its Cornell subset (DIFF and LIGHT materials, no blended texture,
+sphere-light slots, no cubemap, cosine sampling; `unsupported_bwd`).  Their plain PyTorch version is
 `render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
 on the same inputs K1 traces the same paths, pixel for pixel, and K2
 gives the same gradients up to float32 rounding.
@@ -48,7 +52,7 @@ import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models.materials import MatType
-from raytracer0_tpu_torch.ops import cuda_build, lighting
+from raytracer0_tpu_torch.ops import cuda_build, lighting, textures
 from raytracer0_tpu_torch.render import integrator
 
 #: K1 launches since import (or since a caller reset it to 0).
@@ -82,6 +86,9 @@ _ARGTYPES = (
     _c_int, _c_int, _c_int,                       # sample_lights, use_mis, sky
     _c_void_p, _c_int, _c_int,                    # cubemap, its height, width
     _c_int, _c_int,                               # use_cubemap, use_biased
+    _c_void_p, _c_void_p,                         # tex codes, blend flags
+    _c_void_p, _c_int, _c_int,                    # images, their height, width
+    _c_void_p, _c_int, _c_int,                    # noise LUT, its size, use_tex
     _c_void_p,                                    # stream
 )
 _BWD_ARGTYPES = (
@@ -107,9 +114,9 @@ def scene_table(scene):
 
 
 def smem_bytes(scene) -> int:
-    """Dynamic shared memory of one block: the table, two code arrays and
-    the light slots."""
-    return 4 * (scene.num_meshes * _NCOLS + 2 * scene.num_meshes
+    """Dynamic shared memory of one K1 block: the table, the mesh and
+    material codes, the light slots, the texture codes and blend flags."""
+    return 4 * (scene.num_meshes * _NCOLS + 4 * scene.num_meshes
                 + scene.num_lights)
 
 
@@ -132,8 +139,9 @@ def bwd_slots(cfg: RenderConfig) -> int:
 
 
 def bwd_smem_bytes(scene, threads: int) -> int:
-    """Dynamic shared memory of one K2 block: K1's, plus `threads` columns
-    of 10 cotangent accumulators per mesh."""
+    """Dynamic shared memory of one K2 block, at most: K1's (K2 leaves out
+    the texture codes), plus `threads` columns of 10 cotangent
+    accumulators per mesh."""
     return smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
 
 
@@ -153,7 +161,8 @@ _K2_ITEM = "ROADMAP queue 1 item 14"
 def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
     """What of (scene, cfg) K2's adjoint does not model: it replays DIFF
     bounces with cosine sampling, sphere-light NEE and the procedural sky
-    (every slot that does not end a path is diffuse, `bwd_slots`)."""
+    (every slot that does not end a path is diffuse, `bwd_slots`), and
+    untextured colors and emissions."""
     if any(m not in _K2_MATS for m in scene.mat_types_static):
         return f"SPEC/REFR/COAT/DIR_LIGHT materials: {_K2_ITEM}"
     for slot, li in enumerate(scene.lights_static):
@@ -161,6 +170,8 @@ def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
             return f"light slots that are not LIGHT spheres: {_K2_ITEM}"
     if cfg.use_cubemap:
         return f"cubemap environments (texel cotangents): {_K2_ITEM}"
+    if textures.blended(scene):
+        return f"textures blended into color or emission: {_K2_ITEM}"
     if not cfg.use_biased_sampling:
         return f"uniform hemisphere sampling: {_K2_ITEM}"
     return None
@@ -169,7 +180,8 @@ def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
     class narrowed to the Cornell class K2 models (DIFF and LIGHT
-    materials, LIGHT-sphere slots, no cubemap, cosine sampling), a stash of
+    materials, no blended texture, LIGHT-sphere slots, no cubemap, cosine
+    sampling), a stash of
     at most MAX_SLOTS slots, and accumulators that fit the shared memory of
     a block of 32 threads."""
     reason = unsupported(scene, cfg) or _outside_k2_class(scene, cfg)
@@ -217,6 +229,18 @@ def _codes(scene):
             scene.light_idx.to(torch.int32).contiguous())
 
 
+def _tex_args(scene, device):
+    """K1's texture arguments: the TexType codes, the blend flags (bit 0
+    color, bit 1 emission), the images and the noise LUT, checked."""
+    images, lut = scene.images, scene.noise
+    _check("images", images, torch.float32, (4,) + tuple(images.shape[1:3]) + (4,), device)
+    _check("noise", lut, torch.float32, (lut.shape[0], lut.shape[0], 4), device)
+    tex = scene.tex_type.to(torch.int32).contiguous()
+    opts = scene.opts.to(torch.int32)
+    blend = (opts[:, 0] + 2 * opts[:, 1]).contiguous()
+    return (tex, blend, images, lut)
+
+
 def _cfg_args(cfg: RenderConfig, pass_idx, sample_idx):
     return (int(pass_idx) & 0xFFFFFFFF, int(sample_idx) & 0xFFFFFFFF,
             cfg.max_bounces, cfg.max_diff_bounces, cfg.max_spec_bounces,
@@ -232,6 +256,7 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
     cube = scene.cubemap
     _check("cubemap", cube, torch.float32, (6,) + tuple(cube.shape[1:3]) + (3,),
            ro.device)
+    tex, blend, images, lut = _tex_args(scene, ro.device)
     out = torch.empty_like(ro)
     fn, _ = build()
     with torch.cuda.device(ro.device):
@@ -241,7 +266,10 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
                 ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), out.data_ptr(),
                 h * w, *_cfg_args(cfg, pass_idx, sample_idx),
                 cube.data_ptr(), cube.shape[1], cube.shape[2],
-                int(cfg.use_cubemap), int(cfg.use_biased_sampling), stream)
+                int(cfg.use_cubemap), int(cfg.use_biased_sampling),
+                tex.data_ptr(), blend.data_ptr(), images.data_ptr(),
+                images.shape[1], images.shape[2], lut.data_ptr(), lut.shape[0],
+                int(textures.blended(scene)), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -313,8 +341,10 @@ def trace_forward(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
     `ro`, `rd`: f32[H, W, 3] primary rays; `pix`: int64[H, W] pixel ids
     (uint32 values); `pass_idx`, `sample_idx`: ints.  CPU tensors take the
     plain version (`integrator.trace`).  CUDA tensors launch K1; when a
-    gradient is needed (the scene's parameters, `ro` or `rd` require grad)
-    the call is recorded as `_TraceCore` and its backward launches K2.
+    gradient is needed (the scene's parameters, its images, noise LUT or
+    cubemap, `ro` or `rd` require grad) the call is recorded as
+    `_TraceCore` and its backward launches K2, or it raises when K2 does
+    not cover the scene.
     """
     if ro.device.type == "cpu":
         return integrator.trace(scene, cfg, ro, rd, pix, pass_idx, sample_idx)
@@ -332,8 +362,8 @@ def trace_forward(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         raise ValueError(f"scene is on {scene.device}, rays on {dev}")
 
     table = scene_table(scene)
-    if torch.is_grad_enabled() and (table.requires_grad or ro.requires_grad
-                                    or rd.requires_grad):
+    inputs = (table, ro, rd, scene.images, scene.noise, scene.cubemap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         reason = unsupported_bwd(scene, cfg)
         if reason is not None:
             raise NotImplementedError(f"K2 does not cover this scene: {reason}")

@@ -9,6 +9,8 @@ kernel (`ops/megakernel.py`), pixel for pixel:
 
   * miss → environment (cubemap or procedural sky), suppressed for
     non-specular paths under NEE
+  * the texel of the hit (image, UV-pattern and noise textures) blended
+    into its color and emission
   * emissive termination with the BSDF-side MIS weight from `prev_nl`;
     DIR_LIGHT surfaces end the path
   * the BSDF dispatch (DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT)
@@ -39,6 +41,7 @@ from raytracer0_tpu_torch.ops import intersect as isect
 from raytracer0_tpu_torch.ops import lighting
 from raytracer0_tpu_torch.ops import sampling as smp
 from raytracer0_tpu_torch.ops import sky
+from raytracer0_tpu_torch.ops import textures as tex
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 _ANALYTIC = (int(MeshType.SPHERE), int(MeshType.PLANE), int(MeshType.BOX))
@@ -48,8 +51,8 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
     The class: analytic SPHERE/PLANE/BOX meshes, every surface material
-    (the IOR taken as |ior|), no textures, sphere and directional light
-    slots, cosine-weighted or uniform sampling, a cubemap, the procedural
+    (the IOR taken as |ior|), textures of all ten types, sphere and
+    directional light slots, cosine-weighted or uniform sampling, a cubemap, the procedural
     sky or no environment, static accumulation.  (SDF-bound light slots
     need SDF meshes, which item 8 adds.)
     """
@@ -61,8 +64,6 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
         return "ANIMATED render mode: ROADMAP queue 1 item 12"
     if scene.num_sdfs or any(t not in _ANALYTIC for t in scene.mesh_types_static):
         return "SDF meshes and SDF-bound lights: ROADMAP queue 1 item 8"
-    if scene.tex_types_used:
-        return "textures: ROADMAP queue 1 item 9"
     if any(li >= scene.num_meshes for li in scene.lights_static):
         return "a light slot names no mesh of the scene"
     return None
@@ -75,6 +76,22 @@ def _light_pdf_mesh(scene, idx, x):
     pdf_sphere = smp.sphere_light_pdf(scene.pos[idx], scene.joker[idx][..., 0], x)
     return torch.where(is_sphere, pdf_sphere,
                        torch.full_like(pdf_sphere, 1.0 / smp.FOUR_PI))
+
+
+def hit_color_emission(scene, hit):
+    """The hit mesh's color and emission, its texel blended in where the
+    mesh's options ask for it, floored at 0.001 (raytracer.glsl:2071, 2077)."""
+    mat_c = scene.color[hit.idx]
+    mat_e = scene.emission[hit.idx]
+    if not scene.tex_types_used:
+        return torch.clamp_min(mat_c, 0.001), torch.clamp_min(mat_e, 0.001)
+    texel = tex.get_texel(scene, hit.idx, hit.uv, hit.pos)
+    opts = scene.opts[hit.idx]
+    blend_c = opts[..., 0].to(torch.float32) * texel[..., 3]
+    blend_e = opts[..., 1].to(torch.float32) * texel[..., 3]
+    c = vm.mix(mat_c, texel[..., :3] * scene.tex_cmask[hit.idx], blend_c[..., None])
+    e = vm.mix(mat_e, texel[..., :3] * scene.tex_emask[hit.idx], blend_e[..., None])
+    return torch.clamp_min(c, 0.001), torch.clamp_min(e, 0.001)
 
 
 def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
@@ -116,9 +133,7 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         active = active & ~missed
         surface = surface & ~hit.missed
 
-        # ---- color / emission (2071, 2077): no textures in this class ----
-        c = torch.clamp_min(scene.color[hit.idx], 0.001)
-        e = torch.clamp_min(scene.emission[hit.idx], 0.001)
+        c, e = hit_color_emission(scene, hit)
 
         inside = -torch.sign(vm.vdot(d, hit.n))
         inside = torch.where(inside == 0.0, torch.ones_like(inside), inside)
@@ -160,12 +175,15 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
             env_dir = smp.random_direction(new_prev_nl, eu1, eu2,
                                            cfg.use_biased_sampling)
             env_hit = isect.intersect(scene, hit.pos + new_prev_nl * cfg.epsilon,
-                                      env_dir, cfg, need_normal=False)
+                                      env_dir, cfg, need_normal=False, need_uv=False)
             env_rad = sky.sample_cubemap(scene.cubemap, env_dir)
             acc = acc + vm.where3(diffuse_lane & env_hit.missed,
                                   mask_after * env_rad, torch.zeros_like(acc))
 
         # ---- NEE on diffuse bounces (1899-1976) ----
+        # NEE reads the light row's untextured color and emission, as the
+        # JAX integrator does: a textured emitter is textured only where a
+        # BSDF-sampled ray hits it
         if cfg.sample_lights:
             nee = lighting.sample_lights_nee(
                 scene, cfg, hit.pos, new_prev_nl, mask_after,

@@ -1,7 +1,7 @@
 """K1 and its adjoint K2 on the GPU against their plain versions on the
 same card: K1 on the Cornell class and on the widened class (mirror, glass
-and coat, directional lights, cubemaps, uniform sampling), K2 on the
-Cornell class, and the refusal of gradients outside K2's class.
+and coat, directional lights, cubemaps, uniform sampling, textures), K2 on
+the Cornell class, and the refusal of gradients outside K2's class.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -21,16 +21,20 @@ import pytest
 import torch
 
 from raytracer0_tpu_torch import rng
+from raytracer0_tpu_torch.config import OFFLINE_CONFIG
+from raytracer0_tpu_torch.models import materials, presets
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
-from raytracer0_tpu_torch.models.materials import MeshType
+from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import megakernel
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
+
+from test_torch_texture_scenes import SCENE_VIEWS
 
 pytestmark = pytest.mark.cuda
 
@@ -74,17 +78,18 @@ def test_kernel_matches_plain(cuda, h, w, kw):
 
 
 def test_kernel_raises_outside_the_class(cuda):
-    scene = parse_scene("""
-        MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
-        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
-        MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
-    """, device=cuda)
+    sb = SceneBuilder()
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    sb.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
+    sb.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
+           sdf_shape=SdfShape.ROUND_BOX)
+    scene = sb.build(device=cuda)
     _, cam, cfg = cornell_default(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 8"):
         megakernel.trace_forward(scene, cfg, ro, rd,
                                  rng.pixel_ids(8, 8, device=cuda), 0, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 8"):
         Renderer(scene, cam, cfg, 8, 8).step()
 
 
@@ -272,4 +277,70 @@ def test_gradient_outside_k2_class_launches_nothing(cuda):
     with pytest.raises(NotImplementedError, match="item 14"):
         render_pass(scene.replace(emission=em), cam, cfg,
                     RenderState.create(8, 8, device=cuda), 8, 8)
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before
+
+
+TEXTURED = ["textured_cornell", "textured_gloss", "textured_emitter", "cornell_box",
+            "procedural", "gradient_noise", "check_sphere"]
+
+
+def _textured(where, dev):
+    """(scene, camera, cfg) of a textured preset or of a scene of
+    tests/test_torch_texture_scenes.py."""
+    if where in SCENE_VIEWS:
+        make, (origin, lookat, fov), kw = SCENE_VIEWS[where]
+        return (make(SceneBuilder, materials, device=dev),
+                Camera.make(origin=origin, lookat=lookat, fov=fov, device=dev),
+                OFFLINE_CONFIG.replace(**kw))
+    return getattr(presets, where)(device=dev)
+
+
+@pytest.mark.parametrize("where", TEXTURED)
+def test_textured_kernel_matches_plain(cuda, where):
+    """K1 with textures of all ten types, one launch, at 16x128 and 3
+    bounces: the parity contract; gradient noise, whose sin hash amplifies
+    any ULP by which two sin routines differ 43758x, in mean and
+    standard deviation (tests/test_megakernel.py:277-278)."""
+    scene, cam, cfg = _textured(where, cuda)
+    cfg = cfg.replace(max_bounces=min(cfg.max_bounces, 3))
+    h, w = 16, 128
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    out = megakernel.trace_forward(scene, cfg, ro, rd, pix, 2, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    if where == "gradient_noise":
+        assert abs(out.mean() - ref.mean()).item() < 0.02 * ref.mean().item()
+        assert abs(out.std() - ref.std()).item() < 0.05 * ref.std().item()
+    else:
+        _parity(out, ref)
+
+
+def test_textured_render_goes_through_kernel_only(cuda):
+    """Renderer(textured_cornell) launches K1 once per pass and K2 never;
+    the textured sphere's pixels vary."""
+    scene, cam, cfg = presets.textured_cornell(device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    img = Renderer(scene, cam, cfg, 32, 48).render(3)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 3, before[1])
+    assert img.shape == (32, 48, 3) and bool(torch.isfinite(img).all())
+    assert img.mean().item() > 0.05
+
+
+def test_gradient_through_textures_launches_nothing(cuda):
+    """A gradient through a textured scene on the card raises before K1 or
+    K2 is launched (K2 models no texture, ROADMAP queue 1 item 14)."""
+    scene, cam, cfg = presets.textured_cornell(device=cuda)
+    ro, rd = generate_rays(cam, 8, 8, 0)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    for leaf in ("color", "images"):
+        s = scene.replace(**{leaf: getattr(scene, leaf).clone().requires_grad_(True)})
+        with pytest.raises(NotImplementedError, match="textures.*item 14"):
+            megakernel.trace_forward(s, cfg, ro, rd, rng.pixel_ids(8, 8, device=cuda), 0, 0)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before

@@ -165,7 +165,7 @@ def test_kernel_class_checks_on_cpu():
     assert tmk.bwd_slots(cfg) == 5            # 4 diffuse bounces + the last hit
     assert tmk.bwd_slots(cfg.replace(max_bounces=3)) == 3
     assert tmk.bwd_threads(ts) == 128
-    assert tmk.bwd_smem_bytes(ts, 128) == 4 * (8 * 36 + 2 * 8 + 1) + 4 * 8 * 10 * 128
+    assert tmk.bwd_smem_bytes(ts, 128) == 4 * (8 * 36 + 4 * 8 + 1) + 4 * 8 * 10 * 128
     assert tmk.unsupported_bwd(ts, cfg) is None
     deep = cfg.replace(max_bounces=40, max_diff_bounces=30)
     assert "stash" in tmk.unsupported_bwd(ts, deep)

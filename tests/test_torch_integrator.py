@@ -97,9 +97,9 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_plain_raises_outside_the_class():
     """What the port does not render yet raises, naming its ROADMAP item:
-    SDF meshes (8), textures (9), spectral transport (10), ReSTIR (11).
-    Mirrors, glass, coats, directional lights, cubemaps and uniform
-    sampling are inside the class."""
+    SDF meshes (8), spectral transport (10), ReSTIR (11).  Mirrors, glass,
+    coats, directional lights, cubemaps, uniform sampling and textures are
+    inside the class."""
     sdf = SceneBuilder()
     sdf.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sdf.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
@@ -114,9 +114,10 @@ def test_plain_raises_outside_the_class():
     ro = torch.zeros(2, 2, 3)
     rd = torch.zeros(2, 2, 3)
     rd[..., 2] = -1.0
-    for scene, item in [(sdf, "8"), (textured, "9")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-            tint.trace(scene, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        tint.trace(sdf, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
+    assert tint.unsupported(textured, cfg) is None
+    assert tint.trace(textured, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0).shape == (2, 2, 3)
     ts, _, _ = tpresets.cornell_default(device="cpu")
     for kw, item in [(dict(use_restir=True), "11"), (dict(use_spectral=True), "10"),
                      (dict(use_volumetrics=True), "10")]:

@@ -31,9 +31,11 @@ import pytest
 import torch
 
 from raytracer0_tpu_torch import rng
+from raytracer0_tpu_torch.config import OFFLINE_CONFIG
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays
 from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import MeshType
+from raytracer0_tpu_torch.models import materials, presets
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
@@ -293,3 +295,54 @@ def test_host_widened_forward_matches_plain(kernels_on_cpu, where, kw):
     assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
         err.max().item()
     assert ref.max().item() > 0.1
+
+
+def textured_case(where):
+    """(scene, camera, cfg) of a textured preset or of a scene of
+    tests/test_torch_texture_scenes.py (procedural types, gradient noise,
+    a CHECK sphere)."""
+    from test_torch_texture_scenes import SCENE_VIEWS
+
+    if where in SCENE_VIEWS:
+        make, (origin, lookat, fov), kw = SCENE_VIEWS[where]
+        cam = Camera.make(origin=origin, lookat=lookat, fov=fov, device="cpu")
+        return make(SceneBuilder, materials, device="cpu"), cam, OFFLINE_CONFIG.replace(**kw)
+    return getattr(presets, where)(device="cpu")
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("textured_cornell", dict(max_bounces=5, use_mis=True)),
+    ("textured_gloss", dict(max_bounces=5)),
+    ("textured_emitter", dict(max_bounces=4, use_mis=True)),
+    ("cornell_box", dict(max_bounces=6)),
+    ("procedural", dict(max_bounces=4)),
+    ("procedural", dict(max_bounces=3, sample_lights=False)),
+    ("gradient_noise", dict(max_bounces=2)),
+    ("check_sphere", dict(max_bounces=3)),
+])
+def test_host_textured_forward_matches_plain(kernels_on_cpu, where, kw):
+    """K1 with textures of all ten types (image texels on color, emission
+    and glossiness; UV patterns on planes and spheres; the noise types),
+    one launch, against the plain version under the parity contract; on
+    gradient noise, whose sin hash amplifies the ULP by which the host's
+    sinf and torch's sin may differ 43758x, in mean and standard deviation
+    (tests/test_megakernel.py:277-278)."""
+    scene, cam, cfg = textured_case(where)
+    cfg = cfg.replace(**kw)
+    assert megakernel.unsupported(scene, cfg) is None
+    h, w = 16, 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene),
+                                     ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    if where == "gradient_noise":
+        assert abs(out.mean() - ref.mean()).item() < 0.02 * ref.mean().item()
+        assert abs(out.std() - ref.std()).item() < 0.05 * ref.std().item()
+    else:
+        assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+            err.max().item()

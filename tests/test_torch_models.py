@@ -83,6 +83,21 @@ def test_from_arrays_matches_jax():
         np.testing.assert_array_equal(getattr(tc, k).numpy(), v)
 
 
+@pytest.mark.parametrize("name", ["cornell_box", "textured_cornell", "textured_gloss",
+                                  "textured_emitter"])
+def test_textured_presets_match_jax(name):
+    """The textured presets build the JAX package's scene (images, noise
+    LUT, texture codes, params, masks and options), and `from_arrays`
+    carries the JAX scene across unchanged."""
+    js, jc, jcfg = getattr(jpresets, name)()
+    ts, tc, tcfg = getattr(tpresets, name)(device="cpu")
+    assert_scene_equal(ts, js)
+    assert_scene_equal(Scene.from_arrays(_scene_arrays(js), _scene_static(js), "cpu"), js)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    np.testing.assert_allclose(tc.origin.numpy(), np.asarray(jc.origin), rtol=0, atol=0)
+    assert ts.tex_types_used and any(c or e for c, e in ts.opts_static)
+
+
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(row0=8, full_height=48),

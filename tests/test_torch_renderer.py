@@ -83,8 +83,7 @@ def test_route():
         MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
     """, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tren._route("cuda", textured, cfg)
+    assert tren._route("cuda", textured, cfg) == "kernel"   # textures: K1 (item 9)
     with pytest.raises(NotImplementedError, match="item 11"):
         tren._route("cuda", scene, cfg.replace(use_restir=True))
     animated = cfg.replace(render_mode=RenderMode.ANIMATED)
