@@ -8,9 +8,10 @@ Run from the repository root:
 Phases (each prints readable lines; any failure raises and exits non-zero):
 
 1. requires a CUDA device; prints `nvidia-smi`'s name and power limit;
-2. builds the forward megakernel K1 and its adjoint K2 from
-   `raytracer0_tpu_torch/csrc/` with nvcc, both at once (or loads them from
-   `build/kernels/`), and prints the build times and ptxas' register lines;
+2. builds the forward megakernel K1, its adjoint K2 and the fused ReSTIR
+   kernel K6 from `raytracer0_tpu_torch/csrc/` with nvcc, all at once (or
+   loads them from `build/kernels/`), and prints the build times and
+   ptxas' register, stack and spill lines;
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -73,7 +74,29 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
 14. times K1 and the plain version on `textured_cornell` and
    `textured_gloss` at 512x512 with 12 bounces (CUDA events, and K1's
    device time from torch.profiler), and prints their path events and
-   K1's bound.
+   K1's bound;
+15. holds K1 with the SDF march against its plain version on the card, on
+   `mis_demo` and on `restir_demo`'s geometry with per-light NEE, at 16x128
+   with 3 bounces (parity contract) and at 512x512 with 12 bounces and 128
+   marching steps (golden contract), printing the differing pixels (0
+   expected) and the max error; prints Cornell's and `mis_demo`'s K1
+   device time (`k1_device_time.py`), times K1 and the plain version on
+   `mis_demo` and prints its path events and K1's bound; checks that a
+   gradient through `mis_demo` raises before any launch;
+16. holds K6 against the plain `restir.render_sample` on the card, on
+   `restir_demo` and `restir_stress`, each threading its own reservoir
+   ring: passes 0-11 at 16x128 with 3 bounces and passes 0-3 at 512x512
+   with 12 bounces, under JAX's fused-versus-wavefront contract
+   (tests/test_restir.py:312-352) at every pass, printing the differing
+   pixels;
+17. drives the ReSTIR main path, `Renderer(*restir_demo()).render(16)` at
+   512x512: 16 K6 launches and no K1 or K2 launch, populated reservoirs
+   (max M > 0, max W <= 12, the share of pixels holding a light), a
+   finite image whose mean lies within 1/9..2x of the per-light-NEE
+   render's (tests/test_restir.py:94-129); times a pass (CUDA events) and
+   K6 (CUDA events and profiler) and the plain version's pass; prints K6's
+   path events and bound; checks that a gradient through `restir_demo`
+   raises before any launch.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -151,6 +174,26 @@ OPS_UV = {0: 14, 1: 9, 2: 9}  # UV of a sphere (asin, atan2), a plane, a box
 OPS_TEXEL = {0: 50, 1: 50, 2: 50, 3: 50, 4: 737, 5: 399, 6: 51, 7: 9, 8: 13, 9: 170}
 TEX_UV = (0, 1, 2, 3, 7, 8)   # the image and pattern types read a UV
 TEX_LUT = (4, 6, 9)           # Voronoi, value noise and metal read the LUT
+# SDF march, per SDF entry and per ray: one distance evaluation, the
+# bounding-sphere gate; per step besides the evaluation; per marched ray the
+# first and the final evaluation's point; the 4-tap normal of an SDF hit
+OPS_SDF_EVAL = 20
+OPS_SDF_GATE = 33
+OPS_MARCH_STEP = 11
+OPS_MARCH_RAY = 12
+OPS_SDF_NORMAL = 139
+# K6's reservoir vertex (csrc/restir.cu): the material's BRDF weight, one
+# candidate (draws, slot, target function, update), one temporal and one
+# spatial combine (validity, target function, merge; the tap's gates),
+# visibility (direction, origin; its shadow ray counted apart), finalize,
+# and the shading of the selected light (its shadow ray counted apart)
+OPS_RESTIR_BRDF = 19
+OPS_CANDIDATE = 50
+OPS_TEMPORAL = 87
+OPS_SPATIAL = 97
+OPS_VISIBILITY = 19
+OPS_FINALIZE = 64
+OPS_SHADE = 120
 # extra operations of a BSDF sample by material code, on top of OPS_DIFFUSE
 OPS_BSDF = {2: 0, 3: OPS_REFLECT, 4: OPS_REFLECT + OPS_REFRACT + OPS_FRESNEL,
             5: OPS_REFLECT + OPS_REFRACT + OPS_SCHLICK, 6: OPS_REFLECT + OPS_SCHLICK}
@@ -264,18 +307,24 @@ def textured_scenes(dev):
     return cases
 
 
-def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
+def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None):
     """Events of every pixel's path, counted over the image: rays by mesh
     scan, BSDF samples by material and by outcome (diffuse, specular,
     transmitted), shadow rays to sphere and to directional lights, gather
     rays, cubemap fetches, emissive hits (and those with a MIS weight),
-    procedural-sky misses, and texels by texture type and UVs by mesh type
-    (at hits on meshes that blend a texture).  Replays K1's decisions with
-    the plain version's functions (`bsdf.sample`,
-    `integrator.hit_color_emission` among them), which make the same ones
-    bit for bit."""
+    procedural-sky misses, texels by texture type and UVs by mesh type
+    (at hits on meshes that blend a texture), and in scenes with SDF meshes
+    the rays that test the SDF bounds (`gated`), the marched rays and
+    their steps, and the SDF hits.  With `ring` (the RenderState of a
+    ReSTIR pass, as K6 runs it) a diffuse vertex runs the reservoir
+    pipeline (`vertices`, each with two shadow rays) in place of NEE.
+    Replays the kernels' decisions with the plain version's functions
+    (`bsdf.sample`, `integrator.hit_color_emission`, `sdf.march_loop`,
+    `restir.reservoir_direct` among them), which make the same ones bit
+    for bit."""
     from raytracer0_tpu_torch import rng
-    from raytracer0_tpu_torch.ops import bsdf, intersect, lighting, sampling, vecmath
+    from raytracer0_tpu_torch.ops import (bsdf, intersect, lighting, restir, sampling,
+                                          sdf, vecmath)
     from raytracer0_tpu_torch.render import integrator
 
     n = ro.shape[:-1].numel()
@@ -283,7 +332,24 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
     n_sphere, n_dir = kinds.count("sphere"), kinds.count("dir")
     ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0,
               gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
+              gated=0, marched=0, march_steps=0, sdf_hits=0, vertices=0,
               bsdf={}, texel={}, uv={})
+    marches, march_loop = [], sdf.march_loop
+
+    def counted(*args):
+        out = march_loop(*args)
+        marches.append(out[3])
+        return out
+
+    def march_work(sel):
+        """Count the march work of the rays traced since the last call, in
+        the lanes of `sel`."""
+        for steps in marches:
+            ev["gated"] += int(sel.sum())
+            ev["marched"] += int((sel & (steps > 0)).sum())
+            ev["march_steps"] += int(steps[sel].sum())
+        marches.clear()
+
     blends = scene.tex_type.ne(-1) & (scene.opts[:, 0] | scene.opts[:, 1])
     o, d = ro, rd
     shape = ro.shape[:-1]
@@ -291,83 +357,109 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx):
     active = torch.ones(shape, dtype=torch.bool, device=ro.device)
     specular = active.clone()
     counts = [torch.zeros(shape, dtype=torch.int32, device=ro.device) for _ in range(3)]
-    for depth in range(cfg.max_bounces):
-        hit = intersect.intersect(scene, o, d, cfg)
-        mat = scene.mat_type[hit.idx]
-        missed = active & hit.missed
-        is_light = active & ~hit.missed & (mat == 0)
-        is_dir = active & ~hit.missed & (mat == 1)
-        surf = active & ~hit.missed & ~is_light & ~is_dir
-        ev["rays"] += int(active.sum())
-        ev["miss"] += int(missed.sum())
-        env = int((missed & (specular | (not cfg.sample_lights))).sum())
-        if cfg.use_cubemap:
-            ev["fetch"] += env
-        elif cfg.use_procedural_sky:
-            ev["sky"] += env
-        ev["light"] += int(is_light.sum())
-        ev["dir_hit"] += int(is_dir.sum())
-        if cfg.use_mis and cfg.sample_lights and depth > 0:
-            ev["light_mis"] += int((is_light & ~specular).sum())
-        for code in torch.unique(mat[surf]).tolist():
-            ev["bsdf"][code] = ev["bsdf"].get(code, 0) + int((surf & (mat == code)).sum())
-        textured = active & ~hit.missed & blends[hit.idx]
-        ttype, mtype = scene.tex_type[hit.idx], scene.mesh_type[hit.idx]
-        for code in torch.unique(ttype[textured]).tolist():
-            sel = textured & (ttype == code)
-            ev["texel"][code] = ev["texel"].get(code, 0) + int(sel.sum())
-            if code in TEX_UV:
-                for m in torch.unique(mtype[sel]).tolist():
-                    ev["uv"][m] = ev["uv"].get(m, 0) + int((sel & (mtype == m)).sum())
-        c, e = integrator.hit_color_emission(scene, hit)
-        inside = torch.where(vecmath.vdot(d, hit.n) > 0.0, -1.0, 1.0)
-        u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
-        uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
-        bs = bsdf.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
-        diffuse = surf & ~bs.specular
-        transmit = surf & (bs.scatter_inc > 0)
-        ev["diffuse"] += int(diffuse.sum())
-        ev["transmit"] += int(transmit.sum())
-        ev["specular"] += int((surf & bs.specular & ~transmit).sum())
-        n_diffuse = int(diffuse.sum())
-        if cfg.sample_lights:
-            ev["shadow"] += n_diffuse * n_sphere
-            if not cfg.use_mis:
-                ev["shadow_dir"] += n_diffuse * n_dir
-        if cfg.use_cubemap:
+    sdf.march_loop = counted
+    try:
+        for depth in range(cfg.max_bounces):
+            hit = intersect.intersect(scene, o, d, cfg)
+            march_work(active)
+            mat = scene.mat_type[hit.idx]
+            missed = active & hit.missed
+            is_light = active & ~hit.missed & (mat == 0)
+            is_dir = active & ~hit.missed & (mat == 1)
+            surf = active & ~hit.missed & ~is_light & ~is_dir
+            ev["rays"] += int(active.sum())
+            ev["miss"] += int(missed.sum())
+            ev["sdf_hits"] += int((active & ~hit.missed & (hit.idx >= scene.num_analytic)).sum())
+            env = int((missed & (specular | (not cfg.sample_lights))).sum())
+            if cfg.use_cubemap:
+                ev["fetch"] += env
+            elif cfg.use_procedural_sky:
+                ev["sky"] += env
+            ev["light"] += int(is_light.sum())
+            ev["dir_hit"] += int(is_dir.sum())
+            if cfg.use_mis and cfg.sample_lights and depth > 0:
+                ev["light_mis"] += int((is_light & ~specular).sum())
+            for code in torch.unique(mat[surf]).tolist():
+                ev["bsdf"][code] = ev["bsdf"].get(code, 0) + int((surf & (mat == code)).sum())
+            textured = active & ~hit.missed & blends[hit.idx]
+            ttype, mtype = scene.tex_type[hit.idx], scene.mesh_type[hit.idx]
+            for code in torch.unique(ttype[textured]).tolist():
+                sel = textured & (ttype == code)
+                ev["texel"][code] = ev["texel"].get(code, 0) + int(sel.sum())
+                if code in TEX_UV:
+                    for m in torch.unique(mtype[sel]).tolist():
+                        ev["uv"][m] = ev["uv"].get(m, 0) + int((sel & (mtype == m)).sum())
+            c, e = integrator.hit_color_emission(scene, hit)
+            inside = torch.where(vecmath.vdot(d, hit.n) > 0.0, -1.0, 1.0)
             nl = hit.n * inside[..., None]
-            eu1, eu2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.ENV_DIR)
-            env_dir = sampling.random_direction(nl, eu1, eu2, cfg.use_biased_sampling)
-            env_hit = intersect.intersect(scene, hit.pos + nl * cfg.epsilon, env_dir, cfg,
-                                          need_normal=False)
-            ev["gather"] += n_diffuse
-            ev["fetch"] += int((diffuse & env_hit.missed).sum())
-        sel = surf[..., None]
-        o = torch.where(sel, bs.o, o)
-        d = torch.where(sel, bs.d, d)
-        mask = torch.where(sel, mask * bs.mask_mult, mask)
-        specular = torch.where(surf, bs.specular, specular)
-        for k, inc in enumerate((bs.diff_inc, bs.spec_inc, bs.scatter_inc)):
-            counts[k] = counts[k] + torch.where(surf, inc, 0)
-        capped = ((counts[0] >= cfg.max_diff_bounces) | (counts[1] >= cfg.max_spec_bounces)
-                  | (counts[2] >= cfg.max_scattering_events))
-        active = surf & ~(mask.amax(-1) < 0.01) & ~capped
-        if not bool(active.any()):
-            break
+            u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
+            uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
+            bs = bsdf.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
+            diffuse = surf & ~bs.specular
+            transmit = surf & (bs.scatter_inc > 0)
+            ev["diffuse"] += int(diffuse.sum())
+            ev["transmit"] += int(transmit.sum())
+            ev["specular"] += int((surf & bs.specular & ~transmit).sum())
+            n_diffuse = int(diffuse.sum())
+            if cfg.use_cubemap:
+                eu1, eu2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.ENV_DIR)
+                env_dir = sampling.random_direction(nl, eu1, eu2, cfg.use_biased_sampling)
+                env_hit = intersect.intersect(scene, hit.pos + nl * cfg.epsilon, env_dir, cfg,
+                                              need_normal=False)
+                march_work(diffuse)
+                ev["gather"] += n_diffuse
+                ev["fetch"] += int((diffuse & env_hit.missed).sum())
+            if ring is not None:
+                restir.reservoir_direct(
+                    scene, cfg, ring.restir_back.fields(),
+                    [ring.restir_hist1.fields(), ring.restir_hist2.fields()], hit.pos, nl,
+                    hit.idx, pix, pass_idx, sample_idx, depth, height=shape[0], width=shape[1])
+                march_work(diffuse)
+                ev["vertices"] += n_diffuse
+            elif cfg.sample_lights:
+                if scene.num_sdfs:   # the shadow rays' march work
+                    lighting.sample_lights_nee(scene, cfg, hit.pos, nl, mask, pix, pass_idx,
+                                               sample_idx, depth)
+                    march_work(diffuse)
+                ev["shadow"] += n_diffuse * n_sphere
+                if not cfg.use_mis:
+                    ev["shadow_dir"] += n_diffuse * n_dir
+            sel = surf[..., None]
+            o = torch.where(sel, bs.o, o)
+            d = torch.where(sel, bs.d, d)
+            mask = torch.where(sel, mask * bs.mask_mult, mask)
+            specular = torch.where(surf, bs.specular, specular)
+            for k, inc in enumerate((bs.diff_inc, bs.spec_inc, bs.scatter_inc)):
+                counts[k] = counts[k] + torch.where(surf, inc, 0)
+            capped = ((counts[0] >= cfg.max_diff_bounces) | (counts[1] >= cfg.max_spec_bounces)
+                      | (counts[2] >= cfg.max_scattering_events))
+            active = surf & ~(mask.amax(-1) < 0.01) & ~capped
+            if not bool(active.any()):
+                break
+    finally:
+        sdf.march_loop = march_loop
     ev["pixels"] = n
     return ev
 
 
-def bound(ev, scene, cfg, adjoint):
-    """(bound_ms, bound_by) of K1 (or K2 when `adjoint`) for these events:
-    the larger of the bytes over the HBM rate and the float operations over
-    the float32 rate.  The bytes are each input read once (rays, pixel ids,
-    the scene table and, where this run reads them, the whole cubemap, the
-    images and the noise LUT) and each output written once.  K2 replays each slot's forward and runs its
-    adjoint, which takes at least as many operations, on top of a forward
-    sweep without NEE."""
-    types = [int(t) for t in scene.mesh_types_static]
+def bound(ev, scene, cfg, adjoint, restir=False):
+    """(bound_ms, bound_by) of K1 (or K2 when `adjoint`, K6 when `restir`)
+    for these events: the larger of the bytes over the HBM rate and the
+    float operations over the float32 rate.  The bytes are each input read
+    once (rays, pixel ids, the scene table and, where this run reads them,
+    the whole cubemap, the images and the noise LUT; K6's three reservoir
+    grids) and each output written once (K6's new reservoirs too).  K2
+    replays each slot's forward and runs its adjoint, which takes at least
+    as many operations, on top of a forward sweep without NEE.  K6 runs
+    K1's sweep with the reservoir vertex and its two shadow rays in place
+    of NEE."""
+    types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
+    n_sdf = scene.num_sdfs
+    march = (ev["gated"] * n_sdf * OPS_SDF_GATE
+             + ev["marched"] * (2 * (OPS_MARCH_RAY + n_sdf * OPS_SDF_EVAL))
+             + ev["march_steps"] * (OPS_MARCH_STEP + n_sdf * OPS_SDF_EVAL)
+             + ev["sdf_hits"] * n_sdf * OPS_SDF_NORMAL)
     nee = OPS_NEE + (OPS_NEE_MIS if cfg.use_mis else 0)
     samples = sum(ev["bsdf"].values())
     hits = samples + ev["light"] + ev["dir_hit"]
@@ -377,13 +469,22 @@ def bound(ev, scene, cfg, adjoint):
            + ev["gather"] * (per_ray + OPS_GATHER) + ev["fetch"] * OPS_FETCH
            + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS
            + sum(k * (OPS_TEXEL[code] + OPS_BLEND) for code, k in ev["texel"].items())
-           + sum(k * OPS_UV[m] for m, k in ev["uv"].items()))
+           + sum(k * OPS_UV[m] for m, k in ev["uv"].items()) + march)
+    if restir:
+        n_lights = scene.num_lights
+        n_cand = min(cfg.restir_samples, max(4, n_lights))
+        n_spatial = 8 if n_lights <= 10 else 4
+        fwd += ev["vertices"] * (OPS_RESTIR_BRDF + n_cand * OPS_CANDIDATE + 2 * OPS_TEMPORAL
+                                 + n_spatial * OPS_SPATIAL + OPS_VISIBILITY + OPS_FINALIZE
+                                 + OPS_SHADE + 2 * per_ray)
     table = 4 * scene.num_meshes * 36
     assets = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
     assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
     assets += 4 * scene.noise.numel() if any(t in TEX_LUT for t in ev["texel"]) else 0
     px = ev["pixels"]
-    if adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
+    if restir:    # ro, rd, pix, three reservoir grids in; radiance, reservoirs out
+        ops, nbytes = fwd, px * (12 + 12 + 8 + 3 * 20 + 12 + 44) + table
+    elif adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
         ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
     else:         # ro, rd, pix, table, cubemap, images, LUT in; radiance out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + assets
@@ -412,7 +513,11 @@ def device_times_ms(prof, names):
 
 
 def main() -> int:
+    import time
+
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -428,7 +533,11 @@ def main() -> int:
         from raytracer0_tpu_torch.ops import bsdf, intersect, sky
         from raytracer0_tpu_torch.ops import megakernel
         from raytracer0_tpu_torch.render import integrator
-        from raytracer0_tpu_torch.render.renderer import Renderer, sample_radiance
+        from raytracer0_tpu_torch.models import presets
+        from raytracer0_tpu_torch.ops import restir, restir_kernel
+        from raytracer0_tpu_torch.render.renderer import Renderer, render_pass, sample_radiance
+        from raytracer0_tpu_torch.render.state import RenderState
+        from k1_device_time import k1_device_ms
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
@@ -444,11 +553,12 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build both kernels at once ----
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd)]
+    # ---- phase 2: build the three kernels at once ----
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
+                  pool.submit(restir_kernel.build)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2"), infos):
+    for name, info in zip(("K1", "K2", "K6"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -908,6 +1018,182 @@ def main() -> int:
               + f", profiler), plain {tex_plain_ms[name]:.3f} ms; bound "
               f"{tex_bound[name][0]:.6f} ms ({tex_bound[name][1]})")
 
+    # ---- phase 15: K1 with the SDF march against its plain version ----
+    r_scene, r_cam, r_cfg = presets.restir_demo(device=dev)
+    sdf_cases = {"mis_demo": presets.mis_demo(device=dev),
+                 "restir_demo_nee": (r_scene, r_cam, r_cfg.replace(use_restir=False))}
+    sdf_err = {}
+    for name, (s15, c15, cfg15) in sdf_cases.items():
+        if megakernel.unsupported(s15, cfg15) is not None:
+            raise AssertionError(f"{name}: expected inside K1's class")
+        for h, w, nb, tol, frac in ((16, 128, 3, PARITY_TOL, PARITY_FRAC),
+                                    (H, W, cfg15.max_bounces, GOLDEN_TOL, GOLDEN_FRAC)):
+            c = cfg15.replace(max_bounces=nb)
+            ro15, rd15 = generate_rays(c15, h, w, 1)
+            pix15 = rng.pixel_ids(h, w, device=dev)
+            before = megakernel.LAUNCHES
+            out = megakernel.trace_forward(s15, c, ro15, rd15, pix15, 1, 0)
+            ref = integrator.trace(s15, c, ro15, rd15, pix15, 1, 0)
+            torch.cuda.synchronize()
+            if megakernel.LAUNCHES != before + 1:
+                raise AssertionError(f"{name}: expected one K1 launch")
+            if not bool(torch.isfinite(out).all()) or not ref.max().item() > 0.02:
+                raise AssertionError(f"{name}: K1 output not finite, or the plain one dark")
+            n_diff = int((out != ref).any(dim=-1).sum())
+            print(f"phase 15: {name} {h}x{w}, {nb} bounces, {c.marching_steps} marching steps: "
+                  f"{n_diff} of {h * w} pixels differ from the plain version")
+            sdf_err[(name, h)] = compare(f"{name} {h}x{w}, {nb} bounces", out, ref, tol, frac,
+                                         phase=15)
+    del out, ref
+    k1_dev = k1_device_ms(("cornell_default", "mis_demo"), dev)
+    print(f"phase 15: {card}: K1 device time at {H}x{W}, 12 bounces (k1_device_time.py, "
+          "median of 5 rounds of 20 launches): "
+          + ", ".join(f"{k} {v[0]:.5f} ms (rounds {[round(x, 5) for x in v[1]]})"
+                      for k, v in k1_dev.items()))
+    m_scene, m_cam, m_cfg = sdf_cases["mis_demo"]
+    ro15, rd15 = generate_rays(m_cam, H, W, 0)
+    pix15 = rng.pixel_ids(H, W, device=dev)
+    ms_sdf = time_ms(torch, lambda: megakernel.trace_forward(m_scene, m_cfg, ro15, rd15, pix15, 0, 0))
+    plain_ms_sdf = time_ms(torch, lambda: integrator.trace(m_scene, m_cfg, ro15, rd15, pix15, 0, 0),
+                           runs=3, warmup=1)
+    ev15 = path_events(torch, m_scene, m_cfg, ro15, rd15, pix15, 0, 0)
+    sdf_bound, sdf_by = bound(ev15, m_scene, m_cfg, adjoint=False)
+    print(f"phase 15: path events of mis_demo at {H}x{W}: {json.dumps(ev15)}")
+    print(f"phase 15: {card}: mis_demo trace at {H}x{W}, {m_cfg.max_bounces} bounces: K1 "
+          f"{ms_sdf:.3f} ms, plain {plain_ms_sdf:.3f} ms; bound {sdf_bound:.6f} ms ({sdf_by})")
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    em = m_scene.emission.clone().requires_grad_(True)
+    try:
+        sample_radiance(m_scene.replace(emission=em), m_cfg, m_cam, 16, 16, 0)
+    except NotImplementedError as exc:
+        print(f"phase 15: a gradient through mis_demo raises NotImplementedError: {exc}")
+    else:
+        raise AssertionError("a gradient through mis_demo did not raise")
+    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
+        raise AssertionError("the refused SDF gradient launched a kernel")
+
+    # ---- phase 16: K6 against the plain restir.render_sample ----
+    def restir_contract(name, out, ref, new, new_ref):
+        """JAX's fused-versus-wavefront contract (tests/test_restir.py:312-352);
+        returns the radiance's max abs error."""
+        err = (out - ref).abs()
+        agree = new.light_index == new_ref.light_index
+        field_err = max((getattr(new, k)[agree] - getattr(new_ref, k)[agree]).abs().max().item()
+                        for k in ("weight_sum", "m", "w", "age", "light_pos", "light_color"))
+        n_diff = int((out != ref).any(dim=-1).sum())
+        mx, med, share = err.max().item(), err.median().item(), agree.float().mean().item()
+        print(f"phase 16: {name}: radiance max abs err {mx:.3e}, median {med:.3e}, "
+              f"{n_diff} pixels differ; light index agrees at {share:.5f}; reservoir fields "
+              f"max abs err {field_err:.3e} where it does; {int((new.light_index >= 0).sum())} "
+              "pixels hold a light")
+        if not (mx < 5e-3 and med < 1e-6 and share >= 0.995 and field_err <= 1e-4):
+            raise AssertionError(f"{name}: K6 disagrees with the plain render_sample")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: K6 radiance is not finite")
+        return mx
+
+    k6_err = {}
+    for name, kw in (("restir_demo", {}), ("restir_stress", {})):
+        s16, c16, cfg16 = getattr(presets, name)(device=dev, **kw)
+        if restir_kernel.unsupported_restir(s16, cfg16) is not None:
+            raise AssertionError(f"{name}: expected inside K6's class")
+        for h, w, nb, n_pass in ((16, 128, 3, 12), (H, W, cfg16.max_bounces, 4)):
+            c = cfg16.replace(max_bounces=nb)
+            kernel_ring = RenderState.create(h, w, device=dev)
+            plain_ring = RenderState.create(h, w, device=dev)
+            for p in range(n_pass):
+                before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES)
+                out, new = restir_kernel.render_sample_fused(s16, c, c16, kernel_ring, h, w, p)
+                ref, new_ref = restir.render_sample(s16, c, c16, plain_ring, h, w, p)
+                torch.cuda.synchronize()
+                if (restir_kernel.LAUNCHES, megakernel.LAUNCHES) != (before[0] + 1, before[1]):
+                    raise AssertionError("expected one K6 launch and no K1 launch per pass")
+                k6_err[(name, h, p)] = restir_contract(
+                    f"{name} {h}x{w}, {nb} bounces, pass {p}", out, ref, new, new_ref)
+                kernel_ring = kernel_ring.rotate_reservoirs(new)
+                plain_ring = plain_ring.rotate_reservoirs(new_ref)
+    del out, ref, kernel_ring, plain_ring
+    k6_max_err = max(v for (name, h, p), v in k6_err.items() if h == H and name == "restir_demo")
+
+    # ---- phase 17: the ReSTIR main path ----
+    restir_kernel.LAUNCHES = megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    r_renderer = Renderer(r_scene, r_cam, r_cfg, H, W)
+    img = r_renderer.render(PASSES)
+    torch.cuda.synchronize()
+    launches_k6, k1_restir, k2_restir = (restir_kernel.LAUNCHES, megakernel.LAUNCHES,
+                                         megakernel.BWD_LAUNCHES)
+    res = r_renderer.state.restir_back
+    held = (res.light_index >= 0).float().mean().item()
+    print(f"phase 17: Renderer(*restir_demo()).render({PASSES}) at {H}x{W}: {launches_k6} K6 "
+          f"launches, {k1_restir} K1 launches, {k2_restir} K2 launches; max M "
+          f"{res.m.max().item():.4f}, max W {res.w.max().item():.4f}, share of pixels holding "
+          f"a light {held:.5f}")
+    if (launches_k6, k1_restir, k2_restir) != (PASSES, 0, 0):
+        raise AssertionError(f"expected {PASSES} K6 and no K1 or K2 launches")
+    if not (res.m.max().item() > 0.0 and res.w.max().item() <= 12.0 and held > 0.1):
+        raise AssertionError("the reservoirs are not populated")
+    accum_restir = r_renderer.state.accum / PASSES
+    nee_renderer = Renderer(r_scene, r_cam, r_cfg.replace(use_restir=False), H, W)
+    for _ in range(PASSES):
+        nee_renderer.step()
+    torch.cuda.synchronize()
+    m_restir = accum_restir.mean().item()
+    m_nee = (nee_renderer.state.accum / PASSES).mean().item()
+    print(f"phase 17: mean radiance over {PASSES} passes: ReSTIR {m_restir:.6f}, per-light NEE "
+          f"{m_nee:.6f}, ratio {m_restir / m_nee:.4f} (1/9..2 expected, tests/test_restir.py:94-129)")
+    if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the ReSTIR image is not finite f32[{H},{W},3]")
+    if not (m_nee > 0.003 and 1.0 / 9.0 < m_restir / m_nee < 2.0):
+        raise AssertionError("the ReSTIR image's mean is off the per-light NEE render's")
+    del accum_restir, nee_renderer
+
+    ms_restir_pass = time_stats(torch, r_renderer.step)
+    ro17, rd17 = generate_rays(r_cam, H, W, PASSES)
+    pix17 = rng.pixel_ids(H, W, device=dev)
+    st = r_renderer.state
+    k6_call = lambda: restir_kernel.trace_forward_restir_fused(
+        r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, st.restir_back, st.restir_hist1,
+        st.restir_hist2)
+    ms_k6 = time_ms(torch, k6_call)
+    plain_restir = time_stats(torch, lambda: restir.render_sample(
+        r_scene, r_cfg, r_cam, st, H, W, PASSES), runs=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            k6_call()
+        torch.cuda.synchronize()
+    dev17, _ = device_times_ms(prof, ("restir_kernel",))
+    k6_dev_ms = None if dev17["restir_kernel"] is None else dev17["restir_kernel"] / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            r_renderer.step()
+        torch.cuda.synchronize()
+    pass_dev, pass_total = device_times_ms(prof, ("restir_kernel",))
+    ev17 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, ring=st)
+    k6_bound, k6_by = bound(ev17, r_scene, r_cfg, adjoint=False, restir=True)
+    print(f"phase 17: path events of a restir_demo pass at {H}x{W}: {json.dumps(ev17)}")
+    print(f"phase 17: {card}: restir_demo at {H}x{W}, {r_cfg.max_bounces} bounces, "
+          f"{r_cfg.marching_steps} marching steps: pass (Renderer.step) {ms_restir_pass[0]:.3f} ms "
+          f"(q1 {ms_restir_pass[1]:.3f}, q3 {ms_restir_pass[2]:.3f}); K6 {ms_k6:.3f} ms per launch "
+          "(device " + ("not measured" if k6_dev_ms is None else f"{k6_dev_ms:.4f} ms")
+          + ", profiler); in a pass K6 "
+          + ("not measured" if pass_dev["restir_kernel"] is None else
+             f"{pass_dev['restir_kernel'] / 3:.4f} ms of {pass_total / 3:.4f} ms on the device")
+          + f"; plain render_sample {plain_restir[0]:.3f} ms per pass; bound {k6_bound:.6f} ms "
+          f"({k6_by})")
+
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES)
+    em = r_scene.emission.clone().requires_grad_(True)
+    try:
+        render_pass(r_scene.replace(emission=em), r_cam, r_cfg, RenderState.create(16, 16, dev),
+                    16, 16)
+    except NotImplementedError as exc:
+        print(f"phase 17: a gradient through restir_demo raises NotImplementedError: {exc}")
+    else:
+        raise AssertionError("a gradient through restir_demo did not raise")
+    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES) != before:
+        raise AssertionError("the refused ReSTIR gradient launched a kernel")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+
     common = dict(route="cuda", library_ms=None)
     print(json.dumps({"kernels": [
         {"name": "K1 forward megakernel", **common,
@@ -921,7 +1207,11 @@ def main() -> int:
          "bound_ms": k1_bound, "bound_by": k1_by,
          "ms_config2": k1_ms["config2"], "device_ms_config2": k1_dev_ms["config2"],
          "plain_ms_config2": plain_ms["config2"], "bound_ms_config2": k1_bound9["config2"][0],
-         "max_abs_err_config2": widened_err[("config2", H)]},
+         "max_abs_err_config2": widened_err[("config2", H)],
+         "max_abs_err_mis_demo": sdf_err[("mis_demo", H)],
+         "ms_mis_demo": ms_sdf, "device_ms_mis_demo": k1_dev["mis_demo"][0],
+         "plain_ms_mis_demo": plain_ms_sdf, "bound_ms_mis_demo": sdf_bound,
+         "device_ms_cornell_alone": k1_dev["cornell_default"][0]},
         {"name": "K2 adjoint megakernel", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2545",
@@ -947,6 +1237,12 @@ def main() -> int:
          "plain_ms": tex_plain_ms["textured_cornell"],
          "bound_ms": tex_bound["textured_cornell"][0],
          "bound_by": tex_bound["textured_cornell"][1]},
+        {"name": "K6 fused ReSTIR forward", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:2880",
+         "launches": launches_k6, "max_abs_err": k6_max_err, "ms": ms_k6,
+         "device_ms": k6_dev_ms, "plain_ms": plain_restir[0], "bound_ms": k6_bound,
+         "bound_by": k6_by},
         {"name": "K11 gloss suffix-resume forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3969",

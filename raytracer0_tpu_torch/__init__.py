@@ -3,9 +3,10 @@
 A port of `raytracer0_tpu` (JAX, XLA and Pallas) that keeps its layout and
 names, so each module here has its counterpart at the same path there.
 Plain tensor code is PyTorch; the Pallas megakernels become CUDA C++
-kernels written for Hopper, the forward K1 (`csrc/megakernel.cu`) and its
-adjoint K2 (`csrc/megakernel_bwd.cu`), built with `nvcc` on first use and
-bound with `ctypes`.
+kernels written for Hopper, the forward K1 (`csrc/megakernel.cu`), its
+adjoint K2 (`csrc/megakernel_bwd.cu`) and the fused ReSTIR forward K6
+(`csrc/restir.cu`, sharing K1's bounce loop in `csrc/path.cuh`), built
+with `nvcc` on first use and bound with `ctypes`.
 
 The JAX package stays the reference.  Nothing here imports it or `jax`:
 the port keeps its own copies of the two pure-Python modules it needs,
@@ -18,20 +19,22 @@ Layout:
   config.py    — RenderConfig and the two budget sets
   rng.py       — the counter RNG on int64 tensors (bit-identical draws)
   models/      — scene dataclass, DSL, camera, presets
-  ops/         — vecmath, intersect, sampling, bsdf, lighting, sky,
-                 tonemap, megakernel (the autograd pairing of the CUDA
-                 forward kernel K1 and its adjoint K2)
+  ops/         — vecmath, intersect, sdf, sampling, bsdf, lighting, sky,
+                 textures, noise, tonemap, restir (the reservoir pipeline),
+                 megakernel (the autograd pairing of the CUDA forward
+                 kernel K1 and its adjoint K2), restir_kernel (K6)
   render/      — integrator (plain bounce loop), renderer, state
   optimize.py  — inverse rendering: fit scene parameters with Adam
   csrc/        — CUDA C++ sources of the kernels
 
-The forward pass covers analytic primitives with every surface material
-(DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT), sphere and directional
-lights with optional MIS, cosine or uniform sampling, and a cubemap or the
-procedural sky.  Gradients cover that class on the CPU (plain autograd)
-and its Cornell subset on CUDA (K2: DIFF and LIGHT materials, sphere
-lights, no cubemap, cosine sampling).  Other features raise
-NotImplementedError naming the ROADMAP item that adds them.
+The forward pass covers analytic primitives and BOX/ROUND_BOX SDF meshes
+with every surface material (DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT),
+textures, sphere and directional lights with optional MIS, cosine or
+uniform sampling, a cubemap or the procedural sky, and ReSTIR over
+sphere lights.  Gradients cover that class but ReSTIR on the CPU (plain
+autograd) and its analytic Cornell subset on CUDA (K2: DIFF and LIGHT
+materials, sphere lights, no cubemap, cosine sampling).  Other features
+raise NotImplementedError naming the ROADMAP item that adds them.
 """
 
 from raytracer0_tpu_torch.config import (  # noqa: F401

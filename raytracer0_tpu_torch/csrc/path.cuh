@@ -1,0 +1,214 @@
+// path.cuh — the bounce loop of one path, shared by the forward megakernel K1
+// (megakernel.cu) and the fused ReSTIR kernel K6 (restir.cu).
+//
+// `trace_path` is the plain version's `integrator.trace` for one pixel:
+// environment on a miss, the texel of the hit, emissive termination with the
+// BSDF-side MIS weight, the BSDF dispatch, the cubemap gather ray, the
+// direct light of a diffuse vertex, the luminance cutoff and the bounce caps.
+// The two kernels differ only in the direct light of a diffuse vertex, which
+// the caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K6 the
+// reservoir pipeline.  `kSdf` compiles the SDF march into the intersections;
+// K1 builds a copy without it for scenes without SDF meshes.
+
+#pragma once
+
+#include "trace_common.cuh"
+
+namespace {
+
+// One BSDF sample (ops/bsdf.py::sample) for a hit of material `mat`.
+struct Bounce {
+  V3 o, d, mult;   // next origin and direction, throughput multiplier
+  bool specular;   // NEE and the gather ray skip specular bounces
+  int dif, spec, scat;  // bounce-counter increments
+};
+
+__device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x, V3 nl, V3 d, V3 c,
+                                              V3 e, float inside, float u1, float u2, float uc,
+                                              float eps, bool biased) {
+  const int mat = s.mat[idx];
+  const V3 rand_dir = random_direction(nl, u1, u2, biased);
+  Bounce b = {x + nl * eps, rand_dir, c, false, 1, 0, 0};  // DIFF
+  if (mat == MAT_DIFF) return b;
+  // emission doubles as glossiness: e >= 0.001, so a mirror keeps a little
+  const V3 rough = e * rand_dir;
+  const V3 refl = normalize(rough + reflect(d, nl));
+  const V3 one = {1.0f, 1.0f, 1.0f};
+  if (mat == MAT_SPEC) {
+    b.d = refl;
+    b.specular = true;
+    b.dif = 0;
+    b.spec = 1;
+    return b;
+  }
+  const float nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+  if (mat == MAT_REFR_FRESNEL || mat == MAT_REFR_SCHLICK) {
+    const float nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
+    bool tir;
+    const V3 tdir = normalize(rough + refract(d, nl, nnt, tir));
+    const float re = mat == MAT_REFR_FRESNEL ? fresnel(d, nl, IOR_AIR, nt, tdir)
+                                             : schlick(d, nl, IOR_AIR, nt);
+    b.specular = true;
+    b.dif = 0;
+    if (tir || uc < re) {  // reflect
+      b.d = refl;
+      b.mult = one;
+      b.spec = 1;
+    } else {               // transmit: SCATTERING_EVENTS, as the reference counts it
+      b.o = x - nl * eps;
+      b.d = tdir;
+      b.scat = 1;
+    }
+    return b;
+  }
+  // COAT: specular by Schlick, else diffuse
+  if (uc < schlick(d, nl, IOR_AIR, nt)) {
+    b.d = refl;
+    b.mult = one;
+    b.specular = true;
+    b.dif = 0;
+    b.spec = 1;
+  }
+  return b;
+}
+
+// What K1 and K6 keep in shared memory after load_scene()'s part (K2's view
+// of the scene is unchanged): the texture codes and blend flags of the
+// meshes and the SDF rows' shapes.
+struct PathSmem {
+  const int *tex, *blend;
+  SdfScene sd;
+};
+
+// Bytes of shared memory load_path() fills, load_scene()'s included.
+__host__ __device__ inline size_t path_smem_bytes(int n_mesh, int n_lights, int n_sdf) {
+  return scene_smem_bytes(n_mesh, n_lights) + sizeof(int) * (2 * n_mesh + n_sdf);
+}
+
+// Copy the scene, the texture codes and the SDF shapes into shared memory.
+// Every thread of the block must call it: it ends with __syncthreads().
+__device__ __forceinline__ PathSmem load_path(const TraceArgs &a, float *smem, SceneSmem &s) {
+  int *s_tex = reinterpret_cast<int *>(smem) + scene_smem_bytes(a.n_mesh, a.n_lights) / sizeof(int);
+  int *s_blend = s_tex + a.n_mesh;
+  int *s_sdf = s_blend + a.n_mesh;
+  for (int i = threadIdx.x; i < a.n_mesh; i += blockDim.x) {
+    s_tex[i] = a.tex[i];
+    s_blend[i] = a.blend[i];
+  }
+  for (int i = threadIdx.x; i < a.n_sdf; i += blockDim.x) s_sdf[i] = a.sdf[i];
+  s = load_scene(a, smem);
+  return {s_tex, s_blend, {s_sdf, a.n_analytic, a.n_sdf, a.steps, a.fudge, a.t0}};
+}
+
+// The radiance of pixel `p`'s path.  At each diffuse vertex (hit point x,
+// oriented normal nl, mesh idx, RNG key h_depth) it adds
+// direct(x, nl, idx, h_depth) * throughput.
+template <bool kSdf, class Direct>
+__device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps,
+                                         long long p, Direct &direct) {
+  V3 o = {a.ro[3 * p], a.ro[3 * p + 1], a.ro[3 * p + 2]};
+  V3 d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
+  const uint32_t h_pix = pixel_hash(a, p);
+
+  V3 mask = {1.0f, 1.0f, 1.0f};
+  V3 acc = {0.0f, 0.0f, 0.0f};
+  bool specular = true;  // primary rays count as specular
+  V3 prev_nl = {0.0f, 1.0f, 0.0f};
+  int ndif = 0, nspec = 0, nscat = 0;
+
+  // A path leaves the loop when it ends: every later bounce would be a no-op.
+  for (int depth = 0; depth < a.max_bounces; ++depth) {
+    float tmin;
+    int idx;
+    const bool sdf_hit = intersect_scene<kSdf>(s, ps.sd, o, d, a.eps, a.inf, tmin, idx);
+
+    // ---- miss: environment, suppressed for non-specular paths under NEE ----
+    if (!(tmin < a.inf)) {
+      if (specular || !a.sample_lights) {
+        if (a.use_cubemap)
+          acc = acc + mask * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, d);
+        else if (a.use_sky)
+          acc = acc + mask * procedural_sky(d);
+      }
+      break;
+    }
+
+    V3 x = o + d * tmin;
+    // an SDF hit's normal is the field's gradient; SDF rows carry no texture
+    V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+    V3 c = s.c(idx);
+    V3 e = s.e(idx);
+    // ---- textured color / emission: the texel's alpha blends it in ----
+    if (a.use_tex && ps.blend[idx]) {
+      const V4 t = get_texel(ps.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
+                             a.img_w, a.noise, a.noise_n);
+      const V3 tc = {t.x, t.y, t.z};
+      const float bc = (ps.blend[idx] & 1) ? t.w : 0.0f, be = (ps.blend[idx] & 2) ? t.w : 0.0f;
+      const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
+      c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
+      e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
+    }
+    c = vmax(c, 0.001f);
+    e = vmax(e, 0.001f);
+    float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
+
+    // ---- emissive hit: BSDF-side MIS weight from prev_nl, terminate ----
+    const int mat = s.mat[idx];
+    if (mat == MAT_LIGHT) {
+      float mis_w = 1.0f;
+      if (a.use_mis && a.sample_lights && depth > 0 && !specular) {
+        V3 light_dir = normalize(x - o);
+        float l_pdf = s.mesh[idx] == MESH_SPHERE ? sphere_light_pdf(s.p(idx), s.j0(idx), o)
+                                                 : INV_FOUR_PI;
+        float b_pdf = fmaxf(dot(light_dir, prev_nl), 0.0f) * ONE_OVER_PI;
+        mis_w = power_heuristic(b_pdf, l_pdf);
+      }
+      acc = acc + mask * c * e * mis_w;
+      break;
+    }
+
+    // a DIR_LIGHT surface has no BSDF: the path ends
+    if (mat == MAT_DIR_LIGHT) break;
+
+    // ---- BSDF sample ----
+    const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
+    const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
+    const V3 nl = n * inside;
+    const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
+                                 u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+    const V3 mask_after = mask * b.mult;
+
+    if (!b.specular) {
+      // ---- cubemap gather ray on the diffuse vertex ----
+      if (a.use_cubemap) {
+        const uint32_t h_env = fold_step(h_depth, S_ENV_DIR, 4u);
+        const V3 env_dir = random_direction(nl, u01(h_env), u01(pcg(h_env)), a.use_biased);
+        float te;
+        int ie;
+        intersect_scene<kSdf>(s, ps.sd, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
+        if (!(te < a.inf))
+          acc = acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
+      }
+      // ---- direct light on the diffuse vertex ----
+      if (a.sample_lights) acc = acc + direct(x, nl, idx, h_depth) * mask_after;
+    }
+
+    // ---- commit ----
+    o = b.o;
+    d = b.d;
+    mask = mask_after;
+    specular = b.specular;
+    prev_nl = nl;
+    ndif += b.dif;
+    nspec += b.spec;
+    nscat += b.scat;
+
+    // ---- luminance cutoff + per-type caps ----
+    if (fmaxf(fmaxf(mask.x, mask.y), mask.z) < 0.01f || ndif >= a.max_diff ||
+        nspec >= a.max_spec || nscat >= a.max_scatter)
+      break;
+  }
+  return acc;
+}
+
+}  // namespace

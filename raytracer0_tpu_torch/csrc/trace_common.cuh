@@ -1,11 +1,12 @@
 // trace_common.cuh — device code shared by the forward megakernel K1
-// (megakernel.cu) and its adjoint K2 (megakernel_bwd.cu): vec3 helpers, the
-// counter RNG, the scene in shared memory, intersection, normals, direction
-// sampling, reflection, refraction and the Fresnel models, the MIS pdfs, the
-// procedural sky, the cubemap fetch, sphere/directional-light NEE, and the
-// texel of a hit (image, UV-pattern and noise textures, K1 only).
+// (megakernel.cu), its adjoint K2 (megakernel_bwd.cu) and the fused ReSTIR
+// kernel K6 (restir.cu): vec3 helpers, the counter RNG, the scene in shared
+// memory, intersection, normals, direction sampling, reflection, refraction
+// and the Fresnel models, the MIS pdfs, the procedural sky, the cubemap
+// fetch, sphere/directional-light NEE, the texel of a hit (image,
+// UV-pattern and noise textures) and the SDF march (K1 and K6 only).
 //
-// Both kernels compile these functions from this one copy with the same
+// The kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the
 // same decisions, bit for bit, as K1 and as the plain PyTorch version
 // (raytracer0_tpu_torch/render/integrator.py::trace).
@@ -30,6 +31,7 @@ constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13, C_TP = 26, C_
 
 // raytracer0_tpu_torch/models/materials.py codes
 constexpr int MESH_SPHERE = 0, MESH_PLANE = 1, MESH_BOX = 2;
+constexpr int SDF_ROUND_BOX = 1;  // SdfShape codes: BOX 0, ROUND_BOX 1
 constexpr int MAT_LIGHT = 0, MAT_DIR_LIGHT = 1, MAT_DIFF = 2, MAT_SPEC = 3, MAT_REFR_FRESNEL = 4,
               MAT_REFR_SCHLICK = 5, MAT_COAT = 6;
 constexpr int TEX_IMAGE3 = 3, TEX_VORONOI = 4, TEX_GRADIENT_NOISE = 5, TEX_VALUE_NOISE = 6,
@@ -65,6 +67,10 @@ struct TraceArgs {
   const float *noise;      // [noise_n, noise_n, 4] value-noise LUT
   int noise_n;
   int use_tex;             // some mesh blends a texture
+  const int32_t *sdf;      // [n_sdf] SdfShape codes of the SDF rows
+  int n_analytic, n_sdf;   // SDF rows follow the analytic ones
+  int steps;               // cfg.marching_steps
+  float fudge, t0;         // cfg.fudge_factor, f32(cfg.epsilon * 4)
 };
 
 // ------------------------------------------------------------------ vec3
@@ -185,6 +191,108 @@ __device__ __forceinline__ void intersect(const SceneSmem &s, V3 o, V3 d, float 
       idx = i;
     }
   }
+}
+
+// ------------------------------------------------------------------ SDF
+// ops/sdf.py for the BOX and ROUND_BOX shapes, operation for operation.
+struct SdfScene {
+  const int *shape;  // [count] SdfShape codes, in shared memory
+  int first, count;  // first SDF row (the analytic rows come first), SDF rows
+  int steps;         // marching steps
+  float fudge, t0;   // step scale, start of the march
+};
+
+// Distance of SDF row `row` (sdf.sd_box / sdf.ud_round_box at p - pos).
+__device__ __forceinline__ float sdf_entry(const SceneSmem &s, int row, int shape, V3 p) {
+  const V3 q = p - s.p(row);
+  const float *j = s.col(row, C_J0);
+  const float dx = fabsf(q.x) - j[0], dy = fabsf(q.y) - j[1], dz = fabsf(q.z) - j[2];
+  const V3 m = {fmaxf(dx, 0.0f), fmaxf(dy, 0.0f), fmaxf(dz, 0.0f)};
+  const float len = sqrtf(fmaxf(dot(m, m), 0.0f));
+  if (shape == SDF_ROUND_BOX) return len - j[3];
+  return len + fminf(fmaxf(fmaxf(dx, dy), dz), 0.0f);
+}
+
+// sdf.scene_map: the nearest entry's distance and ordinal (first on a tie).
+__device__ __forceinline__ float sdf_map(const SceneSmem &s, const SdfScene &sd, V3 p, int &k) {
+  float best = sdf_entry(s, sd.first, sd.shape[0], p);
+  k = 0;
+  for (int i = 1; i < sd.count; ++i) {
+    const float d = sdf_entry(s, sd.first + i, sd.shape[i], p);
+    if (d < best) k = i;
+    best = fminf(d, best);
+  }
+  return best;
+}
+
+// sdf.march_loop: sphere tracing from t0 up to `tl`, one thread per ray.
+// A ray that enters no entry's bounding sphere within [0, tl] cannot
+// converge there and is a miss; the loop stops as soon as the ray is
+// within eps of a surface or past tl, which gives the plain version's t,
+// since a lane that is done no longer moves.  Returns whether the ray hit
+// (t <= tl), with its t and the ordinal of the entry nearest to it.
+__device__ __forceinline__ bool sdf_march(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
+                                          float tl, float eps, float &t_out, int &k_out) {
+  bool can_hit = false;
+  for (int i = 0; i < sd.count; ++i) {
+    const int row = sd.first + i;
+    const float *j = s.col(row, C_J0);
+    const float norm3 = sqrtf(j[0] * j[0] + j[1] * j[1] + j[2] * j[2]);
+    const float rb = sd.shape[i] == SDF_ROUND_BOX ? norm3 * 1.05f + fabsf(j[3]) + 0.05f
+                                                  : norm3 * 1.05f + 0.05f;
+    const V3 oc = o - s.p(row);
+    const float b = dot(oc, d);
+    const float cq = dot(oc, oc) - rb * rb;
+    const float disc = b * b - cq;
+    const float sq = safe_sqrt(disc);
+    can_hit = can_hit || (disc > 0.0f && -b + sq > 0.0f && -b - sq < tl);
+  }
+  if (!can_hit) return false;
+  float t = sd.t0;
+  int k;
+  bool done = fabsf(sdf_map(s, sd, o + d * t, k)) < eps;
+  for (int step = 0; step < sd.steps - 1 && !done; ++step) {
+    const float h = fabsf(sdf_map(s, sd, o + d * t, k));
+    if (h < eps || t > tl)
+      done = true;
+    else
+      t = t + h * sd.fudge;
+  }
+  sdf_map(s, sd, o + d * t, k_out);  // the entry at the settled t
+  t_out = t;
+  return t <= tl;
+}
+
+// sdf.calc_normal: the tetrahedral 4-tap gradient.
+__device__ __forceinline__ V3 sdf_normal(const SceneSmem &s, const SdfScene &sd, V3 p, float eps) {
+  const V3 taps[4] = {{1.0f, -1.0f, -1.0f}, {-1.0f, -1.0f, 1.0f}, {-1.0f, 1.0f, -1.0f},
+                      {1.0f, 1.0f, 1.0f}};
+  V3 n = {0.0f, 0.0f, 0.0f};
+  int k;
+  for (int i = 0; i < 4; ++i) n = n + taps[i] * sdf_map(s, sd, p + taps[i] * eps, k);
+  return normalize(n);
+}
+
+// intersect.intersect: the analytic hit, then the SDF march up to it (up to
+// `inf` when nothing analytic is hit); the SDF wins where strictly nearer.
+// Returns whether it won.  kSdf = false is the analytic intersection alone.
+template <bool kSdf>
+__device__ __forceinline__ bool intersect_scene(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
+                                                float eps, float inf, float &tmin, int &idx) {
+  intersect(s, o, d, eps, tmin, idx);
+  if constexpr (kSdf) {
+    if (sd.count > 0) {
+      const float tl = tmin < inf ? tmin : inf;
+      float ts;
+      int k;
+      if (sdf_march(s, sd, o, d, tl, eps, ts, k) && ts < tl) {
+        tmin = ts;
+        idx = sd.first + k;
+        return true;
+      }
+    }
+  }
+  return false;
 }
 
 // Geometric normal of mesh `idx` at `x` (ops/intersect.py::parse_hit).
@@ -520,8 +628,9 @@ __device__ __forceinline__ V4 get_texel(int t, int mesh, const float *tp, V3 x, 
 // by a uniform cone; a directional light (its pos is the direction) is lit
 // where the occlusion ray escapes, and under MIS its weight is 0 (its light
 // pdf is 0), so it adds nothing; any other slot adds nothing.
-__device__ V3 shade_nee(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, float eps, float inf,
-                        bool use_mis) {
+template <bool kSdf>
+__device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, V3 x, V3 nl, uint32_t h_depth,
+                        float eps, float inf, bool use_mis) {
   V3 total = {0.0f, 0.0f, 0.0f};
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
@@ -531,7 +640,7 @@ __device__ V3 shade_nee(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, float
       V3 lp = s.p(li);
       float ts;
       int hidx;
-      intersect(s, x + nl * eps, normalize(lp), eps, ts, hidx);
+      intersect_scene<kSdf>(s, sd, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
       if (ts < inf) continue;  // occluded
       total = total + s.c(li) * s.e(li) * fmaxf(dot(lp, nl), 0.001f);
       continue;
@@ -548,7 +657,7 @@ __device__ V3 shade_nee(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, float
     V3 sr = sample_cone(ldir, 1.0f - cos_a_max, u1, u2);
     float ts;
     int hidx;
-    intersect(s, x + nl * eps, sr, eps, ts, hidx);
+    intersect_scene<kSdf>(s, sd, x + nl * eps, sr, eps, inf, ts, hidx);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_term = fmaxf(dot(sr, nl), 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);

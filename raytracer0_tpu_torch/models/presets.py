@@ -1,10 +1,11 @@
 """Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
-`cornell_box`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
+`cornell_box`, `mis_demo`, `restir_demo`, `restir_stress`,
+`textured_cornell`, `textured_gloss`, `cubemap_demo` and
 `textured_emitter`).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
-items 8 and 10-11).
+items 8, 10 and 12).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from raytracer0_tpu_torch.config import OFFLINE_CONFIG, RenderConfig
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
-from raytracer0_tpu_torch.models.materials import TEX_1, Material, MatType, MeshType
+from raytracer0_tpu_torch.models.materials import TEX_1, Material, MatType, MeshType, SdfShape
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 
 
@@ -58,6 +59,96 @@ def cornell_box(device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)
     return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def mis_demo(device="cuda", **cfg_kw):
+    """Preset 4 (index.html:878-908): tiny light occluded by an SDF box —
+    the classic NEE/MIS stress case."""
+    scene = parse_scene("""
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.8, 0.0), vec4(0.05)
+        MAT_WHITE, SDF, vec3(0.0, 1.0, 0.0), vec4(0.8, 0.1, 0.8, 0.0)
+    """, sdf_shapes=[SdfShape.BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=90.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+_RESTIR_9_LIGHTS = """
+    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+    MAT_LIGHT_4, SPHERE, vec3(-0.8, 1.8, -0.8), vec4(0.03)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(0.8, 1.8, -0.8), vec4(0.03)
+    MAT_LIGHT_HALOGEN_4, SPHERE, vec3(-0.8, 1.8, 0.8), vec4(0.03)
+    MAT_LIGHT_4, SPHERE, vec3(0.8, 1.8, 0.8), vec4(0.03)
+    MAT_LIGHT_4, SPHERE, vec3(0.0, 1.8, 0.0), vec4(0.02)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(-0.4, 1.6, -0.4), vec4(0.02)
+    MAT_LIGHT_HALOGEN_4, SPHERE, vec3(0.4, 1.6, -0.4), vec4(0.02)
+    MAT_LIGHT_4, SPHERE, vec3(-0.4, 1.6, 0.4), vec4(0.02)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(0.4, 1.6, 0.4), vec4(0.02)
+    MAT_REFR_CLEAR, SPHERE, vec3(-0.5, -0.5, 0.0), vec4(0.4)
+    MAT_MIRROR, SPHERE, vec3(0.5, -0.5, 0.0), vec4(0.4)
+    MAT_WHITE, SDF, vec3(0.0, 0.0, 0.0), vec4(0.3, 0.05, 0.3, 0.0)
+"""
+
+
+def restir_demo(device="cuda", **cfg_kw):
+    """Preset 5 (index.html:909-964): 9 small lights + glass/mirror spheres,
+    ReSTIR enabled."""
+    scene = parse_scene(_RESTIR_9_LIGHTS, sdf_shapes=[SdfShape.ROUND_BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_restir=True, use_procedural_sky=False, **cfg_kw)
+
+
+def _grid_lights():
+    """Preset 6's 41 ceiling lights (index.html:965-1014): a 5x5 grid at
+    y=1.9 (r=0.02) plus a 4x4 grid at y=1.5 (r=0.015), cycling the three
+    light material colors."""
+    mats = ["MAT_LIGHT_4", "MAT_LIGHT_CANDLE_4", "MAT_LIGHT_HALOGEN_4"]
+    lines = []
+    k = 0
+    for z in (-1.2, -0.6, 0.0, 0.6, 1.2):
+        for x in (-1.2, -0.6, 0.0, 0.6, 1.2):
+            lines.append(f"{mats[k % 3]}, SPHERE, vec3({x}, 1.9, {z}), vec4(0.02)")
+            k += 1
+    # second layer: 4x4 at y=1.5, material cycle restarting at MAT_LIGHT_4
+    k = 0
+    for z in (-0.9, -0.3, 0.3, 0.9):
+        for x in (-0.9, -0.3, 0.3, 0.9):
+            lines.append(f"{mats[k % 3]}, SPHERE, vec3({x}, 1.5, {z}), vec4(0.015)")
+            k += 1
+    return "\n".join(lines)
+
+
+def restir_stress(device="cuda", **cfg_kw):
+    """Preset 6 (index.html:965-1014): 41 lights in two ceiling grids —
+    the many-light showcase where ReSTIR beats per-light NEE."""
+    text = """
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(3.0)
+        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(3.0)
+        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(3.0)
+        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(3.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(3.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(3.0)
+    """ + _grid_lights() + """
+        MAT_REFR_CLEAR, SPHERE, vec3(-0.7, -0.5, 0.0), vec4(0.3)
+        MAT_MIRROR, SPHERE, vec3(0.7, -0.5, 0.0), vec4(0.3)
+        MAT_WHITE, SDF, vec3(0.0, 0.0, 0.0), vec4(0.4, 0.05, 0.4, 0.0)
+    """
+    scene = parse_scene(text, sdf_shapes=[SdfShape.ROUND_BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 2.5), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_restir=True, use_procedural_sky=False, **cfg_kw)
 
 
 def synthetic_texture(blue="wave"):

@@ -1,11 +1,12 @@
-"""Analytic ray-primitive intersection (port of the analytic part of
-ops/intersect.py).
+"""Ray-scene intersection (port of ops/intersect.py): analytic primitives,
+and the SDF march where the scene has SDF meshes.
 
-Every ray is tested against every mesh in one broadcast computation over a
-trailing [..., N] mesh axis; the winner is an argmin, which picks the first
-of equal distances exactly like the reference's sequential accept-if-closer
-loop (raytracer.glsl:997-1082).  SDF marching comes with ROADMAP queue 1
-item 8.
+Every ray is tested against every analytic mesh in one broadcast
+computation over a trailing [..., N] mesh axis; the winner is an argmin,
+which picks the first of equal distances exactly like the reference's
+sequential accept-if-closer loop (raytracer.glsl:997-1082).  SDF meshes are
+marched up to the nearest analytic hit (`ops/sdf.march`) and win where they
+are strictly nearer (raytracer.glsl:1040-1046).
 
 Hit `t` stays differentiable w.r.t. scene geometry; only the winner index
 is discrete.
@@ -18,6 +19,7 @@ import dataclasses
 import torch
 
 from raytracer0_tpu_torch.models.materials import MeshType
+from raytracer0_tpu_torch.ops import sdf
 from raytracer0_tpu_torch.ops import vecmath as vm
 from raytracer0_tpu_torch.ops.sampling import PI, TWO_PI
 
@@ -163,15 +165,23 @@ def parse_hit(scene, ro, rd, tmin, idx, missed, infinity, need_normal=True,
 
 
 def intersect(scene, ro, rd, cfg, need_normal=True, need_uv=None):
-    """Top-level analytic intersection (raytracer.glsl:997-1082).  The UV
-    is computed when `need_uv`, by default when the scene has textures."""
+    """Top-level intersection (raytracer.glsl:997-1082).  The UV is
+    computed when `need_uv`, by default when the scene has textures; an
+    SDF hit's UV takes parse_hit's normal of its row, as in the JAX
+    package, and its shading normal is `sdf.calc_normal`'s."""
     if need_uv is None:
         need_uv = bool(scene.tex_types_used)
-    if scene.num_sdfs:
-        raise NotImplementedError(
-            "SDF intersection is not ported yet: ROADMAP queue 1 item 8")
     tmin, idx, hit_any = analytic_min(scene, ro, rd, cfg.epsilon)
     missed = ~hit_any | ~(tmin < cfg.infinity)
     tmin = torch.where(missed, torch.full_like(tmin, cfg.infinity), tmin)
-    return parse_hit(scene, ro, rd, tmin, idx, missed, cfg.infinity,
-                     need_normal=need_normal, need_uv=need_uv)
+    if not scene.num_sdfs:
+        return parse_hit(scene, ro, rd, tmin, idx, missed, cfg.infinity,
+                         need_normal=need_normal, need_uv=need_uv)
+    t_sdf, idx_sdf, n_sdf, sdf_valid = sdf.march(scene, ro, rd, tmin, cfg)
+    wins = sdf_valid & (t_sdf < tmin)
+    hit = parse_hit(scene, ro, rd, torch.where(wins, t_sdf, tmin),
+                    torch.where(wins, idx_sdf, idx), missed & ~wins,
+                    cfg.infinity, need_normal=need_normal, need_uv=need_uv)
+    if need_normal:
+        hit = dataclasses.replace(hit, n=vm.where3(wins, n_sdf, hit.n))
+    return hit

@@ -13,10 +13,12 @@ kernels export records that the host resolves; K2 replaces
 outputs as its whole-trace twin `_bwd_kernel_body`.  `_TraceCore` pairs
 them as the JAX `_trace_core` custom_vjp does: forward launches K1,
 backward launches K2.  K1 covers the class that `integrator.unsupported`
-states (every surface material, textures of all ten types, sphere and
-directional lights, cubemaps, uniform sampling: `unsupported`); K2 covers
-its Cornell subset (DIFF and LIGHT materials, no blended texture,
-sphere-light slots, no cubemap, cosine sampling; `unsupported_bwd`).  Their plain PyTorch version is
+states without ReSTIR (every surface material, textures of all ten types,
+sphere and directional lights, cubemaps, uniform sampling, BOX and
+ROUND_BOX SDF meshes: `unsupported`; a ReSTIR pass runs on K6,
+`ops/restir_kernel.py`); K2 covers its Cornell subset (analytic DIFF and
+LIGHT meshes, no blended texture, sphere-light slots, no cubemap, cosine
+sampling; `unsupported_bwd`).  Their plain PyTorch version is
 `render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
 on the same inputs K1 traces the same paths, pixel for pixel, and K2
 gives the same gradients up to float32 rounding.
@@ -48,6 +50,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
@@ -89,6 +92,8 @@ _ARGTYPES = (
     _c_void_p, _c_void_p,                         # tex codes, blend flags
     _c_void_p, _c_int, _c_int,                    # images, their height, width
     _c_void_p, _c_int, _c_int,                    # noise LUT, its size, use_tex
+    _c_void_p, _c_int, _c_int,                    # SDF shapes, n_analytic, n_sdf
+    _c_int, _c_float, _c_float,                   # marching steps, fudge, t0
     _c_void_p,                                    # stream
 )
 _BWD_ARGTYPES = (
@@ -115,20 +120,28 @@ def scene_table(scene):
 
 def smem_bytes(scene) -> int:
     """Dynamic shared memory of one K1 block: the table, the mesh and
-    material codes, the light slots, the texture codes and blend flags."""
+    material codes, the light slots, the texture codes and blend flags,
+    and the SDF rows' shapes (`path.cuh::path_smem_bytes`)."""
     return 4 * (scene.num_meshes * _NCOLS + 4 * scene.num_meshes
-                + scene.num_lights)
+                + scene.num_lights + scene.num_sdfs)
+
+
+def check_smem(nbytes: int) -> Optional[str]:
+    if nbytes > _SMEM_LIMIT:
+        return (f"the scene table needs {nbytes} bytes of shared memory, more "
+                f"than {_SMEM_LIMIT}")
+    return None
 
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K1 cannot render (scene, cfg), or None when it can: the class
-    of `integrator.unsupported`, with a table that fits the shared
-    memory."""
-    reason = integrator.unsupported(scene, cfg)
-    if reason is None and smem_bytes(scene) > _SMEM_LIMIT:
-        reason = (f"the scene table needs {smem_bytes(scene)} bytes of shared "
-                  f"memory, more than {_SMEM_LIMIT}")
-    return reason
+    of `integrator.unsupported` without ReSTIR, with a table that fits the
+    shared memory."""
+    if cfg.use_restir:
+        # K1 has no reservoir vertex: it would render per-light NEE
+        return ("a ReSTIR pass runs on K6 (ops/restir_kernel.py), not K1; "
+                "gradients through ReSTIR come with K7: ROADMAP queue 1 item 11")
+    return integrator.unsupported(scene, cfg) or check_smem(smem_bytes(scene))
 
 
 def bwd_slots(cfg: RenderConfig) -> int:
@@ -161,8 +174,12 @@ _K2_ITEM = "ROADMAP queue 1 item 14"
 def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
     """What of (scene, cfg) K2's adjoint does not model: it replays DIFF
     bounces with cosine sampling, sphere-light NEE and the procedural sky
-    (every slot that does not end a path is diffuse, `bwd_slots`), and
-    untextured colors and emissions."""
+    (every slot that does not end a path is diffuse, `bwd_slots`) over
+    analytic meshes, and untextured colors and emissions."""
+    if cfg.use_restir:
+        return "gradients through ReSTIR come with K7: ROADMAP queue 1 item 11"
+    if scene.num_sdfs:
+        return f"SDF meshes (K2 has no SDF march): {_K2_ITEM}"
     if any(m not in _K2_MATS for m in scene.mat_types_static):
         return f"SPEC/REFR/COAT/DIR_LIGHT materials: {_K2_ITEM}"
     for slot, li in enumerate(scene.lights_static):
@@ -248,28 +265,41 @@ def _cfg_args(cfg: RenderConfig, pass_idx, sample_idx):
             int(cfg.sample_lights), int(cfg.use_mis), int(cfg.use_procedural_sky))
 
 
-def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
-    """Launch K1: radiance f32[H, W, 3]."""
-    global LAUNCHES
+def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
+    """K1's launch arguments before the stream, checked: (the arguments,
+    the tensors they point into, which the caller keeps alive until the
+    launch).  K6 takes the same ones first."""
     h, w = pix.shape
     mesh, mat, lights = _codes(scene)
     cube = scene.cubemap
     _check("cubemap", cube, torch.float32, (6,) + tuple(cube.shape[1:3]) + (3,),
            ro.device)
     tex, blend, images, lut = _tex_args(scene, ro.device)
+    sdf = scene.sdf_shape[scene.num_analytic:].to(torch.int32).contiguous()
+    args = (table.data_ptr(), mesh.data_ptr(), mat.data_ptr(),
+            scene.num_meshes, lights.data_ptr(), scene.num_lights,
+            ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), out.data_ptr(),
+            h * w, *_cfg_args(cfg, pass_idx, sample_idx),
+            cube.data_ptr(), cube.shape[1], cube.shape[2],
+            int(cfg.use_cubemap), int(cfg.use_biased_sampling),
+            tex.data_ptr(), blend.data_ptr(), images.data_ptr(),
+            images.shape[1], images.shape[2], lut.data_ptr(), lut.shape[0],
+            int(textures.blended(scene)), sdf.data_ptr(), scene.num_analytic,
+            scene.num_sdfs, cfg.marching_steps, cfg.fudge_factor,
+            float(np.float32(cfg.epsilon * 4.0)))
+    return args, (mesh, mat, lights, tex, blend, sdf)
+
+
+def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
+    """Launch K1: radiance f32[H, W, 3]."""
+    global LAUNCHES
     out = torch.empty_like(ro)
+    args, _keep = forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx,
+                               sample_idx)
     fn, _ = build()
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        rc = fn(table.data_ptr(), mesh.data_ptr(), mat.data_ptr(),
-                scene.num_meshes, lights.data_ptr(), scene.num_lights,
-                ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), out.data_ptr(),
-                h * w, *_cfg_args(cfg, pass_idx, sample_idx),
-                cube.data_ptr(), cube.shape[1], cube.shape[2],
-                int(cfg.use_cubemap), int(cfg.use_biased_sampling),
-                tex.data_ptr(), blend.data_ptr(), images.data_ptr(),
-                images.shape[1], images.shape[2], lut.data_ptr(), lut.shape[0],
-                int(textures.blended(scene)), stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -19,6 +19,11 @@ def vdot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def length(a):
+    """Euclidean length, sqrt(max(a·a, 0))."""
+    return torch.sqrt(torch.clamp_min(vdot(a, a), 0.0))
+
+
 def safe_length(a, eps=EPS):
     """Length with a floor so the gradient at 0 is finite."""
     return torch.sqrt(torch.clamp_min(vdot(a, a), eps))
@@ -52,6 +57,11 @@ def refract(d, n, eta):
 def mix(a, b, t):
     """GLSL mix/lerp; t may be scalar, [...] or [..., k]."""
     return a + (b - a) * t
+
+
+def luminance(c):
+    """ITU-R BT.709 luma (raytracer.glsl:1372)."""
+    return c[..., 0] * 0.2126 + c[..., 1] * 0.7152 + c[..., 2] * 0.0722
 
 
 def max3(c):

@@ -17,6 +17,10 @@ kernel (`ops/megakernel.py`), pixel for pixel:
   * the cubemap gather ray and sphere/directional-light NEE on diffuse
     bounces, with optional power-heuristic MIS
   * luminance cutoff and per-type bounce caps
+  * with a `restir_sampler` (ops/restir.py), the reservoir pipeline in
+    place of per-light NEE on diffuse bounces, whose reservoir the last
+    diffuse bounce of each path leaves behind
+  * SDF meshes marched in every intersection (ops/sdf.py)
 
 Differentiability: discrete events (winner index, light validity) are
 boolean masks whose continuous integrands carry gradients; `torch.where`
@@ -39,33 +43,78 @@ from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import bsdf as bsdf_ops
 from raytracer0_tpu_torch.ops import intersect as isect
 from raytracer0_tpu_torch.ops import lighting
+from raytracer0_tpu_torch.ops import restir
 from raytracer0_tpu_torch.ops import sampling as smp
+from raytracer0_tpu_torch.ops import sdf
 from raytracer0_tpu_torch.ops import sky
 from raytracer0_tpu_torch.ops import textures as tex
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 _ANALYTIC = (int(MeshType.SPHERE), int(MeshType.PLANE), int(MeshType.BOX))
+_SDF_ITEM = "ROADMAP queue 1 item 8"
+_RESTIR_ITEM = "ROADMAP queue 1 item 11"
+
+
+def restir_engaged(scene, cfg: RenderConfig) -> bool:
+    """Whether ReSTIR replaces per-light NEE at every diffuse vertex: with
+    MIS and at most 8 lights the reference keeps per-light NEE
+    (raytracer.glsl:1906-1911)."""
+    n_lights = sum(1 for li in scene.lights_static if li >= 0)
+    return bool(cfg.use_restir and cfg.sample_lights and n_lights > 0
+                and (not cfg.use_mis or n_lights > 8))
+
+
+def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
+    """What of a ReSTIR (scene, cfg) the port does not render: the class of
+    the JAX `supported_restir_fused` (raytracer0_tpu/ops/megakernel.py:
+    545-560, 2872): ReSTIR engaged, LIGHT spheres in every light slot, no
+    photographic cubemap, cosine sampling, the pixel's own history."""
+    if not restir_engaged(scene, cfg):
+        return ("ReSTIR that keeps per-light NEE (no light, sample_lights "
+                f"off, or MIS with at most 8 lights): {_RESTIR_ITEM}")
+    if cfg.restir_adhoc_motion:
+        return f"ReSTIR's ad-hoc temporal reprojection (K4, K5): {_RESTIR_ITEM}"
+    for li in scene.lights_static:
+        if li >= 0 and not (li < scene.num_analytic
+                            and scene.mesh_types_static[li] == int(MeshType.SPHERE)
+                            and scene.mat_types_static[li] == int(MatType.LIGHT)):
+            return f"ReSTIR with light slots that are not LIGHT spheres: {_RESTIR_ITEM}"
+    if cfg.use_cubemap and not scene.cubemap_is_procedural:
+        return f"ReSTIR under a photographic cubemap: {_RESTIR_ITEM}"
+    if not cfg.use_biased_sampling:
+        return f"ReSTIR with uniform hemisphere sampling: {_RESTIR_ITEM}"
+    return None
 
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
-    The class: analytic SPHERE/PLANE/BOX meshes, every surface material
-    (the IOR taken as |ior|), textures of all ten types, sphere and
-    directional light slots, cosine-weighted or uniform sampling, a cubemap, the procedural
-    sky or no environment, static accumulation.  (SDF-bound light slots
-    need SDF meshes, which item 8 adds.)
+    The class: analytic SPHERE/PLANE/BOX meshes and BOX/ROUND_BOX SDF
+    meshes, every surface material (the IOR taken as |ior|), textures of
+    all ten types on analytic meshes, sphere and directional light slots,
+    cosine-weighted or uniform sampling, a cubemap, the procedural sky or
+    no environment, static accumulation; and ReSTIR in the class of
+    `_outside_restir_class`.
     """
-    if cfg.use_restir:
-        return "ReSTIR: ROADMAP queue 1 item 11"
     if cfg.use_spectral or cfg.use_volumetrics:
         return "spectral transport and media: ROADMAP queue 1 item 10"
     if int(cfg.render_mode) != int(RenderMode.STATIC):
         return "ANIMATED render mode: ROADMAP queue 1 item 12"
-    if scene.num_sdfs or any(t not in _ANALYTIC for t in scene.mesh_types_static):
-        return "SDF meshes and SDF-bound lights: ROADMAP queue 1 item 8"
+    na = scene.num_analytic
+    if any(t not in _ANALYTIC for t in scene.mesh_types_static[:na]):
+        return f"mesh types other than SPHERE/PLANE/BOX/SDF: {_SDF_ITEM}"
+    if any(t != int(MeshType.SDF) for t in scene.mesh_types_static[na:]) \
+            or any(s not in sdf.SHAPES for s in scene.sdf_shapes_static):
+        return f"SDF shapes other than BOX and ROUND_BOX: {_SDF_ITEM}"
+    if any(t >= 0 and (o[0] or o[1]) for t, o in
+           zip(scene.tex_types_static[na:], scene.opts_static[na:])):
+        return f"textures on SDF meshes: {_SDF_ITEM}"
     if any(li >= scene.num_meshes for li in scene.lights_static):
         return "a light slot names no mesh of the scene"
+    if any(li >= na for li in scene.lights_static):
+        return f"SDF-bound light slots: {_SDF_ITEM}"
+    if cfg.use_restir:
+        return _outside_restir_class(scene, cfg)
     return None
 
 
@@ -94,15 +143,25 @@ def hit_color_emission(scene, hit):
     return torch.clamp_min(c, 0.001), torch.clamp_min(e, 0.001)
 
 
-def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
+def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
+          restir_sampler=None):
     """Trace one radiance sample per lane.
 
     `ro`/`rd`: f32[..., 3] primary rays; `pix`: int64 pixel ids (uint32
     values) matching the batch shape.  Returns radiance f32[..., 3].
+
+    `restir_sampler` (`restir.make_sampler`), called as `sampler(scene,
+    cfg, hit, nl, mask, pix, pass, sample, depth)` and returning
+    `(direct radiance, reservoir dict)`, replaces per-light NEE on diffuse
+    bounces where ReSTIR is engaged (raytracer.glsl:1899-1946); trace then
+    returns `(radiance, reservoir dict)`, the reservoir of each lane's last
+    diffuse bounce (the reference's g_final_reservoir overwrite,
+    raytracer.glsl:1616, 1757).
     """
     reason = unsupported(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"not ported yet: {reason}")
+    use_restir = restir_sampler is not None and restir_engaged(scene, cfg)
 
     batch = ro.shape[:-1]
     dev = ro.device
@@ -118,6 +177,8 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
     n_diff = torch.zeros(batch, dtype=torch.int32, device=dev)
     n_spec = torch.zeros_like(n_diff)
     n_scat = torch.zeros_like(n_diff)
+    if restir_sampler is not None:
+        reservoir = restir.empty_reservoir(batch, dev)
 
     for depth in range(cfg.max_bounces):
         hit = isect.intersect(scene, o, d, cfg)
@@ -184,10 +245,18 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         # NEE reads the light row's untextured color and emission, as the
         # JAX integrator does: a textured emitter is textured only where a
         # BSDF-sampled ray hits it
-        if cfg.sample_lights:
+        if use_restir:
+            nee, res = restir_sampler(scene, cfg, hit, new_prev_nl, mask_after,
+                                      pix, pass_idx, sample_idx, depth)
+            # the last diffuse bounce wins
+            reservoir = {k: torch.where(diffuse_lane[..., None] if v.dim() > diffuse_lane.dim()
+                                        else diffuse_lane, res[k], v)
+                         for k, v in reservoir.items()}
+        elif cfg.sample_lights:
             nee = lighting.sample_lights_nee(
                 scene, cfg, hit.pos, new_prev_nl, mask_after,
                 pix, pass_idx, sample_idx, depth)
+        if cfg.sample_lights:
             acc = acc + vm.where3(diffuse_lane, nee, torch.zeros_like(acc))
 
         # ---- commit per-lane ray state ----
@@ -208,4 +277,6 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
                             | (n_scat >= cfg.max_scattering_events))
         active = active & ~(cutoff | capped)
 
+    if restir_sampler is not None:
+        return acc, reservoir
     return acc

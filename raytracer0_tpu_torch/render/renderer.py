@@ -17,9 +17,17 @@ through any other scene on CUDA, `cubemap_demo` for one, raises
 NotImplementedError before anything is launched.  A render that needs no
 gradient launches K1 alone.
 
-The kernel masks the ragged edge itself, so no padding to a block shape is
-needed.  `render_scan` (one launch for a chain of passes) waits for a CUDA
-graph port.
+A ReSTIR pass (`cfg.use_restir`) goes through `render_pass` alone, since
+it reads and writes the reservoir ring: on a CUDA device through the fused
+kernel K6 (`ops/restir_kernel.py`), on the CPU through the plain
+`restir.render_sample`, after which the ring rotates.  On CUDA a ReSTIR
+config that K6 does not cover raises; nothing falls back to the plain
+version.  A ReSTIR pass is forward only (its adjoint K7 is ROADMAP queue 1
+item 11).
+
+The kernels mask the ragged edge themselves, so no padding to a block shape
+is needed.  `render_scan` (one launch for a chain of passes) waits for a
+CUDA graph port.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays
-from raytracer0_tpu_torch.ops import megakernel, tonemap
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, tonemap
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import RenderState
 
@@ -42,6 +50,11 @@ def _route(device_type: str, scene, cfg: RenderConfig) -> str:
     if int(cfg.render_mode) != int(RenderMode.STATIC):
         raise NotImplementedError(
             "ANIMATED render mode is not ported yet: ROADMAP queue 1 item 12")
+    if cfg.use_restir:
+        # a ReSTIR pass reads and writes the reservoir ring: render_pass
+        raise NotImplementedError(
+            "sample_radiance renders no ReSTIR pass (render_pass and Renderer "
+            "carry the reservoir ring; ReSTIR gradients are ROADMAP queue 1 item 11)")
     if device_type == "cuda":
         reason = megakernel.unsupported(scene, cfg)
         if reason is not None:
@@ -73,9 +86,21 @@ def sample_radiance(scene, cfg: RenderConfig, camera: Camera,
 def render_pass(scene, camera: Camera, cfg: RenderConfig, state: RenderState,
                 height: int, width: int, time_s=0.0) -> RenderState:
     """One progressive pass (the reference's per-frame draw): adds one
-    pass's radiance into the accumulator."""
-    radiance = sample_radiance(scene, cfg, camera, height, width,
-                               state.passes, time_s)
+    pass's radiance into the accumulator; a ReSTIR pass also rotates the
+    reservoir ring (raytracer0_tpu/render/renderer.py:210-243)."""
+    if cfg.use_restir:
+        if scene.device.type == "cuda":
+            render_fn = restir_kernel.render_sample_fused
+        elif scene.device.type == "cpu":
+            render_fn = restir.render_sample
+        else:
+            raise NotImplementedError(f"unsupported device type {scene.device.type!r}")
+        radiance, new_back = render_fn(scene, cfg, camera, state, height, width,
+                                       state.passes, time_s)
+        state = state.rotate_reservoirs(new_back)
+    else:
+        radiance = sample_radiance(scene, cfg, camera, height, width,
+                                   state.passes, time_s)
     return state.replace(accum=state.accum + radiance, passes=state.passes + 1)
 
 

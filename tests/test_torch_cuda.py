@@ -1,7 +1,9 @@
-"""K1 and its adjoint K2 on the GPU against their plain versions on the
-same card: K1 on the Cornell class and on the widened class (mirror, glass
-and coat, directional lights, cubemaps, uniform sampling, textures), K2 on
-the Cornell class, and the refusal of gradients outside K2's class.
+"""K1, its adjoint K2 and the fused ReSTIR kernel K6 on the GPU against
+their plain versions on the same card: K1 on the Cornell class and on the
+widened class (mirror, glass and coat, directional lights, cubemaps,
+uniform sampling, textures, SDF meshes), K2 on the Cornell class, K6 on
+the ReSTIR presets, and the refusal of gradients outside K2's class and
+through ReSTIR.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -29,7 +31,7 @@ from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
-from raytracer0_tpu_torch.ops import megakernel
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
@@ -82,7 +84,7 @@ def test_kernel_raises_outside_the_class(cuda):
     sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sb.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
     sb.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
-           sdf_shape=SdfShape.ROUND_BOX)
+           sdf_shape=SdfShape.MANDELBULB)
     scene = sb.build(device=cuda)
     _, cam, cfg = cornell_default(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
@@ -344,3 +346,104 @@ def test_gradient_through_textures_launches_nothing(cuda):
         with pytest.raises(NotImplementedError, match="item 14"):
             render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("mis_demo", dict(max_bounces=3)),
+    ("mis_demo", dict(max_bounces=12, use_mis=True)),
+    ("restir_demo", dict(max_bounces=3, use_restir=False)),
+], ids=["mis_demo", "mis_demo_mis_12", "restir_demo_nee"])
+def test_sdf_kernel_matches_plain(cuda, where, kw):
+    """K1 with the SDF march, one launch, against the plain version: the
+    parity contract, and no pixel differs where both call CUDA's libm."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    cfg = cfg.replace(**kw)
+    h, w = 16, 128
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = megakernel.LAUNCHES
+    out = megakernel.trace_forward(scene, cfg, ro, rd, pix, 2, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    _parity(out, ref)
+
+
+def _restir_contract(out, ref, new, new_ref):
+    """The fused-versus-wavefront contract of tests/test_restir.py:312-352."""
+    err = (out - ref).abs()
+    assert err.max().item() < 5e-3 and err.median().item() < 1e-6, err.max().item()
+    agree = new.light_index == new_ref.light_index
+    assert agree.float().mean().item() >= 0.995
+    for k in ("weight_sum", "m", "w", "age", "light_pos", "light_color"):
+        assert (getattr(new, k)[agree] - getattr(new_ref, k)[agree]).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("restir_demo", dict(max_bounces=3)),
+    ("restir_stress", dict(max_bounces=3, restir_samples=8)),
+])
+def test_restir_kernel_matches_plain(cuda, where, kw):
+    """K6 against the plain `restir.render_sample`, each threading its own
+    reservoir ring through passes 0-11 (temporal reuse from pass 3, all
+    spatial taps from pass 10), one K6 launch and no K1 launch per pass."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    cfg = cfg.replace(**kw)
+    h, w = 16, 128
+    kernel = RenderState.create(h, w, device=cuda)
+    plain = RenderState.create(h, w, device=cuda)
+    for p in range(12):
+        before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES)
+        out, new = restir_kernel.render_sample_fused(scene, cfg, cam, kernel, h, w, p)
+        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p)
+        torch.cuda.synchronize()
+        assert (restir_kernel.LAUNCHES, megakernel.LAUNCHES) == (before[0] + 1, before[1])
+        assert bool(torch.isfinite(out).all())
+        _restir_contract(out, ref, new, new_ref)
+        kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
+    assert int((new.light_index >= 0).sum()) > h * w // 2 and ref.max().item() > 0.0
+
+
+def test_restir_render_goes_through_k6_only(cuda):
+    """Renderer(restir_demo) launches K6 once per pass and neither K1 nor
+    K2, and fills the reservoirs."""
+    scene, cam, cfg = presets.restir_demo(device=cuda, max_bounces=4)
+    before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    r = Renderer(scene, cam, cfg, 32, 48)
+    img = r.render(4)
+    torch.cuda.synchronize()
+    assert (restir_kernel.LAUNCHES, megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == \
+        (before[0] + 4, before[1], before[2])
+    assert img.shape == (32, 48, 3) and bool(torch.isfinite(img).all())
+    assert r.state.restir_back.m.max().item() > 0.0
+    assert r.state.restir_back.w.max().item() <= 12.0
+
+
+def test_gradient_through_sdf_or_restir_launches_nothing(cuda):
+    """A gradient through `mis_demo` (SDF; K2 has no march) or through a
+    ReSTIR pass of `restir_demo` (its adjoint is K7) raises before any
+    kernel is launched."""
+    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES)
+    before = counts()
+    scene, cam, cfg = presets.mis_demo(device=cuda)
+    s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
+    with pytest.raises(NotImplementedError, match="SDF.*item 14"):
+        render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
+    scene, cam, cfg = presets.restir_demo(device=cuda)
+    s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
+    with pytest.raises(NotImplementedError, match="K7"):
+        render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
+    assert counts() == before
+
+
+def test_restir_kernel_refuses_outside_its_class(cuda):
+    """A ReSTIR config K6 does not cover raises on the card; it never runs
+    the plain version instead."""
+    scene, cam, cfg = presets.restir_demo(device=cuda)
+    before = restir_kernel.LAUNCHES
+    for kw in (dict(use_mis=True, restir_adhoc_motion=True), dict(use_biased_sampling=False)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            render_pass(scene, cam, cfg.replace(**kw), RenderState.create(8, 8, device=cuda),
+                        8, 8)
+    assert restir_kernel.LAUNCHES == before

@@ -97,14 +97,15 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_plain_raises_outside_the_class():
     """What the port does not render yet raises, naming its ROADMAP item:
-    SDF meshes (8), spectral transport (10), ReSTIR (11).  Mirrors, glass,
-    coats, directional lights, cubemaps, uniform sampling and textures are
-    inside the class."""
+    SDF shapes other than BOX and ROUND_BOX (8), spectral transport (10),
+    ReSTIR outside the fused kernel's class (11).  Mirrors, glass, coats,
+    directional lights, cubemaps, uniform sampling, textures, BOX and
+    ROUND_BOX SDF meshes and ReSTIR in K6's class are inside the class."""
     sdf = SceneBuilder()
     sdf.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sdf.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
     sdf.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
-            sdf_shape=SdfShape.ROUND_BOX)
+            sdf_shape=SdfShape.MANDELBULB)
     sdf = sdf.build(device="cpu")
     textured = parse_scene("""
         MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
@@ -119,10 +120,13 @@ def test_plain_raises_outside_the_class():
     assert tint.unsupported(textured, cfg) is None
     assert tint.trace(textured, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0).shape == (2, 2, 3)
     ts, _, _ = tpresets.cornell_default(device="cpu")
-    for kw, item in [(dict(use_restir=True), "11"), (dict(use_spectral=True), "10"),
-                     (dict(use_volumetrics=True), "10")]:
+    for kw, item in [(dict(use_restir=True, use_mis=True), "11"),
+                     (dict(use_spectral=True), "10"), (dict(use_volumetrics=True), "10")]:
         assert f"item {item}" in tint.unsupported(ts, cfg.replace(**kw))
     assert tint.unsupported(ts, cfg) is None
+    for name in ("mis_demo", "restir_demo", "restir_stress"):
+        preset, _, pcfg = getattr(tpresets, name)(device="cpu")
+        assert tint.unsupported(preset, pcfg) is None
     mirror = parse_scene("""
         MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)

@@ -1,5 +1,5 @@
-"""The CUDA sources of K1 and K2, compiled for the host, against the plain
-version and its autograd.
+"""The CUDA sources of K1, K2 and K6, compiled for the host, against the
+plain version and its autograd.
 
 CUDA kernels have no interpret mode, and a machine without a card may
 have no nvcc.  The device code of `csrc/` is plain C++ apart from a few
@@ -9,8 +9,9 @@ block run as std::threads that meet at a std::barrier for
 `__syncthreads()` (every thread of a block must reach each of the
 kernel's barriers, as the kernels do), blocks run one after another, and
 a `<<<...>>>` launch becomes a call of the shim's launcher.  The launchers
-`rt0_trace_forward` and `rt0_trace_backward` are compiled unchanged and
-driven through `ops/megakernel.py`'s own `_TraceCore`, so the test covers
+`rt0_trace_forward`, `rt0_trace_backward` and `rt0_restir_forward` are
+compiled unchanged and driven through `ops/megakernel.py`'s own
+`_TraceCore` and `ops/restir_kernel.py`'s launcher, so the test covers
 the kernels' arithmetic, their block reductions and the wrapper's ctypes
 calls; only nvcc's code generation is left to the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Host libm rounds sin/cos/sqrt
@@ -39,8 +40,9 @@ from raytracer0_tpu_torch.models import materials, presets
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
-from raytracer0_tpu_torch.ops import megakernel
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
 from raytracer0_tpu_torch.render import integrator
+from raytracer0_tpu_torch.render.state import RenderState
 
 LEAVES = ("color", "emission", "pos", "joker")
 
@@ -102,12 +104,12 @@ void emu_launch(K k, unsigned grid, unsigned block, size_t smem, void *, A... ar
 def _host_source(text):
     text = text.replace("extern __shared__ float smem[];", "float *smem = g_smem.data();")
     text = text.replace("__shared__ float", "static float")
-    return re.sub(r"(\w+)<<<(.*)>>>\((.*)\);", r"emu_launch(\1, \2, \3);", text)
+    return re.sub(r"(\w+(?:<\w+>)?)<<<(.*)>>>\((.*)\);", r"emu_launch(\1, \2, \3);", text)
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """(forward, backward) ctypes functions of the host build."""
+    """(K1, K2, K6) ctypes functions of the host build."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
@@ -119,7 +121,8 @@ def host_kernels(tmp_path_factory):
     for name, sources, symbol, argtypes in (
             ("megakernel", megakernel.SOURCES, "rt0_trace_forward", megakernel._ARGTYPES),
             ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
-             megakernel._BWD_ARGTYPES)):
+             megakernel._BWD_ARGTYPES),
+            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", restir_kernel._ARGTYPES)):
         cpp = out / f"{name}.cpp"
         cpp.write_text("".join(_host_source((cuda_build.CSRC_DIR / s).read_text())
                                for s in sources))
@@ -138,11 +141,13 @@ def kernels_on_cpu(host_kernels, monkeypatch):
     """ops/megakernel.py launching the host build on CPU tensors; the
     launch counts are restored afterwards, since they count launches on
     the card."""
-    fwd, bwd = host_kernels
+    fwd, bwd, k6 = host_kernels
     monkeypatch.setattr(megakernel, "LAUNCHES", megakernel.LAUNCHES)
     monkeypatch.setattr(megakernel, "BWD_LAUNCHES", megakernel.BWD_LAUNCHES)
+    monkeypatch.setattr(restir_kernel, "LAUNCHES", restir_kernel.LAUNCHES)
     monkeypatch.setattr(megakernel, "build", lambda: (fwd, None))
     monkeypatch.setattr(megakernel, "build_bwd", lambda: (bwd, None))
+    monkeypatch.setattr(restir_kernel, "build", lambda: (k6, None))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
@@ -346,3 +351,65 @@ def test_host_textured_forward_matches_plain(kernels_on_cpu, where, kw):
     else:
         assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
             err.max().item()
+
+
+@pytest.mark.parametrize("where", ["mis_demo", "restir_demo"])
+def test_host_sdf_forward_matches_plain(kernels_on_cpu, where):
+    """K1 with the SDF march (a BOX under the light of `mis_demo`, the
+    ROUND_BOX of `restir_demo` rendered with per-light NEE), one launch,
+    against the plain version under the parity contract, and with a mean
+    error at float32 rounding: the host's sinf/cosf flip a pixel now and
+    then (mean error <= 3e-8 here), while a march that steps without its
+    fudge factor moves the SDF hits of ~10 % of the pixels (mean >= 2.6e-6)
+    and still meets the parity contract."""
+    scene, cam, cfg = getattr(presets, where)(device="cpu")
+    cfg = cfg.replace(use_restir=False, max_bounces=3, marching_steps=32)
+    assert megakernel.unsupported(scene, cfg) is None
+    h, w = 16, 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene),
+                                     ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+        err.max().item()
+    assert err.mean().item() < 5e-7, err.mean().item()
+
+
+def test_host_restir_matches_plain(kernels_on_cpu):
+    """K6 against the plain `restir.render_sample` on `restir_demo`, each
+    threading its own reservoir ring through passes 0-3 (temporal reuse
+    starts at pass 3), under the fused-versus-wavefront contract of
+    tests/test_restir.py:312-352: per pass max |Δ| < 5e-3 and median
+    |Δ| < 1e-6 of the radiance, light indices agreeing at >= 99.5 % of
+    pixels, the other reservoir fields within 1e-4 where they agree."""
+    scene, cam, cfg = presets.restir_demo(device="cpu")
+    cfg = cfg.replace(max_bounces=2, max_diff_bounces=2, restir_samples=4,
+                      marching_steps=16)
+    assert restir_kernel.unsupported_restir(scene, cfg) is None
+    h, w = 8, 32
+    pix = rng.pixel_ids(h, w)
+    kernel, plain = RenderState.create(h, w, "cpu"), RenderState.create(h, w, "cpu")
+    for p in range(4):
+        ro, rd = generate_rays(cam, h, w, p)
+        before = restir_kernel.LAUNCHES
+        out, new = restir_kernel._launch(scene, cfg, ro, rd, pix, p, 0, kernel.restir_back,
+                                         kernel.restir_hist1, kernel.restir_hist2)
+        assert restir_kernel.LAUNCHES == before + 1
+        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p)
+        err = (out - ref).abs()
+        assert bool(torch.isfinite(out).all())
+        assert err.max().item() < 5e-3 and err.median().item() < 1e-6, (p, err.max().item())
+        agree = new.light_index == new_ref.light_index
+        assert agree.float().mean().item() >= 0.995, p
+        for k in ("weight_sum", "m", "w", "age", "light_pos", "light_color"):
+            a, b = getattr(new, k)[agree], getattr(new_ref, k)[agree]
+            assert (a - b).abs().max().item() <= 1e-4, (p, k)
+        kernel = kernel.rotate_reservoirs(new)
+        plain = plain.rotate_reservoirs(new_ref)
+    assert int((new.light_index >= 0).sum()) > h * w // 2
+    assert new.m.max().item() > 0.0 and ref.max().item() > 0.0
