@@ -8,10 +8,10 @@ Run from the repository root:
 Phases (each prints readable lines; any failure raises and exits non-zero):
 
 1. requires a CUDA device; prints `nvidia-smi`'s name and power limit;
-2. builds the forward megakernel K1, its adjoint K2 and the fused ReSTIR
-   kernel K6 from `raytracer0_tpu_torch/csrc/` with nvcc, all at once (or
-   loads them from `build/kernels/`), and prints the build times and
-   ptxas' register, stack and spill lines;
+2. builds the forward megakernel K1, its adjoint K2, the fused ReSTIR
+   kernel K6 and its adjoint K7 from `raytracer0_tpu_torch/csrc/` with
+   nvcc, all at once (or loads them from `build/kernels/`), and prints the
+   build times and ptxas' register, stack and spill lines;
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -84,19 +84,42 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    `mis_demo` and prints its path events and K1's bound; checks that a
    gradient through `mis_demo` raises before any launch;
 16. holds K6 against the plain `restir.render_sample` on the card, on
-   `restir_demo` and `restir_stress`, each threading its own reservoir
-   ring: passes 0-11 at 16x128 with 3 bounces and passes 0-3 at 512x512
-   with 12 bounces, under JAX's fused-versus-wavefront contract
-   (tests/test_restir.py:312-352) at every pass, printing the differing
-   pixels;
+   `restir_demo`, `restir_stress` and `restir_demo` with MIS, each
+   threading its own reservoir ring: passes 0-11 at 16x128 with 3 bounces
+   and passes 0-3 at 512x512 with 12 bounces, under JAX's
+   fused-versus-wavefront contract (tests/test_restir.py:312-352) at every
+   pass, printing the differing pixels; checks that the new reservoirs'
+   light data gathered from the scene (`restir_kernel.light_data`, the
+   gradient path's) equals K6's bit for bit;
 17. drives the ReSTIR main path, `Renderer(*restir_demo()).render(16)` at
    512x512: 16 K6 launches and no K1 or K2 launch, populated reservoirs
    (max M > 0, max W <= 12, the share of pixels holding a light), a
    finite image whose mean lies within 1/9..2x of the per-light-NEE
    render's (tests/test_restir.py:94-129); times a pass (CUDA events) and
    K6 (CUDA events and profiler) and the plain version's pass; prints K6's
-   path events and bound; checks that a gradient through `restir_demo`
-   raises before any launch.
+   path events and bound; checks that a gradient K7 does not compute (the
+   aux leaf) through `restir_demo` raises before any launch;
+18. holds K7 against the plain `restir.trace_sample`'s autograd on the
+   card: over passes 0-3 from an empty ring at 16x128 with 3 bounces on
+   `restir_demo` and `restir_stress` (d emission, color, pos, joker, ior
+   and every pass's rays, per leaf max|a-b| / max|b| < 1e-4), and at
+   512x512 with 12 bounces on `restir_demo` over as many passes (up to 4)
+   as the plain autograd fits in the card's memory; two K7 runs give the
+   same bits; prints the peak memory of each route;
+19. checks K7 against K6's finite differences: d sum(render_linear) / ds
+   for every light's emission scaled by s at 128x128, 12 bounces, 4 passes
+   equals K6's central difference and sum(render_linear) at s = 1 (the
+   radiance is linear in s, tests/test_restir.py:183-216); prints one
+   light's position gradient beside K6's central difference (phase 7's
+   method), a measurement that the tiny, directly seen lights make
+   discontinuous;
+20. drives the ReSTIR gradient main path: `optimize.fit` of the lights'
+   emission on `restir_demo` at 128x128 with passes=4 for 20 steps, which
+   lowers the loss through 4 K6 and 4 K7 launches per step and no K1 or
+   K2 launch; times the fwd+bwd step of `render_linear(passes=4)` at
+   512x512 with 12 bounces through K6+K7 (median and quartiles), K7 per
+   launch (CUDA events and profiler) and the plain autograd step at
+   128x128; prints the peak memory of each, K7's path events and bound.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -134,6 +157,7 @@ CONFIG2 = """
     MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
 """
 LEAVES = ("color", "emission", "pos", "joker")
+RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
 ADJ_CONFIGS = [                          # tests/test_torch_cuda.py
     (16, 128, dict(max_bounces=3)),
     (13, 77, dict(max_bounces=5)),
@@ -251,7 +275,7 @@ def grad_errors(got, want):
     for k, b in want.items():
         a = got[k]
         if not bool(a.isfinite().all()):
-            raise AssertionError(f"K2 gradient of {k} is not finite")
+            raise AssertionError(f"the kernel's gradient of {k} is not finite")
         diff = (a - b).abs().max().item()
         errs[k] = (diff / max(b.abs().max().item(), 1e-12), diff)
     return errs
@@ -443,16 +467,18 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None)
 
 
 def bound(ev, scene, cfg, adjoint, restir=False):
-    """(bound_ms, bound_by) of K1 (or K2 when `adjoint`, K6 when `restir`)
-    for these events: the larger of the bytes over the HBM rate and the
-    float operations over the float32 rate.  The bytes are each input read
-    once (rays, pixel ids, the scene table and, where this run reads them,
-    the whole cubemap, the images and the noise LUT; K6's three reservoir
-    grids) and each output written once (K6's new reservoirs too).  K2
-    replays each slot's forward and runs its adjoint, which takes at least
-    as many operations, on top of a forward sweep without NEE.  K6 runs
-    K1's sweep with the reservoir vertex and its two shadow rays in place
-    of NEE."""
+    """(bound_ms, bound_by) of K1 (or K2 when `adjoint`, K6 when `restir`,
+    K7 when both) for these events: the larger of the bytes over the HBM
+    rate and the float operations over the float32 rate.  The bytes are
+    each input read once (rays, pixel ids, the scene table and, where this
+    run reads them, the whole cubemap, the images and the noise LUT; K6's
+    three reservoir grids) and each output written once (K6's new
+    reservoirs too).  K2 replays each slot's forward and runs its adjoint,
+    which takes at least as many operations, on top of a forward sweep
+    without NEE.  K6 runs K1's sweep with the reservoir vertex and its two
+    shadow rays in place of NEE; K7 replays K6's slots twice (forward
+    sweep, reverse sweep with the vertices) and runs their adjoint: the
+    forward sweep plus twice K6's operations."""
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     n_sdf = scene.num_sdfs
@@ -482,7 +508,11 @@ def bound(ev, scene, cfg, adjoint, restir=False):
     assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
     assets += 4 * scene.noise.numel() if any(t in TEX_LUT for t in ev["texel"]) else 0
     px = ev["pixels"]
-    if restir:    # ro, rd, pix, three reservoir grids in; radiance, reservoirs out
+    if restir and adjoint:   # K6's inputs, ct and the 4 ring cotangents in;
+        # d_ro, d_rd, per-tap and history cotangents, d back, d_table out
+        ops = sweep + 2 * fwd
+        nbytes = px * (12 + 12 + 8 + 3 * 20 + 12 + 16 + 24 + 8 * 12 + 2 * 12 + 12) + 2 * table
+    elif restir:  # ro, rd, pix, three reservoir grids in; radiance, reservoirs out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 3 * 20 + 12 + 44) + table
     elif adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
         ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
@@ -553,12 +583,12 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build the three kernels at once ----
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # ---- phase 2: build the four kernels at once ----
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
-                  pool.submit(restir_kernel.build)]
+                  pool.submit(restir_kernel.build), pool.submit(restir_kernel.build_bwd)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6"), infos):
+    for name, info in zip(("K1", "K2", "K6", "K7"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -1093,8 +1123,10 @@ def main() -> int:
         return mx
 
     k6_err = {}
-    for name, kw in (("restir_demo", {}), ("restir_stress", {})):
-        s16, c16, cfg16 = getattr(presets, name)(device=dev, **kw)
+    for name, kw in (("restir_demo", {}), ("restir_stress", {}), ("restir_demo_mis", {})):
+        preset = getattr(presets, name.replace("_mis", ""))
+        s16, c16, cfg16 = preset(device=dev, use_mis=True) if name.endswith("_mis") \
+            else preset(device=dev, **kw)
         if restir_kernel.unsupported_restir(s16, cfg16) is not None:
             raise AssertionError(f"{name}: expected inside K6's class")
         for h, w, nb, n_pass in ((16, 128, 3, 12), (H, W, cfg16.max_bounces, 4)):
@@ -1110,6 +1142,10 @@ def main() -> int:
                     raise AssertionError("expected one K6 launch and no K1 launch per pass")
                 k6_err[(name, h, p)] = restir_contract(
                     f"{name} {h}x{w}, {nb} bounces, pass {p}", out, ref, new, new_ref)
+                # the gradient path gathers the light data from the scene
+                pos16, col16 = restir_kernel.light_data(s16, new.light_index)
+                if not (torch.equal(pos16, new.light_pos) and torch.equal(col16, new.light_color)):
+                    raise AssertionError(f"{name}: light_data differs from K6's light data")
                 kernel_ring = kernel_ring.rotate_reservoirs(new)
                 plain_ring = plain_ring.rotate_reservoirs(new_ref)
     del out, ref, kernel_ring, plain_ring
@@ -1181,17 +1217,248 @@ def main() -> int:
           + f"; plain render_sample {plain_restir[0]:.3f} ms per pass; bound {k6_bound:.6f} ms "
           f"({k6_by})")
 
-    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES)
-    em = r_scene.emission.clone().requires_grad_(True)
+    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
+                      restir_kernel.BWD_LAUNCHES)
+    before = counts()
+    aux = r_scene.aux.clone().requires_grad_(True)
     try:
-        render_pass(r_scene.replace(emission=em), r_cam, r_cfg, RenderState.create(16, 16, dev),
+        render_pass(r_scene.replace(aux=aux), r_cam, r_cfg, RenderState.create(16, 16, dev),
                     16, 16)
     except NotImplementedError as exc:
-        print(f"phase 17: a gradient through restir_demo raises NotImplementedError: {exc}")
+        print(f"phase 17: a gradient w.r.t. aux through restir_demo raises NotImplementedError: "
+              f"{exc}")
     else:
-        raise AssertionError("a gradient through restir_demo did not raise")
-    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES) != before:
+        raise AssertionError("a gradient w.r.t. aux through restir_demo did not raise")
+    if counts() != before:
         raise AssertionError("the refused ReSTIR gradient launched a kernel")
+    # ---- phase 18: K7 against the plain version's autograd ----
+    def restir_chain(trace, s, cfg_, cam_, h, w, passes, seed=5):
+        """(loss, d loss / d(scene leaves, every pass's rays)) for seeded
+        weights on every pass's radiance and on the last ring's floats, over
+        `passes` passes from an empty ring, each traced by `trace` (K6 with
+        K7, or the plain `restir.trace_sample`)."""
+        leaves = {k: getattr(s, k).detach().clone().requires_grad_(True) for k in RESTIR_LEAVES}
+        sc = s.replace(**leaves)
+        state = RenderState.create(h, w, device=dev)
+        pix_ = rng.pixel_ids(h, w, device=dev)
+        gen = torch.Generator().manual_seed(seed)
+        weights = lambda shape: (0.5 + torch.rand(shape, generator=gen)).to(dev)
+        loss, rays_ = 0.0, []
+        for p in range(passes):
+            ro_, rd_ = generate_rays(cam_, h, w, p)
+            rays_ += [ro_.detach().requires_grad_(True), rd_.detach().requires_grad_(True)]
+            rad, new = trace(sc, cfg_, rays_[-2], rays_[-1], pix_, p, 0, state.restir_back,
+                             state.restir_hist1, state.restir_hist2)
+            loss = loss + (rad * weights(rad.shape)).sum()
+            state = state.rotate_reservoirs(new)
+        for k in restir_kernel.RING_FLOATS:
+            loss = loss + (getattr(state.restir_back, k) * weights((h, w))).sum() * 0.1
+        got = torch.autograd.grad(loss, list(leaves.values()) + rays_)
+        out = dict(zip(RESTIR_LEAVES, got))
+        out["ro"] = torch.stack(got[-2 * passes::2])
+        out["rd"] = torch.stack(got[-2 * passes + 1::2])
+        return loss.detach(), out
+
+    k7_rel = {}
+    for name in ("restir_demo", "restir_stress"):
+        s18, c18, cfg18 = getattr(presets, name)(device=dev)
+        c = cfg18.replace(max_bounces=3)
+        before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES)
+        _, got = restir_chain(restir_kernel.trace_forward_restir_fused, s18, c, c18, 16, 128, 4)
+        torch.cuda.synchronize()
+        if (restir_kernel.LAUNCHES - before[0], restir_kernel.BWD_LAUNCHES - before[1]) != (4, 4):
+            raise AssertionError("expected one K6 and one K7 launch per pass")
+        _, again = restir_chain(restir_kernel.trace_forward_restir_fused, s18, c, c18, 16, 128, 4)
+        _, want = restir_chain(restir.trace_sample, s18, c, c18, 16, 128, 4)
+        torch.cuda.synchronize()
+        errs = grad_errors(got, want)
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        k7_rel[name] = max(e[0] for e in errs.values())
+        print(f"phase 18: {name} 16x128, 3 bounces, passes 0-3: max relative error per leaf "
+              + ", ".join(f"{k} {e[0]:.2e}" for k, e in errs.items())
+              + f"; two K7 runs {'give identical bits' if same else 'DIFFER'}")
+        if k7_rel[name] >= GRAD_TOL or not same:
+            raise AssertionError(f"K7 disagrees with plain autograd on {name}, or is not "
+                                 "deterministic")
+
+    # at full size, over as many passes (up to 4) as the plain autograd fits
+    # in the card's memory
+    def chain_memory(trace, size, passes):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        result = restir_chain(trace, r_scene, r_cfg, r_cam, size, size, passes)[1]
+        torch.cuda.synchronize()
+        return result, (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+
+    _, plain_mib_256 = chain_memory(restir.trace_sample, 256, 1)
+    free_mib = torch.cuda.mem_get_info()[0] / 2**20
+    full = H if plain_mib_256 * (H * W) / 256**2 < 0.8 * free_mib else 256
+    per_pass = plain_mib_256 * (full * full) / 256**2
+    n_full = max(1, min(4, int(0.8 * free_mib // per_pass)))
+    print(f"phase 18: plain autograd of one restir_demo pass at 256x256, {r_cfg.max_bounces} "
+          f"bounces takes {plain_mib_256:.1f} MiB; {free_mib:.0f} MiB free: comparing at "
+          f"{full}x{full} over passes 0-{n_full - 1}")
+    got, k7_mib = chain_memory(restir_kernel.trace_forward_restir_fused, full, n_full)
+    want, plain_mib = chain_memory(restir.trace_sample, full, n_full)
+    again, _ = chain_memory(restir_kernel.trace_forward_restir_fused, full, n_full)
+    errs = grad_errors(got, want)
+    k7_rel_full = max(e[0] for e in errs.values())
+    k7_abs = max(e[1] for e in errs.values())
+    same_full = all(torch.equal(got[k], again[k]) for k in got)
+    print(f"phase 18: restir_demo {full}x{full}, {r_cfg.max_bounces} bounces, passes "
+          f"0-{n_full - 1}: max relative error per leaf "
+          + ", ".join(f"{k} {e[0]:.2e}" for k, e in errs.items())
+          + f"; max abs error {k7_abs:.3e}; two K7 runs "
+          + ("give identical bits" if same_full else "DIFFER")
+          + f"; memory above the inputs: K6+K7 {k7_mib:.1f} MiB, plain autograd {plain_mib:.1f} MiB")
+    if k7_rel_full >= GRAD_TOL or not same_full:
+        raise AssertionError(f"K7 disagrees with plain autograd at {full}x{full}, or is not "
+                             "deterministic")
+    del got, want, again
+
+    # the plain backward alone of that pass, for the kernels line
+    leaves = {k: getattr(r_scene, k).detach().clone().requires_grad_(True) for k in RESTIR_LEAVES}
+    ro18, rd18 = generate_rays(r_cam, full, full, 0)
+    ring18 = RenderState.create(full, full, device=dev)
+    rad18, _ = restir.trace_sample(r_scene.replace(**leaves), r_cfg, ro18, rd18,
+                                   rng.pixel_ids(full, full, device=dev), 0, 0,
+                                   ring18.restir_back, ring18.restir_hist1, ring18.restir_hist2)
+    plain_ms_k7 = time_ms(torch, lambda: torch.autograd.grad(
+        rad18, list(leaves.values()), torch.ones_like(rad18), retain_graph=True,
+        allow_unused=True), runs=3, warmup=1)
+    del rad18, leaves
+
+    # ---- phase 19: K7 against K6's finite differences ----
+    fd_passes = 4
+    is_light = (r_scene.mat_type == 0).float()[:, None]
+
+    def linear_sum(em=None, pos=None):
+        sc = r_scene.replace(emission=r_scene.emission if em is None else em,
+                             pos=r_scene.pos if pos is None else pos)
+        return optimize.render_linear(sc, r_cfg, r_cam, fd_size, fd_size,
+                                      passes=fd_passes).double().sum()
+
+    s19 = torch.tensor(1.0, device=dev, requires_grad=True)
+    before = counts()
+    value = linear_sum(em=r_scene.emission * (1.0 + (s19 - 1.0) * is_light))
+    ad = torch.autograd.grad(value, s19)[0].item()
+    torch.cuda.synchronize()
+    if counts()[2:] != (before[2] + fd_passes, before[3] + fd_passes) or counts()[:2] != before[:2]:
+        raise AssertionError("the finite-difference gradient did not run on K6 and K7 alone")
+    eps19 = 0.05
+    with torch.no_grad():
+        fd = (linear_sum(em=r_scene.emission * (1.0 + eps19 * is_light)).item()
+              - linear_sum(em=r_scene.emission * (1.0 - eps19 * is_light)).item()) / (2 * eps19)
+    rel_fd = abs(ad - fd) / max(abs(fd), 1e-6)
+    rel_value = abs(ad - value.item()) / max(abs(value.item()), 1e-6)
+    print(f"phase 19: d sum(render_linear) / ds, every light's emission scaled by s, "
+          f"{fd_size}x{fd_size}, {r_cfg.max_bounces} bounces, {fd_passes} passes: K7 {ad:.6f}, "
+          f"K6 central difference {fd:.6f} (relative error {rel_fd:.2e}), sum at s = 1 "
+          f"{value.item():.6f} (relative error {rel_value:.2e})")
+    if not (rel_fd < FD_TOL and rel_value < 1e-2):
+        raise AssertionError("K7's emission gradient is not the linear one")
+    light19 = r_scene.lights_static[4]   # the central light, (0, 1.8, 0)
+    pos = r_scene.pos.detach().clone().requires_grad_(True)
+    ad_pos = torch.autograd.grad(linear_sum(pos=pos), pos)[0][light19, 1].item()
+    sums = []
+    for sign in (1.0, -1.0):
+        moved = r_scene.pos.clone()
+        moved[light19, 1] += sign * 1e-2
+        with torch.no_grad():
+            sums.append(linear_sum(pos=moved).item())
+    fd_pos = (sums[0] - sums[1]) / 2e-2
+    print(f"phase 19: d sum(render_linear) / d pos[{light19}].y (step 1e-2): K7 {ad_pos:.6f}, "
+          f"K6 central difference {fd_pos:.6f} (a measurement: the light, radius 0.02, is seen "
+          "directly and moving it moves discontinuous visibility, which the detached-decision "
+          "gradient leaves out)")
+
+    # ---- phase 20: the ReSTIR gradient main path ----
+    fit_size, fit_steps, fit_passes = 128, 20, 4
+    with torch.no_grad():
+        target = optimize.render_linear(r_scene, r_cfg, r_cam, fit_size, fit_size,
+                                        passes=fit_passes)
+    start = r_scene.replace(emission=r_scene.emission * (1.0 + 0.6 * is_light))
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    restir_kernel.LAUNCHES = restir_kernel.BWD_LAUNCHES = 0
+    fitted, losses = optimize.fit(start, r_cfg, r_cam, target, ("emission",), steps=fit_steps,
+                                  learning_rate=0.08, passes=fit_passes,
+                                  param_mask={"emission": is_light})
+    torch.cuda.synchronize()
+    k1_fit, k2_fit, k6_fit, launches_k7 = counts()
+    em = fitted.emission[r_scene.lights_static[4]].tolist()
+    print(f"phase 20: optimize.fit of restir_demo at {fit_size}x{fit_size}, passes={fit_passes}, "
+          f"{fit_steps} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}, central light emission "
+          f"{[round(v, 4) for v in em]} (truth 4.0, start 6.4); {k6_fit} K6, {launches_k7} K7, "
+          f"{k1_fit} K1, {k2_fit} K2 launches")
+    if (k6_fit, launches_k7, k1_fit, k2_fit) != (fit_steps * fit_passes,) * 2 + (0, 0) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("the ReSTIR fit did not lower the loss through K6 and K7 alone")
+
+    def restir_step(route, size):
+        leaves = {k: getattr(r_scene, k).detach().clone().requires_grad_(True)
+                  for k in RESTIR_LEAVES}
+        sc = r_scene.replace(**leaves)
+        if route == "kernel":   # what a user calls
+            img = optimize.render_linear(sc, r_cfg, r_cam, size, size, passes=fit_passes)
+        else:                   # the same step through the plain version
+            state = RenderState.create(size, size, device=dev)
+            total = 0.0
+            for p in range(fit_passes):
+                rad, new = restir.render_sample(sc, r_cfg, r_cam, state, size, size, p)
+                state = state.rotate_reservoirs(new)
+                total = total + rad
+            img = total / fit_passes
+        return torch.autograd.grad(img.sum(), list(leaves.values()))
+
+    mem20 = {}
+    for route, size in (("kernel", H), ("kernel", 128), ("plain", 128)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        restir_step(route, size)
+        torch.cuda.synchronize()
+        mem20[(route, size)] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    step_full = time_stats(torch, lambda: restir_step("kernel", H), runs=9)
+    step_small = time_stats(torch, lambda: restir_step("kernel", 128), runs=9)
+    step_plain = time_stats(torch, lambda: restir_step("plain", 128), runs=3, warmup=1)
+    for name, size, (med, q1, q3) in (("K6+K7", H, step_full), ("K6+K7", 128, step_small),
+                                      ("plain autograd", 128, step_plain)):
+        print(f"phase 20: {card}: fwd+bwd step of render_linear(passes={fit_passes}) at "
+              f"{size}x{size}, {r_cfg.max_bounces} bounces, {name}: {med:.3f} ms (q1 {q1:.3f}, "
+              f"q3 {q3:.3f}); memory above the inputs {mem20[('kernel' if name != 'plain autograd' else 'plain', size)]:.1f} MiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            restir_step("kernel", H)
+        torch.cuda.synchronize()
+    dev20, total20 = device_times_ms(prof, ("restir_bwd_kernel", "tap_gather_kernel",
+                                            "restir_reduce_kernel", "restir_kernel"))
+    per_launch = 3 * fit_passes
+    k7_dev_ms = None if dev20["restir_bwd_kernel"] is None else \
+        (dev20["restir_bwd_kernel"] + dev20["tap_gather_kernel"]
+         + dev20["restir_reduce_kernel"]) / per_launch
+    if total20 is None:
+        print("phase 20: profiler device time: not measured (no device events)")
+    else:
+        print(f"phase 20: {card}: device time per launch in the 512x512 step (profiler, 3 "
+              f"steps of {fit_passes} passes): K7 adjoint "
+              f"{dev20['restir_bwd_kernel'] / per_launch:.4f} ms, tap gather "
+              f"{dev20['tap_gather_kernel'] / per_launch:.4f} ms, reduction "
+              f"{dev20['restir_reduce_kernel'] / per_launch:.4f} ms; K6 "
+              f"{dev20['restir_kernel'] / per_launch:.4f} ms; all kernels "
+              f"{total20 / 3:.4f} ms per step")
+    # K7 alone on the phase-17 inputs, and its bound
+    ct20 = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
+    ct_res20 = [torch.ones((H, W), dtype=torch.float32, device=dev) for _ in range(4)]
+    table20 = megakernel.scene_table(r_scene)
+    ms_k7 = time_ms(torch, lambda: restir_kernel._launch_backward(
+        r_scene, r_cfg, table20, ro17, rd17, pix17, PASSES, 0,
+        (st.restir_back, st.restir_hist1, st.restir_hist2), ct20, ct_res20))
+    k7_bound, k7_by = bound(ev17, r_scene, r_cfg, adjoint=True, restir=True)
+    print(f"phase 20: {card}: K7 alone at {H}x{W}, {r_cfg.max_bounces} bounces: {ms_k7:.3f} ms per "
+          f"launch (CUDA events); plain backward of one pass at {full}x{full} "
+          f"{plain_ms_k7:.3f} ms; bound {k7_bound:.6f} ms ({k7_by})")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     common = dict(route="cuda", library_ms=None)
@@ -1240,9 +1507,22 @@ def main() -> int:
         {"name": "K6 fused ReSTIR forward", **common,
          "source": "raytracer0_tpu_torch/csrc/restir.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2880",
-         "launches": launches_k6, "max_abs_err": k6_max_err, "ms": ms_k6,
+         "launches": launches_k6,
+         "launches_by_path": {"render": launches_k6, "gradient": k6_fit},
+         "max_abs_err": k6_max_err, "ms": ms_k6,
          "device_ms": k6_dev_ms, "plain_ms": plain_restir[0], "bound_ms": k6_bound,
          "bound_by": k6_by},
+        {"name": "K7 fused ReSTIR adjoint", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3017",
+         "launches": launches_k7, "max_abs_err": k7_abs, "max_rel_err": k7_rel_full,
+         "compared_at": f"{full}x{full}, passes 0-{n_full - 1}", "ms": ms_k7, "device_ms": k7_dev_ms,
+         "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by},
+        {"name": "K8 per-slot fused ReSTIR adjoint, served by K7", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3089",
+         "launches": launches_k7, "max_abs_err": k7_abs, "ms": ms_k7, "device_ms": k7_dev_ms,
+         "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by},
         {"name": "K11 gloss suffix-resume forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3969",

@@ -9,7 +9,8 @@
 // d_table f32[n_mesh, 36] and d_ro, d_rd f32[n_pix, 3]: the gradients that
 // torch.autograd gives through the plain version
 // (raytracer0_tpu_torch/render/integrator.py::trace).  CUDA has no autodiff,
-// so the adjoint of each step of a bounce is written out below by hand.
+// so the adjoint of each step of a bounce is written out by hand, below and
+// in adjoint.cuh (shared with K7).
 //
 // Scheme: the per-slot stash of the Pallas kernel, one thread per pixel.
 //  * forward sweep: run K1's bounce loop without NEE and without the
@@ -41,7 +42,7 @@
 // bounce's arithmetic, with branches that diverge per pixel.  The stash
 // (12 floats per slot) lives in local memory, which the L1 cache serves.
 
-#include "trace_common.cuh"
+#include "adjoint.cuh"
 
 namespace {
 
@@ -50,9 +51,9 @@ constexpr int ST = 12;          // stashed floats per slot: o, d, mask, prev_nl
 constexpr int BWD_THREADS = 128;
 constexpr int RED_THREADS = 256;
 
-// cotangent columns kept per thread, and their scene-table columns
+// cotangent columns kept per thread (pos 0:3, joker.x 3, color 7:10,
+// emission 10:13), and the scene-table column of each
 constexpr int NG = 10;
-constexpr int G_P = 0, G_J0 = 3, G_C = 4, G_E = 7;
 __host__ __device__ constexpr int table_col_of(int g) { return g < 4 ? g : g + 3; }
 
 struct BwdArgs {
@@ -62,12 +63,13 @@ struct BwdArgs {
   float *partials;       // [n_blocks, n_mesh, NG]
 };
 
-// This thread's column of the block's cotangent accumulators.
+// This thread's column of the block's cotangent accumulators; `col` is a
+// scene-table column (adjoint.cuh).
 struct GradAcc {
   float *g;     // entry e at g[e * stride]
   int stride;   // blockDim.x
   __device__ __forceinline__ void add(int mesh, int col, float v) const {
-    g[(mesh * NG + col) * stride] += v;
+    g[(mesh * NG + (col < 4 ? col : col - 3)) * stride] += v;
   }
   __device__ __forceinline__ void add3(int mesh, int col, V3 v) const {
     add(mesh, col, v.x);
@@ -75,231 +77,6 @@ struct GradAcc {
     add(mesh, col + 2, v.z);
   }
 };
-
-__device__ __forceinline__ V3 zero3() { return {0.0f, 0.0f, 0.0f}; }
-// gradient of clamp_min(raw, lo): passes where raw >= lo
-__device__ __forceinline__ V3 pass_ge(V3 raw, float lo, V3 g) {
-  return {raw.x >= lo ? g.x : 0.0f, raw.y >= lo ? g.y : 0.0f, raw.z >= lo ? g.z : 0.0f};
-}
-
-// ------------------------------------------------------------ adjoints
-// normalize(a) = a * (1 / sqrt(max(|a|^2, EPS)))
-__device__ V3 normalize_bwd(V3 a, V3 g) {
-  float s = dot(a, a);
-  float len = sqrtf(fmaxf(s, EPS));
-  float inv = 1.0f / len;
-  V3 ga = g * inv;
-  if (s >= EPS) {
-    float g_len = -dot(g, a) * inv * inv;
-    ga = ga + a * (2.0f * (g_len / (2.0f * len)));
-  }
-  return ga;
-}
-
-// safe_div(a, b): a / (sign(b) * max(|b|, EPS))
-__device__ void safe_div_bwd(float a, float b, float g, float &ga, float &gb) {
-  float mag = fmaxf(fabsf(b), EPS);
-  float sd = b < 0.0f ? -mag : mag;
-  ga = g / sd;
-  float g_sd = -g * a / (sd * sd);
-  float g_mag = b < 0.0f ? -g_sd : g_sd;
-  gb = fabsf(b) >= EPS ? signf(b) * g_mag : 0.0f;
-}
-
-// onb(n) -> (u, v); the |n.z| ~ 1 guard gives constants.
-__device__ V3 onb_bwd(V3 n, V3 gu, V3 gv) {
-  if (fabsf(n.z) > 0.99999f) return zero3();
-  float sig = n.z < 0.0f ? -1.0f : 1.0f;
-  float den = sig + n.z;
-  bool floored = fabsf(den) < EPS;
-  float dd = floored ? EPS : den;
-  float a = -1.0f / dd;
-  float g_b = gu.y * sig + gv.x;
-  float g_a = gu.x * sig * n.x * n.x + g_b * n.x * n.y + gv.y * n.y * n.y;
-  return {gu.x * 2.0f * sig * n.x * a + g_b * n.y * a - gu.z * sig,
-          g_b * n.x * a + gv.y * 2.0f * n.y * a - gv.z,
-          floored ? 0.0f : g_a / (dd * dd)};
-}
-
-// around(w, u1, om, r_y) = normalize(u*cos(ang)*om + v*sin(ang)*om + w*r_y)
-__device__ void around_bwd(V3 w, float u1, float om, float r_y, V3 g, V3 &g_w, float &g_om,
-                           float &g_ry) {
-  V3 u, v;
-  onb(w, u, v);
-  float ang = u1 * TWO_PI;
-  float cs = cosf(ang), sn = sinf(ang);
-  float ca = cs * om, sa = sn * om;
-  V3 g_dv = normalize_bwd(u * ca + v * sa + w * r_y, g);
-  g_w = g_dv * r_y + onb_bwd(w, g_dv * ca, g_dv * sa);
-  g_om = dot(g_dv, u) * cs + dot(g_dv, v) * sn;
-  g_ry = dot(g_dv, w);
-}
-
-// sample_biased(w, u1, u2): om and r_y depend on u2 only.
-__device__ V3 sample_biased_bwd(V3 w, float u1, float u2, V3 g) {
-  float r_y = sqrtf(fmaxf(u2, 1e-12f));
-  float om = safe_sqrt(1.0f - r_y * r_y);
-  V3 g_w;
-  float g_om, g_ry;
-  around_bwd(w, u1, om, r_y, g, g_w, g_om, g_ry);
-  return g_w;
-}
-
-// sample_cone(w, extent, u1, u2)
-__device__ void sample_cone_bwd(V3 w, float extent, float u1, float u2, V3 g, V3 &g_w,
-                                float &g_extent) {
-  float r_y = 1.0f - u2 * extent;
-  float x = 1.0f - r_y * r_y;
-  float om = safe_sqrt(x);
-  float g_om, g_ry;
-  around_bwd(w, u1, om, r_y, g, g_w, g_om, g_ry);
-  if (x > 0.0f) g_ry += (g_om / (2.0f * om)) * (-2.0f * r_y);
-  g_extent = -u2 * g_ry;
-}
-
-// power_heuristic(f, g) = max(f^2, 0) / max(f^2 + g^2, 1e-12), 0 when f^2 + g^2 <= 0
-__device__ void power_heuristic_bwd(float f, float g, float gout, float &gf, float &gg) {
-  float ff = f * f;
-  float denom = ff + g * g;
-  gf = gg = 0.0f;
-  if (!(denom > 0.0f)) return;
-  float dm = fmaxf(denom, 1e-12f);
-  float g_ff = gout / dm;
-  float g_den = denom >= 1e-12f ? -gout * fmaxf(ff, 0.0f) / (dm * dm) : 0.0f;
-  gf = 2.0f * f * (g_ff + g_den);
-  gg = 2.0f * g * g_den;
-}
-
-// sphere_light_pdf(lp, r, x)
-__device__ void sphere_light_pdf_bwd(V3 lp, float r, V3 x, float g, V3 &g_lp, float &g_r,
-                                     V3 &g_x) {
-  V3 dv = lp - x;
-  float d2 = dot(dv, dv);
-  float r2 = r * r;
-  float q = safe_div(r2, d2);
-  float cos_max = safe_sqrt(1.0f - q);
-  float denom = 1.0f - cos_max;
-  g_lp = g_x = zero3();
-  g_r = 0.0f;
-  if (d2 <= r2 || denom < 1e-6f) return;
-  float m_pre = TWO_PI * denom;
-  float m = fmaxf(m_pre, 1e-12f);
-  float g_den = m_pre >= 1e-12f ? (-g / (m * m)) * TWO_PI : 0.0f;
-  float g_q = (1.0f - q) > 0.0f ? g_den / (2.0f * cos_max) : 0.0f;  // d/dq of -(1 - sqrt(1 - q))
-  float g_r2, g_d2;
-  safe_div_bwd(r2, d2, g_q, g_r2, g_d2);
-  g_r = 2.0f * r * g_r2;
-  g_lp = dv * (2.0f * g_d2);
-  g_x = g_lp * -1.0f;
-}
-
-// procedural_sky(d): only d.y reaches it, through the clamp.
-__device__ float sky_bwd(V3 d, V3 g) {
-  float hp = d.y * 0.6f + 0.5f;
-  float h = fminf(fmaxf(hp, 0.3f), 1.0f);
-  float g_h = g.x * (-0.5f * sinf(TWO_PI * (0.525f + 0.9f * h))) * (TWO_PI * 0.9f) +
-              g.y * (-0.5f * sinf(TWO_PI * (0.408f + 0.97f * h))) * (TWO_PI * 0.97f) +
-              g.z * (-0.5f * sinf(TWO_PI * (0.409f + 0.8f * h))) * (TWO_PI * 0.8f);
-  return (hp >= 0.3f && hp <= 1.0f) ? 0.6f * g_h : 0.0f;
-}
-
-// The winner's t of `intersect` with respect to o, d and mesh i's p, j0.
-__device__ void isect_bwd(const SceneSmem &s, int i, V3 o, V3 d, float eps, float g_t, V3 &g_o,
-                          V3 &g_d, const GradAcc &G) {
-  V3 p = s.p(i);
-  float j0 = s.j0(i);
-  switch (s.mesh[i]) {
-    case MESH_SPHERE: {
-      V3 oc = o - p;
-      float b = dot(oc, d);
-      float c = dot(oc, oc) - j0 * j0;
-      float sq = sqrtf(b * b - c);  // disc > 0 on a hit
-      float t0 = -b - sq;
-      float g_sq = t0 > eps ? -g_t : g_t;
-      float g_disc = g_sq / (2.0f * sq);
-      float g_b = -g_t + 2.0f * b * g_disc;
-      float g_c = -g_disc;
-      V3 g_oc = d * g_b + oc * (2.0f * g_c);
-      g_d = g_d + oc * g_b;
-      g_o = g_o + g_oc;
-      G.add3(i, G_P, g_oc * -1.0f);
-      G.add(i, G_J0, -2.0f * j0 * g_c);
-      break;
-    }
-    case MESH_PLANE: {
-      float denom = dot(p, d);
-      float num = -j0 - dot(p, o);
-      float g_num, g_den;
-      safe_div_bwd(num, denom, g_t, g_num, g_den);
-      G.add3(i, G_P, d * g_den - o * g_num);
-      G.add(i, G_J0, -g_num);
-      g_d = g_d + p * g_den;
-      g_o = g_o - p * g_num;
-      break;
-    }
-    case MESH_BOX: {
-      float half = j0 * 0.5f;
-      const float pp[3] = {p.x, p.y, p.z}, oo[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
-      float m[3], lo[3], hi[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        m[k] = safe_div(1.0f, dd[k]);
-        float n = m[k] * (pp[k] - oo[k]);
-        float kk = fabsf(m[k]) * half;
-        lo[k] = n - kk;
-        hi[k] = n + kk;
-      }
-      float tn = fmaxf(fmaxf(lo[0], lo[1]), lo[2]);
-      float tf = fminf(fminf(hi[0], hi[1]), hi[2]);
-      float g_lo[3] = {0.0f, 0.0f, 0.0f}, g_hi[3] = {0.0f, 0.0f, 0.0f};
-      if (tn > 0.0f) {
-        float cnt = (float)((lo[0] == tn) + (lo[1] == tn) + (lo[2] == tn));
-#pragma unroll
-        for (int k = 0; k < 3; ++k) g_lo[k] = lo[k] == tn ? g_t / cnt : 0.0f;
-      } else {
-        float cnt = (float)((hi[0] == tf) + (hi[1] == tf) + (hi[2] == tf));
-#pragma unroll
-        for (int k = 0; k < 3; ++k) g_hi[k] = hi[k] == tf ? g_t / cnt : 0.0f;
-      }
-      float g_half = 0.0f, gp[3], go[3], gd[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float g_n = g_lo[k] + g_hi[k];
-        float g_k = g_hi[k] - g_lo[k];
-        float g_m = g_n * (pp[k] - oo[k]) + g_k * half * signf(m[k]);
-        gp[k] = g_n * m[k];
-        go[k] = -g_n * m[k];
-        g_half += g_k * fabsf(m[k]);
-        float g_one;
-        safe_div_bwd(1.0f, dd[k], g_m, g_one, gd[k]);
-      }
-      G.add3(i, G_P, {gp[0], gp[1], gp[2]});
-      G.add(i, G_J0, 0.5f * g_half);
-      g_o = g_o + V3{go[0], go[1], go[2]};
-      g_d = g_d + V3{gd[0], gd[1], gd[2]};
-      break;
-    }
-    default:
-      break;
-  }
-}
-
-// normal_at(idx, x): sphere normalize(x - p), plane normalize(p), box constant.
-__device__ void normal_bwd(const SceneSmem &s, int i, V3 x, V3 g_n, V3 &g_x, const GradAcc &G) {
-  switch (s.mesh[i]) {
-    case MESH_SPHERE: {
-      V3 ga = normalize_bwd(x - s.p(i), g_n);
-      g_x = g_x + ga;
-      G.add3(i, G_P, ga * -1.0f);
-      break;
-    }
-    case MESH_PLANE:
-      G.add3(i, G_P, normalize_bwd(s.p(i), g_n));
-      break;
-    default:
-      break;
-  }
-}
 
 // shade_nee forward and adjoint in one pass: returns the NEE total (before
 // the throughput factor) and adds the cotangents of x, nl and the scene for
@@ -356,15 +133,15 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, f
       V3 g_lp, g_xp;
       float g_r;
       sphere_light_pdf_bwd(lp, r, x, g_l, g_lp, g_r, g_xp);
-      G.add3(li, G_P, g_lp);
-      G.add(li, G_J0, g_r);
+      G.add3(li, C_PX, g_lp);
+      G.add(li, C_J0, g_r);
       g_x = g_x + g_xp;
     }
     total = total + contrib;
 
     // contrib = max(c, 0.001) * e * (weight * cos_term)
-    G.add3(hidx, G_C, pass_ge(lc_raw, 0.001f, g_c * le * sc));
-    G.add3(hidx, G_E, g_c * lc * sc);
+    G.add3(hidx, C_CR, pass_ge(lc_raw, 0.001f, g_c * le * sc));
+    G.add3(hidx, C_ER, g_c * lc * sc);
     float g_sc = dot(g_c, lc * le);
     float g_cos = g_sc * weight;
     V3 g_sr = zero3();
@@ -382,9 +159,9 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, f
     float g_q = (q >= 0.0f && q <= 1.0f) ? g_qc : 0.0f;
     float g_r2, g_d2;
     safe_div_bwd(r * r, d2, g_q, g_r2, g_d2);
-    G.add(li, G_J0, 2.0f * r * g_r2);
+    G.add(li, C_J0, 2.0f * r * g_r2);
     V3 g_sw = sw * (2.0f * g_d2) + normalize_bwd(sw, g_ldir);
-    G.add3(li, G_P, g_sw);
+    G.add3(li, C_PX, g_sw);
     g_x = g_x - g_sw;
   }
   return total;
@@ -434,8 +211,8 @@ __device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint
       mis_w = power_heuristic(b_pdf, l_pdf);
     }
     g_mask = ct * c * e * mis_w;
-    G.add3(idx, G_C, pass_ge(c_raw, 0.001f, ct * mask * e * mis_w));
-    G.add3(idx, G_E, pass_ge(e_raw, 0.001f, ct * mask * c * mis_w));
+    G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, ct * mask * e * mis_w));
+    G.add3(idx, C_ER, pass_ge(e_raw, 0.001f, ct * mask * c * mis_w));
     if (mis) {
       float g_b, g_l;
       power_heuristic_bwd(b_pdf, l_pdf, dot(ct, mask * c * e), g_b, g_l);
@@ -450,8 +227,8 @@ __device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint
         V3 g_lp, g_op;
         float g_r;
         sphere_light_pdf_bwd(s.p(idx), s.j0(idx), o, g_l, g_lp, g_r, g_op);
-        G.add3(idx, G_P, g_lp);
-        G.add(idx, G_J0, g_r);
+        G.add3(idx, C_PX, g_lp);
+        G.add(idx, C_J0, g_r);
         g_o = g_o + g_op;
       }
     }
@@ -474,7 +251,7 @@ __device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint
       g_ma = g_ma + ct * total;
     }
     g_mask = g_ma * c;
-    G.add3(idx, G_C, pass_ge(c_raw, 0.001f, g_ma * mask));
+    G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, g_ma * mask));
     normal_bwd(s, idx, x, g_nl * inside, g_x, G);
   }
 

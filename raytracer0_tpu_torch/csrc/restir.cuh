@@ -1,0 +1,371 @@
+// restir.cuh — the reservoir vertex of the fused ReSTIR kernel K6
+// (restir.cu), shared with its adjoint K7 (restir_bwd.cu).
+//
+// `RestirVertex` is restir.reservoir_direct for one diffuse vertex of one
+// pixel: candidate generation, temporal reuse at the pixel itself, spatial
+// reuse on the previous pass's grid, finalize and shade.  It reads its spatial
+// taps in place at (row + dy, col + dx), behind the in-bounds test, its
+// history at its own pixel, and the light slots (position, color·emission,
+// radius, live) from a table in shared memory by index; the target function
+// p̂ is evaluated for the slot that each step needs.
+//
+// `run` takes a tape: K6 passes `NoTape`, whose hooks compile to nothing;
+// K7 records the decisions and the values its reverse sweep needs (the
+// reservoir before each combine, the selections, the visibility and the
+// shading ray's hit), so both kernels take every decision in this one copy.
+
+#pragma once
+
+#include "path.cuh"
+
+namespace {
+
+constexpr float MAX_AGE = 30.0f;                    // MAX_RESERVOIR_AGE
+constexpr float ALPHA0 = 0.95f;                     // TEMPORAL_ALPHA
+constexpr float ALPHA1 = (float)(0.95 * 0.80);      // TEMPORAL_ALPHA * 0.8
+constexpr int NSLOT = 8;                            // floats per light slot
+constexpr int MAX_SPATIAL = 8;                      // RESTIR_SPATIAL_SAMPLES
+constexpr uint32_t S_RESTIR_CANDIDATE = 11u, S_RESTIR_TEMPORAL = 12u, S_RESTIR_SPATIAL = 13u;
+
+// One reservoir grid: five fields over [height, width].
+struct ResIn {
+  const float *ws, *m, *w, *age;
+  const int32_t *idx;
+};
+
+struct RestirArgs {
+  ResIn back, hist[2];    // the previous pass's grid, the two history levels
+  float *pos, *col;       // outputs [n_pix, 3] (K6)
+  float *ws, *m, *w, *age;  // outputs [n_pix] (K6)
+  int32_t *idx;           // output [n_pix] (K6)
+  int taps[16];           // (row, column) offsets of the 8 spatial taps
+  int height, width;
+  int n_cand, n_spatial;  // candidates, spatial taps
+  float eps2, eps10;      // f32(cfg.epsilon * 2), f32(cfg.epsilon * 10)
+};
+
+struct Res {
+  float ws, m, w, age;
+  int idx;
+};
+
+// Host side: the reservoir arguments of both launchers from the wrapper's
+// pointer arrays (`res_out` null for K7, which writes no reservoirs).
+inline RestirArgs restir_args(const void *const *res_in, void *const *res_out, const int32_t *taps,
+                              int height, int width, int n_cand, int n_spatial, float eps2,
+                              float eps10) {
+  RestirArgs ra = {};
+  ResIn *grids[3] = {&ra.back, &ra.hist[0], &ra.hist[1]};
+  for (int g = 0; g < 3; ++g) {
+    grids[g]->ws = static_cast<const float *>(res_in[5 * g]);
+    grids[g]->m = static_cast<const float *>(res_in[5 * g + 1]);
+    grids[g]->w = static_cast<const float *>(res_in[5 * g + 2]);
+    grids[g]->age = static_cast<const float *>(res_in[5 * g + 3]);
+    grids[g]->idx = static_cast<const int32_t *>(res_in[5 * g + 4]);
+  }
+  if (res_out != nullptr) {
+    ra.pos = static_cast<float *>(res_out[0]);
+    ra.col = static_cast<float *>(res_out[1]);
+    ra.ws = static_cast<float *>(res_out[2]);
+    ra.m = static_cast<float *>(res_out[3]);
+    ra.w = static_cast<float *>(res_out[4]);
+    ra.age = static_cast<float *>(res_out[5]);
+    ra.idx = static_cast<int32_t *>(res_out[6]);
+  }
+  for (int k = 0; k < 16; ++k) ra.taps[k] = taps[k];
+  ra.height = height;
+  ra.width = width;
+  ra.n_cand = n_cand;
+  ra.n_spatial = n_spatial;
+  ra.eps2 = eps2;
+  ra.eps10 = eps10;
+  return ra;
+}
+
+// The tape K6 passes: records nothing.
+struct NoTape {
+  __device__ __forceinline__ void candidate(int, bool, bool) {}
+  __device__ __forceinline__ void combine(const Res &, bool, float, float, bool) {}
+  __device__ __forceinline__ void post_clamp(bool, float) {}
+  __device__ __forceinline__ void finalize(const Res &, bool) {}
+  __device__ __forceinline__ void shade(int, bool, bool) {}
+};
+
+// Fill the light-slot table: per slot its light's position, color·emission,
+// radius and liveness (a slot of -1 reads row 0, as the plain version's
+// clamp does).  The caller synchronises the block before reading it.
+__device__ __forceinline__ void load_slots(const TraceArgs &a, float *slots) {
+  for (int l = threadIdx.x; l < a.n_lights; l += blockDim.x) {
+    const int li = a.lights[l];
+    const float *row = a.table + (long long)(li < 0 ? 0 : li) * NCOLS;
+    float *t = slots + l * NSLOT;
+    for (int k = 0; k < 3; ++k) {
+      t[k] = row[C_PX + k];
+      t[3 + k] = row[C_CR + k] * row[C_ER + k];
+    }
+    t[6] = row[C_J0];
+    t[7] = li >= 0 ? 1.0f : 0.0f;
+  }
+}
+
+// The reservoir vertex (restir.reservoir_direct) as trace_path's direct
+// light: returns the shaded direct light without the throughput and keeps
+// the vertex's reservoir in `r`, so the last diffuse vertex's remains.
+struct RestirVertex {
+  const SceneSmem &s;
+  const SdfScene &sd;
+  const TraceArgs &a;
+  const RestirArgs &ra;
+  const float *slots;  // [n_lights, 8]: position, color·emission, radius, live
+  int row, col;
+  Res r;
+
+  __device__ __forceinline__ V3 slot_pos(int l) const {
+    return {slots[l * NSLOT], slots[l * NSLOT + 1], slots[l * NSLOT + 2]};
+  }
+  __device__ __forceinline__ V3 slot_col(int l) const {
+    return {slots[l * NSLOT + 3], slots[l * NSLOT + 4], slots[l * NSLOT + 5]};
+  }
+  __device__ __forceinline__ bool in_range(int l) const { return l >= 0 && l < s.n_lights; }
+
+  // The material-aware BRDF weight of the shading mesh mi (evaluate_target).
+  __device__ __forceinline__ float brdf_weight(int mi) const {
+    const V3 mc = s.c(mi);
+    const float nt = fabsf(s.ior(mi));
+    const int mt = s.mat[mi];
+    const float surface_lum = mc.x * 0.2126f + mc.y * 0.7152f + mc.z * 0.0722f;
+    const float nnt = (nt - 1.0f) / fmaxf(nt + 1.0f, 1e-6f);
+    const float r0 = nnt * nnt;
+    const float is_refr = (mt == MAT_REFR_FRESNEL || mt == MAT_REFR_SCHLICK) ? 1.0f : 0.0f;
+    const float is_coat = mt == MAT_COAT ? 1.0f : 0.0f;
+    const float base = surface_lum + (r0 - surface_lum) * is_refr;
+    return (base + ((1.0f - r0) * surface_lum - base) * is_coat) * ONE_OVER_PI;
+  }
+
+  // restir.evaluate_target of slot l at (x, nl); 0 for no slot.
+  __device__ __forceinline__ float target(int l, V3 x, V3 nl, float brdf) const {
+    if (!in_range(l)) return 0.0f;
+    const V3 lv = slot_pos(l) - x;
+    const float d2 = dot(lv, lv);
+    const float cos_t = fmaxf(dot(nl, normalize(lv)), 0.0f);
+    const V3 lc = slot_col(l);
+    const float light_lum = lc.x * 0.2126f + lc.y * 0.7152f + lc.z * 0.0722f;
+    const float p_hat = light_lum * brdf * cos_t / fmaxf(d2, 1e-4f);
+    return (d2 >= 1e-6f && cos_t > 0.0f && light_lum > 0.0f) ? p_hat : 0.0f;
+  }
+
+  // restir.is_valid_reservoir; the stored light data is the slot's.
+  __device__ __forceinline__ bool valid(const Res &q) const {
+    bool ok = isfinite(q.m) && isfinite(q.ws) && isfinite(q.w) && isfinite(q.age);
+    ok = ok && q.m > 0.0f && q.m <= 200.0f && q.ws > 0.0f && q.ws <= 1000.0f;
+    ok = ok && q.w >= 0.0f && q.w <= 20.0f && q.age >= 0.0f && q.age <= MAX_AGE + 5.0f;
+    const V3 lc = in_range(q.idx) ? slot_col(q.idx) : V3{0.0f, 0.0f, 0.0f};
+    const V3 lp = in_range(q.idx) ? slot_pos(q.idx) : V3{0.0f, 0.0f, 0.0f};
+    const float lc2 = dot(lc, lc), lp2 = dot(lp, lp);
+    ok = ok && lc2 >= 1e-6f && lc2 <= 1e4f && q.idx < s.n_lights;
+    return ok && !(lp2 < 1e-6f && q.idx >= 0);
+  }
+
+  // restir.combine_reservoirs of `q` into r.
+  template <class Tape>
+  __device__ __forceinline__ void combine(const Res &q, bool ok, float rand, V3 x, V3 nl,
+                                          float brdf, Tape &tape) {
+    ok = ok && valid(q);
+    const float tw = target(q.idx, x, nl, brdf);
+    ok = ok && tw > 0.0f;
+    const float contribution =
+        fminf(fmaxf(tw * fmaxf(q.w, 0.0f) * fmaxf(q.m, 1.0f), 0.0f), 200.0f);
+    float ws = r.ws + (ok ? contribution : 0.0f);
+    float m = r.m + (ok ? q.m : 0.0f);
+    const float m_new = m;
+    const float ws_before = r.ws;
+    const float scale = m > 40.0f ? 40.0f / fmaxf(m, 1e-6f) : 1.0f;
+    ws = ws * scale;
+    m = fminf(m, 40.0f);
+    const bool select = ok && ws > 0.0f && rand < contribution / fmaxf(ws, 1e-12f);
+    if (select) {
+      r.age = fminf(q.age + 0.25f, MAX_AGE);
+      r.idx = q.idx;
+    }
+    r.ws = ws;
+    r.m = m;
+    tape.combine(q, ok, ws_before, m_new, select);
+  }
+
+  __device__ __forceinline__ Res load(const ResIn &g, long long q) const {
+    return {__ldg(g.ws + q), __ldg(g.m + q), __ldg(g.w + q), __ldg(g.age + q), __ldg(g.idx + q)};
+  }
+
+  // Candidate i's light slot and its second draw.
+  __device__ __forceinline__ int candidate_slot(uint32_t h_depth, int i, float &r2) const {
+    const int L = s.n_lights;
+    const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)i, 4u), S_RESTIR_CANDIDATE, 5u);
+    const float r1 = u01(h);
+    r2 = u01(pcg(h));
+    int slot = (int)(r1 * (float)L);
+    return slot < 0 ? 0 : (slot > L - 1 ? L - 1 : slot);
+  }
+
+  // The uniforms of the cone sample that shades the selected slot.
+  __device__ __forceinline__ void shade_draws(uint32_t h_depth, float &u1, float &u2) const {
+    const uint32_t hs = fold_step(fold_step(h_depth, S_NEE_CONE, 4u), 77u, 5u);
+    u1 = u01(hs);
+    u2 = u01(pcg(hs));
+  }
+
+  // The spatial taps' gate (restir.reservoir_direct phase 3) and draws.
+  __device__ __forceinline__ bool tap_ok(int i, const Res &q, bool in_b, V3 x, uint32_t h_depth,
+                                         float &s2) const {
+    const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)i, 4u), S_RESTIR_SPATIAL, 5u);
+    const float s1 = u01(h);
+    s2 = u01(pcg(h));
+    const bool few_frames = a.pass_idx < 10u;
+    const int halve = ra.n_spatial / 2 > 2 ? ra.n_spatial / 2 : 2;
+    bool ok = in_b && q.m > 0.0f && !(i >= halve && few_frames);
+    if (q.idx >= 0 && in_range(q.idx)) {
+      const V3 ld = slot_pos(q.idx) - x;
+      ok = ok && !(dot(ld, ld) > 225.0f);
+    }
+    return ok && !(q.age > MAX_AGE * 0.8f) && !(s1 < 0.03f);
+  }
+
+  // Spatial tap i's grid cell (clamped into the image) and whether it is in
+  // bounds.
+  __device__ __forceinline__ long long tap_cell(int i, bool &in_b) const {
+    const int nr = row + ra.taps[2 * i], nc = col + ra.taps[2 * i + 1];
+    in_b = nr >= 0 && nr < ra.height && nc >= 0 && nc < ra.width;
+    const int cr = nr < 0 ? 0 : (nr > ra.height - 1 ? ra.height - 1 : nr);
+    const int cc = nc < 0 ? 0 : (nc > ra.width - 1 ? ra.width - 1 : nc);
+    return (long long)cr * ra.width + cc;
+  }
+
+  // History level `level` at the pixel itself, aged and faded for the
+  // temporal combine; `ok` its gate.
+  __device__ __forceinline__ Res history(int level, bool &ok) const {
+    Res h = load(ra.hist[level], (long long)row * ra.width + col);
+    ok = valid(h) && a.pass_idx > 2u && h.m > 0.0f && h.age < MAX_AGE;
+    h.age = h.age + (float)(level + 1);
+    const float alpha = level == 1 ? ALPHA1 : ALPHA0;
+    h.m = h.m * alpha;
+    h.ws = h.ws * alpha;
+    return h;
+  }
+
+  // The shadow ray toward the selected light: whether it is visible.
+  __device__ __forceinline__ bool visibility(V3 x) const {
+    const V3 wp = in_range(r.idx) ? slot_pos(r.idx) : V3{0.0f, 0.0f, 0.0f};
+    const V3 sdv = wp - x;
+    const float dist = sqrtf(fmaxf(dot(sdv, sdv), EPS));
+    const V3 sdir = {sdv.x / dist, sdv.y / dist, sdv.z / dist};
+    float tv;
+    int iv;
+    intersect_scene<true>(s, sd, x + sdir * ra.eps2, sdir, a.eps, a.inf, tv, iv);
+    const bool blocked = tv < a.inf && tv < dist - ra.eps2;
+    return dist < ra.eps10 || !blocked || s.mat[iv] == MAT_LIGHT;
+  }
+
+  // The selected light's slot for shading (clamped into range).
+  __device__ __forceinline__ int shade_slot() const {
+    const int L = s.n_lights;
+    return r.idx < 0 ? 0 : (r.idx > L - 1 ? L - 1 : r.idx);
+  }
+
+  template <class Tape>
+  __device__ V3 run(V3 x, V3 nl, int mi, uint32_t h_depth, Tape &tape) {
+    const int L = s.n_lights;
+    const float brdf = brdf_weight(mi);
+
+    // ---- phase 1: candidate generation ----
+    r = {0.0f, 0.0f, 0.0f, 0.0f, -1};
+    for (int i = 0; i < ra.n_cand; ++i) {
+      float r2;
+      const int slot = candidate_slot(h_depth, i, r2);
+      const float tv = slots[slot * NSLOT + 7] > 0.0f ? target(slot, x, nl, brdf) : 0.0f;
+      const bool take = tv > 0.0f;
+      float ws = r.ws + (take ? tv : 0.0f);
+      float m = r.m + (take ? 1.0f : 0.0f);
+      const bool overflow = m > 60.0f;
+      if (overflow) {
+        ws = ws * 0.95f;
+        m = m * 0.95f;
+      }
+      if (take && ws > 0.0f && r2 < tv / fmaxf(ws, 1e-12f)) r.idx = slot;
+      r.ws = ws;
+      r.m = m;
+      tape.candidate(i, take, overflow);
+    }
+
+    // ---- phase 2: temporal reuse at the pixel itself ----
+    for (int level = 0; level < 2; ++level) {
+      bool ok;
+      const Res h = history(level, ok);
+      const uint32_t ht = fold_step(
+          fold_step(fold_step(h_depth, (uint32_t)level, 4u), S_RESTIR_TEMPORAL, 5u), 991u, 6u);
+      combine(h, ok, u01(ht), x, nl, brdf, tape);
+    }
+    const bool over = r.m > 100.0f;  // post-combine clamp
+    tape.post_clamp(over, r.m);
+    if (over) {
+      r.m = fminf(r.m, 80.0f);
+      r.ws = r.ws * 0.9f;
+    }
+
+    // ---- phase 3: spatial reuse on the previous pass's grid ----
+    for (int i = 0; i < ra.n_spatial; ++i) {
+      bool in_b;
+      const Res q = load(ra.back, tap_cell(i, in_b));
+      float s2;
+      const bool ok = tap_ok(i, q, in_b, x, h_depth, s2);
+      combine(q, ok, s2, x, nl, brdf, tape);
+    }
+
+    // ---- phase 4: visibility, finalize and shade ----
+    const bool visible = visibility(x);
+    tape.finalize(r, visible);
+    const float p_hat = target(r.idx, x, nl, brdf);
+    const bool good = r.ws > 0.0f && r.m > 0.0f && p_hat > 0.0f && visible;
+    const float m_cl = fminf(fmaxf(r.m, 1.0f), 40.0f);
+    const float raw_w = r.ws / fmaxf(p_hat * m_cl, 1e-12f);
+    const float norm_age = fminf(fmaxf(r.age / MAX_AGE, 0.0f), 1.0f);
+    float bias = r.age > 0.0f ? 0.85f + 0.15f * (1.0f - norm_age * 0.3f) : 1.0f;
+    bias = bias * (m_cl > 16.0f ? safe_sqrt(16.0f / m_cl) : 1.0f);
+    float w = fminf(fmaxf(bias * raw_w, 0.0f), 12.0f);
+    w = isfinite(w) ? w : 0.0f;
+    r.w = good ? w : 0.0f;
+    r.age = fminf(r.age, MAX_AGE);
+
+    // shade the selected slot: a cone toward the sphere light, a shadow ray
+    const int slot = shade_slot();
+    float u1, u2;
+    shade_draws(h_depth, u1, u2);
+    const float rad = slots[slot * NSLOT + 6];
+    const V3 sw = slot_pos(slot) - x;
+    const float d2 = dot(sw, sw);
+    const float cos_a_max = safe_sqrt(1.0f - fminf(fmaxf(safe_div(rad * rad, d2), 0.0f), 1.0f));
+    const V3 sr = sample_cone(normalize(sw), 1.0f - cos_a_max, u1, u2);
+    float ts;
+    int hidx;
+    intersect_scene<true>(s, sd, x + nl * a.eps, sr, a.eps, a.inf, ts, hidx);
+    V3 light = {0.0f, 0.0f, 0.0f};
+    const bool lit = ts < a.inf && s.mat[hidx] == MAT_LIGHT;
+    if (lit) {
+      const float cos_term = fmaxf(dot(sr, nl), 0.001f);
+      const float weight = 2.0f * (1.0f - cos_a_max);
+      light = vmax(s.c(hidx), 0.001f) * s.e(hidx) * (weight * cos_term);
+    }
+    float eff_w = fminf(fmaxf(r.w, 0.0f), 8.0f);
+    eff_w = eff_w * (r.m > 30.0f ? safe_sqrt(30.0f / fmaxf(r.m, 1e-6f)) : 1.0f);
+    const V3 out = light * eff_w;
+    const bool keep = isfinite(out.x) && isfinite(out.y) && isfinite(out.z) && r.w > 0.0f &&
+                      r.idx >= 0 && r.idx < L;
+    tape.shade(hidx, lit, keep);
+    return keep ? out : V3{0.0f, 0.0f, 0.0f};
+  }
+
+  __device__ V3 operator()(V3 x, V3 nl, int mi, uint32_t h_depth) {
+    NoTape none;
+    return run(x, nl, mi, h_depth, none);
+  }
+};
+
+}  // namespace

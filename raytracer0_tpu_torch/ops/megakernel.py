@@ -139,8 +139,8 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     shared memory."""
     if cfg.use_restir:
         # K1 has no reservoir vertex: it would render per-light NEE
-        return ("a ReSTIR pass runs on K6 (ops/restir_kernel.py), not K1; "
-                "gradients through ReSTIR come with K7: ROADMAP queue 1 item 11")
+        return ("a ReSTIR pass and its gradient run on K6 and K7 "
+                "(ops/restir_kernel.py, ROADMAP queue 1 item 11), not K1")
     return integrator.unsupported(scene, cfg) or check_smem(smem_bytes(scene))
 
 
@@ -177,7 +177,8 @@ def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
     (every slot that does not end a path is diffuse, `bwd_slots`) over
     analytic meshes, and untextured colors and emissions."""
     if cfg.use_restir:
-        return "gradients through ReSTIR come with K7: ROADMAP queue 1 item 11"
+        return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
+                "ROADMAP queue 1 item 11), not K2")
     if scene.num_sdfs:
         return f"SDF meshes (K2 has no SDF march): {_K2_ITEM}"
     if any(m not in _K2_MATS for m in scene.mat_types_static):
@@ -268,7 +269,7 @@ def _cfg_args(cfg: RenderConfig, pass_idx, sample_idx):
 def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
     """K1's launch arguments before the stream, checked: (the arguments,
     the tensors they point into, which the caller keeps alive until the
-    launch).  K6 takes the same ones first."""
+    launch).  K6 and K7 take the same ones first (K7 with `out` None)."""
     h, w = pix.shape
     mesh, mat, lights = _codes(scene)
     cube = scene.cubemap
@@ -278,7 +279,8 @@ def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
     sdf = scene.sdf_shape[scene.num_analytic:].to(torch.int32).contiguous()
     args = (table.data_ptr(), mesh.data_ptr(), mat.data_ptr(),
             scene.num_meshes, lights.data_ptr(), scene.num_lights,
-            ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), out.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), pix.data_ptr(),
+            None if out is None else out.data_ptr(),
             h * w, *_cfg_args(cfg, pass_idx, sample_idx),
             cube.data_ptr(), cube.shape[1], cube.shape[2],
             int(cfg.use_cubemap), int(cfg.use_biased_sampling),

@@ -2,11 +2,19 @@
 ops/restir.py; raytracer.glsl:1264-1802).
 
 This is the plain version of the fused kernel K6 (`ops/restir_kernel.py`,
-`csrc/restir.cu`) and the semantics oracle it is held against: the
+`csrc/restir.cu`) and, under torch.autograd, of its adjoint K7
+(`csrc/restir_bwd.cu`), and the semantics oracle both are held against: the
 reservoir pipeline of one diffuse vertex (candidates, temporal reuse,
 spatial reuse, finalize and shade) over the pixel grid, hooked into
 `integrator.trace` in place of per-light NEE, for the class that
 `integrator.unsupported` states.
+
+Differentiable state, as in the JAX package: the discrete decisions (which
+light a candidate or a combine selects, validity, the gates, visibility and
+the shadow rays' hits) carry no gradient, while the continuous weights
+(target values, weight sums, M, W, age), the combines, finalize and the
+shading do; `torch.where` zeroes the untaken branch.  The ring's float
+fields carry the gradient from pass to pass (`optimize.render_linear`).
 
 The JAX package's TPU workarounds are not ported, their results are: a
 light slot's data is plain indexing, not the one-hot MXU `_row_select`; a
@@ -23,8 +31,6 @@ Python float into a reciprocal multiply (PERF.md), and the kernel divides.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -61,6 +67,21 @@ def _const(like, v):
     return torch.full_like(like, v)
 
 
+# max, min and clip against constants with the gradient of jnp.maximum,
+# jnp.minimum and jnp.clip: half to each side at a tie, where torch.clamp
+# passes it whole.  The ring makes ties common (W = 0, M = 40, age = 30).
+def _max(x, c):
+    return torch.maximum(x, x.new_full((), c))
+
+
+def _min(x, c):
+    return torch.minimum(x, x.new_full((), c))
+
+
+def _clip(x, lo, hi):
+    return _min(_max(x, lo), hi)
+
+
 def empty_reservoir(batch, device):
     """Reservoir fields that hold no light, over `batch` lanes."""
     return Reservoirs.empty(*batch, device=device).fields()
@@ -72,17 +93,17 @@ def evaluate_target(light_pos, light_color, hit_pos, hit_normal, mat_c, mat_nt,
     emitted radiance x a material-aware BRDF weight x cosθ / d²."""
     lv = light_pos - hit_pos
     d2 = vm.vdot(lv, lv)
-    cos_t = torch.clamp_min(vm.vdot(hit_normal, vm.normalize(lv)), 0.0)
+    cos_t = _max(vm.vdot(hit_normal, vm.normalize(lv)), 0.0)
     light_lum = vm.luminance(light_color)
     surface_lum = vm.luminance(mat_c)
-    nnt = (mat_nt - 1.0) / torch.clamp_min(mat_nt + 1.0, 1e-6)
+    nnt = (mat_nt - 1.0) / _max(mat_nt + 1.0, 1e-6)
     r0 = nnt * nnt
     is_refr = ((mat_type == MatType.REFR_FRESNEL)
                | (mat_type == MatType.REFR_SCHLICK)).to(torch.float32)
     is_coat = (mat_type == MatType.COAT).to(torch.float32)
     base = vm.mix(surface_lum, r0, is_refr)
     brdf_weight = vm.mix(base, (1.0 - r0) * surface_lum, is_coat) * ONE_OVER_PI
-    p_hat = light_lum * brdf_weight * cos_t / torch.clamp_min(d2, 1e-4)
+    p_hat = light_lum * brdf_weight * cos_t / _max(d2, 1e-4)
     valid = (d2 >= 1e-6) & (cos_t > 0.0) & (light_lum > 0.0)
     return torch.where(valid, p_hat, torch.zeros_like(p_hat))
 
@@ -131,18 +152,15 @@ def combine_reservoirs(target, source, hit_pos, hit_normal, mat_c, mat_nt,
     tw = evaluate_target(source["light_pos"], source["light_color"], hit_pos,
                          hit_normal, mat_c, mat_nt, mat_type)
     ok &= tw > 0.0
-    contribution = torch.clamp(
-        tw * torch.clamp_min(source["w"], 0.0) * torch.clamp_min(source["m"], 1.0),
-        0.0, 200.0)
+    contribution = _clip(tw * _max(source["w"], 0.0) * _max(source["m"], 1.0), 0.0, 200.0)
     zero = torch.zeros_like(tw)
     ws = target["weight_sum"] + torch.where(ok, contribution, zero)
     m = target["m"] + torch.where(ok, source["m"], zero)
-    scale = torch.where(m > 40.0, _const(m, 40.0) / torch.clamp_min(m, 1e-6),
-                        torch.ones_like(m))
+    scale = torch.where(m > 40.0, _const(m, 40.0) / _max(m, 1e-6), torch.ones_like(m))
     ws = ws * scale
-    m = torch.clamp_max(m, 40.0)
+    m = _min(m, 40.0)
     select = ok & (ws > 0.0) & (rand_val < contribution / torch.clamp_min(ws, 1e-12))
-    new_age = torch.clamp_max(source["age"] + 0.25, MAX_RESERVOIR_AGE)
+    new_age = _min(source["age"] + 0.25, MAX_RESERVOIR_AGE)
     return dict(
         light_pos=vm.where3(select, source["light_pos"], target["light_pos"]),
         light_color=vm.where3(select, source["light_color"], target["light_color"]),
@@ -177,13 +195,13 @@ def finalize_reservoir(r, hit_pos, hit_normal, mat_c, mat_nt, mat_type, visible)
     p_hat = evaluate_target(r["light_pos"], r["light_color"], hit_pos, hit_normal,
                             mat_c, mat_nt, mat_type)
     good = (r["weight_sum"] > 0.0) & (r["m"] > 0.0) & (p_hat > 0.0) & visible
-    m_cl = torch.clamp(r["m"], 1.0, 40.0)
-    raw_w = r["weight_sum"] / torch.clamp_min(p_hat * m_cl, 1e-12)
+    m_cl = _clip(r["m"], 1.0, 40.0)
+    raw_w = r["weight_sum"] / _max(p_hat * m_cl, 1e-12)
     one = torch.ones_like(raw_w)
-    norm_age = torch.clamp(r["age"] / _const(raw_w, MAX_RESERVOIR_AGE), 0.0, 1.0)
+    norm_age = _clip(r["age"] / _const(raw_w, MAX_RESERVOIR_AGE), 0.0, 1.0)
     bias = torch.where(r["age"] > 0.0, vm.mix(0.85, 1.0, 1.0 - norm_age * 0.3), one)
     bias = bias * torch.where(m_cl > 16.0, vm.safe_sqrt(_const(m_cl, 16.0) / m_cl), one)
-    w = torch.clamp(bias * raw_w, 0.0, 12.0)
+    w = _clip(bias * raw_w, 0.0, 12.0)
     w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
     return dict(r, w=torch.where(good, w, torch.zeros_like(w)))
 
@@ -199,12 +217,12 @@ def _shade_selected(scene, cfg, slot_map, x, nl, pix, pass_idx, sample_idx, dept
     u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.NEE_CONE, 77)
     sw = l_pos - x
     d2 = vm.vdot(sw, sw)
-    cos_a_max = vm.safe_sqrt(1.0 - torch.clamp(vm.safe_div(r * r, d2), 0.0, 1.0))
+    cos_a_max = vm.safe_sqrt(1.0 - _clip(vm.safe_div(r * r, d2), 0.0, 1.0))
     sr_dir = smp.sample_cone(vm.normalize(sw), 1.0 - cos_a_max, u1, u2)
     _, idx, missed = _cast(scene, cfg, x + nl * cfg.epsilon, sr_dir)
     hit_is_light = (scene.mat_type[idx] == MatType.LIGHT) & ~missed
-    lit_c = torch.clamp_min(scene.color[idx], 0.001)
-    cos_term = torch.clamp_min(vm.vdot(sr_dir, nl), 0.001)
+    lit_c = _max(scene.color[idx], 0.001)
+    cos_term = _max(vm.vdot(sr_dir, nl), 0.001)
     weight = 2.0 * (1.0 - cos_a_max)
     contrib = lit_c * scene.emission[idx] * (weight * cos_term)[..., None]
     return vm.where3(hit_is_light, contrib, torch.zeros_like(contrib))
@@ -260,7 +278,7 @@ def reservoir_direct(scene, cfg, back, hist, x, nl, mat_idx, pix, pass_idx,
 
     # post-combine clamp (1705-1708)
     over = res["m"] > 100.0
-    res["m"] = torch.where(over, torch.clamp_max(res["m"], 80.0), res["m"])
+    res["m"] = torch.where(over, _min(res["m"], 80.0), res["m"])
     res["weight_sum"] = torch.where(over, res["weight_sum"] * 0.9, res["weight_sum"])
 
     # ---- phase 3: spatial reuse on the previous pass's grid (1711-1748) ----
@@ -287,15 +305,14 @@ def reservoir_direct(scene, cfg, back, hist, x, nl, mat_idx, pix, pass_idx,
     # ---- phase 4: finalize and shade (1750-1800) ----
     visible = is_visible(scene, cfg, x, res["light_pos"])
     res = finalize_reservoir(res, x, nl, mat_c, mat_nt, mat_ty, visible)
-    res["age"] = torch.clamp_max(res["age"], MAX_RESERVOIR_AGE)
+    res["age"] = _min(res["age"], MAX_RESERVOIR_AGE)
     shade_ok = (res["w"] > 0.0) & (res["light_index"] >= 0) & (res["light_index"] < L)
     light = _shade_selected(scene, cfg, res["light_index"], x, nl, pix, pass_idx,
                             sample_idx, depth)
-    eff_w = torch.clamp(res["w"], 0.0, 8.0)
-    eff_w = eff_w * torch.where(
-        res["m"] > 30.0,
-        vm.safe_sqrt(_const(eff_w, 30.0) / torch.clamp_min(res["m"], 1e-6)),
-        torch.ones_like(eff_w))
+    eff_w = _clip(res["w"], 0.0, 8.0)
+    eff_w = eff_w * torch.where(res["m"] > 30.0,
+                                vm.safe_sqrt(_const(eff_w, 30.0) / _max(res["m"], 1e-6)),
+                                torch.ones_like(eff_w))
     out = light * eff_w[..., None]
     # NaN/Inf in any channel kills the whole contribution (1791-1793)
     keep = torch.isfinite(out).all(dim=-1) & shade_ok
@@ -315,33 +332,34 @@ def make_sampler(back, hist, height, width):
     return sampler
 
 
-def requires_grad(scene, *tensors) -> bool:
-    """Whether autograd would track a render from `scene` and `tensors`."""
-    tensors = [getattr(scene, k) for k in scene_mod.TENSOR_FIELDS] + list(tensors)
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def trace_sample(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2):
+    """One ReSTIR sample per pixel of the [H, W] grid `pix` through the
+    plain integrator, reading the ring `back`, `hist1`, `hist2`
+    (Reservoirs): (radiance f32[H, W, 3], new back Reservoirs).  The plain
+    version of `restir_kernel.trace_forward_restir_fused` (K6, and K7 for its
+    gradient)."""
+    from raytracer0_tpu_torch.render import integrator  # it imports this module
+
+    height, width = pix.shape
+    sampler = make_sampler(back.fields(), [hist1.fields(), hist2.fields()], height, width)
+    rad, res = integrator.trace(scene, cfg, ro, rd, pix, pass_idx, sample_idx,
+                                restir_sampler=sampler)
+    return rad, Reservoirs(**res)
 
 
 def render_sample(scene, cfg, camera, state, height, width, pass_idx, time_s=0.0):
     """One ReSTIR pass through the plain integrator: (mean radiance
     f32[H, W, 3], the new back reservoirs), the reference kernel's two
-    render targets (raytracer.glsl:2171-2179).  No gradient: a leaf that
-    requires one raises (ReSTIR gradients come with K7)."""
-    from raytracer0_tpu_torch.render import integrator  # it imports this module
-
-    if requires_grad(scene, *(getattr(camera, f.name) for f in dataclasses.fields(camera))):
-        raise NotImplementedError(
-            "gradients through a ReSTIR pass come with its adjoint K7: "
-            "ROADMAP queue 1 item 11")
+    render targets (raytracer.glsl:2171-2179).  Differentiable with respect
+    to the scene, the camera and the ring's float fields (module
+    docstring)."""
     scene = scene_mod.animate_positions(scene, time_s, int(cfg.render_mode))
     pix = rng.pixel_ids(height, width, device=scene.device)
-    sampler = make_sampler(state.restir_back.fields(),
-                           [state.restir_hist1.fields(), state.restir_hist2.fields()],
-                           height, width)
     total = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.device)
-    res = None
+    new = None
     for s in range(cfg.samples_per_pass):
         ro, rd = generate_rays(camera, height, width, pass_idx, sample_idx=s)
-        rad, res = integrator.trace(scene, cfg, ro, rd, pix, pass_idx, s,
-                                    restir_sampler=sampler)
+        rad, new = trace_sample(scene, cfg, ro, rd, pix, pass_idx, s, state.restir_back,
+                                state.restir_hist1, state.restir_hist2)
         total = total + rad
-    return total / cfg.samples_per_pass, Reservoirs(**res)
+    return total / cfg.samples_per_pass, new

@@ -1,16 +1,23 @@
-"""The fused ReSTIR forward kernel K6 on Hopper (`csrc/restir.cu`): its gate,
-build, launcher and the render pass that uses it.
+"""The fused ReSTIR kernel K6 (`csrc/restir.cu`) and its adjoint K7
+(`csrc/restir_bwd.cu`) on Hopper: their gates, builds and launchers, the
+`torch.autograd.Function` that pairs them, and the render pass that uses
+them.
 
 K6 replaces the Pallas TPU kernel
 `raytracer0_tpu/ops/megakernel.py::_fused_restir_kernel_body` (launched by
 `_fused_restir_fwd_impl`): one launch traces every pixel's path and runs the
 reservoir pipeline (`restir.reservoir_direct`) at each diffuse vertex in
 place of per-light NEE, returning the radiance and the pass's new back
-reservoirs.  Its plain PyTorch version is `restir.render_sample`; on the
-same inputs the two trace the same paths and make the same reservoir
-decisions, and agree to float32 rounding.
+reservoirs.  K7 replaces its adjoint `_fused_restir_bwd_kernel_body`
+(launched by `_fused_restir_backward`) and serves its per-slot twin
+`_fused_restir_bwd_slotted_kernel_body` (K8), being per-slot by design.
+`_RestirCore` pairs them as the JAX custom_vjp `_fused_restir_call` does:
+forward launches K6, backward launches K7.  Their plain PyTorch version is
+`restir.render_sample` and its autograd; on the same inputs K6 traces the
+same paths and makes the same reservoir decisions, and K7 gives the same
+gradients up to float32 rounding.
 
-What bounds it on the H100: like K1, instruction latency and divergence.
+What bounds them on the H100: like K1, instruction latency and divergence.
 A pixel reads 28 bytes of rays and id, 60 bytes of reservoirs at its own
 pixel and up to 160 bytes of spatial taps (mostly from L2, since
 neighbouring threads read overlapping taps), and writes 56 bytes; its work
@@ -18,10 +25,23 @@ is K1's bounce loop plus, per diffuse vertex, up to 16 candidates, 10
 combines and 2 shadow rays with SDF marches.  The design keeps one thread
 per pixel with the reservoir in registers, reads the taps in place (no
 pre-rolled copy of the grid), and keeps the light slots in shared memory.
+K7 replays each slot from a per-slot stash and each reservoir vertex from a
+tape of its decisions, and reduces its scene cotangents per thread, per
+block in thread order and across blocks in block order; its tap cotangents
+are gathered into the back grid in tap order, so it is deterministic.
 
-Forward only: a render that needs a gradient raises before any launch
-(the adjoint is K7, ROADMAP queue 1 item 11).  On a CUDA device nothing
-here falls back to the plain version.
+The gradient flows to the scene table's pos, joker, color, emission and ior
+columns, to the rays, and to the ring's m, w and age (a source's
+weight_sum only gates its validity: its cotangent is zero).  A light's
+position and color·emission in the new reservoirs are gathered from the
+scene by `light_index` outside the kernels (`light_data`), so autograd
+carries their cotangents to the scene.  K6 and K7 read a light's data from
+the slot table where the plain version reads the ring's copy; over a chain
+of passes from an empty ring with one scene the two gradients agree.
+
+On a CUDA device nothing here falls back to the plain version: a ReSTIR
+config outside K6's class, or a gradient outside K7's, raises before any
+launch.
 """
 
 from __future__ import annotations
@@ -36,23 +56,55 @@ from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
-from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir
+from raytracer0_tpu_torch.models.materials import SdfShape
+from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, textures
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, Reservoirs
 
 #: K6 launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
+#: K7 launches since import (or since a caller reset it to 0); one per
+#: backward of a K6 launch: the adjoint, the tap gather and the reduction.
+BWD_LAUNCHES = 0
 
 SOURCES = ("restir.cu",)
+BWD_SOURCES = ("restir_bwd.cu",)
 _IN_FIELDS = ("weight_sum", "m", "w", "age", "light_index")
+#: The ring's float fields, which carry a gradient from pass to pass.
+RING_FLOATS = ("weight_sum", "m", "w", "age")
+_ITEM = "ROADMAP queue 1 item 11"
+# K7: stash depth (MAX_SLOTS in restir_bwd.cu), candidates its tape holds,
+# cotangent columns kept per thread (table columns 0:14), the opt-in shared
+# memory of one block, and block sizes tried in order until the per-thread
+# accumulators fit
+MAX_SLOTS = 16
+MAX_CAND = 32
+_BWD_NG = 14
+_BWD_SMEM_LIMIT = 227 * 1024
+_BWD_THREADS = (128, 64, 32)
+#: Scene leaves whose table columns or arrays K7 leaves without a cotangent.
+NO_GRAD_LEAVES = ("aux", "tex_params", "tex_cmask", "tex_emask", "images", "noise", "cubemap")
+
 # the spatial taps' (row, column) offsets, passed by value
 _TAPS = (ctypes.c_int * 16)(*[v for tap in restir.TAP_OFFSETS for v in tap])
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = megakernel._ARGTYPES[:-1] + (
-    ctypes.c_void_p, ctypes.c_void_p,             # res_in[15], res_out[7]
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # taps (host), height, width
-    ctypes.c_int, ctypes.c_int,                   # candidates, spatial taps
-    ctypes.c_float, ctypes.c_float,               # epsilon * 2, epsilon * 10
-    ctypes.c_void_p,                              # stream
+    _c_void_p, _c_void_p,             # res_in[15], res_out[7]
+    _c_void_p, _c_int, _c_int,        # taps (host), height, width
+    _c_int, _c_int,                   # candidates, spatial taps
+    _c_float, _c_float,               # epsilon * 2, epsilon * 10
+    _c_void_p,                        # stream
+)
+_BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (
+    _c_void_p,                        # res_in[15]
+    _c_void_p, _c_int, _c_int,        # taps (host), height, width
+    _c_int, _c_int,                   # candidates, spatial taps
+    _c_float, _c_float,               # epsilon * 2, epsilon * 10
+    _c_void_p, _c_void_p,             # ct, ct_res[4]
+    _c_void_p, _c_void_p,             # d_ro, d_rd
+    _c_void_p, _c_void_p,             # partials, d_table
+    _c_void_p, _c_void_p, _c_void_p,  # dtap, dhist, dback
+    _c_int, _c_void_p,                # threads per block, stream
 )
 
 
@@ -67,10 +119,66 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
     config in the class of `integrator.unsupported` (the JAX
     `supported_restir_fused`: ReSTIR engaged, LIGHT-sphere slots, no
     photographic cubemap, cosine sampling, the pixel's own history,
-    static accumulation), with tables that fit the shared memory."""
+    static accumulation) without blended textures or a cubemap, which no
+    test holds K6 to yet, with tables that fit the shared memory."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
-    return integrator.unsupported(scene, cfg) or megakernel.check_smem(smem_bytes(scene))
+    reason = integrator.unsupported(scene, cfg)
+    if reason is None and textures.blended(scene):
+        reason = f"textures blended into color or emission under ReSTIR on K6: {_ITEM}"
+    if reason is None and cfg.use_cubemap:
+        reason = f"a cubemap and its gather ray under ReSTIR on K6: {_ITEM}"
+    return reason or megakernel.check_smem(smem_bytes(scene))
+
+
+def bwd_slots(cfg: RenderConfig) -> int:
+    """The most bounce slots a path runs, hence K7's stash depth: each slot
+    that does not end the path adds one to one of the three bounce
+    counters, and the path stops once one of them reaches its cap (or at
+    `max_bounces`)."""
+    caps = (cfg.max_diff_bounces, cfg.max_spec_bounces, cfg.max_scattering_events)
+    return min(cfg.max_bounces, sum(max(c, 1) - 1 for c in caps) + 1)
+
+
+def bwd_smem_bytes(scene, threads: int) -> int:
+    """Dynamic shared memory of one K7 block: K6's, plus `threads` columns
+    of 14 cotangent accumulators per mesh."""
+    return smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
+
+
+def bwd_threads(scene) -> Optional[int]:
+    """K7's block size: the largest of 128, 64, 32 whose accumulators fit
+    the shared memory of one block; None when none does."""
+    for t in _BWD_THREADS:
+        if bwd_smem_bytes(scene, t) <= _BWD_SMEM_LIMIT:
+            return t
+    return None
+
+
+def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
+    """Why K7 cannot differentiate (scene, cfg), or None when it can: K6's
+    class with ROUND_BOX SDF meshes (the distance whose adjoint K7 has), a
+    stash of at most MAX_SLOTS slots, at most MAX_CAND candidates,
+    accumulators that fit the shared memory of a block of 32 threads, and
+    no gradient asked of a leaf K7 leaves without one (aux, the texture
+    columns, images, the noise LUT, the cubemap)."""
+    reason = unsupported_restir(scene, cfg)
+    if reason is not None:
+        return reason
+    if any(s != int(SdfShape.ROUND_BOX) for s in scene.sdf_shapes_static):
+        return f"SDF shapes other than ROUND_BOX (K7's SDF adjoint): ROADMAP queue 1 item 8"
+    if bwd_slots(cfg) > MAX_SLOTS:
+        return f"paths of {bwd_slots(cfg)} slots, more than K7's stash of {MAX_SLOTS}"
+    if _restir_args(cfg, scene.num_lights)[0] > MAX_CAND:
+        return f"more than {MAX_CAND} ReSTIR candidates (K7's tape): {_ITEM}"
+    if bwd_threads(scene) is None:
+        return (f"{scene.num_meshes} meshes: K7's cotangent accumulators do not fit "
+                f"{_BWD_SMEM_LIMIT} bytes of shared memory")
+    asked = [k for k in NO_GRAD_LEAVES if getattr(scene, k).requires_grad]
+    if asked:
+        return (f"a gradient with respect to {', '.join(asked)}, which K7 does not "
+                "compute: ROADMAP queue 1 item 14")
+    return None
 
 
 def build():
@@ -79,6 +187,16 @@ def build():
     lib, info = cuda_build.load("restir", SOURCES)
     fn = lib.rt0_restir_forward
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn, info
+
+
+def build_bwd():
+    """Build (or load from `build/kernels/`) the K7 library.
+    Returns (ctypes function, cuda_build.BuildInfo)."""
+    lib, info = cuda_build.load("restir_bwd", BWD_SOURCES)
+    fn = lib.rt0_restir_backward
+    fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn, info
 
@@ -92,26 +210,36 @@ def _restir_args(cfg: RenderConfig, num_lights: int):
             float(np.float32(cfg.epsilon * 2.0)), float(np.float32(cfg.epsilon * 10.0)))
 
 
-def trace_forward_restir_fused(scene, cfg: RenderConfig, ro, rd, pix, pass_idx,
-                               sample_idx, back: Reservoirs, hist1: Reservoirs,
-                               hist2: Reservoirs):
-    """Launch K6: (radiance f32[H, W, 3], new back Reservoirs).
-
-    `ro`, `rd`: f32[H, W, 3] CUDA tensors; `pix`: int64[H, W] pixel ids of
-    the [H, W] grid the reservoirs cover; `back`, `hist1`, `hist2`: the
-    ring.  Raises for what K6 does not cover, or when the scene, the rays
-    or the ring need a gradient."""
-    if ro.device.type != "cuda":
-        raise ValueError(f"K6 runs on a CUDA device, got {ro.device}")
-    reason = unsupported_restir(scene, cfg)
-    if reason is not None:
-        raise NotImplementedError(f"K6 does not cover this scene: {reason}")
-    return _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2)
+def light_data(scene, light_index):
+    """(light_pos, light_color) f32[..., 3] of reservoirs holding the light
+    slots `light_index` (-1 for none): the slot's position and
+    color·emission, zeros for no slot, as K6 writes them and
+    `restir.light_table` gathers them (one multiply), differentiable with
+    respect to the scene."""
+    slot = torch.clamp(light_index.long(), 0, scene.num_lights - 1)
+    li = torch.clamp_min(scene.light_idx.long(), 0)[slot]
+    held = ((light_index >= 0) & (light_index < scene.num_lights))[..., None]
+    zero = torch.zeros((), dtype=torch.float32, device=scene.device)
+    return (torch.where(held, scene.pos[li], zero),
+            torch.where(held, scene.color[li] * scene.emission[li], zero))
 
 
-def _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2):
+def _check_ring(h, w, dev, *grids):
+    """The 15 input tensors of K6 and K7: each grid's ws, m, w, age and
+    light_index, checked."""
+    res_in = []
+    for name, grid in zip(("back", "hist1", "hist2"), grids):
+        for k in _IN_FIELDS:
+            t = getattr(grid, k)
+            megakernel._check(f"{name}.{k}", t, RESERVOIR_FIELDS[k], (h, w), dev)
+            res_in.append(t)
+    return res_in
+
+
+def _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2, table=None):
     """Check the tensors and launch K6 (`trace_forward_restir_fused`
-    without the device and class checks)."""
+    without the device and class checks): (radiance, new back
+    Reservoirs)."""
     global LAUNCHES
     dev = ro.device
     h, w = pix.shape
@@ -120,17 +248,9 @@ def _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2):
     megakernel._check("pix", pix, torch.int64, (h, w), dev)
     if scene.device != dev:
         raise ValueError(f"scene is on {scene.device}, rays on {dev}")
-    table = megakernel.scene_table(scene)
-    res_in = []
-    for name, grid in (("back", back), ("hist1", hist1), ("hist2", hist2)):
-        for k in _IN_FIELDS:
-            t = getattr(grid, k)
-            megakernel._check(f"{name}.{k}", t, RESERVOIR_FIELDS[k], (h, w), dev)
-            res_in.append(t)
-    if restir.requires_grad(scene, ro, rd, *res_in):
-        raise NotImplementedError(
-            "gradients through a ReSTIR pass come with its adjoint K7: "
-            "ROADMAP queue 1 item 11")
+    if table is None:
+        table = megakernel.scene_table(scene)
+    res_in = _check_ring(h, w, dev, back, hist1, hist2)
 
     out = torch.empty_like(ro)
     new = Reservoirs(**{k: torch.empty((h, w, 3) if k in ("light_pos", "light_color")
@@ -151,10 +271,140 @@ def _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2):
     return out, new
 
 
+def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids, ct, ct_res):
+    """Launch K7 for the cotangents `ct` of the radiance and `ct_res` of the
+    new reservoirs' weight_sum, m, w and age: (d_table, d_ro, d_rd, the
+    cotangents of the ring's float fields as a list in `_RestirCore`'s
+    order)."""
+    global BWD_LAUNCHES
+    reason = unsupported_restir_bwd(scene, cfg)
+    if reason is not None:
+        raise NotImplementedError(f"K7 does not cover this scene: {reason}")
+    h, w = pix.shape
+    dev = ro.device
+    megakernel._check("ct", ct, torch.float32, (h, w, 3), dev)
+    for k, t in zip(RING_FLOATS, ct_res):
+        megakernel._check(f"ct {k}", t, torch.float32, (h, w), dev)
+    res_in = _check_ring(h, w, dev, *grids)
+    threads = bwd_threads(scene)
+    blocks = -(-(h * w) // threads)
+    d_ro, d_rd = torch.empty_like(ro), torch.empty_like(rd)
+    partials = torch.empty((blocks, scene.num_meshes, _BWD_NG), dtype=torch.float32, device=dev)
+    d_table = torch.zeros_like(table)   # K7 writes the columns 0:14
+    f32 = dict(dtype=torch.float32, device=dev)
+    dtap = torch.zeros((restir.RESTIR_SPATIAL_SAMPLES, 3, h, w), **f32)
+    dhist = torch.zeros((2, 3, h, w), **f32)
+    dback = torch.empty((3, h, w), **f32)
+    args, _keep = megakernel.forward_args(scene, cfg, table, ro, rd, pix, None,
+                                          pass_idx, sample_idx)
+    ins = (ctypes.c_void_p * 15)(*[t.data_ptr() for t in res_in])
+    cts = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in ct_res])
+    fn, _ = build_bwd()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, ins, _TAPS, h, w, *_restir_args(cfg, scene.num_lights),
+                ct.data_ptr(), cts, d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
+                d_table.data_ptr(), dtap.data_ptr(), dhist.data_ptr(), dback.data_ptr(),
+                threads, stream)
+    if rc != 0:
+        raise RuntimeError(f"K7 launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    d_ring = []
+    for m_w_age in (dback, dhist[0], dhist[1]):
+        # a source's weight_sum only gates its validity
+        d_ring += [torch.zeros((h, w), **f32), m_w_age[0], m_w_age[1], m_w_age[2]]
+    return d_table, d_ro, d_rd, d_ring
+
+
+def _grids(floats, idx):
+    """The ring (back, hist1, hist2) from its 12 float fields and 3 light
+    indices, for the launchers (which read no light data)."""
+    return [Reservoirs(light_pos=None, light_color=None, light_index=idx[g],
+                       **dict(zip(RING_FLOATS, floats[4 * g:4 * g + 4])))
+            for g in range(3)]
+
+
+class _RestirCore(torch.autograd.Function):
+    """K6 forward, K7 backward: the counterpart of the JAX custom_vjp
+    `_fused_restir_call`.  Differentiable inputs: the scene table (its
+    `torch.cat` backward splits the cotangent into the scene's leaves),
+    `ro`, `rd`, and the weight_sum, m, w and age of back, hist1 and hist2.
+    Outputs: the radiance and the new reservoirs' weight_sum, m, w, age and
+    light_index (not differentiable).  Only the inputs are saved: O(H*W)
+    memory at any depth."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, pix, pass_idx, sample_idx, idx, table, ro, rd, *floats):
+        grids = _grids(floats, idx)
+        out, new = _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, *grids, table=table)
+        ctx.save_for_backward(table, ro, rd, pix, *idx, *floats)
+        ctx.trace_args = (scene, cfg, pass_idx, sample_idx)
+        ctx.mark_non_differentiable(new.light_index)
+        return out, new.weight_sum, new.m, new.w, new.age, new.light_index
+
+    @staticmethod
+    def backward(ctx, g_out, *g_res):
+        table, ro, rd, pix, *rest = ctx.saved_tensors
+        idx, floats = rest[:3], rest[3:]
+        scene, cfg, pass_idx, sample_idx = ctx.trace_args
+        # an unused output has no cotangent; that of .sum() is an expanded view
+        ct = torch.zeros_like(ro) if g_out is None else g_out.contiguous()
+        ct_res = [torch.zeros_like(floats[0]) if g is None else g.contiguous()
+                  for g in g_res[:4]]
+        d_table, d_ro, d_rd, d_ring = _launch_backward(
+            scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, _grids(floats, idx), ct,
+            ct_res)
+        need = ctx.needs_input_grad
+        grads = (d_table, d_ro, d_rd, *d_ring)
+        return (None,) * 6 + tuple(g if need[6 + i] else None for i, g in enumerate(grads))
+
+
+def trace_forward_restir_fused(scene, cfg: RenderConfig, ro, rd, pix, pass_idx,
+                               sample_idx, back: Reservoirs, hist1: Reservoirs,
+                               hist2: Reservoirs):
+    """Launch K6: (radiance f32[H, W, 3], new back Reservoirs).
+
+    `ro`, `rd`: f32[H, W, 3] CUDA tensors; `pix`: int64[H, W] pixel ids of
+    the [H, W] grid the reservoirs cover; `back`, `hist1`, `hist2`: the
+    ring.  When a gradient is needed (the scene's parameters, its images,
+    noise LUT or cubemap, the rays or the ring's float fields require grad)
+    the launch is recorded as `_RestirCore`, whose backward launches K7,
+    and the new reservoirs' light data is gathered from the scene
+    (`light_data`).  Raises for what K6 (or, with a gradient, K7) does not
+    cover, before any launch."""
+    if ro.device.type != "cuda":
+        raise ValueError(f"K6 runs on a CUDA device, got {ro.device}")
+    return _fused(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2)
+
+
+def _fused(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2):
+    """`trace_forward_restir_fused` without the device check."""
+    reason = unsupported_restir(scene, cfg)
+    if reason is not None:
+        raise NotImplementedError(f"K6 does not cover this scene: {reason}")
+    table = megakernel.scene_table(scene)
+    grids = (back, hist1, hist2)
+    floats = [getattr(g, k) for g in grids for k in RING_FLOATS]
+    inputs = (table, ro, rd, scene.images, scene.noise, scene.cubemap, *floats)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        reason = unsupported_restir_bwd(scene, cfg)
+        if reason is not None:
+            raise NotImplementedError(f"K7 does not cover this scene: {reason}")
+        out, ws, m, w, age, idx = _RestirCore.apply(
+            scene, cfg, pix, pass_idx, sample_idx, tuple(g.light_index for g in grids),
+            table, ro, rd, *floats)
+        pos, col = light_data(scene, idx)
+        return out, Reservoirs(light_pos=pos, light_color=col, weight_sum=ws, m=m, w=w,
+                               age=age, light_index=idx)
+    return _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2,
+                   table=table)
+
+
 def render_sample_fused(scene, cfg: RenderConfig, camera, state, height, width,
                         pass_idx, time_s=0.0):
-    """One ReSTIR pass on K6: (mean radiance f32[H, W, 3], new back
-    Reservoirs), as `restir.render_sample` returns them."""
+    """One ReSTIR pass on K6 (and, under a gradient, K7): (mean radiance
+    f32[H, W, 3], new back Reservoirs), as `restir.render_sample` returns
+    them."""
     scene = scene_mod.animate_positions(scene, time_s, int(cfg.render_mode))
     pix = rng.pixel_ids(height, width, device=scene.device)
     total = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.device)

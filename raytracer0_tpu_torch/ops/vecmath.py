@@ -2,7 +2,8 @@
 
 Elementwise over arbitrarily batched tensors.  Divisions and square roots
 are guarded exactly as in the JAX package (`EPS` floors, `safe_*`), so
-results and gradients stay finite.  Dot products are written out as
+results and gradients stay finite; `length` also keeps its gradient finite
+at 0, where the JAX package's is NaN.  Dot products are written out as
 x*x' + y*y' + z*z', left to right, which is the order the CUDA kernel
 uses; a reduction over the last axis may sum in another order.
 """
@@ -20,8 +21,10 @@ def vdot(a, b):
 
 
 def length(a):
-    """Euclidean length, sqrt(max(a·a, 0))."""
-    return torch.sqrt(torch.clamp_min(vdot(a, a), 0.0))
+    """Euclidean length, sqrt(max(a·a, 0)), with a zero gradient at a = 0,
+    where sqrt's would be 0 * inf = NaN (the JAX package's is; an SDF
+    distance evaluated exactly on a box's core reaches it)."""
+    return safe_sqrt(vdot(a, a))
 
 
 def safe_length(a, eps=EPS):

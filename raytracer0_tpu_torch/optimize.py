@@ -6,8 +6,10 @@ dict of *selected* leaves (a mask keeps non-optimized rows frozen), an L2
 loss on the linear-radiance accumulator over a fixed pass budget (fixed
 RNG, so the loss is deterministic and its gradient exact for the realized
 estimator), and Adam.  On a CUDA device each step renders through K1 and
-back-propagates through its adjoint K2 (`ops/megakernel.py`); on the CPU
-through the plain integrator and its autograd.
+back-propagates through its adjoint K2 (`ops/megakernel.py`), or, with
+`cfg.use_restir`, through the fused ReSTIR kernel K6 and its adjoint K7
+(`ops/restir_kernel.py`) with the reservoir ring threaded through the
+passes; on the CPU through the plain versions and their autograd.
 """
 
 from __future__ import annotations
@@ -16,22 +18,25 @@ from typing import Callable, Iterable, Mapping, Optional
 
 import torch
 
-from raytracer0_tpu_torch.render.renderer import sample_radiance
+from raytracer0_tpu_torch.render.renderer import render_pass
+from raytracer0_tpu_torch.render.state import RenderState
 
 
 def render_linear(scene, cfg, camera, height, width, passes=1):
     """Mean linear radiance f32[H, W, 3] over `passes` fixed-RNG passes (the
     accumulator the display pass divides; tonemapping is excluded from the
-    loss so gradients see linear light)."""
-    if cfg.use_restir:
-        raise NotImplementedError(
-            "render_linear through the ReSTIR reservoir ring is not ported "
-            "yet: ROADMAP queue 1 item 11")
-    total = torch.zeros((height, width, 3), dtype=torch.float32,
-                        device=scene.device)
-    for p in range(passes):
-        total = total + sample_radiance(scene, cfg, camera, height, width, p)
-    return total / passes
+    loss so gradients see linear light).
+
+    The passes run through `render_pass` from a fresh `RenderState`, so with
+    `cfg.use_restir` the reservoir ring is threaded through the pass loop
+    (raytracer0_tpu/optimize.py:45-58): the gradient flows through the
+    candidate weights, the temporal and spatial combines and the shading of
+    every pass, and through the ring's float fields from pass to pass, with
+    the discrete selections detached."""
+    state = RenderState.create(height, width, device=scene.device)
+    for _ in range(passes):
+        state = render_pass(scene, camera, cfg, state, height, width)
+    return state.accum / passes
 
 
 def make_loss(cfg, camera, target, param_names: Iterable[str], height, width,

@@ -20,10 +20,12 @@ gradient launches K1 alone.
 A ReSTIR pass (`cfg.use_restir`) goes through `render_pass` alone, since
 it reads and writes the reservoir ring: on a CUDA device through the fused
 kernel K6 (`ops/restir_kernel.py`), on the CPU through the plain
-`restir.render_sample`, after which the ring rotates.  On CUDA a ReSTIR
-config that K6 does not cover raises; nothing falls back to the plain
-version.  A ReSTIR pass is forward only (its adjoint K7 is ROADMAP queue 1
-item 11).
+`restir.render_sample`, after which the ring rotates.  It is
+differentiable too: on CUDA K6's adjoint K7 computes the gradient (with
+respect to the scene, the rays and the ring's float fields, so it flows from
+pass to pass), on the CPU the plain version's autograd.  On CUDA a ReSTIR
+config that K6 does not cover, or a gradient outside K7's class, raises
+before any launch; nothing falls back to the plain version.
 
 The kernels mask the ragged edge themselves, so no padding to a block shape
 is needed.  `render_scan` (one launch for a chain of passes) waits for a
@@ -53,8 +55,8 @@ def _route(device_type: str, scene, cfg: RenderConfig) -> str:
     if cfg.use_restir:
         # a ReSTIR pass reads and writes the reservoir ring: render_pass
         raise NotImplementedError(
-            "sample_radiance renders no ReSTIR pass (render_pass and Renderer "
-            "carry the reservoir ring; ReSTIR gradients are ROADMAP queue 1 item 11)")
+            "sample_radiance renders no ReSTIR pass (render_pass, Renderer and "
+            "optimize.render_linear carry the reservoir ring: ROADMAP queue 1 item 11)")
     if device_type == "cuda":
         reason = megakernel.unsupported(scene, cfg)
         if reason is not None:

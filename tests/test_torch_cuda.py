@@ -1,9 +1,10 @@
-"""K1, its adjoint K2 and the fused ReSTIR kernel K6 on the GPU against
-their plain versions on the same card: K1 on the Cornell class and on the
-widened class (mirror, glass and coat, directional lights, cubemaps,
-uniform sampling, textures, SDF meshes), K2 on the Cornell class, K6 on
-the ReSTIR presets, and the refusal of gradients outside K2's class and
-through ReSTIR.
+"""K1, its adjoint K2, the fused ReSTIR kernel K6 and its adjoint K7 on the
+GPU against their plain versions on the same card: K1 on the Cornell class
+and on the widened class (mirror, glass and coat, directional lights,
+cubemaps, uniform sampling, textures, SDF meshes), K2 on the Cornell class,
+K6 on the ReSTIR presets (with MIS too), K7 against the plain version's
+autograd over chains of passes, `fit` through the reservoir ring, and the
+refusal of gradients outside K2's and K7's classes.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -29,6 +30,7 @@ from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
+from raytracer0_tpu_torch import optimize
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
@@ -36,6 +38,7 @@ from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
+from test_torch_kernel_host import assert_grads_close, restir_chain_grads
 from test_torch_texture_scenes import SCENE_VIEWS
 
 pytestmark = pytest.mark.cuda
@@ -383,6 +386,7 @@ def _restir_contract(out, ref, new, new_ref):
 @pytest.mark.parametrize("where,kw", [
     ("restir_demo", dict(max_bounces=3)),
     ("restir_stress", dict(max_bounces=3, restir_samples=8)),
+    ("restir_demo", dict(max_bounces=3, use_mis=True)),
 ])
 def test_restir_kernel_matches_plain(cuda, where, kw):
     """K6 against the plain `restir.render_sample`, each threading its own
@@ -422,19 +426,80 @@ def test_restir_render_goes_through_k6_only(cuda):
 
 def test_gradient_through_sdf_or_restir_launches_nothing(cuda):
     """A gradient through `mis_demo` (SDF; K2 has no march) or through a
-    ReSTIR pass of `restir_demo` (its adjoint is K7) raises before any
-    kernel is launched."""
-    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES)
+    ReSTIR pass of `restir_demo` that asks for a leaf K7 does not compute
+    (aux) raises before any kernel is launched."""
+    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
+                      restir_kernel.BWD_LAUNCHES)
     before = counts()
     scene, cam, cfg = presets.mis_demo(device=cuda)
     s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="SDF.*item 14"):
         render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     scene, cam, cfg = presets.restir_demo(device=cuda)
-    s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
+    s = scene.replace(aux=scene.aux.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="K7"):
         render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     assert counts() == before
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "restir_stress"])
+def test_restir_adjoint_matches_plain_autograd(cuda, where):
+    """K7 against the plain `restir.trace_sample`'s autograd on the card,
+    over passes 0-3 from an empty ring at 16x128 with 3 bounces: the scene
+    leaves and every pass's rays within 1e-4 relative
+    (tests/test_megakernel.py:128-129), one K6 and one K7 launch per pass;
+    a second run gives the same bits."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    cfg = cfg.replace(max_bounces=3)
+    before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES, megakernel.LAUNCHES)
+    _, got = restir_chain_grads(restir_kernel.trace_forward_restir_fused, scene, cfg, cam,
+                                16, 128, 4)
+    torch.cuda.synchronize()
+    assert (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES, megakernel.LAUNCHES) == \
+        (before[0] + 4, before[1] + 4, before[2])
+    _, want = restir_chain_grads(restir.trace_sample, scene, cfg, cam, 16, 128, 4)
+    assert_grads_close(got, want)
+    _, again = restir_chain_grads(restir_kernel.trace_forward_restir_fused, scene, cfg, cam,
+                                  16, 128, 4)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_restir_fit_goes_through_k6_and_k7_only(cuda):
+    """`optimize.fit` on restir_demo with passes=2: each step launches K6
+    and K7 twice and neither K1 nor K2, and the loss falls."""
+    scene, cam, cfg = presets.restir_demo(device=cuda, max_bounces=4)
+    with torch.no_grad():
+        target = optimize.render_linear(scene, cfg, cam, 32, 32, passes=2)
+    is_light = (scene.mat_type == 0).float()[:, None]
+    start = scene.replace(emission=scene.emission * (1.0 + 0.6 * is_light))
+    counts = lambda: (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES, megakernel.LAUNCHES,
+                      megakernel.BWD_LAUNCHES)
+    before = counts()
+    _, losses = optimize.fit(start, cfg, cam, target, ("emission",), steps=4,
+                             learning_rate=0.3, passes=2, param_mask={"emission": is_light})
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 8, before[1] + 8, before[2], before[3])
+    assert losses[-1] < losses[0], losses
+
+
+def test_restir_adjoint_refuses_outside_its_class(cuda):
+    """A ReSTIR gradient K7 does not model raises on the card before any
+    launch: an SDF shape without its adjoint (BOX), a path deeper than the
+    stash, more candidates than the tape holds (restir_stress's 41 lights)."""
+    scene, cam, cfg = presets.restir_demo(device=cuda)
+    stress, _, scfg = presets.restir_stress(device=cuda)
+    em = scene.emission.clone().requires_grad_(True)
+    cases = [(scene.replace(emission=em, sdf_shapes_static=(0,)), cfg, "ROUND_BOX"),
+             (scene.replace(emission=em), cfg.replace(max_bounces=17, max_spec_bounces=17),
+              "stash"),
+             (stress.replace(emission=stress.emission.clone().requires_grad_(True)),
+              scfg.replace(restir_samples=40), "candidates")]
+    before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES)
+    for s, c, words in cases:
+        with pytest.raises(NotImplementedError, match=words):
+            render_pass(s, cam, c, RenderState.create(8, 8, device=cuda), 8, 8)
+    assert (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES) == before
 
 
 def test_restir_kernel_refuses_outside_its_class(cuda):

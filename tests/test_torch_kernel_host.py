@@ -1,4 +1,4 @@
-"""The CUDA sources of K1, K2 and K6, compiled for the host, against the
+"""The CUDA sources of K1, K2, K6 and K7, compiled for the host, against the
 plain version and its autograd.
 
 CUDA kernels have no interpret mode, and a machine without a card may
@@ -9,9 +9,10 @@ block run as std::threads that meet at a std::barrier for
 `__syncthreads()` (every thread of a block must reach each of the
 kernel's barriers, as the kernels do), blocks run one after another, and
 a `<<<...>>>` launch becomes a call of the shim's launcher.  The launchers
-`rt0_trace_forward`, `rt0_trace_backward` and `rt0_restir_forward` are
-compiled unchanged and driven through `ops/megakernel.py`'s own
-`_TraceCore` and `ops/restir_kernel.py`'s launcher, so the test covers
+`rt0_trace_forward`, `rt0_trace_backward`, `rt0_restir_forward` and
+`rt0_restir_backward` are compiled unchanged and driven through
+`ops/megakernel.py`'s own `_TraceCore` and `ops/restir_kernel.py`'s
+launcher and `_RestirCore`, so the test covers
 the kernels' arithmetic, their block reductions and the wrapper's ctypes
 calls; only nvcc's code generation is left to the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Host libm rounds sin/cos/sqrt
@@ -22,6 +23,7 @@ and K2's gradients agree within 1e-4 relative per leaf
 
 import contextlib
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -42,6 +44,7 @@ from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
 from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
 from raytracer0_tpu_torch.render import integrator
+from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
 LEAVES = ("color", "emission", "pos", "joker")
@@ -109,7 +112,7 @@ def _host_source(text):
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """(K1, K2, K6) ctypes functions of the host build."""
+    """(K1, K2, K6, K7) ctypes functions of the host build."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
@@ -122,7 +125,9 @@ def host_kernels(tmp_path_factory):
             ("megakernel", megakernel.SOURCES, "rt0_trace_forward", megakernel._ARGTYPES),
             ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
              megakernel._BWD_ARGTYPES),
-            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", restir_kernel._ARGTYPES)):
+            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", restir_kernel._ARGTYPES),
+            ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
+             restir_kernel._BWD_ARGTYPES)):
         cpp = out / f"{name}.cpp"
         cpp.write_text("".join(_host_source((cuda_build.CSRC_DIR / s).read_text())
                                for s in sources))
@@ -141,13 +146,15 @@ def kernels_on_cpu(host_kernels, monkeypatch):
     """ops/megakernel.py launching the host build on CPU tensors; the
     launch counts are restored afterwards, since they count launches on
     the card."""
-    fwd, bwd, k6 = host_kernels
+    fwd, bwd, k6, k7 = host_kernels
     monkeypatch.setattr(megakernel, "LAUNCHES", megakernel.LAUNCHES)
     monkeypatch.setattr(megakernel, "BWD_LAUNCHES", megakernel.BWD_LAUNCHES)
     monkeypatch.setattr(restir_kernel, "LAUNCHES", restir_kernel.LAUNCHES)
+    monkeypatch.setattr(restir_kernel, "BWD_LAUNCHES", restir_kernel.BWD_LAUNCHES)
     monkeypatch.setattr(megakernel, "build", lambda: (fwd, None))
     monkeypatch.setattr(megakernel, "build_bwd", lambda: (bwd, None))
     monkeypatch.setattr(restir_kernel, "build", lambda: (k6, None))
+    monkeypatch.setattr(restir_kernel, "build_bwd", lambda: (k7, None))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
@@ -387,7 +394,17 @@ def test_host_restir_matches_plain(kernels_on_cpu):
     tests/test_restir.py:312-352: per pass max |Δ| < 5e-3 and median
     |Δ| < 1e-6 of the radiance, light indices agreeing at >= 99.5 % of
     pixels, the other reservoir fields within 1e-4 where they agree."""
-    scene, cam, cfg = presets.restir_demo(device="cpu")
+    _host_restir_passes(*presets.restir_demo(device="cpu"))
+
+
+def test_host_restir_mis_matches_plain(kernels_on_cpu):
+    """The same on `restir_demo` with MIS: 9 lights keep ReSTIR engaged,
+    and the emissive hits of diffuse paths take the BSDF-side MIS weight
+    inside K6."""
+    _host_restir_passes(*presets.restir_demo(device="cpu", use_mis=True))
+
+
+def _host_restir_passes(scene, cam, cfg):
     cfg = cfg.replace(max_bounces=2, max_diff_bounces=2, restir_samples=4,
                       marching_steps=16)
     assert restir_kernel.unsupported_restir(scene, cfg) is None
@@ -413,3 +430,116 @@ def test_host_restir_matches_plain(kernels_on_cpu):
         plain = plain.rotate_reservoirs(new_ref)
     assert int((new.light_index >= 0).sum()) > h * w // 2
     assert new.m.max().item() > 0.0 and ref.max().item() > 0.0
+
+
+RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
+
+
+def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5):
+    """A loss over `passes` ReSTIR passes from an empty ring, each traced by
+    `trace` (`restir_kernel._fused`, K6 with K7 under autograd, or the
+    plain `restir.trace_sample`): seeded weights on every pass's radiance
+    and on the last ring's weight_sum, m, w and age.  Returns (loss,
+    {scene leaf: gradient, "ro"/"rd": the rays' gradients of all passes})."""
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in RESTIR_LEAVES}
+    s = scene.replace(**leaves)
+    state = RenderState.create(h, w, device=scene.device)
+    pix = rng.pixel_ids(h, w, device=scene.device)
+    r = np.random.default_rng(seed)
+    weights = lambda shape: torch.from_numpy(r.uniform(0.5, 1.5, shape).astype(np.float32)
+                                             ).to(scene.device)
+    loss, rays = 0.0, []
+    for p in range(passes):
+        ro, rd = generate_rays(cam, h, w, p)
+        rays += [ro.detach().requires_grad_(True), rd.detach().requires_grad_(True)]
+        rad, new = trace(s, cfg, rays[-2], rays[-1], pix, p, 0, state.restir_back,
+                         state.restir_hist1, state.restir_hist2)
+        loss = loss + (rad * weights(rad.shape)).sum()
+        state = state.rotate_reservoirs(new)
+    for k in restir_kernel.RING_FLOATS:
+        loss = loss + (getattr(state.restir_back, k) * weights((h, w))).sum() * 0.1
+    got = torch.autograd.grad(loss, list(leaves.values()) + rays)
+    out = dict(zip(RESTIR_LEAVES, got))
+    out["ro"], out["rd"] = torch.stack(got[-2 * passes::2]), torch.stack(got[-2 * passes + 1::2])
+    return loss.detach(), out
+
+
+def assert_grads_close(got, want, tol=1e-4):
+    """Per leaf max|a - b| / max|b| below `tol` (tests/test_megakernel.py:
+    128-129), every gradient finite."""
+    for k, b in want.items():
+        a = got[k]
+        assert bool(torch.isfinite(a).all()), k
+        scale = max(b.abs().max().item(), 1e-12)
+        assert (a - b).abs().max().item() / scale < tol, (k, (a - b).abs().max().item(), scale)
+
+
+@pytest.mark.parametrize("where,passes", [("restir_demo", 4), ("restir_stress", 4),
+                                          ("restir_demo", 7)])
+def test_host_restir_adjoint_matches_plain(kernels_on_cpu, where, passes):
+    """K7 (one launch per pass, through `_RestirCore`) against the plain
+    `restir.trace_sample`'s autograd over passes 0-3 (temporal reuse from
+    pass 3) or 0-6 (M above 30, which engages the shading's sqrt(30 / M)) from
+    an empty ring at 8x16 with 2 bounces: the scene leaves (emission, color,
+    pos, joker, ior) and every pass's rays within 1e-4 relative; a second
+    run gives the same bits.  Over a chain from an empty ring with one scene
+    the plain gradient that reaches the ring's light data is the kernels'
+    gradient of the slot table (ops/restir_kernel.py)."""
+    scene, cam, cfg = getattr(presets, where)(device="cpu")
+    cfg = cfg.replace(max_bounces=2, restir_samples=4, marching_steps=16)
+    assert restir_kernel.unsupported_restir_bwd(scene, cfg) is None
+    before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES)
+    loss, got = restir_chain_grads(restir_kernel._fused, scene, cfg, cam, 8, 16, passes)
+    assert (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES) == (before[0] + passes,
+                                                                   before[1] + passes)
+    ref_loss, want = restir_chain_grads(restir.trace_sample, scene, cfg, cam, 8, 16, passes)
+    assert abs(loss - ref_loss).item() <= 1e-5 * abs(ref_loss).item()
+    assert_grads_close(got, want)
+    assert got["emission"].abs().max().item() > 0.0 and got["pos"].abs().max().item() > 0.0
+    _, again = restir_chain_grads(restir_kernel._fused, scene, cfg, cam, 8, 16, passes)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_host_restir_adjoint_ring_fields(kernels_on_cpu):
+    """One pass of `restir_demo` on a warm ring (after 6 passes, so that M
+    exceeds 30 and the shading's sqrt(30 / M) factor is engaged) whose float
+    fields are leaves: K7's cotangents of back, hist1 and hist2 (m, w and
+    age; weight_sum only gates validity, so its cotangent is zero) against
+    plain autograd, for seeded weights on the radiance and on the new
+    ring's float fields.  The plain gradient of the ring's light data has no
+    K7 counterpart (K7 reads the slot table), so only the float fields are
+    compared."""
+    scene, cam, cfg = presets.restir_demo(device="cpu", max_bounces=3, restir_samples=4,
+                                          marching_steps=16)
+    h, w = 8, 32
+    state = RenderState.create(h, w, "cpu")
+    with torch.no_grad():
+        for _ in range(6):
+            state = render_pass(scene, cam, cfg, state, h, w)
+    assert int((state.restir_back.m > 30.0).sum()) > 10
+    grids = [dataclasses.replace(g, **{k: getattr(g, k).detach().clone().requires_grad_(True)
+                                       for k in restir_kernel.RING_FLOATS})
+             for g in (state.restir_back, state.restir_hist1, state.restir_hist2)]
+    floats = [getattr(g, k) for g in grids for k in restir_kernel.RING_FLOATS]
+    ro, rd = generate_rays(cam, h, w, 6)
+    pix = rng.pixel_ids(h, w)
+    r = np.random.default_rng(9)
+    ct = torch.from_numpy(r.uniform(0.5, 1.5, (h, w, 3)).astype(np.float32))
+    cts = [torch.from_numpy(r.uniform(0.5, 1.5, (h, w)).astype(np.float32)) for _ in range(4)]
+
+    def grads(trace):
+        rad, new = trace(scene, cfg, ro, rd, pix, 6, 0, *grids)
+        loss = (rad * ct).sum() + sum((getattr(new, k) * c).sum()
+                                      for k, c in zip(restir_kernel.RING_FLOATS, cts))
+        return torch.autograd.grad(loss, floats, allow_unused=True)
+
+    got, want = grads(restir_kernel._fused), grads(restir.trace_sample)
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = torch.zeros_like(a) if b is None else b
+        name = f"{('back', 'hist1', 'hist2')[i // 4]}.{restir_kernel.RING_FLOATS[i % 4]}"
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-12)
+        assert (a - b).abs().max().item() / scale < 1e-4, (name, (a - b).abs().max().item())
+        if restir_kernel.RING_FLOATS[i % 4] != "weight_sum":
+            assert int((b != 0).sum()) > 10, name   # the taps and history levels are engaged

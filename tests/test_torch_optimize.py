@@ -20,6 +20,8 @@ from raytracer0_tpu_torch import optimize as topt
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.presets import cornell_default
 from raytracer0_tpu_torch.models.scene import STATIC_FIELDS, TENSOR_FIELDS, Scene
+from raytracer0_tpu_torch.render.renderer import render_pass
+from raytracer0_tpu_torch.render.state import RenderState
 
 REL_TOL = 1e-4
 
@@ -95,6 +97,21 @@ def test_fit_recovers_light_emission():
 
 
 def test_render_linear_restir_not_ported():
+    """render_linear with use_restir, which raised before the ReSTIR
+    gradient path was ported, now threads the reservoir ring through its
+    passes on the CPU: it equals explicit render_pass threading, differs
+    from per-light NEE, and its gradient w.r.t. emission is finite and
+    nonzero (tests/test_torch_restir_grad.py holds it against JAX)."""
     scene, cam, cfg = cornell_default(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        topt.render_linear(scene, cfg.replace(use_restir=True), cam, 4, 4)
+    cfg = cfg.replace(use_restir=True, max_bounces=2, restir_samples=4)
+    em = scene.emission.clone().requires_grad_(True)
+    img = topt.render_linear(scene.replace(emission=em), cfg, cam, 4, 4, passes=2)
+    state = RenderState.create(4, 4, "cpu")
+    with torch.no_grad():
+        for _ in range(2):
+            state = render_pass(scene, cam, cfg, state, 4, 4)
+    assert torch.equal(img.detach(), state.accum / 2)
+    nee = topt.render_linear(scene, cfg.replace(use_restir=False), cam, 4, 4, passes=2)
+    assert (img.detach() - nee).abs().max().item() > 1e-4
+    g = torch.autograd.grad(img.sum(), em)[0]
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())

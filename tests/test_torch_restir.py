@@ -121,6 +121,49 @@ def test_render_sample_stress_matches_jax():
                    np.asarray(ref_rad), {k: np.asarray(getattr(nb, k)) for k in FIELDS})
 
 
+def test_render_sample_mis_matches_jax():
+    """restir_demo with MIS (9 lights, so ReSTIR stays engaged and the
+    emissive hits of diffuse paths take the BSDF-side MIS weight), one pass,
+    against JAX's render_sample: the class K6's gate admits with MIS is held
+    here, by the host build (tests/test_torch_kernel_host.py) and on the
+    card (chip_smoke.py phase 16)."""
+    js, jc, cfg = jpresets.restir_demo(use_mis=True)
+    cfg = _cfg(cfg)
+    with jax.disable_jit():
+        ref_rad, nb = jrestir.render_sample(js, cfg, jc, JState.create(H, W), H, W, 1)
+    ts, tc, _ = tpresets.restir_demo(device="cpu", use_mis=True)
+    assert tk6.unsupported_restir(ts, cfg) is None
+    rad, new = trestir.render_sample(ts, cfg, tc, RenderState.create(H, W, "cpu"), H, W, 1)
+    _pass_contract(rad.numpy(), {k: v.numpy() for k, v in new.fields().items()},
+                   np.asarray(ref_rad), {k: np.asarray(getattr(nb, k)) for k in FIELDS})
+    nee = trestir.render_sample(ts, cfg.replace(use_mis=False), tc,
+                                RenderState.create(H, W, "cpu"), H, W, 1)[0]
+    assert (rad - nee).abs().max().item() > 1e-4   # MIS changes the emissive hits
+
+
+def test_k6_gate_after_fault_10():
+    """K6's gate (and so K7's) admits restir_demo with MIS, which the tests
+    hold, and refuses the classes no test holds K6 to: blended textures and
+    a cubemap under ReSTIR (ROADMAP queue 1 item 11); the plain version
+    still renders them on the CPU."""
+    demo, _, cfg = tpresets.restir_demo(device="cpu")
+    assert tk6.unsupported_restir(demo, cfg.replace(use_mis=True)) is None
+    assert tk6.unsupported_restir_bwd(demo, cfg.replace(use_mis=True)) is None
+    from raytracer0_tpu_torch.models.materials import SdfShape
+    from raytracer0_tpu_torch.render import integrator as tint
+    back_wall = "MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"
+    assert back_wall in tpresets._RESTIR_9_LIGHTS
+    textured = tpresets.parse_scene(
+        tpresets._RESTIR_9_LIGHTS.replace(back_wall, "MAT_CHECK_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"),
+        sdf_shapes=[SdfShape.ROUND_BOX], device="cpu")
+    assert "textures" in tk6.unsupported_restir(textured, cfg)
+    assert "item 11" in tk6.unsupported_restir(textured, cfg)
+    cube_cfg = cfg.replace(use_cubemap=True, use_procedural_sky=False)
+    assert "cubemap" in tk6.unsupported_restir(demo, cube_cfg)
+    assert "item 11" in tk6.unsupported_restir(demo, cube_cfg)
+    assert tint.unsupported(demo, cube_cfg) is None and tint.unsupported(textured, cfg) is None
+
+
 def test_reservoir_direct_matches_jax(jax_passes):
     """reservoir_direct on the same primary-hit vertices and the same ring
     (pass 3: candidates, temporal and spatial reuse, finalize and shade)
@@ -240,19 +283,34 @@ def test_gates():
 
 
 def test_gradient_through_restir_raises():
-    """A ReSTIR pass with a leaf that requires a gradient raises on the CPU
-    too (K7, ROADMAP queue 1 item 11), through render_sample and through
-    render_pass; without one it renders."""
+    """A ReSTIR pass with a leaf that requires a gradient, which raised
+    before K7, now differentiates on the CPU through render_sample and
+    render_pass (plain autograd); the kernels' wrapper refuses, before any
+    launch, a gradient K7 does not compute (the aux leaf, item 14) and an
+    SDF shape whose adjoint it lacks (BOX, item 8)."""
     scene, cam, cfg = tpresets.restir_demo(device="cpu")
     cfg = _cfg(cfg)
     state = RenderState.create(4, 8, "cpu")
     em = scene.emission.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K7"):
-        trestir.render_sample(scene.replace(emission=em), cfg, cam, state, 4, 8, 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        render_pass(scene.replace(emission=em), cam, cfg, state, 4, 8)
-    with torch.no_grad():
-        assert render_pass(scene.replace(emission=em), cam, cfg, state, 4, 8).passes == 1
+    rad, _ = trestir.render_sample(scene.replace(emission=em), cfg, cam, state, 4, 8, 0)
+    g = torch.autograd.grad(rad.sum(), em)[0]
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+    out = render_pass(scene.replace(emission=em), cam, cfg, state, 4, 8)
+    assert out.passes == 1 and out.accum.requires_grad
+    from raytracer0_tpu_torch import rng as trng_mod
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    ro, rd = generate_rays(cam, 4, 8, 0)
+    pix = trng_mod.pixel_ids(4, 8)
+    before = (tk6.LAUNCHES, tk6.BWD_LAUNCHES)
+    aux = scene.aux.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K7.*aux.*item 14"):
+        tk6._fused(scene.replace(aux=aux), cfg, ro, rd, pix, 0, 0, state.restir_back,
+                   state.restir_hist1, state.restir_hist2)
+    box = scene.replace(sdf_shapes_static=(0,), emission=em)
+    with pytest.raises(NotImplementedError, match="K7.*ROUND_BOX.*item 8"):
+        tk6._fused(box, cfg, ro, rd, pix, 0, 0, state.restir_back, state.restir_hist1,
+                   state.restir_hist2)
+    assert (tk6.LAUNCHES, tk6.BWD_LAUNCHES) == before
 
 
 def test_renderer_restir_against_nee():

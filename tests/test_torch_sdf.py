@@ -178,6 +178,24 @@ def traces():
     return out
 
 
+def test_normal_gradient_finite_on_the_core():
+    """A tap of the 4-tap normal that lands exactly on the rounded box's
+    core (restir_demo's ROUND_BOX has radius 0, so a hit within epsilon of
+    its top face puts the (1, -1, -1) tap at |y| = 0.05 when y = 0.051)
+    has a zero distance gradient, not sqrt(0)'s 0 * inf: the normal's
+    gradient stays finite (jax.grad gives NaN there; K7 follows the
+    port)."""
+    scene, _, _ = tpresets.restir_demo(device="cpu")
+    y = np.float32(0.051)
+    assert np.float32(y - np.float32(0.001)) == np.float32(0.05)
+    pos = scene.pos.clone().requires_grad_(True)
+    joker = scene.joker.clone().requires_grad_(True)
+    p = torch.tensor([[0.1, float(y), 0.05]], requires_grad=True)
+    n = tsdf.calc_normal(scene.replace(pos=pos, joker=joker), p, 1e-3)
+    for g in torch.autograd.grad(n.sum(), [p, pos, joker]):
+        assert bool(torch.isfinite(g).all())
+
+
 @pytest.mark.parametrize("name", PRESETS)
 def test_plain_integrator_matches_jax(traces, name):
     """The plain integrator with the SDF march against JAX's
