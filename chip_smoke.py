@@ -9,9 +9,10 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
 
 1. requires a CUDA device; prints `nvidia-smi`'s name and power limit;
 2. builds the forward megakernel K1, its adjoint K2, the fused ReSTIR
-   kernel K6 and its adjoint K7 from `raytracer0_tpu_torch/csrc/` with
-   nvcc, all at once (or loads them from `build/kernels/`), and prints the
-   build times and ptxas' register, stack and spill lines;
+   kernel K6 and its adjoint K7, the G-buffer kernel K4 and the ray-cast
+   kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at once (or
+   loads them from `build/kernels/`), and prints the build times and
+   ptxas' register, stack and spill lines;
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -119,7 +120,36 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    K2 launch; times the fwd+bwd step of `render_linear(passes=4)` at
    512x512 with 12 bounces through K6+K7 (median and quartiles), K7 per
    launch (CUDA events and profiler) and the plain autograd step at
-   128x128; prints the peak memory of each, K7's path events and bound.
+   128x128; prints the peak memory of each, K7's path events and bound;
+21. holds K5 against the plain `intersect.intersect` bit for bit at
+   512x512 on `restir_demo`, `mis_demo` and the real-time scene
+   (`animated_untextured`) at a frame time: the primary rays, and rays
+   from the primary hits and from every G-buffer vertex toward the lights;
+22. holds K4 against its plain version bit for bit (the radiance and every
+   G-buffer field of every slot) at 16x128 and 512x512 on `restir_demo`
+   and the real-time scene;
+23. holds K6 under ANIMATED accumulation against the plain
+   `restir.render_sample` at every pass of a 4-pass chain at 512x512, bit
+   for bit at a constant frame time and at a moving one with the plain
+   ring's light data refreshed to the frame's, and prints the share of
+   pixels where the two differ at a moving time unrefreshed; holds K7
+   under ANIMATED against plain autograd at 16x128 over passes 0-3
+   (identical bits twice); differentiates `render_linear` under ANIMATED
+   through 4 K6 and 4 K7 launches;
+24. drives the real-time main path, 16 frames of
+   `Renderer.step(time_s=k/30)` on the real-time scene at 512x512 with
+   the ad-hoc reprojection: 16 K4, 64 K5 and no other launch; holds the
+   last frame bit for bit against the same frame through the plain K4 and
+   K5 on the card and against the plain `render_sample` under JAX's
+   fast-versus-wavefront contract (tests/test_restir.py:284-310); times
+   the frame (median and quartiles of 9 after warm-up), K4 and K5 per
+   launch (CUDA events and profiler), ray generation and the rest (the
+   reservoir phases), and prints K4's and K5's events and bounds; times
+   the ANIMATED frame through K6 (no ad-hoc motion) and through K1
+   (ReSTIR off, held bit for bit against the plain version);
+25. checks that a gradient through the split path, and `animated_restir`
+   itself (a METAL texture on its SDF mesh, item 8) on every route, raise
+   NotImplementedError before any launch.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -129,6 +159,7 @@ the repository, it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -331,7 +362,8 @@ def textured_scenes(dev):
     return cases
 
 
-def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None):
+def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
+                gbuffer=False):
     """Events of every pixel's path, counted over the image: rays by mesh
     scan, BSDF samples by material and by outcome (diffuse, specular,
     transmitted), shadow rays to sphere and to directional lights, gather
@@ -341,7 +373,8 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None)
     the rays that test the SDF bounds (`gated`), the marched rays and
     their steps, and the SDF hits.  With `ring` (the RenderState of a
     ReSTIR pass, as K6 runs it) a diffuse vertex runs the reservoir
-    pipeline (`vertices`, each with two shadow rays) in place of NEE.
+    pipeline (`vertices`, each with two shadow rays) in place of NEE; with
+    `gbuffer` (K4) a diffuse vertex runs neither and is recorded.
     Replays the kernels' decisions with the plain version's functions
     (`bsdf.sample`, `integrator.hit_color_emission`, `sdf.march_loop`,
     `restir.reservoir_direct` among them), which make the same ones bit
@@ -440,7 +473,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None)
                     hit.idx, pix, pass_idx, sample_idx, depth, height=shape[0], width=shape[1])
                 march_work(diffuse)
                 ev["vertices"] += n_diffuse
-            elif cfg.sample_lights:
+            elif cfg.sample_lights and not gbuffer:
                 if scene.num_sdfs:   # the shadow rays' march work
                     lighting.sample_lights_nee(scene, cfg, hit.pos, nl, mask, pix, pass_idx,
                                                sample_idx, depth)
@@ -466,7 +499,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None)
     return ev
 
 
-def bound(ev, scene, cfg, adjoint, restir=False):
+def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     """(bound_ms, bound_by) of K1 (or K2 when `adjoint`, K6 when `restir`,
     K7 when both) for these events: the larger of the bytes over the HBM
     rate and the float operations over the float32 rate.  The bytes are
@@ -478,7 +511,9 @@ def bound(ev, scene, cfg, adjoint, restir=False):
     without NEE.  K6 runs K1's sweep with the reservoir vertex and its two
     shadow rays in place of NEE; K7 replays K6's slots twice (forward
     sweep, reverse sweep with the vertices) and runs their adjoint: the
-    forward sweep plus twice K6's operations."""
+    forward sweep plus twice K6's operations.  K4 (`gbuffer_slots` > 0)
+    runs K1's sweep without NEE and writes the G-buffer: per slot and pixel
+    45 bytes (position, normal, throughput, mesh, depth, valid)."""
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     n_sdf = scene.num_sdfs
@@ -512,6 +547,8 @@ def bound(ev, scene, cfg, adjoint, restir=False):
         # d_ro, d_rd, per-tap and history cotangents, d back, d_table out
         ops = sweep + 2 * fwd
         nbytes = px * (12 + 12 + 8 + 3 * 20 + 12 + 16 + 24 + 8 * 12 + 2 * 12 + 12) + 2 * table
+    elif gbuffer_slots:   # ro, rd, pix, table in; radiance and the G-buffer out
+        ops, nbytes = fwd, px * (12 + 12 + 8 + 12 + 45 * gbuffer_slots) + table
     elif restir:  # ro, rd, pix, three reservoir grids in; radiance, reservoirs out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 3 * 20 + 12 + 44) + table
     elif adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
@@ -520,6 +557,44 @@ def bound(ev, scene, cfg, adjoint, restir=False):
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + assets
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cast_bound(torch, scene, cfg, o, d):
+    """(bound_ms, bound_by, events) of K5 on the rays (o, d): each ray reads
+    24 bytes and writes 8 (the table once); its operations are a scan over
+    the analytic meshes and, in scenes with SDF meshes, the march of
+    `bound`'s count (the gate, the steps, the final evaluation), replayed
+    with the plain `sdf.march_loop`."""
+    from raytracer0_tpu_torch.ops import intersect, sdf
+
+    steps_seen, march_loop = [], sdf.march_loop
+
+    def counted(*args):
+        out = march_loop(*args)
+        steps_seen.append(out[3])
+        return out
+
+    sdf.march_loop = counted
+    try:
+        intersect.intersect(scene, o, d, cfg, need_normal=False, need_uv=False)
+    finally:
+        sdf.march_loop = march_loop
+    n = o.shape[:-1].numel()
+    ev = dict(rays=n, gated=0, marched=0, march_steps=0)
+    for steps in steps_seen:
+        ev["gated"] += n
+        ev["marched"] += int((steps > 0).sum())
+        ev["march_steps"] += int(steps.sum())
+    types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
+    n_sdf = scene.num_sdfs
+    ops = (n * sum(OPS_MESH.get(t, 0) + 2 for t in types)
+           + ev["gated"] * n_sdf * OPS_SDF_GATE
+           + ev["marched"] * (2 * (OPS_MARCH_RAY + n_sdf * OPS_SDF_EVAL))
+           + ev["march_steps"] * (OPS_MARCH_STEP + n_sdf * OPS_SDF_EVAL))
+    nbytes = n * (24 + 8) + 4 * scene.num_meshes * 36
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return by[0], by[1], ev
 
 
 def device_times_ms(prof, names):
@@ -564,9 +639,10 @@ def main() -> int:
         from raytracer0_tpu_torch.ops import megakernel
         from raytracer0_tpu_torch.render import integrator
         from raytracer0_tpu_torch.models import presets
-        from raytracer0_tpu_torch.ops import restir, restir_kernel
+        from raytracer0_tpu_torch.models import scene as scene_mod
+        from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split
         from raytracer0_tpu_torch.render.renderer import Renderer, render_pass, sample_radiance
-        from raytracer0_tpu_torch.render.state import RenderState
+        from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState
         from k1_device_time import k1_device_ms
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
@@ -583,12 +659,13 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build the four kernels at once ----
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    # ---- phase 2: build the six kernels at once ----
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
-                  pool.submit(restir_kernel.build), pool.submit(restir_kernel.build_bwd)]
+                  pool.submit(restir_kernel.build), pool.submit(restir_kernel.build_bwd),
+                  pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6", "K7"), infos):
+    for name, info in zip(("K1", "K2", "K6", "K7", "K4", "K5"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -1459,6 +1536,306 @@ def main() -> int:
           f"launch (CUDA events); plain backward of one pass at {full}x{full} "
           f"{plain_ms_k7:.3f} ms; bound {k7_bound:.6f} ms ({k7_by})")
 
+    # ---- phase 21: K5 against the plain intersect.intersect ----
+    rt_scene, rt_cam, rt_cfg = presets.animated_untextured(device=dev)   # the slice's scene
+    rt_adhoc = rt_cfg.replace(restir_adhoc_motion=True)
+    frame = lambda t: scene_mod.animate_positions(rt_scene, t, int(rt_cfg.render_mode))
+    k5_err = {}
+    for name, (s21, c21, cfg21) in (("restir_demo", presets.restir_demo(device=dev)),
+                                    ("mis_demo", presets.mis_demo(device=dev)),
+                                    ("the real-time scene at t = 0.5",
+                                     (frame(0.5), rt_cam, rt_adhoc))):
+        ro21, rd21 = generate_rays(c21, H, W, 1)
+        pix21 = rng.pixel_ids(H, W, device=dev)
+        t21, _, _ = restir.default_cast(s21, cfg21)(ro21, rd21)
+        origins = {"the primary hits": ro21 + rd21 * t21[..., None]}
+        if restir_split.unsupported_gbuffer(s21, cfg21) is None:
+            _, gb21 = restir_split.gbuffer_plain(s21, cfg21, ro21, rd21, pix21, 1, 0)
+            origins.update({f"G-buffer slot {k}": g["pos"] for k, g in enumerate(gb21)})
+        lights21 = s21.pos[torch.clamp_min(s21.light_idx.long(), 0)]
+        lp21 = lights21[pix21 % lights21.shape[0]]   # each pixel toward one of the lights
+        rays21 = {"primary rays": (ro21, rd21)}
+        for k, x in origins.items():
+            d = (lp21 - x) / torch.linalg.vector_norm(lp21 - x, dim=-1, keepdim=True).clamp_min(1e-12)
+            rays21[f"rays from {k} toward the lights"] = ((x + d * cfg21.epsilon).contiguous(),
+                                                          d.contiguous())
+        for what, (o, d) in rays21.items():
+            t, idx, missed = restir_split.cast_rays(s21, cfg21, o, d)
+            t_ref, idx_ref, missed_ref = restir.default_cast(s21, cfg21)(o, d)
+            torch.cuda.synchronize()
+            n_diff = int(((t != t_ref) | (idx.long() != idx_ref) | (missed != missed_ref)).sum())
+            k5_err[(name, what)] = (t - t_ref).abs().max().item()
+            print(f"phase 21: K5 on {name}, {what}, {H}x{W}: {n_diff} rays differ from the plain "
+                  f"intersect (max |dt| {k5_err[(name, what)]:.3e}); {int(missed.sum())} misses")
+            if n_diff:
+                raise AssertionError(f"K5 disagrees with the plain intersect on {name}")
+    k5_max_err = max(k5_err.values())
+
+    # ---- phase 22: K4 against its plain version ----
+    k4_err = {}
+    for name, (s22, c22, cfg22) in (("restir_demo", presets.restir_demo(device=dev)),
+                                    ("the real-time scene at t = 0.5",
+                                     (frame(0.5), rt_cam, rt_adhoc))):
+        for h, w in ((16, 128), (H, W)):
+            ro22, rd22 = generate_rays(c22, h, w, 2)
+            pix22 = rng.pixel_ids(h, w, device=dev)
+            out, gb = restir_split.trace_forward_gbuffer(s22, cfg22, ro22, rd22, pix22, 2, 0)
+            ref, gref = restir_split.gbuffer_plain(s22, cfg22, ro22, rd22, pix22, 2, 0)
+            torch.cuda.synchronize()
+            diffs = {"radiance": int((out != ref).any(-1).sum())}
+            errs = [(out - ref).abs().max().item()]
+            for k, (g, gr) in enumerate(zip(gb, gref)):
+                for f in g:
+                    ne = g[f] != gr[f]
+                    diffs[f"{f}[{k}]"] = int((ne.any(-1) if ne.dim() == 3 else ne).sum())
+                    if g[f].is_floating_point():
+                        errs.append((g[f] - gr[f]).abs().max().item())
+            k4_err[(name, h)] = max(errs)
+            print(f"phase 22: K4 on {name}, {h}x{w}, {cfg22.max_bounces} bounces, {len(gb)} "
+                  f"slots: pixels that differ per field {json.dumps(diffs)}; max abs err "
+                  f"{max(errs):.3e}; valid vertices per slot {[int(g['valid'].sum()) for g in gb]}")
+            if any(diffs.values()):
+                raise AssertionError(f"K4 disagrees with its plain version on {name}")
+    k4_max_err = max(k4_err.values())
+
+    # ---- phase 23: K6 and K7 under ANIMATED accumulation ----
+    def refreshed(fr, st):
+        """The ring `st` with its light data replaced by the frame's
+        (`restir_kernel.light_data`), which is what K6 reads."""
+        def fresh(g):
+            pos_, col_ = restir_kernel.light_data(fr, g.light_index)
+            return dataclasses.replace(g, light_pos=pos_, light_color=col_)
+        return st.replace(restir_back=fresh(st.restir_back), restir_hist1=fresh(st.restir_hist1),
+                          restir_hist2=fresh(st.restir_hist2))
+
+    k6_anim_err = {}
+    for chain in ("constant", "moving, refreshed", "moving"):
+        kernel_ring = RenderState.create(H, W, device=dev)
+        plain_ring = RenderState.create(H, W, device=dev)
+        for p in range(4):
+            t = 0.9 if chain == "constant" else p / 30
+            if chain == "moving, refreshed":
+                plain_ring = refreshed(frame(t), plain_ring)
+            before = restir_kernel.LAUNCHES
+            out, new = restir_kernel.render_sample_fused(rt_scene, rt_cfg, rt_cam, kernel_ring,
+                                                         H, W, p, t)
+            ref, new_ref = restir.render_sample(rt_scene, rt_cfg, rt_cam, plain_ring, H, W, p, t)
+            torch.cuda.synchronize()
+            if restir_kernel.LAUNCHES != before + 1:
+                raise AssertionError("expected one K6 launch per pass")
+            n_diff = int((out != ref).any(-1).sum())
+            same_res = all(torch.equal(getattr(new, k), getattr(new_ref, k))
+                           for k in RESERVOIR_FIELDS)
+            k6_anim_err[(chain, p)] = (out - ref).abs().max().item()
+            print(f"phase 23: K6 under ANIMATED, {chain} frame time, pass {p} (t = {t:.4f}), "
+                  f"{H}x{W}: {n_diff} pixels ({n_diff / (H * W):.5f} of them) differ from the "
+                  f"plain render_sample, max abs err {k6_anim_err[(chain, p)]:.3e}; reservoirs "
+                  + ("equal" if same_res else "differ"))
+            if chain != "moving" and (n_diff or not same_res):
+                raise AssertionError(f"K6 under ANIMATED ({chain}) differs from the plain version")
+            kernel_ring = kernel_ring.rotate_reservoirs(new)
+            plain_ring = plain_ring.rotate_reservoirs(new_ref)
+    del kernel_ring, plain_ring
+
+    animate9 = lambda s: scene_mod.animate_positions(s, 0.9, int(rt_cfg.render_mode))
+    k7_kernel = lambda s, *a: restir_kernel.trace_forward_restir_fused(animate9(s), *a)
+    before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES)
+    _, got = restir_chain(k7_kernel, rt_scene, rt_cfg, rt_cam, 16, 128, 4)
+    torch.cuda.synchronize()
+    if (restir_kernel.LAUNCHES - before[0], restir_kernel.BWD_LAUNCHES - before[1]) != (4, 4):
+        raise AssertionError("expected one K6 and one K7 launch per pass")
+    _, again = restir_chain(k7_kernel, rt_scene, rt_cfg, rt_cam, 16, 128, 4)
+    _, want = restir_chain(lambda s, *a: restir.trace_sample(animate9(s), *a), rt_scene, rt_cfg,
+                           rt_cam, 16, 128, 4)
+    torch.cuda.synchronize()
+    errs = grad_errors(got, want)
+    k7_rel_anim = max(e[0] for e in errs.values())
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    print(f"phase 23: K7 under ANIMATED, the real-time scene at t = 0.9, 16x128, "
+          f"{rt_cfg.max_bounces} bounces, passes 0-3: max relative error per leaf "
+          + ", ".join(f"{k} {e[0]:.2e}" for k, e in errs.items())
+          + f"; two K7 runs {'give identical bits' if same else 'DIFFER'}")
+    if k7_rel_anim >= GRAD_TOL or not same:
+        raise AssertionError("K7 under ANIMATED disagrees with plain autograd, or is not "
+                             "deterministic")
+    del got, again, want
+    # the ANIMATED gradient path: render_linear through K6 and K7
+    restir_kernel.LAUNCHES = restir_kernel.BWD_LAUNCHES = 0
+    em23 = rt_scene.emission.detach().clone().requires_grad_(True)
+    img23 = optimize.render_linear(rt_scene.replace(emission=em23), rt_cfg, rt_cam, 128, 128,
+                                   passes=4)
+    g23 = torch.autograd.grad(img23.sum(), em23)[0]
+    torch.cuda.synchronize()
+    k6_anim_grad, k7_anim_grad = restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES
+    print(f"phase 23: d sum(render_linear(passes=4)) / d emission of the real-time scene at "
+          f"128x128 under ANIMATED: {k6_anim_grad} K6 and {k7_anim_grad} K7 launches, finite "
+          f"{bool(torch.isfinite(g23).all())}, max |g| {g23.abs().max().item():.4e}")
+    if (k6_anim_grad, k7_anim_grad) != (4, 4) or not bool(torch.isfinite(g23).all()):
+        raise AssertionError("the ANIMATED gradient did not run on K6 and K7")
+
+    # ---- phase 24: the real-time main path ----
+    frames = 16
+    slots = restir_split.gbuffer_slots(rt_adhoc)
+    restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = 0
+    restir_kernel.LAUNCHES = restir_kernel.BWD_LAUNCHES = 0
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    rt_renderer = Renderer(rt_scene, rt_cam, rt_adhoc, H, W)
+    for k in range(frames):
+        if k == frames - 1:
+            held = rt_renderer.state   # the ring the last frame reads
+        rt_renderer.step(time_s=k / 30)
+    torch.cuda.synchronize()
+    launches_k4, launches_k5 = restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES
+    k6_rt, k7_rt, k1_rt, k2_rt = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES,
+                                  megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    rt_img = rt_renderer.image()
+    res24 = rt_renderer.state.restir_back
+    print(f"phase 24: Renderer(real-time scene, ANIMATED_CONFIG with restir_adhoc_motion, {H}, "
+          f"{W}).step(time_s=k/30) for k < {frames}: {launches_k4} K4, {launches_k5} K5, {k6_rt} "
+          f"K6, {k7_rt} K7, {k1_rt} K1, {k2_rt} K2 launches; {slots} G-buffer slots; image mean "
+          f"{rt_img.mean().item():.6f}; share of pixels holding a light "
+          f"{(res24.light_index >= 0).float().mean().item():.5f}")
+    if (launches_k4, launches_k5, k6_rt, k7_rt, k1_rt, k2_rt) != \
+            (frames, 2 * slots * frames, 0, 0, 0, 0):
+        raise AssertionError(f"expected {frames} K4, {2 * slots * frames} K5 and no other launch")
+    if tuple(rt_img.shape) != (H, W, 3) or not bool(torch.isfinite(rt_img).all()) \
+            or not rt_img.mean().item() > 0.0:
+        raise AssertionError("the real-time image is not a finite, lit f32[H, W, 3]")
+    t_last = (frames - 1) / 30
+    rad24, new24 = restir_split.render_sample_fast(rt_scene, rt_adhoc, rt_cam, held, H, W,
+                                                   frames - 1, t_last)
+    ref24, ref_new24 = restir_split.render_sample_split(
+        rt_scene, rt_adhoc, rt_cam, held, H, W, frames - 1, t_last, restir_split.gbuffer_plain,
+        restir.default_cast)
+    wave24, _ = restir.render_sample(rt_scene, rt_adhoc, rt_cam, held, H, W, frames - 1, t_last)
+    torch.cuda.synchronize()
+    same24 = torch.equal(rad24, ref24) and all(torch.equal(getattr(new24, k),
+                                                           getattr(ref_new24, k))
+                                               for k in RESERVOIR_FIELDS)
+    err24 = (rad24 - wave24).abs()
+    rt_max_err, rt_med_err = err24.max().item(), err24.median().item()
+    print(f"phase 24: frame {frames - 1} (t = {t_last:.4f}): K4+K5 against the plain K4 and K5 "
+          f"on the card: {'identical bits' if same24 else 'DIFFER'} (radiance and reservoirs); "
+          f"against the plain render_sample: max abs err {rt_max_err:.3e}, median "
+          f"{rt_med_err:.3e}, {int((rad24 != wave24).any(-1).sum())} pixels differ (5e-3 and "
+          "1e-6 allowed, tests/test_restir.py:284-310)")
+    if not (same24 and rt_max_err < 5e-3 and rt_med_err < 1e-6):
+        raise AssertionError("the real-time frame disagrees with its plain versions")
+    del ref24, wave24
+
+    # what a frame costs, and where its time goes
+    rt_frame = time_stats(torch, lambda: rt_renderer.step(time_s=0.5), runs=9)
+    fr24 = frame(0.5)
+    ro24, rd24 = generate_rays(rt_cam, H, W, frames)
+    pix24 = rng.pixel_ids(H, W, device=dev)
+    cast_inputs, cast_rays_fn = [], restir_split.cast_rays
+
+    def recording(*a, **k):
+        cast_inputs.append((a[2], a[3]))
+        return cast_rays_fn(*a, **k)
+
+    restir_split.cast_rays = recording
+    try:
+        rt_renderer.step(time_s=0.5)
+    finally:
+        restir_split.cast_rays = cast_rays_fn
+    table24 = megakernel.scene_table(fr24)
+    ms_k4 = time_ms(torch, lambda: restir_split.trace_forward_gbuffer(
+        fr24, rt_adhoc, ro24, rd24, pix24, frames, 0))
+    ms_k5_each = [time_ms(torch, lambda o=o, d=d: restir_split._launch_cast(
+        fr24, rt_adhoc, table24, o, d)) for o, d in cast_inputs]
+    ms_k5 = statistics.mean(ms_k5_each)
+    plain_ms_k4 = time_ms(torch, lambda: restir_split.gbuffer_plain(
+        fr24, rt_adhoc, ro24, rd24, pix24, frames, 0), runs=3, warmup=1)
+    plain_ms_k5 = time_ms(torch, lambda: restir.default_cast(fr24, rt_adhoc)(*cast_inputs[0]),
+                          runs=3, warmup=1)
+    ms_rays24 = time_ms(torch, lambda: generate_rays(rt_cam, H, W, frames))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rt_renderer.step(time_s=0.5)
+        torch.cuda.synchronize()
+    dev24, total24 = device_times_ms(prof, ("gbuf_kernel", "cast_kernel"))
+    k4_dev_ms = None if dev24["gbuf_kernel"] is None else dev24["gbuf_kernel"] / 3
+    k5_dev_ms = None if dev24["cast_kernel"] is None else dev24["cast_kernel"] / (3 * 2 * slots)
+    ev24 = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, gbuffer=True)
+    k4_bound, k4_by = bound(ev24, fr24, rt_adhoc, adjoint=False, gbuffer_slots=slots)
+    k5_bounds = [cast_bound(torch, fr24, rt_adhoc, o, d) for o, d in cast_inputs]
+    k5_bound = statistics.mean(b[0] for b in k5_bounds)
+    k5_by = "operations" if sum(b[1] == "operations" for b in k5_bounds) * 2 > len(k5_bounds) \
+        else "bytes"
+    rest = rt_frame[0] - ms_rays24 - ms_k4 - sum(ms_k5_each)
+    print(f"phase 24: path events of K4 on a real-time frame at {H}x{W}: {json.dumps(ev24)}")
+    print(f"phase 24: K5 events per launch of a frame: "
+          + "; ".join(json.dumps(b[2]) for b in k5_bounds))
+    print(f"phase 24: {card}: real-time frame (Renderer.step, ANIMATED + ad-hoc motion, "
+          f"{H}x{W}, {rt_adhoc.max_bounces} bounces, {rt_adhoc.marching_steps} marching steps): "
+          f"{rt_frame[0]:.3f} ms (q1 {rt_frame[1]:.3f}, q3 {rt_frame[2]:.3f}); of it, alone "
+          f"(CUDA events): generate_rays {ms_rays24:.3f} ms, K4 {ms_k4:.3f} ms, K5 "
+          f"{' + '.join(f'{m:.3f}' for m in ms_k5_each)} ms, the reservoir phases and the rest "
+          f"{rest:.3f} ms ({rest / rt_frame[0]:.3f} of the frame); device time per launch "
+          "(profiler): K4 " + ("not measured" if k4_dev_ms is None else f"{k4_dev_ms:.4f} ms")
+          + ", K5 " + ("not measured" if k5_dev_ms is None else f"{k5_dev_ms:.4f} ms")
+          + ("" if total24 is None else f", all kernels {total24 / 3:.4f} ms per frame")
+          + f"; bounds: K4 {k4_bound:.6f} ms ({k4_by}), K5 {k5_bound:.6f} ms per launch "
+          f"({k5_by}); plain K4 {plain_ms_k4:.3f} ms, plain K5 {plain_ms_k5:.3f} ms")
+
+    # the ANIMATED frame through K6 (no ad-hoc motion), and through K1 (ReSTIR off)
+    restir_kernel.LAUNCHES = 0
+    k6_renderer = Renderer(rt_scene, rt_cam, rt_cfg, H, W)
+    for k in range(frames):
+        k6_renderer.step(time_s=k / 30)
+    torch.cuda.synchronize()
+    launches_k6_anim = restir_kernel.LAUNCHES
+    k6_frame = time_stats(torch, lambda: k6_renderer.step(time_s=0.5), runs=9)
+    nee_cfg = rt_cfg.replace(use_restir=False)
+    megakernel.LAUNCHES = 0
+    k1_renderer = Renderer(rt_scene, rt_cam, nee_cfg, H, W)
+    for k in range(frames):
+        k1_renderer.step(time_s=k / 30)
+    torch.cuda.synchronize()
+    launches_k1_anim = megakernel.LAUNCHES
+    k1_frame = time_stats(torch, lambda: k1_renderer.step(time_s=0.5), runs=9)
+    out24 = sample_radiance(rt_scene, nee_cfg, rt_cam, H, W, 3, 0.5)
+    ro_k1, rd_k1 = generate_rays(rt_cam, H, W, 3)
+    ref_k1 = integrator.trace(frame(0.5), nee_cfg, ro_k1, rd_k1, pix24, 3, 0)
+    torch.cuda.synchronize()
+    k1_anim_diff = int((out24 != ref_k1).any(-1).sum())
+    print(f"phase 24: {card}: the ANIMATED frame at {H}x{W} through K6 (no ad-hoc motion): "
+          f"{launches_k6_anim} K6 launches in {frames} frames, {k6_frame[0]:.3f} ms (q1 "
+          f"{k6_frame[1]:.3f}, q3 {k6_frame[2]:.3f}); through K1 (ReSTIR off, per-light NEE): "
+          f"{launches_k1_anim} K1 launches in {frames} frames, {k1_frame[0]:.3f} ms (q1 "
+          f"{k1_frame[1]:.3f}, q3 {k1_frame[2]:.3f}), {k1_anim_diff} pixels of a pass differ "
+          "from the plain version")
+    if launches_k6_anim != frames or launches_k1_anim != frames or k1_anim_diff:
+        raise AssertionError("the ANIMATED frames did not run on K6 and K1, or K1 disagrees")
+
+    # ---- phase 25: refusals before any launch ----
+    split_counts = lambda: (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) + counts()
+    before = split_counts()
+    em25 = rt_scene.emission.clone().requires_grad_(True)
+    refusals = {
+        "a gradient through the split path": lambda: Renderer(
+            rt_scene.replace(emission=em25), rt_cam, rt_adhoc, 16, 16).step(0.1),
+        "optimize.render_linear with ad-hoc motion and a gradient": lambda: optimize.render_linear(
+            rt_scene.replace(emission=em25), rt_adhoc, rt_cam, 16, 16, passes=2),
+    }
+    m_scene, m_cam, m_cfg = presets.animated_restir(device=dev)
+    for label, c in (("on K6", m_cfg), ("on the split path", m_cfg.replace(restir_adhoc_motion=True)),
+                     ("on K1", m_cfg.replace(use_restir=False))):
+        refusals[f"animated_restir (MAT_METAL on its SDF) {label}"] = \
+            lambda c=c: Renderer(m_scene, m_cam, c, 16, 16).step(0.1)
+    for what, call in refusals.items():
+        try:
+            call()
+        except NotImplementedError as exc:
+            print(f"phase 25: {what} raises NotImplementedError: {exc}")
+            if what.startswith("animated_restir") and "item 8" not in str(exc):
+                raise AssertionError("animated_restir is refused without naming item 8")
+        else:
+            raise AssertionError(f"{what} did not raise")
+    if split_counts() != before:
+        raise AssertionError("a refused call launched a kernel")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     common = dict(route="cuda", library_ms=None)
@@ -1469,7 +1846,8 @@ def main() -> int:
          "launches": launches,
          "launches_by_path": {"render": launches, "gradient": launches_grad,
                               "cubemap_render": launches_cube, "texture_render": launches_tex,
-                              "gloss_render": launches_gloss},
+                              "gloss_render": launches_gloss,
+                              "animated_render": launches_k1_anim},
          "max_abs_err": max_abs_err, "ms": ms_trace, "plain_ms": plain_ms_trace,
          "bound_ms": k1_bound, "bound_by": k1_by,
          "ms_config2": k1_ms["config2"], "device_ms_config2": k1_dev_ms["config2"],
@@ -1508,14 +1886,21 @@ def main() -> int:
          "source": "raytracer0_tpu_torch/csrc/restir.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2880",
          "launches": launches_k6,
-         "launches_by_path": {"render": launches_k6, "gradient": k6_fit},
-         "max_abs_err": k6_max_err, "ms": ms_k6,
+         "launches_by_path": {"render": launches_k6, "gradient": k6_fit,
+                              "animated_render": launches_k6_anim,
+                              "animated_gradient": k6_anim_grad, "realtime_adhoc": k6_rt},
+         "max_abs_err": k6_max_err,
+         "max_abs_err_animated": max(v for (c, p), v in k6_anim_err.items() if c != "moving"),
+         "ms": ms_k6,
          "device_ms": k6_dev_ms, "plain_ms": plain_restir[0], "bound_ms": k6_bound,
          "bound_by": k6_by},
         {"name": "K7 fused ReSTIR adjoint", **common,
          "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3017",
-         "launches": launches_k7, "max_abs_err": k7_abs, "max_rel_err": k7_rel_full,
+         "launches": launches_k7,
+         "launches_by_path": {"gradient": launches_k7, "animated_gradient": k7_anim_grad},
+         "max_abs_err": k7_abs, "max_rel_err": k7_rel_full,
+         "max_rel_err_animated": k7_rel_anim,
          "compared_at": f"{full}x{full}, passes 0-{n_full - 1}", "ms": ms_k7, "device_ms": k7_dev_ms,
          "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by},
         {"name": "K8 per-slot fused ReSTIR adjoint, served by K7", **common,
@@ -1523,6 +1908,18 @@ def main() -> int:
          "replaces": "raytracer0_tpu/ops/megakernel.py:3089",
          "launches": launches_k7, "max_abs_err": k7_abs, "ms": ms_k7, "device_ms": k7_dev_ms,
          "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by},
+        {"name": "K4 G-buffer forward", **common,
+         "source": "raytracer0_tpu_torch/csrc/gbuffer.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:2775",
+         "launches": launches_k4, "launches_by_path": {"realtime_adhoc": launches_k4},
+         "max_abs_err": k4_max_err, "ms": ms_k4, "device_ms": k4_dev_ms,
+         "plain_ms": plain_ms_k4, "bound_ms": k4_bound, "bound_by": k4_by},
+        {"name": "K5 ray cast", **common,
+         "source": "raytracer0_tpu_torch/csrc/cast.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3349",
+         "launches": launches_k5, "launches_by_path": {"realtime_adhoc": launches_k5},
+         "max_abs_err": k5_max_err, "ms": ms_k5, "device_ms": k5_dev_ms,
+         "plain_ms": plain_ms_k5, "bound_ms": k5_bound, "bound_by": k5_by},
         {"name": "K11 gloss suffix-resume forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3969",

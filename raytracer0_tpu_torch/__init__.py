@@ -4,9 +4,11 @@ A port of `raytracer0_tpu` (JAX, XLA and Pallas) that keeps its layout and
 names, so each module here has its counterpart at the same path there.
 Plain tensor code is PyTorch; the Pallas megakernels become CUDA C++
 kernels written for Hopper, the forward K1 (`csrc/megakernel.cu`), its
-adjoint K2 (`csrc/megakernel_bwd.cu`) and the fused ReSTIR forward K6
-(`csrc/restir.cu`, sharing K1's bounce loop in `csrc/path.cuh`), built
-with `nvcc` on first use and bound with `ctypes`.
+adjoint K2 (`csrc/megakernel_bwd.cu`), the fused ReSTIR forward K6
+(`csrc/restir.cu`, sharing K1's bounce loop in `csrc/path.cuh`) and its
+adjoint K7 (`csrc/restir_bwd.cu`), and the split ReSTIR path's G-buffer
+kernel K4 (`csrc/gbuffer.cu`, the same loop) and ray-cast kernel K5
+(`csrc/cast.cu`), built with `nvcc` on first use and bound with `ctypes`.
 
 The JAX package stays the reference.  Nothing here imports it or `jax`:
 the port keeps its own copies of the two pure-Python modules it needs,
@@ -22,7 +24,8 @@ Layout:
   ops/         — vecmath, intersect, sdf, sampling, bsdf, lighting, sky,
                  textures, noise, tonemap, restir (the reservoir pipeline),
                  megakernel (the autograd pairing of the CUDA forward
-                 kernel K1 and its adjoint K2), restir_kernel (K6)
+                 kernel K1 and its adjoint K2), restir_kernel (K6 and
+                 K7), restir_split (K4, K5 and the real-time pass)
   render/      — integrator (plain bounce loop), renderer, state
   optimize.py  — inverse rendering: fit scene parameters with Adam
   csrc/        — CUDA C++ sources of the kernels
@@ -31,9 +34,11 @@ The forward pass covers analytic primitives and BOX/ROUND_BOX SDF meshes
 with every surface material (DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT),
 textures, sphere and directional lights with optional MIS, cosine or
 uniform sampling, a cubemap or the procedural sky, and ReSTIR over
-sphere lights.  Gradients cover that class but ReSTIR on the CPU (plain
-autograd) and its analytic Cornell subset on CUDA (K2: DIFF and LIGHT
-materials, sphere lights, no cubemap, cosine sampling).  Other features
+sphere lights, under STATIC or ANIMATED (real-time) accumulation, with the
+pixel's own history or the ad-hoc reprojection.  Gradients cover that
+class on the CPU (plain autograd); on CUDA its analytic Cornell subset
+(K2: DIFF and LIGHT materials, sphere lights, no cubemap, cosine
+sampling) and ReSTIR without the ad-hoc reprojection (K7).  Other features
 raise NotImplementedError naming the ROADMAP item that adds them.
 """
 

@@ -1,0 +1,138 @@
+// gbuffer.cu — the G-buffer forward kernel K4 for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// raytracer0_tpu/ops/megakernel.py::_gbuf_kernel_body (launched by
+// `trace_forward_gbuffer`): K1's bounce loop without the direct light of
+// diffuse vertices, which instead records each lane's k-th diffuse vertex
+// (k < slots) in G-buffer slot k for the reservoir phases that follow it
+// (raytracer0_tpu_torch/ops/restir_split.py::render_sample_fast).  Its
+// outputs are the radiance f32[n_pix, 3] (environment, emissive hits with
+// their MIS weight, the cubemap gather ray; no NEE) and per slot the hit
+// position, oriented normal and throughput after the bounce f32[slots,
+// n_pix, 3], the mesh index and bounce depth int32[slots, n_pix] and a valid
+// flag uint8[slots, n_pix].  A slot no vertex wrote reads zeros, mesh 0,
+// depth -1 and not valid.  Its plain PyTorch version is
+// raytracer0_tpu_torch/render/integrator.py::trace with `gbuffer_slots`; the
+// kernel follows its operations in order, so the two agree bit for bit.
+//
+// The bounce loop is K1's (path.cuh::trace_path); the G-buffer writer is its
+// direct-light functor and adds nothing to the radiance.
+//
+// What the TPU kernel does that this one does not: Mosaic has no per-lane
+// scatter and masked stores cost the same at any width, so the Pallas kernel
+// keeps 12 float32 planes per slot (the index and depth round-tripped
+// through float32) and writes all 12 under one mask per bounce.  Here a
+// thread writes its own vertex's record when it reaches it, with the index
+// and depth as integers, and fills the slots it never reached at the end.
+//
+// What bounds it: K1's loop without the shadow rays of NEE: a pixel reads 28
+// bytes of rays and id and writes 12 bytes of radiance plus 45 bytes per
+// slot it fills; the work is the bounce loop, bound like K1 by instruction
+// latency and divergence.  Numerics: no fast math, no FMA contraction.
+
+#include "path.cuh"
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int MAX_GBUF_SLOTS = 32;  // slots a lane's bit mask can track
+
+struct GbufArgs {
+  float *pos, *nl, *mask;  // [slots, n_pix, 3]
+  int32_t *idx, *depth;    // [slots, n_pix]
+  uint8_t *valid;          // [slots, n_pix]
+  int slots;
+};
+
+__device__ __forceinline__ void store3(float *dst, long long q, V3 v) {
+  dst[3 * q] = v.x;
+  dst[3 * q + 1] = v.y;
+  dst[3 * q + 2] = v.z;
+}
+
+// The direct-light functor of K4: records the k-th diffuse vertex in slot k
+// and adds no light (0 * throughput, which is finite, leaves the sum as it
+// is).
+struct GbufWriter {
+  const GbufArgs &g;
+  long long p, n_pix;
+  uint32_t written;  // bit k: slot k holds this lane's vertex
+  __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int idx, uint32_t, int ndif, int depth,
+                                           V3 mask) {
+    if (ndif < g.slots) {
+      const long long q = (long long)ndif * n_pix + p;
+      store3(g.pos, q, x);
+      store3(g.nl, q, nl);
+      store3(g.mask, q, mask);
+      g.idx[q] = idx;
+      g.depth[q] = depth;
+      g.valid[q] = 1;
+      written |= 1u << ndif;
+    }
+    return {0.0f, 0.0f, 0.0f};
+  }
+};
+
+template <bool kSdf>
+__global__ void __launch_bounds__(THREADS) gbuf_kernel(TraceArgs a, GbufArgs g) {
+  extern __shared__ float smem[];
+  SceneSmem s;
+  const PathSmem ps = load_path(a, smem, s);
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= a.n_pix) return;  // ragged edge
+  GbufWriter w = {g, p, a.n_pix, 0u};
+  const V3 acc = trace_path<kSdf>(a, s, ps, p, w);
+  a.out[3 * p] = acc.x;
+  a.out[3 * p + 1] = acc.y;
+  a.out[3 * p + 2] = acc.z;
+  const V3 zero = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < g.slots; ++k) {
+    if ((w.written >> k) & 1u) continue;
+    const long long q = (long long)k * a.n_pix + p;
+    store3(g.pos, q, zero);
+    store3(g.nl, q, zero);
+    store3(g.mask, q, zero);
+    g.idx[q] = 0;
+    g.depth[q] = -1;
+    g.valid[q] = 0;
+  }
+}
+
+}  // namespace
+
+// Launch K4 on `stream`; returns cudaGetLastError() of the launch.  The
+// arguments up to `t0` are K1's (rt0_trace_forward); then the G-buffer's
+// device pointers and its slot count.  A scene without SDF rows runs the
+// copy of the kernel built without the march.
+extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, const int32_t *mat,
+                                   int n_mesh, const int32_t *lights, int n_lights,
+                                   const float *ro, const float *rd, const int64_t *pix,
+                                   float *out, long long n_pix, unsigned pass_idx,
+                                   unsigned sample_idx, int max_bounces, int max_diff,
+                                   int max_spec, int max_scatter, float eps, float inf,
+                                   int sample_lights, int use_mis, int use_sky,
+                                   const float *cubemap, int cube_h, int cube_w, int use_cubemap,
+                                   int use_biased, const int32_t *tex, const int32_t *blend,
+                                   const float *images, int img_h, int img_w, const float *noise,
+                                   int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
+                                   int n_sdf, int steps, float fudge, float t0, float *pos,
+                                   float *nl, float *mask, int32_t *idx, int32_t *depth,
+                                   uint8_t *valid, int slots, void *stream) {
+  if (slots < 0 || slots > MAX_GBUF_SLOTS) return (int)cudaErrorInvalidValue;
+  TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
+                 ro,      rd,     pix,         out,        n_pix,       pass_idx,
+                 sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
+                 inf,     sample_lights, use_mis, use_sky, cubemap, cube_h, cube_w,
+                 use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
+                 use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
+  const GbufArgs g = {pos, nl, mask, idx, depth, valid, slots};
+  if (n_pix <= 0) return 0;
+  const size_t smem = path_smem_bytes(n_mesh, n_lights, n_sdf);
+  const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_sdf > 0)
+    gbuf_kernel<true><<<blocks, THREADS, smem, st>>>(a, g);
+  else
+    gbuf_kernel<false><<<blocks, THREADS, smem, st>>>(a, g);
+  return (int)cudaGetLastError();
+}

@@ -85,7 +85,8 @@ struct Nee {
   const SceneSmem &s;
   const SdfScene &sd;
   const TraceArgs &a;
-  __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int, uint32_t h_depth) const {
+  __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int, uint32_t h_depth, int, int,
+                                           V3) const {
     return shade_nee<kSdf>(s, sd, x, nl, h_depth, a.eps, a.inf, a.use_mis);
   }
 };

@@ -1,14 +1,16 @@
 // path.cuh — the bounce loop of one path, shared by the forward megakernel K1
-// (megakernel.cu) and the fused ReSTIR kernel K6 (restir.cu).
+// (megakernel.cu), the fused ReSTIR kernel K6 (restir.cu) and the G-buffer
+// kernel K4 (gbuffer.cu).
 //
 // `trace_path` is the plain version's `integrator.trace` for one pixel:
 // environment on a miss, the texel of the hit, emissive termination with the
 // BSDF-side MIS weight, the BSDF dispatch, the cubemap gather ray, the
 // direct light of a diffuse vertex, the luminance cutoff and the bounce caps.
-// The two kernels differ only in the direct light of a diffuse vertex, which
-// the caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K6 the
-// reservoir pipeline.  `kSdf` compiles the SDF march into the intersections;
-// K1 builds a copy without it for scenes without SDF meshes.
+// The kernels differ only in the direct light of a diffuse vertex, which the
+// caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K6 the
+// reservoir pipeline, K4 records the vertex in the G-buffer and adds
+// nothing.  `kSdf` compiles the SDF march into the intersections; K1 and K4
+// build a copy without it for scenes without SDF meshes.
 
 #pragma once
 
@@ -101,8 +103,9 @@ __device__ __forceinline__ PathSmem load_path(const TraceArgs &a, float *smem, S
 }
 
 // The radiance of pixel `p`'s path.  At each diffuse vertex (hit point x,
-// oriented normal nl, mesh idx, RNG key h_depth) it adds
-// direct(x, nl, idx, h_depth) * throughput.
+// oriented normal nl, mesh idx, RNG key h_depth, the diffuse bounces before
+// it ndif, bounce depth, throughput after the bounce mask_after) it adds
+// direct(x, nl, idx, h_depth, ndif, depth, mask_after) * mask_after.
 template <bool kSdf, class Direct>
 __device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps,
                                          long long p, Direct &direct) {
@@ -190,7 +193,8 @@ __device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s,
           acc = acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
       }
       // ---- direct light on the diffuse vertex ----
-      if (a.sample_lights) acc = acc + direct(x, nl, idx, h_depth) * mask_after;
+      if (a.sample_lights)
+        acc = acc + direct(x, nl, idx, h_depth, ndif, depth, mask_after) * mask_after;
     }
 
     // ---- commit ----

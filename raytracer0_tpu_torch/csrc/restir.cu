@@ -39,6 +39,10 @@
 // Numerics: no fast math, no FMA contraction; the f32 constants the plain
 // version derives in Python doubles (epsilon * 2, epsilon * 10, 0.95 * 0.8)
 // arrive from the wrapper or are written as the double product cast once.
+//
+// ANIMATED accumulation (`animated`): the temporal fade takes a further 0.85
+// and spatial taps older than 2 passes are rejected, as the Pallas kernel
+// does; the scene arrives animated to the pass's time.
 
 #include "restir.cuh"
 
@@ -100,7 +104,8 @@ extern "C" int rt0_restir_forward(const float *table, const int32_t *mesh, const
                                   int n_sdf, int steps, float fudge, float t0,
                                   const void *const *res_in, void *const *res_out,
                                   const int32_t *taps, int height, int width, int n_cand,
-                                  int n_spatial, float eps2, float eps10, void *stream) {
+                                  int n_spatial, float eps2, float eps10, int animated,
+                                  void *stream) {
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
@@ -108,7 +113,7 @@ extern "C" int rt0_restir_forward(const float *table, const int32_t *mesh, const
                  use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
   const RestirArgs ra = restir_args(res_in, res_out, taps, height, width, n_cand, n_spatial,
-                                    eps2, eps10);
+                                    eps2, eps10, animated);
   if (n_pix <= 0) return 0;
   const size_t smem = path_smem_bytes(n_mesh, n_lights, n_sdf) + sizeof(float) * NSLOT * n_lights;
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);

@@ -7,7 +7,11 @@
 // taps in place at (row + dy, col + dx), behind the in-bounds test, its
 // history at its own pixel, and the light slots (position, color·emission,
 // radius, live) from a table in shared memory by index; the target function
-// p̂ is evaluated for the slot that each step needs.
+// p̂ is evaluated for the slot that each step needs.  Since every reservoir's
+// light data is its slot's in this frame, the history's light data is fresh
+// under ANIMATED accumulation without a refresh step, as in the Pallas
+// kernel; the plain version refreshes the history's copy and reads the
+// spatial taps' stored copies (PERF.md, the ANIMATED divergence).
 //
 // `run` takes a tape: K6 passes `NoTape`, whose hooks compile to nothing;
 // K7 records the decisions and the values its reverse sweep needs (the
@@ -23,6 +27,10 @@ namespace {
 constexpr float MAX_AGE = 30.0f;                    // MAX_RESERVOIR_AGE
 constexpr float ALPHA0 = 0.95f;                     // TEMPORAL_ALPHA
 constexpr float ALPHA1 = (float)(0.95 * 0.80);      // TEMPORAL_ALPHA * 0.8
+// under ANIMATED accumulation, a further 0.85: the double products in the
+// plain version's order, rounded once
+constexpr float ALPHA0_ANIMATED = (float)(0.95 * 1.0 * 0.85);
+constexpr float ALPHA1_ANIMATED = (float)(0.95 * 0.80 * 0.85);
 constexpr int NSLOT = 8;                            // floats per light slot
 constexpr int MAX_SPATIAL = 8;                      // RESTIR_SPATIAL_SAMPLES
 constexpr uint32_t S_RESTIR_CANDIDATE = 11u, S_RESTIR_TEMPORAL = 12u, S_RESTIR_SPATIAL = 13u;
@@ -42,6 +50,7 @@ struct RestirArgs {
   int height, width;
   int n_cand, n_spatial;  // candidates, spatial taps
   float eps2, eps10;      // f32(cfg.epsilon * 2), f32(cfg.epsilon * 10)
+  int animated;           // ANIMATED accumulation: faster fade, younger taps
 };
 
 struct Res {
@@ -53,7 +62,7 @@ struct Res {
 // pointer arrays (`res_out` null for K7, which writes no reservoirs).
 inline RestirArgs restir_args(const void *const *res_in, void *const *res_out, const int32_t *taps,
                               int height, int width, int n_cand, int n_spatial, float eps2,
-                              float eps10) {
+                              float eps10, int animated) {
   RestirArgs ra = {};
   ResIn *grids[3] = {&ra.back, &ra.hist[0], &ra.hist[1]};
   for (int g = 0; g < 3; ++g) {
@@ -79,6 +88,7 @@ inline RestirArgs restir_args(const void *const *res_in, void *const *res_out, c
   ra.n_spatial = n_spatial;
   ra.eps2 = eps2;
   ra.eps10 = eps10;
+  ra.animated = animated;
   return ra;
 }
 
@@ -226,7 +236,7 @@ struct RestirVertex {
       const V3 ld = slot_pos(q.idx) - x;
       ok = ok && !(dot(ld, ld) > 225.0f);
     }
-    return ok && !(q.age > MAX_AGE * 0.8f) && !(s1 < 0.03f);
+    return ok && !(q.age > (ra.animated ? 2.0f : MAX_AGE * 0.8f)) && !(s1 < 0.03f);
   }
 
   // Spatial tap i's grid cell (clamped into the image) and whether it is in
@@ -239,15 +249,21 @@ struct RestirVertex {
     return (long long)cr * ra.width + cc;
   }
 
+  // The temporal fade of history level `level`.
+  __device__ __forceinline__ float alpha(int level) const {
+    if (ra.animated) return level == 1 ? ALPHA1_ANIMATED : ALPHA0_ANIMATED;
+    return level == 1 ? ALPHA1 : ALPHA0;
+  }
+
   // History level `level` at the pixel itself, aged and faded for the
   // temporal combine; `ok` its gate.
   __device__ __forceinline__ Res history(int level, bool &ok) const {
     Res h = load(ra.hist[level], (long long)row * ra.width + col);
     ok = valid(h) && a.pass_idx > 2u && h.m > 0.0f && h.age < MAX_AGE;
     h.age = h.age + (float)(level + 1);
-    const float alpha = level == 1 ? ALPHA1 : ALPHA0;
-    h.m = h.m * alpha;
-    h.ws = h.ws * alpha;
+    const float fade = alpha(level);
+    h.m = h.m * fade;
+    h.ws = h.ws * fade;
     return h;
   }
 
@@ -362,7 +378,7 @@ struct RestirVertex {
     return keep ? out : V3{0.0f, 0.0f, 0.0f};
   }
 
-  __device__ V3 operator()(V3 x, V3 nl, int mi, uint32_t h_depth) {
+  __device__ V3 operator()(V3 x, V3 nl, int mi, uint32_t h_depth, int, int, V3) {
     NoTape none;
     return run(x, nl, mi, h_depth, none);
   }

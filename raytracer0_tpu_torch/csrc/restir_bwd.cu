@@ -320,7 +320,7 @@ __device__ V3 vertex_bwd(RestirVertex &v, V3 x, V3 nl, int mi, uint32_t h_depth,
   // ---- temporal combines: the source is the history, aged and faded ----
   for (int k = 1; k >= 0; --k) {
     combine_bwd(v, tp, k, x, nl, brdf, g_ws, g_m, g_age, g_q, vg, G);
-    g_hist[k * NF] += g_q[0] * (k == 1 ? ALPHA1 : ALPHA0);
+    g_hist[k * NF] += g_q[0] * v.alpha(k);
     g_hist[k * NF + 1] += g_q[1];
     g_hist[k * NF + 2] += g_q[2];
   }
@@ -646,7 +646,8 @@ extern "C" int rt0_restir_backward(
     int use_biased, const int32_t *tex, const int32_t *blend, const float *images, int img_h,
     int img_w, const float *noise, int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
     int n_sdf, int steps, float fudge, float t0, const void *const *res_in, const int32_t *taps,
-    int height, int width, int n_cand, int n_spatial, float eps2, float eps10, const float *ct,
+    int height, int width, int n_cand, int n_spatial, float eps2, float eps10, int animated,
+    const float *ct,
     const void *const *ct_res, float *d_ro, float *d_rd, float *partials, float *d_table,
     float *dtap, float *dhist, float *dback, int threads, void *stream) {
   if (threads <= 0 || threads > BWD_THREADS || n_mesh <= 0 || n_cand > MAX_CAND ||
@@ -659,7 +660,7 @@ extern "C" int rt0_restir_backward(
                  use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
   const RestirArgs ra = restir_args(res_in, nullptr, taps, height, width, n_cand, n_spatial,
-                                    eps2, eps10);
+                                    eps2, eps10, animated);
   Bwd7Args b = {ct, {}, d_ro, d_rd, partials, dtap, dhist};
   for (int k = 0; k < 4; ++k) b.ct_res[k] = static_cast<const float *>(ct_res[k]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,8 @@
 """Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
 `cornell_box`, `mis_demo`, `restir_demo`, `restir_stress`,
-`textured_cornell`, `textured_gloss`, `cubemap_demo` and
-`textured_emitter`).
+`animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
+`textured_emitter`), and `animated_untextured`, the variant of
+`animated_restir` that the port renders.
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracer0_tpu_torch.config import OFFLINE_CONFIG, RenderConfig
+from raytracer0_tpu_torch.config import ANIMATED_CONFIG, OFFLINE_CONFIG, RenderConfig
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import TEX_1, Material, MatType, MeshType, SdfShape
@@ -149,6 +150,50 @@ def restir_stress(device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.0, 2.5), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)
     return scene, camera, _cfg(use_restir=True, use_procedural_sky=False, **cfg_kw)
+
+
+_ANIMATED_RESTIR = """
+    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+    MAT_LIGHT_4, SPHERE, vec3(0.0, 1.7, 0.0), vec4(0.04)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(0.8, 1.5, 0.8), vec4(0.03)
+    MAT_LIGHT_HALOGEN_4, SPHERE, vec3(-0.8, 1.5, 0.8), vec4(0.03)
+    MAT_LIGHT_4, SPHERE, vec3(0.8, 1.5, -0.8), vec4(0.03)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(-0.8, 1.5, -0.8), vec4(0.03)
+    MAT_LIGHT_HALOGEN_4, SPHERE, vec3(0.0, 1.3, 1.2), vec4(0.025)
+    MAT_LIGHT_4, SPHERE, vec3(1.2, 1.3, 0.0), vec4(0.025)
+    MAT_LIGHT_CANDLE_4, SPHERE, vec3(0.0, 1.3, -1.2), vec4(0.025)
+    MAT_LIGHT_HALOGEN_4, SPHERE, vec3(-1.2, 1.3, 0.0), vec4(0.025)
+    MAT_REFR_CLEAR, SPHERE, vec3(-0.4, -0.3, 0.4), vec4(0.35)
+    MAT_MIRROR, SPHERE, vec3(0.4, -0.3, -0.4), vec4(0.35)
+    MAT_METAL, SDF, vec3(0.0, -0.2, 0.0), vec4(0.3, 0.05, 0.3, 0.0)
+"""
+
+
+def animated_restir(device="cuda", **cfg_kw):
+    """Preset 7 (index.html:1015-1092): 9 moving lights, real-time budget
+    (ANIMATED_CONFIG: 6 bounces, EMA accumulation, ReSTIR on).  Its rounded
+    box is MAT_METAL, a METAL texture blended into an SDF mesh, which the
+    port refuses on both devices (ROADMAP queue 1 item 8)."""
+    scene = parse_scene(_ANIMATED_RESTIR, sdf_shapes=[SdfShape.ROUND_BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(base=ANIMATED_CONFIG, use_procedural_sky=False, **cfg_kw)
+
+
+def animated_untextured(device="cuda", **cfg_kw):
+    """`animated_restir` with its rounded box MAT_WHITE (the variant of
+    tests/test_animated.py:73-85): the real-time ReSTIR scene that the port
+    renders."""
+    scene = parse_scene(_ANIMATED_RESTIR.replace("MAT_METAL, SDF", "MAT_WHITE, SDF"),
+                        sdf_shapes=[SdfShape.ROUND_BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(base=ANIMATED_CONFIG, use_procedural_sky=False, **cfg_kw)
 
 
 def synthetic_texture(blue="wave"):

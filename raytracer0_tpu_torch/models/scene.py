@@ -276,10 +276,41 @@ class SceneBuilder:
 
 
 def animate_positions(scene: Scene, time_s, render_mode: int) -> Scene:
-    """Per-frame animated mesh positions: the identity for STATIC renders.
-    The orbit/rotation of ANIMATED mode comes with ROADMAP queue 1 item 12."""
-    if render_mode != 0:
-        raise NotImplementedError(
-            "ANIMATED render mode (animate_positions) is not ported yet: "
-            "ROADMAP queue 1 item 12")
-    return scene
+    """Per-frame animated mesh positions (raytracer.glsl:263-298, the JAX
+    package's `animate_positions`): the identity for STATIC renders.
+
+    Two branches, as the reference's `getAnimatedPosition`:
+
+    * rows 6..14 orbit on circles whose speed and phase derive from the row
+      index (269-277), analytic and SDF rows alike;
+    * SDF rows (281-295) then rotate their position about the world Y axis
+      at 0.5 rad/s and bob by sin(1.5 t) * 0.05.
+
+    Torch ops on `scene.pos`, so autograd carries the positions (and a
+    `time_s` tensor) through it.  Time is a float32 scalar, as in the JAX
+    package's jitted pass, so `t * 1.5` rounds in float32.
+    """
+    if int(render_mode) == 0:
+        return scene
+    pos = scene.pos
+    n = pos.shape[0]
+    t = torch.as_tensor(time_s, dtype=torch.float32, device=pos.device)
+    idx = torch.arange(n, dtype=torch.float32, device=pos.device)
+    animated = ((idx >= 6) & (idx <= 14)).to(torch.float32)
+    speed = 1.0 + (idx - 6.0) * 0.2
+    phase = (idx - 6.0) * 0.7
+    radius = 0.6
+    dx = torch.cos(t * speed + phase) * radius * 0.3
+    dz = torch.sin(t * speed + phase) * radius * 0.3
+    dy = torch.sin(t * speed * 2.0 + phase) * 0.1
+    pos = pos + torch.stack([dx, dy, dz], dim=-1) * animated[:, None]
+
+    if scene.num_sdfs > 0:
+        angle = t * 0.5
+        ca, sa = torch.cos(angle), torch.sin(angle)
+        rx = pos[:, 0] * ca - pos[:, 2] * sa
+        rz = pos[:, 0] * sa + pos[:, 2] * ca
+        ry = pos[:, 1] + torch.sin(t * 1.5) * 0.05
+        is_sdf = torch.arange(n, device=pos.device) >= scene.num_analytic
+        pos = torch.where(is_sdf[:, None], torch.stack([rx, ry, rz], dim=-1), pos)
+    return scene.replace(pos=pos)

@@ -20,10 +20,14 @@ The JAX package's TPU workarounds are not ported, their results are: a
 light slot's data is plain indexing, not the one-hot MXU `_row_select`; a
 spatial tap is a direct gather at (row + dy, col + dx), rejected by the
 in-bounds mask where it leaves the image, not a static roll.  The ablation
-hook, the Pallas cast routes and the band/halo arguments of tiles and
-sharding (ROADMAP queue 1 items 12-13) stay out, and so does the ad-hoc
-temporal reprojection (`restir_adhoc_motion`, served by K4 and K5 in the
-JAX package; item 11).
+hook and the band/halo arguments of tiles and sharding (ROADMAP queue 1
+items 12-13) stay out.  The shadow rays go through a `cast_fn` hook: the
+plain intersector by default, the ray-cast kernel K5 on the split path
+(`ops/restir_split.py`, which also runs the ad-hoc temporal reprojection
+of `cfg.restir_adhoc_motion`).  Under ANIMATED accumulation the history's
+light data is refreshed from the current scene, the temporal alpha fades
+by a further 0.85 and spatial taps older than 2 passes are rejected
+(raytracer.glsl:1669-1676, 1742-1744).
 
 `light_index` holds the slot into `scene.light_idx`.  A divisor that is a
 constant is written as a tensor, since PyTorch turns a division by or of a
@@ -175,14 +179,22 @@ def _cast(scene, cfg, o, d):
     return hit.t, hit.idx, hit.missed
 
 
-def is_visible(scene, cfg, from_pos, to_pos):
+def default_cast(scene, cfg):
+    """The `cast_fn` of the plain version: `(o, d) -> (t, idx, missed)`
+    through `intersect.intersect`."""
+    return lambda o, d: _cast(scene, cfg, o, d)
+
+
+def is_visible(scene, cfg, from_pos, to_pos, cast_fn=None):
     """Shadow-ray visibility (raytracer.glsl:1389-1414): occluders that are
-    themselves lights do not block."""
+    themselves lights do not block.  `cast_fn(o, d) -> (t, idx, missed)`
+    casts the ray (`default_cast` when None)."""
+    cast_fn = cast_fn or default_cast(scene, cfg)
     sd = to_pos - from_pos
     dist = vm.safe_length(sd)
     close = dist < cfg.epsilon * 10.0
     sdir = sd / dist[..., None]
-    t, idx, missed = _cast(scene, cfg, from_pos + sdir * (cfg.epsilon * 2.0), sdir)
+    t, idx, missed = cast_fn(from_pos + sdir * (cfg.epsilon * 2.0), sdir)
     blocked = (t < dist - cfg.epsilon * 2.0) & ~missed
     blocker_is_light = scene.mat_type[idx] == MatType.LIGHT
     return close | ~blocked | (blocked & blocker_is_light)
@@ -206,10 +218,12 @@ def finalize_reservoir(r, hit_pos, hit_normal, mat_c, mat_nt, mat_type, visible)
     return dict(r, w=torch.where(good, w, torch.zeros_like(w)))
 
 
-def _shade_selected(scene, cfg, slot_map, x, nl, pix, pass_idx, sample_idx, depth):
+def _shade_selected(scene, cfg, slot_map, x, nl, pix, pass_idx, sample_idx, depth,
+                    cast_fn=None):
     """calcDirectLighting for the selected light slot of each pixel
     (raytracer.glsl:1779 → 1174-1230): a uniform cone toward the sphere
-    light, verified by a shadow ray."""
+    light, verified by a shadow ray cast by `cast_fn`."""
+    cast_fn = cast_fn or default_cast(scene, cfg)
     slot = torch.clamp(slot_map, 0, scene.num_lights - 1).long()
     li = torch.clamp_min(scene.light_idx.long(), 0)[slot]
     l_pos = scene.pos[li]
@@ -219,7 +233,7 @@ def _shade_selected(scene, cfg, slot_map, x, nl, pix, pass_idx, sample_idx, dept
     d2 = vm.vdot(sw, sw)
     cos_a_max = vm.safe_sqrt(1.0 - _clip(vm.safe_div(r * r, d2), 0.0, 1.0))
     sr_dir = smp.sample_cone(vm.normalize(sw), 1.0 - cos_a_max, u1, u2)
-    _, idx, missed = _cast(scene, cfg, x + nl * cfg.epsilon, sr_dir)
+    _, idx, missed = cast_fn(x + nl * cfg.epsilon, sr_dir)
     hit_is_light = (scene.mat_type[idx] == MatType.LIGHT) & ~missed
     lit_c = _max(scene.color[idx], 0.001)
     cos_term = _max(vm.vdot(sr_dir, nl), 0.001)
@@ -236,15 +250,19 @@ def light_table(scene):
 
 
 def reservoir_direct(scene, cfg, back, hist, x, nl, mat_idx, pix, pass_idx,
-                     sample_idx, depth, *, height, width):
+                     sample_idx, depth, *, height, width, cast_fn=None):
     """The reservoir pipeline of one diffuse vertex per pixel (candidate
     generation → temporal reuse → spatial reuse → finalize and shade,
     raytracer.glsl:1619-1801).  `back` and `hist` (two levels) are
     reservoir field dicts over the [height, width] grid; `pix` gives each
-    lane's pixel.  Returns (direct radiance without the throughput mask,
-    reservoir dict)."""
+    lane's pixel.  `depth` is the bounce depth, an int or a per-lane
+    integer tensor (the split path's G-buffer depth); either keys the RNG
+    alike.  `cast_fn(o, d) -> (t, idx, missed)` casts the two shadow rays
+    (`default_cast` when None).  Returns (direct radiance without the
+    throughput mask, reservoir dict)."""
     rows, cols = pix // width, pix % width
     L = scene.num_lights
+    animated = int(cfg.render_mode) == 1
     mat_c = scene.color[mat_idx]
     mat_nt = torch.abs(scene.ior)[mat_idx]
     mat_ty = scene.mat_type[mat_idx]
@@ -264,11 +282,34 @@ def reservoir_direct(scene, cfg, back, hist, x, nl, mat_idx, pix, pass_idx,
     # ---- phase 2: temporal reuse at the pixel itself (1656-1709) ----
     frame_ok = pass_idx > MAX_TEMPORAL_SAMPLES
     for level in range(MAX_TEMPORAL_SAMPLES):
-        h = {k: v[rows, cols] for k, v in hist[level].items()}
-        ok = is_valid_reservoir(h, L) & frame_ok
+        if cfg.restir_adhoc_motion:
+            # ad-hoc motion vector and jitter (1486-1496): the history is
+            # read at the reprojected pixel, rejected near the border
+            ju, jv = rng.uniform2(pix, pass_idx, sample_idx, depth, level,
+                                  rng.Stream.RESTIR_TEMPORAL)
+            motion_scale = 0.001 * (level + 1)   # the motion vector: x relative to
+            mx = x[..., 0] * motion_scale         # a camera at the origin
+            my = x[..., 1] * motion_scale
+            colf, rowf = cols.to(torch.float32), rows.to(torch.float32)
+            uv_x = (colf + 0.5) / _const(colf, width) + mx + (ju - 0.5) * 0.002
+            uv_y = (rowf + 0.5) / _const(rowf, height) + my + (jv - 0.5) * 0.002
+            in_bounds = (uv_x > 0.01) & (uv_x < 0.99) & (uv_y > 0.01) & (uv_y < 0.99)
+            hr = torch.clamp((uv_y * height).to(torch.int64), 0, height - 1)
+            hc = torch.clamp((uv_x * width).to(torch.int64), 0, width - 1)
+            h = {k: v[hr, hc] for k, v in hist[level].items()}
+            ok = is_valid_reservoir(h, L) & in_bounds & frame_ok
+        else:
+            h = {k: v[rows, cols] for k, v in hist[level].items()}
+            ok = is_valid_reservoir(h, L) & frame_ok
         ok &= (h["m"] > 0.0) & (h["age"] < MAX_RESERVOIR_AGE)
+        if animated:
+            # the held light as it is in this frame (1669-1676)
+            held = h["light_index"] >= 0
+            slot_h = torch.clamp(h["light_index"], 0, L - 1).long()
+            h["light_pos"] = vm.where3(held, pos_tab[slot_h], h["light_pos"])
+            h["light_color"] = vm.where3(held, col_tab[slot_h], h["light_color"])
         h["age"] = h["age"] + (level + 1.0)
-        alpha = TEMPORAL_ALPHA * (0.80 if level == 1 else 1.0)
+        alpha = TEMPORAL_ALPHA * (0.80 if level == 1 else 1.0) * (0.85 if animated else 1.0)
         h["m"] = h["m"] * alpha
         h["weight_sum"] = h["weight_sum"] * alpha
         t_rand = rng.uniform(pix, pass_idx, sample_idx, depth, level,
@@ -297,18 +338,18 @@ def reservoir_direct(scene, cfg, back, hist, x, nl, mat_idx, pix, pass_idx,
             ok = torch.zeros_like(ok)       # warm-up halving (1721-1723)
         ld = n["light_pos"] - x
         ok &= ~((n["light_index"] >= 0) & (vm.vdot(ld, ld) > 225.0))
-        ok &= ~(n["age"] > MAX_RESERVOIR_AGE * 0.8)
+        ok &= ~(n["age"] > (2.0 if animated else MAX_RESERVOIR_AGE * 0.8))
         ok &= ~(s1 < 0.03)
         res = combine_reservoirs(res, n, x, nl, mat_c, mat_nt, mat_ty, s2, L,
                                  source_ok=ok)
 
     # ---- phase 4: finalize and shade (1750-1800) ----
-    visible = is_visible(scene, cfg, x, res["light_pos"])
+    visible = is_visible(scene, cfg, x, res["light_pos"], cast_fn)
     res = finalize_reservoir(res, x, nl, mat_c, mat_nt, mat_ty, visible)
     res["age"] = _min(res["age"], MAX_RESERVOIR_AGE)
     shade_ok = (res["w"] > 0.0) & (res["light_index"] >= 0) & (res["light_index"] < L)
     light = _shade_selected(scene, cfg, res["light_index"], x, nl, pix, pass_idx,
-                            sample_idx, depth)
+                            sample_idx, depth, cast_fn)
     eff_w = _clip(res["w"], 0.0, 8.0)
     eff_w = eff_w * torch.where(res["m"] > 30.0,
                                 vm.safe_sqrt(_const(eff_w, 30.0) / _max(res["m"], 1e-6)),

@@ -39,6 +39,15 @@ carries their cotangents to the scene.  K6 and K7 read a light's data from
 the slot table where the plain version reads the ring's copy; over a chain
 of passes from an empty ring with one scene the two gradients agree.
 
+Under ANIMATED accumulation (`cfg.render_mode`) both kernels fade the
+history by a further 0.85 and reject spatial taps older than 2 passes, as
+the Pallas K6 does; the scene arrives animated to the pass's time.  Since
+the kernels read every reservoir's light data from the slot table, a
+spatial tap sees its light where it is in this frame, where the plain
+version reads the tap's stored copy from the last frame: at a moving frame
+time the two differ (PERF.md), at a constant one they agree bit for bit.
+The ad-hoc reprojection runs on the split path (`ops/restir_split.py`).
+
 On a CUDA device nothing here falls back to the plain version: a ReSTIR
 config outside K6's class, or a gradient outside K7's, raises before any
 launch.
@@ -53,7 +62,7 @@ import numpy as np
 import torch
 
 from raytracer0_tpu_torch import rng
-from raytracer0_tpu_torch.config import RenderConfig
+from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.materials import SdfShape
@@ -93,6 +102,7 @@ _ARGTYPES = megakernel._ARGTYPES[:-1] + (
     _c_void_p, _c_int, _c_int,        # taps (host), height, width
     _c_int, _c_int,                   # candidates, spatial taps
     _c_float, _c_float,               # epsilon * 2, epsilon * 10
+    _c_int,                           # ANIMATED accumulation
     _c_void_p,                        # stream
 )
 _BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (
@@ -100,6 +110,7 @@ _BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (
     _c_void_p, _c_int, _c_int,        # taps (host), height, width
     _c_int, _c_int,                   # candidates, spatial taps
     _c_float, _c_float,               # epsilon * 2, epsilon * 10
+    _c_int,                           # ANIMATED accumulation
     _c_void_p, _c_void_p,             # ct, ct_res[4]
     _c_void_p, _c_void_p,             # d_ro, d_rd
     _c_void_p, _c_void_p,             # partials, d_table
@@ -118,11 +129,16 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K6 cannot render (scene, cfg), or None when it can: a ReSTIR
     config in the class of `integrator.unsupported` (the JAX
     `supported_restir_fused`: ReSTIR engaged, LIGHT-sphere slots, no
-    photographic cubemap, cosine sampling, the pixel's own history,
-    static accumulation) without blended textures or a cubemap, which no
-    test holds K6 to yet, with tables that fit the shared memory."""
+    photographic cubemap, cosine sampling, static or animated
+    accumulation) with the pixel's own history (the ad-hoc reprojection
+    runs on the split path, `ops/restir_split.py`), without blended
+    textures or a cubemap, which no test holds K6 to yet, with tables that
+    fit the shared memory."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
+    if cfg.restir_adhoc_motion:
+        return ("ReSTIR's ad-hoc temporal reprojection runs on the split path of K4 and K5 "
+                f"(ops/restir_split.py, restir_split.render_sample_fast), not K6: {_ITEM}")
     reason = integrator.unsupported(scene, cfg)
     if reason is None and textures.blended(scene):
         reason = f"textures blended into color or emission under ReSTIR on K6: {_ITEM}"
@@ -202,12 +218,13 @@ def build_bwd():
 
 
 def _restir_args(cfg: RenderConfig, num_lights: int):
-    """(candidates, spatial taps, f32 epsilon*2, f32 epsilon*10), as
-    `restir.reservoir_direct` derives them."""
+    """(candidates, spatial taps, f32 epsilon*2, f32 epsilon*10, ANIMATED
+    accumulation), as `restir.reservoir_direct` derives them."""
     n_spatial = (restir.RESTIR_SPATIAL_SAMPLES if num_lights <= 10
                  else max(4, restir.RESTIR_SPATIAL_SAMPLES // 2))
     return (min(cfg.restir_samples, max(4, num_lights)), n_spatial,
-            float(np.float32(cfg.epsilon * 2.0)), float(np.float32(cfg.epsilon * 10.0)))
+            float(np.float32(cfg.epsilon * 2.0)), float(np.float32(cfg.epsilon * 10.0)),
+            int(int(cfg.render_mode) == int(RenderMode.ANIMATED)))
 
 
 def light_data(scene, light_index):

@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from raytracer0_tpu_torch.config import RenderConfig, RenderMode
+from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models.materials import MatType, MeshType
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import bsdf as bsdf_ops
@@ -66,14 +66,13 @@ def restir_engaged(scene, cfg: RenderConfig) -> bool:
 
 def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
     """What of a ReSTIR (scene, cfg) the port does not render: the class of
-    the JAX `supported_restir_fused` (raytracer0_tpu/ops/megakernel.py:
-    545-560, 2872): ReSTIR engaged, LIGHT spheres in every light slot, no
-    photographic cubemap, cosine sampling, the pixel's own history."""
+    the JAX `supported_restir` (raytracer0_tpu/ops/megakernel.py:545-560):
+    ReSTIR engaged, LIGHT spheres in every light slot, no photographic
+    cubemap, cosine sampling; the pixel's own history or the ad-hoc
+    reprojection, static or animated."""
     if not restir_engaged(scene, cfg):
         return ("ReSTIR that keeps per-light NEE (no light, sample_lights "
                 f"off, or MIS with at most 8 lights): {_RESTIR_ITEM}")
-    if cfg.restir_adhoc_motion:
-        return f"ReSTIR's ad-hoc temporal reprojection (K4, K5): {_RESTIR_ITEM}"
     for li in scene.lights_static:
         if li >= 0 and not (li < scene.num_analytic
                             and scene.mesh_types_static[li] == int(MeshType.SPHERE)
@@ -86,6 +85,18 @@ def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
     return None
 
 
+def unsupported_geometry(scene) -> Optional[str]:
+    """What of the scene's geometry the port does not intersect, or None:
+    analytic SPHERE/PLANE/BOX meshes and BOX/ROUND_BOX SDF meshes."""
+    na = scene.num_analytic
+    if any(t not in _ANALYTIC for t in scene.mesh_types_static[:na]):
+        return f"mesh types other than SPHERE/PLANE/BOX/SDF: {_SDF_ITEM}"
+    if any(t != int(MeshType.SDF) for t in scene.mesh_types_static[na:]) \
+            or any(s not in sdf.SHAPES for s in scene.sdf_shapes_static):
+        return f"SDF shapes other than BOX and ROUND_BOX: {_SDF_ITEM}"
+    return None
+
+
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
@@ -93,19 +104,15 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     meshes, every surface material (the IOR taken as |ior|), textures of
     all ten types on analytic meshes, sphere and directional light slots,
     cosine-weighted or uniform sampling, a cubemap, the procedural sky or
-    no environment, static accumulation; and ReSTIR in the class of
-    `_outside_restir_class`.
+    no environment, static or animated accumulation; and ReSTIR in the
+    class of `_outside_restir_class`.
     """
     if cfg.use_spectral or cfg.use_volumetrics:
         return "spectral transport and media: ROADMAP queue 1 item 10"
-    if int(cfg.render_mode) != int(RenderMode.STATIC):
-        return "ANIMATED render mode: ROADMAP queue 1 item 12"
+    reason = unsupported_geometry(scene)
+    if reason is not None:
+        return reason
     na = scene.num_analytic
-    if any(t not in _ANALYTIC for t in scene.mesh_types_static[:na]):
-        return f"mesh types other than SPHERE/PLANE/BOX/SDF: {_SDF_ITEM}"
-    if any(t != int(MeshType.SDF) for t in scene.mesh_types_static[na:]) \
-            or any(s not in sdf.SHAPES for s in scene.sdf_shapes_static):
-        return f"SDF shapes other than BOX and ROUND_BOX: {_SDF_ITEM}"
     if any(t >= 0 and (o[0] or o[1]) for t, o in
            zip(scene.tex_types_static[na:], scene.opts_static[na:])):
         return f"textures on SDF meshes: {_SDF_ITEM}"
@@ -144,7 +151,7 @@ def hit_color_emission(scene, hit):
 
 
 def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
-          restir_sampler=None):
+          restir_sampler=None, gbuffer_slots=0):
     """Trace one radiance sample per lane.
 
     `ro`/`rd`: f32[..., 3] primary rays; `pix`: int64 pixel ids (uint32
@@ -157,6 +164,12 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
     returns `(radiance, reservoir dict)`, the reservoir of each lane's last
     diffuse bounce (the reference's g_final_reservoir overwrite,
     raytracer.glsl:1616, 1757).
+
+    `gbuffer_slots` > 0 is the plain version of the G-buffer kernel K4
+    (`ops/restir_split.py`): no direct light on diffuse bounces, and the
+    k-th diffuse vertex of each lane (k < gbuffer_slots) recorded in slot k
+    (hit position, oriented normal, throughput after the bounce, mesh
+    index, bounce depth, valid); trace then returns `(radiance, slots)`.
     """
     reason = unsupported(scene, cfg)
     if reason is not None:
@@ -179,6 +192,7 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
     n_scat = torch.zeros_like(n_diff)
     if restir_sampler is not None:
         reservoir = restir.empty_reservoir(batch, dev)
+    gbuf = [_empty_slot(batch, dev) for _ in range(gbuffer_slots)]
 
     for depth in range(cfg.max_bounces):
         hit = isect.intersect(scene, o, d, cfg)
@@ -245,7 +259,11 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
         # NEE reads the light row's untextured color and emission, as the
         # JAX integrator does: a textured emitter is textured only where a
         # BSDF-sampled ray hits it
-        if use_restir:
+        if gbuffer_slots:
+            for k, rec in enumerate(gbuf):
+                sel = diffuse_lane & (n_diff == k)
+                gbuf[k] = _record(rec, sel, hit.pos, new_prev_nl, mask_after, hit.idx, depth)
+        elif use_restir:
             nee, res = restir_sampler(scene, cfg, hit, new_prev_nl, mask_after,
                                       pix, pass_idx, sample_idx, depth)
             # the last diffuse bounce wins
@@ -256,7 +274,7 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
             nee = lighting.sample_lights_nee(
                 scene, cfg, hit.pos, new_prev_nl, mask_after,
                 pix, pass_idx, sample_idx, depth)
-        if cfg.sample_lights:
+        if cfg.sample_lights and not gbuffer_slots:
             acc = acc + vm.where3(diffuse_lane, nee, torch.zeros_like(acc))
 
         # ---- commit per-lane ray state ----
@@ -279,4 +297,24 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
 
     if restir_sampler is not None:
         return acc, reservoir
+    if gbuffer_slots:
+        return acc, gbuf
     return acc
+
+
+def _empty_slot(batch, dev):
+    """A G-buffer slot no vertex wrote: zeros, mesh 0, depth -1, not valid."""
+    z3 = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
+    return dict(pos=z3, nl=z3, mask=z3,
+                idx=torch.zeros(batch, dtype=torch.int32, device=dev),
+                depth=torch.full(batch, -1, dtype=torch.int32, device=dev),
+                valid=torch.zeros(batch, dtype=torch.bool, device=dev))
+
+
+def _record(rec, sel, pos, nl, mask, idx, depth):
+    """G-buffer slot `rec` with the lanes of `sel` set to this vertex."""
+    return dict(pos=vm.where3(sel, pos, rec["pos"]), nl=vm.where3(sel, nl, rec["nl"]),
+                mask=vm.where3(sel, mask, rec["mask"]),
+                idx=torch.where(sel, idx.to(torch.int32), rec["idx"]),
+                depth=torch.where(sel, torch.full_like(rec["depth"], depth), rec["depth"]),
+                valid=rec["valid"] | sel)

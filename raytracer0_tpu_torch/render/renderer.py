@@ -1,7 +1,11 @@
 """Progressive renderer: the frame/pass loop (port of render/renderer.py).
 
-Each pass traces `samples_per_pass` radiance samples per pixel and adds
-their mean into the accumulator.  `_route` decides where a pass runs: on a
+Each pass traces `samples_per_pass` radiance samples per pixel.  Under
+STATIC accumulation their mean is added into the accumulator; under
+ANIMATED (the real-time mode) the accumulator is an exponential moving
+average over `cfg.temporal_frames` frames, the scene is animated to the
+pass's `time_s` first (`scene.animate_positions`) and the display shows
+the average itself.  `_route` decides where a pass runs: on a
 CUDA device through the K1 kernel (`ops/megakernel.py`), on the CPU
 through the plain integrator.  A CUDA device with a (scene, cfg) the
 kernel does not cover raises; it never falls back to the plain version.
@@ -19,13 +23,18 @@ gradient launches K1 alone.
 
 A ReSTIR pass (`cfg.use_restir`) goes through `render_pass` alone, since
 it reads and writes the reservoir ring: on a CUDA device through the fused
-kernel K6 (`ops/restir_kernel.py`), on the CPU through the plain
-`restir.render_sample`, after which the ring rotates.  It is
+kernel K6 (`ops/restir_kernel.py`), or, with `cfg.restir_adhoc_motion`,
+through the split path of the G-buffer kernel K4, the reservoir phases and
+the ray-cast kernel K5 (`ops/restir_split.py`), as the JAX package routes
+it; on the CPU through the plain `restir.render_sample`; after which the
+ring rotates.  It is
 differentiable too: on CUDA K6's adjoint K7 computes the gradient (with
 respect to the scene, the rays and the ring's float fields, so it flows from
 pass to pass), on the CPU the plain version's autograd.  On CUDA a ReSTIR
 config that K6 does not cover, or a gradient outside K7's class, raises
-before any launch; nothing falls back to the plain version.
+before any launch; nothing falls back to the plain version.  The split
+path has no adjoint (the JAX one has none): a gradient through it raises
+on CUDA before any launch.
 
 The kernels mask the ragged edge themselves, so no padding to a block shape
 is needed.  `render_scan` (one launch for a chain of passes) waits for a
@@ -41,7 +50,7 @@ from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays
-from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, tonemap
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split, tonemap
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import RenderState
 
@@ -49,9 +58,6 @@ from raytracer0_tpu_torch.render.state import RenderState
 def _route(device_type: str, scene, cfg: RenderConfig) -> str:
     """"kernel" or "plain": where a pass of (scene, cfg) runs on a device of
     this type.  Raises NotImplementedError for what neither covers on it."""
-    if int(cfg.render_mode) != int(RenderMode.STATIC):
-        raise NotImplementedError(
-            "ANIMATED render mode is not ported yet: ROADMAP queue 1 item 12")
     if cfg.use_restir:
         # a ReSTIR pass reads and writes the reservoir ring: render_pass
         raise NotImplementedError(
@@ -88,11 +94,13 @@ def sample_radiance(scene, cfg: RenderConfig, camera: Camera,
 def render_pass(scene, camera: Camera, cfg: RenderConfig, state: RenderState,
                 height: int, width: int, time_s=0.0) -> RenderState:
     """One progressive pass (the reference's per-frame draw): adds one
-    pass's radiance into the accumulator; a ReSTIR pass also rotates the
-    reservoir ring (raytracer0_tpu/render/renderer.py:210-243)."""
+    pass's radiance into the accumulator, or under ANIMATED mixes it into
+    the moving average; a ReSTIR pass also rotates the reservoir ring
+    (raytracer0_tpu/render/renderer.py:210-243)."""
     if cfg.use_restir:
         if scene.device.type == "cuda":
-            render_fn = restir_kernel.render_sample_fused
+            render_fn = (restir_split.render_sample_fast if cfg.restir_adhoc_motion
+                         else restir_kernel.render_sample_fused)
         elif scene.device.type == "cpu":
             render_fn = restir.render_sample
         else:
@@ -103,13 +111,21 @@ def render_pass(scene, camera: Camera, cfg: RenderConfig, state: RenderState,
     else:
         radiance = sample_radiance(scene, cfg, camera, height, width,
                                    state.passes, time_s)
-    return state.replace(accum=state.accum + radiance, passes=state.passes + 1)
+    if int(cfg.render_mode) == int(RenderMode.ANIMATED):
+        accum = state.accum + (radiance - state.accum) * (1.0 / cfg.temporal_frames)
+    else:
+        accum = state.accum + radiance
+    return state.replace(accum=accum, passes=state.passes + 1)
 
 
 def display_image(state: RenderState, cfg: RenderConfig):
-    """Tonemapped [0,1] image from the accumulated sum (tonemapper.glsl:30-32;
-    u_cont = 1/passes, an f32 division as the JAX package computes it)."""
-    cont = np.float32(1.0) / np.float32(max(state.passes, 1))
+    """Tonemapped [0,1] image from the accumulator (tonemapper.glsl:30-32;
+    u_cont = 1/passes, an f32 division as the JAX package computes it, for
+    the STATIC sum and 1 for the ANIMATED average, index.js:1083-1089)."""
+    if int(cfg.render_mode) == int(RenderMode.ANIMATED):
+        cont = np.float32(1.0)
+    else:
+        cont = np.float32(1.0) / np.float32(max(state.passes, 1))
     return tonemap.display(state.accum, float(cont), cfg)
 
 

@@ -1,10 +1,12 @@
-"""K1, its adjoint K2, the fused ReSTIR kernel K6 and its adjoint K7 on the
-GPU against their plain versions on the same card: K1 on the Cornell class
-and on the widened class (mirror, glass and coat, directional lights,
-cubemaps, uniform sampling, textures, SDF meshes), K2 on the Cornell class,
-K6 on the ReSTIR presets (with MIS too), K7 against the plain version's
-autograd over chains of passes, `fit` through the reservoir ring, and the
-refusal of gradients outside K2's and K7's classes.
+"""K1, its adjoint K2, the fused ReSTIR kernel K6 and its adjoint K7, the
+G-buffer kernel K4 and the ray-cast kernel K5 on the GPU against their plain
+versions on the same card: K1 on the Cornell class and on the widened class
+(mirror, glass and coat, directional lights, cubemaps, uniform sampling,
+textures, SDF meshes), K2 on the Cornell class, K6 on the ReSTIR presets
+(with MIS too, and under ANIMATED accumulation), K7 against the plain
+version's autograd over chains of passes, `fit` through the reservoir ring,
+K4 and K5 bit for bit and the split ReSTIR pass they serve, and the refusal
+of gradients outside K2's and K7's classes and through the split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -33,12 +35,13 @@ from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
 from raytracer0_tpu_torch import optimize
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
-from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
-from test_torch_kernel_host import assert_grads_close, restir_chain_grads
+from raytracer0_tpu_torch.models import scene as scene_mod
+from test_torch_kernel_host import assert_grads_close, refreshed_ring, restir_chain_grads
 from test_torch_texture_scenes import SCENE_VIEWS
 
 pytestmark = pytest.mark.cuda
@@ -504,11 +507,137 @@ def test_restir_adjoint_refuses_outside_its_class(cuda):
 
 def test_restir_kernel_refuses_outside_its_class(cuda):
     """A ReSTIR config K6 does not cover raises on the card; it never runs
-    the plain version instead."""
+    the plain version instead.  The ad-hoc reprojection renders through the
+    split path, K4 and K5, and launches no K6."""
     scene, cam, cfg = presets.restir_demo(device=cuda)
     before = restir_kernel.LAUNCHES
-    for kw in (dict(use_mis=True, restir_adhoc_motion=True), dict(use_biased_sampling=False)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            render_pass(scene, cam, cfg.replace(**kw), RenderState.create(8, 8, device=cuda),
-                        8, 8)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        render_pass(scene, cam, cfg.replace(use_biased_sampling=False),
+                    RenderState.create(8, 8, device=cuda), 8, 8)
     assert restir_kernel.LAUNCHES == before
+    k4, k5 = restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES
+    state = render_pass(scene, cam, cfg.replace(use_mis=True, restir_adhoc_motion=True),
+                        RenderState.create(8, 8, device=cuda), 8, 8)
+    torch.cuda.synchronize()
+    slots = restir_split.gbuffer_slots(cfg)
+    assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) == (k4 + 1, k5 + 2 * slots)
+    assert restir_kernel.LAUNCHES == before and bool(torch.isfinite(state.accum).all())
+
+
+def _realtime(cuda, **kw):
+    return presets.animated_untextured(device=cuda, **kw)
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "animated_untextured"])
+def test_gbuffer_kernel_matches_plain(cuda, where):
+    """K4 against its plain version bit for bit: the radiance without
+    diffuse NEE and every slot's position, normal, throughput, mesh index,
+    depth and valid flag, at 16x128 (a ragged 13x77 too)."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    scene = scene_mod.animate_positions(scene, 0.7, int(cfg.render_mode))
+    for h, w in ((16, 128), (13, 77)):
+        ro, rd = generate_rays(cam, h, w, 3)
+        pix = rng.pixel_ids(h, w, device=cuda)
+        before = restir_split.GBUF_LAUNCHES
+        out, gbuf = restir_split.trace_forward_gbuffer(scene, cfg, ro, rd, pix, 3, 0)
+        ref, ref_gbuf = restir_split.gbuffer_plain(scene, cfg, ro, rd, pix, 3, 0)
+        torch.cuda.synchronize()
+        assert restir_split.GBUF_LAUNCHES == before + 1
+        assert torch.equal(out, ref)
+        for got, want in zip(gbuf, ref_gbuf, strict=True):
+            for f in got:
+                assert torch.equal(got[f], want[f]), f
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "mis_demo", "animated_untextured"])
+def test_cast_kernel_matches_plain(cuda, where):
+    """K5 against the plain `intersect.intersect` bit for bit (t, index,
+    missed) on the primary rays and on rays from the primary hits toward
+    the lights."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    scene = scene_mod.animate_positions(scene, 1.3, int(cfg.render_mode))
+    ro, rd = generate_rays(cam, 16, 128, 1)
+    t0, _, _ = restir.default_cast(scene, cfg)(ro, rd)
+    x = ro + rd * t0[..., None]
+    lp = scene.pos[torch.clamp_min(scene.light_idx.long(), 0)][0]
+    d = (lp - x) / torch.linalg.vector_norm(lp - x, dim=-1, keepdim=True)
+    for o_, d_ in ((ro, rd), ((x + d * cfg.epsilon).contiguous(), d.contiguous())):
+        before = restir_split.CAST_LAUNCHES
+        t, idx, missed = restir_split.cast_rays(scene, cfg, o_, d_)
+        t_ref, idx_ref, missed_ref = restir.default_cast(scene, cfg)(o_, d_)
+        torch.cuda.synchronize()
+        assert restir_split.CAST_LAUNCHES == before + 1
+        assert torch.equal(t, t_ref) and torch.equal(idx.long(), idx_ref)
+        assert torch.equal(missed, missed_ref)
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["constant_time", "moving_time"])
+def test_restir_kernel_animated_matches_plain(cuda, moving):
+    """K6 under ANIMATED accumulation against the plain render_sample bit
+    for bit at passes 0-3 of the real-time scene at 16x128: at a constant
+    frame time, and at a moving one with the plain ring's light data
+    refreshed to the frame's before each pass (what K6 reads)."""
+    scene, cam, cfg = _realtime(cuda)
+    h, w = 16, 128
+    kernel, plain = RenderState.create(h, w, device=cuda), RenderState.create(h, w, device=cuda)
+    for p in range(4):
+        t = p / 30 if moving else 0.9
+        if moving:
+            plain = refreshed_ring(scene_mod.animate_positions(scene, t, 1), plain)
+        out, new = restir_kernel.render_sample_fused(scene, cfg, cam, kernel, h, w, p, t)
+        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p, t)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), p
+        for k, v in new.fields().items():
+            assert torch.equal(v, getattr(new_ref, k)), (p, k)
+        kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
+
+
+def test_restir_adjoint_animated(cuda):
+    """K7 under ANIMATED accumulation against the plain autograd over passes
+    0-3 of the real-time scene at a constant frame time, 16x128, within
+    1e-4 relative per leaf; a second run gives the same bits."""
+    scene, cam, cfg = _realtime(cuda)
+    animate = lambda s: scene_mod.animate_positions(s, 0.9, 1)
+    kernel = lambda s, *a: restir_kernel.trace_forward_restir_fused(animate(s), *a)
+    _, got = restir_chain_grads(kernel, scene, cfg, cam, 16, 128, 4)
+    _, want = restir_chain_grads(lambda s, *a: restir.trace_sample(animate(s), *a), scene, cfg,
+                                 cam, 16, 128, 4)
+    assert_grads_close(got, want)
+    _, again = restir_chain_grads(kernel, scene, cfg, cam, 16, 128, 4)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_split_pass_matches_plain(cuda):
+    """Four real-time frames through `render_pass` with the ad-hoc
+    reprojection on the card: one K4 and 2 x slots K5 launches each and no
+    K6; each frame equals the split pass with the plain K4 and K5 bit for
+    bit, and the plain render_sample under JAX's fast-versus-wavefront
+    contract (max 5e-3, median 1e-6); a gradient through it raises before
+    any launch."""
+    scene, cam, cfg = _realtime(cuda, restir_adhoc_motion=True)
+    h, w = 16, 128
+    state = plain = RenderState.create(h, w, device=cuda)
+    slots = restir_split.gbuffer_slots(cfg)
+    for p in range(4):
+        t = p / 30
+        counts = (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES)
+        rad, new = restir_split.render_sample_fast(scene, cfg, cam, state, h, w, p, t)
+        torch.cuda.synchronize()
+        assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES) \
+            == (counts[0] + 1, counts[1] + 2 * slots, counts[2])
+        ref, new_ref = restir_split.render_sample_split(
+            scene, cfg, cam, state, h, w, p, t, restir_split.gbuffer_plain, restir.default_cast)
+        assert torch.equal(rad, ref)
+        for k, v in new.fields().items():
+            assert torch.equal(v, getattr(new_ref, k)), (p, k)
+        wave, _ = restir.render_sample(scene, cfg, cam, state, h, w, p, t)
+        err = (rad - wave).abs()
+        assert err.max().item() < 5e-3 and err.median().item() < 1e-6, p
+        state = state.rotate_reservoirs(new)
+    counts = (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES)
+    em = scene.emission.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no adjoint"):
+        render_pass(scene.replace(emission=em), cam, cfg, plain, h, w, 0.1)
+    assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) == counts

@@ -1,5 +1,5 @@
-"""The CUDA sources of K1, K2, K6 and K7, compiled for the host, against the
-plain version and its autograd.
+"""The CUDA sources of K1, K2, K4, K5, K6 and K7, compiled for the host,
+against the plain version and its autograd.
 
 CUDA kernels have no interpret mode, and a machine without a card may
 have no nvcc.  The device code of `csrc/` is plain C++ apart from a few
@@ -9,9 +9,10 @@ block run as std::threads that meet at a std::barrier for
 `__syncthreads()` (every thread of a block must reach each of the
 kernel's barriers, as the kernels do), blocks run one after another, and
 a `<<<...>>>` launch becomes a call of the shim's launcher.  The launchers
-`rt0_trace_forward`, `rt0_trace_backward`, `rt0_restir_forward` and
-`rt0_restir_backward` are compiled unchanged and driven through
-`ops/megakernel.py`'s own `_TraceCore` and `ops/restir_kernel.py`'s
+`rt0_trace_forward`, `rt0_trace_backward`, `rt0_gbuffer_forward`,
+`rt0_cast_rays`, `rt0_restir_forward` and `rt0_restir_backward` are
+compiled unchanged and driven through `ops/megakernel.py`'s own
+`_TraceCore`, `ops/restir_split.py`'s launchers and `ops/restir_kernel.py`'s
 launcher and `_RestirCore`, so the test covers
 the kernels' arithmetic, their block reductions and the wrapper's ctypes
 calls; only nvcc's code generation is left to the card
@@ -34,15 +35,16 @@ import pytest
 import torch
 
 from raytracer0_tpu_torch import rng
-from raytracer0_tpu_torch.config import OFFLINE_CONFIG
+from raytracer0_tpu_torch.config import OFFLINE_CONFIG, RenderMode
 from raytracer0_tpu_torch.models.camera import Camera, generate_rays
 from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import MeshType
 from raytracer0_tpu_torch.models import materials, presets
+from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
-from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
@@ -112,7 +114,7 @@ def _host_source(text):
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """(K1, K2, K6, K7) ctypes functions of the host build."""
+    """(K1, K2, K6, K7, K4, K5) ctypes functions of the host build."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
@@ -127,7 +129,10 @@ def host_kernels(tmp_path_factory):
              megakernel._BWD_ARGTYPES),
             ("restir", restir_kernel.SOURCES, "rt0_restir_forward", restir_kernel._ARGTYPES),
             ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
-             restir_kernel._BWD_ARGTYPES)):
+             restir_kernel._BWD_ARGTYPES),
+            ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward",
+             restir_split._GBUF_ARGTYPES),
+            ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", restir_split._CAST_ARGTYPES)):
         cpp = out / f"{name}.cpp"
         cpp.write_text("".join(_host_source((cuda_build.CSRC_DIR / s).read_text())
                                for s in sources))
@@ -146,15 +151,19 @@ def kernels_on_cpu(host_kernels, monkeypatch):
     """ops/megakernel.py launching the host build on CPU tensors; the
     launch counts are restored afterwards, since they count launches on
     the card."""
-    fwd, bwd, k6, k7 = host_kernels
+    fwd, bwd, k6, k7, k4, k5 = host_kernels
     monkeypatch.setattr(megakernel, "LAUNCHES", megakernel.LAUNCHES)
     monkeypatch.setattr(megakernel, "BWD_LAUNCHES", megakernel.BWD_LAUNCHES)
     monkeypatch.setattr(restir_kernel, "LAUNCHES", restir_kernel.LAUNCHES)
     monkeypatch.setattr(restir_kernel, "BWD_LAUNCHES", restir_kernel.BWD_LAUNCHES)
+    monkeypatch.setattr(restir_split, "GBUF_LAUNCHES", restir_split.GBUF_LAUNCHES)
+    monkeypatch.setattr(restir_split, "CAST_LAUNCHES", restir_split.CAST_LAUNCHES)
     monkeypatch.setattr(megakernel, "build", lambda: (fwd, None))
     monkeypatch.setattr(megakernel, "build_bwd", lambda: (bwd, None))
     monkeypatch.setattr(restir_kernel, "build", lambda: (k6, None))
     monkeypatch.setattr(restir_kernel, "build_bwd", lambda: (k7, None))
+    monkeypatch.setattr(restir_split, "build_gbuffer", lambda: (k4, None))
+    monkeypatch.setattr(restir_split, "build_cast", lambda: (k5, None))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
@@ -404,20 +413,26 @@ def test_host_restir_mis_matches_plain(kernels_on_cpu):
     _host_restir_passes(*presets.restir_demo(device="cpu", use_mis=True))
 
 
-def _host_restir_passes(scene, cam, cfg):
+def _host_restir_passes(scene, cam, cfg, times=(0.0,) * 4, refresh=False):
+    """K6 against the plain render_sample at the frame times `times`, one
+    pass each; with `refresh` the plain ring's light data is first replaced
+    by the frame's (`restir_kernel.light_data`), which is what K6 reads."""
     cfg = cfg.replace(max_bounces=2, max_diff_bounces=2, restir_samples=4,
                       marching_steps=16)
     assert restir_kernel.unsupported_restir(scene, cfg) is None
     h, w = 8, 32
     pix = rng.pixel_ids(h, w)
     kernel, plain = RenderState.create(h, w, "cpu"), RenderState.create(h, w, "cpu")
-    for p in range(4):
+    for p, t in enumerate(times):
         ro, rd = generate_rays(cam, h, w, p)
+        frame = scene_mod.animate_positions(scene, t, int(cfg.render_mode))
+        if refresh:
+            plain = refreshed_ring(frame, plain)
         before = restir_kernel.LAUNCHES
-        out, new = restir_kernel._launch(scene, cfg, ro, rd, pix, p, 0, kernel.restir_back,
+        out, new = restir_kernel._launch(frame, cfg, ro, rd, pix, p, 0, kernel.restir_back,
                                          kernel.restir_hist1, kernel.restir_hist2)
         assert restir_kernel.LAUNCHES == before + 1
-        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p)
+        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p, t)
         err = (out - ref).abs()
         assert bool(torch.isfinite(out).all())
         assert err.max().item() < 5e-3 and err.median().item() < 1e-6, (p, err.max().item())
@@ -430,6 +445,31 @@ def _host_restir_passes(scene, cam, cfg):
         plain = plain.rotate_reservoirs(new_ref)
     assert int((new.light_index >= 0).sum()) > h * w // 2
     assert new.m.max().item() > 0.0 and ref.max().item() > 0.0
+
+
+def refreshed_ring(frame, state):
+    """`state` with the light data of its three grids replaced by the
+    frame's light data of their light indices (`restir_kernel.light_data`):
+    the light data K6 reads, which under a moving ANIMATED time differs from
+    the stored copies the plain version's spatial taps read."""
+    def fresh(g):
+        pos, col = restir_kernel.light_data(frame, g.light_index)
+        return dataclasses.replace(g, light_pos=pos, light_color=col)
+    return state.replace(restir_back=fresh(state.restir_back),
+                         restir_hist1=fresh(state.restir_hist1),
+                         restir_hist2=fresh(state.restir_hist2))
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["constant_time", "moving_time"])
+def test_host_restir_animated_matches_plain(kernels_on_cpu, moving):
+    """K6 under ANIMATED accumulation (alpha x 0.85, spatial taps younger
+    than 2 passes) on the real-time scene, passes 0-3, against the plain
+    render_sample under the contract of `test_host_restir_matches_plain`:
+    at a constant frame time, and at a moving one with the plain ring's
+    light data refreshed to the frame's before each pass."""
+    scene, cam, cfg = presets.animated_untextured(device="cpu")
+    times = [k / 30 for k in range(4)] if moving else [0.9] * 4
+    _host_restir_passes(scene, cam, cfg, times, refresh=moving)
 
 
 RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
@@ -512,12 +552,21 @@ def test_host_restir_adjoint_ring_fields(kernels_on_cpu):
     compared."""
     scene, cam, cfg = presets.restir_demo(device="cpu", max_bounces=3, restir_samples=4,
                                           marching_steps=16)
+    _ring_field_grads(scene, cam, cfg, min_m=30.0)
+
+
+def _ring_field_grads(scene, cam, cfg, min_m, time_s=0.0):
+    """K7's cotangents of a warm ring's float fields (after 6 passes of
+    `scene` at the frame time `time_s`) against plain autograd; `min_m`:
+    some back-grid M above it."""
     h, w = 8, 32
     state = RenderState.create(h, w, "cpu")
     with torch.no_grad():
         for _ in range(6):
-            state = render_pass(scene, cam, cfg, state, h, w)
-    assert int((state.restir_back.m > 30.0).sum()) > 10
+            state = render_pass(scene, cam, cfg, state, h, w, time_s)
+    scene = scene_mod.animate_positions(scene, time_s, int(cfg.render_mode))
+    if min_m is not None:
+        assert int((state.restir_back.m > min_m).sum()) > 10
     grids = [dataclasses.replace(g, **{k: getattr(g, k).detach().clone().requires_grad_(True)
                                        for k in restir_kernel.RING_FLOATS})
              for g in (state.restir_back, state.restir_hist1, state.restir_hist2)]
@@ -543,3 +592,166 @@ def test_host_restir_adjoint_ring_fields(kernels_on_cpu):
         assert (a - b).abs().max().item() / scale < 1e-4, (name, (a - b).abs().max().item())
         if restir_kernel.RING_FLOATS[i % 4] != "weight_sum":
             assert int((b != 0).sum()) > 10, name   # the taps and history levels are engaged
+
+
+def _gbuffer_case(where):
+    scene, cam, cfg = getattr(presets, where)(device="cpu")
+    if where == "restir_demo":
+        return scene, cam, cfg.replace(max_bounces=4, marching_steps=16)
+    return scene_mod.animate_positions(scene, 0.9, 1), cam, cfg.replace(marching_steps=16)
+
+
+def _gbuffer_held(out, gbuf, ref, ref_gbuf):
+    """K4's radiance and G-buffer against the plain version's: the mesh
+    index, depth and valid flag of every slot equal; the radiance under the
+    parity contract and the positions, normals and throughputs within 1e-5,
+    since the host's sinf/cosf and torch's CPU sin/cos may differ by an ULP
+    in a bounce direction (on the card the two agree bit for bit)."""
+    err = (out - ref).abs().amax(-1)
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4
+    assert len(gbuf) == len(ref_gbuf)
+    for k, (got, want) in enumerate(zip(gbuf, ref_gbuf)):
+        assert got.keys() == want.keys()
+        for f in got:
+            a, b = got[f], want[f]
+            assert a.dtype == b.dtype and a.shape == b.shape, (k, f)
+            if f in ("idx", "depth", "valid"):
+                assert torch.equal(a, b), (k, f, int((a != b).sum()))
+            else:
+                assert (a - b).abs().max().item() < 1e-5, (k, f, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "animated_untextured"])
+def test_host_gbuffer_matches_plain(kernels_on_cpu, where):
+    """K4 (one launch) against its plain version, `integrator.trace` with
+    `gbuffer_slots`: the radiance without diffuse NEE and each slot's
+    fields as `_gbuffer_held` states; untouched slots read depth -1 and
+    mesh 0; a slot ordinal off by one fails this."""
+    scene, cam, cfg = _gbuffer_case(where)
+    assert restir_split.unsupported_gbuffer(scene, cfg) is None
+    h, w = 16, 32
+    ro, rd = generate_rays(cam, h, w, 3)
+    pix = rng.pixel_ids(h, w)
+    before = restir_split.GBUF_LAUNCHES
+    out, gbuf = restir_split._launch_gbuffer(scene, cfg, megakernel.scene_table(scene), ro, rd,
+                                             pix, 3, 0)
+    assert restir_split.GBUF_LAUNCHES == before + 1
+    ref, ref_gbuf = restir_split.gbuffer_plain(scene, cfg, ro, rd, pix, 3, 0)
+    assert len(gbuf) == restir_split.gbuffer_slots(cfg) == len(ref_gbuf)
+    _gbuffer_held(out, gbuf, ref, ref_gbuf)
+    for slot in gbuf:
+        unset = ~slot["valid"]
+        assert bool((slot["depth"][unset] == -1).all() and (slot["idx"][unset] == 0).all())
+    assert bool(gbuf[0]["valid"].any()) and bool(gbuf[1]["valid"].any())
+    assert bool((gbuf[1]["depth"][gbuf[1]["valid"]] > 0).all())
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "mis_demo", "animated_untextured"])
+def test_host_cast_matches_plain(kernels_on_cpu, where):
+    """K5 (one launch) against the plain `intersect.intersect`
+    (need_normal=False): t and the mesh index bit for bit on rays from the
+    primary hits toward every light, on the primary rays themselves and on
+    rays that miss, some of them hitting a wall beyond cfg.infinity
+    (t = cfg.infinity, index 0)."""
+    scene, cam, cfg = getattr(presets, where)(device="cpu")
+    if where == "animated_untextured":
+        scene = scene_mod.animate_positions(scene, 1.3, 1)
+    cfg = cfg.replace(marching_steps=32)
+    h, w = 16, 32
+    ro, rd = generate_rays(cam, h, w, 1)
+    hit = restir.default_cast(scene, cfg)(ro, rd)
+    x = ro + rd * hit[0][..., None]
+    lights = scene.pos[torch.clamp_min(scene.light_idx.long(), 0)]
+    to = (lights[None, None] - x[:, :, None]).reshape(h, w * len(lights), 3)
+    d = to / torch.linalg.vector_norm(to, dim=-1, keepdim=True)
+    o = x.repeat_interleave(len(lights), dim=1) + d * cfg.epsilon
+    # rays from outside the room away from it, and rays that reach a wall
+    # only beyond cfg.infinity: every one misses
+    away = torch.tensor([0.0, 0.0, 1.0]).expand(h, w, 3).contiguous()
+    far = (ro + away * 2e4, (-away).contiguous())
+    for o_, d_ in ((ro, rd), (o.contiguous(), d.contiguous()), far, (ro + away * 50.0, away)):
+        before = restir_split.CAST_LAUNCHES
+        t, idx, missed = restir_split._launch_cast(scene, cfg, megakernel.scene_table(scene),
+                                                   o_, d_)
+        assert restir_split.CAST_LAUNCHES == before + 1
+        t_ref, idx_ref, missed_ref = restir.default_cast(scene, cfg)(o_, d_)
+        assert idx.dtype == torch.int32 and torch.equal(idx.long(), idx_ref)
+        assert torch.equal(t, t_ref) and torch.equal(missed, missed_ref)
+    assert bool(missed.all()) and bool((t == cfg.infinity).all()) and bool((idx == 0).all())
+
+
+def test_host_restir_adjoint_animated(kernels_on_cpu):
+    """K7 under ANIMATED accumulation, through `_RestirCore`, against the
+    plain `restir.trace_sample`'s autograd over passes 0-3 of the real-time
+    scene animated to a constant frame time (its gradient reaches `pos`
+    through `animate_positions`), within 1e-4 relative per leaf."""
+    scene, cam, cfg = presets.animated_untextured(device="cpu")
+    cfg = cfg.replace(max_bounces=2, restir_samples=4, marching_steps=16)
+    assert restir_kernel.unsupported_restir_bwd(scene, cfg) is None
+    animate = lambda s: scene_mod.animate_positions(s, 0.9, int(cfg.render_mode))
+    kernel = lambda s, *a: restir_kernel._fused(animate(s), *a)
+    plain = lambda s, *a: restir.trace_sample(animate(s), *a)
+    before = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES)
+    loss, got = restir_chain_grads(kernel, scene, cfg, cam, 8, 16, 4)
+    assert (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES) == (before[0] + 4,
+                                                                   before[1] + 4)
+    ref_loss, want = restir_chain_grads(plain, scene, cfg, cam, 8, 16, 4)
+    assert abs(loss - ref_loss).item() <= 1e-5 * abs(ref_loss).item()
+    assert_grads_close(got, want)
+    assert got["emission"].abs().max().item() > 0.0 and got["pos"].abs().max().item() > 0.0
+
+
+def test_host_restir_adjoint_ring_fields_animated(kernels_on_cpu):
+    """`test_host_restir_adjoint_ring_fields` under ANIMATED accumulation on
+    the real-time scene at a constant frame time: K7's cotangents of the
+    ring's m, w and age (the history's faded by 0.95 x 0.85 and
+    0.95 x 0.8 x 0.85) against plain autograd."""
+    scene, cam, cfg = presets.animated_untextured(device="cpu", max_bounces=3,
+                                                  restir_samples=4, marching_steps=16)
+    _ring_field_grads(scene, cam, cfg, min_m=None, time_s=0.9)
+
+
+def test_host_animated_forward_matches_plain(kernels_on_cpu):
+    """K1 serves ANIMATED accumulation unchanged: the real-time scene
+    animated to a frame time on the host, ReSTIR off (per-light NEE over 9
+    lights, the glass and mirror spheres, the rounded box), one launch,
+    against the plain version under the parity contract."""
+    scene, cam, cfg = presets.animated_untextured(device="cpu", use_restir=False,
+                                                  marching_steps=32)
+    assert megakernel.unsupported(scene, cfg) is None
+    scene = scene_mod.animate_positions(scene, 0.9, int(cfg.render_mode))
+    h, w = 16, 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene), ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+        err.max().item()
+
+
+def test_host_animated_adjoint_matches_plain(kernels_on_cpu):
+    """K2 serves ANIMATED accumulation unchanged: Cornell animated to a
+    frame time on the host (its boxes, rows 6-7, orbit), one K1 and one K2
+    launch through `_TraceCore`, against the plain version and its
+    autograd, the gradient reaching `pos` through `animate_positions`
+    (within 1e-4 relative per leaf)."""
+    scene, cam, cfg = cornell_default(device="cpu", use_mis=True, max_bounces=3,
+                                      render_mode=RenderMode.ANIMATED)
+    assert megakernel.unsupported_bwd(scene, cfg) is None
+    animate = lambda s: scene_mod.animate_positions(s, 0.9, int(cfg.render_mode))
+    ro, rd = generate_rays(cam, 16, 64, 2)
+    pix = rng.pixel_ids(16, 64)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    out, got = _grads(lambda s, c, o, d, p: megakernel._TraceCore.apply(
+        megakernel.scene_table(animate(s)), o, d, animate(s), c, p, 2, 0), scene, cfg, ro, rd, pix)
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref, want = _grads(lambda s, c, o, d, p: integrator.trace(animate(s), c, o, d, p, 2, 0),
+                       scene, cfg, ro, rd, pix)
+    err = (out - ref).abs().amax(-1)
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4
+    assert_grads_close(got, want)
+    assert got["pos"][6:8].abs().max().item() > 0.0

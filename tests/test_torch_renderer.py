@@ -87,9 +87,8 @@ def test_route():
     with pytest.raises(NotImplementedError, match="item 11"):
         tren._route("cuda", scene, cfg.replace(use_restir=True))
     animated = cfg.replace(render_mode=RenderMode.ANIMATED)
-    for device_type in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tren._route(device_type, scene, animated)
+    assert tren._route("cuda", scene, animated) == "kernel"   # K1 serves ANIMATED
+    assert tren._route("cpu", scene, animated) == "plain"
 
 
 def test_cpu_render_launches_no_kernel():
