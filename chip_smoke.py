@@ -12,7 +12,10 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    kernel K6 and its adjoint K7, the G-buffer kernel K4 and the ray-cast
    kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at once (or
    loads them from `build/kernels/`), and prints the build times and
-   ptxas' register, stack and spill lines;
+   ptxas' register, stack and spill lines; prints each kernel's blocks and
+   warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor` with
+   the shared memory, registers and local memory they were computed for
+   (its main path's scene);
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -120,7 +123,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    K2 launch; times the fwd+bwd step of `render_linear(passes=4)` at
    512x512 with 12 bounces through K6+K7 (median and quartiles), K7 per
    launch (CUDA events and profiler) and the plain autograd step at
-   128x128; prints the peak memory of each, K7's path events and bound;
+   128x128; prints the peak memory of each, K7's path events and bound,
+   the share of it K7's device time reaches and K7's occupancy;
 21. holds K5 against the plain `intersect.intersect` bit for bit at
    512x512 on `restir_demo`, `mis_demo` and the real-time scene
    (`animated_untextured`) at a frame time: the primary rays, and rays
@@ -597,6 +601,40 @@ def cast_bound(torch, scene, cfg, o, d):
     return by[0], by[1], ev
 
 
+def kernel_occupancy(dev):
+    """{(kernel, scene): cuda_build.occupancy(...)} of the six kernels at
+    the block size and shared memory of their main paths' scenes: K1 and
+    K2 on Cornell, K4 and K5 on the real-time scene (the SDF copies), K6
+    and K7 on `restir_demo`, and K7 on `restir_stress` too."""
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir_kernel, restir_split
+
+    cornell = presets.cornell_default(device=dev, use_mis=True)[0]
+    realtime = presets.animated_untextured(device=dev)[0]
+    demo, stress = presets.restir_demo(device=dev)[0], presets.restir_stress(device=dev)[0]
+    k2_threads = megakernel.bwd_threads(cornell)
+    k7_threads = restir_kernel.bwd_threads
+    rows = [
+        ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
+         128, megakernel.smem_bytes(cornell), False),
+        ("K2", "cornell_default", "megakernel_bwd", megakernel.BWD_SOURCES,
+         "rt0_trace_backward", k2_threads, megakernel.bwd_smem_bytes(cornell, k2_threads),
+         False),
+        ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
+         "rt0_gbuffer_forward", 128, megakernel.smem_bytes(realtime), True),
+        ("K5", "animated_untextured", "cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
+         restir_split.cast_smem_bytes(realtime), True),
+        ("K6", "restir_demo", "restir", restir_kernel.SOURCES, "rt0_restir_forward", 128,
+         restir_kernel.smem_bytes(demo), True),
+        ("K7", "restir_demo", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
+         k7_threads(demo), restir_kernel.bwd_smem_bytes(demo, k7_threads(demo)), True),
+        ("K7", "restir_stress", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
+         k7_threads(stress), restir_kernel.bwd_smem_bytes(stress, k7_threads(stress)), True),
+    ]
+    return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, sdf)
+            for k, where, lib, src, sym, threads, smem, sdf in rows}
+
+
 def device_times_ms(prof, names):
     """Device milliseconds per profiled kernel whose name contains each of
     `names`, and the device total of all kernels; None where the profiler
@@ -671,6 +709,12 @@ def main() -> int:
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"phase 2: {name} ptxas: {line.strip()}")
+    occ = kernel_occupancy(dev)
+    for (name, where), o in occ.items():
+        print(f"phase 2: {name} on {where}: {o['blocks']} blocks of {o['threads']} threads, "
+              f"{o['warps']} warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at "
+              f"{o['smem']} bytes of dynamic shared memory, {o['registers']} registers and "
+              f"{o['local_bytes']} bytes of local memory per thread")
 
     scene, cam, cfg = cornell_default(device=dev, use_mis=True)
 
@@ -1532,9 +1576,15 @@ def main() -> int:
         r_scene, r_cfg, table20, ro17, rd17, pix17, PASSES, 0,
         (st.restir_back, st.restir_hist1, st.restir_hist2), ct20, ct_res20))
     k7_bound, k7_by = bound(ev17, r_scene, r_cfg, adjoint=True, restir=True)
+    o7 = occ[("K7", "restir_demo")]
+    share = "not measured" if k7_dev_ms is None else f"{k7_bound / k7_dev_ms:.2%} of it"
     print(f"phase 20: {card}: K7 alone at {H}x{W}, {r_cfg.max_bounces} bounces: {ms_k7:.3f} ms per "
           f"launch (CUDA events); plain backward of one pass at {full}x{full} "
-          f"{plain_ms_k7:.3f} ms; bound {k7_bound:.6f} ms ({k7_by})")
+          f"{plain_ms_k7:.3f} ms; bound {k7_bound:.6f} ms ({k7_by}), the step's device time "
+          f"per launch {'not measured' if k7_dev_ms is None else f'{k7_dev_ms:.4f} ms'} reaches "
+          f"{share}; occupancy {o7['blocks']} blocks of {o7['threads']} threads "
+          f"({o7['warps']} warps) per SM at {o7['registers']} registers, {o7['smem']} bytes of "
+          "shared memory")
 
     # ---- phase 21: K5 against the plain intersect.intersect ----
     rt_scene, rt_cam, rt_cfg = presets.animated_untextured(device=dev)   # the slice's scene
@@ -1902,7 +1952,8 @@ def main() -> int:
          "max_abs_err": k7_abs, "max_rel_err": k7_rel_full,
          "max_rel_err_animated": k7_rel_anim,
          "compared_at": f"{full}x{full}, passes 0-{n_full - 1}", "ms": ms_k7, "device_ms": k7_dev_ms,
-         "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by},
+         "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by,
+         "blocks_per_sm": occ[("K7", "restir_demo")]["blocks"]},
         {"name": "K8 per-slot fused ReSTIR adjoint, served by K7", **common,
          "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3089",

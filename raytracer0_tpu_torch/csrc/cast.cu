@@ -84,3 +84,10 @@ extern "C" int rt0_cast_rays(const float *table, const int32_t *mesh, const int3
     cast_kernel<false><<<blocks, THREADS, smem, st>>>(a, sd, c);
   return (int)cudaGetLastError();
 }
+
+// K5's occupancy at `threads` threads and `smem` bytes of dynamic shared
+// memory (trace_common.cuh::kernel_occupancy; the copy with the SDF march when `sdf` is set).
+extern "C" int rt0_cast_rays_occupancy(int sdf, int threads, long long smem, int *out) {
+  return sdf ? kernel_occupancy(cast_kernel<true>, threads, (size_t)smem, out)
+             : kernel_occupancy(cast_kernel<false>, threads, (size_t)smem, out);
+}

@@ -136,3 +136,10 @@ extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, cons
     gbuf_kernel<false><<<blocks, THREADS, smem, st>>>(a, g);
   return (int)cudaGetLastError();
 }
+
+// K4's occupancy at `threads` threads and `smem` bytes of dynamic shared
+// memory (trace_common.cuh::kernel_occupancy; the copy with the SDF march when `sdf` is set).
+extern "C" int rt0_gbuffer_forward_occupancy(int sdf, int threads, long long smem, int *out) {
+  return sdf ? kernel_occupancy(gbuf_kernel<true>, threads, (size_t)smem, out)
+             : kernel_occupancy(gbuf_kernel<false>, threads, (size_t)smem, out);
+}

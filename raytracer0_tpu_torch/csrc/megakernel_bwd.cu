@@ -399,3 +399,10 @@ extern "C" int rt0_trace_backward(const float *table, const int32_t *mesh, const
   reduce_kernel<<<n_mesh * NCOLS, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, d_table);
   return (int)cudaGetLastError();
 }
+
+// K2's occupancy at `threads` threads and `smem` bytes of dynamic shared
+// memory (trace_common.cuh::kernel_occupancy; `sdf` unused).
+extern "C" int rt0_trace_backward_occupancy(int sdf, int threads, long long smem, int *out) {
+  (void)sdf;
+  return kernel_occupancy(bwd_kernel, threads, (size_t)smem, out);
+}

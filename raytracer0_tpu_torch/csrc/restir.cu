@@ -120,3 +120,10 @@ extern "C" int rt0_restir_forward(const float *table, const int32_t *mesh, const
   restir_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a, ra);
   return (int)cudaGetLastError();
 }
+
+// K6's occupancy at `threads` threads and `smem` bytes of dynamic shared
+// memory (trace_common.cuh::kernel_occupancy; `sdf` unused).
+extern "C" int rt0_restir_forward_occupancy(int sdf, int threads, long long smem, int *out) {
+  (void)sdf;
+  return kernel_occupancy(restir_kernel, threads, (size_t)smem, out);
+}

@@ -686,3 +686,10 @@ extern "C" int rt0_restir_backward(
   restir_reduce_kernel<<<n_mesh * NG, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, d_table);
   return (int)cudaGetLastError();
 }
+
+// K7's occupancy at `threads` threads and `smem` bytes of dynamic shared
+// memory (trace_common.cuh::kernel_occupancy; `sdf` unused).
+extern "C" int rt0_restir_backward_occupancy(int sdf, int threads, long long smem, int *out) {
+  (void)sdf;
+  return kernel_occupancy(restir_bwd_kernel, threads, (size_t)smem, out);
+}

@@ -696,6 +696,26 @@ __host__ __device__ inline size_t scene_smem_bytes(int n_mesh, int n_lights) {
   return sizeof(float) * n_mesh * NCOLS + sizeof(int) * (2 * n_mesh + n_lights);
 }
 
+// Occupancy of `kernel` at `threads` threads a block and `smem` bytes of
+// dynamic shared memory (host code, for the launchers' *_occupancy exports):
+// out = {blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers per thread, local memory (stack and spills) per thread in
+// bytes}.  Returns the first CUDA error, or 0.
+template <class K>
+inline int kernel_occupancy(K kernel, int threads, size_t smem, int *out) {
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = blocks;
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return (int)e;
+}
+
 // fold(pix, pass, sample): the key shared by every draw of pixel `p`.
 __device__ __forceinline__ uint32_t pixel_hash(const TraceArgs &a, long long p) {
   return fold_step(fold_step(fold_step(0x5BD1E995u, (uint32_t)a.pix[p], 0u), a.pass_idx, 1u),

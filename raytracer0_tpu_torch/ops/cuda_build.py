@@ -96,3 +96,23 @@ def load(name: str, sources: tuple[str, ...]):
     lib = ctypes.CDLL(str(lib_path))
     _LOADED[name] = (lib, info)
     return lib, info
+
+
+def occupancy(name: str, sources: tuple[str, ...], symbol: str, threads: int, smem: int,
+              sdf: bool = False) -> dict:
+    """What `cudaOccupancyMaxActiveBlocksPerMultiprocessor` gives for a
+    kernel of library `name` through its `*_occupancy` export (`symbol`)
+    at `threads` threads a block and `smem` bytes of dynamic shared memory
+    (`sdf`: the copy with the SDF march, where the kernel has two):
+    {"blocks", "warps"} per SM, the "registers" and "local_bytes" (stack
+    and spills) per thread, and the "threads" and "smem" asked for."""
+    lib, _ = load(name, sources)
+    fn = getattr(lib, symbol)
+    fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    rc = fn(int(sdf), threads, smem, out)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
+    return {"blocks": out[0], "warps": out[0] * -(-threads // 32), "registers": out[1],
+            "local_bytes": out[2], "threads": threads, "smem": smem}

@@ -468,6 +468,50 @@ def test_restir_adjoint_matches_plain_autograd(cuda, where):
         assert torch.equal(got[k], again[k]), k
 
 
+@pytest.mark.parametrize("where", ["restir_demo", "restir_stress"])
+def test_restir_adjoint_loss_scale_cotangents(cuda, where):
+    """K7 under `make_loss`'s cotangents at the scale of a 512x512 image
+    (`restir_chain_grads(l2_over=...)`), over passes 0-3 at 16x128 with 12
+    bounces, against plain autograd: per leaf within 1e-4 relative."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    n = 512 * 512 * 3
+    loss, got = restir_chain_grads(restir_kernel._fused, scene, cfg, cam, 16, 128, 4, l2_over=n)
+    ref_loss, want = restir_chain_grads(restir.trace_sample, scene, cfg, cam, 16, 128, 4,
+                                        l2_over=n)
+    assert abs(loss - ref_loss).item() <= 1e-5 * abs(ref_loss).item()
+    assert_grads_close(got, want)
+    assert got["emission"].abs().max().item() > 0.0
+
+
+def test_kernel_occupancy_exports(cuda):
+    """Every library's `*_occupancy` export answers on the card: K1, K4, K5
+    and K6 at 128 threads, K2 and K7 at their block sizes, each at least
+    one block per SM with its registers; K7 on restir_demo fits one block
+    (its per-thread cotangent columns take 132 KB)."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    cornell = cornell_default(device=cuda)[0]
+    demo = presets.restir_demo(device=cuda)[0]
+    k2_t, k7_t = megakernel.bwd_threads(cornell), restir_kernel.bwd_threads(demo)
+    rows = [("megakernel", megakernel.SOURCES, "rt0_trace_forward", 128,
+             megakernel.smem_bytes(cornell)),
+            ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward", k2_t,
+             megakernel.bwd_smem_bytes(cornell, k2_t)),
+            ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward", 128,
+             megakernel.smem_bytes(demo)),
+            ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
+             restir_split.cast_smem_bytes(demo)),
+            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", 128,
+             restir_kernel.smem_bytes(demo)),
+            ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward", k7_t,
+             restir_kernel.bwd_smem_bytes(demo, k7_t))]
+    occ = {lib: cuda_build.occupancy(lib, src, sym + "_occupancy", t, smem, True)
+           for lib, src, sym, t, smem in rows}
+    for lib, o in occ.items():
+        assert o["blocks"] >= 1 and o["registers"] > 0, (lib, o)
+    assert occ["restir_bwd"]["blocks"] == 1 and occ["restir_bwd"]["smem"] > 128 * 1024
+
+
 def test_restir_fit_goes_through_k6_and_k7_only(cuda):
     """`optimize.fit` on restir_demo with passes=2: each step launches K6
     and K7 twice and neither K1 nor K2, and the loss falls."""

@@ -79,6 +79,13 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
 inline int cudaGetLastError() { return 0; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F> inline int cudaFuncGetAttributes(cudaFuncAttributes *, F) { return 0; }
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, F, int, size_t) {
+  *n = 0;
+  return 0;
+}
 template <class K, class... A>
 void emu_launch(K k, unsigned grid, unsigned block, size_t smem, void *, A... args) {
   // one std::thread per CUDA thread, reused block after block: the gate's
@@ -475,12 +482,15 @@ def test_host_restir_animated_matches_plain(kernels_on_cpu, moving):
 RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
 
 
-def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5):
+def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5, l2_over=None):
     """A loss over `passes` ReSTIR passes from an empty ring, each traced by
     `trace` (`restir_kernel._fused`, K6 with K7 under autograd, or the
     plain `restir.trace_sample`): seeded weights on every pass's radiance
-    and on the last ring's weight_sum, m, w and age.  Returns (loss,
-    {scene leaf: gradient, "ro"/"rd": the rays' gradients of all passes})."""
+    and on the last ring's weight_sum, m, w and age; or, with `l2_over` =
+    n, `optimize.make_loss`'s L2 of the passes' mean radiance against a
+    seeded target, divided by n values instead of h x w x 3 (the
+    cotangents an n-value image gives).  Returns (loss, {scene leaf:
+    gradient, "ro"/"rd": the rays' gradients of all passes})."""
     leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in RESTIR_LEAVES}
     s = scene.replace(**leaves)
     state = RenderState.create(h, w, device=scene.device)
@@ -488,16 +498,21 @@ def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5):
     r = np.random.default_rng(seed)
     weights = lambda shape: torch.from_numpy(r.uniform(0.5, 1.5, shape).astype(np.float32)
                                              ).to(scene.device)
-    loss, rays = 0.0, []
+    loss, rays, accum = 0.0, [], 0.0
     for p in range(passes):
         ro, rd = generate_rays(cam, h, w, p)
         rays += [ro.detach().requires_grad_(True), rd.detach().requires_grad_(True)]
         rad, new = trace(s, cfg, rays[-2], rays[-1], pix, p, 0, state.restir_back,
                          state.restir_hist1, state.restir_hist2)
-        loss = loss + (rad * weights(rad.shape)).sum()
+        if l2_over is None:
+            loss = loss + (rad * weights(rad.shape)).sum()
+        accum = accum + rad
         state = state.rotate_reservoirs(new)
-    for k in restir_kernel.RING_FLOATS:
-        loss = loss + (getattr(state.restir_back, k) * weights((h, w))).sum() * 0.1
+    if l2_over is None:
+        for k in restir_kernel.RING_FLOATS:
+            loss = loss + (getattr(state.restir_back, k) * weights((h, w))).sum() * 0.1
+    else:
+        loss = ((accum / passes - weights(accum.shape)) ** 2).sum() / l2_over
     got = torch.autograd.grad(loss, list(leaves.values()) + rays)
     out = dict(zip(RESTIR_LEAVES, got))
     out["ro"], out["rd"] = torch.stack(got[-2 * passes::2]), torch.stack(got[-2 * passes + 1::2])
@@ -539,6 +554,26 @@ def test_host_restir_adjoint_matches_plain(kernels_on_cpu, where, passes):
     _, again = restir_chain_grads(restir_kernel._fused, scene, cfg, cam, 8, 16, passes)
     for k in got:
         assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "restir_stress"])
+def test_host_restir_adjoint_loss_scale_cotangents(kernels_on_cpu, where):
+    """K7 under the cotangents `optimize.fit` gives it: `make_loss`'s L2 of
+    `render_linear(passes=4)` against a target, scaled to the per-value
+    cotangents of a 512x512 image (about 1e-7 per pixel and pass), against
+    the plain autograd of the same loss, over passes 0-3 at 8x16 with 2
+    bounces: every scene leaf and ray within 1e-4 relative, and the
+    gradients engaged (K7's float sums keep contributions of any scale)."""
+    scene, cam, cfg = getattr(presets, where)(device="cpu")
+    cfg = cfg.replace(max_bounces=2, restir_samples=4, marching_steps=16)
+    n = 512 * 512 * 3
+    loss, got = restir_chain_grads(restir_kernel._fused, scene, cfg, cam, 8, 16, 4, l2_over=n)
+    ref_loss, want = restir_chain_grads(restir.trace_sample, scene, cfg, cam, 8, 16, 4,
+                                        l2_over=n)
+    assert abs(loss - ref_loss).item() <= 1e-5 * abs(ref_loss).item()
+    assert_grads_close(got, want)
+    for k in ("emission", "color", "pos"):
+        assert 0.0 < got[k].abs().max().item() < 1e-2, k
 
 
 def test_host_restir_adjoint_ring_fields(kernels_on_cpu):
