@@ -8,14 +8,16 @@ Run from the repository root:
 Phases (each prints readable lines; any failure raises and exits non-zero):
 
 1. requires a CUDA device; prints `nvidia-smi`'s name and power limit;
-2. builds the forward megakernel K1, its adjoint K2, the fused ReSTIR
-   kernel K6 and its adjoint K7, the G-buffer kernel K4 and the ray-cast
-   kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at once (or
-   loads them from `build/kernels/`), and prints the build times and
-   ptxas' register, stack and spill lines; prints each kernel's blocks and
-   warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor` with
-   the shared memory, registers and local memory they were computed for
-   (its main path's scene);
+2. builds the forward megakernel K1, its adjoint K2, the reservoir-vertex
+   kernel K6v and the ReSTIR adjoint K7, the G-buffer kernel K4 and the
+   ray-cast kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at
+   once (or loads them from `build/kernels/`), and prints the build times
+   and ptxas' register, stack and spill lines; prints each kernel's blocks
+   and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
+   with the shared memory, registers and local memory they were computed
+   for (its main path's scene; K6v in both forms); checks that K7, which
+   shares K6v's vertex code, keeps its 168 registers and 1,328-byte stack
+   (the vertex's split form must not move K7's code);
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -87,22 +89,27 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    device time (`k1_device_time.py`), times K1 and the plain version on
    `mis_demo` and prints its path events and K1's bound; checks that a
    gradient through `mis_demo` raises before any launch;
-16. holds K6 against the plain `restir.render_sample` on the card, on
-   `restir_demo`, `restir_stress` and `restir_demo` with MIS, each
-   threading its own reservoir ring: passes 0-11 at 16x128 with 3 bounces
-   and passes 0-3 at 512x512 with 12 bounces, under JAX's
-   fused-versus-wavefront contract (tests/test_restir.py:312-352) at every
-   pass, printing the differing pixels; checks that the new reservoirs'
-   light data gathered from the scene (`restir_kernel.light_data`, the
-   gradient path's) equals K6's bit for bit;
+16. holds the ReSTIR pass K6 (K4, then K6v's fused form) against the
+   plain `restir.render_sample` on the card, on `restir_demo`,
+   `restir_stress` and `restir_demo` with MIS, each threading its own
+   reservoir ring: passes 0-11 at 16x128 with 3 bounces and passes 0-3 at
+   512x512 with 12 bounces, one K4 and one K6v launch per pass; bit for
+   bit at every pass (radiance and every reservoir field), which implies
+   JAX's fused-versus-wavefront contract (tests/test_restir.py:312-352),
+   also checked and printed with the differing pixels; checks that the new
+   reservoirs' light data gathered from the scene
+   (`restir_kernel.light_data`, the gradient path's) equals K6v's bit for
+   bit;
 17. drives the ReSTIR main path, `Renderer(*restir_demo()).render(16)` at
-   512x512: 16 K6 launches and no K1 or K2 launch, populated reservoirs
-   (max M > 0, max W <= 12, the share of pixels holding a light), a
-   finite image whose mean lies within 1/9..2x of the per-light-NEE
-   render's (tests/test_restir.py:94-129); times a pass (CUDA events) and
-   K6 (CUDA events and profiler) and the plain version's pass; prints K6's
-   path events and bound; checks that a gradient K7 does not compute (the
-   aux leaf) through `restir_demo` raises before any launch;
+   512x512: 16 K6 passes (16 K4 and 16 K6v launches) and no K1 or K2
+   launch, populated reservoirs (max M > 0, max W <= 12, the share of
+   pixels holding a light), a finite image whose mean lies within 1/9..2x
+   of the per-light-NEE render's (tests/test_restir.py:94-129); times a
+   pass (CUDA events), a K6 pass and its two kernels alone (CUDA events
+   and profiler) and the plain version's pass; prints K6's path events and
+   the bounds of the pass, of K4 and of K6v; checks that a gradient K7
+   does not compute (the aux leaf) through `restir_demo` raises before
+   any launch;
 18. holds K7 against the plain `restir.trace_sample`'s autograd on the
    card: over passes 0-3 from an empty ring at 16x128 with 3 bounces on
    `restir_demo` and `restir_stress` (d emission, color, pos, joker, ior
@@ -119,8 +126,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    discontinuous;
 20. drives the ReSTIR gradient main path: `optimize.fit` of the lights'
    emission on `restir_demo` at 128x128 with passes=4 for 20 steps, which
-   lowers the loss through 4 K6 and 4 K7 launches per step and no K1 or
-   K2 launch; times the fwd+bwd step of `render_linear(passes=4)` at
+   lowers the loss through 4 K6 passes and 4 K7 launches per step and no
+   K1 or K2 launch; times the fwd+bwd step of `render_linear(passes=4)` at
    512x512 with 12 bounces through K6+K7 (median and quartiles), K7 per
    launch (CUDA events and profiler) and the plain autograd step at
    128x128; prints the peak memory of each, K7's path events and bound,
@@ -142,15 +149,18 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    through 4 K6 and 4 K7 launches;
 24. drives the real-time main path, 16 frames of
    `Renderer.step(time_s=k/30)` on the real-time scene at 512x512 with
-   the ad-hoc reprojection: 16 K4, 64 K5 and no other launch; holds the
-   last frame bit for bit against the same frame through the plain K4 and
-   K5 on the card and against the plain `render_sample` under JAX's
-   fast-versus-wavefront contract (tests/test_restir.py:284-310); times
-   the frame (median and quartiles of 9 after warm-up), K4 and K5 per
-   launch (CUDA events and profiler), ray generation and the rest (the
-   reservoir phases), and prints K4's and K5's events and bounds; times
-   the ANIMATED frame through K6 (no ad-hoc motion) and through K1
-   (ReSTIR off, held bit for bit against the plain version);
+   the ad-hoc reprojection: 16 K4 and 16 K6v launches (split form), no K5
+   and no other kernel of the port; holds the last frame bit for bit
+   against the same frame through `render_sample_split` with the plain
+   G-buffer and caster on the card and against the plain `render_sample`
+   under JAX's fast-versus-wavefront contract
+   (tests/test_restir.py:284-310); times the frame (median and quartiles
+   of 9 after warm-up), K4 and K6v per launch (CUDA events and profiler)
+   and ray generation, counts the device launches of a frame (profiler),
+   and prints K4's and K6v's events and bounds; times K5 on the shadow
+   rays the plain split pass casts (its bound beside it); times the
+   ANIMATED frame through K6 (no ad-hoc motion) and through K1 (ReSTIR
+   off, held bit for bit against the plain version);
 25. checks that a gradient through the split path, and `animated_restir`
    itself (a METAL texture on its SDF mesh, item 8) on every route, raise
    NotImplementedError before any launch.
@@ -377,7 +387,9 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     the rays that test the SDF bounds (`gated`), the marched rays and
     their steps, and the SDF hits.  With `ring` (the RenderState of a
     ReSTIR pass, as K6 runs it) a diffuse vertex runs the reservoir
-    pipeline (`vertices`, each with two shadow rays) in place of NEE; with
+    pipeline (`vertices`, each with two shadow rays, whose march work is
+    also counted apart as `v_gated`, `v_marched`, `v_march_steps`) in
+    place of NEE; with
     `gbuffer` (K4) a diffuse vertex runs neither and is recorded.
     Replays the kernels' decisions with the plain version's functions
     (`bsdf.sample`, `integrator.hit_color_emission`, `sdf.march_loop`,
@@ -394,7 +406,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0,
               gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
               gated=0, marched=0, march_steps=0, sdf_hits=0, vertices=0,
-              bsdf={}, texel={}, uv={})
+              v_gated=0, v_marched=0, v_march_steps=0, bsdf={}, texel={}, uv={})
     marches, march_loop = [], sdf.march_loop
 
     def counted(*args):
@@ -402,13 +414,14 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
         marches.append(out[3])
         return out
 
-    def march_work(sel):
+    def march_work(sel, vertex=False):
         """Count the march work of the rays traced since the last call, in
-        the lanes of `sel`."""
+        the lanes of `sel` (and apart, for the reservoir vertex's)."""
         for steps in marches:
-            ev["gated"] += int(sel.sum())
-            ev["marched"] += int((sel & (steps > 0)).sum())
-            ev["march_steps"] += int(steps[sel].sum())
+            work = (int(sel.sum()), int((sel & (steps > 0)).sum()), int(steps[sel].sum()))
+            for prefix in ("", "v_") if vertex else ("",):
+                for k, n in zip(("gated", "marched", "march_steps"), work):
+                    ev[prefix + k] += n
         marches.clear()
 
     blends = scene.tex_type.ne(-1) & (scene.opts[:, 0] | scene.opts[:, 1])
@@ -475,7 +488,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
                     scene, cfg, ring.restir_back.fields(),
                     [ring.restir_hist1.fields(), ring.restir_hist2.fields()], hit.pos, nl,
                     hit.idx, pix, pass_idx, sample_idx, depth, height=shape[0], width=shape[1])
-                march_work(diffuse)
+                march_work(diffuse, vertex=True)
                 ev["vertices"] += n_diffuse
             elif cfg.sample_lights and not gbuffer:
                 if scene.num_sdfs:   # the shadow rays' march work
@@ -536,12 +549,7 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
            + sum(k * (OPS_TEXEL[code] + OPS_BLEND) for code, k in ev["texel"].items())
            + sum(k * OPS_UV[m] for m, k in ev["uv"].items()) + march)
     if restir:
-        n_lights = scene.num_lights
-        n_cand = min(cfg.restir_samples, max(4, n_lights))
-        n_spatial = 8 if n_lights <= 10 else 4
-        fwd += ev["vertices"] * (OPS_RESTIR_BRDF + n_cand * OPS_CANDIDATE + 2 * OPS_TEMPORAL
-                                 + n_spatial * OPS_SPATIAL + OPS_VISIBILITY + OPS_FINALIZE
-                                 + OPS_SHADE + 2 * per_ray)
+        fwd += vertex_ops(ev, scene, cfg, per_ray)
     table = 4 * scene.num_meshes * 36
     assets = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
     assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
@@ -559,6 +567,40 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
         ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
     else:         # ro, rd, pix, table, cubemap, images, LUT in; radiance out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + assets
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def vertex_ops(ev, scene, cfg, per_ray):
+    """Float operations of the reservoir vertices of `ev` (`path_events`
+    with a ring), their shadow rays' mesh scans (`per_ray` each) included,
+    their marches not."""
+    n_lights = scene.num_lights
+    n_cand = min(cfg.restir_samples, max(4, n_lights))
+    n_spatial = 8 if n_lights <= 10 else 4
+    return ev["vertices"] * (OPS_RESTIR_BRDF + n_cand * OPS_CANDIDATE + 2 * OPS_TEMPORAL
+                             + n_spatial * OPS_SPATIAL + OPS_VISIBILITY + OPS_FINALIZE
+                             + OPS_SHADE + 2 * per_ray)
+
+
+def vertex_bound(ev, scene, cfg, slots, split=False):
+    """(bound_ms, bound_by) of K6v for these events (`path_events` with the
+    ring it reads): the operations of the reservoir vertices and of their
+    shadow rays' scans and marches (`v_*`), as `bound` counts them inside
+    K6; the bytes of pixel ids, the G-buffer (45 per slot and pixel), K4's
+    radiance and the three reservoir grids read (20 bytes a cell, 44 in the
+    split form, which reads the light data and its running sum too), and
+    the radiance and the new reservoirs written."""
+    types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
+    per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
+    n_sdf = scene.num_sdfs
+    march = (ev["v_gated"] * n_sdf * OPS_SDF_GATE
+             + ev["v_marched"] * (2 * (OPS_MARCH_RAY + n_sdf * OPS_SDF_EVAL))
+             + ev["v_march_steps"] * (OPS_MARCH_STEP + n_sdf * OPS_SDF_EVAL))
+    ops = vertex_ops(ev, scene, cfg, per_ray) + march
+    grid = 44 if split else 20
+    nbytes = (ev["pixels"] * (8 + 45 * slots + 12 + 3 * grid + (24 if split else 12) + 44)
+              + 4 * scene.num_meshes * 36)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -604,10 +646,12 @@ def cast_bound(torch, scene, cfg, o, d):
 def kernel_occupancy(dev):
     """{(kernel, scene): cuda_build.occupancy(...)} of the six kernels at
     the block size and shared memory of their main paths' scenes: K1 and
-    K2 on Cornell, K4 and K5 on the real-time scene (the SDF copies), K6
-    and K7 on `restir_demo`, and K7 on `restir_stress` too."""
+    K2 on Cornell, K4 and K5 on the real-time scene (the SDF copies), K6v
+    (fused form) and K7 on `restir_demo`, K7 on `restir_stress` too, and
+    K6v's split form on the real-time scene."""
     from raytracer0_tpu_torch.models import presets
-    from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir_kernel, restir_split
+    from raytracer0_tpu_torch.ops import (cuda_build, megakernel, restir_kernel, restir_split,
+                                          restir_vertex)
 
     cornell = presets.cornell_default(device=dev, use_mis=True)[0]
     realtime = presets.animated_untextured(device=dev)[0]
@@ -624,15 +668,18 @@ def kernel_occupancy(dev):
          "rt0_gbuffer_forward", 128, megakernel.smem_bytes(realtime), True),
         ("K5", "animated_untextured", "cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
          restir_split.cast_smem_bytes(realtime), True),
-        ("K6", "restir_demo", "restir", restir_kernel.SOURCES, "rt0_restir_forward", 128,
-         restir_kernel.smem_bytes(demo), True),
+        ("K6v", "restir_demo", "restir_vertex", restir_vertex.SOURCES, "rt0_restir_vertex", 128,
+         restir_vertex.smem_bytes(demo), False),
+        ("K6v split", "animated_untextured", "restir_vertex", restir_vertex.SOURCES,
+         "rt0_restir_vertex", 128, restir_vertex.smem_bytes(realtime), True),
         ("K7", "restir_demo", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
          k7_threads(demo), restir_kernel.bwd_smem_bytes(demo, k7_threads(demo)), True),
         ("K7", "restir_stress", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
          k7_threads(stress), restir_kernel.bwd_smem_bytes(stress, k7_threads(stress)), True),
     ]
-    return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, sdf)
-            for k, where, lib, src, sym, threads, smem, sdf in rows}
+    # the flag is the SDF copy's (K4, K5) or K6v's form
+    return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
+            for k, where, lib, src, sym, threads, smem, flag in rows}
 
 
 def device_times_ms(prof, names):
@@ -653,6 +700,15 @@ def device_times_ms(prof, names):
     if total <= 0.0:
         return {n: None for n in names}, None
     return out, total
+
+
+def device_launches(prof):
+    """Launches of device work (kernels, copies, fills) the profile saw;
+    None where the profiler shows no device time."""
+    evts = [e for e in prof.key_averages()
+            if (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)) > 0]
+    return sum(e.count for e in evts) or None
 
 
 def main() -> int:
@@ -678,7 +734,7 @@ def main() -> int:
         from raytracer0_tpu_torch.render import integrator
         from raytracer0_tpu_torch.models import presets
         from raytracer0_tpu_torch.models import scene as scene_mod
-        from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split
+        from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split, restir_vertex
         from raytracer0_tpu_torch.render.renderer import Renderer, render_pass, sample_radiance
         from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState
         from k1_device_time import k1_device_ms
@@ -700,10 +756,10 @@ def main() -> int:
     # ---- phase 2: build the six kernels at once ----
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
-                  pool.submit(restir_kernel.build), pool.submit(restir_kernel.build_bwd),
+                  pool.submit(restir_vertex.build), pool.submit(restir_kernel.build_bwd),
                   pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6", "K7", "K4", "K5"), infos):
+    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -715,6 +771,11 @@ def main() -> int:
               f"{o['warps']} warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at "
               f"{o['smem']} bytes of dynamic shared memory, {o['registers']} registers and "
               f"{o['local_bytes']} bytes of local memory per thread")
+    o7 = occ[("K7", "restir_demo")]
+    print(f"phase 2: K7 keeps its 168 registers and 1,328-byte stack: "
+          f"{(o7['registers'], o7['local_bytes']) == (168, 1328)}")
+    if (o7["registers"], o7["local_bytes"]) != (168, 1328):
+        raise AssertionError("K7's code moved with the reservoir vertex's template")
 
     scene, cam, cfg = cornell_default(device=dev, use_mis=True)
 
@@ -1224,8 +1285,9 @@ def main() -> int:
         raise AssertionError("the refused SDF gradient launched a kernel")
 
     # ---- phase 16: K6 against the plain restir.render_sample ----
-    def restir_contract(name, out, ref, new, new_ref):
-        """JAX's fused-versus-wavefront contract (tests/test_restir.py:312-352);
+    def restir_contract(name, out, ref, new, new_ref, bits=False):
+        """JAX's fused-versus-wavefront contract (tests/test_restir.py:312-352),
+        with `bits` equality of the radiance and every reservoir field;
         returns the radiance's max abs error."""
         err = (out - ref).abs()
         agree = new.light_index == new_ref.light_index
@@ -1239,11 +1301,16 @@ def main() -> int:
               "pixels hold a light")
         if not (mx < 5e-3 and med < 1e-6 and share >= 0.995 and field_err <= 1e-4):
             raise AssertionError(f"{name}: K6 disagrees with the plain render_sample")
+        if bits and (n_diff or not all(torch.equal(getattr(new, k), getattr(new_ref, k))
+                                       for k in RESERVOIR_FIELDS)):
+            raise AssertionError(f"{name}: K6 differs from the plain render_sample's bits")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{name}: K6 radiance is not finite")
         return mx
 
     k6_err = {}
+    k6_counts = lambda: (restir_kernel.LAUNCHES, restir_split.GBUF_LAUNCHES,
+                         restir_vertex.VERTEX_LAUNCHES, megakernel.LAUNCHES)
     for name, kw in (("restir_demo", {}), ("restir_stress", {}), ("restir_demo_mis", {})):
         preset = getattr(presets, name.replace("_mis", ""))
         s16, c16, cfg16 = preset(device=dev, use_mis=True) if name.endswith("_mis") \
@@ -1255,18 +1322,20 @@ def main() -> int:
             kernel_ring = RenderState.create(h, w, device=dev)
             plain_ring = RenderState.create(h, w, device=dev)
             for p in range(n_pass):
-                before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES)
+                before = k6_counts()
                 out, new = restir_kernel.render_sample_fused(s16, c, c16, kernel_ring, h, w, p)
                 ref, new_ref = restir.render_sample(s16, c, c16, plain_ring, h, w, p)
                 torch.cuda.synchronize()
-                if (restir_kernel.LAUNCHES, megakernel.LAUNCHES) != (before[0] + 1, before[1]):
-                    raise AssertionError("expected one K6 launch and no K1 launch per pass")
+                if k6_counts() != (before[0] + 1, before[1] + 1, before[2] + 1, before[3]):
+                    raise AssertionError("expected one K6 pass (one K4 and one K6v launch) and "
+                                         "no K1 launch per pass")
                 k6_err[(name, h, p)] = restir_contract(
-                    f"{name} {h}x{w}, {nb} bounces, pass {p}", out, ref, new, new_ref)
+                    f"{name} {h}x{w}, {nb} bounces, pass {p}", out, ref, new, new_ref,
+                    bits=True)
                 # the gradient path gathers the light data from the scene
                 pos16, col16 = restir_kernel.light_data(s16, new.light_index)
                 if not (torch.equal(pos16, new.light_pos) and torch.equal(col16, new.light_color)):
-                    raise AssertionError(f"{name}: light_data differs from K6's light data")
+                    raise AssertionError(f"{name}: light_data differs from K6v's light data")
                 kernel_ring = kernel_ring.rotate_reservoirs(new)
                 plain_ring = plain_ring.rotate_reservoirs(new_ref)
     del out, ref, kernel_ring, plain_ring
@@ -1274,19 +1343,23 @@ def main() -> int:
 
     # ---- phase 17: the ReSTIR main path ----
     restir_kernel.LAUNCHES = megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = restir_vertex.VERTEX_LAUNCHES = 0
     r_renderer = Renderer(r_scene, r_cam, r_cfg, H, W)
     img = r_renderer.render(PASSES)
     torch.cuda.synchronize()
     launches_k6, k1_restir, k2_restir = (restir_kernel.LAUNCHES, megakernel.LAUNCHES,
                                          megakernel.BWD_LAUNCHES)
+    k4_restir, k6v_restir, k5_restir = (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
+                                        restir_split.CAST_LAUNCHES)
     res = r_renderer.state.restir_back
     held = (res.light_index >= 0).float().mean().item()
     print(f"phase 17: Renderer(*restir_demo()).render({PASSES}) at {H}x{W}: {launches_k6} K6 "
-          f"launches, {k1_restir} K1 launches, {k2_restir} K2 launches; max M "
-          f"{res.m.max().item():.4f}, max W {res.w.max().item():.4f}, share of pixels holding "
-          f"a light {held:.5f}")
-    if (launches_k6, k1_restir, k2_restir) != (PASSES, 0, 0):
-        raise AssertionError(f"expected {PASSES} K6 and no K1 or K2 launches")
+          f"passes ({k4_restir} K4 and {k6v_restir} K6v launches), {k5_restir} K5, {k1_restir} K1, "
+          f"{k2_restir} K2 launches; max M {res.m.max().item():.4f}, max W "
+          f"{res.w.max().item():.4f}, share of pixels holding a light {held:.5f}")
+    if (launches_k6, k4_restir, k6v_restir, k5_restir, k1_restir, k2_restir) != \
+            (PASSES, PASSES, PASSES, 0, 0, 0):
+        raise AssertionError(f"expected {PASSES} K4 and K6v launches and no K5, K1 or K2 launch")
     if not (res.m.max().item() > 0.0 and res.w.max().item() <= 12.0 and held > 0.1):
         raise AssertionError("the reservoirs are not populated")
     accum_restir = r_renderer.state.accum / PASSES
@@ -1312,31 +1385,61 @@ def main() -> int:
         r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, st.restir_back, st.restir_hist1,
         st.restir_hist2)
     ms_k6 = time_ms(torch, k6_call)
+    # K6's two kernels alone, on the pass's inputs
+    table17 = megakernel.scene_table(r_scene)
+    rad17, gbuf17 = restir_split.launch_gbuffer(r_scene, r_cfg, table17, ro17, rd17, pix17,
+                                                PASSES, 0)
+    k4_rad17 = rad17.clone()   # K6v's fused form writes its radiance over rad17
+    grids17 = (st.restir_back, st.restir_hist1, st.restir_hist2)
+    ms_k4_demo = time_ms(torch, lambda: restir_split.launch_gbuffer(
+        r_scene, r_cfg, table17, ro17, rd17, pix17, PASSES, 0))
+    ms_k6v = time_ms(torch, lambda: restir_vertex.launch(
+        r_scene, r_cfg, table17, ro17, rd17, pix17, PASSES, 0, grids17, gbuf17, rad17))
+    # K6v's plain version: the reservoir phases as PyTorch ops on K4's
+    # G-buffer (STATIC, so the split pass's light data is the slot table's)
+    gbuf17_slots = [{k: v[i] for k, v in gbuf17.items()} for i in range(len(gbuf17["pos"]))]
+    plain_ms_k6v = time_ms(torch, lambda: restir_split.render_sample_split(
+        r_scene, r_cfg, r_cam, st, H, W, PASSES, 0.0, lambda *a: (k4_rad17, gbuf17_slots),
+        restir.default_cast), runs=3, warmup=1)
     plain_restir = time_stats(torch, lambda: restir.render_sample(
         r_scene, r_cfg, r_cam, st, H, W, PASSES), runs=3, warmup=1)
+    k6_kernels = ("gbuf_kernel", "restir_vertex_kernel")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             k6_call()
         torch.cuda.synchronize()
-    dev17, _ = device_times_ms(prof, ("restir_kernel",))
-    k6_dev_ms = None if dev17["restir_kernel"] is None else dev17["restir_kernel"] / 3
+    dev17, _ = device_times_ms(prof, k6_kernels)
+    k4_demo_dev_ms, k6v_dev_ms = (None if v is None else v / 3 for v in dev17.values())
+    k6_dev_ms = None if k6v_dev_ms is None else k4_demo_dev_ms + k6v_dev_ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             r_renderer.step()
         torch.cuda.synchronize()
-    pass_dev, pass_total = device_times_ms(prof, ("restir_kernel",))
+    pass_dev, pass_total = device_times_ms(prof, k6_kernels)
+    k6_pass_dev = None if pass_total is None else sum(pass_dev.values()) / 3
     ev17 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, ring=st)
     k6_bound, k6_by = bound(ev17, r_scene, r_cfg, adjoint=False, restir=True)
+    slots17 = restir_split.gbuffer_slots(r_cfg)
+    ev17_k4 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, gbuffer=True)
+    k4_demo_bound, k4_demo_by = bound(ev17_k4, r_scene, r_cfg, adjoint=False,
+                                      gbuffer_slots=slots17)
+    k6v_bound, k6v_by = vertex_bound(ev17, r_scene, r_cfg, slots17)
+    o6v = occ[("K6v", "restir_demo")]
+    dev_txt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     print(f"phase 17: path events of a restir_demo pass at {H}x{W}: {json.dumps(ev17)}")
     print(f"phase 17: {card}: restir_demo at {H}x{W}, {r_cfg.max_bounces} bounces, "
           f"{r_cfg.marching_steps} marching steps: pass (Renderer.step) {ms_restir_pass[0]:.3f} ms "
-          f"(q1 {ms_restir_pass[1]:.3f}, q3 {ms_restir_pass[2]:.3f}); K6 {ms_k6:.3f} ms per launch "
-          "(device " + ("not measured" if k6_dev_ms is None else f"{k6_dev_ms:.4f} ms")
-          + ", profiler); in a pass K6 "
-          + ("not measured" if pass_dev["restir_kernel"] is None else
-             f"{pass_dev['restir_kernel'] / 3:.4f} ms of {pass_total / 3:.4f} ms on the device")
-          + f"; plain render_sample {plain_restir[0]:.3f} ms per pass; bound {k6_bound:.6f} ms "
-          f"({k6_by})")
+          f"(q1 {ms_restir_pass[1]:.3f}, q3 {ms_restir_pass[2]:.3f}); K6 pass {ms_k6:.3f} ms "
+          f"(device {dev_txt(k6_dev_ms)}: K4 {dev_txt(k4_demo_dev_ms)} + K6v "
+          f"{dev_txt(k6v_dev_ms)}, profiler); alone K4 {ms_k4_demo:.3f} ms, K6v {ms_k6v:.3f} ms "
+          f"(CUDA events); in a pass K4 + K6v {dev_txt(k6_pass_dev)}"
+          + ("" if pass_total is None else f" of {pass_total / 3:.4f} ms on the device")
+          + f"; plain render_sample {plain_restir[0]:.3f} ms per pass; bounds: the pass "
+          f"{k6_bound:.6f} ms ({k6_by}), K4 {k4_demo_bound:.6f} ms ({k4_demo_by}), K6v "
+          f"{k6v_bound:.6f} ms ({k6v_by}); K6v occupancy {o6v['blocks']} blocks of "
+          f"{o6v['threads']} threads ({o6v['warps']} warps) per SM at {o6v['registers']} "
+          "registers")
+    del rad17, k4_rad17, gbuf17, gbuf17_slots
 
     counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
                       restir_kernel.BWD_LAUNCHES)
@@ -1388,7 +1491,7 @@ def main() -> int:
         _, got = restir_chain(restir_kernel.trace_forward_restir_fused, s18, c, c18, 16, 128, 4)
         torch.cuda.synchronize()
         if (restir_kernel.LAUNCHES - before[0], restir_kernel.BWD_LAUNCHES - before[1]) != (4, 4):
-            raise AssertionError("expected one K6 and one K7 launch per pass")
+            raise AssertionError("expected one K6 pass and one K7 launch per pass")
         _, again = restir_chain(restir_kernel.trace_forward_restir_fused, s18, c, c18, 16, 128, 4)
         _, want = restir_chain(restir.trace_sample, s18, c, c18, 16, 128, 4)
         torch.cuda.synchronize()
@@ -1510,8 +1613,8 @@ def main() -> int:
     em = fitted.emission[r_scene.lights_static[4]].tolist()
     print(f"phase 20: optimize.fit of restir_demo at {fit_size}x{fit_size}, passes={fit_passes}, "
           f"{fit_steps} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}, central light emission "
-          f"{[round(v, 4) for v in em]} (truth 4.0, start 6.4); {k6_fit} K6, {launches_k7} K7, "
-          f"{k1_fit} K1, {k2_fit} K2 launches")
+          f"{[round(v, 4) for v in em]} (truth 4.0, start 6.4); {k6_fit} K6 passes, "
+          f"{launches_k7} K7, {k1_fit} K1, {k2_fit} K2 launches")
     if (k6_fit, launches_k7, k1_fit, k2_fit) != (fit_steps * fit_passes,) * 2 + (0, 0) \
             or not losses[-1] < losses[0]:
         raise AssertionError("the ReSTIR fit did not lower the loss through K6 and K7 alone")
@@ -1553,7 +1656,8 @@ def main() -> int:
             restir_step("kernel", H)
         torch.cuda.synchronize()
     dev20, total20 = device_times_ms(prof, ("restir_bwd_kernel", "tap_gather_kernel",
-                                            "restir_reduce_kernel", "restir_kernel"))
+                                            "restir_reduce_kernel", "gbuf_kernel",
+                                            "restir_vertex_kernel"))
     per_launch = 3 * fit_passes
     k7_dev_ms = None if dev20["restir_bwd_kernel"] is None else \
         (dev20["restir_bwd_kernel"] + dev20["tap_gather_kernel"]
@@ -1565,8 +1669,10 @@ def main() -> int:
               f"steps of {fit_passes} passes): K7 adjoint "
               f"{dev20['restir_bwd_kernel'] / per_launch:.4f} ms, tap gather "
               f"{dev20['tap_gather_kernel'] / per_launch:.4f} ms, reduction "
-              f"{dev20['restir_reduce_kernel'] / per_launch:.4f} ms; K6 "
-              f"{dev20['restir_kernel'] / per_launch:.4f} ms; all kernels "
+              f"{dev20['restir_reduce_kernel'] / per_launch:.4f} ms; K6 pass "
+              f"{(dev20['gbuf_kernel'] + dev20['restir_vertex_kernel']) / per_launch:.4f} ms "
+              f"(K4 {dev20['gbuf_kernel'] / per_launch:.4f} + K6v "
+              f"{dev20['restir_vertex_kernel'] / per_launch:.4f}); all kernels "
               f"{total20 / 3:.4f} ms per step")
     # K7 alone on the phase-17 inputs, and its bound
     ct20 = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
@@ -1672,7 +1778,7 @@ def main() -> int:
             ref, new_ref = restir.render_sample(rt_scene, rt_cfg, rt_cam, plain_ring, H, W, p, t)
             torch.cuda.synchronize()
             if restir_kernel.LAUNCHES != before + 1:
-                raise AssertionError("expected one K6 launch per pass")
+                raise AssertionError("expected one K6 pass per pass")
             n_diff = int((out != ref).any(-1).sum())
             same_res = all(torch.equal(getattr(new, k), getattr(new_ref, k))
                            for k in RESERVOIR_FIELDS)
@@ -1693,7 +1799,7 @@ def main() -> int:
     _, got = restir_chain(k7_kernel, rt_scene, rt_cfg, rt_cam, 16, 128, 4)
     torch.cuda.synchronize()
     if (restir_kernel.LAUNCHES - before[0], restir_kernel.BWD_LAUNCHES - before[1]) != (4, 4):
-        raise AssertionError("expected one K6 and one K7 launch per pass")
+        raise AssertionError("expected one K6 pass and one K7 launch per pass")
     _, again = restir_chain(k7_kernel, rt_scene, rt_cfg, rt_cam, 16, 128, 4)
     _, want = restir_chain(lambda s, *a: restir.trace_sample(animate9(s), *a), rt_scene, rt_cfg,
                            rt_cam, 16, 128, 4)
@@ -1718,7 +1824,8 @@ def main() -> int:
     torch.cuda.synchronize()
     k6_anim_grad, k7_anim_grad = restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES
     print(f"phase 23: d sum(render_linear(passes=4)) / d emission of the real-time scene at "
-          f"128x128 under ANIMATED: {k6_anim_grad} K6 and {k7_anim_grad} K7 launches, finite "
+          f"128x128 under ANIMATED: {k6_anim_grad} K6 passes and {k7_anim_grad} K7 launches, "
+          f"finite "
           f"{bool(torch.isfinite(g23).all())}, max |g| {g23.abs().max().item():.4e}")
     if (k6_anim_grad, k7_anim_grad) != (4, 4) or not bool(torch.isfinite(g23).all()):
         raise AssertionError("the ANIMATED gradient did not run on K6 and K7")
@@ -1726,7 +1833,7 @@ def main() -> int:
     # ---- phase 24: the real-time main path ----
     frames = 16
     slots = restir_split.gbuffer_slots(rt_adhoc)
-    restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = 0
+    restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = restir_vertex.VERTEX_LAUNCHES = 0
     restir_kernel.LAUNCHES = restir_kernel.BWD_LAUNCHES = 0
     megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
     rt_renderer = Renderer(rt_scene, rt_cam, rt_adhoc, H, W)
@@ -1735,19 +1842,21 @@ def main() -> int:
             held = rt_renderer.state   # the ring the last frame reads
         rt_renderer.step(time_s=k / 30)
     torch.cuda.synchronize()
-    launches_k4, launches_k5 = restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES
+    launches_k4, launches_k5, launches_k6v = (restir_split.GBUF_LAUNCHES,
+                                              restir_split.CAST_LAUNCHES,
+                                              restir_vertex.VERTEX_LAUNCHES)
     k6_rt, k7_rt, k1_rt, k2_rt = (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES,
                                   megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
     rt_img = rt_renderer.image()
     res24 = rt_renderer.state.restir_back
     print(f"phase 24: Renderer(real-time scene, ANIMATED_CONFIG with restir_adhoc_motion, {H}, "
-          f"{W}).step(time_s=k/30) for k < {frames}: {launches_k4} K4, {launches_k5} K5, {k6_rt} "
-          f"K6, {k7_rt} K7, {k1_rt} K1, {k2_rt} K2 launches; {slots} G-buffer slots; image mean "
-          f"{rt_img.mean().item():.6f}; share of pixels holding a light "
-          f"{(res24.light_index >= 0).float().mean().item():.5f}")
-    if (launches_k4, launches_k5, k6_rt, k7_rt, k1_rt, k2_rt) != \
-            (frames, 2 * slots * frames, 0, 0, 0, 0):
-        raise AssertionError(f"expected {frames} K4, {2 * slots * frames} K5 and no other launch")
+          f"{W}).step(time_s=k/30) for k < {frames}: {launches_k4} K4, {launches_k6v} K6v, "
+          f"{launches_k5} K5, {k6_rt} K6 passes, {k7_rt} K7, {k1_rt} K1, {k2_rt} K2 launches; "
+          f"{slots} G-buffer slots; image mean {rt_img.mean().item():.6f}; share of pixels "
+          f"holding a light {(res24.light_index >= 0).float().mean().item():.5f}")
+    if (launches_k4, launches_k6v, launches_k5, k6_rt, k7_rt, k1_rt, k2_rt) != \
+            (frames, frames, 0, 0, 0, 0, 0):
+        raise AssertionError(f"expected {frames} K4 and {frames} K6v launches and no other")
     if tuple(rt_img.shape) != (H, W, 3) or not bool(torch.isfinite(rt_img).all()) \
             or not rt_img.mean().item() > 0.0:
         raise AssertionError("the real-time image is not a finite, lit f32[H, W, 3]")
@@ -1762,13 +1871,15 @@ def main() -> int:
     same24 = torch.equal(rad24, ref24) and all(torch.equal(getattr(new24, k),
                                                            getattr(ref_new24, k))
                                                for k in RESERVOIR_FIELDS)
+    k6v_split_err = (rad24 - ref24).abs().max().item()
     err24 = (rad24 - wave24).abs()
     rt_max_err, rt_med_err = err24.max().item(), err24.median().item()
-    print(f"phase 24: frame {frames - 1} (t = {t_last:.4f}): K4+K5 against the plain K4 and K5 "
-          f"on the card: {'identical bits' if same24 else 'DIFFER'} (radiance and reservoirs); "
-          f"against the plain render_sample: max abs err {rt_max_err:.3e}, median "
-          f"{rt_med_err:.3e}, {int((rad24 != wave24).any(-1).sum())} pixels differ (5e-3 and "
-          "1e-6 allowed, tests/test_restir.py:284-310)")
+    print(f"phase 24: frame {frames - 1} (t = {t_last:.4f}): K4+K6v against render_sample_split "
+          f"with the plain G-buffer and caster on the card: "
+          f"{'identical bits' if same24 else 'DIFFER'} (radiance and reservoirs); against the "
+          f"plain render_sample: max abs err {rt_max_err:.3e}, median {rt_med_err:.3e}, "
+          f"{int((rad24 != wave24).any(-1).sum())} pixels differ (5e-3 and 1e-6 allowed, "
+          "tests/test_restir.py:284-310)")
     if not (same24 and rt_max_err < 5e-3 and rt_med_err < 1e-6):
         raise AssertionError("the real-time frame disagrees with its plain versions")
     del ref24, wave24
@@ -1778,56 +1889,102 @@ def main() -> int:
     fr24 = frame(0.5)
     ro24, rd24 = generate_rays(rt_cam, H, W, frames)
     pix24 = rng.pixel_ids(H, W, device=dev)
-    cast_inputs, cast_rays_fn = [], restir_split.cast_rays
-
-    def recording(*a, **k):
-        cast_inputs.append((a[2], a[3]))
-        return cast_rays_fn(*a, **k)
-
-    restir_split.cast_rays = recording
-    try:
-        rt_renderer.step(time_s=0.5)
-    finally:
-        restir_split.cast_rays = cast_rays_fn
     table24 = megakernel.scene_table(fr24)
+    st24 = rt_renderer.state
+    grids24 = (st24.restir_back, st24.restir_hist1, st24.restir_hist2)
+    rad24k, gbuf24 = restir_split.launch_gbuffer(fr24, rt_adhoc, table24, ro24, rd24, pix24,
+                                                 frames, 0)
+    sum24 = torch.zeros_like(rad24k)
     ms_k4 = time_ms(torch, lambda: restir_split.trace_forward_gbuffer(
         fr24, rt_adhoc, ro24, rd24, pix24, frames, 0))
-    ms_k5_each = [time_ms(torch, lambda o=o, d=d: restir_split._launch_cast(
-        fr24, rt_adhoc, table24, o, d)) for o, d in cast_inputs]
-    ms_k5 = statistics.mean(ms_k5_each)
+    ms_k6v_split = time_ms(torch, lambda: restir_vertex.launch(
+        fr24, rt_adhoc, table24, ro24, rd24, pix24, frames, 0, grids24, gbuf24, rad24k,
+        total=sum24))
     plain_ms_k4 = time_ms(torch, lambda: restir_split.gbuffer_plain(
         fr24, rt_adhoc, ro24, rd24, pix24, frames, 0), runs=3, warmup=1)
-    plain_ms_k5 = time_ms(torch, lambda: restir.default_cast(fr24, rt_adhoc)(*cast_inputs[0]),
-                          runs=3, warmup=1)
     ms_rays24 = time_ms(torch, lambda: generate_rays(rt_cam, H, W, frames))
+    # the reservoir phases as PyTorch ops, on K4's G-buffer: K6v's plain
+    # version (with its casts on K5, as the JAX split path casts them, and
+    # on the plain intersector); their shadow rays are K5's inputs
+    gbuf24_slots = [{k: v[i] for k, v in gbuf24.items()} for i in range(slots)]
+    cached_k4 = lambda *a: (rad24k, gbuf24_slots)
+    cast_inputs = []
+
+    def k5_caster(scene, cfg):
+        table = megakernel.scene_table(scene)
+
+        def cast(o, d):
+            cast_inputs.append((o, d))
+            return restir_split.cast_rays(scene, cfg, o, d, table=table)
+        return cast
+
+    split_k5 = lambda: restir_split.render_sample_split(
+        rt_scene, rt_adhoc, rt_cam, st24, H, W, frames, 0.5, cached_k4, k5_caster)
+    split_k5()
+    k5_inputs = list(cast_inputs)   # one pass's casts: 2 per slot
+    phases_k5 = time_stats(torch, split_k5, runs=3, warmup=1)
+    plain_ms_k6v_split = time_ms(torch, lambda: restir_split.render_sample_split(
+        rt_scene, rt_adhoc, rt_cam, st24, H, W, frames, 0.5, cached_k4, restir.default_cast),
+        runs=3, warmup=1)
+    ms_k5_each = [time_ms(torch, lambda o=o, d=d: restir_split._launch_cast(
+        fr24, rt_adhoc, table24, o, d)) for o, d in k5_inputs]
+    ms_k5 = statistics.mean(ms_k5_each)
+    plain_ms_k5 = time_ms(torch, lambda: restir.default_cast(fr24, rt_adhoc)(*k5_inputs[0]),
+                          runs=3, warmup=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             rt_renderer.step(time_s=0.5)
         torch.cuda.synchronize()
-    dev24, total24 = device_times_ms(prof, ("gbuf_kernel", "cast_kernel"))
+    dev24, total24 = device_times_ms(prof, ("gbuf_kernel", "restir_vertex_kernel"))
+    launches24 = device_launches(prof)
     k4_dev_ms = None if dev24["gbuf_kernel"] is None else dev24["gbuf_kernel"] / 3
-    k5_dev_ms = None if dev24["cast_kernel"] is None else dev24["cast_kernel"] / (3 * 2 * slots)
+    k6v_split_dev_ms = (None if dev24["restir_vertex_kernel"] is None
+                        else dev24["restir_vertex_kernel"] / 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for o, d in k5_inputs:
+                restir_split._launch_cast(fr24, rt_adhoc, table24, o, d)
+        torch.cuda.synchronize()
+    dev24c, _ = device_times_ms(prof, ("cast_kernel",))
+    k5_dev_ms = (None if dev24c["cast_kernel"] is None
+                 else dev24c["cast_kernel"] / (3 * len(k5_inputs)))
     ev24 = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, gbuffer=True)
     k4_bound, k4_by = bound(ev24, fr24, rt_adhoc, adjoint=False, gbuffer_slots=slots)
-    k5_bounds = [cast_bound(torch, fr24, rt_adhoc, o, d) for o, d in cast_inputs]
+    ev24v = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, ring=st24)
+    k6v_split_bound, k6v_split_by = vertex_bound(ev24v, fr24, rt_adhoc, slots, split=True)
+    k5_bounds = [cast_bound(torch, fr24, rt_adhoc, o, d) for o, d in k5_inputs]
     k5_bound = statistics.mean(b[0] for b in k5_bounds)
     k5_by = "operations" if sum(b[1] == "operations" for b in k5_bounds) * 2 > len(k5_bounds) \
         else "bytes"
-    rest = rt_frame[0] - ms_rays24 - ms_k4 - sum(ms_k5_each)
+    rest = rt_frame[0] - ms_rays24 - ms_k4 - ms_k6v_split
+    o6s = occ[("K6v split", "animated_untextured")]
     print(f"phase 24: path events of K4 on a real-time frame at {H}x{W}: {json.dumps(ev24)}")
-    print(f"phase 24: K5 events per launch of a frame: "
+    print(f"phase 24: path events of the frame's reservoir vertices: {json.dumps(ev24v)}")
+    print(f"phase 24: K5 events per launch of the plain split pass: "
           + "; ".join(json.dumps(b[2]) for b in k5_bounds))
     print(f"phase 24: {card}: real-time frame (Renderer.step, ANIMATED + ad-hoc motion, "
           f"{H}x{W}, {rt_adhoc.max_bounces} bounces, {rt_adhoc.marching_steps} marching steps): "
-          f"{rt_frame[0]:.3f} ms (q1 {rt_frame[1]:.3f}, q3 {rt_frame[2]:.3f}); of it, alone "
-          f"(CUDA events): generate_rays {ms_rays24:.3f} ms, K4 {ms_k4:.3f} ms, K5 "
-          f"{' + '.join(f'{m:.3f}' for m in ms_k5_each)} ms, the reservoir phases and the rest "
-          f"{rest:.3f} ms ({rest / rt_frame[0]:.3f} of the frame); device time per launch "
-          "(profiler): K4 " + ("not measured" if k4_dev_ms is None else f"{k4_dev_ms:.4f} ms")
-          + ", K5 " + ("not measured" if k5_dev_ms is None else f"{k5_dev_ms:.4f} ms")
+          f"{rt_frame[0]:.3f} ms (q1 {rt_frame[1]:.3f}, q3 {rt_frame[2]:.3f}), "
+          + ("device launches not measured" if launches24 is None else
+             f"{launches24 / 3:.1f} device launches per frame (profiler)")
+          + f"; of it, alone (CUDA events): generate_rays {ms_rays24:.3f} ms, K4 {ms_k4:.3f} ms, "
+          f"K6v {ms_k6v_split:.3f} ms, the rest {rest:.3f} ms ({rest / rt_frame[0]:.3f} of the "
+          "frame); device time per launch (profiler): K4 "
+          + ("not measured" if k4_dev_ms is None else f"{k4_dev_ms:.4f} ms")
+          + ", K6v " + ("not measured" if k6v_split_dev_ms is None else
+                        f"{k6v_split_dev_ms:.4f} ms")
           + ("" if total24 is None else f", all kernels {total24 / 3:.4f} ms per frame")
-          + f"; bounds: K4 {k4_bound:.6f} ms ({k4_by}), K5 {k5_bound:.6f} ms per launch "
-          f"({k5_by}); plain K4 {plain_ms_k4:.3f} ms, plain K5 {plain_ms_k5:.3f} ms")
+          + f"; bounds: K4 {k4_bound:.6f} ms ({k4_by}), K6v {k6v_split_bound:.6f} ms "
+          f"({k6v_split_by}); K6v occupancy {o6s['blocks']} blocks ({o6s['warps']} warps) per "
+          f"SM at {o6s['registers']} registers; plain K4 {plain_ms_k4:.3f} ms")
+    print(f"phase 24: {card}: the frame's reservoir phases as PyTorch ops on K4's G-buffer "
+          f"(K6v's plain version, with ray generation): casts on K5 (the JAX split path's) "
+          f"{phases_k5[0]:.3f} ms (q1 {phases_k5[1]:.3f}, q3 {phases_k5[2]:.3f}), on the plain "
+          f"intersector {plain_ms_k6v_split:.3f} ms; K5 on their {len(k5_inputs)} casts "
+          f"{' + '.join(f'{m:.3f}' for m in ms_k5_each)} ms (CUDA events), device "
+          + ("not measured" if k5_dev_ms is None else f"{k5_dev_ms:.4f} ms")
+          + f" per launch, bound {k5_bound:.6f} ms ({k5_by}); plain K5 {plain_ms_k5:.3f} ms")
+    del rad24k, gbuf24, gbuf24_slots, sum24
 
     # the ANIMATED frame through K6 (no ad-hoc motion), and through K1 (ReSTIR off)
     restir_kernel.LAUNCHES = 0
@@ -1851,7 +2008,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k1_anim_diff = int((out24 != ref_k1).any(-1).sum())
     print(f"phase 24: {card}: the ANIMATED frame at {H}x{W} through K6 (no ad-hoc motion): "
-          f"{launches_k6_anim} K6 launches in {frames} frames, {k6_frame[0]:.3f} ms (q1 "
+          f"{launches_k6_anim} K6 passes in {frames} frames, {k6_frame[0]:.3f} ms (q1 "
           f"{k6_frame[1]:.3f}, q3 {k6_frame[2]:.3f}); through K1 (ReSTIR off, per-light NEE): "
           f"{launches_k1_anim} K1 launches in {frames} frames, {k1_frame[0]:.3f} ms (q1 "
           f"{k1_frame[1]:.3f}, q3 {k1_frame[2]:.3f}), {k1_anim_diff} pixels of a pass differ "
@@ -1860,7 +2017,8 @@ def main() -> int:
         raise AssertionError("the ANIMATED frames did not run on K6 and K1, or K1 disagrees")
 
     # ---- phase 25: refusals before any launch ----
-    split_counts = lambda: (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) + counts()
+    split_counts = lambda: (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES,
+                            restir_vertex.VERTEX_LAUNCHES) + counts()
     before = split_counts()
     em25 = rt_scene.emission.clone().requires_grad_(True)
     refusals = {
@@ -1932,8 +2090,10 @@ def main() -> int:
          "plain_ms": tex_plain_ms["textured_cornell"],
          "bound_ms": tex_bound["textured_cornell"][0],
          "bound_by": tex_bound["textured_cornell"][1]},
-        {"name": "K6 fused ReSTIR forward", **common,
-         "source": "raytracer0_tpu_torch/csrc/restir.cu",
+        {"name": "K6 ReSTIR pass: K4, then K6v's fused form", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_vertex.cu",
+         "stages": ["raytracer0_tpu_torch/csrc/gbuffer.cu",
+                    "raytracer0_tpu_torch/csrc/restir_vertex.cu"],
          "replaces": "raytracer0_tpu/ops/megakernel.py:2880",
          "launches": launches_k6,
          "launches_by_path": {"render": launches_k6, "gradient": k6_fit,
@@ -1941,9 +2101,23 @@ def main() -> int:
                               "animated_gradient": k6_anim_grad, "realtime_adhoc": k6_rt},
          "max_abs_err": k6_max_err,
          "max_abs_err_animated": max(v for (c, p), v in k6_anim_err.items() if c != "moving"),
-         "ms": ms_k6,
-         "device_ms": k6_dev_ms, "plain_ms": plain_restir[0], "bound_ms": k6_bound,
+         "ms": ms_k6, "device_ms": k6_dev_ms, "device_ms_k4": k4_demo_dev_ms,
+         "device_ms_k6v": k6v_dev_ms, "plain_ms": plain_restir[0], "bound_ms": k6_bound,
          "bound_by": k6_by},
+        {"name": "K6v reservoir-vertex kernel (K6's second stage; the split path's reservoir "
+                 "phases)", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_vertex.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:2880",
+         "also_replaces": "raytracer0_tpu/ops/restir.py:689 (the XLA reservoir phases of "
+                          "render_sample_fast)",
+         "launches": k6v_restir,
+         "launches_by_path": {"render": k6v_restir, "realtime_adhoc": launches_k6v},
+         "max_abs_err": k6_max_err, "ms": ms_k6v, "device_ms": k6v_dev_ms,
+         "plain_ms": plain_ms_k6v, "bound_ms": k6v_bound, "bound_by": k6v_by,
+         "blocks_per_sm": occ[("K6v", "restir_demo")]["blocks"],
+         "max_abs_err_split": k6v_split_err, "ms_split": ms_k6v_split,
+         "device_ms_split": k6v_split_dev_ms, "plain_ms_split": plain_ms_k6v_split,
+         "bound_ms_split": k6v_split_bound, "bound_by_split": k6v_split_by},
         {"name": "K7 fused ReSTIR adjoint", **common,
          "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3017",
@@ -1962,15 +2136,23 @@ def main() -> int:
         {"name": "K4 G-buffer forward", **common,
          "source": "raytracer0_tpu_torch/csrc/gbuffer.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2775",
-         "launches": launches_k4, "launches_by_path": {"realtime_adhoc": launches_k4},
+         "launches": launches_k4,
+         "launches_by_path": {"realtime_adhoc": launches_k4, "render": k4_restir},
          "max_abs_err": k4_max_err, "ms": ms_k4, "device_ms": k4_dev_ms,
-         "plain_ms": plain_ms_k4, "bound_ms": k4_bound, "bound_by": k4_by},
-        {"name": "K5 ray cast", **common,
-         "source": "raytracer0_tpu_torch/csrc/cast.cu",
+         "plain_ms": plain_ms_k4, "bound_ms": k4_bound, "bound_by": k4_by,
+         "ms_restir_demo": ms_k4_demo, "device_ms_restir_demo": k4_demo_dev_ms,
+         "bound_ms_restir_demo": k4_demo_bound},
+        {"name": "K5 ray cast, served by K6v on the split path (csrc/cast.cu held in phase 21)",
+         **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_vertex.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3349",
-         "launches": launches_k5, "launches_by_path": {"realtime_adhoc": launches_k5},
-         "max_abs_err": k5_max_err, "ms": ms_k5, "device_ms": k5_dev_ms,
-         "plain_ms": plain_ms_k5, "bound_ms": k5_bound, "bound_by": k5_by},
+         "launches": launches_k6v, "launches_by_path": {"realtime_adhoc": launches_k6v},
+         "max_abs_err": k6v_split_err, "ms": ms_k6v_split, "device_ms": k6v_split_dev_ms,
+         "plain_ms": plain_ms_k6v_split, "bound_ms": k6v_split_bound,
+         "bound_by": k6v_split_by,
+         "cast_cu": {"launches_on_main_paths": launches_k5, "max_abs_err": k5_max_err,
+                     "ms": ms_k5, "device_ms": k5_dev_ms, "plain_ms": plain_ms_k5,
+                     "bound_ms": k5_bound, "bound_by": k5_by}},
         {"name": "K11 gloss suffix-resume forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3969",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1's and K7's device times on a few presets, to compare two checkouts on
-one card.
+"""K1's, K7's and the ReSTIR pass K6's device times on a few presets, the
+ReSTIR frame, pass and gradient step, and digests of the kernels' outputs,
+to compare two checkouts on one card.
 
 Run from the root of a checkout (any slice of the port: presets that the
 checkout lacks are skipped):
@@ -15,12 +16,28 @@ alone, and with its tap gather and reduction) on `restir_demo` and
 `restir_stress` at 512x512, 12 bounces, on the inputs of `chip_smoke.py`'s
 phase 17 (the ring after `Renderer(...).render(16)`, the rays of pass 16)
 with ones as cotangents, through `restir_kernel._launch_backward`.
+
+Then the ReSTIR pass K6 (`restir_kernel.trace_forward_restir_fused`: one
+fused kernel in older checkouts, K4 then K6v in newer) on the same inputs, and on the
+real-time scene under ANIMATED accumulation at t = 0.5 after 16 frames:
+the median over 5 rounds of the device time of every kernel the call
+launches, per kernel and in all.  Then host times (CUDA events, median and
+quartiles of 9 after 2 warm-ups) of a `Renderer.step` of `restir_demo`, of
+the real-time frame (`animated_untextured` with `restir_adhoc_motion`, the
+split path) and of the ANIMATED frame through K6, and of the ReSTIR
+gradient step d sum(`render_linear(passes=4)`) / d(emission, color, pos,
+joker, ior) with its peak memory above the inputs, all at 512x512.
+Finally a sha256 prefix of each kernel route's outputs on fixed inputs
+(K1, K4, K7, the K6 pass and the real-time frame), so two checkouts that
+should agree bit for bit can be seen to.
+
 `chip_smoke.py` imports `k1_device_ms`.  Comparing two checkouts: copy
 this script to the root of each (Python puts the script's own directory
 first on the path, so run each checkout's copy) and run them in turns in
 one call (parent, change, change, parent).
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -116,6 +133,149 @@ def k7_device_ms(names, dev):
     return res
 
 
+RESTIR_PRESETS = ("restir_demo", "restir_stress")
+
+
+def _digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _stats_ms(torch, fn, runs=9, warmup=2):
+    """(median, q1, q3) milliseconds of `fn()` over `runs` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    return [statistics.median(times), q1, q3]
+
+
+def restir_route_ms(dev):
+    """The ReSTIR pass, frame and step numbers of the module docstring, and
+    the digests of the K6 pass's and the real-time frame's outputs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer0_tpu_torch import optimize, rng
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models import scene as scene_mod
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import restir_kernel
+    from raytracer0_tpu_torch.render.renderer import Renderer
+
+    res = {}
+    pix = rng.pixel_ids(512, 512, device=dev)
+    cases = [(name, *getattr(presets, name)(device=dev), None) for name in RESTIR_PRESETS]
+    if hasattr(presets, "animated_untextured"):
+        cases.append(("animated", *presets.animated_untextured(device=dev), 0.5))
+    for name, scene, cam, cfg, t in cases:
+        renderer = Renderer(scene, cam, cfg, 512, 512)
+        for k in range(16):
+            renderer.step(0.0 if t is None else k / 30)
+        st = renderer.state
+        frame = scene if t is None else scene_mod.animate_positions(scene, t, int(cfg.render_mode))
+        ro, rd = generate_rays(cam, 512, 512, 16)
+
+        def k6():
+            return restir_kernel.trace_forward_restir_fused(
+                frame, cfg, ro, rd, pix, 16, 0, st.restir_back, st.restir_hist1,
+                st.restir_hist2)
+
+        out, new = k6()
+        res[f"digest_k6_{name}"] = _digest(out, *new.fields().values())
+        for _ in range(5):
+            k6()
+        rounds, per_kernel = [], []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    k6()
+                torch.cuda.synchronize()
+            us = {e.key: getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()}
+            us = {k: v for k, v in us.items() if v > 0}
+            rounds.append(sum(us.values()) / 20 / 1e3)
+            per_kernel.append({k: v / 20 / 1e3 for k, v in us.items()})
+        res[f"k6_{name}"] = statistics.median(rounds)
+        res[f"k6_{name}_rounds"] = rounds
+        res[f"k6_{name}_by_kernel"] = {k: statistics.median(r[k] for r in per_kernel)
+                                       for k in per_kernel[0]}
+        if t is not None:
+            res["animated_k6_frame_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
+        elif name == "restir_demo":
+            res["restir_demo_pass_ms"] = _stats_ms(torch, renderer.step)
+        del renderer, st, out, new
+
+    if hasattr(presets, "animated_untextured"):   # the real-time frame: the split path
+        scene, cam, cfg = presets.animated_untextured(device=dev, restir_adhoc_motion=True)
+        renderer = Renderer(scene, cam, cfg, 512, 512)
+        for k in range(16):
+            renderer.step(k / 30)
+        res["digest_realtime_frames"] = _digest(renderer.state.accum,
+                                                *renderer.state.restir_back.fields().values())
+        res["realtime_frame_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
+        del renderer
+
+    scene, cam, cfg = presets.restir_demo(device=dev)
+    leaves = ("emission", "color", "pos", "joker", "ior")
+
+    def step():
+        params = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in leaves}
+        img = optimize.render_linear(scene.replace(**params), cfg, cam, 512, 512, passes=4)
+        return torch.autograd.grad(img.sum(), list(params.values()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = step()
+    torch.cuda.synchronize()
+    res["restir_step_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    res["digest_restir_step_grads"] = _digest(*grads)
+    res["restir_step_ms"] = _stats_ms(torch, step)
+    return res
+
+
+def output_digests(dev):
+    """sha256 prefixes of K1's radiance on Cornell, K4's radiance and
+    G-buffer and K7's cotangents on `restir_demo` (phase 17's inputs, ones
+    as cotangents), at 512x512."""
+    import torch
+
+    from raytracer0_tpu_torch import rng
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import megakernel, restir_kernel, restir_split
+    from raytracer0_tpu_torch.render.renderer import Renderer
+
+    res = {}
+    pix = rng.pixel_ids(512, 512, device=dev)
+    scene, cam, cfg = presets.cornell_default(device=dev, use_mis=True)
+    ro, rd = generate_rays(cam, 512, 512, 0)
+    res["digest_k1_cornell"] = _digest(megakernel.trace_forward(scene, cfg, ro, rd, pix, 0, 0))
+    scene, cam, cfg = presets.restir_demo(device=dev)
+    ro, rd = generate_rays(cam, 512, 512, 16)
+    out, gbuf = restir_split.trace_forward_gbuffer(scene, cfg, ro, rd, pix, 16, 0)
+    res["digest_k4_restir_demo"] = _digest(out, *[v for s in gbuf for v in s.values()])
+    renderer = Renderer(scene, cam, cfg, 512, 512)
+    renderer.render(16)
+    st = renderer.state
+    ct = torch.ones((512, 512, 3), dtype=torch.float32, device=dev)
+    ct_res = [torch.ones((512, 512), dtype=torch.float32, device=dev) for _ in range(4)]
+    d_table, d_ro, d_rd, d_ring = restir_kernel._launch_backward(
+        scene, cfg, megakernel.scene_table(scene), ro, rd, pix, 16, 0,
+        (st.restir_back, st.restir_hist1, st.restir_hist2), ct, ct_res)
+    res["digest_k7_restir_demo"] = _digest(d_table, d_ro, d_rd, *d_ring)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -141,6 +301,8 @@ def main() -> int:
         res["k7_" + name] = med
         res["k7_" + name + "_rounds"] = rounds
         res["k7_" + name + "_with_gather_and_reduction"] = whole
+    res.update(restir_route_ms(dev))
+    res.update(output_digests(dev))
     print(json.dumps(res))
     return 0
 

@@ -4,11 +4,13 @@ A port of `raytracer0_tpu` (JAX, XLA and Pallas) that keeps its layout and
 names, so each module here has its counterpart at the same path there.
 Plain tensor code is PyTorch; the Pallas megakernels become CUDA C++
 kernels written for Hopper, the forward K1 (`csrc/megakernel.cu`), its
-adjoint K2 (`csrc/megakernel_bwd.cu`), the fused ReSTIR forward K6
-(`csrc/restir.cu`, sharing K1's bounce loop in `csrc/path.cuh`) and its
-adjoint K7 (`csrc/restir_bwd.cu`), and the split ReSTIR path's G-buffer
-kernel K4 (`csrc/gbuffer.cu`, the same loop) and ray-cast kernel K5
-(`csrc/cast.cu`), built with `nvcc` on first use and bound with `ctypes`.
+adjoint K2 (`csrc/megakernel_bwd.cu`), the ReSTIR pass K6 as two
+kernels, the G-buffer kernel K4 (`csrc/gbuffer.cu`, sharing K1's bounce
+loop in `csrc/path.cuh`) and the reservoir-vertex kernel K6v
+(`csrc/restir_vertex.cu`, which also runs the real-time split pass's
+reservoir phases), its adjoint K7 (`csrc/restir_bwd.cu`), and the ray-cast
+kernel K5 (`csrc/cast.cu`), built with `nvcc` on first use and bound with
+`ctypes`.
 
 The JAX package stays the reference.  Nothing here imports it or `jax`:
 the port keeps its own copies of the two pure-Python modules it needs,
@@ -24,8 +26,9 @@ Layout:
   ops/         — vecmath, intersect, sdf, sampling, bsdf, lighting, sky,
                  textures, noise, tonemap, restir (the reservoir pipeline),
                  megakernel (the autograd pairing of the CUDA forward
-                 kernel K1 and its adjoint K2), restir_kernel (K6 and
-                 K7), restir_split (K4, K5 and the real-time pass)
+                 kernel K1 and its adjoint K2), restir_kernel (the K6
+                 pass and K7), restir_vertex (K6v), restir_split (K4, K5,
+                 K4 then K6v, and the real-time pass)
   render/      — integrator (plain bounce loop), renderer, state
   optimize.py  — inverse rendering: fit scene parameters with Adam
   csrc/        — CUDA C++ sources of the kernels

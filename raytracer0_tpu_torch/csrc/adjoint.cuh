@@ -1,6 +1,6 @@
 // adjoint.cuh — hand-derived adjoints shared by K2 (megakernel_bwd.cu, the
-// adjoint of K1) and K7 (restir_bwd.cu, the adjoint of the fused ReSTIR
-// kernel K6): normalize, the safe division, the orthonormal basis, the
+// adjoint of K1) and K7 (restir_bwd.cu, the adjoint of the ReSTIR pass
+// K6): normalize, the safe division, the orthonormal basis, the
 // cosine and cone samplers, the power heuristic, the sphere-light pdf, the
 // procedural sky, the analytic intersections and normals; and, reached by
 // K7 so far, reflection, refraction, the ROUND_BOX signed distance, the

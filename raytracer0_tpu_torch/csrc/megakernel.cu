@@ -71,7 +71,7 @@
 // code as before.
 //
 // The device functions it shares with its adjoint K2 live in trace_common.cuh;
-// its bounce loop, shared with the fused ReSTIR kernel K6, in path.cuh.
+// its bounce loop, shared with the G-buffer kernel K4, in path.cuh.
 
 #include "path.cuh"
 

@@ -1,15 +1,15 @@
 // path.cuh — the bounce loop of one path, shared by the forward megakernel K1
-// (megakernel.cu), the fused ReSTIR kernel K6 (restir.cu) and the G-buffer
-// kernel K4 (gbuffer.cu).
+// (megakernel.cu) and the G-buffer kernel K4 (gbuffer.cu), the first stage
+// of the ReSTIR pass K6; the adjoint K7 (restir_bwd.cu) replays it.
 //
 // `trace_path` is the plain version's `integrator.trace` for one pixel:
 // environment on a miss, the texel of the hit, emissive termination with the
 // BSDF-side MIS weight, the BSDF dispatch, the cubemap gather ray, the
 // direct light of a diffuse vertex, the luminance cutoff and the bounce caps.
 // The kernels differ only in the direct light of a diffuse vertex, which the
-// caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K6 the
-// reservoir pipeline, K4 records the vertex in the G-buffer and adds
-// nothing.  `kSdf` compiles the SDF march into the intersections; K1 and K4
+// caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K4
+// records the vertex in the G-buffer and adds nothing (the reservoir-vertex
+// kernel K6v runs the recorded vertices after it).  `kSdf` compiles the SDF march into the intersections; K1 and K4
 // build a copy without it for scenes without SDF meshes.
 
 #pragma once
@@ -74,7 +74,7 @@ __device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x,
   return b;
 }
 
-// What K1 and K6 keep in shared memory after load_scene()'s part (K2's view
+// What K1, K4, K6v and K7 keep in shared memory after load_scene()'s part (K2's view
 // of the scene is unchanged): the texture codes and blend flags of the
 // meshes and the SDF rows' shapes.
 struct PathSmem {

@@ -1,5 +1,6 @@
-// restir.cuh — the reservoir vertex of the fused ReSTIR kernel K6
-// (restir.cu), shared with its adjoint K7 (restir_bwd.cu).
+// restir.cuh — the reservoir vertex of the ReSTIR kernels: the
+// reservoir-vertex kernel K6v (restir_vertex.cu), the second stage of the
+// ReSTIR pass K6, and the pass's adjoint K7 (restir_bwd.cu).
 //
 // `RestirVertex` is restir.reservoir_direct for one diffuse vertex of one
 // pixel: candidate generation, temporal reuse at the pixel itself, spatial
@@ -13,12 +14,28 @@
 // kernel; the plain version refreshes the history's copy and reads the
 // spatial taps' stored copies (PERF.md, the ANIMATED divergence).
 //
-// `run` takes a tape: K6 passes `NoTape`, whose hooks compile to nothing;
+// `run` takes a tape: K6v passes `NoTape`, whose hooks compile to nothing;
 // K7 records the decisions and the values its reverse sweep needs (the
 // reservoir before each combine, the selections, the visibility and the
 // shading ray's hit), so both kernels take every decision in this one copy.
+//
+// The split form (`RestirVertexT<true>`, K6v on the split path of
+// restir_split.render_sample_fast) is restir.reservoir_direct as the split
+// path's plain version runs it: every reservoir carries its light's
+// position and color·emission (`ResL`), taken from the slot table when a
+// candidate is selected and read from the grids' stored copies for the
+// spatial taps and the history; under ANIMATED accumulation the history's
+// copy is refreshed from the slot table; the target function, validity,
+// the taps' distance gate and the visibility ray read the carried copy; and
+// with `adhoc` (cfg.restir_adhoc_motion) the history is read at the pixel
+// the ad-hoc motion vector reprojects to.  The default form
+// (`RestirVertex`) is the fused form K6v and K7 run; the split form's
+// additions are `if constexpr`, so they leave its code, and K7's, as they
+// are (chip_smoke.py phase 2 checks K7's registers).
 
 #pragma once
+
+#include <type_traits>
 
 #include "path.cuh"
 
@@ -35,28 +52,41 @@ constexpr int NSLOT = 8;                            // floats per light slot
 constexpr int MAX_SPATIAL = 8;                      // RESTIR_SPATIAL_SAMPLES
 constexpr uint32_t S_RESTIR_CANDIDATE = 11u, S_RESTIR_TEMPORAL = 12u, S_RESTIR_SPATIAL = 13u;
 
-// One reservoir grid: five fields over [height, width].
+// One reservoir grid: five fields over [height, width], and the light data
+// [height, width, 3] the split form reads (null for the fused form and K7).
 struct ResIn {
   const float *ws, *m, *w, *age;
   const int32_t *idx;
+  const float *pos, *col;
 };
 
 struct RestirArgs {
   ResIn back, hist[2];    // the previous pass's grid, the two history levels
-  float *pos, *col;       // outputs [n_pix, 3] (K6)
-  float *ws, *m, *w, *age;  // outputs [n_pix] (K6)
-  int32_t *idx;           // output [n_pix] (K6)
+  float *pos, *col;       // outputs [n_pix, 3] (K6v)
+  float *ws, *m, *w, *age;  // outputs [n_pix] (K6v)
+  int32_t *idx;           // output [n_pix] (K6v)
   int taps[16];           // (row, column) offsets of the 8 spatial taps
   int height, width;
   int n_cand, n_spatial;  // candidates, spatial taps
   float eps2, eps10;      // f32(cfg.epsilon * 2), f32(cfg.epsilon * 10)
   int animated;           // ANIMATED accumulation: faster fade, younger taps
+  int adhoc;              // split form: the history at the reprojected pixel
 };
 
 struct Res {
   float ws, m, w, age;
   int idx;
 };
+
+// A reservoir with the light data it carries (the split form).
+struct ResL : Res {
+  V3 pos, col;
+};
+
+// restir.py's ad-hoc motion scale 0.001 * (level + 1), the Python double
+// rounded once to float32, and the jitter's scale
+constexpr float MOTION0 = (float)(0.001 * 1), MOTION1 = (float)(0.001 * 2);
+constexpr float JITTER = 0.002f;
 
 // Host side: the reservoir arguments of both launchers from the wrapper's
 // pointer arrays (`res_out` null for K7, which writes no reservoirs).
@@ -92,7 +122,7 @@ inline RestirArgs restir_args(const void *const *res_in, void *const *res_out, c
   return ra;
 }
 
-// The tape K6 passes: records nothing.
+// The tape K6v passes: records nothing.
 struct NoTape {
   __device__ __forceinline__ void candidate(int, bool, bool) {}
   __device__ __forceinline__ void combine(const Res &, bool, float, float, bool) {}
@@ -118,17 +148,20 @@ __device__ __forceinline__ void load_slots(const TraceArgs &a, float *slots) {
   }
 }
 
-// The reservoir vertex (restir.reservoir_direct) as trace_path's direct
-// light: returns the shaded direct light without the throughput and keeps
-// the vertex's reservoir in `r`, so the last diffuse vertex's remains.
-struct RestirVertex {
+// The reservoir vertex (restir.reservoir_direct) of one diffuse vertex:
+// `run` returns the shaded direct light without the throughput and keeps
+// the vertex's reservoir in `r`.  `kSplit` selects the split form (the
+// header comment).
+template <bool kSplit = false>
+struct RestirVertexT {
+  using R = std::conditional_t<kSplit, ResL, Res>;
   const SceneSmem &s;
   const SdfScene &sd;
   const TraceArgs &a;
   const RestirArgs &ra;
   const float *slots;  // [n_lights, 8]: position, color·emission, radius, live
   int row, col;
-  Res r;
+  R r;
 
   __device__ __forceinline__ V3 slot_pos(int l) const {
     return {slots[l * NSLOT], slots[l * NSLOT + 1], slots[l * NSLOT + 2]};
@@ -137,6 +170,37 @@ struct RestirVertex {
     return {slots[l * NSLOT + 3], slots[l * NSLOT + 4], slots[l * NSLOT + 5]};
   }
   __device__ __forceinline__ bool in_range(int l) const { return l >= 0 && l < s.n_lights; }
+
+  // The light data reservoir q holds: the carried copy in the split form,
+  // else its slot's (zeros for no slot).
+  __device__ __forceinline__ V3 held_pos(const R &q) const {
+    if constexpr (kSplit) return q.pos;
+    else return in_range(q.idx) ? slot_pos(q.idx) : V3{0.0f, 0.0f, 0.0f};
+  }
+  __device__ __forceinline__ V3 held_col(const R &q) const {
+    if constexpr (kSplit) return q.col;
+    else return in_range(q.idx) ? slot_col(q.idx) : V3{0.0f, 0.0f, 0.0f};
+  }
+  // Select light slot l (a candidate) or reservoir q's light into r.
+  __device__ __forceinline__ void take_slot(int l) {
+    r.idx = l;
+    if constexpr (kSplit) {
+      r.pos = slot_pos(l);
+      r.col = slot_col(l);
+    }
+  }
+  __device__ __forceinline__ void take_light(const R &q) {
+    r.idx = q.idx;
+    if constexpr (kSplit) {
+      r.pos = q.pos;
+      r.col = q.col;
+    }
+  }
+  __device__ __forceinline__ static R empty() {
+    R e{};
+    e.idx = -1;
+    return e;
+  }
 
   // The material-aware BRDF weight of the shading mesh mi (evaluate_target).
   __device__ __forceinline__ float brdf_weight(int mi) const {
@@ -152,25 +216,35 @@ struct RestirVertex {
     return (base + ((1.0f - r0) * surface_lum - base) * is_coat) * ONE_OVER_PI;
   }
 
-  // restir.evaluate_target of slot l at (x, nl); 0 for no slot.
-  __device__ __forceinline__ float target(int l, V3 x, V3 nl, float brdf) const {
-    if (!in_range(l)) return 0.0f;
-    const V3 lv = slot_pos(l) - x;
+  // restir.evaluate_target of a light at lp of color·emission lc at (x, nl).
+  __device__ __forceinline__ float target_at(V3 lp, V3 lc, V3 x, V3 nl, float brdf) const {
+    const V3 lv = lp - x;
     const float d2 = dot(lv, lv);
     const float cos_t = fmaxf(dot(nl, normalize(lv)), 0.0f);
-    const V3 lc = slot_col(l);
     const float light_lum = lc.x * 0.2126f + lc.y * 0.7152f + lc.z * 0.0722f;
     const float p_hat = light_lum * brdf * cos_t / fmaxf(d2, 1e-4f);
     return (d2 >= 1e-6f && cos_t > 0.0f && light_lum > 0.0f) ? p_hat : 0.0f;
   }
 
-  // restir.is_valid_reservoir; the stored light data is the slot's.
-  __device__ __forceinline__ bool valid(const Res &q) const {
+  // restir.evaluate_target of slot l at (x, nl); 0 for no slot.
+  __device__ __forceinline__ float target(int l, V3 x, V3 nl, float brdf) const {
+    if (!in_range(l)) return 0.0f;
+    return target_at(slot_pos(l), slot_col(l), x, nl, brdf);
+  }
+
+  // restir.evaluate_target of reservoir q's light.
+  __device__ __forceinline__ float target_of(const R &q, V3 x, V3 nl, float brdf) const {
+    if constexpr (kSplit) return target_at(q.pos, q.col, x, nl, brdf);
+    else return target(q.idx, x, nl, brdf);
+  }
+
+  // restir.is_valid_reservoir of q and the light data it holds.
+  __device__ __forceinline__ bool valid(const R &q) const {
     bool ok = isfinite(q.m) && isfinite(q.ws) && isfinite(q.w) && isfinite(q.age);
     ok = ok && q.m > 0.0f && q.m <= 200.0f && q.ws > 0.0f && q.ws <= 1000.0f;
     ok = ok && q.w >= 0.0f && q.w <= 20.0f && q.age >= 0.0f && q.age <= MAX_AGE + 5.0f;
-    const V3 lc = in_range(q.idx) ? slot_col(q.idx) : V3{0.0f, 0.0f, 0.0f};
-    const V3 lp = in_range(q.idx) ? slot_pos(q.idx) : V3{0.0f, 0.0f, 0.0f};
+    const V3 lc = held_col(q);
+    const V3 lp = held_pos(q);
     const float lc2 = dot(lc, lc), lp2 = dot(lp, lp);
     ok = ok && lc2 >= 1e-6f && lc2 <= 1e4f && q.idx < s.n_lights;
     return ok && !(lp2 < 1e-6f && q.idx >= 0);
@@ -178,10 +252,10 @@ struct RestirVertex {
 
   // restir.combine_reservoirs of `q` into r.
   template <class Tape>
-  __device__ __forceinline__ void combine(const Res &q, bool ok, float rand, V3 x, V3 nl,
+  __device__ __forceinline__ void combine(const R &q, bool ok, float rand, V3 x, V3 nl,
                                           float brdf, Tape &tape) {
     ok = ok && valid(q);
-    const float tw = target(q.idx, x, nl, brdf);
+    const float tw = target_of(q, x, nl, brdf);
     ok = ok && tw > 0.0f;
     const float contribution =
         fminf(fmaxf(tw * fmaxf(q.w, 0.0f) * fmaxf(q.m, 1.0f), 0.0f), 200.0f);
@@ -195,15 +269,25 @@ struct RestirVertex {
     const bool select = ok && ws > 0.0f && rand < contribution / fmaxf(ws, 1e-12f);
     if (select) {
       r.age = fminf(q.age + 0.25f, MAX_AGE);
-      r.idx = q.idx;
+      take_light(q);
     }
     r.ws = ws;
     r.m = m;
     tape.combine(q, ok, ws_before, m_new, select);
   }
 
-  __device__ __forceinline__ Res load(const ResIn &g, long long q) const {
-    return {__ldg(g.ws + q), __ldg(g.m + q), __ldg(g.w + q), __ldg(g.age + q), __ldg(g.idx + q)};
+  __device__ __forceinline__ R load(const ResIn &g, long long q) const {
+    if constexpr (kSplit) {
+      R v;
+      static_cast<Res &>(v) = {__ldg(g.ws + q), __ldg(g.m + q), __ldg(g.w + q),
+                               __ldg(g.age + q), __ldg(g.idx + q)};
+      v.pos = {__ldg(g.pos + 3 * q), __ldg(g.pos + 3 * q + 1), __ldg(g.pos + 3 * q + 2)};
+      v.col = {__ldg(g.col + 3 * q), __ldg(g.col + 3 * q + 1), __ldg(g.col + 3 * q + 2)};
+      return v;
+    } else {
+      return {__ldg(g.ws + q), __ldg(g.m + q), __ldg(g.w + q), __ldg(g.age + q),
+              __ldg(g.idx + q)};
+    }
   }
 
   // Candidate i's light slot and its second draw.
@@ -224,7 +308,7 @@ struct RestirVertex {
   }
 
   // The spatial taps' gate (restir.reservoir_direct phase 3) and draws.
-  __device__ __forceinline__ bool tap_ok(int i, const Res &q, bool in_b, V3 x, uint32_t h_depth,
+  __device__ __forceinline__ bool tap_ok(int i, const R &q, bool in_b, V3 x, uint32_t h_depth,
                                          float &s2) const {
     const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)i, 4u), S_RESTIR_SPATIAL, 5u);
     const float s1 = u01(h);
@@ -232,8 +316,8 @@ struct RestirVertex {
     const bool few_frames = a.pass_idx < 10u;
     const int halve = ra.n_spatial / 2 > 2 ? ra.n_spatial / 2 : 2;
     bool ok = in_b && q.m > 0.0f && !(i >= halve && few_frames);
-    if (q.idx >= 0 && in_range(q.idx)) {
-      const V3 ld = slot_pos(q.idx) - x;
+    if (q.idx >= 0 && (kSplit || in_range(q.idx))) {
+      const V3 ld = held_pos(q) - x;
       ok = ok && !(dot(ld, ld) > 225.0f);
     }
     return ok && !(q.age > (ra.animated ? 2.0f : MAX_AGE * 0.8f)) && !(s1 < 0.03f);
@@ -255,11 +339,43 @@ struct RestirVertex {
     return level == 1 ? ALPHA1 : ALPHA0;
   }
 
-  // History level `level` at the pixel itself, aged and faded for the
-  // temporal combine; `ok` its gate.
-  __device__ __forceinline__ Res history(int level, bool &ok) const {
-    Res h = load(ra.hist[level], (long long)row * ra.width + col);
-    ok = valid(h) && a.pass_idx > 2u && h.m > 0.0f && h.age < MAX_AGE;
+  // The grid cell the ad-hoc motion vector of level `level` reprojects the
+  // pixel to (restir.reservoir_direct's `adhoc_motion` branch, in the plain
+  // version's float32 operations), and whether it is inside the border.
+  __device__ __forceinline__ long long reproject(int level, V3 x, uint32_t h_depth,
+                                                 bool &in_b) const {
+    const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)level, 4u), S_RESTIR_TEMPORAL, 5u);
+    const float ju = u01(h), jv = u01(pcg(h));
+    const float motion = level == 1 ? MOTION1 : MOTION0;
+    const float uv_x = ((float)col + 0.5f) / (float)ra.width + x.x * motion + (ju - 0.5f) * JITTER;
+    const float uv_y = ((float)row + 0.5f) / (float)ra.height + x.y * motion + (jv - 0.5f) * JITTER;
+    in_b = uv_x > 0.01f && uv_x < 0.99f && uv_y > 0.01f && uv_y < 0.99f;
+    const long long hr = (long long)(uv_y * (float)ra.height);  // truncates, as .to(int64)
+    const long long hc = (long long)(uv_x * (float)ra.width);
+    const long long cr = hr < 0 ? 0 : (hr > ra.height - 1 ? ra.height - 1 : hr);
+    const long long cc = hc < 0 ? 0 : (hc > ra.width - 1 ? ra.width - 1 : hc);
+    return cr * ra.width + cc;
+  }
+
+  // History level `level` at the pixel itself (or, in the split form with
+  // `adhoc`, at the reprojected pixel), aged and faded for the temporal
+  // combine; `ok` its gate.
+  __device__ __forceinline__ R history(int level, V3 x, uint32_t h_depth, bool &ok) const {
+    bool in_b = true;
+    long long q = (long long)row * ra.width + col;
+    if constexpr (kSplit) {
+      if (ra.adhoc) q = reproject(level, x, h_depth, in_b);
+    }
+    R h = load(ra.hist[level], q);
+    ok = valid(h) && in_b && a.pass_idx > 2u && h.m > 0.0f && h.age < MAX_AGE;
+    if constexpr (kSplit) {
+      if (ra.animated && h.idx >= 0) {  // the held light as it is in this frame
+        const int L = s.n_lights;
+        const int sl = h.idx > L - 1 ? L - 1 : h.idx;
+        h.pos = slot_pos(sl);
+        h.col = slot_col(sl);
+      }
+    }
     h.age = h.age + (float)(level + 1);
     const float fade = alpha(level);
     h.m = h.m * fade;
@@ -269,7 +385,7 @@ struct RestirVertex {
 
   // The shadow ray toward the selected light: whether it is visible.
   __device__ __forceinline__ bool visibility(V3 x) const {
-    const V3 wp = in_range(r.idx) ? slot_pos(r.idx) : V3{0.0f, 0.0f, 0.0f};
+    const V3 wp = held_pos(r);
     const V3 sdv = wp - x;
     const float dist = sqrtf(fmaxf(dot(sdv, sdv), EPS));
     const V3 sdir = {sdv.x / dist, sdv.y / dist, sdv.z / dist};
@@ -292,7 +408,7 @@ struct RestirVertex {
     const float brdf = brdf_weight(mi);
 
     // ---- phase 1: candidate generation ----
-    r = {0.0f, 0.0f, 0.0f, 0.0f, -1};
+    r = empty();
     for (int i = 0; i < ra.n_cand; ++i) {
       float r2;
       const int slot = candidate_slot(h_depth, i, r2);
@@ -305,7 +421,7 @@ struct RestirVertex {
         ws = ws * 0.95f;
         m = m * 0.95f;
       }
-      if (take && ws > 0.0f && r2 < tv / fmaxf(ws, 1e-12f)) r.idx = slot;
+      if (take && ws > 0.0f && r2 < tv / fmaxf(ws, 1e-12f)) take_slot(slot);
       r.ws = ws;
       r.m = m;
       tape.candidate(i, take, overflow);
@@ -314,7 +430,7 @@ struct RestirVertex {
     // ---- phase 2: temporal reuse at the pixel itself ----
     for (int level = 0; level < 2; ++level) {
       bool ok;
-      const Res h = history(level, ok);
+      const R h = history(level, x, h_depth, ok);
       const uint32_t ht = fold_step(
           fold_step(fold_step(h_depth, (uint32_t)level, 4u), S_RESTIR_TEMPORAL, 5u), 991u, 6u);
       combine(h, ok, u01(ht), x, nl, brdf, tape);
@@ -329,7 +445,7 @@ struct RestirVertex {
     // ---- phase 3: spatial reuse on the previous pass's grid ----
     for (int i = 0; i < ra.n_spatial; ++i) {
       bool in_b;
-      const Res q = load(ra.back, tap_cell(i, in_b));
+      const R q = load(ra.back, tap_cell(i, in_b));
       float s2;
       const bool ok = tap_ok(i, q, in_b, x, h_depth, s2);
       combine(q, ok, s2, x, nl, brdf, tape);
@@ -338,7 +454,7 @@ struct RestirVertex {
     // ---- phase 4: visibility, finalize and shade ----
     const bool visible = visibility(x);
     tape.finalize(r, visible);
-    const float p_hat = target(r.idx, x, nl, brdf);
+    const float p_hat = target_of(r, x, nl, brdf);
     const bool good = r.ws > 0.0f && r.m > 0.0f && p_hat > 0.0f && visible;
     const float m_cl = fminf(fmaxf(r.m, 1.0f), 40.0f);
     const float raw_w = r.ws / fmaxf(p_hat * m_cl, 1e-12f);
@@ -377,11 +493,8 @@ struct RestirVertex {
     tape.shade(hidx, lit, keep);
     return keep ? out : V3{0.0f, 0.0f, 0.0f};
   }
-
-  __device__ V3 operator()(V3 x, V3 nl, int mi, uint32_t h_depth, int, int, V3) {
-    NoTape none;
-    return run(x, nl, mi, h_depth, none);
-  }
 };
+
+using RestirVertex = RestirVertexT<false>;
 
 }  // namespace

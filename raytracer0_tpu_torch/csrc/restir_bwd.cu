@@ -632,7 +632,7 @@ __global__ void __launch_bounds__(RED_THREADS)
 // cotangents into the back grid, and the reduction of the per-block
 // partials [ceil(n_pix / threads), n_mesh, 14] into d_table's columns 0:14
 // (the caller zeroes the others).  The arguments
-// up to `eps10` are K6's (rt0_restir_forward; `out` unused); `ct_res` holds
+// up to `eps10` are K6v's (rt0_restir_vertex; `out` unused); `ct_res` holds
 // the four [n_pix] cotangents of the new ws, m, w and age; dtap
 // [8, 3, H * W], dhist [2, 3, H * W] and dback [3, H * W] receive the
 // cotangents of the ring's m, w and age.  Returns the first CUDA error of

@@ -1,10 +1,10 @@
 // trace_common.cuh — device code shared by the forward megakernel K1
 // (megakernel.cu), its adjoint K2 (megakernel_bwd.cu) and the fused ReSTIR
-// kernel K6 (restir.cu): vec3 helpers, the counter RNG, the scene in shared
+// pass (K4, gbuffer.cu, and K6v, restir_vertex.cu): vec3 helpers, the counter RNG, the scene in shared
 // memory, intersection, normals, direction sampling, reflection, refraction
 // and the Fresnel models, the MIS pdfs, the procedural sky, the cubemap
 // fetch, sphere/directional-light NEE, the texel of a hit (image,
-// UV-pattern and noise textures) and the SDF march (K1 and K6 only).
+// UV-pattern and noise textures) and the SDF march.
 //
 // The kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the

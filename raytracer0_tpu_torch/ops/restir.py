@@ -1,8 +1,8 @@
 """ReSTIR: spatiotemporal reservoir resampling for direct lighting (port of
 ops/restir.py; raytracer.glsl:1264-1802).
 
-This is the plain version of the fused kernel K6 (`ops/restir_kernel.py`,
-`csrc/restir.cu`) and, under torch.autograd, of its adjoint K7
+This is the plain version of the ReSTIR pass K6 (`ops/restir_kernel.py`:
+K4 then K6v, `csrc/restir_vertex.cu`) and, under torch.autograd, of its adjoint K7
 (`csrc/restir_bwd.cu`), and the semantics oracle both are held against: the
 reservoir pipeline of one diffuse vertex (candidates, temporal reuse,
 spatial reuse, finalize and shade) over the pixel grid, hooked into
@@ -22,9 +22,10 @@ spatial tap is a direct gather at (row + dy, col + dx), rejected by the
 in-bounds mask where it leaves the image, not a static roll.  The ablation
 hook and the band/halo arguments of tiles and sharding (ROADMAP queue 1
 items 12-13) stay out.  The shadow rays go through a `cast_fn` hook: the
-plain intersector by default, the ray-cast kernel K5 on the split path
-(`ops/restir_split.py`, which also runs the ad-hoc temporal reprojection
-of `cfg.restir_adhoc_motion`).  Under ANIMATED accumulation the history's
+plain intersector by default, or the ray-cast kernel K5 in the split
+pass's `render_sample_split` (`ops/restir_split.py`, whose kernel route
+runs the ad-hoc temporal reprojection of `cfg.restir_adhoc_motion` in
+K6v).  Under ANIMATED accumulation the history's
 light data is refreshed from the current scene, the temporal alpha fades
 by a further 0.85 and spatial taps older than 2 passes are rejected
 (raytracer.glsl:1669-1676, 1742-1744).

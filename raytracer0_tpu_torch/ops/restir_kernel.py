@@ -1,34 +1,40 @@
-"""The fused ReSTIR kernel K6 (`csrc/restir.cu`) and its adjoint K7
-(`csrc/restir_bwd.cu`) on Hopper: their gates, builds and launchers, the
-`torch.autograd.Function` that pairs them, and the render pass that uses
-them.
+"""The ReSTIR pass K6 and its adjoint K7 (`csrc/restir_bwd.cu`) on Hopper:
+their gates, launchers, the `torch.autograd.Function` that pairs them, and
+the render pass that uses them.
 
 K6 replaces the Pallas TPU kernel
 `raytracer0_tpu/ops/megakernel.py::_fused_restir_kernel_body` (launched by
-`_fused_restir_fwd_impl`): one launch traces every pixel's path and runs the
+`_fused_restir_fwd_impl`), which traces every pixel's path and runs the
 reservoir pipeline (`restir.reservoir_direct`) at each diffuse vertex in
 place of per-light NEE, returning the radiance and the pass's new back
-reservoirs.  K7 replaces its adjoint `_fused_restir_bwd_kernel_body`
-(launched by `_fused_restir_backward`) and serves its per-slot twin
+reservoirs.  On Hopper K6 is two launches (`_launch`): the G-buffer kernel
+K4 (`ops/restir_split.py`) traces the paths and records their diffuse
+vertices, then the reservoir-vertex kernel K6v (`ops/restir_vertex.py`,
+its fused form) runs the vertices one thread per pixel and adds K4's
+radiance.  `LAUNCHES` counts K6 passes, one per (K4, K6v) pair.  K7
+replaces the adjoint `_fused_restir_bwd_kernel_body` (launched by
+`_fused_restir_backward`) and serves its per-slot twin
 `_fused_restir_bwd_slotted_kernel_body` (K8), being per-slot by design.
 `_RestirCore` pairs them as the JAX custom_vjp `_fused_restir_call` does:
-forward launches K6, backward launches K7.  Their plain PyTorch version is
-`restir.render_sample` and its autograd; on the same inputs K6 traces the
-same paths and makes the same reservoir decisions, and K7 gives the same
-gradients up to float32 rounding.
+forward launches K6, backward launches K7, which replays the paths and the
+vertices from the ring, not from K6's G-buffer.  Their plain PyTorch
+version is `restir.render_sample` and its autograd; on the same inputs K6
+traces the same paths and makes the same reservoir decisions, and K7 gives
+the same gradients up to float32 rounding.
 
 What bounds them on the H100: like K1, instruction latency and divergence.
 A pixel reads 28 bytes of rays and id, 60 bytes of reservoirs at its own
 pixel and up to 160 bytes of spatial taps (mostly from L2, since
-neighbouring threads read overlapping taps), and writes 56 bytes; its work
-is K1's bounce loop plus, per diffuse vertex, up to 16 candidates, 10
-combines and 2 shadow rays with SDF marches.  The design keeps one thread
-per pixel with the reservoir in registers, reads the taps in place (no
-pre-rolled copy of the grid), and keeps the light slots in shared memory.
-K7 replays each slot from a per-slot stash and each reservoir vertex from a
-tape of its decisions, and reduces its scene cotangents per thread, per
-block in thread order and across blocks in block order; its tap cotangents
-are gathered into the back grid in tap order, so it is deterministic.
+neighbouring threads read overlapping taps), and writes 56 bytes; K6's
+G-buffer adds 45 bytes per slot written and read; its work is K1's bounce
+loop plus, per diffuse vertex, up to 16 candidates, 10 combines and 2
+shadow rays with SDF marches.  The design keeps the reservoir in registers,
+reads the taps in place (no pre-rolled copy of the grid), and keeps the
+light slots in shared memory.  K7 replays each slot from a per-slot stash
+and each reservoir vertex from a tape of its decisions, and reduces its
+scene cotangents per thread, per block in thread order and across blocks in
+block order; its tap cotangents are gathered into the back grid in tap
+order, so it is deterministic.
 
 The gradient flows to the scene table's pos, joker, color, emission and ior
 columns, to the rays, and to the ring's m, w and age (a source's
@@ -39,7 +45,7 @@ carries their cotangents to the scene.  K6 and K7 read a light's data from
 the slot table where the plain version reads the ring's copy; over a chain
 of passes from an empty ring with one scene the two gradients agree.
 
-Under ANIMATED accumulation (`cfg.render_mode`) both kernels fade the
+Under ANIMATED accumulation (`cfg.render_mode`) K6v and K7 fade the
 history by a further 0.85 and reject spatial taps older than 2 passes, as
 the Pallas K6 does; the scene arrives animated to the pass's time.  Since
 the kernels read every reservoir's light data from the slot table, a
@@ -58,27 +64,27 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
-import numpy as np
 import torch
 
 from raytracer0_tpu_torch import rng
-from raytracer0_tpu_torch.config import RenderConfig, RenderMode
+from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.materials import SdfShape
-from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, textures
+from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_split, restir_vertex
+from raytracer0_tpu_torch.ops import textures
 from raytracer0_tpu_torch.render import integrator
-from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, Reservoirs
+from raytracer0_tpu_torch.render.state import Reservoirs
 
-#: K6 launches since import (or since a caller reset it to 0).
+#: K6 passes since import (or since a caller reset it to 0): one per K4 and
+#: K6v pair `_launch` launches (`restir_split.GBUF_LAUNCHES` and
+#: `restir_vertex.VERTEX_LAUNCHES` count the kernels).
 LAUNCHES = 0
 #: K7 launches since import (or since a caller reset it to 0); one per
-#: backward of a K6 launch: the adjoint, the tap gather and the reduction.
+#: backward of a K6 pass: the adjoint, the tap gather and the reduction.
 BWD_LAUNCHES = 0
 
-SOURCES = ("restir.cu",)
 BWD_SOURCES = ("restir_bwd.cu",)
-_IN_FIELDS = ("weight_sum", "m", "w", "age", "light_index")
 #: The ring's float fields, which carry a gradient from pass to pass.
 RING_FLOATS = ("weight_sum", "m", "w", "age")
 _ITEM = "ROADMAP queue 1 item 11"
@@ -94,35 +100,14 @@ _BWD_THREADS = (128, 64, 32)
 #: Scene leaves whose table columns or arrays K7 leaves without a cotangent.
 NO_GRAD_LEAVES = ("aux", "tex_params", "tex_cmask", "tex_emask", "images", "noise", "cubemap")
 
-# the spatial taps' (row, column) offsets, passed by value
-_TAPS = (ctypes.c_int * 16)(*[v for tap in restir.TAP_OFFSETS for v in tap])
-_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = megakernel._ARGTYPES[:-1] + (
-    _c_void_p, _c_void_p,             # res_in[15], res_out[7]
-    _c_void_p, _c_int, _c_int,        # taps (host), height, width
-    _c_int, _c_int,                   # candidates, spatial taps
-    _c_float, _c_float,               # epsilon * 2, epsilon * 10
-    _c_int,                           # ANIMATED accumulation
-    _c_void_p,                        # stream
-)
-_BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (
-    _c_void_p,                        # res_in[15]
-    _c_void_p, _c_int, _c_int,        # taps (host), height, width
-    _c_int, _c_int,                   # candidates, spatial taps
-    _c_float, _c_float,               # epsilon * 2, epsilon * 10
-    _c_int,                           # ANIMATED accumulation
+_c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
+_BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (_c_void_p,) + restir_vertex.RESTIR_ARGTYPES + (
     _c_void_p, _c_void_p,             # ct, ct_res[4]
     _c_void_p, _c_void_p,             # d_ro, d_rd
     _c_void_p, _c_void_p,             # partials, d_table
     _c_void_p, _c_void_p, _c_void_p,  # dtap, dhist, dback
     _c_int, _c_void_p,                # threads per block, stream
 )
-
-
-def smem_bytes(scene) -> int:
-    """Dynamic shared memory of one K6 block: K1's and the light-slot
-    table (8 floats per slot)."""
-    return megakernel.smem_bytes(scene) + 4 * 8 * scene.num_lights
 
 
 def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
@@ -132,19 +117,23 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
     photographic cubemap, cosine sampling, static or animated
     accumulation) with the pixel's own history (the ad-hoc reprojection
     runs on the split path, `ops/restir_split.py`), without blended
-    textures or a cubemap, which no test holds K6 to yet, with tables that
-    fit the shared memory."""
+    textures, which no test holds K6 to yet, or a cubemap, whose gather ray
+    adds to the radiance between the vertices K6v sums, in K4's and K6v's
+    classes."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
     if cfg.restir_adhoc_motion:
-        return ("ReSTIR's ad-hoc temporal reprojection runs on the split path of K4 and K5 "
-                f"(ops/restir_split.py, restir_split.render_sample_fast), not K6: {_ITEM}")
+        return ("ReSTIR's ad-hoc temporal reprojection runs on the split path of K4 and K6v's "
+                "split form (ops/restir_split.py, restir_split.render_sample_fast), not the K6 "
+                f"pass: {_ITEM}")
     reason = integrator.unsupported(scene, cfg)
     if reason is None and textures.blended(scene):
         reason = f"textures blended into color or emission under ReSTIR on K6: {_ITEM}"
     if reason is None and cfg.use_cubemap:
         reason = f"a cubemap and its gather ray under ReSTIR on K6: {_ITEM}"
-    return reason or megakernel.check_smem(smem_bytes(scene))
+    # K6v's gate covers K4's beyond `integrator.unsupported` (slots, and a
+    # shared memory that holds K4's and the light slots)
+    return reason or restir_vertex.unsupported(scene, restir_split.gbuffer_slots(cfg))
 
 
 def bwd_slots(cfg: RenderConfig) -> int:
@@ -157,9 +146,9 @@ def bwd_slots(cfg: RenderConfig) -> int:
 
 
 def bwd_smem_bytes(scene, threads: int) -> int:
-    """Dynamic shared memory of one K7 block: K6's, plus `threads` columns
+    """Dynamic shared memory of one K7 block: K6v's, plus `threads` columns
     of 14 cotangent accumulators per mesh."""
-    return smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
+    return restir_vertex.smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
 
 
 def bwd_threads(scene) -> Optional[int]:
@@ -185,7 +174,7 @@ def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
         return f"SDF shapes other than ROUND_BOX (K7's SDF adjoint): ROADMAP queue 1 item 8"
     if bwd_slots(cfg) > MAX_SLOTS:
         return f"paths of {bwd_slots(cfg)} slots, more than K7's stash of {MAX_SLOTS}"
-    if _restir_args(cfg, scene.num_lights)[0] > MAX_CAND:
+    if restir_vertex.restir_args(cfg, scene.num_lights)[0] > MAX_CAND:
         return f"more than {MAX_CAND} ReSTIR candidates (K7's tape): {_ITEM}"
     if bwd_threads(scene) is None:
         return (f"{scene.num_meshes} meshes: K7's cotangent accumulators do not fit "
@@ -197,16 +186,6 @@ def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     return None
 
 
-def build():
-    """Build (or load from `build/kernels/`) the K6 library.
-    Returns (ctypes function, cuda_build.BuildInfo)."""
-    lib, info = cuda_build.load("restir", SOURCES)
-    fn = lib.rt0_restir_forward
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn, info
-
-
 def build_bwd():
     """Build (or load from `build/kernels/`) the K7 library.
     Returns (ctypes function, cuda_build.BuildInfo)."""
@@ -215,16 +194,6 @@ def build_bwd():
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn, info
-
-
-def _restir_args(cfg: RenderConfig, num_lights: int):
-    """(candidates, spatial taps, f32 epsilon*2, f32 epsilon*10, ANIMATED
-    accumulation), as `restir.reservoir_direct` derives them."""
-    n_spatial = (restir.RESTIR_SPATIAL_SAMPLES if num_lights <= 10
-                 else max(4, restir.RESTIR_SPATIAL_SAMPLES // 2))
-    return (min(cfg.restir_samples, max(4, num_lights)), n_spatial,
-            float(np.float32(cfg.epsilon * 2.0)), float(np.float32(cfg.epsilon * 10.0)),
-            int(int(cfg.render_mode) == int(RenderMode.ANIMATED)))
 
 
 def light_data(scene, light_index):
@@ -241,51 +210,17 @@ def light_data(scene, light_index):
             torch.where(held, scene.color[li] * scene.emission[li], zero))
 
 
-def _check_ring(h, w, dev, *grids):
-    """The 15 input tensors of K6 and K7: each grid's ws, m, w, age and
-    light_index, checked."""
-    res_in = []
-    for name, grid in zip(("back", "hist1", "hist2"), grids):
-        for k in _IN_FIELDS:
-            t = getattr(grid, k)
-            megakernel._check(f"{name}.{k}", t, RESERVOIR_FIELDS[k], (h, w), dev)
-            res_in.append(t)
-    return res_in
-
-
 def _launch(scene, cfg, ro, rd, pix, pass_idx, sample_idx, back, hist1, hist2, table=None):
-    """Check the tensors and launch K6 (`trace_forward_restir_fused`
-    without the device and class checks): (radiance, new back
-    Reservoirs)."""
+    """Launch K6, K4 then K6v (`trace_forward_restir_fused` without the
+    device and class checks): (radiance, new back Reservoirs).  The
+    G-buffer between them is scratch, freed on return."""
     global LAUNCHES
-    dev = ro.device
-    h, w = pix.shape
-    megakernel._check("ro", ro, torch.float32, (h, w, 3), dev)
-    megakernel._check("rd", rd, torch.float32, (h, w, 3), dev)
-    megakernel._check("pix", pix, torch.int64, (h, w), dev)
-    if scene.device != dev:
-        raise ValueError(f"scene is on {scene.device}, rays on {dev}")
     if table is None:
         table = megakernel.scene_table(scene)
-    res_in = _check_ring(h, w, dev, back, hist1, hist2)
-
-    out = torch.empty_like(ro)
-    new = Reservoirs(**{k: torch.empty((h, w, 3) if k in ("light_pos", "light_color")
-                                       else (h, w), dtype=dt, device=dev)
-                        for k, dt in RESERVOIR_FIELDS.items()})
-    args, _keep = megakernel.forward_args(scene, cfg, table, ro, rd, pix, out,
-                                          pass_idx, sample_idx)
-    ins = (ctypes.c_void_p * 15)(*[t.data_ptr() for t in res_in])
-    outs = (ctypes.c_void_p * 7)(*[getattr(new, k).data_ptr() for k in RESERVOIR_FIELDS])
-    fn, _ = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, ins, outs, _TAPS, h, w,
-                *_restir_args(cfg, scene.num_lights), stream)
-    if rc != 0:
-        raise RuntimeError(f"K6 launch failed: CUDA error {rc}")
+    out = restir_split.launch_two_stage(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx,
+                                        (back, hist1, hist2))
     LAUNCHES += 1
-    return out, new
+    return out
 
 
 def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids, ct, ct_res):
@@ -302,7 +237,7 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids
     megakernel._check("ct", ct, torch.float32, (h, w, 3), dev)
     for k, t in zip(RING_FLOATS, ct_res):
         megakernel._check(f"ct {k}", t, torch.float32, (h, w), dev)
-    res_in = _check_ring(h, w, dev, *grids)
+    res_in = restir_vertex.check_ring(h, w, dev, *grids)
     threads = bwd_threads(scene)
     blocks = -(-(h * w) // threads)
     d_ro, d_rd = torch.empty_like(ro), torch.empty_like(rd)
@@ -319,7 +254,8 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids
     fn, _ = build_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, ins, _TAPS, h, w, *_restir_args(cfg, scene.num_lights),
+        rc = fn(*args, ins, restir_vertex.TAPS, h, w,
+                *restir_vertex.restir_args(cfg, scene.num_lights),
                 ct.data_ptr(), cts, d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
                 d_table.data_ptr(), dtap.data_ptr(), dhist.data_ptr(), dback.data_ptr(),
                 threads, stream)

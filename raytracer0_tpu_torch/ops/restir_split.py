@@ -1,23 +1,28 @@
 """The split ReSTIR path on Hopper: the G-buffer kernel K4
 (`csrc/gbuffer.cu`), the ray-cast kernel K5 (`csrc/cast.cu`), their gates,
-builds, launchers and plain versions, and the render pass that joins them
-with the reservoir phases (`render_sample_fast`).
+builds, launchers and plain versions, and the render pass that joins K4
+with the reservoir-vertex kernel K6v (`render_sample_fast`).
 
 K4 replaces the Pallas TPU kernel
 `raytracer0_tpu/ops/megakernel.py::_gbuf_kernel_body` (launched by
 `trace_forward_gbuffer`): K1's bounce loop without the direct light of
 diffuse vertices, which records each lane's k-th diffuse vertex in G-buffer
-slot k instead.  K5 replaces `_cast_kernel_body` (launched by `cast_rays`):
-the nearest hit of each ray.  `render_sample_fast` is the counterpart of the
-JAX `restir.render_sample_fast`, the route of a ReSTIR pass with the ad-hoc
-temporal reprojection (`cfg.restir_adhoc_motion`): K4 traces the paths, the
-reservoir pipeline of `restir.reservoir_direct` runs per G-buffer slot as
-PyTorch ops on the card (in the JAX package they are XLA ops outside any
-Pallas kernel), and its two shadow casts per slot run on K5.  The last valid
-slot's reservoir is the pass's new back reservoir.
+slot k instead.  It is also the first stage of K6's route
+(`restir_kernel._launch`).  K5 replaces `_cast_kernel_body` (launched by
+`cast_rays`): the nearest hit of each ray.  `render_sample_fast` is the
+counterpart of the JAX `restir.render_sample_fast`, the route of a ReSTIR
+pass with the ad-hoc temporal reprojection (`cfg.restir_adhoc_motion`): on
+the card K4 traces the paths and one launch of K6v (its split form,
+`ops/restir_vertex.py`) runs the reservoir pipeline of
+`restir.reservoir_direct` at every G-buffer slot, its shadow rays cast
+in-kernel by the intersection K5 runs, so K5 is not launched on this path
+(in the JAX package the phases are XLA ops and the casts Pallas K5
+launches).  The last valid slot's reservoir is the pass's new back
+reservoir.
 
-Their plain versions are `integrator.trace` with `gbuffer_slots` (K4) and
-`restir.default_cast`'s `intersect.intersect` (K5); the kernels follow their
+The plain versions are `integrator.trace` with `gbuffer_slots` (K4),
+`restir.default_cast`'s `intersect.intersect` (K5) and
+`render_sample_split` with both (the pass); the kernels follow their
 operations in order, so on the same inputs the two agree bit for bit.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The JAX split path has no VJP, and neither has this one: on CUDA a
@@ -26,8 +31,7 @@ differentiable).
 
 What bounds them on the H100: K4 is K1 without NEE's shadow rays, bound by
 instruction latency and divergence like K1; K5 moves 32 bytes a ray and, in
-scenes with SDF meshes, marches, which outweighs its bytes.  The reservoir
-phases between them are some thousand small elementwise launches a slot.
+scenes with SDF meshes, marches, which outweighs its bytes.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.scene import TENSOR_FIELDS
-from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir
+from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_vertex
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import Reservoirs
 
@@ -72,7 +76,6 @@ _CAST_ARGTYPES = (
     _c_ll, _c_float, _c_float,                  # rays, epsilon, infinity
     _c_void_p,                                  # stream
 )
-_GBUF_FIELDS = ("pos", "nl", "mask", "idx", "depth", "valid")
 
 
 def gbuffer_slots(cfg: RenderConfig) -> int:
@@ -143,7 +146,7 @@ def _needs_grad(*tensors) -> bool:
 
 
 def _no_grad_reason(what):
-    return (f"a gradient through {what}: the split ReSTIR path (K4, K5) has no adjoint, as "
+    return (f"a gradient through {what}: the split ReSTIR path (K4, K6v) has no adjoint, as "
             f"in the JAX package; ReSTIR without the ad-hoc reprojection differentiates "
             f"through K6 and K7: {_ITEM}")
 
@@ -170,6 +173,16 @@ def trace_forward_gbuffer(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sampl
 
 def _launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
     """Check the tensors and launch K4: (radiance, G-buffer slots)."""
+    out, bufs = launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx)
+    return out, [{k: v[i] for k, v in bufs.items()} for i in range(len(bufs["pos"]))]
+
+
+def launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, out=None,
+                   args=None):
+    """Check the tensors and launch K4: (radiance, the G-buffer as
+    {field: [slots, H, W, ...]}, the layout K6v reads).  `out` and `args`:
+    the radiance tensor and K1's launch arguments that point at it, when
+    the caller has built them (`launch_two_stage`)."""
     global GBUF_LAUNCHES
     dev = ro.device
     h, w = pix.shape
@@ -179,23 +192,37 @@ def _launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
     if scene.device != dev:
         raise ValueError(f"scene is on {scene.device}, rays on {dev}")
     slots = gbuffer_slots(cfg)
-    out = torch.empty_like(ro)
+    if args is None:
+        out = torch.empty_like(ro)
+        args, _keep = megakernel.forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx,
+                                              sample_idx)
     bufs = dict(pos=torch.empty((slots, h, w, 3), dtype=torch.float32, device=dev),
                 nl=torch.empty((slots, h, w, 3), dtype=torch.float32, device=dev),
                 mask=torch.empty((slots, h, w, 3), dtype=torch.float32, device=dev),
                 idx=torch.empty((slots, h, w), dtype=torch.int32, device=dev),
                 depth=torch.empty((slots, h, w), dtype=torch.int32, device=dev),
                 valid=torch.empty((slots, h, w), dtype=torch.bool, device=dev))
-    args, _keep = megakernel.forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx,
-                                          sample_idx)
     fn, _ = build_gbuffer()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, *[bufs[k].data_ptr() for k in _GBUF_FIELDS], slots, stream)
+        rc = fn(*args, *[bufs[k].data_ptr() for k in restir_vertex.GBUF_FIELDS], slots, stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     GBUF_LAUNCHES += 1
-    return out, [{k: v[i] for k, v in bufs.items()} for i in range(slots)]
+    return out, bufs
+
+
+def launch_two_stage(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids, total=None):
+    """K4 then K6v on one set of K1 launch arguments, the G-buffer between
+    them scratch: K6's pass (`total` None: K6v's fused form) or a sample of
+    the split pass (K6v's split form, adding into `total`), as
+    `restir_vertex.launch` returns them."""
+    rad = torch.empty_like(ro)
+    args, _keep = megakernel.forward_args(scene, cfg, table, ro, rd, pix, rad, pass_idx,
+                                          sample_idx)
+    _, gbuf = launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, rad, args)
+    return restir_vertex.launch(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids,
+                                gbuf, rad, total=total, args=args)
 
 
 def cast_rays(scene, cfg: RenderConfig, ro, rd, table=None):
@@ -213,13 +240,6 @@ def cast_rays(scene, cfg: RenderConfig, ro, rd, table=None):
         raise NotImplementedError(f"K5 does not cover this scene: {reason}")
     return _launch_cast(scene, cfg, megakernel.scene_table(scene) if table is None else table,
                         ro, rd)
-
-
-def caster(scene, cfg: RenderConfig):
-    """The split path's `cast_fn(o, d) -> (t, idx, missed)` for `scene`:
-    `cast_rays`, with the scene table built once."""
-    table = megakernel.scene_table(scene) if scene.device.type == "cuda" else None
-    return lambda o, d: cast_rays(scene, cfg, o, d, table=table)
 
 
 def _launch_cast(scene, cfg, table, ro, rd):
@@ -253,11 +273,12 @@ def render_sample_split(scene, cfg: RenderConfig, camera, state, height, width, 
                         time_s, trace_gbuffer, make_cast):
     """One ReSTIR pass on the split path with the G-buffer tracer
     `trace_gbuffer` (`trace_forward_gbuffer`'s signature) and the shadow-ray
-    caster `make_cast(scene, cfg)` (`caster`'s): (mean radiance
-    f32[H, W, 3], new back Reservoirs), the operations of the JAX
-    `restir.render_sample_fast` (restir.py:711-748) in order.
-    `render_sample_fast` passes the kernels; the plain versions
-    (`gbuffer_plain`, `restir.default_cast`) give the same bits."""
+    caster `make_cast(scene, cfg) -> cast_fn(o, d) -> (t, idx, missed)`:
+    (mean radiance f32[H, W, 3], new back Reservoirs), the operations of
+    the JAX `restir.render_sample_fast` (restir.py:711-748) in order, the
+    reservoir phases as PyTorch ops per G-buffer slot.  With the plain
+    versions (`gbuffer_plain`, `restir.default_cast`) it is the plain
+    version of `render_sample_fast`'s route on the card, K4 and K6v."""
     scene = scene_mod.animate_positions(scene, time_s, int(cfg.render_mode))
     pix = rng.pixel_ids(height, width, device=scene.device)
     back = state.restir_back.fields()
@@ -286,10 +307,11 @@ def render_sample_split(scene, cfg: RenderConfig, camera, state, height, width, 
 
 def check_split(scene, cfg: RenderConfig, camera, state, time_s=0.0):
     """Raise NotImplementedError for a split pass the kernels do not serve
-    on the card: a (scene, cfg) outside K4's or K5's class, or a gradient
+    on the card: a (scene, cfg) outside K4's or K6v's class, or a gradient
     (any scene leaf, camera field, ring field or the frame time that
     requires grad), which the split path has no adjoint for."""
-    reason = unsupported_gbuffer(scene, cfg) or unsupported_cast(scene)
+    reason = (unsupported_gbuffer(scene, cfg)
+              or restir_vertex.unsupported(scene, gbuffer_slots(cfg)))
     if reason is not None:
         raise NotImplementedError(f"the split ReSTIR path does not cover this scene: {reason}")
     ring = [t for g in (state.restir_back, state.restir_hist1, state.restir_hist2)
@@ -302,13 +324,31 @@ def check_split(scene, cfg: RenderConfig, camera, state, time_s=0.0):
 
 def render_sample_fast(scene, cfg: RenderConfig, camera, state, height, width, pass_idx,
                        time_s=0.0):
-    """One ReSTIR pass on the split path: K4, the reservoir phases per
-    G-buffer slot, K5 for their shadow rays (the plain versions on the
-    CPU): (mean radiance f32[H, W, 3], new back Reservoirs), as
-    `restir.render_sample` returns them.  On CUDA it raises, before any
-    launch, for what K4 or K5 does not cover and for a gradient (any scene
-    leaf, camera field or ring field that requires grad)."""
-    if scene.device.type == "cuda":
-        check_split(scene, cfg, camera, state, time_s)
-    return render_sample_split(scene, cfg, camera, state, height, width, pass_idx, time_s,
-                               trace_forward_gbuffer, caster)
+    """One ReSTIR pass on the split path: (mean radiance f32[H, W, 3], new
+    back Reservoirs), as `restir.render_sample` returns them.  On CUDA, per
+    sample one K4 and one K6v launch (split form); it raises, before any
+    launch, for what K4 or K6v does not cover and for a gradient (any scene
+    leaf, camera field or ring field that requires grad).  On the CPU, the
+    plain version: `render_sample_split` with `gbuffer_plain` and
+    `restir.default_cast`."""
+    if scene.device.type != "cuda":
+        return render_sample_split(scene, cfg, camera, state, height, width, pass_idx, time_s,
+                                   gbuffer_plain, restir.default_cast)
+    check_split(scene, cfg, camera, state, time_s)
+    return _render_sample_kernels(scene, cfg, camera, state, height, width, pass_idx, time_s)
+
+
+def _render_sample_kernels(scene, cfg, camera, state, height, width, pass_idx, time_s):
+    """`render_sample_fast`'s route on the card, without the device and
+    class checks: K4 then K6v (split form) per sample."""
+    scene = scene_mod.animate_positions(scene, time_s, int(cfg.render_mode))
+    pix = rng.pixel_ids(height, width, device=scene.device)
+    table = megakernel.scene_table(scene)
+    grids = (state.restir_back, state.restir_hist1, state.restir_hist2)
+    total = torch.zeros((height, width, 3), dtype=torch.float32, device=scene.device)
+    new = None
+    for s in range(cfg.samples_per_pass):
+        ro, rd = generate_rays(camera, height, width, pass_idx, sample_idx=s)
+        total, new = launch_two_stage(scene, cfg, table, ro, rd, pix, pass_idx, s, grids,
+                                      total=total)
+    return total / cfg.samples_per_pass, new

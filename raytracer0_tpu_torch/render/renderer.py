@@ -22,12 +22,12 @@ NotImplementedError before anything is launched.  A render that needs no
 gradient launches K1 alone.
 
 A ReSTIR pass (`cfg.use_restir`) goes through `render_pass` alone, since
-it reads and writes the reservoir ring: on a CUDA device through the fused
-kernel K6 (`ops/restir_kernel.py`), or, with `cfg.restir_adhoc_motion`,
-through the split path of the G-buffer kernel K4, the reservoir phases and
-the ray-cast kernel K5 (`ops/restir_split.py`), as the JAX package routes
-it; on the CPU through the plain `restir.render_sample`; after which the
-ring rotates.  It is
+it reads and writes the reservoir ring: on a CUDA device through the
+ReSTIR pass K6 (`ops/restir_kernel.py`: the G-buffer kernel K4, then the
+reservoir-vertex kernel K6v), or, with `cfg.restir_adhoc_motion`, through
+the split path (`ops/restir_split.py`: K4, then K6v's split form), as the
+JAX package routes it; on the CPU through the plain `restir.render_sample`;
+after which the ring rotates.  It is
 differentiable too: on CUDA K6's adjoint K7 computes the gradient (with
 respect to the scene, the rays and the ring's float fields, so it flows from
 pass to pass), on the CPU the plain version's autograd.  On CUDA a ReSTIR

@@ -1,11 +1,12 @@
-"""K1, its adjoint K2, the fused ReSTIR kernel K6 and its adjoint K7, the
-G-buffer kernel K4 and the ray-cast kernel K5 on the GPU against their plain
-versions on the same card: K1 on the Cornell class and on the widened class
-(mirror, glass and coat, directional lights, cubemaps, uniform sampling,
-textures, SDF meshes), K2 on the Cornell class, K6 on the ReSTIR presets
-(with MIS too, and under ANIMATED accumulation), K7 against the plain
-version's autograd over chains of passes, `fit` through the reservoir ring,
-K4 and K5 bit for bit and the split ReSTIR pass they serve, and the refusal
+"""K1, its adjoint K2, the ReSTIR pass K6 (the G-buffer kernel K4, then
+the reservoir-vertex kernel K6v) and its adjoint K7, and the ray-cast
+kernel K5 on the GPU against their plain versions on the same card: K1 on
+the Cornell class and on the widened class (mirror, glass and coat,
+directional lights, cubemaps, uniform sampling, textures, SDF meshes), K2
+on the Cornell class, K6 on the ReSTIR presets (with MIS too, and under
+ANIMATED accumulation), K6v in both forms, K7 against the plain version's
+autograd over chains of passes, `fit` through the reservoir ring, K4 and
+K5 bit for bit and the split ReSTIR pass K4 and K6v serve, and the refusal
 of gradients outside K2's and K7's classes and through the split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
@@ -36,6 +37,7 @@ from raytracer0_tpu_torch import optimize
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split
+from raytracer0_tpu_torch.ops import restir_vertex
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
@@ -394,18 +396,21 @@ def _restir_contract(out, ref, new, new_ref):
 def test_restir_kernel_matches_plain(cuda, where, kw):
     """K6 against the plain `restir.render_sample`, each threading its own
     reservoir ring through passes 0-11 (temporal reuse from pass 3, all
-    spatial taps from pass 10), one K6 launch and no K1 launch per pass."""
+    spatial taps from pass 10), one K6 pass (one K4 and one K6v launch) and
+    no K1 launch per pass."""
     scene, cam, cfg = getattr(presets, where)(device=cuda)
     cfg = cfg.replace(**kw)
     h, w = 16, 128
     kernel = RenderState.create(h, w, device=cuda)
     plain = RenderState.create(h, w, device=cuda)
+    counts = lambda: (restir_kernel.LAUNCHES, restir_split.GBUF_LAUNCHES,
+                      restir_vertex.VERTEX_LAUNCHES, megakernel.LAUNCHES)
     for p in range(12):
-        before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES)
+        before = counts()
         out, new = restir_kernel.render_sample_fused(scene, cfg, cam, kernel, h, w, p)
         ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p)
         torch.cuda.synchronize()
-        assert (restir_kernel.LAUNCHES, megakernel.LAUNCHES) == (before[0] + 1, before[1])
+        assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
         assert bool(torch.isfinite(out).all())
         _restir_contract(out, ref, new, new_ref)
         kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
@@ -413,15 +418,17 @@ def test_restir_kernel_matches_plain(cuda, where, kw):
 
 
 def test_restir_render_goes_through_k6_only(cuda):
-    """Renderer(restir_demo) launches K6 once per pass and neither K1 nor
-    K2, and fills the reservoirs."""
+    """Renderer(restir_demo) runs one K6 pass (K4 then K6v) per pass and
+    launches neither K1 nor K2, and fills the reservoirs."""
     scene, cam, cfg = presets.restir_demo(device=cuda, max_bounces=4)
-    before = (restir_kernel.LAUNCHES, megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    counts = lambda: (restir_kernel.LAUNCHES, restir_split.GBUF_LAUNCHES,
+                      restir_vertex.VERTEX_LAUNCHES, megakernel.LAUNCHES,
+                      megakernel.BWD_LAUNCHES)
+    before = counts()
     r = Renderer(scene, cam, cfg, 32, 48)
     img = r.render(4)
     torch.cuda.synchronize()
-    assert (restir_kernel.LAUNCHES, megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == \
-        (before[0] + 4, before[1], before[2])
+    assert counts() == (before[0] + 4, before[1] + 4, before[2] + 4, before[3], before[4])
     assert img.shape == (32, 48, 3) and bool(torch.isfinite(img).all())
     assert r.state.restir_back.m.max().item() > 0.0
     assert r.state.restir_back.w.max().item() <= 12.0
@@ -485,9 +492,9 @@ def test_restir_adjoint_loss_scale_cotangents(cuda, where):
 
 def test_kernel_occupancy_exports(cuda):
     """Every library's `*_occupancy` export answers on the card: K1, K4, K5
-    and K6 at 128 threads, K2 and K7 at their block sizes, each at least
-    one block per SM with its registers; K7 on restir_demo fits one block
-    (its per-thread cotangent columns take 132 KB)."""
+    and K6v (both forms) at 128 threads, K2 and K7 at their block sizes,
+    each at least one block per SM with its registers; K7 on restir_demo
+    fits one block (its per-thread cotangent columns take 132 KB)."""
     from raytracer0_tpu_torch.ops import cuda_build
 
     cornell = cornell_default(device=cuda)[0]
@@ -501,12 +508,14 @@ def test_kernel_occupancy_exports(cuda):
              megakernel.smem_bytes(demo)),
             ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
              restir_split.cast_smem_bytes(demo)),
-            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", 128,
-             restir_kernel.smem_bytes(demo)),
             ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward", k7_t,
              restir_kernel.bwd_smem_bytes(demo, k7_t))]
     occ = {lib: cuda_build.occupancy(lib, src, sym + "_occupancy", t, smem, True)
            for lib, src, sym, t, smem in rows}
+    for split in (False, True):   # the export's flag selects K6v's form
+        occ[f"restir_vertex {split}"] = cuda_build.occupancy(
+            "restir_vertex", restir_vertex.SOURCES, "rt0_restir_vertex_occupancy", 128,
+            restir_vertex.smem_bytes(demo), split)
     for lib, o in occ.items():
         assert o["blocks"] >= 1 and o["registers"] > 0, (lib, o)
     assert occ["restir_bwd"]["blocks"] == 1 and occ["restir_bwd"]["smem"] > 128 * 1024
@@ -552,19 +561,20 @@ def test_restir_adjoint_refuses_outside_its_class(cuda):
 def test_restir_kernel_refuses_outside_its_class(cuda):
     """A ReSTIR config K6 does not cover raises on the card; it never runs
     the plain version instead.  The ad-hoc reprojection renders through the
-    split path, K4 and K5, and launches no K6."""
+    split path, K4 and K6v's split form, and runs no K6 pass and no K5."""
     scene, cam, cfg = presets.restir_demo(device=cuda)
     before = restir_kernel.LAUNCHES
     with pytest.raises(NotImplementedError, match="item 11"):
         render_pass(scene, cam, cfg.replace(use_biased_sampling=False),
                     RenderState.create(8, 8, device=cuda), 8, 8)
     assert restir_kernel.LAUNCHES == before
-    k4, k5 = restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES
+    k4, k5, k6v = (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES,
+                   restir_vertex.VERTEX_LAUNCHES)
     state = render_pass(scene, cam, cfg.replace(use_mis=True, restir_adhoc_motion=True),
                         RenderState.create(8, 8, device=cuda), 8, 8)
     torch.cuda.synchronize()
-    slots = restir_split.gbuffer_slots(cfg)
-    assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) == (k4 + 1, k5 + 2 * slots)
+    assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES,
+            restir_vertex.VERTEX_LAUNCHES) == (k4 + 1, k5, k6v + 1)
     assert restir_kernel.LAUNCHES == before and bool(torch.isfinite(state.accum).all())
 
 
@@ -655,22 +665,22 @@ def test_restir_adjoint_animated(cuda):
 
 def test_split_pass_matches_plain(cuda):
     """Four real-time frames through `render_pass` with the ad-hoc
-    reprojection on the card: one K4 and 2 x slots K5 launches each and no
-    K6; each frame equals the split pass with the plain K4 and K5 bit for
-    bit, and the plain render_sample under JAX's fast-versus-wavefront
-    contract (max 5e-3, median 1e-6); a gradient through it raises before
-    any launch."""
+    reprojection on the card: one K4 and one K6v launch each (split form),
+    no K5 and no K6 pass; each frame equals the split pass with the plain
+    G-buffer and caster bit for bit, and the plain render_sample under JAX's
+    fast-versus-wavefront contract (max 5e-3, median 1e-6); a gradient
+    through it raises before any launch."""
     scene, cam, cfg = _realtime(cuda, restir_adhoc_motion=True)
     h, w = 16, 128
     state = plain = RenderState.create(h, w, device=cuda)
-    slots = restir_split.gbuffer_slots(cfg)
     for p in range(4):
         t = p / 30
-        counts = (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES)
+        counts = lambda: (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES,
+                          restir_vertex.VERTEX_LAUNCHES, restir_kernel.LAUNCHES)
+        before = counts()
         rad, new = restir_split.render_sample_fast(scene, cfg, cam, state, h, w, p, t)
         torch.cuda.synchronize()
-        assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES) \
-            == (counts[0] + 1, counts[1] + 2 * slots, counts[2])
+        assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
         ref, new_ref = restir_split.render_sample_split(
             scene, cfg, cam, state, h, w, p, t, restir_split.gbuffer_plain, restir.default_cast)
         assert torch.equal(rad, ref)
@@ -680,8 +690,58 @@ def test_split_pass_matches_plain(cuda):
         err = (rad - wave).abs()
         assert err.max().item() < 5e-3 and err.median().item() < 1e-6, p
         state = state.rotate_reservoirs(new)
-    counts = (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES)
+    before = counts()
     em = scene.emission.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="no adjoint"):
         render_pass(scene.replace(emission=em), cam, cfg, plain, h, w, 0.1)
-    assert (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES) == counts
+    assert counts() == before
+
+
+@pytest.mark.parametrize("form,where", [("fused", "restir_demo"), ("fused", "restir_stress"),
+                                        ("split", "animated_untextured"),
+                                        ("split", "restir_demo")])
+def test_vertex_kernel_matches_plain(cuda, form, where):
+    """K6v in both forms bit for bit against its plain versions at 64x256
+    over passes 0-3, each threading its own ring: the fused form (K6's
+    route) against `restir.render_sample`, the split form (the ad-hoc
+    reprojection; on the real-time scene under ANIMATED at a moving frame
+    time) against `render_sample_split` with the plain G-buffer and
+    caster."""
+    scene, cam, cfg = getattr(presets, where)(device=cuda)
+    split = form == "split"
+    cfg = cfg.replace(restir_adhoc_motion=split)
+    h, w = 64, 256
+    kernel = plain = RenderState.create(h, w, device=cuda)
+    for p in range(4):
+        t = p / 30
+        before = restir_vertex.VERTEX_LAUNCHES
+        if split:
+            out, new = restir_split.render_sample_fast(scene, cfg, cam, kernel, h, w, p, t)
+            ref, new_ref = restir_split.render_sample_split(
+                scene, cfg, cam, plain, h, w, p, t, restir_split.gbuffer_plain,
+                restir.default_cast)
+        else:
+            out, new = restir_kernel.render_sample_fused(scene, cfg, cam, kernel, h, w, p)
+            ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p)
+        torch.cuda.synchronize()
+        assert restir_vertex.VERTEX_LAUNCHES == before + 1
+        assert torch.equal(out, ref), (p, int((out != ref).any(-1).sum()))
+        for k, v in new.fields().items():
+            assert torch.equal(v, getattr(new_ref, k)), (p, k)
+        kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
+    assert int((new.light_index >= 0).sum()) > h * w // 2 and ref.max().item() > 0.0
+
+
+def test_restir_adjoint_registers_unchanged(cuda):
+    """K7 includes the reservoir vertex K6v templates (csrc/restir.cuh);
+    its default form compiles to the code K7 had before: 168 registers and
+    a 1,328-byte stack per thread (ptxas, PERF.md §6), one block of 128
+    threads per SM on restir_demo."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    demo = presets.restir_demo(device=cuda)[0]
+    t = restir_kernel.bwd_threads(demo)
+    o = cuda_build.occupancy("restir_bwd", restir_kernel.BWD_SOURCES,
+                             "rt0_restir_backward_occupancy", t,
+                             restir_kernel.bwd_smem_bytes(demo, t), True)
+    assert (o["registers"], o["local_bytes"], o["blocks"], t) == (168, 1328, 1, 128), o

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1, K2, K4, K5, K6 and K7, compiled for the host,
+"""The CUDA sources of K1, K2, K4, K5, K6v and K7, compiled for the host,
 against the plain version and its autograd.
 
 CUDA kernels have no interpret mode, and a machine without a card may
@@ -10,10 +10,10 @@ block run as std::threads that meet at a std::barrier for
 kernel's barriers, as the kernels do), blocks run one after another, and
 a `<<<...>>>` launch becomes a call of the shim's launcher.  The launchers
 `rt0_trace_forward`, `rt0_trace_backward`, `rt0_gbuffer_forward`,
-`rt0_cast_rays`, `rt0_restir_forward` and `rt0_restir_backward` are
+`rt0_cast_rays`, `rt0_restir_vertex` and `rt0_restir_backward` are
 compiled unchanged and driven through `ops/megakernel.py`'s own
 `_TraceCore`, `ops/restir_split.py`'s launchers and `ops/restir_kernel.py`'s
-launcher and `_RestirCore`, so the test covers
+launcher (K6: K4 then K6v) and `_RestirCore`, so the test covers
 the kernels' arithmetic, their block reductions and the wrapper's ctypes
 calls; only nvcc's code generation is left to the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Host libm rounds sin/cos/sqrt
@@ -44,7 +44,7 @@ from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
 from raytracer0_tpu_torch.models.scene import SceneBuilder
 from raytracer0_tpu_torch.ops import cuda_build
-from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split
+from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split, restir_vertex
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
@@ -119,61 +119,85 @@ def _host_source(text):
     return re.sub(r"(\w+(?:<\w+>)?)<<<(.*)>>>\((.*)\);", r"emu_launch(\1, \2, \3);", text)
 
 
-@pytest.fixture(scope="module")
-def host_kernels(tmp_path_factory):
-    """(K1, K2, K6, K7, K4, K5) ctypes functions of the host build."""
+#: (module, build function, library name, sources, symbol, argtypes) of each
+#: kernel library the host tests build, by the launch count's kernel.
+HOST_LIBRARIES = {
+    "K1": (megakernel, "build", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
+           megakernel._ARGTYPES),
+    "K2": (megakernel, "build_bwd", "megakernel_bwd", megakernel.BWD_SOURCES,
+           "rt0_trace_backward", megakernel._BWD_ARGTYPES),
+    "K4": (restir_split, "build_gbuffer", "gbuffer", restir_split.GBUF_SOURCES,
+           "rt0_gbuffer_forward", restir_split._GBUF_ARGTYPES),
+    "K5": (restir_split, "build_cast", "cast", restir_split.CAST_SOURCES, "rt0_cast_rays",
+           restir_split._CAST_ARGTYPES),
+    "K6v": (restir_vertex, "build", "restir_vertex", restir_vertex.SOURCES,
+            "rt0_restir_vertex", restir_vertex._ARGTYPES),
+    "K7": (restir_kernel, "build_bwd", "restir_bwd", restir_kernel.BWD_SOURCES,
+           "rt0_restir_backward", restir_kernel._BWD_ARGTYPES),
+}
+#: (module, attribute) of every launch count of the port.
+LAUNCH_COUNTS = ((megakernel, "LAUNCHES"), (megakernel, "BWD_LAUNCHES"),
+                 (restir_kernel, "LAUNCHES"), (restir_kernel, "BWD_LAUNCHES"),
+                 (restir_split, "GBUF_LAUNCHES"), (restir_split, "CAST_LAUNCHES"),
+                 (restir_vertex, "VERTEX_LAUNCHES"))
+
+
+def build_host(out, libraries):
+    """Compile `libraries` ({key: (name, sources, symbol, argtypes)}) for
+    the host into `out` through the shim, all at once with g++ -O1 and no
+    contraction or fast math: {key: ctypes function}.  Skips the test
+    without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
-    out = tmp_path_factory.mktemp("host_kernels")
     (out / "cuda_runtime.h").write_text(SHIM)
     for p in cuda_build.CSRC_DIR.glob("*.cuh"):
         (out / p.name).write_text(p.read_text())
-    fns = []
-    for name, sources, symbol, argtypes in (
-            ("megakernel", megakernel.SOURCES, "rt0_trace_forward", megakernel._ARGTYPES),
-            ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
-             megakernel._BWD_ARGTYPES),
-            ("restir", restir_kernel.SOURCES, "rt0_restir_forward", restir_kernel._ARGTYPES),
-            ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
-             restir_kernel._BWD_ARGTYPES),
-            ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward",
-             restir_split._GBUF_ARGTYPES),
-            ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", restir_split._CAST_ARGTYPES)):
+    procs = {}
+    for key, (name, sources, _, _) in libraries.items():
         cpp = out / f"{name}.cpp"
         cpp.write_text("".join(_host_source((cuda_build.CSRC_DIR / s).read_text())
                                for s in sources))
-        lib = out / f"lib{name}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math",
-                        "-shared", "-fPIC", "-pthread", f"-I{out}", "-o", str(lib), str(cpp)],
-                       check=True, capture_output=True, timeout=600)
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        procs[key] = subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shared",
+             "-fPIC", "-pthread", f"-I{out}", "-o", str(out / f"lib{name}.so"), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for key, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log
+        name, _, symbol, argtypes = libraries[key]
+        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns.append(fn)
-    return tuple(fns)
+        fns[key] = fn
+    return fns
+
+
+def on_cpu(monkeypatch, fns):
+    """Have the launchers launch the host build `fns` ({kernel: ctypes
+    function}, keys of HOST_LIBRARIES) on CPU tensors; the launch counts
+    are restored afterwards, since they count launches on the card."""
+    for module, attr in LAUNCH_COUNTS:
+        monkeypatch.setattr(module, attr, getattr(module, attr))
+    for key, fn in fns.items():
+        module, build = HOST_LIBRARIES[key][:2]
+        monkeypatch.setattr(module, build, lambda fn=fn: (fn, None))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """{kernel: ctypes function} of the host build of every library."""
+    return build_host(tmp_path_factory.mktemp("host_kernels"),
+                      {k: v[2:] for k, v in HOST_LIBRARIES.items()})
 
 
 @pytest.fixture
 def kernels_on_cpu(host_kernels, monkeypatch):
-    """ops/megakernel.py launching the host build on CPU tensors; the
-    launch counts are restored afterwards, since they count launches on
-    the card."""
-    fwd, bwd, k6, k7, k4, k5 = host_kernels
-    monkeypatch.setattr(megakernel, "LAUNCHES", megakernel.LAUNCHES)
-    monkeypatch.setattr(megakernel, "BWD_LAUNCHES", megakernel.BWD_LAUNCHES)
-    monkeypatch.setattr(restir_kernel, "LAUNCHES", restir_kernel.LAUNCHES)
-    monkeypatch.setattr(restir_kernel, "BWD_LAUNCHES", restir_kernel.BWD_LAUNCHES)
-    monkeypatch.setattr(restir_split, "GBUF_LAUNCHES", restir_split.GBUF_LAUNCHES)
-    monkeypatch.setattr(restir_split, "CAST_LAUNCHES", restir_split.CAST_LAUNCHES)
-    monkeypatch.setattr(megakernel, "build", lambda: (fwd, None))
-    monkeypatch.setattr(megakernel, "build_bwd", lambda: (bwd, None))
-    monkeypatch.setattr(restir_kernel, "build", lambda: (k6, None))
-    monkeypatch.setattr(restir_kernel, "build_bwd", lambda: (k7, None))
-    monkeypatch.setattr(restir_split, "build_gbuffer", lambda: (k4, None))
-    monkeypatch.setattr(restir_split, "build_cast", lambda: (k5, None))
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    """The launchers launching the host build on CPU tensors."""
+    on_cpu(monkeypatch, host_kernels)
 
 
 def _grads(trace, scene, cfg, ro, rd, pix):
