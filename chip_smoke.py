@@ -376,8 +376,47 @@ def textured_scenes(dev):
     return cases
 
 
+def warp_lane_use(torch, counts):
+    """Lane use of a loop whose lanes run `counts` iterations each, 32
+    pixels a warp in image order, one pixel per thread: lane-iterations /
+    (32 x the sum of each warp's longest)."""
+    c = counts.flatten().to(torch.int64)
+    c = torch.cat([c, c.new_zeros((-c.numel()) % 32)]).view(-1, 32)
+    longest = int(c.amax(1).sum())
+    return int(c.sum()) / (32 * longest) if longest else 1.0
+
+
+def regenerated_lane_use(counts, warps, refill_min=16):
+    """Lane use of the same loop under path regeneration (K4's schedule),
+    simulated: `warps` resident warps of 32 lanes; at every tick the idle
+    lanes of each warp with at least `refill_min` of them (or no live one;
+    `gbuffer.cu`'s REFILL_MIN) take the next pixels of a launch-wide
+    counter (warps in order), then every warp with a live lane issues one
+    iteration and each live lane runs it.  Returns (lane use, ticks,
+    warp-iterations issued)."""
+    import numpy as np
+
+    c = counts.flatten().cpu().numpy().astype(np.int64)
+    rem = np.zeros(warps * 32, np.int64)
+    nxt = issued = busy = ticks = 0
+    while True:
+        if nxt < c.size:
+            idle = (rem == 0).reshape(warps, 32)
+            ready = (idle.sum(1) >= refill_min) | idle.all(1)
+            free = np.flatnonzero((idle & ready[:, None]).ravel())[: c.size - nxt]
+            rem[free] = c[nxt: nxt + free.size]
+            nxt += free.size
+        live = (rem > 0).reshape(warps, 32)
+        if not live.any():
+            return busy / (32 * max(issued, 1)), ticks, issued
+        issued += int(live.any(1).sum())
+        busy += int(live.sum())
+        ticks += 1
+        rem -= live.ravel()
+
+
 def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
-                gbuffer=False):
+                gbuffer=False, resident_warps=None):
     """Events of every pixel's path, counted over the image: rays by mesh
     scan, BSDF samples by material and by outcome (diffuse, specular,
     transmitted), shadow rays to sphere and to directional lights, gather
@@ -394,7 +433,12 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     Replays the kernels' decisions with the plain version's functions
     (`bsdf.sample`, `integrator.hit_color_emission`, `sdf.march_loop`,
     `restir.reservoir_direct` among them), which make the same ones bit
-    for bit."""
+    for bit.  `lane_use` is the bounce loop's warp lane use one pixel per
+    thread (`warp_lane_use` of each pixel's bounces) and `march_lane_use`
+    that of the bounces' SDF marches (lane steps over 32 x each warp's
+    longest march, bounce by bounce); with `resident_warps`,
+    `lane_use_regenerated` simulates the bounce loop under K4's path
+    regeneration on that many warps (`regenerated_lane_use`)."""
     from raytracer0_tpu_torch import rng
     from raytracer0_tpu_torch.ops import (bsdf, intersect, lighting, restir, sampling,
                                           sdf, vecmath)
@@ -431,10 +475,18 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     active = torch.ones(shape, dtype=torch.bool, device=ro.device)
     specular = active.clone()
     counts = [torch.zeros(shape, dtype=torch.int32, device=ro.device) for _ in range(3)]
+    bounces = torch.zeros(shape, dtype=torch.int64, device=ro.device)
+    march_steps, march_longest = 0, 0
     sdf.march_loop = counted
     try:
         for depth in range(cfg.max_bounces):
             hit = intersect.intersect(scene, o, d, cfg)
+            bounces = bounces + active.long()
+            if marches:   # the bounce's own march, lane by lane
+                steps = torch.where(active, marches[0], 0).flatten().long()
+                steps = torch.cat([steps, steps.new_zeros((-steps.numel()) % 32)]).view(-1, 32)
+                march_steps += int(steps.sum())
+                march_longest += int(steps.amax(1).sum())
             march_work(active)
             mat = scene.mat_type[hit.idx]
             missed = active & hit.missed
@@ -513,6 +565,11 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     finally:
         sdf.march_loop = march_loop
     ev["pixels"] = n
+    ev["lane_use"] = warp_lane_use(torch, bounces)
+    if march_longest:
+        ev["march_lane_use"] = march_steps / (32 * march_longest)
+    if resident_warps:
+        ev["lane_use_regenerated"] = regenerated_lane_use(bounces, resident_warps)[0]
     return ev
 
 
@@ -660,12 +717,14 @@ def kernel_occupancy(dev):
     k7_threads = restir_kernel.bwd_threads
     rows = [
         ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
-         128, megakernel.smem_bytes(cornell), False),
+         128, megakernel.packed_smem_bytes(cornell), False),
         ("K2", "cornell_default", "megakernel_bwd", megakernel.BWD_SOURCES,
          "rt0_trace_backward", k2_threads, megakernel.bwd_smem_bytes(cornell, k2_threads),
          False),
         ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
-         "rt0_gbuffer_forward", 128, megakernel.smem_bytes(realtime), True),
+         "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(realtime), True),
+        ("K4", "restir_demo", "gbuffer", restir_split.GBUF_SOURCES,
+         "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(demo), True),
         ("K5", "animated_untextured", "cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
          restir_split.cast_smem_bytes(realtime), True),
         ("K6v", "restir_demo", "restir_vertex", restir_vertex.SOURCES, "rt0_restir_vertex", 128,
@@ -682,10 +741,11 @@ def kernel_occupancy(dev):
             for k, where, lib, src, sym, threads, smem, flag in rows}
 
 
-def device_times_ms(prof, names):
+def device_times_ms(prof, names, per_launch=False):
     """Device milliseconds per profiled kernel whose name contains each of
-    `names`, and the device total of all kernels; None where the profiler
-    shows no device time."""
+    `names` (per launch the profile recorded, with `per_launch`), and the
+    device total of all kernels; None where the profiler shows no device
+    time."""
     evts = prof.key_averages()
 
     def dev_us(e):
@@ -695,7 +755,10 @@ def device_times_ms(prof, names):
                 return v
         return 0.0
 
-    out = {n: sum(dev_us(e) for e in evts if n in e.key) / 1e3 for n in names}
+    def launches(n):
+        return max(sum(e.count for e in evts if n in e.key), 1) if per_launch else 1
+
+    out = {n: sum(dev_us(e) for e in evts if n in e.key) / 1e3 / launches(n) for n in names}
     total = sum(dev_us(e) for e in evts) / 1e3
     if total <= 0.0:
         return {n: None for n in names}, None
@@ -771,6 +834,18 @@ def main() -> int:
               f"{o['warps']} warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at "
               f"{o['smem']} bytes of dynamic shared memory, {o['registers']} registers and "
               f"{o['local_bytes']} bytes of local memory per thread")
+    o1 = occ[("K1", "cornell_default")]
+    print(f"phase 2: K1 on Cornell at {H}x{W}: one pixel per thread, a grid of "
+          f"{-(-H * W // 128)} blocks of 128, {o1['blocks']} blocks per SM at {o1['registers']} "
+          f"registers ({o1['local_bytes']} bytes of local memory)")
+    for where in ("restir_demo", "animated_untextured"):
+        o4 = occ[("K4", where)]
+        grid = restir_split.resident_blocks(dev, True, o4["smem"])
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        print(f"phase 2: K4 on {where}: a persistent grid of {grid} blocks of 128 "
+              f"({o4['blocks']} blocks per SM x {sms} SMs) at {o4['registers']} registers "
+              f"({o4['local_bytes']} bytes of local memory); {-(-H * W // 128)} blocks of pixels "
+              f"at {H}x{W}")
     o7 = occ[("K7", "restir_demo")]
     print(f"phase 2: K7 keeps its 168 registers and 1,328-byte stack: "
           f"{(o7['registers'], o7['local_bytes']) == (168, 1328)}")
@@ -848,6 +923,8 @@ def main() -> int:
     k2_bound, k2_by = bound(ev, scene, cfg, adjoint=True)
     print(f"phase 5: path events at {H}x{W}: {json.dumps(ev)}")
     print(f"phase 5: bound K1 {k1_bound:.6f} ms ({k1_by}), K2 {k2_bound:.6f} ms ({k2_by})")
+    print(f"phase 5: {card}: K1 {ms_trace:.3f} ms on Cornell beside its bounce loop's warp lane "
+          f"use {ev['lane_use']:.4f} (plain replay, 32 pixels a warp, one pixel per thread)")
 
     # ---- phase 6: K2 against the plain version's autograd ----
     for h, w, kw in ADJ_CONFIGS:
@@ -1408,8 +1485,11 @@ def main() -> int:
         for _ in range(3):
             k6_call()
         torch.cuda.synchronize()
-    dev17, _ = device_times_ms(prof, k6_kernels)
-    k4_demo_dev_ms, k6v_dev_ms = (None if v is None else v / 3 for v in dev17.values())
+    # per launch the profile recorded: one run read K4 at 0.0986 ms here
+    # against 0.149 in every other measure of the same launch
+    dev17, _ = device_times_ms(prof, k6_kernels, per_launch=True)
+    k4_demo_dev_ms, k6v_dev_ms = dev17.values()
+    records17 = [sum(e.count for e in prof.key_averages() if n in e.key) for n in k6_kernels]
     k6_dev_ms = None if k6v_dev_ms is None else k4_demo_dev_ms + k6v_dev_ms
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -1420,18 +1500,27 @@ def main() -> int:
     ev17 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, ring=st)
     k6_bound, k6_by = bound(ev17, r_scene, r_cfg, adjoint=False, restir=True)
     slots17 = restir_split.gbuffer_slots(r_cfg)
-    ev17_k4 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, gbuffer=True)
+    k4_grid17 = restir_split.resident_blocks(dev, True, megakernel.packed_smem_bytes(r_scene))
+    ev17_k4 = path_events(torch, r_scene, r_cfg, ro17, rd17, pix17, PASSES, 0, gbuffer=True,
+                          resident_warps=k4_grid17 * 4)
     k4_demo_bound, k4_demo_by = bound(ev17_k4, r_scene, r_cfg, adjoint=False,
                                       gbuffer_slots=slots17)
     k6v_bound, k6v_by = vertex_bound(ev17, r_scene, r_cfg, slots17)
     o6v = occ[("K6v", "restir_demo")]
     dev_txt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     print(f"phase 17: path events of a restir_demo pass at {H}x{W}: {json.dumps(ev17)}")
+    print(f"phase 17: {card}: K4 on restir_demo {dev_txt(k4_demo_dev_ms)} of device time "
+          f"({ms_k4_demo:.3f} ms alone) on a persistent grid of {k4_grid17} blocks; its bounce "
+          f"loop's warp lane use (plain replay, 32 pixels a warp): {ev17_k4['lane_use']:.4f} one "
+          f"pixel per thread, {ev17_k4['lane_use_regenerated']:.4f} simulated under regeneration "
+          f"on {k4_grid17 * 4} resident warps; its SDF march's "
+          f"{ev17_k4.get('march_lane_use', 1.0):.4f}")
     print(f"phase 17: {card}: restir_demo at {H}x{W}, {r_cfg.max_bounces} bounces, "
           f"{r_cfg.marching_steps} marching steps: pass (Renderer.step) {ms_restir_pass[0]:.3f} ms "
           f"(q1 {ms_restir_pass[1]:.3f}, q3 {ms_restir_pass[2]:.3f}); K6 pass {ms_k6:.3f} ms "
           f"(device {dev_txt(k6_dev_ms)}: K4 {dev_txt(k4_demo_dev_ms)} + K6v "
-          f"{dev_txt(k6v_dev_ms)}, profiler); alone K4 {ms_k4_demo:.3f} ms, K6v {ms_k6v:.3f} ms "
+          f"{dev_txt(k6v_dev_ms)}, profiler, {records17} launches recorded of 3 each); alone K4 "
+          f"{ms_k4_demo:.3f} ms, K6v {ms_k6v:.3f} ms "
           f"(CUDA events); in a pass K4 + K6v {dev_txt(k6_pass_dev)}"
           + ("" if pass_total is None else f" of {pass_total / 3:.4f} ms on the device")
           + f"; plain render_sample {plain_restir[0]:.3f} ms per pass; bounds: the pass "
@@ -1752,6 +1841,21 @@ def main() -> int:
                   f"{max(errs):.3e}; valid vertices per slot {[int(g['valid'].sum()) for g in gb]}")
             if any(diffs.values()):
                 raise AssertionError(f"K4 disagrees with its plain version on {name}")
+            # the same launch forced onto one block: every lane regenerates
+            # some H*W/128 times
+            resident = restir_split.resident_blocks
+            restir_split.resident_blocks = lambda *a: 1
+            try:
+                out1, gb1 = restir_split.trace_forward_gbuffer(s22, cfg22, ro22, rd22, pix22, 2, 0)
+            finally:
+                restir_split.resident_blocks = resident
+            torch.cuda.synchronize()
+            same = torch.equal(out1, ref) and all(torch.equal(g[f], gr[f]) for g, gr in
+                                                  zip(gb1, gref) for f in g)
+            print(f"phase 22: K4 on {name}, {h}x{w}, forced onto a grid of 1 block: bit for bit "
+                  f"against the plain version: {same}")
+            if not same:
+                raise AssertionError(f"K4 on one block disagrees with its plain version on {name}")
     k4_max_err = max(k4_err.values())
 
     # ---- phase 23: K6 and K7 under ANIMATED accumulation ----
@@ -1948,7 +2052,9 @@ def main() -> int:
     dev24c, _ = device_times_ms(prof, ("cast_kernel",))
     k5_dev_ms = (None if dev24c["cast_kernel"] is None
                  else dev24c["cast_kernel"] / (3 * len(k5_inputs)))
-    ev24 = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, gbuffer=True)
+    k4_grid24 = restir_split.resident_blocks(dev, True, megakernel.packed_smem_bytes(fr24))
+    ev24 = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, gbuffer=True,
+                       resident_warps=k4_grid24 * 4)
     k4_bound, k4_by = bound(ev24, fr24, rt_adhoc, adjoint=False, gbuffer_slots=slots)
     ev24v = path_events(torch, fr24, rt_adhoc, ro24, rd24, pix24, frames, 0, ring=st24)
     k6v_split_bound, k6v_split_by = vertex_bound(ev24v, fr24, rt_adhoc, slots, split=True)
@@ -1959,6 +2065,12 @@ def main() -> int:
     rest = rt_frame[0] - ms_rays24 - ms_k4 - ms_k6v_split
     o6s = occ[("K6v split", "animated_untextured")]
     print(f"phase 24: path events of K4 on a real-time frame at {H}x{W}: {json.dumps(ev24)}")
+    print(f"phase 24: {card}: K4 on the real-time frame "
+          + ("not measured" if k4_dev_ms is None else f"{k4_dev_ms:.4f} ms")
+          + f" of device time ({ms_k4:.3f} ms alone) on a persistent grid of {k4_grid24} blocks; "
+          f"its bounce loop's warp lane use (plain replay, 32 pixels a warp): "
+          f"{ev24['lane_use']:.4f} one pixel per thread, {ev24['lane_use_regenerated']:.4f} "
+          f"simulated under regeneration; its SDF march's {ev24.get('march_lane_use', 1.0):.4f}")
     print(f"phase 24: path events of the frame's reservoir vertices: {json.dumps(ev24v)}")
     print(f"phase 24: K5 events per launch of the plain split pass: "
           + "; ".join(json.dumps(b[2]) for b in k5_bounds))

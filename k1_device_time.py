@@ -31,10 +31,14 @@ Finally a sha256 prefix of each kernel route's outputs on fixed inputs
 (K1, K4, K7, the K6 pass and the real-time frame), so two checkouts that
 should agree bit for bit can be seen to.
 
-`chip_smoke.py` imports `k1_device_ms`.  Comparing two checkouts: copy
-this script to the root of each (Python puts the script's own directory
-first on the path, so run each checkout's copy) and run them in turns in
-one call (parent, change, change, parent).
+It also prints the ptxas lines of K4, and K1's (Cornell) and K4's
+(`restir_demo`, the real-time scene) blocks per SM, registers and K4's
+persistent grid.
+
+`chip_smoke.py` imports `k1_device_ms`.  Comparing two checkouts: run
+each checkout's own copy from its root (Python puts the script's own
+directory first on the path) in turns in one call (parent, change,
+change, parent), and compare the keys both print.
 """
 
 import hashlib
@@ -44,7 +48,7 @@ import statistics
 import subprocess
 import sys
 
-PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo")
+PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", "cubemap_demo")
 K7_PRESETS = ("restir_demo", "restir_stress")
 
 
@@ -244,7 +248,7 @@ def restir_route_ms(dev):
 
 
 def output_digests(dev):
-    """sha256 prefixes of K1's radiance on Cornell, K4's radiance and
+    """sha256 prefixes of K1's radiance on every preset of PRESETS, K4's radiance and
     G-buffer and K7's cotangents on `restir_demo` (phase 17's inputs, ones
     as cotangents), at 512x512."""
     import torch
@@ -257,9 +261,12 @@ def output_digests(dev):
 
     res = {}
     pix = rng.pixel_ids(512, 512, device=dev)
-    scene, cam, cfg = presets.cornell_default(device=dev, use_mis=True)
-    ro, rd = generate_rays(cam, 512, 512, 0)
-    res["digest_k1_cornell"] = _digest(megakernel.trace_forward(scene, cfg, ro, rd, pix, 0, 0))
+    for name in PRESETS:
+        kw = dict(use_mis=True) if name == "cornell_default" else {}
+        scene, cam, cfg = getattr(presets, name)(device=dev, **kw)
+        ro, rd = generate_rays(cam, 512, 512, 0)
+        key = "digest_k1_cornell" if name == "cornell_default" else f"digest_k1_{name}"
+        res[key] = _digest(megakernel.trace_forward(scene, cfg, ro, rd, pix, 0, 0))
     scene, cam, cfg = presets.restir_demo(device=dev)
     ro, rd = generate_rays(cam, 512, 512, 16)
     out, gbuf = restir_split.trace_forward_gbuffer(scene, cfg, ro, rd, pix, 16, 0)
@@ -276,13 +283,37 @@ def output_digests(dev):
     return res
 
 
+def occupancy(dev):
+    """K1's (Cornell) and K4's (`restir_demo`, the real-time scene) blocks
+    per SM and registers at the shared memory they launch with, and K4's
+    grid (`restir_split.resident_blocks`)."""
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir_split
+
+    smem = megakernel.packed_smem_bytes
+    res = {}
+    for kernel, lib, src, sym, name in (
+            ("k1", "megakernel", megakernel.SOURCES, "rt0_trace_forward", "cornell_default"),
+            ("k4", "gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward", "restir_demo"),
+            ("k4", "gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward",
+             "animated_untextured")):
+        scene = getattr(presets, name)(device=dev)[0]
+        sdf = scene.num_sdfs > 0
+        o = cuda_build.occupancy(lib, src, sym + "_occupancy", 128, smem(scene), sdf)
+        entry = {k: o[k] for k in ("blocks", "registers", "local_bytes", "smem")}
+        if kernel == "k4":
+            entry["grid"] = restir_split.resident_blocks(dev, sdf, smem(scene))
+        res[f"occupancy_{kernel}_{name}"] = entry
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("k1_device_time: no CUDA device", file=sys.stderr)
         return 2
-    from raytracer0_tpu_torch.ops import megakernel
+    from raytracer0_tpu_torch.ops import megakernel, restir_split
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -292,8 +323,10 @@ def main() -> int:
     ptxas = lambda info: [line.strip() for line in info.log.splitlines()
                           if "registers" in line or "spill" in line or "stack" in line]
     res = {"tree": os.path.basename(os.getcwd()), "ptxas": ptxas(megakernel.build()[1]),
+           "ptxas_k4": ptxas(restir_split.build_gbuffer()[1]),
            "ptxas_k7": ptxas(restir_kernel.build_bwd()[1])}
     dev = torch.device("cuda", 0)
+    res.update(occupancy(dev))
     for name, (med, rounds) in k1_device_ms(PRESETS, dev).items():
         res[name] = med
         res[name + "_rounds"] = rounds

@@ -15,7 +15,7 @@
 // raytracer0_tpu_torch/render/integrator.py::trace with `gbuffer_slots`; the
 // kernel follows its operations in order, so the two agree bit for bit.
 //
-// The bounce loop is K1's (path.cuh::trace_path); the G-buffer writer is its
+// The bounce is K1's (path.cuh::path_step); the G-buffer writer is its
 // direct-light functor and adds nothing to the radiance.
 //
 // What the TPU kernel does that this one does not: Mosaic has no per-lane
@@ -28,13 +28,31 @@
 // What bounds it: K1's loop without the shadow rays of NEE: a pixel reads 28
 // bytes of rays and id and writes 12 bytes of radiance plus 45 bytes per
 // slot it fills; the work is the bounce loop, bound like K1 by instruction
-// latency and divergence.  Numerics: no fast math, no FMA contraction.
+// latency and divergence.  Its paths end at very different depths (on
+// `restir_demo` 2 to 12 bounces, 4.4 on average), so one pixel per thread
+// left a third of a warp's lanes idle per bounce.  The design: persistent
+// warps that regenerate paths (regenerate_paths).  The launch has
+// as many blocks as stay resident (its caller passes the grid); a lane
+// whose path ends writes that pixel's radiance and the slots it never
+// reached; once 16 of a warp's lanes are idle (REFILL_MIN; a refill
+// costs the warp a round trip to the counter and a divergent branch, so
+// refilling at every ended path was slower), they take the next pixels from
+// a launch-wide ticket counter (one atomicAdd per warp's refill) and start
+// their paths.  The counter RNG keys on the pixel, so the bits do not
+// depend on which lane traces it; the last block to finish resets the
+// counter.  The meshes are scanned through their packed records
+// (trace_common.cuh::intersect_packed).  __launch_bounds__(128, 6) holds it
+// to 80 registers, 6 blocks per SM against 5 at 96 (20-28 bytes spilled),
+// which was faster (PERF.md's ablation).  Numerics: no fast math, no FMA
+// contraction.
 
 #include "path.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 6;       // __launch_bounds__: 80 registers
+constexpr int REFILL_MIN = 16;      // idle lanes at which a warp refills
 constexpr int MAX_GBUF_SLOTS = 32;  // slots a lane's bit mask can track
 
 struct GbufArgs {
@@ -73,37 +91,110 @@ struct GbufWriter {
   }
 };
 
+// A lane of K4: its G-buffer writer, and what it stores when a path ends:
+// the pixel's radiance, and zeros, mesh 0, depth -1 and not valid in the
+// slots the path never reached.
+struct GbufLane {
+  const TraceArgs &a;
+  GbufWriter direct;
+  __device__ __forceinline__ void start(long long p) {
+    direct.p = p;
+    direct.written = 0u;
+  }
+  __device__ __forceinline__ void finish(V3 acc) {
+    const long long p = direct.p;
+    const GbufArgs &g = direct.g;
+    a.out[3 * p] = acc.x;
+    a.out[3 * p + 1] = acc.y;
+    a.out[3 * p + 2] = acc.z;
+    const V3 zero = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < g.slots; ++k) {
+      if ((direct.written >> k) & 1u) continue;
+      const long long q = (long long)k * a.n_pix + p;
+      store3(g.pos, q, zero);
+      store3(g.nl, q, zero);
+      store3(g.mask, q, zero);
+      g.idx[q] = 0;
+      g.depth[q] = -1;
+      g.valid[q] = 0;
+    }
+  }
+};
+
+// The next pixel of a launch-wide queue (tickets[0]): the lanes of a warp
+// that refill together draw their tickets with one atomicAdd, the leader's,
+// and each takes the next in lane order.
+__device__ __forceinline__ long long next_ticket(unsigned *tickets) {
+  const unsigned act = __activemask();
+  const int lane = (int)(threadIdx.x & 31u);
+  const int leader = __ffs(act) - 1;
+  unsigned base = 0;
+  if (lane == leader) base = atomicAdd(tickets, (unsigned)__popc(act));
+  base = __shfl_sync(act, base, leader);
+  return (long long)base + __popc(act & ((1u << lane) - 1u));
+}
+
+// Regenerating paths: a lane whose path has ended hands it to
+// `lane.finish`; once REFILL_MIN of the warp's lanes are idle (or none is
+// live) they take the next pixels from the launch-wide ticket counter
+// `tickets[0]` and start their paths, so a warp's lanes stay busy until the
+// queue is empty instead of waiting for the warp's longest path.  The
+// counter RNG keys on the pixel, so a pixel's bits do not depend on which
+// lane traces it.  The last block to finish resets the counter and the
+// block count `tickets[1]` for the next launch, so a launch needs no host
+// call to clear them.  Every thread of the block must call it: it ends
+// with __syncthreads().
 template <bool kSdf>
-__global__ void __launch_bounds__(THREADS) gbuf_kernel(TraceArgs a, GbufArgs g) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void regenerate_paths(const TraceArgs &a, const SceneSmem &s,
+                                                 const PathSmem &ps, const PackedScene &pk,
+                                                 unsigned *tickets, GbufLane &lane) {
+  PathState st;
+  bool live = false;
+  long long p = -1;
+  for (;;) {
+    const unsigned act = __activemask(), idle = __ballot_sync(act, !live);
+    if (!live && (__popc(idle) >= REFILL_MIN || idle == act)) {
+      if (p >= 0) lane.finish(st.acc);
+      p = next_ticket(tickets);
+      if (p >= a.n_pix) break;
+      st = path_start(a, p);
+      lane.start(p);
+      live = a.max_bounces > 0;
+    }
+    if (live) live = path_step<kSdf>(a, s, ps, pk, st, lane.direct) && ++st.depth < a.max_bounces;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(tickets + 1, 1u) == gridDim.x - 1) {  // every other block is done
+      atomicExch(tickets, 0u);
+      atomicExch(tickets + 1, 0u);
+    }
+  }
+}
+
+template <bool kSdf>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+gbuf_kernel(TraceArgs a, GbufArgs g, unsigned *tickets) {
+  extern __shared__ __align__(16) float smem[];
   SceneSmem s;
   const PathSmem ps = load_path(a, smem, s);
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.n_pix) return;  // ragged edge
-  GbufWriter w = {g, p, a.n_pix, 0u};
-  const V3 acc = trace_path<kSdf>(a, s, ps, p, w);
-  a.out[3 * p] = acc.x;
-  a.out[3 * p + 1] = acc.y;
-  a.out[3 * p + 2] = acc.z;
-  const V3 zero = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < g.slots; ++k) {
-    if ((w.written >> k) & 1u) continue;
-    const long long q = (long long)k * a.n_pix + p;
-    store3(g.pos, q, zero);
-    store3(g.nl, q, zero);
-    store3(g.mask, q, zero);
-    g.idx[q] = 0;
-    g.depth[q] = -1;
-    g.valid[q] = 0;
-  }
+  const PackedScene pk =
+      load_packed(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
+  GbufLane lane = {a, {g, -1, a.n_pix, 0u}};
+  regenerate_paths<kSdf>(a, s, ps, pk, tickets, lane);
 }
 
 }  // namespace
 
 // Launch K4 on `stream`; returns cudaGetLastError() of the launch.  The
 // arguments up to `t0` are K1's (rt0_trace_forward); then the G-buffer's
-// device pointers and its slot count.  A scene without SDF rows runs the
-// copy of the kernel built without the march.
+// device pointers and its slot count, the grid (the blocks that stay
+// resident, rt0_gbuffer_forward_occupancy times the SMs; no more blocks
+// than the image needs run) and the ticket counter: two zeroed uint32 on
+// the device, which the launch leaves zeroed, of this launch alone while it
+// runs.  A scene without SDF rows runs the copy of the kernel built
+// without the march.
 extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, const int32_t *mat,
                                    int n_mesh, const int32_t *lights, int n_lights,
                                    const float *ro, const float *rd, const int64_t *pix,
@@ -117,8 +208,10 @@ extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, cons
                                    int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
                                    int n_sdf, int steps, float fudge, float t0, float *pos,
                                    float *nl, float *mask, int32_t *idx, int32_t *depth,
-                                   uint8_t *valid, int slots, void *stream) {
-  if (slots < 0 || slots > MAX_GBUF_SLOTS) return (int)cudaErrorInvalidValue;
+                                   uint8_t *valid, int slots, int grid, unsigned *tickets,
+                                   void *stream) {
+  if (slots < 0 || slots > MAX_GBUF_SLOTS || grid <= 0 || n_pix > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
@@ -127,13 +220,14 @@ extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, cons
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
   const GbufArgs g = {pos, nl, mask, idx, depth, valid, slots};
   if (n_pix <= 0) return 0;
-  const size_t smem = path_smem_bytes(n_mesh, n_lights, n_sdf);
-  const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
+  const size_t smem = packed_smem_bytes(path_smem_bytes(n_mesh, n_lights, n_sdf), n_mesh, n_sdf);
+  const long long cover = (n_pix + THREADS - 1) / THREADS;  // blocks of one pixel a thread
+  const unsigned blocks = (unsigned)(grid > cover ? cover : grid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_sdf > 0)
-    gbuf_kernel<true><<<blocks, THREADS, smem, st>>>(a, g);
+    gbuf_kernel<true><<<blocks, THREADS, smem, st>>>(a, g, tickets);
   else
-    gbuf_kernel<false><<<blocks, THREADS, smem, st>>>(a, g);
+    gbuf_kernel<false><<<blocks, THREADS, smem, st>>>(a, g, tickets);
   return (int)cudaGetLastError();
 }
 

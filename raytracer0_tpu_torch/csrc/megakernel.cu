@@ -46,15 +46,23 @@
 //    three bounce counters) — no intermediate state goes to device memory;
 //  * a thread leaves the loop as soon as its path ends.  The counter RNG keys
 //    on (pixel, pass, sample, depth, ...), so this is exact, and a warp stops
-//    when its last live path stops;
+//    when its last live path stops.  K4 hands ended lanes new pixels
+//    (gbuffer.cu::regenerate_paths); K1 does not: its paths end nearly
+//    together (98.5 % of a warp's lanes busy per bounce on Cornell), and
+//    regeneration only added a drain (PERF.md's ablation);
+//  * __launch_bounds__(128, 8): 8 blocks per SM hold K1 to 64 registers
+//    against 80-118 and spill 148-346 bytes, which stay in L1; it was
+//    faster than 6 or 7 blocks on every preset measured;
 //  * the scene table f32[n_mesh, 36] (the JAX `_scene_table` columns), the
 //    mesh and material codes and the light slots are loaded once per block
 //    into shared memory; every thread of a warp reads the same entry, which
 //    shared memory broadcasts;
-//  * mesh and material types are dispatched at run time by a `switch` over
-//    the codes.  All threads of a warp test the same mesh at the same time,
-//    so the switch itself does not diverge, and one binary serves every
-//    scene of the class.
+//  * every ray, shadow rays included, scans the analytic meshes through
+//    their packed float4 records, grouped by type
+//    (trace_common.cuh::intersect_packed): one 128-bit broadcast load per
+//    mesh, no switch, the ray's reciprocal direction once per ray and the
+//    SDF gate radii once per block.  Material types are dispatched at run
+//    time over the codes; one binary serves every scene of the class.
 //
 // Numerics: built without fast math and with FMA contraction off
 // (-fmad=false), so divisions, square roots and the order of every sum match
@@ -78,28 +86,32 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 8;  // __launch_bounds__: 64 registers
 
 // Per-light NEE (trace_common.cuh::shade_nee) as trace_path's direct light.
 template <bool kSdf>
 struct Nee {
   const SceneSmem &s;
   const SdfScene &sd;
+  const PackedScene &pk;
   const TraceArgs &a;
   __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int, uint32_t h_depth, int, int,
                                            V3) const {
-    return shade_nee<kSdf>(s, sd, x, nl, h_depth, a.eps, a.inf, a.use_mis);
+    return shade_nee<kSdf>(s, sd, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis);
   }
 };
 
 template <bool kSdf>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(TraceArgs a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fwd_kernel(TraceArgs a) {
+  extern __shared__ __align__(16) float smem[];
   SceneSmem s;
   const PathSmem ps = load_path(a, smem, s);
+  const PackedScene pk =
+      load_packed(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
+  Nee<kSdf> nee = {s, ps.sd, pk, a};
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.n_pix) return;  // ragged edge
-  Nee<kSdf> nee = {s, ps.sd, a};
-  const V3 acc = trace_path<kSdf>(a, s, ps, p, nee);
+  const V3 acc = trace_path<kSdf>(a, s, ps, pk, p, nee);
   a.out[3 * p] = acc.x;
   a.out[3 * p + 1] = acc.y;
   a.out[3 * p + 2] = acc.z;
@@ -127,7 +139,7 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
                  use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
   if (n_pix <= 0) return 0;
-  const size_t smem = path_smem_bytes(n_mesh, n_lights, n_sdf);
+  const size_t smem = packed_smem_bytes(path_smem_bytes(n_mesh, n_lights, n_sdf), n_mesh, n_sdf);
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_sdf > 0)

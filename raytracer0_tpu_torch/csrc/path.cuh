@@ -2,15 +2,20 @@
 // (megakernel.cu) and the G-buffer kernel K4 (gbuffer.cu), the first stage
 // of the ReSTIR pass K6; the adjoint K7 (restir_bwd.cu) replays it.
 //
-// `trace_path` is the plain version's `integrator.trace` for one pixel:
+// `path_step` is one bounce of the plain version's `integrator.trace`, and
+// `trace_path` drives it over one pixel's path:
 // environment on a miss, the texel of the hit, emissive termination with the
 // BSDF-side MIS weight, the BSDF dispatch, the cubemap gather ray, the
 // direct light of a diffuse vertex, the luminance cutoff and the bounce caps.
 // The kernels differ only in the direct light of a diffuse vertex, which the
 // caller passes as a functor: K1 runs per-light NEE (`shade_nee`), K4
 // records the vertex in the G-buffer and adds nothing (the reservoir-vertex
-// kernel K6v runs the recorded vertices after it).  `kSdf` compiles the SDF march into the intersections; K1 and K4
-// build a copy without it for scenes without SDF meshes.
+// kernel K6v runs the recorded vertices after it).  `kSdf` compiles the
+// SDF march into the intersections; K1 and K4 build a copy without it for
+// scenes without SDF meshes.  K1 runs one pixel per thread (trace_path);
+// K4 keeps its lanes busy with new pixels as paths end
+// (gbuffer.cu::regenerate_paths).  Both scan the scene through its packed
+// records (intersect_packed).
 
 #pragma once
 
@@ -102,117 +107,150 @@ __device__ __forceinline__ PathSmem load_path(const TraceArgs &a, float *smem, S
   return {s_tex, s_blend, {s_sdf, a.n_analytic, a.n_sdf, a.steps, a.fudge, a.t0}};
 }
 
-// The radiance of pixel `p`'s path.  At each diffuse vertex (hit point x,
-// oriented normal nl, mesh idx, RNG key h_depth, the diffuse bounces before
-// it ndif, bounce depth, throughput after the bounce mask_after) it adds
-// direct(x, nl, idx, h_depth, ndif, depth, mask_after) * mask_after.
+// A lane's path between two bounces: the state of trace_path's loop, so a
+// path can be advanced one bounce at a time (path_step) and a lane can
+// take a new pixel when its path ends (gbuffer.cu::regenerate_paths).
+struct PathState {
+  V3 o, d, mask, acc, prev_nl;
+  bool specular;             // primary rays count as specular
+  int ndif, nspec, nscat;    // bounce counters
+  int depth;                 // the next bounce
+  uint32_t h_pix;            // pixel_hash(a, p): every draw of the pixel keys on it
+  long long p;               // the pixel
+};
+
+__device__ __forceinline__ PathState path_start(const TraceArgs &a, long long p) {
+  PathState st;
+  st.o = {a.ro[3 * p], a.ro[3 * p + 1], a.ro[3 * p + 2]};
+  st.d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
+  st.h_pix = pixel_hash(a, p);
+  st.mask = {1.0f, 1.0f, 1.0f};
+  st.acc = {0.0f, 0.0f, 0.0f};
+  st.specular = true;
+  st.prev_nl = {0.0f, 1.0f, 0.0f};
+  st.ndif = st.nspec = st.nscat = 0;
+  st.depth = 0;
+  st.p = p;
+  return st;
+}
+
+// Bounce `st.depth` of the path: returns whether the path goes on (the
+// drivers stop it at the bounce budget), since every later bounce of an
+// ended path would be a no-op.  At each diffuse
+// vertex (hit point x, oriented normal nl, mesh idx, RNG key h_depth, the
+// diffuse bounces before it ndif, bounce depth, throughput after the
+// bounce mask_after) it adds direct(x, nl, idx, h_depth, ndif, depth,
+// mask_after) * mask_after.
+template <bool kSdf, class Direct>
+__device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s,
+                                          const PathSmem &ps, const PackedScene &pk,
+                                          PathState &st, Direct &direct) {
+  const V3 o = st.o, d = st.d, mask = st.mask;
+  const int depth = st.depth;
+  float tmin;
+  int idx;
+  const bool sdf_hit = intersect_packed<kSdf>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx);
+
+  // ---- miss: environment, suppressed for non-specular paths under NEE ----
+  if (!(tmin < a.inf)) {
+    if (st.specular || !a.sample_lights) {
+      if (a.use_cubemap)
+        st.acc = st.acc + mask * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, d);
+      else if (a.use_sky)
+        st.acc = st.acc + mask * procedural_sky(d);
+    }
+    return false;
+  }
+
+  V3 x = o + d * tmin;
+  // an SDF hit's normal is the field's gradient; SDF rows carry no texture
+  V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+  V3 c = s.c(idx);
+  V3 e = s.e(idx);
+  // ---- textured color / emission: the texel's alpha blends it in ----
+  if (a.use_tex && ps.blend[idx]) {
+    const V4 t = get_texel(ps.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
+                           a.img_w, a.noise, a.noise_n);
+    const V3 tc = {t.x, t.y, t.z};
+    const float bc = (ps.blend[idx] & 1) ? t.w : 0.0f, be = (ps.blend[idx] & 2) ? t.w : 0.0f;
+    const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
+    c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
+    e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
+  }
+  c = vmax(c, 0.001f);
+  e = vmax(e, 0.001f);
+  float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
+
+  // ---- emissive hit: BSDF-side MIS weight from prev_nl, terminate ----
+  const int mat = s.mat[idx];
+  if (mat == MAT_LIGHT) {
+    float mis_w = 1.0f;
+    if (a.use_mis && a.sample_lights && depth > 0 && !st.specular) {
+      V3 light_dir = normalize(x - o);
+      float l_pdf = s.mesh[idx] == MESH_SPHERE ? sphere_light_pdf(s.p(idx), s.j0(idx), o)
+                                               : INV_FOUR_PI;
+      float b_pdf = fmaxf(dot(light_dir, st.prev_nl), 0.0f) * ONE_OVER_PI;
+      mis_w = power_heuristic(b_pdf, l_pdf);
+    }
+    st.acc = st.acc + mask * c * e * mis_w;
+    return false;
+  }
+
+  // a DIR_LIGHT surface has no BSDF: the path ends
+  if (mat == MAT_DIR_LIGHT) return false;
+
+  // ---- BSDF sample ----
+  const uint32_t h_depth = fold_step(st.h_pix, (uint32_t)depth, 3u);
+  const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
+  const V3 nl = n * inside;
+  const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
+                               u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+  const V3 mask_after = mask * b.mult;
+
+  if (!b.specular) {
+    // ---- cubemap gather ray on the diffuse vertex ----
+    if (a.use_cubemap) {
+      const uint32_t h_env = fold_step(h_depth, S_ENV_DIR, 4u);
+      const V3 env_dir = random_direction(nl, u01(h_env), u01(pcg(h_env)), a.use_biased);
+      float te;
+      int ie;
+      intersect_packed<kSdf>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
+      if (!(te < a.inf))
+        st.acc = st.acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
+    }
+    // ---- direct light on the diffuse vertex ----
+    if (a.sample_lights)
+      st.acc = st.acc + direct(x, nl, idx, h_depth, st.ndif, depth, mask_after) * mask_after;
+  }
+
+  // ---- commit ----
+  st.o = b.o;
+  st.d = b.d;
+  st.mask = mask_after;
+  st.specular = b.specular;
+  st.prev_nl = nl;
+  st.ndif += b.dif;
+  st.nspec += b.spec;
+  st.nscat += b.scat;
+
+  // ---- luminance cutoff + per-type caps ----
+  if (fmaxf(fmaxf(mask_after.x, mask_after.y), mask_after.z) < 0.01f || st.ndif >= a.max_diff ||
+      st.nspec >= a.max_spec || st.nscat >= a.max_scatter)
+    return false;
+  return true;
+}
+
+// The radiance of pixel `p`'s path: path_step until the path ends, one
+// pixel per thread (K1's driver).
 template <bool kSdf, class Direct>
 __device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps,
-                                         long long p, Direct &direct) {
-  V3 o = {a.ro[3 * p], a.ro[3 * p + 1], a.ro[3 * p + 2]};
-  V3 d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
-  const uint32_t h_pix = pixel_hash(a, p);
-
-  V3 mask = {1.0f, 1.0f, 1.0f};
-  V3 acc = {0.0f, 0.0f, 0.0f};
-  bool specular = true;  // primary rays count as specular
-  V3 prev_nl = {0.0f, 1.0f, 0.0f};
-  int ndif = 0, nspec = 0, nscat = 0;
-
-  // A path leaves the loop when it ends: every later bounce would be a no-op.
+                                         const PackedScene &pk, long long p, Direct &direct) {
+  PathState st = path_start(a, p);
   for (int depth = 0; depth < a.max_bounces; ++depth) {
-    float tmin;
-    int idx;
-    const bool sdf_hit = intersect_scene<kSdf>(s, ps.sd, o, d, a.eps, a.inf, tmin, idx);
-
-    // ---- miss: environment, suppressed for non-specular paths under NEE ----
-    if (!(tmin < a.inf)) {
-      if (specular || !a.sample_lights) {
-        if (a.use_cubemap)
-          acc = acc + mask * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, d);
-        else if (a.use_sky)
-          acc = acc + mask * procedural_sky(d);
-      }
-      break;
-    }
-
-    V3 x = o + d * tmin;
-    // an SDF hit's normal is the field's gradient; SDF rows carry no texture
-    V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
-    V3 c = s.c(idx);
-    V3 e = s.e(idx);
-    // ---- textured color / emission: the texel's alpha blends it in ----
-    if (a.use_tex && ps.blend[idx]) {
-      const V4 t = get_texel(ps.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
-                             a.img_w, a.noise, a.noise_n);
-      const V3 tc = {t.x, t.y, t.z};
-      const float bc = (ps.blend[idx] & 1) ? t.w : 0.0f, be = (ps.blend[idx] & 2) ? t.w : 0.0f;
-      const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
-      c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
-      e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
-    }
-    c = vmax(c, 0.001f);
-    e = vmax(e, 0.001f);
-    float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
-
-    // ---- emissive hit: BSDF-side MIS weight from prev_nl, terminate ----
-    const int mat = s.mat[idx];
-    if (mat == MAT_LIGHT) {
-      float mis_w = 1.0f;
-      if (a.use_mis && a.sample_lights && depth > 0 && !specular) {
-        V3 light_dir = normalize(x - o);
-        float l_pdf = s.mesh[idx] == MESH_SPHERE ? sphere_light_pdf(s.p(idx), s.j0(idx), o)
-                                                 : INV_FOUR_PI;
-        float b_pdf = fmaxf(dot(light_dir, prev_nl), 0.0f) * ONE_OVER_PI;
-        mis_w = power_heuristic(b_pdf, l_pdf);
-      }
-      acc = acc + mask * c * e * mis_w;
-      break;
-    }
-
-    // a DIR_LIGHT surface has no BSDF: the path ends
-    if (mat == MAT_DIR_LIGHT) break;
-
-    // ---- BSDF sample ----
-    const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
-    const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
-    const V3 nl = n * inside;
-    const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
-                                 u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
-    const V3 mask_after = mask * b.mult;
-
-    if (!b.specular) {
-      // ---- cubemap gather ray on the diffuse vertex ----
-      if (a.use_cubemap) {
-        const uint32_t h_env = fold_step(h_depth, S_ENV_DIR, 4u);
-        const V3 env_dir = random_direction(nl, u01(h_env), u01(pcg(h_env)), a.use_biased);
-        float te;
-        int ie;
-        intersect_scene<kSdf>(s, ps.sd, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
-        if (!(te < a.inf))
-          acc = acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
-      }
-      // ---- direct light on the diffuse vertex ----
-      if (a.sample_lights)
-        acc = acc + direct(x, nl, idx, h_depth, ndif, depth, mask_after) * mask_after;
-    }
-
-    // ---- commit ----
-    o = b.o;
-    d = b.d;
-    mask = mask_after;
-    specular = b.specular;
-    prev_nl = nl;
-    ndif += b.dif;
-    nspec += b.spec;
-    nscat += b.scat;
-
-    // ---- luminance cutoff + per-type caps ----
-    if (fmaxf(fmaxf(mask.x, mask.y), mask.z) < 0.01f || ndif >= a.max_diff ||
-        nspec >= a.max_spec || nscat >= a.max_scatter)
-      break;
+    st.depth = depth;
+    if (!path_step<kSdf>(a, s, ps, pk, st, direct)) break;
   }
-  return acc;
+  return st.acc;
 }
 
 }  // namespace

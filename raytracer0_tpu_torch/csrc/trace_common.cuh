@@ -225,21 +225,28 @@ __device__ __forceinline__ float sdf_map(const SceneSmem &s, const SdfScene &sd,
   return best;
 }
 
+// sdf.bound_radius of an SDF row with joker `j` and shape `shape`: the
+// radius of the bounding sphere the march's gate tests.
+__device__ __forceinline__ float sdf_gate_radius(const float *j, int shape) {
+  const float norm3 = sqrtf(j[0] * j[0] + j[1] * j[1] + j[2] * j[2]);
+  return shape == SDF_ROUND_BOX ? norm3 * 1.05f + fabsf(j[3]) + 0.05f : norm3 * 1.05f + 0.05f;
+}
+
 // sdf.march_loop: sphere tracing from t0 up to `tl`, one thread per ray.
 // A ray that enters no entry's bounding sphere within [0, tl] cannot
 // converge there and is a miss; the loop stops as soon as the ray is
 // within eps of a surface or past tl, which gives the plain version's t,
 // since a lane that is done no longer moves.  Returns whether the ray hit
 // (t <= tl), with its t and the ordinal of the entry nearest to it.
-__device__ __forceinline__ bool sdf_march(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
-                                          float tl, float eps, float &t_out, int &k_out) {
+// `radius(i)` is the gate radius of the i-th SDF row.
+template <class Radius>
+__device__ __forceinline__ bool sdf_march_gated(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
+                                                float tl, float eps, float &t_out, int &k_out,
+                                                Radius radius) {
   bool can_hit = false;
   for (int i = 0; i < sd.count; ++i) {
     const int row = sd.first + i;
-    const float *j = s.col(row, C_J0);
-    const float norm3 = sqrtf(j[0] * j[0] + j[1] * j[1] + j[2] * j[2]);
-    const float rb = sd.shape[i] == SDF_ROUND_BOX ? norm3 * 1.05f + fabsf(j[3]) + 0.05f
-                                                  : norm3 * 1.05f + 0.05f;
+    const float rb = radius(i);
     const V3 oc = o - s.p(row);
     const float b = dot(oc, d);
     const float cq = dot(oc, oc) - rb * rb;
@@ -261,6 +268,14 @@ __device__ __forceinline__ bool sdf_march(const SceneSmem &s, const SdfScene &sd
   sdf_map(s, sd, o + d * t, k_out);  // the entry at the settled t
   t_out = t;
   return t <= tl;
+}
+
+// sdf_march_gated with each gate radius computed from the scene table.
+__device__ __forceinline__ bool sdf_march(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
+                                          float tl, float eps, float &t_out, int &k_out) {
+  return sdf_march_gated(s, sd, o, d, tl, eps, t_out, k_out, [&](int i) {
+    return sdf_gate_radius(s.col(sd.first + i, C_J0), sd.shape[i]);
+  });
 }
 
 // sdf.calc_normal: the tetrahedral 4-tap gradient.
@@ -286,6 +301,157 @@ __device__ __forceinline__ bool intersect_scene(const SceneSmem &s, const SdfSce
       float ts;
       int k;
       if (sdf_march(s, sd, o, d, tl, eps, ts, k) && ts < tl) {
+        tmin = ts;
+        idx = sd.first + k;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// ------------------------------------------------------------------ packed scan
+// The scan of K1 and K4 (intersect_packed).  `intersect` above reads each
+// mesh's type, switches on it and loads its pos and joker as four scalar
+// loads from a 36-float row; K2, K5, K6v and K7 keep it.  Here the analytic
+// meshes are copied once per block into shared memory grouped by type, one
+// float4 record each: a sphere as (centre, radius^2), a plane as (normal,
+// offset), a box as (centre, half size), each with its table row.  A mesh
+// then costs one 128-bit broadcast load and no switch, and the ray's
+// reciprocal direction is computed once per ray, not once per box.  Rows
+// whose joker.x is 0 (placeholders) are left out, which is the skip
+// `intersect` makes.  The SDF rows' gate radii are computed once too.
+struct PackedScene {
+  const float4 *base;  // the packed area: the record ends, then the records
+  int n_mesh;
+  // the ends of the sphere, plane and box records
+  __device__ __forceinline__ int4 ends() const { return *reinterpret_cast<const int4 *>(base); }
+  __device__ __forceinline__ float4 rec(int k) const { return base[1 + k]; }
+  // the record's table row
+  __device__ __forceinline__ int row(int k) const {
+    return reinterpret_cast<const int *>(base + 1 + n_mesh)[k];
+  }
+  // the gate radius of the i-th SDF row (sdf_gate_radius)
+  __device__ __forceinline__ float gate(int i) const {
+    return reinterpret_cast<const float *>(base + 1 + n_mesh)[n_mesh + i];
+  }
+};
+
+// Where the packed area starts after `before` bytes of shared memory (16
+// bytes aligned), and the bytes up to its end: the record ends (an int4),
+// a float4 record and a table row per mesh, a gate radius per SDF row.
+// The scene table stays at the start of shared memory, where K1's other
+// reads of it address it by constant offsets.
+__host__ __device__ inline size_t packed_offset(size_t before) { return (before + 15) / 16 * 16; }
+__host__ __device__ inline size_t packed_smem_bytes(size_t before, int n_mesh, int n_sdf) {
+  return packed_offset(before) + sizeof(float) * (4 + 5 * n_mesh + n_sdf);
+}
+
+// Whether row i enters the packed scan: an analytic mesh that is not a
+// placeholder.
+__device__ __forceinline__ bool packable(const SceneSmem &s, int i) {
+  return s.mesh[i] >= MESH_SPHERE && s.mesh[i] <= MESH_BOX && s.j0(i) != 0.0f;
+}
+
+// Pack the scene (in shared memory already, as load_path leaves it) into
+// the packed area of dynamic shared memory `smem`, after `before` bytes.
+// Every thread of the block must call it: it ends with __syncthreads().
+__device__ __forceinline__ PackedScene load_packed(const SceneSmem &s, const SdfScene &sd,
+                                                   float *smem, size_t before) {
+  float4 *area = reinterpret_cast<float4 *>(reinterpret_cast<char *>(smem) + packed_offset(before));
+  float4 *rec = area + 1;
+  int *row = reinterpret_cast<int *>(rec + s.n_mesh);
+  float *gate = reinterpret_cast<float *>(row + s.n_mesh);
+  int ns = 0, np = 0, nb = 0;  // every thread counts the records of each type
+  for (int i = 0; i < s.n_mesh; ++i) {
+    if (!packable(s, i)) continue;
+    ns += s.mesh[i] == MESH_SPHERE;
+    np += s.mesh[i] == MESH_PLANE;
+    nb += s.mesh[i] == MESH_BOX;
+  }
+  for (int i = threadIdx.x; i < s.n_mesh; i += blockDim.x) {
+    if (!packable(s, i)) continue;
+    const int m = s.mesh[i];
+    int k = m == MESH_SPHERE ? 0 : (m == MESH_PLANE ? ns : ns + np);
+    for (int j = 0; j < i; ++j) k += s.mesh[j] == m && packable(s, j);  // table order within a type
+    const V3 p = s.p(i);
+    const float j0 = s.j0(i);
+    rec[k] = make_float4(p.x, p.y, p.z,
+                         m == MESH_SPHERE ? j0 * j0 : (m == MESH_PLANE ? j0 : j0 * 0.5f));
+    row[k] = i;
+  }
+  if (threadIdx.x == 0) *reinterpret_cast<int4 *>(area) = make_int4(ns, ns + np, ns + np + nb, 0);
+  for (int i = threadIdx.x; i < sd.count; i += blockDim.x)
+    gate[i] = sdf_gate_radius(s.col(sd.first + i, C_J0), sd.shape[i]);
+  __syncthreads();
+  return {area, s.n_mesh};
+}
+
+// `intersect` over the packed records: the same t per mesh, in the same
+// operations, and the same winner, the first row of the smallest valid t:
+// the scan goes by type, so a tie takes the lower row.
+__device__ __forceinline__ void intersect_packed_analytic(const PackedScene &pk, V3 o, V3 d,
+                                                          float eps, float &tmin, int &idx) {
+  tmin = __int_as_float(0x7f800000);
+  idx = 0;
+  // a valid t is never NaN, so `t == tmin` is a true tie
+  auto take = [&](int k, float t, bool valid) {
+    if (valid && (t < tmin || (t == tmin && pk.row(k) < idx))) {
+      tmin = t;
+      idx = pk.row(k);
+    }
+  };
+  const int4 end = pk.ends();
+  #pragma unroll 1
+  for (int k = 0; k < end.x; ++k) {
+    const float4 r = pk.rec(k);
+    const V3 oc = o - V3{r.x, r.y, r.z};
+    const float b = dot(oc, d);
+    const float c = dot(oc, oc) - r.w;
+    const float disc = b * b - c;
+    const float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
+    const float t0 = -b - sq;
+    const float t1 = -b + sq;
+    const float t = t0 > eps ? t0 : t1;
+    take(k, t, disc > 0.0f && t > eps);
+  }
+  #pragma unroll 1
+  for (int k = end.x; k < end.y; ++k) {
+    const float4 r = pk.rec(k);
+    const V3 n = {r.x, r.y, r.z};
+    const float denom = dot(n, d);
+    const float t = safe_div(-r.w - dot(n, o), denom);
+    take(k, t, t > eps && fabsf(denom) > 1e-12f);
+  }
+  if (end.y < end.z) {
+    const V3 m = {safe_div(1.0f, d.x), safe_div(1.0f, d.y), safe_div(1.0f, d.z)};
+    const V3 am = {fabsf(m.x), fabsf(m.y), fabsf(m.z)};
+    #pragma unroll 1
+    for (int k = end.y; k < end.z; ++k) {
+      const float4 r = pk.rec(k);
+      const float nx = m.x * (r.x - o.x), ny = m.y * (r.y - o.y), nz = m.z * (r.z - o.z);
+      const float kx = am.x * r.w, ky = am.y * r.w, kz = am.z * r.w;
+      const float tn = fmaxf(fmaxf(nx - kx, ny - ky), nz - kz);
+      const float tf = fminf(fminf(nx + kx, ny + ky), nz + kz);
+      const float t = tn > 0.0f ? tn : tf;
+      take(k, t, tn <= tf && tf >= 0.0f && t > eps);
+    }
+  }
+}
+
+// intersect_scene over the packed records and gate radii.
+template <bool kSdf>
+__device__ __forceinline__ bool intersect_packed(const SceneSmem &s, const SdfScene &sd,
+                                                 const PackedScene &pk, V3 o, V3 d, float eps,
+                                                 float inf, float &tmin, int &idx) {
+  intersect_packed_analytic(pk, o, d, eps, tmin, idx);
+  if constexpr (kSdf) {
+    if (sd.count > 0) {
+      const float tl = tmin < inf ? tmin : inf;
+      float ts;
+      int k;
+      if (sdf_march_gated(s, sd, o, d, tl, eps, ts, k, [&](int i) { return pk.gate(i); }) &&
+          ts < tl) {
         tmin = ts;
         idx = sd.first + k;
         return true;
@@ -629,8 +795,8 @@ __device__ __forceinline__ V4 get_texel(int t, int mesh, const float *tp, V3 x, 
 // where the occlusion ray escapes, and under MIS its weight is 0 (its light
 // pdf is 0), so it adds nothing; any other slot adds nothing.
 template <bool kSdf>
-__device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, V3 x, V3 nl, uint32_t h_depth,
-                        float eps, float inf, bool use_mis) {
+__device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x, V3 nl,
+                        uint32_t h_depth, float eps, float inf, bool use_mis) {
   V3 total = {0.0f, 0.0f, 0.0f};
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
@@ -640,7 +806,7 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, V3 x, V3 nl, uin
       V3 lp = s.p(li);
       float ts;
       int hidx;
-      intersect_scene<kSdf>(s, sd, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
+      intersect_packed<kSdf>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
       if (ts < inf) continue;  // occluded
       total = total + s.c(li) * s.e(li) * fmaxf(dot(lp, nl), 0.001f);
       continue;
@@ -657,7 +823,7 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, V3 x, V3 nl, uin
     V3 sr = sample_cone(ldir, 1.0f - cos_a_max, u1, u2);
     float ts;
     int hidx;
-    intersect_scene<kSdf>(s, sd, x + nl * eps, sr, eps, inf, ts, hidx);
+    intersect_packed<kSdf>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_term = fmaxf(dot(sr, nl), 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);

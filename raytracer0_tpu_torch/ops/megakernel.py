@@ -126,6 +126,14 @@ def smem_bytes(scene) -> int:
                 + scene.num_lights + scene.num_sdfs)
 
 
+def packed_smem_bytes(scene) -> int:
+    """Dynamic shared memory of one K1 or K4 block: `smem_bytes`, aligned
+    to 16 bytes, then the packed scan's record ends, float4 record and
+    table row per mesh and gate radius per SDF row
+    (`trace_common.cuh::packed_smem_bytes`)."""
+    return -(-smem_bytes(scene) // 16) * 16 + 4 * (4 + 5 * scene.num_meshes + scene.num_sdfs)
+
+
 def check_smem(nbytes: int) -> Optional[str]:
     if nbytes > _SMEM_LIMIT:
         return (f"the scene table needs {nbytes} bytes of shared memory, more "
@@ -141,7 +149,7 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
         # K1 has no reservoir vertex: it would render per-light NEE
         return ("a ReSTIR pass and its gradient run on K6 and K7 "
                 "(ops/restir_kernel.py, ROADMAP queue 1 item 11), not K1")
-    return integrator.unsupported(scene, cfg) or check_smem(smem_bytes(scene))
+    return integrator.unsupported(scene, cfg) or check_smem(packed_smem_bytes(scene))
 
 
 def bwd_slots(cfg: RenderConfig) -> int:

@@ -31,7 +31,11 @@ differentiable).
 
 What bounds them on the H100: K4 is K1 without NEE's shadow rays, bound by
 instruction latency and divergence like K1; K5 moves 32 bytes a ray and, in
-scenes with SDF meshes, marches, which outweighs its bytes.
+scenes with SDF meshes, marches, which outweighs its bytes.  K4's paths end
+at very different depths, so it runs persistent warps that regenerate
+paths: its grid is the blocks that stay resident (`resident_blocks`), and
+its lanes draw pixels from a ticket counter (`ticket_counter`) until the
+image is done.
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ _c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_lon
 _GBUF_ARGTYPES = megakernel._ARGTYPES[:-1] + (
     _c_void_p, _c_void_p, _c_void_p,  # pos, nl, mask
     _c_void_p, _c_void_p, _c_void_p,  # idx, depth, valid
-    _c_int, _c_void_p,                # slots, stream
+    _c_int, _c_int, _c_void_p,        # slots, grid, ticket counter
+    _c_void_p,                        # stream
 )
 _CAST_ARGTYPES = (
     _c_void_p, _c_void_p, _c_void_p, _c_int,    # table, mesh, mat, n_mesh
@@ -102,7 +107,7 @@ def unsupported_gbuffer(scene, cfg: RenderConfig) -> Optional[str]:
     reason = integrator.unsupported(scene, cfg)
     if reason is None and gbuffer_slots(cfg) > MAX_GBUF_SLOTS:
         reason = f"{gbuffer_slots(cfg)} G-buffer slots, more than K4's {MAX_GBUF_SLOTS}"
-    return reason or megakernel.check_smem(megakernel.smem_bytes(scene))
+    return reason or megakernel.check_smem(megakernel.packed_smem_bytes(scene))
 
 
 def unsupported_cast(scene) -> Optional[str]:
@@ -121,6 +126,38 @@ def build_gbuffer():
     fn.argtypes = _GBUF_ARGTYPES
     fn.restype = ctypes.c_int
     return fn, info
+
+
+# (device, stream) -> int32[2] zeros: K4's ticket counter and finished-block
+# count, which every launch leaves zeroed (its last block resets them)
+_TICKETS: dict = {}
+# (device, SDF copy, shared memory bytes) -> blocks of K4 that stay resident
+_RESIDENT: dict = {}
+
+
+def ticket_counter(dev, stream: int):
+    """K4's ticket counter for launches on `stream` of device `dev`: one per
+    stream, since two launches must not share one while they run."""
+    key = (dev, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
+def resident_blocks(dev, sdf: bool, smem: int) -> int:
+    """K4's persistent grid on device `dev`: the blocks of 128 threads that
+    stay resident at `smem` bytes of dynamic shared memory
+    (`rt0_gbuffer_forward_occupancy`, the copy with the SDF march when
+    `sdf` is set) times the SMs; computed once per device and size."""
+    key = (dev, sdf, smem)
+    if key not in _RESIDENT:
+        occ = cuda_build.occupancy("gbuffer", GBUF_SOURCES, "rt0_gbuffer_forward_occupancy",
+                                   128, smem, sdf)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if occ["blocks"] < 1:
+            raise RuntimeError(f"K4 does not fit an SM at {smem} bytes of shared memory: {occ}")
+        _RESIDENT[key] = occ["blocks"] * sms
+    return _RESIDENT[key]
 
 
 def build_cast():
@@ -203,9 +240,11 @@ def launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, out=Non
                 depth=torch.empty((slots, h, w), dtype=torch.int32, device=dev),
                 valid=torch.empty((slots, h, w), dtype=torch.bool, device=dev))
     fn, _ = build_gbuffer()
+    grid = resident_blocks(dev, scene.num_sdfs > 0, megakernel.packed_smem_bytes(scene))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, *[bufs[k].data_ptr() for k in restir_vertex.GBUF_FIELDS], slots, stream)
+        rc = fn(*args, *[bufs[k].data_ptr() for k in restir_vertex.GBUF_FIELDS], slots, grid,
+                ticket_counter(dev, stream).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     GBUF_LAUNCHES += 1

@@ -14,6 +14,8 @@ The JAX references run op by op (`jax.disable_jit`), since compiled XLA
 contracts a*b + c into FMAs (tests/test_torch_restir.py).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,11 @@ from raytracer0_tpu_torch.ops import restir_split as tsplit
 from raytracer0_tpu_torch.render import integrator as tint
 from raytracer0_tpu_torch.render import renderer as tren
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState, Reservoirs
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 H, W = 8, 32
 FIELDS = tuple(RESERVOIR_FIELDS)

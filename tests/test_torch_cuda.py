@@ -501,11 +501,11 @@ def test_kernel_occupancy_exports(cuda):
     demo = presets.restir_demo(device=cuda)[0]
     k2_t, k7_t = megakernel.bwd_threads(cornell), restir_kernel.bwd_threads(demo)
     rows = [("megakernel", megakernel.SOURCES, "rt0_trace_forward", 128,
-             megakernel.smem_bytes(cornell)),
+             megakernel.packed_smem_bytes(cornell)),
             ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward", k2_t,
              megakernel.bwd_smem_bytes(cornell, k2_t)),
             ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward", 128,
-             megakernel.smem_bytes(demo)),
+             megakernel.packed_smem_bytes(demo)),
             ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
              restir_split.cast_smem_bytes(demo)),
             ("restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward", k7_t,
@@ -601,6 +601,32 @@ def test_gbuffer_kernel_matches_plain(cuda, where):
         for got, want in zip(gbuf, ref_gbuf, strict=True):
             for f in got:
                 assert torch.equal(got[f], want[f]), f
+
+
+@pytest.mark.parametrize("grid", ["resident", "one_block"])
+def test_gbuffer_persistent_grid_matches_plain(cuda, monkeypatch, grid):
+    """K4's persistent launch at 512x512 on `restir_demo`, on the grid of
+    its resident blocks and on one block (every lane regenerates some 16
+    times), against its plain version bit for bit, twice (the last block
+    resets the ticket counter for the next launch)."""
+    if grid == "one_block":
+        monkeypatch.setattr(restir_split, "resident_blocks", lambda dev, sdf, smem: 1)
+    else:
+        scene = presets.restir_demo(device=cuda)[0]
+        assert restir_split.resident_blocks(cuda, True, megakernel.packed_smem_bytes(scene)) > 132
+    scene, cam, cfg = presets.restir_demo(device=cuda)
+    ro, rd = generate_rays(cam, 512, 512, 3)
+    pix = rng.pixel_ids(512, 512, device=cuda)
+    ref, ref_gbuf = restir_split.gbuffer_plain(scene, cfg, ro, rd, pix, 3, 0)
+    for _ in range(2):
+        out, gbuf = restir_split.trace_forward_gbuffer(scene, cfg, ro, rd, pix, 3, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        for got, want in zip(gbuf, ref_gbuf, strict=True):
+            for f in got:
+                assert torch.equal(got[f], want[f]), f
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert restir_split.ticket_counter(cuda, stream).tolist() == [0, 0]
 
 
 @pytest.mark.parametrize("where", ["restir_demo", "mis_demo", "animated_untextured"])

@@ -45,6 +45,11 @@ from raytracer0_tpu_torch.render import integrator as tint
 from raytracer0_tpu_torch.render import renderer as tren
 from raytracer0_tpu_torch.render.state import RenderState
 
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 GRAD_TOL = 1e-4
 LEAVES = ("color", "emission", "pos", "joker")
 REPO = Path(__file__).resolve().parents[1]

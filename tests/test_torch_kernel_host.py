@@ -25,6 +25,8 @@ and K2's gradients agree within 1e-4 relative per leaf
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -49,11 +51,17 @@ from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 LEAVES = ("color", "emission", "pos", "joker")
 
 SHIM = r"""
 #pragma once
 #include <math.h>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
@@ -65,9 +73,27 @@ SHIM = r"""
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3_ threadIdx;
-inline dim3_ blockIdx, blockDim;
+inline dim3_ blockIdx, blockDim, gridDim;
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+// a warp of one lane: the warp-aggregated ticket draw stays correct
+inline unsigned __activemask() { return 1u << (threadIdx.x & 31u); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? __activemask() : 0u; }
+inline unsigned atomicAdd(unsigned *p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicExch(unsigned *p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).exchange(v);
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline std::barrier<> *g_bar = nullptr;
 inline std::vector<float> g_smem;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
@@ -91,6 +117,7 @@ void emu_launch(K k, unsigned grid, unsigned block, size_t smem, void *, A... ar
   // one std::thread per CUDA thread, reused block after block: the gate's
   // completion step moves blockIdx on once every thread left the last block
   blockDim.x = block;
+  gridDim.x = grid;
   unsigned next = 0;
   auto enter = [&]() noexcept {
     blockIdx.x = next++;
@@ -114,7 +141,8 @@ void emu_launch(K k, unsigned grid, unsigned block, size_t smem, void *, A... ar
 
 
 def _host_source(text):
-    text = text.replace("extern __shared__ float smem[];", "float *smem = g_smem.data();")
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float smem\[\];",
+                  "float *smem = g_smem.data();", text)
     text = text.replace("__shared__ float", "static float")
     return re.sub(r"(\w+(?:<\w+>)?)<<<(.*)>>>\((.*)\);", r"emu_launch(\1, \2, \3);", text)
 
@@ -142,41 +170,62 @@ LAUNCH_COUNTS = ((megakernel, "LAUNCHES"), (megakernel, "BWD_LAUNCHES"),
                  (restir_vertex, "VERTEX_LAUNCHES"))
 
 
+#: where `build_host` keeps its libraries between test modules and runs
+HOST_CACHE = cuda_build.BUILD_DIR.parent / "host_kernels"
+_GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shared", "-fPIC",
+              "-pthread")
+
+
 def build_host(out, libraries):
     """Compile `libraries` ({key: (name, sources, symbol, argtypes)}) for
     the host into `out` through the shim, all at once with g++ -O1 and no
-    contraction or fast math: {key: ctypes function}.  Skips the test
-    without g++."""
+    contraction or fast math: {key: ctypes function}.  A library is kept in
+    `HOST_CACHE` under a hash of the shim, the flags, its source and every
+    header, so the test modules that need it (and later runs) build it
+    once.  Skips the test without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
     (out / "cuda_runtime.h").write_text(SHIM)
-    for p in cuda_build.CSRC_DIR.glob("*.cuh"):
+    headers = sorted(cuda_build.CSRC_DIR.glob("*.cuh"))
+    for p in headers:
         (out / p.name).write_text(p.read_text())
-    procs = {}
+    procs, libs = {}, {}
     for key, (name, sources, _, _) in libraries.items():
+        text = "".join(_host_source((cuda_build.CSRC_DIR / s).read_text()) for s in sources)
+        digest = hashlib.sha256("\0".join((SHIM, *_GXX_FLAGS, text)).encode())
+        for p in headers:
+            digest.update(p.read_bytes())
+        libs[key] = HOST_CACHE / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+        if libs[key].exists():
+            continue
         cpp = out / f"{name}.cpp"
-        cpp.write_text("".join(_host_source((cuda_build.CSRC_DIR / s).read_text())
-                               for s in sources))
+        cpp.write_text(text)
         procs[key] = subprocess.Popen(
-            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shared",
-             "-fPIC", "-pthread", f"-I{out}", "-o", str(out / f"lib{name}.so"), str(cpp)],
+            [gxx, *_GXX_FLAGS, f"-I{out}", "-o", str(out / f"lib{name}.so"), str(cpp)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
     for key, proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         assert proc.returncode == 0, log
-        name, _, symbol, argtypes = libraries[key]
-        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
+        libs[key].parent.mkdir(parents=True, exist_ok=True)
+        tmp = libs[key].with_suffix(f".{os.getpid()}.tmp")
+        shutil.copyfile(out / libs[key].name, tmp)
+        os.replace(tmp, libs[key])  # atomic: a concurrent module sees all or nothing
+    fns = {}
+    for key, (_, _, symbol, argtypes) in libraries.items():
+        fn = getattr(ctypes.CDLL(str(libs[key])), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[key] = fn
     return fns
 
 
-def on_cpu(monkeypatch, fns):
+def on_cpu(monkeypatch, fns, grid=2):
     """Have the launchers launch the host build `fns` ({kernel: ctypes
-    function}, keys of HOST_LIBRARIES) on CPU tensors; the launch counts
+    function}, keys of HOST_LIBRARIES) on CPU tensors, K4 on a persistent
+    grid of `grid` blocks (the shim's occupancy stub reports none, and a
+    small grid has every lane regenerate many times); the launch counts
     are restored afterwards, since they count launches on the card."""
+    monkeypatch.setattr(restir_split, "resident_blocks", lambda dev, sdf, smem: grid)
     for module, attr in LAUNCH_COUNTS:
         monkeypatch.setattr(module, attr, getattr(module, attr))
     for key, fn in fns.items():
@@ -187,17 +236,65 @@ def on_cpu(monkeypatch, fns):
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
 
 
+# K5's launcher over the packed scan of K1 and K4 (trace_common.cuh::
+# intersect_packed), so `restir_split._launch_cast` can drive it: the
+# nearest hit of each ray by the scan K1 and K4 run.
+PACKED_CAST = r"""
+#include "path.cuh"
+namespace {
+__global__ void packed_cast_kernel(TraceArgs a, SdfScene sd, const float *ro, const float *rd,
+                                   float *t, int32_t *idx, long long n, float eps, float inf) {
+  extern __shared__ __align__(16) float smem[];
+  int *s_sdf = reinterpret_cast<int *>(smem) + scene_smem_bytes(a.n_mesh, 0) / sizeof(int);
+  for (int i = threadIdx.x; i < sd.count; i += blockDim.x) s_sdf[i] = sd.shape[i];
+  const SceneSmem s = load_scene(a, smem);
+  sd.shape = s_sdf;
+  const PackedScene pk = load_packed(s, sd, smem, scene_smem_bytes(a.n_mesh, 0) + 4 * sd.count);
+  for (long long p = threadIdx.x; p < n; p += blockDim.x) {
+    const V3 o = {ro[3 * p], ro[3 * p + 1], ro[3 * p + 2]};
+    const V3 d = {rd[3 * p], rd[3 * p + 1], rd[3 * p + 2]};
+    float tp;
+    int ip;
+    intersect_packed<true>(s, sd, pk, o, d, eps, inf, tp, ip);
+    const bool missed = !(tp < inf);
+    t[p] = missed ? inf : tp;
+    idx[p] = missed ? 0 : ip;
+  }
+}
+}  // namespace
+extern "C" int rt0_cast_rays(const float *table, const int32_t *mesh, const int32_t *mat,
+                             int n_mesh, const int32_t *sdf, int n_analytic, int n_sdf, int steps,
+                             float fudge, float t0, const float *ro, const float *rd, float *t,
+                             int32_t *idx, long long n, float eps, float inf, void *stream) {
+  TraceArgs a = {};
+  a.table = table;
+  a.mesh = mesh;
+  a.mat = mat;
+  a.n_mesh = n_mesh;
+  const SdfScene sd = {sdf, n_analytic, n_sdf, steps, fudge, t0};
+  const size_t smem = packed_smem_bytes(scene_smem_bytes(n_mesh, 0) + 4 * n_sdf, n_mesh, n_sdf);
+  packed_cast_kernel<<<1, 32, smem, stream>>>(a, sd, ro, rd, t, idx, n, eps, inf);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """{kernel: ctypes function} of the host build of every library."""
-    return build_host(tmp_path_factory.mktemp("host_kernels"),
-                      {k: v[2:] for k, v in HOST_LIBRARIES.items()})
+    """{kernel: ctypes function} of the host build of every library, and
+    of the packed scan's caster ("packed cast")."""
+    out = tmp_path_factory.mktemp("host_kernels")
+    (out / "packed_cast.cu").write_text(PACKED_CAST)
+    libs = {k: v[2:] for k, v in HOST_LIBRARIES.items()}
+    libs["packed cast"] = ("packed_cast", (str(out / "packed_cast.cu"),), "rt0_cast_rays",
+                           restir_split._CAST_ARGTYPES)
+    return build_host(out, libs)
 
 
 @pytest.fixture
 def kernels_on_cpu(host_kernels, monkeypatch):
     """The launchers launching the host build on CPU tensors."""
-    on_cpu(monkeypatch, host_kernels)
+    on_cpu(monkeypatch, {k: host_kernels[k] for k in HOST_LIBRARIES})
 
 
 def _grads(trace, scene, cfg, ro, rd, pix):
@@ -703,6 +800,105 @@ def test_host_gbuffer_matches_plain(kernels_on_cpu, where):
         assert bool((slot["depth"][unset] == -1).all() and (slot["idx"][unset] == 0).all())
     assert bool(gbuf[0]["valid"].any()) and bool(gbuf[1]["valid"].any())
     assert bool((gbuf[1]["depth"][gbuf[1]["valid"]] > 0).all())
+
+
+@pytest.mark.parametrize("where", ["restir_demo", "animated_untextured"])
+@pytest.mark.parametrize("grid", [1, 2])
+def test_host_gbuffer_regenerates(kernels_on_cpu, monkeypatch, where, grid):
+    """K4's persistent launch on a grid of 1 or 2 blocks at 8x128 (every
+    lane traces 4-8 pixels, drawn from the ticket counter), twice, since
+    the last block resets the counter for the next launch: bit for bit
+    against the same build on a grid of 8 blocks, where each lane draws
+    one pixel, which holds the plain `integrator.trace` with
+    `gbuffer_slots`: the integer fields exactly, the radiance and the
+    float fields under the forward parity contract (max error below 1e-4,
+    at least 99 % of pixels within 1e-5, tests/test_megakernel.py:79-94).
+    The host's sinf/cosf and torch's CPU sin/cos may differ by an ULP in a
+    bounce direction, which moves a third vertex on `restir_demo` by
+    1.4e-5 at this size in either schedule, past `_gbuffer_held`'s 1e-5
+    (on the card the two agree bit for bit).  The 1e-5 hold of the
+    regenerating launch against the plain version is
+    `test_host_gbuffer_matches_plain`'s: 16x32 on `on_cpu`'s 2-block grid,
+    two pixels a lane."""
+    scene, cam, cfg = _gbuffer_case(where)
+    h, w = 8, 128
+    ro, rd = generate_rays(cam, h, w, 5)
+    pix = rng.pixel_ids(h, w)
+    table = megakernel.scene_table(scene)
+    counter = restir_split.ticket_counter(torch.device("cpu"), 0)
+    runs = []
+    for blocks in (h * w // 128, grid, grid):
+        monkeypatch.setattr(restir_split, "resident_blocks", lambda dev, sdf, smem: blocks)
+        runs.append(restir_split._launch_gbuffer(scene, cfg, table, ro, rd, pix, 5, 0))
+        assert counter.tolist() == [0, 0]
+    for out, gbuf in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert all(torch.equal(a[f], b[f]) for a, b in zip(gbuf, runs[0][1]) for f in a)
+    out, gbuf = runs[0]
+    ref, ref_gbuf = restir_split.gbuffer_plain(scene, cfg, ro, rd, pix, 5, 0)
+    pairs = [(out, ref)] + [(got[f], want[f]) for got, want in zip(gbuf, ref_gbuf)
+                            for f in got if f not in ("idx", "depth", "valid")]
+    for a, b in pairs:
+        err = (a - b).abs().amax(-1)
+        assert err.max().item() < 1e-4 and (err < 1e-5).float().mean().item() >= 0.99
+    for got, want in zip(gbuf, ref_gbuf):
+        for f in ("idx", "depth", "valid"):
+            assert torch.equal(got[f], want[f]), f
+    assert bool(gbuf[1]["valid"].any()) and not bool(gbuf[1]["valid"].all())
+
+
+def _tie_scene():
+    """Meshes of different types that tie out of table order, and
+    placeholders (joker.x = 0) that would win if scanned: upward rays at
+    x in [-0.5, 0.5] meet the box's bottom (row 1) and the plane y = 0.25
+    (row 3) both at t = 1.25, rays at x = 0.8 the plane and the sphere's
+    bottom (row 4) at 1.25; the plane through the origin (row 0) and the
+    zero-radius sphere (row 5) are placeholders; a ROUND_BOX SDF row
+    follows."""
+    sb = SceneBuilder()
+    sb.add("MAT_CORNELL_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (0.0,))
+    sb.add("MAT_CORNELL_RED", MeshType.BOX, (0.0, 0.75, 0.0), (1.0,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.SPHERE, (-0.7, 0.6, -0.9), (0.3,))
+    sb.add("MAT_CORNELL_GREEN", MeshType.PLANE, (0.0, 1.0, 0.0), (-0.25,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.SPHERE, (0.8, 0.75, 0.0), (0.5,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.SPHERE, (0.3, -0.5, 0.2), (0.0,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.SDF, (-0.8, -0.4, 0.0), (0.2, 0.2, 0.2, 0.05),
+           sdf_shape=materials.SdfShape.ROUND_BOX)
+    return sb.build(device="cpu")
+
+
+def test_host_packed_scan_ties(host_kernels, kernels_on_cpu, monkeypatch):
+    """The packed scan of K1 and K4 (one float4 record per mesh, grouped
+    by type) against the plain `intersect.intersect`: t and the mesh index
+    bit for bit on `_tie_scene`'s ties (the lower row wins, as the first
+    index of the smallest t does in table order) and placeholders, and on
+    rays in every direction."""
+    monkeypatch.setattr(restir_split, "build_cast", lambda: (host_kernels["packed cast"], None))
+    scene = _tie_scene()
+    cfg = OFFLINE_CONFIG.replace(marching_steps=32)
+    xs = np.append(np.linspace(-1.0, 1.0, 41), 0.8).astype(np.float32)  # 0.8: the sphere's axis
+    up_o = np.stack(np.broadcast_arrays(xs[:, None], np.float32(-1.0),
+                                        np.array([0.0, 0.1, -0.3], np.float32)), -1)
+    up_d = np.broadcast_to(np.array([0.0, 1.0, 0.0], np.float32), up_o.shape)
+    r = np.random.default_rng(3)
+    any_d = r.normal(size=(4, 64, 3)).astype(np.float32)
+    any_d /= np.linalg.norm(any_d, axis=-1, keepdims=True)
+    any_o = np.broadcast_to(r.uniform(-0.9, 0.9, (4, 1, 3)).astype(np.float32), any_d.shape)
+    refs = []
+    for o, d in ((up_o, up_d), (any_o, any_d)):
+        o, d = torch.from_numpy(o.copy()), torch.from_numpy(d.copy())
+        t, idx, missed = restir_split._launch_cast(scene, cfg, megakernel.scene_table(scene),
+                                                   o, d)
+        t_ref, idx_ref, missed_ref = restir.default_cast(scene, cfg)(o, d)
+        assert torch.equal(idx.long(), idx_ref) and torch.equal(t, t_ref)
+        assert torch.equal(missed, missed_ref)
+        assert not bool(((idx == 0) | (idx == 5))[~missed].any())  # placeholders never win
+        refs.append((t_ref, idx_ref))
+    t_up, idx_up = refs[0]
+    # the box wins its tie with the plane, the plane its tie with the sphere
+    assert set(idx_up[t_up == 1.25].tolist()) == {1, 3}
+    assert int((idx_up == 1).sum()) > 10 and bool((idx_up[-1] == 3).all())
+    assert bool((idx_up == 6).any())  # the SDF row is hit too
 
 
 @pytest.mark.parametrize("where", ["restir_demo", "mis_demo", "animated_untextured"])

@@ -41,6 +41,11 @@ from raytracer0_tpu_torch.ops import megakernel as tmk
 from raytracer0_tpu_torch.ops import sky as tsky
 from raytracer0_tpu_torch.render import integrator as tint
 
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 PARITY_TOL, PARITY_FRAC, MEDIAN_TOL = 1e-5, 0.99, 1e-4
 
 # tests/test_golden_cornell.py:66-79: REFR_SCHLICK, a mirror and COAT

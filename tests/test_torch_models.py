@@ -7,6 +7,7 @@ ULP), so they are compared within 1e-6, about 8 ULP at unit length.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +23,11 @@ from raytracer0_tpu_torch.models import camera as tcam
 from raytracer0_tpu_torch.models import dsl as tdsl
 from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.models.scene import STATIC_FIELDS, TENSOR_FIELDS, Scene
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RAY_TOL = 1e-6
 

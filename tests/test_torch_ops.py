@@ -7,6 +7,8 @@ Functions that call sin, cos or pow get 1e-5: torch's and XLA's CPU
 transcendentals differ by one ULP on a few percent of inputs.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,11 @@ from raytracer0_tpu_torch.ops import sampling as tsmp
 from raytracer0_tpu_torch.ops import sky as tsky
 from raytracer0_tpu_torch.ops import tonemap as ttone
 from raytracer0_tpu_torch.ops import vecmath as tvm
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 ARITH_TOL = 1e-6
 TRANS_TOL = 1e-5

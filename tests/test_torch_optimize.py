@@ -8,6 +8,8 @@ the same update with the same defaults, and the renders agree to float32
 rounding (tests/test_torch_grad.py).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,11 @@ from raytracer0_tpu_torch.models.presets import cornell_default
 from raytracer0_tpu_torch.models.scene import STATIC_FIELDS, TENSOR_FIELDS, Scene
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 REL_TOL = 1e-4
 

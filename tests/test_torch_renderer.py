@@ -5,6 +5,7 @@ Renderer parity uses the contract of tests/test_golden_cornell.compare:
 median absolute error below 1e-4 and at least 99 % of pixels within 2e-3.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,11 @@ from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.ops import megakernel as tmk
 from raytracer0_tpu_torch.render import renderer as tren
 from raytracer0_tpu_torch.render.state import RenderState as TState
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 H = W = 24
 PASSES = 2

@@ -23,6 +23,8 @@ on some inputs) can move a near-grazing target value, and once moved w by
 3.3e-4 at w = 3.42 (9.7e-5 of it).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,11 @@ from raytracer0_tpu_torch.ops import restir as trestir
 from raytracer0_tpu_torch.ops import restir_kernel as tk6
 from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState, Reservoirs
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 T = torch.from_numpy
 H, W = 8, 128

@@ -19,6 +19,8 @@ ring threading and against per-light NEE (tests/test_optimize.py:11-40),
 and a CPU `fit` through the ring.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,11 @@ from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.ops import restir as trestir
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState, Reservoirs
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 H, W = 8, 32
 PASS = 3                      # temporal reuse runs from pass 3

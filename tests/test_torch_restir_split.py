@@ -44,6 +44,11 @@ from raytracer0_tpu_torch.render.state import RenderState
 from test_torch_animated import (H, W, jax_realtime_scene, jax_restir_passes, pass_contract,
                                  port_camera, port_ring, port_scene, restir_cfg)
 
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 T = torch.from_numpy
 MODES = {"static": RenderMode.STATIC, "animated": RenderMode.ANIMATED}
 

@@ -16,6 +16,8 @@ differ (on the card the kernels and the plain versions agree bit for bit,
 tests/test_torch_cuda.py and chip_smoke.py phases 16, 17 and 24).
 """
 
+import os
+
 import pytest
 import torch
 
@@ -26,6 +28,11 @@ from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split, restir
 from raytracer0_tpu_torch.render.state import RenderState
 
 from test_torch_kernel_host import HOST_LIBRARIES, build_host, on_cpu
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 H, W = 8, 32
 
@@ -89,6 +96,30 @@ def test_host_vertex_fused_matches_plain(vertex_on_cpu, where):
         _held(out, ref, new, new_ref)
         kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
     assert int((new.light_index >= 0).sum()) > H * W // 2
+
+
+def test_host_vertex_fused_one_block_grid(vertex_on_cpu, monkeypatch):
+    """The K6 pass with K4 on a persistent grid of one block (each lane
+    traces two pixels, drawn from the ticket counter) equals it on a grid
+    of one pixel per thread (two blocks at 8x32), bit for bit, over passes
+    0-3 of `restir_stress`, each threading its own ring: K6v reads K4's
+    G-buffer whichever lane wrote it."""
+    scene, cam, cfg = _case("restir_stress")
+    pix = rng.pixel_ids(H, W)
+    rings = {1: RenderState.create(H, W, "cpu"), 2: RenderState.create(H, W, "cpu")}
+    for p in range(4):
+        ro, rd = generate_rays(cam, H, W, p)
+        outs = {}
+        for grid, st in rings.items():
+            monkeypatch.setattr(restir_split, "resident_blocks", lambda dev, sdf, smem: grid)
+            outs[grid] = restir_kernel._launch(scene, cfg, ro, rd, pix, p, 0, st.restir_back,
+                                               st.restir_hist1, st.restir_hist2)
+            rings[grid] = st.rotate_reservoirs(outs[grid][1])
+        (a, new_a), (b, new_b) = outs[1], outs[2]
+        assert torch.equal(a, b)
+        assert all(torch.equal(x, y) for x, y in zip(new_a.fields().values(),
+                                                     new_b.fields().values()))
+    assert int((new_a.light_index >= 0).sum()) > H * W // 2
 
 
 @pytest.mark.parametrize("where,adhoc,moving", [

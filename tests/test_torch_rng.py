@@ -4,12 +4,19 @@ The counter RNG is integer math, so the port must be bitwise equal: every
 comparison here is exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from raytracer0_tpu import rng as jrng
 from raytracer0_tpu_torch import rng as trng
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 _U32_MAX = 2**32 - 1
 

@@ -20,6 +20,8 @@ tests/test_megakernel.py:94, tests/test_golden_cornell.py:35) is held
 against the latter.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,11 @@ from raytracer0_tpu_torch import rng as trng
 from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.ops import sdf as tsdf
 from raytracer0_tpu_torch.render import integrator as tint
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 PARITY_TOL, PARITY_FRAC, MEDIAN_TOL = 1e-5, 0.99, 1e-4
 T = torch.from_numpy

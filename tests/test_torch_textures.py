@@ -19,6 +19,8 @@ cell boundaries (tests/test_megakernel.py:780-817), and the gradient
 w.r.t. the images and the colors within 1e-4 relative of `jax.grad`.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,11 @@ from raytracer0_tpu_torch.ops import textures as ttex
 from raytracer0_tpu_torch.render import integrator as tint
 
 from test_torch_texture_scenes import SCENE_VIEWS, check_sphere_scene, tex_material
+
+# pytest-xdist runs the test files in worker processes that share the
+# cores: one torch thread each, or their intra-op pools oversubscribe them
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 PARITY_TOL, PARITY_FRAC, MEDIAN_TOL = 1e-5, 0.99, 1e-4
 T = torch.from_numpy
