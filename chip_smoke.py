@@ -15,9 +15,11 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    and ptxas' register, stack and spill lines; prints each kernel's blocks
    and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
    with the shared memory, registers and local memory they were computed
-   for (its main path's scene; K6v in both forms); checks that K7, which
-   shares K6v's vertex code, keeps its 168 registers and 1,328-byte stack
-   (the vertex's split form must not move K7's code);
+   for (its main path's scene; K6v in both forms; K2 on Cornell and on
+   the 47-mesh scene of `presets.many_lights`, with its layout and spills,
+   and fails if a column per thread leaves it fewer than 3 blocks per SM);
+   checks that K7, which shares K6v's vertex code, keeps its 168 registers
+   and 1,328-byte stack (the vertex's split form must not move K7's code);
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -32,7 +34,10 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    d(color, emission, pos, joker, ro, rd): per leaf max|a-b| / max|b| < 1e-4
    at 16x128 with 3 bounces in four configurations, < 1e-3 at 512x512 with
    12 bounces (sums over 262,144 pixels in another order); one K2 launch
-   per backward;
+   per backward; < 1e-4 on the 47-mesh scene (six planes, 41 sphere
+   lights) at 64x128 with 12 bounces; and two K2 launches on the same
+   inputs give the same d_table, d_ro and d_rd bits, on Cornell and the
+   47-mesh scene at 512x512;
 7. holds K2 against central differences of two K1 renders: d sum /
    d emission[light] and d sum / d color[red wall] within 5 % at 128x128,
    12 bounces;
@@ -161,9 +166,10 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    rays the plain split pass casts (its bound beside it); times the
    ANIMATED frame through K6 (no ad-hoc motion) and through K1 (ReSTIR
    off, held bit for bit against the plain version);
-25. checks that a gradient through the split path, and `animated_restir`
-   itself (a METAL texture on its SDF mesh, item 8) on every route, raise
-   NotImplementedError before any launch.
+25. checks that a gradient through the split path, `animated_restir`
+   itself (a METAL texture on its SDF mesh, item 8) on every route, and
+   `restir_demo` on the split path with a blended texture or a cubemap
+   (item 11), raise NotImplementedError before any launch.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -580,12 +586,15 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     each input read once (rays, pixel ids, the scene table and, where this
     run reads them, the whole cubemap, the images and the noise LUT; K6's
     three reservoir grids) and each output written once (K6's new
-    reservoirs too).  K2 replays each slot's forward and runs its adjoint,
-    which takes at least as many operations, on top of a forward sweep
-    without NEE.  K6 runs K1's sweep with the reservoir vertex and its two
+    reservoirs too).  An adjoint takes at least the operations of the
+    forward it differentiates less its mesh scans and marches, whose
+    adjoint reads the winning mesh alone.  K2 runs a forward sweep
+    without NEE that scans each slot's ray, then replays each slot with
+    the hit it stashed (its NEE shadow rays scanned again) and runs its
+    adjoint.  K6 runs K1's sweep with the reservoir vertex and its two
     shadow rays in place of NEE; K7 replays K6's slots twice (forward
-    sweep, reverse sweep with the vertices) and runs their adjoint: the
-    forward sweep plus twice K6's operations.  K4 (`gbuffer_slots` > 0)
+    sweep, reverse sweep with the vertices, each scanning the slot's ray)
+    and runs their adjoint.  K4 (`gbuffer_slots` > 0)
     runs K1's sweep without NEE and writes the G-buffer: per slot and pixel
     45 bytes (position, normal, throughput, mesh, depth, valid)."""
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
@@ -607,6 +616,9 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
            + sum(k * OPS_UV[m] for m, k in ev["uv"].items()) + march)
     if restir:
         fwd += vertex_ops(ev, scene, cfg, per_ray)
+    scans = (ev["rays"] + ev["shadow"] + ev["shadow_dir"] + ev["gather"]
+             + (2 * ev["vertices"] if restir else 0)) * per_ray + march
+    adjoint_ops = fwd - scans
     table = 4 * scene.num_meshes * 36
     assets = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
     assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
@@ -614,14 +626,15 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     px = ev["pixels"]
     if restir and adjoint:   # K6's inputs, ct and the 4 ring cotangents in;
         # d_ro, d_rd, per-tap and history cotangents, d back, d_table out
-        ops = sweep + 2 * fwd
+        ops = sweep + fwd + adjoint_ops
         nbytes = px * (12 + 12 + 8 + 3 * 20 + 12 + 16 + 24 + 8 * 12 + 2 * 12 + 12) + 2 * table
     elif gbuffer_slots:   # ro, rd, pix, table in; radiance and the G-buffer out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12 + 45 * gbuffer_slots) + table
     elif restir:  # ro, rd, pix, three reservoir grids in; radiance, reservoirs out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 3 * 20 + 12 + 44) + table
     elif adjoint:   # ro, rd, pix, ct in; d_ro, d_rd, d_table out
-        ops, nbytes = sweep + 2 * fwd, px * (12 + 12 + 8 + 12 + 24) + 2 * table
+        ops = sweep + (fwd - ev["rays"] * per_ray) + adjoint_ops
+        nbytes = px * (12 + 12 + 8 + 12 + 24) + 2 * table
     else:         # ro, rd, pix, table, cubemap, images, LUT in; radiance out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12) + table + assets
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
@@ -713,14 +726,17 @@ def kernel_occupancy(dev):
     cornell = presets.cornell_default(device=dev, use_mis=True)[0]
     realtime = presets.animated_untextured(device=dev)[0]
     demo, stress = presets.restir_demo(device=dev)[0], presets.restir_stress(device=dev)[0]
-    k2_threads = megakernel.bwd_threads(cornell)
+    many = presets.many_lights(device=dev)[0]
+    k2_threads = megakernel.BWD_THREADS
+    k2_cornell, k2_many = megakernel.bwd_layout(cornell), megakernel.bwd_layout(many)
     k7_threads = restir_kernel.bwd_threads
     rows = [
         ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
          128, megakernel.packed_smem_bytes(cornell), False),
         ("K2", "cornell_default", "megakernel_bwd", megakernel.BWD_SOURCES,
-         "rt0_trace_backward", k2_threads, megakernel.bwd_smem_bytes(cornell, k2_threads),
-         False),
+         "rt0_trace_backward", k2_threads, k2_cornell[1], k2_cornell[0]),
+        ("K2", "many_meshes", "megakernel_bwd", megakernel.BWD_SOURCES,
+         "rt0_trace_backward", k2_threads, k2_many[1], k2_many[0]),
         ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
          "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(realtime), True),
         ("K4", "restir_demo", "gbuffer", restir_split.GBUF_SOURCES,
@@ -736,7 +752,7 @@ def kernel_occupancy(dev):
         ("K7", "restir_stress", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
          k7_threads(stress), restir_kernel.bwd_smem_bytes(stress, k7_threads(stress)), True),
     ]
-    # the flag is the SDF copy's (K4, K5) or K6v's form
+    # the flag is the SDF copy's (K4, K5), K6v's form or K2's columns per warp
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
 
@@ -846,6 +862,19 @@ def main() -> int:
               f"({o4['blocks']} blocks per SM x {sms} SMs) at {o4['registers']} registers "
               f"({o4['local_bytes']} bytes of local memory); {-(-H * W // 128)} blocks of pixels "
               f"at {H}x{W}")
+    k2_ptxas = [line.strip() for line in infos[1].log.splitlines() if "spill" in line]
+    k2_scenes = {"cornell_default": cornell_default(device=dev)[0],
+                 "many_meshes": presets.many_lights(device=dev)[0]}
+    for where, sc in k2_scenes.items():
+        o2 = occ[("K2", where)]
+        warp2 = megakernel.bwd_layout(sc)[0]
+        print(f"phase 2: K2 on {where} ({sc.num_meshes} meshes): {o2['registers']} registers, "
+              f"{o2['local_bytes']} bytes of local memory per thread ({'; '.join(k2_ptxas)}), "
+              f"{o2['smem']} bytes of shared memory a block of {o2['threads']} (a column of "
+              f"cotangent accumulators per {'warp' if warp2 else 'thread'}), {o2['blocks']} "
+              "blocks per SM")
+        if not warp2 and o2["blocks"] < 3:
+            raise AssertionError("K2 keeps a column per thread where it fits < 3 blocks per SM")
     o7 = occ[("K7", "restir_demo")]
     print(f"phase 2: K7 keeps its 168 registers and 1,328-byte stack: "
           f"{(o7['registers'], o7['local_bytes']) == (168, 1328)}")
@@ -953,6 +982,39 @@ def main() -> int:
     if k2_rel >= GRAD_TOL_FULL:
         raise AssertionError(f"K2 disagrees with plain autograd at {H}x{W}: {k2_rel:.3e}")
     del got, want
+    # the 47-mesh scene (41 sphere lights), in 128-thread blocks
+    many, many_cam, many_cfg = presets.many_lights(device=dev)
+    hm, wm = 64, 128
+    rom, rdm = generate_rays(many_cam, hm, wm, 2)
+    pixm = rng.pixel_ids(hm, wm, device=dev)
+    before = megakernel.BWD_LAUNCHES
+    got = grads(torch, megakernel.trace_forward, many, many_cfg, rom, rdm, pixm)
+    torch.cuda.synchronize()
+    if megakernel.BWD_LAUNCHES != before + 1:
+        raise AssertionError("expected one K2 launch per backward")
+    errs = grad_errors(got, grads(torch, integrator.trace, many, many_cfg, rom, rdm, pixm))
+    k2_many_rel = max(e[0] for e in errs.values())
+    print(f"phase 6: the {many.num_meshes}-mesh scene at {hm}x{wm}, {many_cfg.max_bounces} "
+          f"bounces: max relative error per leaf "
+          + ", ".join(f"{k} {e[0]:.2e}" for k, e in errs.items()))
+    if k2_many_rel >= GRAD_TOL:
+        raise AssertionError(f"K2 disagrees with plain autograd on the many-mesh scene: "
+                             f"{k2_many_rel:.3e}")
+    del got, errs
+    # two launches on the same inputs give the same bits
+    for where, sc, cam6, c6 in (("cornell_default", scene, cam, cfg),
+                                ("many_meshes", many, many_cam, many_cfg)):
+        ro6, rd6 = generate_rays(cam6, H, W, 0)
+        ct6 = torch.rand((H, W, 3), generator=torch.Generator(dev).manual_seed(3), device=dev)
+        runs = [megakernel._launch_backward(sc, c6, megakernel.scene_table(sc), ro6, rd6, pix,
+                                            0, 0, ct6) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"phase 6: K2 on {where} at {H}x{W}: two launches give the same d_table, d_ro and "
+              f"d_rd bits: {same}")
+        if not same:
+            raise AssertionError(f"K2 is not deterministic on {where}")
+    del runs
 
     # ---- phase 7: K2 against finite differences of K1 ----
     fd_size = 128
@@ -2144,6 +2206,14 @@ def main() -> int:
                      ("on K1", m_cfg.replace(use_restir=False))):
         refusals[f"animated_restir (MAT_METAL on its SDF) {label}"] = \
             lambda c=c: Renderer(m_scene, m_cam, c, 16, 16).step(0.1)
+    demo25, demo_cam25, demo_cfg25 = presets.restir_demo(device=dev)
+    adhoc25 = demo_cfg25.replace(restir_adhoc_motion=True)
+    textured25 = presets.textured_restir_demo(device=dev)[0]
+    refusals["restir_demo with a CHECK texture on its back wall on the split path"] = \
+        lambda: Renderer(textured25, demo_cam25, adhoc25, 16, 16).step(0.1)
+    refusals["restir_demo with a cubemap on the split path"] = lambda: Renderer(
+        demo25, demo_cam25, adhoc25.replace(use_cubemap=True, use_procedural_sky=False),
+        16, 16).step(0.1)
     for what, call in refusals.items():
         try:
             call()
@@ -2151,6 +2221,8 @@ def main() -> int:
             print(f"phase 25: {what} raises NotImplementedError: {exc}")
             if what.startswith("animated_restir") and "item 8" not in str(exc):
                 raise AssertionError("animated_restir is refused without naming item 8")
+            if what.startswith("restir_demo") and "item 11" not in str(exc):
+                raise AssertionError(f"{what} is refused without naming item 11")
         else:
             raise AssertionError(f"{what} did not raise")
     if split_counts() != before:
@@ -2184,7 +2256,8 @@ def main() -> int:
                         "adjoint body, same outputs)",
          "launches": bwd_launches,
          "launches_by_path": {"render": bwd_render, "gradient": bwd_launches},
-         "max_abs_err": k2_abs, "max_rel_err": k2_rel, "ms": ms_k2,
+         "max_abs_err": k2_abs, "max_rel_err": k2_rel,
+         "max_rel_err_many_meshes": k2_many_rel, "ms": ms_k2,
          "plain_ms": plain_ms_bwd, "bound_ms": k2_bound, "bound_by": k2_by},
         {"name": "K9 env forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1's, K7's and the ReSTIR pass K6's device times on a few presets, the
+"""K1's, K2's, K7's and the ReSTIR pass K6's device times on a few presets, the
 ReSTIR frame, pass and gradient step, and digests of the kernels' outputs,
 to compare two checkouts on one card.
 
@@ -31,9 +31,21 @@ Finally a sha256 prefix of each kernel route's outputs on fixed inputs
 (K1, K4, K7, the K6 pass and the real-time frame), so two checkouts that
 should agree bit for bit can be seen to.
 
-It also prints the ptxas lines of K4, and K1's (Cornell) and K4's
+It also prints the ptxas lines of K2 and K4, and K1's (Cornell) and K4's
 (`restir_demo`, the real-time scene) blocks per SM, registers and K4's
 persistent grid.
+
+K2, the adjoint of K1, on K2_SCENES at 512x512 with 12 bounces: Cornell
+with and without MIS, and `presets.many_lights` (`restir_stress`'s planes
+and the first 4, 5, 8, 9, 10, 18 or all 41 of its sphere lights: 10, 11,
+14, 15, 16, 24 and 47 meshes, on both sides of the switch from a column
+of cotangent accumulators per thread to one per warp); the median over 5
+rounds of 20 launches of its device time (torch.profiler), alone and
+with its reduction, on the rays of pass 0 with ones as cotangents, its
+layout, blocks per SM and registers, sha256 prefixes of d_table, d_ro
+and d_rd, and d_table's values.  `--compare REF.json RUN.json ...` reads the JSON
+lines of earlier runs (one file each) and prints which digests differ
+from the first run's and d_table's worst relative difference per leaf.
 
 `chip_smoke.py` imports `k1_device_ms`.  Comparing two checkouts: run
 each checkout's own copy from its root (Python puts the script's own
@@ -41,6 +53,7 @@ directory first on the path) in turns in one call (parent, change,
 change, parent), and compare the keys both print.
 """
 
+import argparse
 import hashlib
 import json
 import os
@@ -138,6 +151,118 @@ def k7_device_ms(names, dev):
 
 
 RESTIR_PRESETS = ("restir_demo", "restir_stress")
+
+#: K2's scenes: Cornell with and without MIS, and `presets.many_lights`
+#: with this many sphere lights (6 meshes more).
+K2_MANY_LIGHTS = {"meshes_10": 4, "meshes_11": 5, "meshes_14": 8, "meshes_15": 9,
+                  "meshes_16": 10, "meshes_24": 18, "many_meshes": 41}
+K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS)
+
+
+def k2_scene(name, device):
+    """(scene, camera, cfg) of K2's scene `name` (K2_SCENES)."""
+    from raytracer0_tpu_torch.models import presets
+
+    if name in K2_MANY_LIGHTS:
+        return presets.many_lights(device=device, n_lights=K2_MANY_LIGHTS[name])
+    return presets.cornell_default(device=device, use_mis=name == "cornell_mis")
+
+
+def k2_device_ms(dev):
+    """{scene: result} of K2 on each of K2_SCENES at 512x512 with its
+    budgets (12 bounces), on the rays of pass 0 with ones as the radiance's
+    cotangent, through `megakernel._launch_backward`: the median over 5
+    rounds of 20 launches of the adjoint kernel's device milliseconds per
+    launch (torch.profiler), the rounds, the median with its reduction,
+    sha256 prefixes of d_table, d_ro and d_rd, and d_table's values (for
+    `--compare`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer0_tpu_torch import rng
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import megakernel
+
+    res = {}
+    pix = rng.pixel_ids(512, 512, device=dev)
+    ct = torch.ones((512, 512, 3), dtype=torch.float32, device=dev)
+    for name in K2_SCENES:
+        scene, cam, cfg = k2_scene(name, dev)
+        ro, rd = generate_rays(cam, 512, 512, 0)
+        table = megakernel.scene_table(scene)
+        launch = lambda: megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 0, 0, ct)
+        d_table, d_ro, d_rd = launch()
+        for _ in range(4):
+            launch()
+        rounds, whole = [], []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    launch()
+                torch.cuda.synchronize()
+            us = {k: sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                         for e in prof.key_averages() if k in e.key and "restir" not in e.key)
+                  for k in ("bwd_kernel", "reduce_kernel")}
+            rounds.append(us["bwd_kernel"] / 20 / 1e3)
+            whole.append(sum(us.values()) / 20 / 1e3)
+        res[name] = {"ms": statistics.median(rounds), "rounds": rounds,
+                     "ms_with_reduction": statistics.median(whole),
+                     "digest_d_table": _digest(d_table), "digest_d_ro": _digest(d_ro),
+                     "digest_d_rd": _digest(d_rd), "meshes": scene.num_meshes,
+                     "d_table": d_table.cpu().flatten().tolist()}
+    return res
+
+
+def k2_occupancy(dev):
+    """K2's blocks per SM, registers, local memory and shared memory on
+    each of K2_SCENES in the layout its launcher picks."""
+    from raytracer0_tpu_torch.ops import cuda_build, megakernel
+
+    res = {}
+    for name in K2_SCENES:
+        scene = k2_scene(name, dev)[0]
+        warp, smem = megakernel.bwd_layout(scene)
+        o = cuda_build.occupancy("megakernel_bwd", megakernel.BWD_SOURCES,
+                                 "rt0_trace_backward_occupancy", megakernel.BWD_THREADS,
+                                 smem, warp)
+        res[f"occupancy_k2_{name}"] = {**{k: o[k] for k in ("blocks", "threads", "registers",
+                                                            "local_bytes", "smem")},
+                                       "warp_columns": warp}
+    return res
+
+
+def compare(paths):
+    """Print, for two or more JSON lines this script wrote (one file each,
+    the first the reference), which digests differ from the reference's and
+    the worst relative difference of K2's d_table per leaf (pos, joker.x,
+    color, emission: max |a - b| / max |b| over the scene's meshes)."""
+    import numpy as np
+
+    runs = []
+    for p in paths:
+        with open(p) as f:
+            runs.append(json.loads([line for line in f if line.startswith("{")][-1]))
+    ref = runs[0]
+    leaves = {"pos": slice(0, 3), "joker.x": slice(3, 4), "color": slice(7, 10),
+              "emission": slice(10, 13)}
+    for p, run in zip(paths[1:], runs[1:]):
+        keys = sorted(k for k in ref if "digest" in k and not isinstance(ref[k], dict))
+        keys += [f"{n}.{k}" for n in K2_SCENES if n in ref and n in run
+                 for k in ref[n] if k.startswith("digest")]
+        get = lambda r, k: r[k.split(".")[0]][k.split(".")[1]] if "." in k else r.get(k)
+        differ = [k for k in keys if get(ref, k) != get(run, k)]
+        worst = {}
+        for n in K2_SCENES:
+            if n in ref and n in run:
+                a = np.asarray(run[n]["d_table"]).reshape(-1, 36)
+                b = np.asarray(ref[n]["d_table"]).reshape(-1, 36)
+                worst[n] = {leaf: float(np.abs(a[:, c] - b[:, c]).max()
+                                        / max(np.abs(b[:, c]).max(), 1e-30))
+                            for leaf, c in leaves.items()}
+        print(json.dumps({"reference": paths[0], "run": p, "digests_compared": len(keys),
+                          "digests_that_differ": differ, "k2_d_table_worst_relative": worst,
+                          "k2_d_table_worst_relative_all": max(
+                              (v for w in worst.values() for v in w.values()), default=None)}))
 
 
 def _digest(*tensors):
@@ -308,6 +433,13 @@ def occupancy(dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", nargs="+", metavar="JSON",
+                    help="compare the outputs of earlier runs (the first is the reference)")
+    args = ap.parse_args()
+    if args.compare:
+        compare(args.compare)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -323,13 +455,16 @@ def main() -> int:
     ptxas = lambda info: [line.strip() for line in info.log.splitlines()
                           if "registers" in line or "spill" in line or "stack" in line]
     res = {"tree": os.path.basename(os.getcwd()), "ptxas": ptxas(megakernel.build()[1]),
+           "ptxas_k2": ptxas(megakernel.build_bwd()[1]),
            "ptxas_k4": ptxas(restir_split.build_gbuffer()[1]),
            "ptxas_k7": ptxas(restir_kernel.build_bwd()[1])}
     dev = torch.device("cuda", 0)
     res.update(occupancy(dev))
+    res.update(k2_occupancy(dev))
     for name, (med, rounds) in k1_device_ms(PRESETS, dev).items():
         res[name] = med
         res[name + "_rounds"] = rounds
+    res.update(k2_device_ms(dev))
     for name, (med, rounds, whole) in k7_device_ms(K7_PRESETS, dev).items():
         res["k7_" + name] = med
         res["k7_" + name + "_rounds"] = rounds

@@ -14,33 +14,65 @@
 //
 // Scheme: the per-slot stash of the Pallas kernel, one thread per pixel.
 //  * forward sweep: run K1's bounce loop without NEE and without the
-//    accumulator (neither changes the carry) and stash the carry entering
-//    every slot the path runs: o, d, mask, prev_nl, 12 floats.  The
-//    accumulator needs no stash (its cotangent is ct at every slot), nor do
-//    the integer counters (no cotangent), and `specular` is (depth == 0) in
-//    this class.  A path runs at most min(max_bounces, max_diff + 1) slots.
+//    accumulator (neither changes the carry) and stash, for every slot the
+//    path runs, the carry entering it (o, d, mask, prev_nl) and the hit its
+//    ray found (t, idx): 14 words.  The accumulator needs no stash (its
+//    cotangent is ct at every slot), nor do the integer counters (no
+//    cotangent), and `specular` is (depth == 0) in this class.  A path runs
+//    at most min(max_bounces, max_diff + 1) slots.
 //  * reverse sweep: newest slot first, recompute the slot from its stash
-//    (intersection, normal, BSDF sample, NEE shadow rays: the counter RNG
-//    replays every draw exactly) and run its hand-derived adjoint, chaining
-//    the carry cotangents back to the primary ray.
+//    (normal, BSDF sample, NEE shadow rays: the counter RNG replays every
+//    draw exactly; the slot's own ray is not scanned again) and run its
+//    hand-derived adjoint, chaining the carry cotangents back to the
+//    primary ray.
 // Discrete decisions (winner index, shadow-ray hit, `inside`, validity, the
 // MIS energy gate, cutoff and caps) carry no gradient, as `torch.where`
 // gives in the plain version.  Ties follow the plain version's autograd:
 // clamp and clamp_min pass the gradient at the bound, amax/amin split it
 // evenly between tied slabs.
 //
-// The d_table reduction across pixels is deterministic: each thread adds
-// into its own column of per-thread accumulators in shared memory (the 10
-// table columns with a cotangent: pos 0:3, joker.x 3, color 7:10,
-// emission 10:13), the block sums its columns in thread order into a
-// per-block partial, and a second kernel sums the partials in block order
-// with a fixed tree.  Two runs on the same inputs give the same bits.
+// The d_table reduction across pixels is deterministic.  The 10 table
+// columns with a cotangent (pos 0:3, joker.x 3, color 7:10, emission 10:13)
+// are summed per mesh into columns of accumulators in shared memory:
+//  * a column per thread while 3 blocks of such columns fit an SM's shared
+//    memory (bwd_layout: up to 14 meshes on an H100, Cornell's 8 among
+//    them); a thread adds into its own column;
+//  * a column per warp beyond that (many meshes): an add groups the warp's
+//    active lanes by mesh (__match_any_sync), sums each group's values over
+//    a fixed tree of lane ranks with shuffles, and the group's lowest lane
+//    adds the sum into its warp's column with a shared-memory atomicAdd.
+//    No fixed point, so cotangents of any scale survive.
+// The block sums its columns in order into a per-block partial, and a
+// second kernel sums the partials in block order with a fixed tree.  With
+// a column per thread two runs on the same inputs give the same bits by
+// construction.  With a column per warp the lanes that reach one add
+// together sum in a fixed order, but lanes of one warp on divergent paths
+// (a light's C_PX from the NEE of one lane and from the emissive hit of
+// another) add to the same entry in the order the warp scheduler runs the
+// paths: the atomic keeps every add, and the bits repeat as far as that
+// order repeats, which the card tests check on two launches.
 //
 // What bounds it: like K1, instruction latency and divergence, not memory.
-// A pixel reads 40 bytes and writes 24; the work is the replay of every ran
-// slot twice (forward sweep, reverse sweep) plus an adjoint about twice a
-// bounce's arithmetic, with branches that diverge per pixel.  The stash
-// (12 floats per slot) lives in local memory, which the L1 cache serves.
+// A pixel reads 40 bytes and writes 24; the work is the scan of every ran
+// slot's ray (forward sweep) and of its shadow rays (reverse sweep), plus
+// an adjoint about twice a bounce's arithmetic, with branches that diverge
+// per pixel.  What the design does about that (PERF.md's K2 ablation):
+//  * every ray scans the analytic meshes through K1's packed float4
+//    records (trace_common.cuh::intersect_packed_analytic), with the same
+//    winner, so the bits do not change;
+//  * the reverse sweep takes each slot's hit from the stash instead of
+//    scanning its ray a second time;
+//  * a column per warp takes 32 times less shared memory than a column per
+//    thread, so a scene of many meshes keeps 128-thread blocks and 8 blocks
+//    per SM (47 meshes: 15,788 B a block, where a column per thread left one
+//    block of 64 threads per SM); on a few meshes the group sums cost more
+//    than the columns save, so those keep a column per thread;
+//  * __launch_bounds__ budgets: 4 blocks per SM (128 registers, no spill)
+//    with a column per thread, 8 (64 registers, the spills stay in L1) with
+//    a column per warp.  The stash (14 words a slot) lives in local memory,
+//    which the L1 cache serves.
+
+#include <type_traits>
 
 #include "adjoint.cuh"
 
@@ -50,11 +82,21 @@ constexpr int MAX_SLOTS = 16;   // stash depth; the wrapper checks the bound
 constexpr int ST = 12;          // stashed floats per slot: o, d, mask, prev_nl
 constexpr int BWD_THREADS = 128;
 constexpr int RED_THREADS = 256;
+// __launch_bounds__ blocks per SM of the copies with a column per thread
+// (4: 127 registers, no spill) and per warp (8: 64 registers)
+constexpr int MIN_BLOCKS_THREAD_COLS = 4;
+constexpr int MIN_BLOCKS_WARP_COLS = 8;
+// the fewest blocks per SM at which K2 keeps a column per thread: at 3
+// blocks it ran 4 % faster than a column per warp on 11 meshes and 3.5 %
+// slower on 14, at 2 blocks 25-34 % slower (15, 16 meshes; PERF.md's K2
+// ablation), so the two copies cross inside the 3-block band
+constexpr int THREAD_COLS_FEWEST_BLOCKS = 3;
 
-// cotangent columns kept per thread (pos 0:3, joker.x 3, color 7:10,
+// cotangent columns kept per mesh (pos 0:3, joker.x 3, color 7:10,
 // emission 10:13), and the scene-table column of each
 constexpr int NG = 10;
 __host__ __device__ constexpr int table_col_of(int g) { return g < 4 ? g : g + 3; }
+__device__ __forceinline__ int acc_col_of(int col) { return col < 4 ? col : col - 3; }
 
 struct BwdArgs {
   TraceArgs t;           // K1's arguments (t.out unused)
@@ -63,13 +105,62 @@ struct BwdArgs {
   float *partials;       // [n_blocks, n_mesh, NG]
 };
 
+// Sum v[0:N] over the lanes of `grp` (a group of the warp's active lanes,
+// each calling with the same grp): the group's lowest lane ends with the
+// sums.  A fixed tree over the lanes' ranks in the group: at step `off` the
+// member of rank r (r a multiple of 2 off) adds the partial of rank r + off,
+// so the order of the adds depends on the group alone.
+template <int N>
+__device__ __forceinline__ void group_sum(unsigned grp, float (&v)[N]) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const unsigned below = grp & ((1u << lane) - 1u);
+  const int r = __popc(below), n = __popc(grp);
+  unsigned above = grp & ~below & ~(1u << lane);  // ranks r + 1, r + 2, ... by lane
+  for (int off = 1; off < n; off <<= 1) {
+    const int src = above ? __ffs(above) - 1 : lane;  // the lane of rank r + off
+    const bool take = (r & (2 * off - 1)) == 0 && r + off < n;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float x = __shfl_sync(grp, v[k], src);
+      if (take) v[k] += x;
+    }
+    for (int i = 0; i < off; ++i) above &= above - 1u;  // on to rank r + 2 off
+  }
+}
+
+// This warp's column of the block's cotangent accumulators; `col` is a
+// scene-table column (adjoint.cuh).  The add is atomic because lanes of
+// the warp on another divergent path may add to the same entry meanwhile.
+struct WarpAcc {
+  float *g;  // entry (mesh, k) at g[mesh * NG + k]
+  template <int N>
+  __device__ __forceinline__ void put(int mesh, int col, float (&v)[N]) const {
+    const unsigned grp = __match_any_sync(__activemask(), mesh);
+    group_sum<N>(grp, v);
+    const int lane = (int)(threadIdx.x & 31u);
+    if ((grp & ((1u << lane) - 1u)) == 0u) {  // the group's lowest lane
+      float *e = g + mesh * NG + acc_col_of(col);
+#pragma unroll
+      for (int k = 0; k < N; ++k) atomicAdd(e + k, v[k]);
+    }
+  }
+  __device__ __forceinline__ void add(int mesh, int col, float v) const {
+    float w[1] = {v};
+    put<1>(mesh, col, w);
+  }
+  __device__ __forceinline__ void add3(int mesh, int col, V3 v) const {
+    float w[3] = {v.x, v.y, v.z};
+    put<3>(mesh, col, w);
+  }
+};
+
 // This thread's column of the block's cotangent accumulators; `col` is a
 // scene-table column (adjoint.cuh).
-struct GradAcc {
+struct ThreadAcc {
   float *g;     // entry e at g[e * stride]
   int stride;   // blockDim.x
   __device__ __forceinline__ void add(int mesh, int col, float v) const {
-    g[(mesh * NG + (col < 4 ? col : col - 3)) * stride] += v;
+    g[(mesh * NG + acc_col_of(col)) * stride] += v;
   }
   __device__ __forceinline__ void add3(int mesh, int col, V3 v) const {
     add(mesh, col, v.x);
@@ -81,9 +172,10 @@ struct GradAcc {
 // shade_nee forward and adjoint in one pass: returns the NEE total (before
 // the throughput factor) and adds the cotangents of x, nl and the scene for
 // the cotangent g_tot of that total.
-__device__ V3 shade_nee_bwd(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, float eps,
-                            float inf, bool use_mis, V3 g_tot, V3 &g_x, V3 &g_nl,
-                            const GradAcc &G) {
+template <class Acc>
+__device__ V3 shade_nee_bwd(const SceneSmem &s, const PackedScene &pk, V3 x, V3 nl,
+                            uint32_t h_depth, float eps, float inf, bool use_mis, V3 g_tot,
+                            V3 &g_x, V3 &g_nl, const Acc &G) {
   V3 total = zero3();
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
@@ -102,7 +194,7 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, f
     V3 sr = sample_cone(ldir, extent, u1, u2);
     float ts;
     int hidx;
-    intersect(s, x + nl * eps, sr, eps, ts, hidx);
+    intersect_packed_analytic(pk, x + nl * eps, sr, eps, ts, hidx);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_raw = dot(sr, nl);
     float cos_term = fmaxf(cos_raw, 0.001f);
@@ -168,19 +260,17 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, V3 x, V3 nl, uint32_t h_depth, f
 }
 
 // Adjoint of slot `depth` of K1's loop.  In: the carry entering the slot
-// (o, d, mask, prev_nl) and, in g_*, the cotangents of the carry leaving it
-// (zero for the last slot).  Out: g_* hold the cotangents of the carry
-// entering it; the scene's cotangents are added into G.
-__device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint32_t h_pix, V3 o,
-                         V3 d, V3 mask, V3 prev_nl, V3 ct, V3 &g_o, V3 &g_d, V3 &g_mask,
-                         V3 &g_pnl, const GradAcc &G) {
+// (o, d, mask, prev_nl), the hit (t, idx) of its ray and, in g_*, the
+// cotangents of the carry leaving it (zero for the last slot).  Out: g_*
+// hold the cotangents of the carry entering it; the scene's cotangents are
+// added into G.
+template <class Acc>
+__device__ void slot_bwd(const SceneSmem &s, const PackedScene &pk, const TraceArgs &a, int depth,
+                         uint32_t h_pix, V3 o, V3 d, V3 mask, V3 prev_nl, float t, int idx, V3 ct,
+                         V3 &g_o, V3 &g_d, V3 &g_mask, V3 &g_pnl, const Acc &G) {
   const bool specular = depth == 0;  // only primary rays are specular in this class
   const V3 go_out = g_o, gd_out = g_d, gm_out = g_mask, gp_out = g_pnl;
   g_o = g_d = g_mask = g_pnl = zero3();
-
-  float t;
-  int idx;
-  intersect(s, o, d, a.eps, t, idx);
 
   // ---- miss: acc += mask * sky(d) ----
   if (!(t < a.inf)) {
@@ -246,8 +336,8 @@ __device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint
     V3 g_nl = go_out * a.eps + gp_out + sample_biased_bwd(nl, u01(h_dir), u01(pcg(h_dir)), gd_out);
     V3 g_ma = gm_out;
     if (a.sample_lights) {
-      V3 total = shade_nee_bwd(s, x, nl, h_depth, a.eps, a.inf, a.use_mis, ct * mask_after, g_x,
-                               g_nl, G);
+      V3 total = shade_nee_bwd(s, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis, ct * mask_after,
+                               g_x, g_nl, G);
       g_ma = g_ma + ct * total;
     }
     g_mask = g_ma * c;
@@ -261,20 +351,38 @@ __device__ void slot_bwd(const SceneSmem &s, const TraceArgs &a, int depth, uint
   isect_bwd(s, idx, o, d, a.eps, dot(g_x, d), g_o, g_d, G);
 }
 
-// Dynamic shared memory of one K2 block: the scene, then `threads` columns
-// of NG cotangent accumulators per mesh (ops/megakernel.py computes the same).
-__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int threads) {
-  return scene_smem_bytes(n_mesh, n_lights) + sizeof(float) * n_mesh * NG * threads;
+// Where K2's cotangent columns start in dynamic shared memory (bytes): after
+// the scene (load_scene) and its packed records (load_packed, no SDF rows).
+__host__ __device__ inline size_t bwd_columns_offset(int n_mesh, int n_lights) {
+  return packed_smem_bytes(scene_smem_bytes(n_mesh, n_lights), n_mesh, 0);
 }
 
-__global__ void __launch_bounds__(BWD_THREADS) bwd_kernel(BwdArgs b) {
+// Dynamic shared memory of one K2 block: the scene, its packed records and
+// `columns` columns of NG cotangent accumulators per mesh.
+__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int columns) {
+  return bwd_columns_offset(n_mesh, n_lights) + sizeof(float) * n_mesh * NG * columns;
+}
+
+// kWarpCols: a column per warp (WarpAcc), else per thread (ThreadAcc).
+template <bool kWarpCols>
+__global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
+                                                         : MIN_BLOCKS_THREAD_COLS)
+    bwd_kernel(BwdArgs b) {
   const TraceArgs &a = b.t;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const SceneSmem s = load_scene(a, smem);
-  float *gsm = smem + scene_smem_bytes(a.n_mesh, a.n_lights) / sizeof(float);
+  float *gsm = smem + bwd_columns_offset(a.n_mesh, a.n_lights) / sizeof(float);
   const int n_g = a.n_mesh * NG;
-  for (int e = 0; e < n_g; ++e) gsm[e * blockDim.x + threadIdx.x] = 0.0f;
-  const GradAcc G = {gsm + threadIdx.x, (int)blockDim.x};
+  const int n_cols = kWarpCols ? (blockDim.x + warpSize - 1) / warpSize : blockDim.x;
+  for (int e = threadIdx.x; e < n_cols * n_g; e += blockDim.x) gsm[e] = 0.0f;
+  using Acc = typename std::conditional<kWarpCols, WarpAcc, ThreadAcc>::type;
+  Acc G;
+  if constexpr (kWarpCols)
+    G = {gsm + (threadIdx.x / warpSize) * n_g};
+  else
+    G = {gsm + threadIdx.x, (int)blockDim.x};
+  const SdfScene no_sdf = {nullptr, a.n_mesh, 0, 0, 0.0f, 0.0f};
+  const PackedScene pk = load_packed(s, no_sdf, smem, scene_smem_bytes(a.n_mesh, a.n_lights));
 
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p < a.n_pix) {  // ragged edge: idle threads still join the block sum
@@ -282,8 +390,10 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_kernel(BwdArgs b) {
     V3 d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
     const uint32_t h_pix = pixel_hash(a, p);
 
-    // ---- forward sweep: K1's carry updates, stashing each slot's input ----
+    // ---- forward sweep: K1's carry updates, stashing each slot's input and hit ----
     float st[MAX_SLOTS * ST];
+    float st_t[MAX_SLOTS];
+    int st_idx[MAX_SLOTS];
     V3 mask = {1.0f, 1.0f, 1.0f};
     V3 prev_nl = {0.0f, 1.0f, 0.0f};
     int ndif = 0, nspec = 0, nscat = 0, n_run = 0;
@@ -296,7 +406,9 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_kernel(BwdArgs b) {
 
       float tmin;
       int idx;
-      intersect(s, o, d, a.eps, tmin, idx);
+      intersect_packed_analytic(pk, o, d, a.eps, tmin, idx);
+      st_t[depth] = tmin;
+      st_idx[depth] = idx;
       if (!(tmin < a.inf) || s.mat[idx] == MAT_LIGHT) break;  // miss or emissive hit ends the path
       V3 x = o + d * tmin;
       V3 n = normal_at(s, idx, x);
@@ -320,8 +432,9 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_kernel(BwdArgs b) {
     V3 g_o = zero3(), g_d = zero3(), g_mask = zero3(), g_pnl = zero3();
     for (int k = n_run - 1; k >= 0; --k) {
       const float *sk = st + k * ST;
-      slot_bwd(s, a, k, h_pix, {sk[0], sk[1], sk[2]}, {sk[3], sk[4], sk[5]},
-               {sk[6], sk[7], sk[8]}, {sk[9], sk[10], sk[11]}, ct, g_o, g_d, g_mask, g_pnl, G);
+      slot_bwd(s, pk, a, k, h_pix, {sk[0], sk[1], sk[2]}, {sk[3], sk[4], sk[5]},
+               {sk[6], sk[7], sk[8]}, {sk[9], sk[10], sk[11]}, st_t[k], st_idx[k], ct, g_o, g_d,
+               g_mask, g_pnl, G);
     }
     b.d_ro[3 * p] = g_o.x;
     b.d_ro[3 * p + 1] = g_o.y;
@@ -331,11 +444,11 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_kernel(BwdArgs b) {
     b.d_rd[3 * p + 2] = g_d.z;
   }
 
-  // ---- this block's partial of d_table, summed in thread order ----
+  // ---- this block's partial of d_table, its columns summed in order ----
   __syncthreads();
   for (int e = threadIdx.x; e < n_g; e += blockDim.x) {
     float sum = 0.0f;
-    for (int t = 0; t < (int)blockDim.x; ++t) sum += gsm[e * blockDim.x + t];
+    for (int c = 0; c < n_cols; ++c) sum += kWarpCols ? gsm[c * n_g + e] : gsm[e * n_cols + c];
     b.partials[(size_t)blockIdx.x * n_g + e] = sum;
   }
 }
@@ -363,6 +476,27 @@ __global__ void __launch_bounds__(RED_THREADS)
   if (threadIdx.x == 0) d_table[entry] = red[0];
 }
 
+// K2's layout of a block of `threads` threads on the current device: a
+// column of cotangent accumulators per thread while
+// THREAD_COLS_FEWEST_BLOCKS blocks of them (each with the shared memory the
+// runtime reserves per block) fit one SM's shared memory; a column per warp
+// beyond (warp_cols).  `smem` is the block's dynamic shared memory.
+// Returns the first CUDA error of the device queries, or 0.
+inline int bwd_layout(int n_mesh, int n_lights, int threads, bool &warp_cols, size_t &smem) {
+  int dev = 0, lanes = 32, per_sm = 0, reserved = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&lanes, cudaDevAttrWarpSize, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return (int)e;
+  smem = bwd_smem_bytes(n_mesh, n_lights, threads);
+  warp_cols = (size_t)THREAD_COLS_FEWEST_BLOCKS * (smem + (size_t)reserved) > (size_t)per_sm;
+  if (warp_cols) smem = bwd_smem_bytes(n_mesh, n_lights, (threads + lanes - 1) / lanes);
+  return 0;
+}
+
 }  // namespace
 
 // Launch K2 on `stream`: the adjoint kernel, then the reduction of its
@@ -386,23 +520,46 @@ extern "C" int rt0_trace_backward(const float *table, const int32_t *mesh, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = n_pix > 0 ? (unsigned)((n_pix + threads - 1) / threads) : 0u;
   if (blocks > 0) {
-    const size_t smem = bwd_smem_bytes(n_mesh, n_lights, threads);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    bwd_kernel<<<blocks, threads, smem, st>>>(b);
-    cudaError_t e = cudaGetLastError();
+    bool warp_cols = false;
+    size_t smem = 0;
+    int rc = bwd_layout(n_mesh, n_lights, threads, warp_cols, smem);
+    if (rc != 0) return rc;
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+      e = warp_cols ? cudaFuncSetAttribute(bwd_kernel<true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+                    : cudaFuncSetAttribute(bwd_kernel<false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (warp_cols)
+      bwd_kernel<true><<<blocks, threads, smem, st>>>(b);
+    else
+      bwd_kernel<false><<<blocks, threads, smem, st>>>(b);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   reduce_kernel<<<n_mesh * NCOLS, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, d_table);
   return (int)cudaGetLastError();
 }
 
+// K2's layout for a block of `threads` threads on the current device
+// (bwd_layout): out[0] is 1 with a column of accumulators per warp, 0 per
+// thread, out[1] the block's dynamic shared memory in bytes.
+extern "C" int rt0_trace_backward_layout(int n_mesh, int n_lights, int threads,
+                                         long long *out) {
+  bool warp_cols = false;
+  size_t smem = 0;
+  const int rc = bwd_layout(n_mesh, n_lights, threads, warp_cols, smem);
+  out[0] = warp_cols ? 1 : 0;
+  out[1] = (long long)smem;
+  return rc;
+}
+
 // K2's occupancy at `threads` threads and `smem` bytes of dynamic shared
-// memory (trace_common.cuh::kernel_occupancy; `sdf` unused).
-extern "C" int rt0_trace_backward_occupancy(int sdf, int threads, long long smem, int *out) {
-  (void)sdf;
-  return kernel_occupancy(bwd_kernel, threads, (size_t)smem, out);
+// memory (trace_common.cuh::kernel_occupancy): the copy with a column per
+// warp when `warp_cols` is set.
+extern "C" int rt0_trace_backward_occupancy(int warp_cols, int threads, long long smem,
+                                            int *out) {
+  return warp_cols ? kernel_occupancy(bwd_kernel<true>, threads, (size_t)smem, out)
+                   : kernel_occupancy(bwd_kernel<false>, threads, (size_t)smem, out);
 }

@@ -1,8 +1,11 @@
 """Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
 `cornell_box`, `mis_demo`, `restir_demo`, `restir_stress`,
 `animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
-`textured_emitter`), and `animated_untextured`, the variant of
-`animated_restir` that the port renders.
+`textured_emitter`), `animated_untextured`, the variant of
+`animated_restir` that the port renders, and two variants that the port's
+tests and timing scripts share: `many_lights` (K2's class with many
+meshes) and `textured_restir_demo` (a ReSTIR scene with a blended
+texture).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
@@ -131,17 +134,20 @@ def _grid_lights():
     return "\n".join(lines)
 
 
+_STRESS_PLANES = """
+    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(3.0)
+    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(3.0)
+    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(3.0)
+    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(3.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(3.0)
+    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(3.0)
+"""
+
+
 def restir_stress(device="cuda", **cfg_kw):
     """Preset 6 (index.html:965-1014): 41 lights in two ceiling grids —
     the many-light showcase where ReSTIR beats per-light NEE."""
-    text = """
-        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(3.0)
-        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(3.0)
-        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(3.0)
-        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(3.0)
-        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(3.0)
-        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(3.0)
-    """ + _grid_lights() + """
+    text = _STRESS_PLANES + _grid_lights() + """
         MAT_REFR_CLEAR, SPHERE, vec3(-0.7, -0.5, 0.0), vec4(0.3)
         MAT_MIRROR, SPHERE, vec3(0.7, -0.5, 0.0), vec4(0.3)
         MAT_WHITE, SDF, vec3(0.0, 0.0, 0.0), vec4(0.4, 0.05, 0.4, 0.0)
@@ -150,6 +156,28 @@ def restir_stress(device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.0, 2.5), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)
     return scene, camera, _cfg(use_restir=True, use_procedural_sky=False, **cfg_kw)
+
+
+def many_lights(device="cuda", n_lights=41, **cfg_kw):
+    """`restir_stress`'s six planes and the first `n_lights` of its grid
+    lights, without its glass, mirror and SDF rows (6 + n_lights meshes:
+    47 with every light), with its camera and budgets, ReSTIR off and MIS
+    on: K2's class with many meshes."""
+    lights = "\n".join(_grid_lights().splitlines()[:n_lights])
+    scene = parse_scene(_STRESS_PLANES + lights, device=device)
+    _, camera, cfg = restir_stress(device=device, **cfg_kw)
+    return scene, camera, cfg.replace(use_restir=False, use_mis=True)
+
+
+def textured_restir_demo(device="cuda", **cfg_kw):
+    """`restir_demo` with a CHECK texture blended into its back wall's
+    color: a ReSTIR scene that K6 and the split path refuse on the card
+    (ROADMAP queue 1 item 11)."""
+    back_wall = "MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"
+    text = _RESTIR_9_LIGHTS.replace(back_wall, "MAT_CHECK_WHITE, PLANE, vec3(0.0, 0.0, 1.0)")
+    assert text != _RESTIR_9_LIGHTS
+    _, camera, cfg = restir_demo(device=device, **cfg_kw)
+    return parse_scene(text, sdf_shapes=[SdfShape.ROUND_BOX], device=device), camera, cfg
 
 
 _ANIMATED_RESTIR = """

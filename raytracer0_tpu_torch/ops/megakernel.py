@@ -31,11 +31,14 @@ end at different depths.  The design keeps one thread per pixel with the
 whole bounce loop in registers, lets each thread leave the loop when its
 path ends (exact, because the counter RNG keys on depth), and keeps the
 scene table, the type codes and the light slots in shared memory, read by
-all threads of a warp at once.  K2 stashes the carry entering each slot in
-local memory and replays the slots newest first through a hand-derived
-adjoint; it sums the scene-table cotangents per thread in shared memory,
-per block in thread order and across blocks in a second, fixed-order
-kernel, so its result is deterministic.
+all threads of a warp at once; every ray scans the meshes through packed
+float4 records.  K2 stashes the carry entering each slot and the hit its
+ray found in local memory and replays the slots newest first through a
+hand-derived adjoint, without scanning a slot's ray again; it sums the
+scene-table cotangents in shared memory, in a column per thread for a few
+meshes and per warp for many (`bwd_layout`: lanes grouped by mesh,
+summed over a fixed tree), per block in column order and across blocks in
+a second, fixed-order kernel, so its result is deterministic.
 
 The kernels are built with nvcc on first use (`cuda_build`) and launched
 through ctypes on PyTorch's current stream.  On CPU tensors
@@ -70,12 +73,10 @@ _NCOLS = 36
 # dynamic shared memory one block may take without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
 # K2: stash depth (MAX_SLOTS in megakernel_bwd.cu), cotangent columns kept
-# per thread (NG), the opt-in shared memory of one block, and block sizes
-# tried in order until the per-thread accumulators fit
+# per mesh (NG) and the block size
 MAX_SLOTS = 16
 _BWD_NG = 10
-_BWD_SMEM_LIMIT = 227 * 1024
-_BWD_THREADS = (128, 64, 32)
+BWD_THREADS = 128
 
 _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _c_ll, _c_float = ctypes.c_longlong, ctypes.c_float
@@ -159,20 +160,23 @@ def bwd_slots(cfg: RenderConfig) -> int:
     return min(cfg.max_bounces, max(cfg.max_diff_bounces, 1) + 1)
 
 
-def bwd_smem_bytes(scene, threads: int) -> int:
-    """Dynamic shared memory of one K2 block, at most: K1's (K2 leaves out
-    the texture codes), plus `threads` columns of 10 cotangent
-    accumulators per mesh."""
-    return smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
-
-
-def bwd_threads(scene) -> Optional[int]:
-    """K2's block size: the largest of 128, 64, 32 whose accumulators fit
-    the shared memory of one block; None when none does."""
-    for t in _BWD_THREADS:
-        if bwd_smem_bytes(scene, t) <= _BWD_SMEM_LIMIT:
-            return t
-    return None
+def bwd_layout(scene, threads: int = BWD_THREADS, fn=None) -> tuple[bool, int]:
+    """How K2's launcher lays out a block of `threads` threads for `scene`
+    on the current device, as the library says (`rt0_trace_backward_layout`
+    of `fn`'s library, else of the built one): whether each warp, not each
+    thread, keeps a column of cotangent accumulators (where 3 blocks of
+    per-thread columns would not fit an SM's shared memory), and the
+    block's dynamic shared memory in bytes."""
+    if fn is None:
+        fn = getattr(cuda_build.load("megakernel_bwd", BWD_SOURCES)[0],
+                     "rt0_trace_backward_layout")
+    fn.argtypes = (_c_int, _c_int, _c_int, ctypes.c_void_p)
+    fn.restype = _c_int
+    out = (_c_ll * 2)()
+    rc = fn(scene.num_meshes, scene.num_lights, threads, out)
+    if rc != 0:
+        raise RuntimeError(f"rt0_trace_backward_layout failed: CUDA error {rc}")
+    return bool(out[0]), int(out[1])
 
 
 _K2_MATS = (int(MatType.DIFF), int(MatType.LIGHT))
@@ -205,18 +209,16 @@ def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
 
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
-    class narrowed to the Cornell class K2 models (DIFF and LIGHT
-    materials, no blended texture, LIGHT-sphere slots, no cubemap, cosine
-    sampling), a stash of
-    at most MAX_SLOTS slots, and accumulators that fit the shared memory of
-    a block of 32 threads."""
+    class (whose table fits the shared memory, `check_smem`) narrowed to
+    the Cornell class K2 models (DIFF and LIGHT materials, no blended
+    texture, LIGHT-sphere slots, no cubemap, cosine sampling), with a
+    stash of at most MAX_SLOTS slots.  On many meshes K2 keeps a column of
+    cotangent accumulators per warp, 160 bytes per mesh a block
+    (`bwd_layout`), so any table K1 takes fits."""
     reason = unsupported(scene, cfg) or _outside_k2_class(scene, cfg)
     if reason is None and bwd_slots(cfg) > MAX_SLOTS:
         reason = (f"paths of {bwd_slots(cfg)} slots, more than K2's stash of "
                   f"{MAX_SLOTS}")
-    if reason is None and bwd_threads(scene) is None:
-        reason = (f"{scene.num_meshes} meshes: K2's cotangent accumulators do "
-                  f"not fit {_BWD_SMEM_LIMIT} bytes of shared memory")
     return reason
 
 
@@ -325,7 +327,7 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, ct):
     h, w = pix.shape
     dev = ro.device
     _check("ct", ct, torch.float32, (h, w, 3), dev)
-    threads = bwd_threads(scene)
+    threads = BWD_THREADS
     blocks = -(-(h * w) // threads)
     mesh, mat, lights = _codes(scene)
     d_ro, d_rd = torch.empty_like(ro), torch.empty_like(rd)

@@ -51,7 +51,7 @@ from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.scene import TENSOR_FIELDS
-from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_vertex
+from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_vertex, textures
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import Reservoirs
 
@@ -346,11 +346,17 @@ def render_sample_split(scene, cfg: RenderConfig, camera, state, height, width, 
 
 def check_split(scene, cfg: RenderConfig, camera, state, time_s=0.0):
     """Raise NotImplementedError for a split pass the kernels do not serve
-    on the card: a (scene, cfg) outside K4's or K6v's class, or a gradient
-    (any scene leaf, camera field, ring field or the frame time that
-    requires grad), which the split path has no adjoint for."""
+    on the card: a (scene, cfg) outside K4's or K6v's class; blended
+    textures or a cubemap, which no test holds K4 and K6v's split form to
+    yet (K6's gate, `restir_kernel.unsupported_restir`, refuses both too);
+    or a gradient (any scene leaf, camera field, ring field or the frame
+    time that requires grad), which the split path has no adjoint for."""
     reason = (unsupported_gbuffer(scene, cfg)
               or restir_vertex.unsupported(scene, gbuffer_slots(cfg)))
+    if reason is None and textures.blended(scene):
+        reason = f"textures blended into color or emission under ReSTIR on the split path: {_ITEM}"
+    if reason is None and cfg.use_cubemap:
+        reason = f"a cubemap and its gather ray under ReSTIR on the split path: {_ITEM}"
     if reason is not None:
         raise NotImplementedError(f"the split ReSTIR path does not cover this scene: {reason}")
     ring = [t for g in (state.restir_back, state.restir_hist1, state.restir_hist2)

@@ -3,11 +3,13 @@ the reservoir-vertex kernel K6v) and its adjoint K7, and the ray-cast
 kernel K5 on the GPU against their plain versions on the same card: K1 on
 the Cornell class and on the widened class (mirror, glass and coat,
 directional lights, cubemaps, uniform sampling, textures, SDF meshes), K2
-on the Cornell class, K6 on the ReSTIR presets (with MIS too, and under
+on the Cornell class (47 meshes too, and the same bits on two launches),
+K6 on the ReSTIR presets (with MIS too, and under
 ANIMATED accumulation), K6v in both forms, K7 against the plain version's
 autograd over chains of passes, `fit` through the reservoir ring, K4 and
 K5 bit for bit and the split ReSTIR pass K4 and K6v serve, and the refusal
-of gradients outside K2's and K7's classes and through the split path.
+of gradients outside K2's and K7's classes and through the split path,
+and of blended textures and cubemaps on the split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -143,6 +145,48 @@ def test_adjoint_matches_plain_autograd(cuda, h, w, kw):
     again = _grads(megakernel.trace_forward, scene, cfg, ro, rd, pix)
     for k in got:
         assert torch.equal(got[k], again[k]), k
+
+
+def test_adjoint_many_meshes_matches_plain_autograd(cuda):
+    """K2 on a scene of 47 meshes (six planes and 41 sphere lights, MIS
+    on: `presets.many_lights`) in 128-thread blocks against
+    torch.autograd of the plain version: one launch of each kernel, every
+    leaf within 1e-4 relative.  Its lanes add into a warp's column in
+    groups by mesh, which the host build (one-lane warps) cannot show."""
+    scene, cam, cfg = presets.many_lights(device=cuda)
+    cfg = cfg.replace(max_bounces=4)
+    assert scene.num_meshes == 47 and megakernel.unsupported_bwd(scene, cfg) is None
+    h, w = 16, 128
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    got = _grads(megakernel.trace_forward, scene, cfg, ro, rd, pix)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert_grads_close(got, _grads(integrator.trace, scene, cfg, ro, rd, pix))
+    assert got["emission"][6:].abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("where", ["cornell", "many_meshes"])
+def test_adjoint_same_bits_twice(cuda, where):
+    """Two K2 launches on the same inputs (512x512 Cornell at 12 bounces,
+    or the 47-mesh scene at 128x128) give the same d_table, d_ro and d_rd
+    bits: the warps' groups and the sums over them follow the data."""
+    if where == "cornell":
+        scene, cam, cfg = cornell_default(device=cuda, use_mis=True)
+        h = w = 512
+    else:
+        scene, cam, cfg = presets.many_lights(device=cuda)
+        h = w = 128
+    ro, rd = generate_rays(cam, h, w, 0)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    ct = torch.rand((h, w, 3), generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    table = megakernel.scene_table(scene)
+    first = megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 0, 0, ct)
+    second = megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 0, 0, ct)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
 
 
 def test_render_pass_differentiates_through_kernels(cuda):
@@ -499,11 +543,11 @@ def test_kernel_occupancy_exports(cuda):
 
     cornell = cornell_default(device=cuda)[0]
     demo = presets.restir_demo(device=cuda)[0]
-    k2_t, k7_t = megakernel.bwd_threads(cornell), restir_kernel.bwd_threads(demo)
+    k2_t, k7_t = megakernel.BWD_THREADS, restir_kernel.bwd_threads(demo)
     rows = [("megakernel", megakernel.SOURCES, "rt0_trace_forward", 128,
              megakernel.packed_smem_bytes(cornell)),
             ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward", k2_t,
-             megakernel.bwd_smem_bytes(cornell, k2_t)),
+             megakernel.bwd_layout(cornell, k2_t)[1]),
             ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward", 128,
              megakernel.packed_smem_bytes(demo)),
             ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
@@ -519,6 +563,28 @@ def test_kernel_occupancy_exports(cuda):
     for lib, o in occ.items():
         assert o["blocks"] >= 1 and o["registers"] > 0, (lib, o)
     assert occ["restir_bwd"]["blocks"] == 1 and occ["restir_bwd"]["smem"] > 128 * 1024
+
+
+@pytest.mark.parametrize("n_lights", [None, 8, 9], ids=["cornell", "14_meshes", "15_meshes"])
+def test_adjoint_layout_matches_occupancy(cuda, n_lights):
+    """K2's launcher keeps a column of cotangent accumulators per thread
+    exactly where the occupancy calculator gives that copy 3 blocks per SM
+    or more (`megakernel.bwd_layout`, by the card's shared memory per SM
+    and per block): Cornell and 14 meshes per thread, 15 meshes per warp."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    if n_lights is None:
+        scene = cornell_default(device=cuda)[0]
+    else:
+        scene = presets.many_lights(device=cuda, n_lights=n_lights)[0]
+    n = scene.num_meshes
+    scene_bytes = 4 * (n * (36 + 2) + scene.num_lights)
+    per_thread = -(-scene_bytes // 16) * 16 + 4 * (4 + 5 * n) + 4 * n * 10 * 128
+    warp, smem = megakernel.bwd_layout(scene)
+    o = cuda_build.occupancy("megakernel_bwd", megakernel.BWD_SOURCES,
+                             "rt0_trace_backward_occupancy", 128, per_thread, False)
+    assert warp == (o["blocks"] < 3) and warp == (n_lights == 9), (n, o)
+    assert smem == (per_thread - 4 * n * 10 * (128 - 4) if warp else per_thread)
 
 
 def test_restir_fit_goes_through_k6_and_k7_only(cuda):
@@ -720,6 +786,29 @@ def test_split_pass_matches_plain(cuda):
     em = scene.emission.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="no adjoint"):
         render_pass(scene.replace(emission=em), cam, cfg, plain, h, w, 0.1)
+    assert counts() == before
+
+
+def test_split_refuses_textures_and_cubemap_before_any_launch(cuda):
+    """Fault 11: under ReSTIR with the ad-hoc reprojection the split path
+    refuses blended textures and a cubemap, naming ROADMAP queue 1 item
+    11, before any launch (`render_sample_fast` and `render_pass` alike):
+    no test holds K4 and K6v's split form on such scenes."""
+    scene, cam, cfg = presets.restir_demo(device=cuda)
+    adhoc = cfg.replace(restir_adhoc_motion=True)
+    h, w = 16, 128
+    state = RenderState.create(h, w, device=cuda)
+    counts = lambda: (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
+                      restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES)
+    before = counts()
+    cases = ((presets.textured_restir_demo(device=cuda)[0], adhoc, "textures blended"),
+             (scene, adhoc.replace(use_cubemap=True, use_procedural_sky=False), "cubemap"))
+    for sc, c, what in cases:
+        with pytest.raises(NotImplementedError, match=f"{what}.*item 11"):
+            restir_split.render_sample_fast(sc, c, cam, state, h, w, 0)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            render_pass(sc, cam, c, state, h, w)
+    torch.cuda.synchronize()
     assert counts() == before
 
 

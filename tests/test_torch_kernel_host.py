@@ -15,7 +15,9 @@ compiled unchanged and driven through `ops/megakernel.py`'s own
 `_TraceCore`, `ops/restir_split.py`'s launchers and `ops/restir_kernel.py`'s
 launcher (K6: K4 then K6v) and `_RestirCore`, so the test covers
 the kernels' arithmetic, their block reductions and the wrapper's ctypes
-calls; only nvcc's code generation is left to the card
+calls; only nvcc's code generation, and the work of a warp's lanes
+together (K2's sums over lanes grouped by mesh, K4's shared ticket draw:
+the shim's warps have one lane), is left to the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Host libm rounds sin/cos/sqrt
 like torch on the CPU to within an ULP, so K1 meets the parity contract
 and K2's gradients agree within 1e-4 relative per leaf
@@ -50,6 +52,7 @@ from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_s
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.renderer import render_pass
 from raytracer0_tpu_torch.render.state import RenderState
+
 
 # pytest-xdist runs the test files in worker processes that share the
 # cores: one torch thread each, or their intra-op pools oversubscribe them
@@ -87,9 +90,13 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? __activemask() : 0u; }
+inline unsigned __match_any_sync(unsigned mask, int) { return mask & __activemask(); }
+// K2 gives each warp a column of cotangent accumulators: one per thread here
+constexpr int warpSize = 1;
 inline unsigned atomicAdd(unsigned *p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
+inline float atomicAdd(float *p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline unsigned atomicExch(unsigned *p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).exchange(v);
 }
@@ -102,8 +109,18 @@ template <class T> inline T __ldg(const T *p) { return *p; }  // g++ knows __res
 typedef void *cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaDevAttrWarpSize = 10,
+       cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81,
+       cudaDevAttrReservedSharedMemoryPerBlock = 111 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int *d) { *d = 0; return 0; }
+// an H100's shared memory per SM and per block reserved, with one-lane warps
+inline int cudaDeviceGetAttribute(int *v, int attr, int) {
+  *v = attr == cudaDevAttrWarpSize ? warpSize
+       : attr == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? 233472
+       : attr == cudaDevAttrReservedSharedMemoryPerBlock ? 1024 : 0;
+  return 0;
+}
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class F> inline int cudaFuncGetAttributes(cudaFuncAttributes *, F) { return 0; }
@@ -179,7 +196,8 @@ _GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shar
 def build_host(out, libraries):
     """Compile `libraries` ({key: (name, sources, symbol, argtypes)}) for
     the host into `out` through the shim, all at once with g++ -O1 and no
-    contraction or fast math: {key: ctypes function}.  A library is kept in
+    contraction or fast math: {key: ctypes function}, each with its
+    `library`.  A library is kept in
     `HOST_CACHE` under a hash of the shim, the flags, its source and every
     header, so the test modules that need it (and later runs) build it
     once.  Skips the test without g++."""
@@ -213,8 +231,10 @@ def build_host(out, libraries):
         os.replace(tmp, libs[key])  # atomic: a concurrent module sees all or nothing
     fns = {}
     for key, (_, _, symbol, argtypes) in libraries.items():
-        fn = getattr(ctypes.CDLL(str(libs[key])), symbol)
+        lib = ctypes.CDLL(str(libs[key]))
+        fn = getattr(lib, symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.library = lib   # the library's other exports
         fns[key] = fn
     return fns
 
@@ -356,8 +376,8 @@ def test_host_kernels_match_plain(kernels_on_cpu, where, h, w, kw):
 
 
 def test_host_adjoint_small_blocks_and_determinism(kernels_on_cpu, monkeypatch):
-    """K2 with 32-thread blocks (its layout for scenes with many meshes)
-    gives the same gradients, and the same bits on a second run."""
+    """K2 with 32-thread blocks (one warp a block on the card) gives the
+    same gradients, and the same bits on a second run."""
     scene, cam, cfg = cornell_default(device="cpu", use_mis=True)
     cfg = cfg.replace(max_bounces=5)
     ro, rd = generate_rays(cam, 8, 40, 1)
@@ -366,12 +386,97 @@ def test_host_adjoint_small_blocks_and_determinism(kernels_on_cpu, monkeypatch):
         megakernel.scene_table(s), o, d, s, c, p, 1, 0)
     _, wide = _grads(trace, scene, cfg, ro, rd, pix)
     _, again = _grads(trace, scene, cfg, ro, rd, pix)
-    monkeypatch.setattr(megakernel, "bwd_threads", lambda s: 32)
+    monkeypatch.setattr(megakernel, "BWD_THREADS", 32)
     _, narrow = _grads(trace, scene, cfg, ro, rd, pix)
     for k in wide:
         assert torch.equal(wide[k], again[k]), k
         scale = max(wide[k].abs().max().item(), 1e-12)
         assert (narrow[k] - wide[k]).abs().max().item() / scale < 1e-5, k
+
+
+@pytest.mark.parametrize("n_lights,warp", [(None, False), (8, False), (9, True), (41, True)],
+                         ids=["cornell", "14_meshes", "15_meshes", "47_meshes"])
+def test_host_adjoint_layout(host_kernels, n_lights, warp):
+    """K2's layout as its library picks it (`megakernel.bwd_layout`) for
+    128-thread blocks, with the shim's H100 figures (233,472 bytes of
+    shared memory an SM, 1,024 reserved a block): a column of cotangent
+    accumulators per thread while 3 such blocks fit an SM (Cornell's 8
+    meshes, 14 meshes), per warp beyond; the block's bytes are the scene,
+    its packed records and the columns (one-lane warps here, so a column
+    per warp is one per thread).  The card test
+    `test_adjoint_layout_matches_occupancy` holds the rule against the
+    occupancy calculator."""
+    if n_lights is None:
+        scene = cornell_default(device="cpu")[0]
+    else:
+        scene = presets.many_lights(device="cpu", n_lights=n_lights)[0]
+    n = scene.num_meshes
+    scene_bytes = 4 * (n * (36 + 2) + scene.num_lights)   # table, codes, light slots
+    per_thread = -(-scene_bytes // 16) * 16 + 4 * (4 + 5 * n) + 4 * n * 10 * 128
+    assert (3 * (per_thread + 1024) > 233472) == warp
+    fn = host_kernels["K2"].library.rt0_trace_backward_layout
+    assert megakernel.bwd_layout(scene, 128, fn) == (warp, per_thread)
+    if n_lights is None:
+        assert per_thread == 42368
+
+
+def test_host_adjoint_many_meshes(kernels_on_cpu):
+    """K2 on a scene of 47 meshes (`presets.many_lights`: six
+    planes and 41 sphere lights, MIS on) at 128-thread blocks, which one
+    column of accumulators per thread could not hold: the radiance and
+    every gradient against the plain version and its autograd, one launch
+    of each kernel.  The host build's warps have one lane, so each thread
+    is its own group and column here; the grouping of a warp's lanes by
+    mesh is held on the card (tests/test_torch_cuda.py)."""
+    scene, cam, cfg = presets.many_lights(device="cpu")
+    assert scene.num_meshes == 47 and megakernel.BWD_THREADS == 128
+    cfg = cfg.replace(max_bounces=3)
+    assert megakernel.unsupported_bwd(scene, cfg) is None
+    h, w = 4, 64
+    ro, rd = generate_rays(cam, h, w, 1)
+    pix = rng.pixel_ids(h, w)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    out, got = _grads(lambda s, c, o, d, p: megakernel._TraceCore.apply(
+        megakernel.scene_table(s), o, d, s, c, p, 1, 0), scene, cfg, ro, rd, pix)
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref, want = _grads(lambda s, c, o, d, p: integrator.trace(s, c, o, d, p, 1, 0),
+                       scene, cfg, ro, rd, pix)
+    err = (out - ref).abs().amax(-1)
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4
+    assert_grads_close(got, want)
+    assert got["emission"][6:].abs().max().item() > 0.0   # the lights' rows
+
+
+def test_host_adjoint_loss_scale_cotangents(kernels_on_cpu):
+    """K2 under the cotangents `optimize.fit` gives it: `make_loss`'s mean
+    squared error of the radiance against a seeded target, divided by the
+    values of a 512x512 image (about 1e-7 per value) instead of this
+    image's, against the plain autograd of the same loss on Cornell at
+    16x64, 4 bounces: every leaf within 1e-4 relative and engaged (K2's
+    float sums keep contributions of any scale)."""
+    scene, cam, cfg = cornell_default(device="cpu", use_mis=True)
+    cfg = cfg.replace(max_bounces=4)
+    h, w = 16, 64
+    ro, rd = generate_rays(cam, h, w, 3)
+    pix = rng.pixel_ids(h, w)
+    target = torch.from_numpy(np.random.default_rng(7).uniform(0.0, 1.0, (h, w, 3))
+                              .astype(np.float32))
+
+    def grads(trace):
+        leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in LEAVES}
+        o, d = ro.detach().clone().requires_grad_(True), rd.detach().clone().requires_grad_(True)
+        img = trace(scene.replace(**leaves), o, d)
+        loss = ((img - target) ** 2).sum() / (512 * 512 * 3)
+        got = torch.autograd.grad(loss, [*leaves.values(), o, d])
+        return loss.detach(), dict(zip((*LEAVES, "ro", "rd"), got))
+
+    loss, got = grads(lambda s, o, d: megakernel._TraceCore.apply(
+        megakernel.scene_table(s), o, d, s, cfg, pix, 3, 0))
+    ref_loss, want = grads(lambda s, o, d: integrator.trace(s, cfg, o, d, pix, 3, 0))
+    assert abs(loss - ref_loss).item() <= 1e-5 * abs(ref_loss).item()
+    assert_grads_close(got, want)
+    for k in ("emission", "color", "pos"):
+        assert 0.0 < got[k].abs().max().item() < 1e-2, k
 
 
 def _widened_scene(where):

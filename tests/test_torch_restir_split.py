@@ -158,6 +158,30 @@ def test_gbuffer_gate_is_supported_restir(name, kw):
         bool(jmk.supported_restir(js, cfg))
 
 
+def test_split_gate_after_fault_11():
+    """On the card the split path refuses, before any launch, the classes
+    no test holds K4 and K6v's split form to, as K6 does: blended textures
+    and a cubemap under ReSTIR with the ad-hoc reprojection, naming ROADMAP
+    queue 1 item 11, though K4's own gate admits both; the CPU route (the
+    plain G-buffer and caster) still renders them."""
+    scene, cam, cfg = tpresets.restir_demo(device="cpu")
+    adhoc = cfg.replace(restir_adhoc_motion=True)
+    state = RenderState.create(4, 8, "cpu")
+    tsplit.check_split(scene, adhoc, cam, state)
+    textured = tpresets.textured_restir_demo(device="cpu")[0]
+    cube = adhoc.replace(use_cubemap=True, use_procedural_sky=False)
+    assert tsplit.unsupported_gbuffer(textured, adhoc) is None
+    assert tsplit.unsupported_gbuffer(scene, cube) is None
+    with pytest.raises(NotImplementedError, match="textures blended.*item 11"):
+        tsplit.check_split(textured, adhoc, cam, state)
+    with pytest.raises(NotImplementedError, match="cubemap.*item 11"):
+        tsplit.check_split(scene, cube, cam, state)
+    small = dict(max_bounces=2, marching_steps=8)
+    for sc, c in ((textured, adhoc), (scene, cube)):
+        rad, _ = tsplit.render_sample_fast(sc, c.replace(**small), cam, state, 4, 8, 0)
+        assert rad.shape == (4, 8, 3) and bool(torch.isfinite(rad).all())
+
+
 def test_split_gates():
     """K6 refuses the ad-hoc reprojection itself and names the split path;
     K7 admits ANIMATED (its reverse sweep takes the animated fades); a
