@@ -15,9 +15,12 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    and ptxas' register, stack and spill lines; prints each kernel's blocks
    and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
    with the shared memory, registers and local memory they were computed
-   for (its main path's scene; K6v in both forms; K2 on Cornell and on
-   the 47-mesh scene of `presets.many_lights`, with its layout and spills,
-   and fails if a column per thread leaves it fewer than 3 blocks per SM);
+   for (its main path's scene; K6v in both forms; K2's copies on each
+   scene class, `k2_cases`: its Cornell copy on Cornell and the 47-mesh
+   scene of `presets.many_lights`, its wide copy on config 2, `mis_demo`,
+   `textured_cornell`, `cubemap_demo` and the 47-mesh scene under uniform
+   sampling, with its layout, columns and spills, and fails if a column
+   per thread leaves it fewer than 3 blocks per SM);
    checks that K7, which shares K6v's vertex code, keeps its 168 registers
    and 1,328-byte stack (the vertex's split form must not move K7's code);
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
@@ -37,10 +40,22 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    per backward; < 1e-4 on the 47-mesh scene (six planes, 41 sphere
    lights) at 64x128 with 12 bounces; and two K2 launches on the same
    inputs give the same d_table, d_ro and d_rd bits, on Cornell and the
-   47-mesh scene at 512x512;
+   47-mesh scene at 512x512; then K2's wide copy at 512x512 with 12
+   bounces on config 2 (glass, mirror, coat), `mis_demo` (a BOX SDF),
+   `cornell_box`, `textured_gloss`, `cubemap_demo`, `textured_cornell`,
+   `textured_emitter`, the sun scene and Cornell with uniform sampling:
+   every scene-table leaf and the rays within 1e-4 relative of the plain
+   autograd (an entry that misses it arbitrated by the plain autograd in
+   float64 on the pixels whose float32 and float64 radiances agree, on at
+   most 0.1 % of a leaf's entries, and every entry within 1e-3 unarbitrated,
+   `arbitrated_errors`), K2 alone timed (CUDA events, profiler)
+   beside its bound;
 7. holds K2 against central differences of two K1 renders: d sum /
    d emission[light] and d sum / d color[red wall] within 5 % at 128x128,
-   12 bounces;
+   12 bounces; then K2's wide copy, d sum / d config 2's glass IOR within
+   5 % of K1's central difference on the pixels where K1's radiance is
+   linear in it (no discrete decision flips between the renders), and so
+   `mis_demo`'s SDF box height;
 8. drives the gradient main path, d sum(sample_radiance) / d(color,
    emission, pos, joker) at 512x512, 12 bounces (the step of bench.py's
    headline), checks that each step launched K1 and K2 once, times it
@@ -48,7 +63,9 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    median and quartiles of 9 after warm-up), prints rays/s, the kernels'
    device time from torch.profiler and each route's peak memory; then runs
    `optimize.fit` of the light's emission at 128x128 for 20 steps and
-   checks that the loss falls and K2 ran once per step;
+   checks that the loss falls and K2 ran once per step; then a 10-step
+   fit of config 2's light emission through K2's wide copy, which lowers
+   the loss with no call of the plain version;
 9. holds the widened K1 against its plain version on the card: on
    `cubemap_demo` and the config-2 scene (REFR_SCHLICK, a mirror and COAT
    under MIS, tests/test_golden_cornell.py:66-79) at 16x128 with 3 bounces
@@ -66,8 +83,9 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    the image is finite and not black; times one `sample_radiance` pass
    through K1 and through the plain version, and prints K1's device time
    within a pass from torch.profiler;
-11. asks for a gradient through `cubemap_demo` on the card and checks that
-   it raises NotImplementedError and launches neither kernel;
+11. asks for a gradient w.r.t. `cubemap_demo`'s cubemap texels on the card
+   and checks that it raises NotImplementedError naming ROADMAP item 14
+   and launches neither kernel;
 12. holds K1 against its plain version on the card on the textured scenes:
    `textured_cornell`, `textured_emitter`, `textured_gloss`, `cornell_box`,
    the procedural scene of tests/test_megakernel.py:168-202 (CHECK, METAL,
@@ -76,8 +94,9 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    12 bounces (golden contract), printing the max abs error and the count
    of differing pixels; the scenes whose textures involve no libm call
    (no sin, asin or atan2) must agree bit for bit; then asks for a gradient
-   through `textured_cornell` and checks that it raises
-   NotImplementedError and launches neither kernel;
+   w.r.t. `textured_cornell`'s images and noise LUT and checks that it
+   raises NotImplementedError and launches neither kernel, and that the
+   color's gradient runs through one K1 and one K2 launch;
 13. drives the texture main path, `Renderer(textured_cornell).render(16)`
    at 512x512, and checks 16 K1 launches, no K2, and a finite, non-black
    image whose textured-sphere pixels vary; then `textured_gloss` (the
@@ -93,7 +112,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    expected) and the max error; prints Cornell's and `mis_demo`'s K1
    device time (`k1_device_time.py`), times K1 and the plain version on
    `mis_demo` and prints its path events and K1's bound; checks that a
-   gradient through `mis_demo` raises before any launch;
+   gradient through an SDF shape other than BOX and ROUND_BOX raises
+   before any launch, naming item 8;
 16. holds the ReSTIR pass K6 (K4, then K6v's fused form) against the
    plain `restir.render_sample` on the card, on `restir_demo`,
    `restir_stress` and `restir_demo` with MIS, each threading its own
@@ -194,19 +214,6 @@ FD_TOL = 0.05                            # tests/test_golden_cornell.py:112
 H = W = 512
 PASSES = 16
 GRAD_STEPS = 3
-# tests/test_golden_cornell.py:66-79 (config 2): no preset in either package
-CONFIG2 = """
-    MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
-    MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
-    MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
-    MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
-    MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
-    MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
-    MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
-    MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
-    MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
-    MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
-"""
 LEAVES = ("color", "emission", "pos", "joker")
 RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
 ADJ_CONFIGS = [                          # tests/test_torch_cuda.py
@@ -330,6 +337,76 @@ def grad_errors(got, want):
         diff = (a - b).abs().max().item()
         errs[k] = (diff / max(b.abs().max().item(), 1e-12), diff)
     return errs
+
+
+TABLE_LEAVES = LEAVES + ("ior", "aux", "tex_params", "tex_cmask", "tex_emask")
+
+
+def table_grads(torch, trace, scene, cfg, ro, rd, pix, pass_idx=2, dtype=None, mask=None):
+    """(radiance, d sum(trace(...) * w) / d(every scene-table leaf, ro, rd))
+    for seeded weights w kept on the (H, W) `mask`, the gradients as a dict
+    (zeros for a leaf the trace does not read); with `dtype`, the scene's
+    float tensors, the rays and w in it."""
+    dtype = dtype or torch.float32
+    assets = {k: getattr(scene, k).to(dtype) for k in ("images", "noise", "cubemap")}
+    leaves = {k: getattr(scene, k).detach().to(dtype).requires_grad_(True) for k in TABLE_LEAVES}
+    o, d = (v.detach().to(dtype).requires_grad_(True) for v in (ro, rd))
+    out = trace(scene.replace(**leaves, **assets), cfg, o, d, pix, pass_idx, 0)
+    w = torch.rand(out.shape, generator=torch.Generator(out.device).manual_seed(5),
+                   device=out.device).to(dtype) + 0.5
+    if mask is not None:
+        w = w * mask[..., None]
+    vals = [*leaves.values(), o, d]
+    got = torch.autograd.grad((out * w).sum(), vals, allow_unused=True)
+    return out.detach(), {k: torch.zeros_like(v) if g is None else g
+                          for k, v, g in zip((*TABLE_LEAVES, "ro", "rd"), vals, got)}
+
+
+def arbitrated_errors(got, want, grads_of):
+    """({leaf: (max|a - b| / max|b|, the same after arbitration)}, pixels
+    left out, entries arbitrated) of K2's gradient `got` against the plain
+    float32 one `want` (tests/test_torch_kernel_host.py::
+    assert_grads_close_f64).  Every entry stays within GRAD_TOL_FULL of its
+    leaf.  Where one misses GRAD_TOL, all three gradients are taken again
+    (`grads_of(kind, mask)` -> (radiance, gradients), kind "kernel",
+    "plain" or "plain64") with the weights kept on the pixels where the
+    float32 and float64 plain radiances agree within 1e-3 (at the others
+    float64 may take another discrete decision), at most 0.1 % of them (or
+    4) left out; there an entry that misses counts only what K2 misses the
+    float64 value by beyond the float32 plain version's own miss (a float32
+    cancellation at a grazing hit or a high-frequency texel, where either
+    float32 program may be the nearer), on at most 0.1 % of a leaf's
+    entries (or a mesh's 3)."""
+    errs, scales = {}, {}
+    for k, b in want.items():
+        a = got[k]
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"the kernel's gradient of {k} is not finite")
+        scales[k] = max(b.abs().max().item(), 1e-12)
+        errs[k] = ((a - b).abs().max().item() / scales[k],) * 2
+        if errs[k][0] >= GRAD_TOL_FULL:
+            raise AssertionError(f"K2's gradient of {k} misses the plain one by "
+                                 f"{errs[k][0]:.3e} of the leaf")
+    if all(e[0] < GRAD_TOL for e in errs.values()):
+        return errs, 0, 0
+    out32, out64 = grads_of("plain", None)[0], grads_of("plain64", None)[0]
+    agree = (out32.double() - out64).abs().amax(-1) <= 1e-3 * out64.abs().amax(-1) + 1e-7
+    left_out = int((~agree).sum().item())
+    if left_out > max(4, 0.001 * agree.numel()):
+        raise AssertionError(f"{left_out} pixels' float32 and float64 radiances disagree")
+    (_, a_m), (_, b_m), (_, c_m) = (grads_of(kind, agree) for kind in ("kernel", "plain", "plain64"))
+    arbitrated = 0
+    for k in want:
+        a, b, c = a_m[k], b_m[k], c_m[k]
+        miss = (a - b).abs() >= GRAD_TOL * scales[k]
+        n = int(miss.sum().item())
+        if n > max(3, 0.001 * miss.numel()):
+            raise AssertionError(f"{n} entries of {k} miss the plain gradient")
+        arbitrated += n
+        slack = ((a.double() - c).abs() - (b.double() - c).abs()).max().item() / scales[k]
+        errs[k] = (errs[k][0], (a - b).abs().max().item() / scales[k] if n == 0
+                   else max(slack, 0.0))
+    return errs, left_out, arbitrated
 
 
 def textured_scenes(dev):
@@ -726,17 +803,10 @@ def kernel_occupancy(dev):
     cornell = presets.cornell_default(device=dev, use_mis=True)[0]
     realtime = presets.animated_untextured(device=dev)[0]
     demo, stress = presets.restir_demo(device=dev)[0], presets.restir_stress(device=dev)[0]
-    many = presets.many_lights(device=dev)[0]
-    k2_threads = megakernel.BWD_THREADS
-    k2_cornell, k2_many = megakernel.bwd_layout(cornell), megakernel.bwd_layout(many)
     k7_threads = restir_kernel.bwd_threads
     rows = [
         ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
          128, megakernel.packed_smem_bytes(cornell), False),
-        ("K2", "cornell_default", "megakernel_bwd", megakernel.BWD_SOURCES,
-         "rt0_trace_backward", k2_threads, k2_cornell[1], k2_cornell[0]),
-        ("K2", "many_meshes", "megakernel_bwd", megakernel.BWD_SOURCES,
-         "rt0_trace_backward", k2_threads, k2_many[1], k2_many[0]),
         ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
          "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(realtime), True),
         ("K4", "restir_demo", "gbuffer", restir_split.GBUF_SOURCES,
@@ -752,9 +822,49 @@ def kernel_occupancy(dev):
         ("K7", "restir_stress", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
          k7_threads(stress), restir_kernel.bwd_smem_bytes(stress, k7_threads(stress)), True),
     ]
-    # the flag is the SDF copy's (K4, K5), K6v's form or K2's columns per warp
+    for where, (sc, c) in k2_cases(dev).items():
+        warp, smem = megakernel.bwd_layout(sc, c)
+        flag = int(warp) | 2 * int(not megakernel.cornell_copy(sc, c))
+        rows.append(("K2", where, "megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
+                     megakernel.BWD_THREADS, smem, flag))
+    # the flag is the SDF copy's (K4, K5), K6v's form or K2's copy (bit 0 a
+    # column per warp, bit 1 the wide copy)
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
+
+
+def sun_scene(dev):
+    """(scene, camera) of tests/test_megakernel.py:685-698: finite geometry
+    under a directional sun whose mesh.pos is the direction."""
+    from raytracer0_tpu_torch.models.camera import Camera
+    from raytracer0_tpu_torch.models.materials import MeshType
+    from raytracer0_tpu_torch.models.scene import SceneBuilder
+
+    sb = SceneBuilder()
+    sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
+    sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
+    sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
+    sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
+    sb.lights([3])
+    cam = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=dev)
+    return sb.build(device=dev), cam
+
+
+def k2_cases(dev):
+    """{name: (scene, cfg)} of K2's scene classes in phase 2: Cornell and
+    the 47-mesh scene on its Cornell copy (a column per thread, per warp),
+    and on its wide copy config 2 (glass, mirror, coat), `mis_demo` (a BOX
+    SDF), `textured_cornell` and `cubemap_demo` (a column per thread) and
+    the 47-mesh scene under uniform sampling (a column per warp)."""
+    from raytracer0_tpu_torch.models import presets
+
+    cases = {"cornell_default": presets.cornell_default(device=dev, use_mis=True),
+             "many_meshes": presets.many_lights(device=dev)}
+    for name in ("config2", "mis_demo", "textured_cornell", "cubemap_demo"):
+        cases[name] = getattr(presets, name)(device=dev)
+    scene, cam, cfg = cases["many_meshes"]
+    cases["many_meshes_uniform"] = (scene, cam, cfg.replace(use_biased_sampling=False))
+    return {k: (v[0], v[2]) for k, v in cases.items()}
 
 
 def device_times_ms(prof, names, per_launch=False):
@@ -800,14 +910,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from torch.profiler import ProfilerActivity, profile
     try:
         from raytracer0_tpu_torch import optimize, rng
         from raytracer0_tpu_torch.models.camera import generate_rays
-        from raytracer0_tpu_torch.models.camera import Camera
-        from raytracer0_tpu_torch.models.dsl import parse_scene
-        from raytracer0_tpu_torch.models.materials import MeshType
+        from raytracer0_tpu_torch.models.materials import SdfShape
         from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
-        from raytracer0_tpu_torch.models.scene import SceneBuilder
         from raytracer0_tpu_torch.ops import bsdf, intersect, sky
         from raytracer0_tpu_torch.ops import megakernel
         from raytracer0_tpu_torch.render import integrator
@@ -863,16 +971,17 @@ def main() -> int:
               f"({o4['local_bytes']} bytes of local memory); {-(-H * W // 128)} blocks of pixels "
               f"at {H}x{W}")
     k2_ptxas = [line.strip() for line in infos[1].log.splitlines() if "spill" in line]
-    k2_scenes = {"cornell_default": cornell_default(device=dev)[0],
-                 "many_meshes": presets.many_lights(device=dev)[0]}
-    for where, sc in k2_scenes.items():
+    print(f"phase 2: K2 ptxas, its copies in order (Cornell per thread, per warp; wide per "
+          f"thread, per warp) and the reduction: {'; '.join(k2_ptxas)}")
+    for where, (sc, c2) in k2_cases(dev).items():
         o2 = occ[("K2", where)]
-        warp2 = megakernel.bwd_layout(sc)[0]
-        print(f"phase 2: K2 on {where} ({sc.num_meshes} meshes): {o2['registers']} registers, "
-              f"{o2['local_bytes']} bytes of local memory per thread ({'; '.join(k2_ptxas)}), "
-              f"{o2['smem']} bytes of shared memory a block of {o2['threads']} (a column of "
-              f"cotangent accumulators per {'warp' if warp2 else 'thread'}), {o2['blocks']} "
-              "blocks per SM")
+        warp2 = megakernel.bwd_layout(sc, c2)[0]
+        copy2 = "Cornell" if megakernel.cornell_copy(sc, c2) else "wide"
+        print(f"phase 2: K2 on {where} ({sc.num_meshes} meshes, its {copy2} copy, "
+              f"{len(megakernel.bwd_columns(sc, c2))} columns a mesh): {o2['registers']} "
+              f"registers, {o2['local_bytes']} bytes of local memory per thread, {o2['smem']} "
+              f"bytes of shared memory a block of {o2['threads']} (a column of cotangent "
+              f"accumulators per {'warp' if warp2 else 'thread'}), {o2['blocks']} blocks per SM")
         if not warp2 and o2["blocks"] < 3:
             raise AssertionError("K2 keeps a column per thread where it fits < 3 blocks per SM")
     o7 = occ[("K7", "restir_demo")]
@@ -1015,6 +1124,56 @@ def main() -> int:
         if not same:
             raise AssertionError(f"K2 is not deterministic on {where}")
     del runs
+    # the wide copy, on each scene class K2 covers beyond Cornell: the
+    # gradient against the plain version's autograd, K2 alone timed, its bound
+    sun, sun_cam = sun_scene(dev)
+    wide_cases = {name: getattr(presets, name)(device=dev) for name in
+                  ("config2", "mis_demo", "cornell_box", "textured_gloss", "cubemap_demo",
+                   "textured_cornell", "textured_emitter")}
+    wide_cases["dir"] = (sun, sun_cam, cfg.replace(use_mis=False))
+    wide_cases["cornell_uniform"] = (scene, cam, cfg.replace(use_biased_sampling=False))
+    k2_wide = {}
+    for name, (sw, cw, cfgw) in wide_cases.items():
+        if megakernel.unsupported_bwd(sw, cfgw) is not None or megakernel.cornell_copy(sw, cfgw):
+            raise AssertionError(f"{name}: expected in K2's wide copy")
+        row, rdw = generate_rays(cw, H, W, 0)
+        before = megakernel.BWD_LAUNCHES
+        _, got = table_grads(torch, megakernel.trace_forward, sw, cfgw, row, rdw, pix, 0)
+        torch.cuda.synchronize()
+        if megakernel.BWD_LAUNCHES != before + 1:
+            raise AssertionError("expected one K2 launch per backward")
+        _, want = table_grads(torch, integrator.trace, sw, cfgw, row, rdw, pix, 0)
+        errs, left_out, arbitrated = arbitrated_errors(got, want, lambda kind, mask: table_grads(
+            torch, megakernel.trace_forward if kind == "kernel" else integrator.trace, sw, cfgw,
+            row, rdw, pix, 0, torch.float64 if kind == "plain64" else None, mask))
+        rel, raw = max(e[1] for e in errs.values()), max(e[0] for e in errs.values())
+        print(f"phase 6: {name} {H}x{W}, {cfgw.max_bounces} bounces, K2's wide copy: max "
+              "relative error per leaf against plain autograd (after float64 arbitration on "
+              f"the pixels whose float32 and float64 radiances agree: {left_out} pixels left "
+              f"out, {arbitrated} entries arbitrated) "
+              + ", ".join(f"{k} {e[0]:.2e} ({e[1]:.2e})" for k, e in errs.items()
+                          if want[k].abs().max().item() > 0.0))
+        if rel >= GRAD_TOL:
+            raise AssertionError(f"K2 disagrees with plain autograd on {name}: {rel:.3e}")
+        del got, want
+        ctw = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
+        tablew = megakernel.scene_table(sw)
+        ms_w = time_ms(torch, lambda: megakernel._launch_backward(
+            sw, cfgw, tablew, row, rdw, pix, 0, 0, ctw))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                megakernel._launch_backward(sw, cfgw, tablew, row, rdw, pix, 0, 0, ctw)
+            torch.cuda.synchronize()
+        dev_w, _ = device_times_ms(prof, ("bwd_wide_kernel",))
+        dev_w = None if dev_w["bwd_wide_kernel"] is None else dev_w["bwd_wide_kernel"] / 3
+        evw = path_events(torch, sw, cfgw, row, rdw, pix, 0, 0)
+        bound_w, by_w = bound(evw, sw, cfgw, adjoint=True)
+        k2_wide[name] = {"max_rel_err": rel, "max_rel_err_raw": raw,
+                         "pixels_left_out": left_out, "entries_arbitrated": arbitrated, "ms": ms_w,
+                         "device_ms": dev_w, "bound_ms": bound_w, "bound_by": by_w}
+        print(f"phase 6: {card}: K2 on {name} at {H}x{W}: {ms_w:.3f} ms (device "
+              + ("not measured" if dev_w is None else f"{dev_w:.4f} ms")
+              + f", profiler); bound {bound_w:.6f} ms ({by_w})")
 
     # ---- phase 7: K2 against finite differences of K1 ----
     fd_size = 128
@@ -1038,6 +1197,48 @@ def main() -> int:
         print(f"phase 7: d sum / d {name}[{row}] at {fd_size}x{fd_size}, "
               f"{cfg.max_bounces} bounces: K2 {ad:.6f}, K1 central difference "
               f"{fd:.6f}, relative error {rel:.2e}")
+        if not rel < FD_TOL:
+            raise AssertionError(f"K2 disagrees with finite differences of K1 ({name})")
+
+    # the wide copy: d sum / d config 2's glass IOR, and d sum / d
+    # mis_demo's SDF box height, against central differences of K1 on the
+    # pixels where K1's radiance is linear in the parameter (the difference
+    # over the step is twice the one over half the step, within 10 %): a
+    # pixel whose path flips a discrete decision between the two renders
+    # (a Fresnel choice, a shadow ray's hit) carries a boundary term that
+    # the detached-decision gradient of the plain version and of JAX leaves
+    # out by design
+    def masked_fd(sc, c7, cm7, leaf, row, comp, step, size):
+        base = getattr(sc, leaf)
+        index = row if comp is None else (row, comp)
+
+        def render(delta):
+            moved = base.clone()
+            moved[index] += delta
+            with torch.no_grad():
+                return sample_radiance(sc.replace(**{leaf: moved}), c7, cm7, size, size,
+                                       0).double()
+
+        d1, d2 = render(step) - render(-step), render(step / 2) - render(-step / 2)
+        lin = ((d1 - 2.0 * d2).abs() <= 0.1 * d1.abs() + 1e-6).all(dim=-1)
+        fd = (d1 * lin[..., None]).sum().item() / (2.0 * step)
+        lf = base.detach().clone().requires_grad_(True)
+        img = sample_radiance(sc.replace(**{leaf: lf}), c7, cm7, size, size, 0)
+        ad = torch.autograd.grad((img * lin[..., None].float()).sum(), lf)[0][index].item()
+        return ad, fd, lin.float().mean().item()
+
+    c2_scene, c2_cam, c2_cfg = presets.config2(device=dev)
+    md_scene, md_cam, md_cfg = presets.mis_demo(device=dev)
+    fd_wide = {}
+    for name, sc, cm7, c7, leaf, row, comp in (
+            ("config2 ior[7]", c2_scene, c2_cam, c2_cfg, "ior", 7, None),
+            ("mis_demo pos[7].y", md_scene, md_cam, md_cfg, "pos", 7, 1)):
+        ad, fd, share = masked_fd(sc, c7, cm7, leaf, row, comp, 1e-2, fd_size)
+        rel = abs(ad - fd) / max(abs(fd), 1e-6)
+        fd_wide[name] = {"ad": ad, "fd": fd, "rel": rel, "linear_share": share}
+        print(f"phase 7: d sum / d {name} at {fd_size}x{fd_size}, {c7.max_bounces} bounces, on "
+              f"the {share:.4f} of pixels linear in it (step 1e-2): K2 {ad:.6f}, K1 central "
+              f"difference {fd:.6f}, relative error {rel:.2e}")
         if not rel < FD_TOL:
             raise AssertionError(f"K2 disagrees with finite differences of K1 ({name})")
 
@@ -1101,7 +1302,6 @@ def main() -> int:
     print(f"phase 8: {card}: backward alone: K2 {ms_k2:.3f} ms, plain autograd "
           f"{plain_ms_bwd:.3f} ms")
 
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step_fn("kernel")
@@ -1131,32 +1331,44 @@ def main() -> int:
           f"(truth 4.0, start 6.4); {megakernel.BWD_LAUNCHES} K2 launches")
     if not losses[-1] < losses[0] or megakernel.BWD_LAUNCHES != fit_steps:
         raise AssertionError("the fit did not lower the loss through K2 once per step")
+    # a fit through K2's wide copy: config 2's light emission; the plain
+    # version is counted, and must not run
+    c2s, c2cam, c2cfg = presets.config2(device=dev)
+    with torch.no_grad():
+        target2 = optimize.render_linear(c2s, c2cfg, c2cam, fit_size, fit_size)
+    light2 = (c2s.mat_type == 0)[:, None].float()
+    start2 = c2s.replace(emission=c2s.emission * (1.0 + 0.6 * light2))
+    plain_calls, plain_trace = [], integrator.trace
+    integrator.trace = lambda *a, **k: plain_calls.append(1) or plain_trace(*a, **k)
+    megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
+    try:
+        _, losses2 = optimize.fit(start2, c2cfg, c2cam, target2, ("emission",), steps=10,
+                                  learning_rate=0.08, param_mask={"emission": light2})
+        torch.cuda.synchronize()
+    finally:
+        integrator.trace = plain_trace
+    fit2_launches = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    print(f"phase 8: optimize.fit of config2's light emission at {fit_size}x{fit_size}, 10 steps "
+          f"through K2's wide copy: loss {losses2[0]:.6f} -> {losses2[-1]:.6f}; "
+          f"{fit2_launches[0]} K1 and {fit2_launches[1]} K2 launches, {len(plain_calls)} "
+          "calls of the plain version")
+    if not losses2[-1] < losses2[0] or fit2_launches[1] != 10 or plain_calls:
+        raise AssertionError("the config2 fit did not lower the loss through K2 alone")
 
     # ---- phase 9: the widened K1 against its plain version ----
-    def sun_scene():
-        sb = SceneBuilder()
-        sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
-        sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
-        sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
-        sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
-        sb.lights([3])
-        cam9 = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=dev)
-        return sb.build(device=dev), cam9
-
     cube_scene, cube_cam, cube_cfg = cubemap_demo(device=dev)
     cases = {
         "cubemap_demo": (cube_scene, cube_cam, cube_cfg),
-        "config2": (parse_scene(CONFIG2, device=dev),
-                    Camera.make(origin=(0, 0, 1.99), lookat=(0, 0, -1), fov=60.0, device=dev),
-                    cfg.replace(use_procedural_sky=False)),
-        "dir": sun_scene() + (cfg.replace(use_mis=False),),
-        "dir_mis": sun_scene() + (cfg,),
+        "config2": presets.config2(device=dev),
+        "dir": sun_scene(dev) + (cfg.replace(use_mis=False),),
+        "dir_mis": sun_scene(dev) + (cfg,),
         "cornell_uniform": (scene, cam, cfg.replace(use_biased_sampling=False)),
     }
     widened_err = {}
     for name, (s9, c9, cfg9) in cases.items():
-        if megakernel.unsupported(s9, cfg9) is not None or megakernel.unsupported_bwd(s9, cfg9) is None:
-            raise AssertionError(f"{name}: expected inside K1's class and outside K2's")
+        if megakernel.unsupported(s9, cfg9) is not None or \
+                megakernel.unsupported_bwd(s9, cfg9) is not None or megakernel.cornell_copy(s9, cfg9):
+            raise AssertionError(f"{name}: expected inside K1's class and K2's wide copy")
         for h, w, nb, tol, frac in ((16, 128, 3, PARITY_TOL, PARITY_FRAC),
                                     (H, W, cfg9.max_bounces, GOLDEN_TOL, GOLDEN_FRAC)):
             c = cfg9.replace(max_bounces=nb)
@@ -1253,15 +1465,18 @@ def main() -> int:
              f"{cube_dev_ms:.4f} ms of {cube_total / 3:.4f} ms on the device per pass")
           + f" (profiler, 3 passes), bound {cube_bound:.6f} ms ({cube_by})")
 
-    # ---- phase 11: no gradient outside K2's class ----
+    # ---- phase 11: no gradient w.r.t. texel arrays ----
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
-    em = cube_scene.emission.clone().requires_grad_(True)
+    texels = cube_scene.cubemap.clone().requires_grad_(True)
     try:
-        sample_radiance(cube_scene.replace(emission=em), cube_cfg, cube_cam, 16, 16, 0)
+        sample_radiance(cube_scene.replace(cubemap=texels), cube_cfg, cube_cam, 16, 16, 0)
     except NotImplementedError as exc:
-        print(f"phase 11: a gradient through cubemap_demo raises NotImplementedError: {exc}")
+        print(f"phase 11: a gradient w.r.t. cubemap_demo's cubemap raises NotImplementedError: "
+              f"{exc}")
+        if "item 14" not in str(exc):
+            raise AssertionError("the cubemap gradient is refused without naming item 14")
     else:
-        raise AssertionError("a gradient through cubemap_demo did not raise")
+        raise AssertionError("a gradient w.r.t. the cubemap did not raise")
     if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
         raise AssertionError("the refused gradient launched a kernel")
 
@@ -1296,10 +1511,11 @@ def main() -> int:
                 raise AssertionError(f"{name}: K1 is not bit-identical to the plain version")
     del out, ref
 
-    # a gradient through a textured scene is refused before any launch
+    # a gradient w.r.t. a texel array is refused before any launch; the
+    # color's runs through K2
     t_scene, t_cam, t_cfg = tex_cases["textured_cornell"]
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
-    for leaf in ("color", "images"):
+    for leaf in ("images", "noise"):
         grad_leaf = getattr(t_scene, leaf).clone().requires_grad_(True)
         try:
             sample_radiance(t_scene.replace(**{leaf: grad_leaf}), t_cfg, t_cam, 16, 16, 0)
@@ -1310,6 +1526,11 @@ def main() -> int:
             raise AssertionError(f"a gradient w.r.t. {leaf} through textured_cornell did not raise")
     if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
         raise AssertionError("the refused textured gradient launched a kernel")
+    col = t_scene.color.clone().requires_grad_(True)
+    sample_radiance(t_scene.replace(color=col), t_cfg, t_cam, 16, 16, 0).sum().backward()
+    torch.cuda.synchronize()
+    if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != (before[0] + 1, before[1] + 1):
+        raise AssertionError("the textured color's gradient did not run through K1 and K2")
 
     # ---- phase 13: the texture main path ----
     megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
@@ -1414,12 +1635,16 @@ def main() -> int:
           f"{ms_sdf:.3f} ms, plain {plain_ms_sdf:.3f} ms; bound {sdf_bound:.6f} ms ({sdf_by})")
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
     em = m_scene.emission.clone().requires_grad_(True)
+    other = m_scene.replace(emission=em, sdf_shapes_static=(int(SdfShape.SPHERE),))
     try:
-        sample_radiance(m_scene.replace(emission=em), m_cfg, m_cam, 16, 16, 0)
+        sample_radiance(other, m_cfg, m_cam, 16, 16, 0)
     except NotImplementedError as exc:
-        print(f"phase 15: a gradient through mis_demo raises NotImplementedError: {exc}")
+        print(f"phase 15: a gradient through mis_demo with its box made an SDF sphere raises "
+              f"NotImplementedError: {exc}")
+        if "item 8" not in str(exc):
+            raise AssertionError("another SDF shape is refused without naming item 8")
     else:
-        raise AssertionError("a gradient through mis_demo did not raise")
+        raise AssertionError("a gradient through an SDF sphere did not raise")
     if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
         raise AssertionError("the refused SDF gradient launched a kernel")
 
@@ -2255,10 +2480,12 @@ def main() -> int:
          "also_serves": "raytracer0_tpu/ops/megakernel.py:2445 (K3, the whole-trace "
                         "adjoint body, same outputs)",
          "launches": bwd_launches,
-         "launches_by_path": {"render": bwd_render, "gradient": bwd_launches},
+         "launches_by_path": {"render": bwd_render, "gradient": bwd_launches,
+                              "config2_fit": fit2_launches[1]},
          "max_abs_err": k2_abs, "max_rel_err": k2_rel,
          "max_rel_err_many_meshes": k2_many_rel, "ms": ms_k2,
-         "plain_ms": plain_ms_bwd, "bound_ms": k2_bound, "bound_by": k2_by},
+         "plain_ms": plain_ms_bwd, "bound_ms": k2_bound, "bound_by": k2_by,
+         "wide_copy": k2_wide, "finite_differences_wide": fd_wide},
         {"name": "K9 env forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3414",

@@ -39,7 +39,11 @@ K2, the adjoint of K1, on K2_SCENES at 512x512 with 12 bounces: Cornell
 with and without MIS, and `presets.many_lights` (`restir_stress`'s planes
 and the first 4, 5, 8, 9, 10, 18 or all 41 of its sphere lights: 10, 11,
 14, 15, 16, 24 and 47 meshes, on both sides of the switch from a column
-of cotangent accumulators per thread to one per warp); the median over 5
+of cotangent accumulators per thread to one per warp), all on its Cornell
+copy; Cornell with MIS forced onto its wide copy (`cornell_mis_wide`);
+and the scenes of the wide copy: `k2_` and the preset `config2`,
+`mis_demo`, `cornell_box`, `textured_gloss`, `cubemap_demo` (a scene a
+checkout cannot differentiate on the card is skipped); the median over 5
 rounds of 20 launches of its device time (torch.profiler), alone and
 with its reduction, on the rays of pass 0 with ones as cotangents, its
 layout, blocks per SM and registers, sha256 prefixes of d_table, d_ro
@@ -156,7 +160,9 @@ RESTIR_PRESETS = ("restir_demo", "restir_stress")
 #: with this many sphere lights (6 meshes more).
 K2_MANY_LIGHTS = {"meshes_10": 4, "meshes_11": 5, "meshes_14": 8, "meshes_15": 9,
                   "meshes_16": 10, "meshes_24": 18, "many_meshes": 41}
-K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS)
+#: K2's scenes of its wide copy: "k2_" and a preset's name
+K2_WIDE = ("k2_config2", "k2_mis_demo", "k2_cornell_box", "k2_textured_gloss", "k2_cubemap_demo")
+K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS, "cornell_mis_wide", *K2_WIDE)
 
 
 def k2_scene(name, device):
@@ -165,7 +171,36 @@ def k2_scene(name, device):
 
     if name in K2_MANY_LIGHTS:
         return presets.many_lights(device=device, n_lights=K2_MANY_LIGHTS[name])
-    return presets.cornell_default(device=device, use_mis=name == "cornell_mis")
+    if name in K2_WIDE:
+        return getattr(presets, name[3:])(device=device)
+    return presets.cornell_default(device=device, use_mis=name != "cornell_nomis")
+
+
+def _k2_copy(megakernel, name):
+    """A context that runs `name` on the copy K2 picks, or, for
+    `cornell_mis_wide`, forces its wide copy onto Cornell."""
+    import contextlib
+    import unittest.mock
+
+    if name != "cornell_mis_wide":
+        return contextlib.nullcontext()
+    return unittest.mock.patch.object(megakernel, "cornell_copy", lambda scene, cfg: False)
+
+
+def _k2_scenes(megakernel, dev):
+    """The K2_SCENES this checkout differentiates on the card."""
+    from raytracer0_tpu_torch.models import presets
+
+    names = []
+    for name in K2_SCENES:
+        if name in K2_WIDE and not hasattr(presets, name[3:]):
+            continue
+        if name == "cornell_mis_wide" and not hasattr(megakernel, "cornell_copy"):
+            continue
+        scene, _, cfg = k2_scene(name, dev)
+        if megakernel.unsupported_bwd(scene, cfg) is None:
+            names.append(name)
+    return names
 
 
 def k2_device_ms(dev):
@@ -186,25 +221,29 @@ def k2_device_ms(dev):
     res = {}
     pix = rng.pixel_ids(512, 512, device=dev)
     ct = torch.ones((512, 512, 3), dtype=torch.float32, device=dev)
-    for name in K2_SCENES:
+    for name in _k2_scenes(megakernel, dev):
         scene, cam, cfg = k2_scene(name, dev)
         ro, rd = generate_rays(cam, 512, 512, 0)
         table = megakernel.scene_table(scene)
         launch = lambda: megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 0, 0, ct)
-        d_table, d_ro, d_rd = launch()
-        for _ in range(4):
-            launch()
-        rounds, whole = [], []
-        for _ in range(5):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    launch()
-                torch.cuda.synchronize()
-            us = {k: sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                         for e in prof.key_averages() if k in e.key and "restir" not in e.key)
-                  for k in ("bwd_kernel", "reduce_kernel")}
-            rounds.append(us["bwd_kernel"] / 20 / 1e3)
-            whole.append(sum(us.values()) / 20 / 1e3)
+        with _k2_copy(megakernel, name):
+            d_table, d_ro, d_rd = launch()
+            for _ in range(4):
+                launch()
+            rounds, whole = [], []
+            for _ in range(5):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        launch()
+                    torch.cuda.synchronize()
+                # the adjoint (bwd_kernel, or the wide copy's bwd_wide_kernel) and the reduction
+                us = {k: sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                             for e in prof.key_averages()
+                             if any(n in e.key for n in names) and "restir" not in e.key)
+                      for k, names in (("adjoint", ("bwd_kernel", "bwd_wide_kernel")),
+                                       ("reduce", ("reduce_kernel",)))}
+                rounds.append(us["adjoint"] / 20 / 1e3)
+                whole.append(sum(us.values()) / 20 / 1e3)
         res[name] = {"ms": statistics.median(rounds), "rounds": rounds,
                      "ms_with_reduction": statistics.median(whole),
                      "digest_d_table": _digest(d_table), "digest_d_ro": _digest(d_ro),
@@ -219,23 +258,27 @@ def k2_occupancy(dev):
     from raytracer0_tpu_torch.ops import cuda_build, megakernel
 
     res = {}
-    for name in K2_SCENES:
-        scene = k2_scene(name, dev)[0]
-        warp, smem = megakernel.bwd_layout(scene)
+    for name in _k2_scenes(megakernel, dev):
+        scene, _, cfg = k2_scene(name, dev)
+        with _k2_copy(megakernel, name):
+            warp, smem = megakernel.bwd_layout(scene, cfg)
+            wide = not megakernel.cornell_copy(scene, cfg)
+        # the export's flag: bit 0 a column per warp, bit 1 the wide copy
         o = cuda_build.occupancy("megakernel_bwd", megakernel.BWD_SOURCES,
                                  "rt0_trace_backward_occupancy", megakernel.BWD_THREADS,
-                                 smem, warp)
+                                 smem, int(warp) | 2 * int(wide))
         res[f"occupancy_k2_{name}"] = {**{k: o[k] for k in ("blocks", "threads", "registers",
                                                             "local_bytes", "smem")},
-                                       "warp_columns": warp}
+                                       "warp_columns": warp, "wide_copy": wide}
     return res
 
 
 def compare(paths):
     """Print, for two or more JSON lines this script wrote (one file each,
     the first the reference), which digests differ from the reference's and
-    the worst relative difference of K2's d_table per leaf (pos, joker.x,
-    color, emission: max |a - b| / max |b| over the scene's meshes)."""
+    the worst relative difference of K2's d_table per leaf (pos, joker,
+    color, emission, ior and the texture columns: max |a - b| / max |b|
+    over the scene's meshes; 0 / 0 counts 0)."""
     import numpy as np
 
     runs = []
@@ -243,8 +286,9 @@ def compare(paths):
         with open(p) as f:
             runs.append(json.loads([line for line in f if line.startswith("{")][-1]))
     ref = runs[0]
-    leaves = {"pos": slice(0, 3), "joker.x": slice(3, 4), "color": slice(7, 10),
-              "emission": slice(10, 13)}
+    leaves = {"pos": slice(0, 3), "joker": slice(3, 7), "color": slice(7, 10),
+              "emission": slice(10, 13), "ior": slice(13, 14), "tex_params": slice(26, 30),
+              "tex_cmask": slice(30, 33), "tex_emask": slice(33, 36)}
     for p, run in zip(paths[1:], runs[1:]):
         keys = sorted(k for k in ref if "digest" in k and not isinstance(ref[k], dict))
         keys += [f"{n}.{k}" for n in K2_SCENES if n in ref and n in run
@@ -258,7 +302,7 @@ def compare(paths):
                 b = np.asarray(ref[n]["d_table"]).reshape(-1, 36)
                 worst[n] = {leaf: float(np.abs(a[:, c] - b[:, c]).max()
                                         / max(np.abs(b[:, c]).max(), 1e-30))
-                            for leaf, c in leaves.items()}
+                            for leaf, c in leaves.items() if np.abs(b[:, c]).max() > 0}
         print(json.dumps({"reference": paths[0], "run": p, "digests_compared": len(keys),
                           "digests_that_differ": differ, "k2_d_table_worst_relative": worst,
                           "k2_d_table_worst_relative_all": max(

@@ -1,10 +1,14 @@
 // adjoint.cuh — hand-derived adjoints shared by K2 (megakernel_bwd.cu, the
 // adjoint of K1) and K7 (restir_bwd.cu, the adjoint of the ReSTIR pass
 // K6): normalize, the safe division, the orthonormal basis, the
-// cosine and cone samplers, the power heuristic, the sphere-light pdf, the
-// procedural sky, the analytic intersections and normals; and, reached by
-// K7 so far, reflection, refraction, the ROUND_BOX signed distance, the
-// tetrahedral SDF normal and the implicit reattachment of an SDF hit's t.
+// cosine, uniform and cone samplers, the power heuristic, the sphere-light
+// pdf, the procedural sky and the cubemap fetch, the analytic intersections
+// and normals, the direction of every BSDF sample (reflection, refraction),
+// the BOX and ROUND_BOX signed distances, the scene map, the tetrahedral
+// SDF normal and the implicit reattachment of an SDF hit's t; and, reached
+// by K2 alone, the texel of a hit (the UV, image bilinear, CHECK, RIPPLE,
+// gradient and value noise, METAL fBm) and its blend into the hit's color
+// and emission.
 //
 // Each function is the reverse-mode derivative of its forward twin in
 // trace_common.cuh, which is the plain PyTorch version's operation for
@@ -12,12 +16,13 @@
 // version: discrete decisions carry no gradient, clamp and clamp_min pass
 // the gradient at the bound, abs and sign follow torch (sign(0) = 0).
 // Scene cotangents go into an accumulator `G` whose add(mesh, column, v)
-// and add3 take scene-table columns (C_PX, C_J0, C_CR, C_ER, C_IOR); each
-// kernel maps the columns it keeps onto its own accumulators.
+// and add3 take scene-table columns (C_PX, C_J0, C_CR, C_ER, C_IOR, C_TP,
+// C_CM, C_EM); each kernel maps the columns it keeps onto its own
+// accumulators.
 
 #pragma once
 
-#include "trace_common.cuh"
+#include "path.cuh"
 
 namespace {
 
@@ -100,6 +105,16 @@ __device__ void sample_cone_bwd(V3 w, float extent, float u1, float u2, V3 g, V3
   around_bwd(w, u1, om, r_y, g, g_w, g_om, g_ry);
   if (x > 0.0f) g_ry += (g_om / (2.0f * om)) * (-2.0f * r_y);
   g_extent = -u2 * g_ry;
+}
+
+// random_direction(w, u1, u2, biased): the cosine sample, or the uniform
+// hemisphere (the cone of extent 1).
+__device__ __forceinline__ V3 random_direction_bwd(V3 w, float u1, float u2, bool biased, V3 g) {
+  if (biased) return sample_biased_bwd(w, u1, u2, g);
+  V3 g_w;
+  float g_extent;
+  sample_cone_bwd(w, 1.0f, u1, u2, g, g_w, g_extent);
+  return g_w;
 }
 
 // power_heuristic(f, g) = max(f^2, 0) / max(f^2 + g^2, 1e-12), 0 when f^2 + g^2 <= 0
@@ -320,19 +335,73 @@ __device__ V3 round_box_bwd(const SceneSmem &s, int row, V3 p, float g, const Ac
   return gp;
 }
 
-// The SDF rows' distance at p (sdf_map) times g: the nearest entry's
-// cotangents (the first on a tie, as the forward's winner).  ROUND_BOX
-// rows only.
+// d sdf_entry / d(p, the row's pos and joker 0:3) of a BOX row,
+// len(max(|q| - b, 0)) + min(max(|q| - b), 0) with q = p - pos, times g:
+// returns the cotangent of p and adds the row's into G.  The max over the
+// axes splits its gradient evenly between tied axes (torch.amax), and len
+// has a zero gradient at 0, as for ROUND_BOX.
 template <class Acc>
+__device__ V3 sd_box_bwd(const SceneSmem &s, int row, V3 p, float g, const Acc &G) {
+  const V3 q = p - s.p(row);
+  const float *j = s.col(row, C_J0);
+  const float qq[3] = {q.x, q.y, q.z};
+  float dq[3], m[3], gq[3];
+  for (int k = 0; k < 3; ++k) {
+    dq[k] = fabsf(qq[k]) - j[k];
+    m[k] = fmaxf(dq[k], 0.0f);
+  }
+  const float len = sqrtf(fmaxf(m[0] * m[0] + m[1] * m[1] + m[2] * m[2], 0.0f));
+  const float g_s = len > 0.0f ? g / (2.0f * len) : 0.0f;
+  const float mx = fmaxf(fmaxf(dq[0], dq[1]), dq[2]);
+  const float ties = (float)((dq[0] == mx) + (dq[1] == mx) + (dq[2] == mx));
+  const float g_mx = mx <= 0.0f ? g / ties : 0.0f;  // clamp_max(., 0) passes at 0
+  for (int k = 0; k < 3; ++k) {
+    const float g_dq = (dq[k] >= 0.0f ? 2.0f * m[k] * g_s : 0.0f) + (dq[k] == mx ? g_mx : 0.0f);
+    gq[k] = g_dq * signf(qq[k]);
+    G.add(row, C_J0 + k, -g_dq);
+  }
+  const V3 gp = {gq[0], gq[1], gq[2]};
+  G.add3(row, C_PX, gp * -1.0f);
+  return gp;
+}
+
+// The SDF rows' distance at p (sdf_map) times g.  kShapes = false (K7):
+// ROUND_BOX rows, the nearest entry's cotangents (the first on a tie, as
+// the forward's winner).  kShapes = true (K2): BOX and ROUND_BOX rows, the
+// gradient split at ties as the plain version's chain of torch.minimum
+// splits it: the last of r tied entries takes half, the one before it a
+// quarter, ..., the first two 1/2^(r-1) each.
+template <bool kShapes = false, class Acc>
 __device__ V3 sdf_map_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float g, const Acc &G) {
   int k;
-  sdf_map(s, sd, p, k);
-  return round_box_bwd(s, sd.first + k, p, g, G);
+  const float best = sdf_map(s, sd, p, k);
+  if constexpr (!kShapes) {
+    return round_box_bwd(s, sd.first + k, p, g, G);
+  } else {
+    auto entry_bwd = [&](int i, float gi) {
+      return sd.shape[i] == SDF_ROUND_BOX ? round_box_bwd(s, sd.first + i, p, gi, G)
+                                          : sd_box_bwd(s, sd.first + i, p, gi, G);
+    };
+    if (sd.count == 1) return entry_bwd(0, g);
+    int ties = 0;
+    for (int i = k; i < sd.count; ++i) ties += sdf_entry(s, sd.first + i, sd.shape[i], p) == best;
+    V3 gp = zero3();
+    float gr = g;
+    for (int i = sd.count - 1; i >= k; --i) {
+      if (!(sdf_entry(s, sd.first + i, sd.shape[i], p) == best)) continue;
+      --ties;
+      const float gi = ties > 0 ? 0.5f * gr : gr;
+      gp = gp + entry_bwd(i, gi);
+      if (ties == 0) break;
+      gr = gr - gi;
+    }
+    return gp;
+  }
 }
 
 // sdf_normal(p) = normalize(sum_i tap_i f(p + tap_i eps)) for its cotangent
 // g_n: returns the cotangent of p.
-template <class Acc>
+template <bool kShapes = false, class Acc>
 __device__ V3 sdf_normal_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float eps, V3 g_n,
                              const Acc &G) {
   const V3 taps[4] = {{1.0f, -1.0f, -1.0f}, {-1.0f, -1.0f, 1.0f}, {-1.0f, 1.0f, -1.0f},
@@ -343,7 +412,7 @@ __device__ V3 sdf_normal_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float
   const V3 g_raw = normalize_bwd(n, g_n);
   V3 g_p = zero3();
   for (int i = 0; i < 4; ++i)
-    g_p = g_p + sdf_map_bwd(s, sd, p + taps[i] * eps, dot(g_raw, taps[i]), G);
+    g_p = g_p + sdf_map_bwd<kShapes>(s, sd, p + taps[i] * eps, dot(g_raw, taps[i]), G);
   return g_p;
 }
 
@@ -352,7 +421,7 @@ __device__ V3 sdf_normal_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float
 // with df/dt the central difference at x* along d (step eps, `two_eps` =
 // f32(2 eps)), floored to +-0.05.  Adds the cotangents of o and d for the
 // cotangent g_t of t.
-template <class Acc>
+template <bool kShapes = false, class Acc>
 __device__ void sdf_t_bwd(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d, float t, float eps,
                           float two_eps, float g_t, V3 &g_o, V3 &g_d, const Acc &G) {
   const V3 xs = o + d * t;
@@ -361,7 +430,7 @@ __device__ void sdf_t_bwd(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d, fl
   const float f_bwd = sdf_map(s, sd, xs - d * eps, k);
   float dfdt = (f_fwd - f_bwd) / two_eps;
   if (fabsf(dfdt) < 0.05f) dfdt = dfdt < 0.0f ? -0.05f : 0.05f;
-  const V3 g_xs = sdf_map_bwd(s, sd, xs, -g_t / dfdt, G);
+  const V3 g_xs = sdf_map_bwd<kShapes>(s, sd, xs, -g_t / dfdt, G);
   g_o = g_o + g_xs;
   g_d = g_d + g_xs * t;
 }
@@ -412,6 +481,344 @@ __device__ V3 cone_light_bwd(const SceneSmem &s, int li, int hidx, V3 x, V3 nl, 
   G.add3(li, C_PX, g_sw);
   g_x = g_x - g_sw;
   return lc * le * sc;
+}
+
+// The direction of a BSDF sample (bsdf_sample, whose result is `b`, at a
+// hit of mesh `idx` with incoming direction d, oriented normal nl, clamped
+// emission e, `inside`, draws u1, u2) for the cotangent gd of b.d: adds the
+// cotangents of d, nl and the mesh's IOR (under refraction).  A diffuse
+// sample is random_direction(nl); a glossy one normalize(e rand_dir +
+// reflect(d, nl)) or normalize(e rand_dir + refract(d, nl, eta)), where the
+// emission bends the direction detached, as in the plain version.  The
+// IOR enters as max(|ior|, 1e-3), whose gradient passes at the floor.
+template <class Acc>
+__device__ __forceinline__ void bounce_dir_bwd(const SceneSmem &s, int idx, const Bounce &b, V3 d,
+                                               V3 nl, V3 e, float inside, float u1, float u2,
+                                               bool biased, V3 gd, V3 &g_d, V3 &g_nl,
+                                               const Acc &G) {
+  if (!b.specular) {
+    g_nl = g_nl + random_direction_bwd(nl, u1, u2, biased, gd);
+    return;
+  }
+  const bool transmit = b.scat != 0;
+  const V3 rand_dir = random_direction(nl, u1, u2, biased);
+  V3 raw;
+  float nt = 0.0f, nnt = 0.0f;
+  if (transmit) {
+    nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+    nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
+    bool tir;
+    raw = refract(d, nl, nnt, tir);
+  } else {
+    raw = reflect(d, nl);
+  }
+  const V3 g_v = normalize_bwd(e * rand_dir + raw, gd);
+  g_nl = g_nl + random_direction_bwd(nl, u1, u2, biased, e * g_v);
+  if (transmit) {
+    float g_eta = 0.0f;
+    refract_bwd(d, nl, nnt, g_v, g_d, g_nl, g_eta);
+    const float g_nt = inside > 0.0f ? -g_eta * IOR_AIR / (nt * nt) : g_eta / IOR_AIR;
+    const float ior = s.ior(idx);
+    if (fabsf(ior) >= 1e-3f) G.add(idx, C_IOR, g_nt * signf(ior));
+  } else {
+    reflect_bwd(d, nl, g_v, g_d, g_nl);
+  }
+}
+
+// sample_cubemap(d) for the cotangent g of its texel: the cotangent of d.
+// The face is a discrete choice; within it the major axis |d_k| (floored
+// at 1e-9) divides the two minor components, whose bilinear weights in
+// the clamped texel grid carry the gradient (the clamps pass it at their
+// bounds, as torch.clamp does).
+__device__ V3 cubemap_bwd(const float *__restrict__ cube, int ch, int cw, V3 d, V3 g) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  int face, axis;
+  float ma_raw, sc, tc;
+  if (ax >= ay && ax >= az) {
+    face = d.x > 0.0f ? 0 : 1;
+    axis = 0;
+    ma_raw = ax;
+    sc = d.x > 0.0f ? -d.z : d.z;
+    tc = -d.y;
+  } else if (ay > ax && ay >= az) {
+    face = d.y > 0.0f ? 2 : 3;
+    axis = 1;
+    ma_raw = ay;
+    sc = d.x;
+    tc = d.y > 0.0f ? d.z : -d.z;
+  } else {
+    face = d.z > 0.0f ? 4 : 5;
+    axis = 2;
+    ma_raw = az;
+    sc = d.z > 0.0f ? d.x : -d.x;
+    tc = -d.y;
+  }
+  const float ma = fmaxf(ma_raw, 1e-9f);
+  const float u = 0.5f * (sc / ma + 1.0f), v = 0.5f * (tc / ma + 1.0f);
+  const float xr = u * (float)cw - 0.5f, yr = v * (float)ch - 0.5f;
+  const float xp = fminf(fmaxf(xr, 0.0f), (float)(cw - 1));
+  const float yp = fminf(fmaxf(yr, 0.0f), (float)(ch - 1));
+  const int x0 = (int)floorf(xp), y0 = (int)floorf(yp);
+  const int x1 = x0 + 1 < cw ? x0 + 1 : cw - 1, y1 = y0 + 1 < ch ? y0 + 1 : ch - 1;
+  const float fx = xp - (float)x0, fy = yp - (float)y0;
+  const float *f = cube + (size_t)face * ch * cw * 3;
+  auto texel = [&](int y, int x) -> V3 {
+    const float *t = f + ((size_t)y * cw + x) * 3;
+    return {__ldg(t), __ldg(t + 1), __ldg(t + 2)};
+  };
+  const V3 t00 = texel(y0, x0), t01 = texel(y0, x1), t10 = texel(y1, x0), t11 = texel(y1, x1);
+  const float g_fx = dot(g, (t01 - t00) * (1.0f - fy) + (t11 - t10) * fy);
+  const float g_fy = dot(g, (t10 * (1.0f - fx) + t11 * fx) - (t00 * (1.0f - fx) + t01 * fx));
+  const float g_u = (xr >= 0.0f && xr <= (float)(cw - 1)) ? g_fx * (float)cw : 0.0f;
+  const float g_v = (yr >= 0.0f && yr <= (float)(ch - 1)) ? g_fy * (float)ch : 0.0f;
+  const float g_sc = 0.5f * g_u / ma, g_tc = 0.5f * g_v / ma;
+  const float g_ma = ma_raw >= 1e-9f ? -(0.5f * g_u * sc + 0.5f * g_v * tc) / (ma * ma) : 0.0f;
+  if (axis == 0) return {g_ma * signf(d.x), -g_tc, d.x > 0.0f ? -g_sc : g_sc};
+  if (axis == 1) return {g_sc, g_ma * signf(d.y), d.y > 0.0f ? g_tc : -g_tc};
+  return {d.z > 0.0f ? g_sc : -g_sc, -g_tc, g_ma * signf(d.z)};
+}
+
+// ------------------------------------------------------------ textures
+// torch.div(a, b, rounding_mode="floor") on floats, ATen's rule: the
+// gradient of torch.remainder(a, b) with respect to b is -that.
+__device__ __forceinline__ float div_floor(float a, float b) {
+  if (b == 0.0f) return a / b;
+  const float mod = fmodf(a, b);
+  float div = (a - mod) / b;
+  if (mod != 0.0f && ((b < 0.0f) != (mod < 0.0f))) div -= 1.0f;
+  if (div == 0.0f) return copysignf(0.0f, a / b);
+  float fl = floorf(div);
+  if (div - fl > 0.5f) fl += 1.0f;
+  return fl;
+}
+
+// The UV of a hit at x (intersect.parse_hit: spherical from the world
+// position on a sphere, else planar by the dominant axis of the normal n,
+// a discrete choice) for the cotangents (g_u, g_v): the cotangent of x.
+__device__ V3 uv_bwd(int mesh, V3 x, V3 n, float g_u, float g_v) {
+  if (mesh == MESH_SPHERE) {
+    // u = asin(clamp(y / rho, -0.999999, 0.999999)) / PI, v = atan2(z, x) / TWO_PI
+    const float ss = dot(x, x);
+    const float rho = sqrtf(fmaxf(ss, EPS));
+    const float yr = x.y / rho;
+    const float cl = fminf(fmaxf(yr, -0.999999f), 0.999999f);
+    const float g_cl = (g_u / PI) / sqrtf(1.0f - cl * cl);
+    const float g_yr = (yr >= -0.999999f && yr <= 0.999999f) ? g_cl : 0.0f;
+    const float g_rho = -g_yr * x.y / (rho * rho);
+    const float g_ss = ss >= EPS ? g_rho / (2.0f * rho) : 0.0f;
+    const float g_th = g_v / TWO_PI;
+    const float r2 = x.x * x.x + x.z * x.z;
+    return {2.0f * x.x * g_ss - g_th * x.z / r2, g_yr / rho + 2.0f * x.y * g_ss,
+            2.0f * x.z * g_ss + g_th * x.x / r2};
+  }
+  const float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+  if (ax > ay && ax > az) return {0.0f, -g_v, -g_u};  // (-z, -y)
+  if (ay > ax && ay > az) return {g_u, 0.0f, g_v};    // (x, z)
+  return {g_u, -g_v, 0.0f};                           // (x, -y)
+}
+
+// bilinear_wrap at (uu, vv) for the cotangent g of its four channels:
+// the cotangents of uu and vv (the wrap and the cell index carry none).
+__device__ void bilinear_wrap_bwd(const float *__restrict__ img, int h, int w, float uu, float vv,
+                                  V4 g, float &g_u, float &g_v) {
+  const float u = uu - floorf(uu), v = vv - floorf(vv);
+  const float x = u * (float)w - 0.5f, y = v * (float)h - 0.5f;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int x0 = wrap((int)x0f, w), y0 = wrap((int)y0f, h);
+  const int x1 = wrap(x0 + 1, w), y1 = wrap(y0 + 1, h);
+  const float *t00 = img + ((size_t)y0 * w + x0) * 4, *t01 = img + ((size_t)y0 * w + x1) * 4;
+  const float *t10 = img + ((size_t)y1 * w + x0) * 4, *t11 = img + ((size_t)y1 * w + x1) * 4;
+  const float gk[4] = {g.x, g.y, g.z, g.w};
+  float g_fx = 0.0f, g_fy = 0.0f;
+  for (int k = 0; k < 4; ++k) {
+    const float c00 = __ldg(t00 + k), c01 = __ldg(t01 + k);
+    const float c10 = __ldg(t10 + k), c11 = __ldg(t11 + k);
+    g_fx += gk[k] * ((c01 - c00) * (1.0f - fy) + (c11 - c10) * fy);
+    g_fy += gk[k] * ((c10 * (1.0f - fx) + c11 * fx) - (c00 * (1.0f - fx) + c01 * fx));
+  }
+  g_u = g_fx * (float)w;
+  g_v = g_fy * (float)h;
+}
+
+// d/df of the smoothstep weight f f (3 - 2 f) of the noise functions,
+// 6 f (1 - f), in the form that keeps its precision where it vanishes
+__device__ __forceinline__ float fade_bwd(float f) { return 6.0f * f * (1.0f - f); }
+
+// gradient_noise(p) for its cotangent g: the cotangent of p (the hashed
+// corner gradients are constant within a cell).
+__device__ V3 gradient_noise_bwd(V3 p, float g) {
+  const V3 i = {floorf(p.x), floorf(p.y), floorf(p.z)};
+  const V3 f = p - i;
+  const V3 u = {f.x * f.x * (3.0f - 2.0f * f.x), f.y * f.y * (3.0f - 2.0f * f.y),
+                f.z * f.z * (3.0f - 2.0f * f.z)};
+  V3 hs[8];
+  float gv[8];
+  for (int c = 0; c < 8; ++c) {  // corner c = (c & 1, c >> 1 & 1, c >> 2 & 1)
+    const V3 off = {(float)(c & 1), (float)((c >> 1) & 1), (float)((c >> 2) & 1)};
+    hs[c] = gradient_hash(i + off);
+    gv[c] = dot(hs[c], f - off);
+  }
+  const float a = mix1(gv[0], gv[1], u.x), b = mix1(gv[2], gv[3], u.x);
+  const float cc = mix1(gv[4], gv[5], u.x), dd = mix1(gv[6], gv[7], u.x);
+  const float e1 = mix1(a, b, u.y), e2 = mix1(cc, dd, u.y);
+  const float g_e1 = g * (1.0f - u.z), g_e2 = g * u.z;
+  const float g_uz = g * (e2 - e1);
+  const float g_lo[4] = {g_e1 * (1.0f - u.y), g_e1 * u.y, g_e2 * (1.0f - u.y), g_e2 * u.y};
+  const float g_uy = g_e1 * (b - a) + g_e2 * (dd - cc);
+  float g_ux = 0.0f;
+  V3 g_f = zero3();
+  for (int q = 0; q < 4; ++q) {
+    g_ux += g_lo[q] * (gv[2 * q + 1] - gv[2 * q]);
+    g_f = g_f + hs[2 * q] * (g_lo[q] * (1.0f - u.x)) + hs[2 * q + 1] * (g_lo[q] * u.x);
+  }
+  return g_f + V3{g_ux * fade_bwd(f.x), g_uy * fade_bwd(f.y), g_uz * fade_bwd(f.z)};
+}
+
+// value_noise(lut, x) for its cotangent g: the cotangent of x.
+__device__ V3 value_noise_bwd(const float *__restrict__ lut, int n, V3 x, float g) {
+  const V3 p = {floorf(x.x), floorf(x.y), floorf(x.z)};
+  const V3 f0 = x - p;
+  const V3 f = {f0.x * f0.x * (3.0f - 2.0f * f0.x), f0.y * f0.y * (3.0f - 2.0f * f0.y),
+                f0.z * f0.z * (3.0f - 2.0f * f0.z)};
+  const float u = (p.x + 37.0f * p.z) + f.x, v = (p.y + 17.0f * p.z) + f.y;
+  const float x0f = floorf(u), y0f = floorf(v);
+  const float fx = u - x0f, fy = v - y0f;
+  const int x0 = wrap((int)x0f, n), y0 = wrap((int)y0f, n);
+  const int x1 = wrap(x0 + 1, n), y1 = wrap(y0 + 1, n);
+  float val[2], dfx[2], dfy[2];
+  for (int ch = 0; ch < 2; ++ch) {  // channel 1 (g), then 0 (r)
+    const int c = 1 - ch;
+    const float c00 = __ldg(lut + ((size_t)y0 * n + x0) * 4 + c);
+    const float c01 = __ldg(lut + ((size_t)y0 * n + x1) * 4 + c);
+    const float c10 = __ldg(lut + ((size_t)y1 * n + x0) * 4 + c);
+    const float c11 = __ldg(lut + ((size_t)y1 * n + x1) * 4 + c);
+    const float top = c00 * (1.0f - fx) + c01 * fx, bot = c10 * (1.0f - fx) + c11 * fx;
+    val[ch] = top * (1.0f - fy) + bot * fy;
+    dfx[ch] = (c01 - c00) * (1.0f - fy) + (c11 - c10) * fy;
+    dfy[ch] = bot - top;
+  }
+  // value = g_ch + (r_ch - g_ch) f.z
+  const float g_g = g * (1.0f - f.z), g_r = g * f.z;
+  return {(g_g * dfx[0] + g_r * dfx[1]) * fade_bwd(f0.x),
+          (g_g * dfy[0] + g_r * dfy[1]) * fade_bwd(f0.y), g * (val[1] - val[0]) * fade_bwd(f0.z)};
+}
+
+// metal_fbm(lut, q) for its cotangent g: the cotangent of q.
+__device__ V3 metal_fbm_bwd(const float *__restrict__ lut, int n, V3 q0, float g) {
+  const V3 m = {-1.2f, 1.99f, -1.6f};
+  const V3 q1 = m * q0 * 2.01f;
+  const V3 q2 = m * q1 * 2.02f;
+  const V3 g2 = value_noise_bwd(lut, n, q2, 0.125f * g);
+  const V3 g1 = value_noise_bwd(lut, n, q1, 0.25f * g) + g2 * 2.02f * m;
+  return value_noise_bwd(lut, n, q0, 0.5f * g) + g1 * 2.01f * m;
+}
+
+// get_texel of a hit of mesh `idx` (texture type t, mesh type `mesh`,
+// params tp) at x with geometric normal n, for the cotangent g of its four
+// channels: returns the cotangent of x and adds the params' (columns
+// 26:30) into G.  An image texel reaches x through its UV; a CHECK or
+// RIPPLE texel is piecewise constant in the UV, and its params reach it
+// only through the divisor of torch.remainder (tp[2], tp[3]); the noise
+// types reach x and tp[0:3] through scaled = tp[0:3] x.  A VORONOI
+// texel's alpha is 0, so no blend reads it and it has no cotangent.
+template <class Acc>
+__device__ V3 texel_bwd(int idx, int t, int mesh, const float *tp, V3 x, V3 n,
+                        const float *__restrict__ images, int img_h, int img_w,
+                        const float *__restrict__ lut, int lut_n, V4 g, const Acc &G) {
+  if (t < 0 || t > TEX_METAL || t == TEX_VORONOI) return zero3();
+  const float g_val = g.x + g.y + g.z + g.w;
+  if (t <= TEX_IMAGE3 || t == TEX_CHECK || t == TEX_RIPPLE) {
+    float uu, vv;
+    if (mesh == MESH_SPHERE) {
+      const float rho = sqrtf(fmaxf(dot(x, x), EPS));
+      const float phi = asinf(fminf(fmaxf(x.y / rho, -0.999999f), 0.999999f));
+      uu = phi / PI;
+      vv = atan2f(x.z, x.x) / TWO_PI;
+    } else {
+      const float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+      const bool x_dom = ax > ay && ax > az, y_dom = ay > ax && ay > az;
+      uu = x_dom ? -x.z : x.x;
+      vv = x_dom ? -x.y : (y_dom ? x.z : -x.y);
+    }
+    if (t <= TEX_IMAGE3) {
+      float g_u, g_v;
+      bilinear_wrap_bwd(images + (size_t)t * img_h * img_w * 4, img_h, img_w, uu, vv, g, g_u, g_v);
+      return uv_bwd(mesh, x, n, g_u, g_v);
+    }
+    if (t == TEX_CHECK) {
+      if (tp[2] >= 1e-6f)
+        G.add(idx, C_TP + 2, -g_val * div_floor(floorf(tp[0] * uu) + floorf(tp[1] * vv),
+                                                fmaxf(tp[2], 1e-6f)));
+    } else {
+      const float du = uu - tp[0], dv = vv - tp[1];
+      if (tp[3] >= 1e-6f)
+        G.add(idx, C_TP + 3, -g_val * div_floor(ceilf(sqrtf(du * du + dv * dv) * tp[2]),
+                                                fmaxf(tp[3], 1e-6f)));
+    }
+    return zero3();
+  }
+  const V3 scaled = {tp[0] * x.x, tp[1] * x.y, tp[2] * x.z};
+  V3 g_s;
+  if (t == TEX_GRADIENT_NOISE) {
+    // smoothstep(-0.7, 0.7, f): tt = clamp((f + 0.7) / 1.4, 0, 1), tt tt (3 - 2 tt)
+    const float q = (gradient_noise(scaled) + 0.7f) / 1.4f;
+    const float tt = fminf(fmaxf(q, 0.0f), 1.0f);
+    const float g_q = (q >= 0.0f && q <= 1.0f) ? g_val * fade_bwd(tt) : 0.0f;
+    g_s = gradient_noise_bwd(scaled, g_q / 1.4f);
+  } else if (t == TEX_VALUE_NOISE) {
+    g_s = value_noise_bwd(lut, lut_n, scaled, g_val);
+  } else {
+    g_s = metal_fbm_bwd(lut, lut_n, scaled, g_val);
+  }
+  G.add3(idx, C_TP, g_s * x);
+  return g_s * V3{tp[0], tp[1], tp[2]};
+}
+
+// blended_color_emission of a hit of mesh `idx` at x (geometric normal n)
+// for the cotangents g_c, g_e of the color and emission after their floor
+// of 0.001: adds the scene's cotangents (color, emission, the texture's
+// masks and params) and returns the cotangent of x (through the texel).
+// The blend is mix(own, texel rgb * mask, alpha), as in the plain version.
+// A mesh with no texture (NONE, -1) blends an alpha of 0 whatever its
+// flags: its masks have no cotangent, and K2 keeps no column for them
+// (megakernel.bwd_columns).
+template <class Acc>
+__device__ V3 blend_bwd(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps, int idx, V3 x,
+                        V3 n, V3 g_c, V3 g_e, const Acc &G) {
+  const V3 c0 = s.c(idx), e0 = s.e(idx);
+  const int bl = a.use_tex && ps.tex[idx] >= 0 ? ps.blend[idx] : 0;
+  if (!bl) {
+    G.add3(idx, C_CR, pass_ge(c0, 0.001f, g_c));
+    G.add3(idx, C_ER, pass_ge(e0, 0.001f, g_e));
+    return zero3();
+  }
+  const int tex = ps.tex[idx];
+  const float *tp = s.col(idx, C_TP);
+  const V4 t = get_texel(tex, s.mesh[idx], tp, x, n, a.images, a.img_h, a.img_w, a.noise,
+                         a.noise_n);
+  const V3 tc = {t.x, t.y, t.z};
+  const float bc = (bl & 1) ? t.w : 0.0f, be = (bl & 2) ? t.w : 0.0f;
+  const float *cmp = s.col(idx, C_CM), *emp = s.col(idx, C_EM);
+  const V3 cm = {cmp[0], cmp[1], cmp[2]}, em = {emp[0], emp[1], emp[2]};
+  const V3 gcb = pass_ge(c0 + (tc * cm - c0) * bc, 0.001f, g_c);
+  const V3 geb = pass_ge(e0 + (tc * em - e0) * be, 0.001f, g_e);
+  G.add3(idx, C_CR, gcb * (1.0f - bc));
+  G.add3(idx, C_ER, geb * (1.0f - be));
+  V3 g_tc = zero3();
+  float g_w = 0.0f;
+  if (bl & 1) {
+    G.add3(idx, C_CM, gcb * tc * bc);
+    g_tc = g_tc + gcb * cm * bc;
+    g_w += dot(gcb, tc * cm - c0);
+  }
+  if (bl & 2) {
+    G.add3(idx, C_EM, geb * tc * be);
+    g_tc = g_tc + geb * em * be;
+    g_w += dot(geb, tc * em - e0);
+  }
+  return texel_bwd(idx, tex, s.mesh[idx], tp, x, n, a.images, a.img_h, a.img_w, a.noise,
+                   a.noise_n, V4{g_tc.x, g_tc.y, g_tc.z, g_w}, G);
 }
 
 }  // namespace

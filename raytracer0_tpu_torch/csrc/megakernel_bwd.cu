@@ -4,39 +4,61 @@
 // Replaces the Pallas TPU kernel
 // raytracer0_tpu/ops/megakernel.py::_bwd_slotted_kernel_body (launched by
 // `_backward`), and computes the same outputs as its whole-trace twin
-// `_bwd_kernel_body` (RT0_BWD_SLOTTED=0), for K1's Cornell class.  Given
-// K1's inputs and the cotangent ct f32[n_pix, 3] of its radiance it returns
-// d_table f32[n_mesh, 36] and d_ro, d_rd f32[n_pix, 3]: the gradients that
+// `_bwd_kernel_body` (RT0_BWD_SLOTTED=0), over K1's whole class without
+// ReSTIR: every surface material, sphere and directional lights, cosine
+// and uniform sampling, BOX and ROUND_BOX SDF meshes, the cubemap or the
+// procedural sky, and textures of all ten types.  Given K1's inputs and
+// the cotangent ct f32[n_pix, 3] of its radiance it returns d_table
+// f32[n_mesh, 36] and d_ro, d_rd f32[n_pix, 3]: the gradients that
 // torch.autograd gives through the plain version
-// (raytracer0_tpu_torch/render/integrator.py::trace).  CUDA has no autodiff,
-// so the adjoint of each step of a bounce is written out by hand, below and
-// in adjoint.cuh (shared with K7).
+// (raytracer0_tpu_torch/render/integrator.py::trace).  The texel arrays
+// (images, noise LUT, cubemap) get none: the wrapper refuses a gradient
+// w.r.t. them.  CUDA has no autodiff, so the adjoint of each step of a
+// bounce is written out by hand, below and in adjoint.cuh (shared with K7).
+//
+// Two copies, each a template instance for a column of accumulators per
+// thread and per warp:
+//  * the Cornell copy (bwd_kernel, slot_bwd): analytic DIFF and LIGHT
+//    meshes, sphere-light slots, no texture, the procedural sky, cosine
+//    sampling, and the 10 table columns that have a cotangent there (pos
+//    0:3, joker.x 3, color 7:10, emission 10:13).  Its code is the code K2
+//    had before the wide copy came.
+//  * the wide copy (bwd_wide_kernel, wide_slot_bwd) for the rest, with the
+//    scene's set of columns (a mask the wrapper picks, megakernel.
+//    bwd_columns, mapped to accumulators in shared memory): Cornell's, and
+//    joker 4:7 under SDF rows, the IOR under refraction, the texture
+//    params, color mask and emission mask where textures are used.
 //
 // Scheme: the per-slot stash of the Pallas kernel, one thread per pixel.
-//  * forward sweep: run K1's bounce loop without NEE and without the
-//    accumulator (neither changes the carry) and stash, for every slot the
-//    path runs, the carry entering it (o, d, mask, prev_nl) and the hit its
-//    ray found (t, idx): 14 words.  The accumulator needs no stash (its
-//    cotangent is ct at every slot), nor do the integer counters (no
-//    cotangent), and `specular` is (depth == 0) in this class.  A path runs
-//    at most min(max_bounces, max_diff + 1) slots.
+//  * forward sweep: run K1's bounce loop without NEE, the gather ray and
+//    the accumulator (none changes the carry) and stash, for every slot
+//    the path runs, the carry entering it (o, d, mask, prev_nl; the wide
+//    copy also the `specular` flag, which in the Cornell class is
+//    depth == 0) and the hit its ray found (t, idx).  The accumulator
+//    needs no stash (its cotangent is ct at every slot), nor do the integer
+//    counters (no cotangent).  A path runs at most megakernel.bwd_slots
+//    slots: on the Cornell copy each slot that goes on is a diffuse bounce,
+//    elsewhere it adds one to one of three capped counters.
 //  * reverse sweep: newest slot first, recompute the slot from its stash
-//    (normal, BSDF sample, NEE shadow rays: the counter RNG replays every
-//    draw exactly; the slot's own ray is not scanned again) and run its
-//    hand-derived adjoint, chaining the carry cotangents back to the
-//    primary ray.
-// Discrete decisions (winner index, shadow-ray hit, `inside`, validity, the
-// MIS energy gate, cutoff and caps) carry no gradient, as `torch.where`
-// gives in the plain version.  Ties follow the plain version's autograd:
-// clamp and clamp_min pass the gradient at the bound, amax/amin split it
-// evenly between tied slabs.
+//    (normal, texel, BSDF sample, NEE shadow rays and the gather ray: the
+//    counter RNG replays every draw exactly; the slot's own ray is not
+//    scanned again) and run its hand-derived adjoint, chaining the carry
+//    cotangents back to the primary ray.  An SDF hit's t is reattached
+//    implicitly, as ops/sdf.march does, and its normal is the tetrahedral
+//    one's adjoint.
+// Discrete decisions (winner index, shadow-ray hit, `inside`, validity,
+// the Fresnel and Schlick choices, the cubemap face, texel cells, the MIS
+// energy gate, cutoff and caps) carry no gradient, as `torch.where` gives
+// in the plain version.  Ties follow the plain version's autograd: clamp
+// and clamp_min pass the gradient at the bound, amax/amin and the SDF
+// scene map's torch.minimum split it between tied values.  The emission of
+// a glossy surface bends its direction detached, as in the plain version.
 //
-// The d_table reduction across pixels is deterministic.  The 10 table
-// columns with a cotangent (pos 0:3, joker.x 3, color 7:10, emission 10:13)
-// are summed per mesh into columns of accumulators in shared memory:
+// The d_table reduction across pixels is deterministic.  The columns are
+// summed per mesh into columns of accumulators in shared memory:
 //  * a column per thread while 3 blocks of such columns fit an SM's shared
-//    memory (bwd_layout: up to 14 meshes on an H100, Cornell's 8 among
-//    them); a thread adds into its own column;
+//    memory (bwd_layout: up to 14 meshes on an H100 at Cornell's 10
+//    columns); a thread adds into its own column;
 //  * a column per warp beyond that (many meshes): an add groups the warp's
 //    active lanes by mesh (__match_any_sync), sums each group's values over
 //    a fixed tree of lane ranks with shuffles, and the group's lowest lane
@@ -54,12 +76,13 @@
 //
 // What bounds it: like K1, instruction latency and divergence, not memory.
 // A pixel reads 40 bytes and writes 24; the work is the scan of every ran
-// slot's ray (forward sweep) and of its shadow rays (reverse sweep), plus
-// an adjoint about twice a bounce's arithmetic, with branches that diverge
-// per pixel.  What the design does about that (PERF.md's K2 ablation):
+// slot's ray (forward sweep) and of its shadow and gather rays (reverse
+// sweep), plus an adjoint about twice a bounce's arithmetic, with branches
+// that diverge per pixel.  What the design does about that (PERF.md's K2
+// ablation):
 //  * every ray scans the analytic meshes through K1's packed float4
-//    records (trace_common.cuh::intersect_packed_analytic), with the same
-//    winner, so the bits do not change;
+//    records (trace_common.cuh::intersect_packed), with the same winner, so
+//    the bits do not change; SDF rows are marched behind K1's gate;
 //  * the reverse sweep takes each slot's hit from the stash instead of
 //    scanning its ray a second time;
 //  * a column per warp takes 32 times less shared memory than a column per
@@ -67,11 +90,14 @@
 //    per SM (47 meshes: 15,788 B a block, where a column per thread left one
 //    block of 64 threads per SM); on a few meshes the group sums cost more
 //    than the columns save, so those keep a column per thread;
-//  * __launch_bounds__ budgets: 4 blocks per SM (128 registers, no spill)
-//    with a column per thread, 8 (64 registers, the spills stay in L1) with
-//    a column per warp.  The stash (14 words a slot) lives in local memory,
-//    which the L1 cache serves.
+//  * the wide copy keeps the scene's columns, not all 24 a scene may have,
+//    so the switch between the layouts follows the scene;
+//  * __launch_bounds__ budgets: 4 blocks per SM (128 registers) with a
+//    column per thread, 8 (64 registers, the spills stay in L1) with a
+//    column per warp.  The stash (14 or 15 words a slot) lives in local
+//    memory, which the L1 cache serves.
 
+#include <cassert>
 #include <type_traits>
 
 #include "adjoint.cuh"
@@ -92,17 +118,46 @@ constexpr int MIN_BLOCKS_WARP_COLS = 8;
 // ablation), so the two copies cross inside the 3-block band
 constexpr int THREAD_COLS_FEWEST_BLOCKS = 3;
 
-// cotangent columns kept per mesh (pos 0:3, joker.x 3, color 7:10,
-// emission 10:13), and the scene-table column of each
+// the Cornell copy's cotangent columns per mesh (pos 0:3, joker.x 3,
+// color 7:10, emission 10:13), as a mask of scene-table columns
 constexpr int NG = 10;
-__host__ __device__ constexpr int table_col_of(int g) { return g < 4 ? g : g + 3; }
+constexpr unsigned long long CORNELL_COLS = 0x1F8Full;
 __device__ __forceinline__ int acc_col_of(int col) { return col < 4 ? col : col - 3; }
 
+// The columns of `cols` (a mask of scene-table columns) below `col`: the
+// accumulator of column `col` when it is in the mask.
+__host__ __device__ inline int cols_below(unsigned long long cols, int col) {
+  int k = 0;
+  for (int j = 0; j < col; ++j) k += (int)((cols >> j) & 1ull);
+  return k;
+}
+
+// The cotangent columns a copy of K2 keeps per mesh: the Cornell copy's
+// fixed 10, or (the wide copy) the scene's set, a map from table column to
+// accumulator in shared memory (megakernel.bwd_columns picks it).
+struct CornellCols {
+  __device__ __forceinline__ int n() const { return NG; }
+  __device__ __forceinline__ int of(int col) const { return acc_col_of(col); }
+};
+struct SceneCols {
+  const int *map;  // [NCOLS]: the accumulator of each table column the scene keeps, else -1
+  int count;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int of(int col) const {
+#ifndef __CUDA_ARCH__
+    assert(map[col] >= 0);  // the host build checks that every add has its column
+#endif
+    return map[col];
+  }
+};
+
 struct BwdArgs {
-  TraceArgs t;           // K1's arguments (t.out unused)
-  const float *ct;       // [n_pix, 3] cotangent of the radiance
-  float *d_ro, *d_rd;    // [n_pix, 3]
-  float *partials;       // [n_blocks, n_mesh, NG]
+  TraceArgs t;             // K1's arguments (t.out unused)
+  const float *ct;         // [n_pix, 3] cotangent of the radiance
+  float *d_ro, *d_rd;      // [n_pix, 3]
+  float *partials;         // [n_blocks, n_mesh, ng]
+  unsigned long long cols; // the scene-table columns kept, ng of them
+  int ng;
 };
 
 // Sum v[0:N] over the lanes of `grp` (a group of the warp's active lanes,
@@ -131,15 +186,17 @@ __device__ __forceinline__ void group_sum(unsigned grp, float (&v)[N]) {
 // This warp's column of the block's cotangent accumulators; `col` is a
 // scene-table column (adjoint.cuh).  The add is atomic because lanes of
 // the warp on another divergent path may add to the same entry meanwhile.
+template <class Cols>
 struct WarpAcc {
-  float *g;  // entry (mesh, k) at g[mesh * NG + k]
+  float *g;   // entry (mesh, k) at g[mesh * cols.n() + k]
+  Cols cols;
   template <int N>
   __device__ __forceinline__ void put(int mesh, int col, float (&v)[N]) const {
     const unsigned grp = __match_any_sync(__activemask(), mesh);
     group_sum<N>(grp, v);
     const int lane = (int)(threadIdx.x & 31u);
     if ((grp & ((1u << lane) - 1u)) == 0u) {  // the group's lowest lane
-      float *e = g + mesh * NG + acc_col_of(col);
+      float *e = g + mesh * cols.n() + cols.of(col);
 #pragma unroll
       for (int k = 0; k < N; ++k) atomicAdd(e + k, v[k]);
     }
@@ -156,11 +213,13 @@ struct WarpAcc {
 
 // This thread's column of the block's cotangent accumulators; `col` is a
 // scene-table column (adjoint.cuh).
+template <class Cols>
 struct ThreadAcc {
   float *g;     // entry e at g[e * stride]
   int stride;   // blockDim.x
+  Cols cols;
   __device__ __forceinline__ void add(int mesh, int col, float v) const {
-    g[(mesh * NG + acc_col_of(col)) * stride] += v;
+    g[(mesh * cols.n() + cols.of(col)) * stride] += v;
   }
   __device__ __forceinline__ void add3(int mesh, int col, V3 v) const {
     add(mesh, col, v.x);
@@ -171,15 +230,45 @@ struct ThreadAcc {
 
 // shade_nee forward and adjoint in one pass: returns the NEE total (before
 // the throughput factor) and adds the cotangents of x, nl and the scene for
-// the cotangent g_tot of that total.
-template <class Acc>
-__device__ V3 shade_nee_bwd(const SceneSmem &s, const PackedScene &pk, V3 x, V3 nl,
-                            uint32_t h_depth, float eps, float inf, bool use_mis, V3 g_tot,
-                            V3 &g_x, V3 &g_nl, const Acc &G) {
+// the cotangent g_tot of that total.  The wide copy (kWide) also lights by
+// directional slots (none under MIS, whose weight for them is 0), skips
+// slots of any other kind, marches the SDF rows and, where LIGHT meshes
+// have textures, blends the shadow hit's texel into its color
+// (trace_common.cuh::shadow_texel_color), as K1 does; the Cornell copy
+// compiles those parts out.
+template <bool kWide, class Acc>
+__device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfScene &sd,
+                            const PackedScene &pk, const int *tex, V3 x, V3 nl, uint32_t h_depth,
+                            float eps, float inf, bool use_mis, V3 g_tot, V3 &g_x, V3 &g_nl,
+                            const Acc &G) {
   V3 total = zero3();
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
     if (li < 0) continue;  // sentinel slot: no light
+    if constexpr (kWide) {
+      if (s.mat[li] == MAT_DIR_LIGHT) {
+        if (use_mis) continue;
+        // c e max(dot(lp, nl), 0.001) where the occlusion ray escapes
+        const V3 lp = s.p(li);
+        float ts;
+        int hidx;
+        intersect_packed<true>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
+        if (ts < inf) continue;
+        const V3 lc = s.c(li), le = s.e(li);
+        const float cos_raw = dot(lp, nl);
+        const float cos_term = fmaxf(cos_raw, 0.001f);
+        total = total + lc * le * cos_term;
+        G.add3(li, C_CR, g_tot * le * cos_term);
+        G.add3(li, C_ER, g_tot * lc * cos_term);
+        if (cos_raw >= 0.001f) {
+          const float g_cos = dot(g_tot, lc * le);
+          G.add3(li, C_PX, nl * g_cos);
+          g_nl = g_nl + lp * g_cos;
+        }
+        continue;
+      }
+      if (s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
+    }
     uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_NEE_CONE, 5u);
     float u1 = u01(h), u2 = u01(pcg(h));
     V3 lp = s.p(li);
@@ -194,12 +283,28 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, const PackedScene &pk, V3 x, V3 
     V3 sr = sample_cone(ldir, extent, u1, u2);
     float ts;
     int hidx;
-    intersect_packed_analytic(pk, x + nl * eps, sr, eps, ts, hidx);
+    bool sdf_shadow = false;
+    if constexpr (kWide)
+      sdf_shadow = intersect_packed<true>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx);
+    else
+      intersect_packed_analytic(pk, x + nl * eps, sr, eps, ts, hidx);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_raw = dot(sr, nl);
     float cos_term = fmaxf(cos_raw, 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);
     V3 lc_raw = s.c(hidx);
+    // in a scene with textured lights the shadow hit's texel blends into its
+    // color (trace_common.cuh::shadow_texel_color)
+    bool textured = false;
+    V4 tx = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (kWide) {
+      textured = (a.use_tex & 2) != 0;
+      if (textured) {
+        tx = get_texel(tex[hidx], s.mesh[hidx], s.col(hidx, C_TP), x + nl * eps + sr * ts,
+                       zero3(), a.images, a.img_h, a.img_w, a.noise, a.noise_n);
+        lc_raw = lc_raw + (V3{tx.x, tx.y, tx.z} - lc_raw) * tx.w;
+      }
+    }
     V3 lc = vmax(lc_raw, 0.001f);
     V3 le = s.e(hidx);
     float sc = weight * cos_term;
@@ -232,13 +337,34 @@ __device__ V3 shade_nee_bwd(const SceneSmem &s, const PackedScene &pk, V3 x, V3 
     total = total + contrib;
 
     // contrib = max(c, 0.001) * e * (weight * cos_term)
-    G.add3(hidx, C_CR, pass_ge(lc_raw, 0.001f, g_c * le * sc));
+    V3 g_sr = zero3();
+    if (!textured) {
+      G.add3(hidx, C_CR, pass_ge(lc_raw, 0.001f, g_c * le * sc));
+    } else {
+      // c' = c + (texel - c) alpha, the texel at hp = so + sr ts(so, sr, scene)
+      const V3 g_lr = pass_ge(lc_raw, 0.001f, g_c * le * sc);
+      const V3 c0 = s.c(hidx), trgb = {tx.x, tx.y, tx.z};
+      G.add3(hidx, C_CR, g_lr * (1.0f - tx.w));
+      const V3 so = x + nl * eps;
+      const V3 g_hp = texel_bwd(hidx, tex[hidx], s.mesh[hidx], s.col(hidx, C_TP), so + sr * ts,
+                                zero3(), a.images, a.img_h, a.img_w, a.noise, a.noise_n,
+                                V4{g_lr.x * tx.w, g_lr.y * tx.w, g_lr.z * tx.w,
+                                   dot(g_lr, trgb - c0)}, G);
+      V3 g_so = g_hp;
+      g_sr = g_hp * ts;
+      const float g_ts = dot(g_hp, sr);
+      if (sdf_shadow)
+        sdf_t_bwd<true>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts, g_so, g_sr, G);
+      else
+        isect_bwd(s, hidx, so, sr, eps, g_ts, g_so, g_sr, G);
+      g_x = g_x + g_so;
+      g_nl = g_nl + g_so * eps;
+    }
     G.add3(hidx, C_ER, g_c * lc * sc);
     float g_sc = dot(g_c, lc * le);
     float g_cos = g_sc * weight;
-    V3 g_sr = zero3();
     if (cos_raw >= 0.001f) {
-      g_sr = nl * g_cos;
+      g_sr = textured ? g_sr + nl * g_cos : nl * g_cos;
       g_nl = g_nl + sr * g_cos;
     }
     V3 g_ld2;
@@ -336,8 +462,9 @@ __device__ void slot_bwd(const SceneSmem &s, const PackedScene &pk, const TraceA
     V3 g_nl = go_out * a.eps + gp_out + sample_biased_bwd(nl, u01(h_dir), u01(pcg(h_dir)), gd_out);
     V3 g_ma = gm_out;
     if (a.sample_lights) {
-      V3 total = shade_nee_bwd(s, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis, ct * mask_after,
-                               g_x, g_nl, G);
+      const SdfScene no_sdf = {};
+      V3 total = shade_nee_bwd<false>(a, s, no_sdf, pk, nullptr, x, nl, h_depth, a.eps, a.inf,
+                                      a.use_mis, ct * mask_after, g_x, g_nl, G);
       g_ma = g_ma + ct * total;
     }
     g_mask = g_ma * c;
@@ -351,16 +478,164 @@ __device__ void slot_bwd(const SceneSmem &s, const PackedScene &pk, const TraceA
   isect_bwd(s, idx, o, d, a.eps, dot(g_x, d), g_o, g_d, G);
 }
 
-// Where K2's cotangent columns start in dynamic shared memory (bytes): after
-// the scene (load_scene) and its packed records (load_packed, no SDF rows).
-__host__ __device__ inline size_t bwd_columns_offset(int n_mesh, int n_lights) {
-  return packed_smem_bytes(scene_smem_bytes(n_mesh, n_lights), n_mesh, 0);
+// Stashed floats per slot of the wide copy: o, d, mask, prev_nl, specular.
+constexpr int STW = 13;
+
+// Adjoint of slot `depth` of K1's loop in the wide copy (path.cuh::
+// path_step over K1's whole non-ReSTIR class).  In: the stashed carry
+// entering the slot `sk`, the hit (t, idx) of its ray and, in g_*, the
+// cotangents of the carry leaving it.  Out: g_* hold the cotangents of the
+// carry entering it; the scene's are added into G.
+template <class Acc>
+__device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const PackedScene &pk,
+                              const TraceArgs &a, int depth, uint32_t h_pix, const float *sk,
+                              float t, int idx, V3 ct, V3 &g_o, V3 &g_d, V3 &g_mask, V3 &g_pnl,
+                              const Acc &G) {
+  const V3 o = {sk[0], sk[1], sk[2]}, d = {sk[3], sk[4], sk[5]};
+  const V3 mask = {sk[6], sk[7], sk[8]}, prev_nl = {sk[9], sk[10], sk[11]};
+  const bool specular = sk[12] != 0.0f;
+  const V3 go_out = g_o, gd_out = g_d, gm_out = g_mask, gp_out = g_pnl;
+  g_o = g_d = g_mask = g_pnl = zero3();
+
+  // ---- miss: acc += mask * environment(d) ----
+  if (!(t < a.inf)) {
+    if (specular || !a.sample_lights) {
+      if (a.use_cubemap) {
+        g_mask = ct * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, d);
+        g_d = cubemap_bwd(a.cubemap, a.cube_h, a.cube_w, d, ct * mask);
+      } else if (a.use_sky) {
+        g_mask = ct * procedural_sky(d);
+        g_d.y = sky_bwd(d, ct * mask);
+      }
+    }
+    return;
+  }
+  const int mat = s.mat[idx];
+  if (mat == MAT_DIR_LIGHT) return;  // the path ends without a contribution
+
+  const bool sdf_hit = idx >= ps.sd.first;  // the SDF rows follow the analytic ones
+  const V3 x = o + d * t;
+  const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+  V3 c, e;
+  blended_color_emission(a, s, ps, idx, x, n, c, e);
+  c = vmax(c, 0.001f);
+  e = vmax(e, 0.001f);
+  V3 g_x = zero3(), g_c = zero3(), g_e = zero3();
+
+  if (mat == MAT_LIGHT) {
+    // ---- emissive hit: acc += mask * c * e * mis_w ----
+    const bool mis = a.use_mis && a.sample_lights && depth > 0 && !specular;
+    float mis_w = 1.0f, l_pdf = 0.0f, b_pdf = 0.0f, b_cos = 0.0f;
+    V3 light_dir = zero3();
+    if (mis) {
+      light_dir = normalize(x - o);
+      l_pdf = s.mesh[idx] == MESH_SPHERE ? sphere_light_pdf(s.p(idx), s.j0(idx), o) : INV_FOUR_PI;
+      b_cos = dot(light_dir, prev_nl);
+      b_pdf = fmaxf(b_cos, 0.0f) * ONE_OVER_PI;
+      mis_w = power_heuristic(b_pdf, l_pdf);
+    }
+    g_mask = ct * c * e * mis_w;
+    g_c = ct * mask * e * mis_w;
+    g_e = ct * mask * c * mis_w;
+    if (mis) {
+      float g_b, g_l;
+      power_heuristic_bwd(b_pdf, l_pdf, dot(ct, mask * c * e), g_b, g_l);
+      if (b_cos >= 0.0f) {
+        const float gc = g_b * ONE_OVER_PI;
+        g_pnl = light_dir * gc;
+        const V3 g_xo = normalize_bwd(x - o, prev_nl * gc);
+        g_x = g_x + g_xo;
+        g_o = g_o - g_xo;
+      }
+      if (s.mesh[idx] == MESH_SPHERE) {
+        V3 g_lp, g_op;
+        float g_r;
+        sphere_light_pdf_bwd(s.p(idx), s.j0(idx), o, g_l, g_lp, g_r, g_op);
+        G.add3(idx, C_PX, g_lp);
+        G.add(idx, C_J0, g_r);
+        g_o = g_o + g_op;
+      }
+    }
+    g_x = g_x + blend_bwd(a, s, ps, idx, x, n, g_c, g_e, G);
+  } else {
+    // ---- a BSDF bounce: o', d' = bsdf_sample(...), mask' = mask mult,
+    //      prev_nl' = nl; at a diffuse vertex the gather ray and NEE ----
+    const float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
+    const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
+    const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
+    const float u1 = u01(h_dir), u2 = u01(pcg(h_dir));
+    const V3 nl = n * inside;
+    const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u1, u2,
+                                 u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+    const V3 mask_after = mask * b.mult;
+    const bool transmit = b.scat != 0;
+
+    g_x = go_out;
+    V3 g_nl = gp_out + go_out * (transmit ? -a.eps : a.eps);
+    V3 g_ma = gm_out;
+    bounce_dir_bwd(s, idx, b, d, nl, e, inside, u1, u2, a.use_biased, gd_out, g_d, g_nl, G);
+    if (!b.specular) {
+      if (a.use_cubemap) {
+        // the gather ray: acc += mask' * cubemap(env_dir) where it escapes
+        const uint32_t h_env = fold_step(h_depth, S_ENV_DIR, 4u);
+        const float eu1 = u01(h_env), eu2 = u01(pcg(h_env));
+        const V3 env_dir = random_direction(nl, eu1, eu2, a.use_biased);
+        float te;
+        int ie;
+        intersect_packed<true>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
+        if (!(te < a.inf)) {
+          g_ma = g_ma + ct * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
+          g_nl = g_nl + random_direction_bwd(nl, eu1, eu2, a.use_biased,
+                                             cubemap_bwd(a.cubemap, a.cube_h, a.cube_w, env_dir,
+                                                         ct * mask_after));
+        }
+      }
+      if (a.sample_lights) {
+        const V3 total = shade_nee_bwd<true>(a, s, ps.sd, pk, ps.tex, x, nl, h_depth, a.eps,
+                                             a.inf, a.use_mis, ct * mask_after, g_x, g_nl, G);
+        g_ma = g_ma + ct * total;
+      }
+    }
+    g_mask = g_ma * b.mult;
+    const bool attenuates = mat == MAT_DIFF || mat == MAT_SPEC || transmit ||
+                            (mat == MAT_COAT && !b.specular);
+    if (attenuates) g_c = g_ma * mask;
+    g_x = g_x + blend_bwd(a, s, ps, idx, x, n, g_c, g_e, G);
+    const V3 g_n = g_nl * inside;
+    if (sdf_hit)
+      g_x = g_x + sdf_normal_bwd<true>(s, ps.sd, x, a.eps, g_n, G);
+    else
+      normal_bwd(s, idx, x, g_n, g_x, G);
+  }
+
+  // ---- x = o + d t(o, d, scene) ----
+  g_o = g_o + g_x;
+  g_d = g_d + g_x * t;
+  const float g_t = dot(g_x, d);
+  if (sdf_hit)
+    sdf_t_bwd<true>(s, ps.sd, o, d, t, a.eps, 2.0f * a.eps, g_t, g_o, g_d, G);
+  else
+    isect_bwd(s, idx, o, d, a.eps, g_t, g_o, g_d, G);
 }
 
-// Dynamic shared memory of one K2 block: the scene, its packed records and
-// `columns` columns of NG cotangent accumulators per mesh.
-__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int columns) {
-  return bwd_columns_offset(n_mesh, n_lights) + sizeof(float) * n_mesh * NG * columns;
+// Where K2's cotangent columns start in dynamic shared memory (bytes).  The
+// Cornell copy: after the scene (load_scene) and its packed records
+// (load_packed, no SDF rows).  The wide copy: after the scene with its
+// texture codes, blend flags and SDF shapes (load_path), its packed records
+// with the SDF gates, and the column map (NCOLS ints).
+__host__ __device__ inline size_t bwd_columns_offset(int n_mesh, int n_lights, int n_sdf,
+                                                     bool wide) {
+  if (!wide) return packed_smem_bytes(scene_smem_bytes(n_mesh, n_lights), n_mesh, 0);
+  return packed_smem_bytes(path_smem_bytes(n_mesh, n_lights, n_sdf), n_mesh, n_sdf) +
+         sizeof(int) * NCOLS;
+}
+
+// Dynamic shared memory of one K2 block: bwd_columns_offset, then
+// `columns` columns of `ng` cotangent accumulators per mesh.
+__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int n_sdf, bool wide,
+                                                 int ng, int columns) {
+  return bwd_columns_offset(n_mesh, n_lights, n_sdf, wide) +
+         sizeof(float) * n_mesh * ng * columns;
 }
 
 // kWarpCols: a column per warp (WarpAcc), else per thread (ThreadAcc).
@@ -371,16 +646,17 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
   const TraceArgs &a = b.t;
   extern __shared__ __align__(16) float smem[];
   const SceneSmem s = load_scene(a, smem);
-  float *gsm = smem + bwd_columns_offset(a.n_mesh, a.n_lights) / sizeof(float);
+  float *gsm = smem + bwd_columns_offset(a.n_mesh, a.n_lights, 0, false) / sizeof(float);
   const int n_g = a.n_mesh * NG;
   const int n_cols = kWarpCols ? (blockDim.x + warpSize - 1) / warpSize : blockDim.x;
   for (int e = threadIdx.x; e < n_cols * n_g; e += blockDim.x) gsm[e] = 0.0f;
-  using Acc = typename std::conditional<kWarpCols, WarpAcc, ThreadAcc>::type;
+  using Acc = typename std::conditional<kWarpCols, WarpAcc<CornellCols>,
+                                        ThreadAcc<CornellCols>>::type;
   Acc G;
   if constexpr (kWarpCols)
-    G = {gsm + (threadIdx.x / warpSize) * n_g};
+    G = {gsm + (threadIdx.x / warpSize) * n_g, {}};
   else
-    G = {gsm + threadIdx.x, (int)blockDim.x};
+    G = {gsm + threadIdx.x, (int)blockDim.x, {}};
   const SdfScene no_sdf = {nullptr, a.n_mesh, 0, 0, 0.0f, 0.0f};
   const PackedScene pk = load_packed(s, no_sdf, smem, scene_smem_bytes(a.n_mesh, a.n_lights));
 
@@ -453,20 +729,130 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
   }
 }
 
+// The wide copy: K1's whole non-ReSTIR class (every material, directional
+// lights, uniform sampling, the cubemap, textures, BOX and ROUND_BOX SDF
+// rows), with the scene's column set.
+template <bool kWarpCols>
+__global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
+                                                         : MIN_BLOCKS_THREAD_COLS)
+    bwd_wide_kernel(BwdArgs b) {
+  const TraceArgs &a = b.t;
+  extern __shared__ __align__(16) float smem[];
+  SceneSmem s;
+  const PathSmem ps = load_path(a, smem, s);
+  const size_t path_bytes = path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf);
+  int *map = reinterpret_cast<int *>(smem) +
+             packed_smem_bytes(path_bytes, a.n_mesh, a.n_sdf) / sizeof(int);
+  float *gsm = smem + bwd_columns_offset(a.n_mesh, a.n_lights, a.n_sdf, true) / sizeof(float);
+  for (int c = threadIdx.x; c < NCOLS; c += blockDim.x)
+    map[c] = ((b.cols >> c) & 1ull) ? cols_below(b.cols, c) : -1;
+  const int n_g = a.n_mesh * b.ng;
+  const int n_cols = kWarpCols ? (blockDim.x + warpSize - 1) / warpSize : blockDim.x;
+  for (int e = threadIdx.x; e < n_cols * n_g; e += blockDim.x) gsm[e] = 0.0f;
+  using Acc = typename std::conditional<kWarpCols, WarpAcc<SceneCols>,
+                                        ThreadAcc<SceneCols>>::type;
+  const SceneCols cols = {map, b.ng};
+  Acc G;
+  if constexpr (kWarpCols)
+    G = {gsm + (threadIdx.x / warpSize) * n_g, cols};
+  else
+    G = {gsm + threadIdx.x, (int)blockDim.x, cols};
+  const PackedScene pk = load_packed(s, ps.sd, smem, path_bytes);  // synchronises the block
+
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < a.n_pix) {  // ragged edge: idle threads still join the block sum
+    V3 o = {a.ro[3 * p], a.ro[3 * p + 1], a.ro[3 * p + 2]};
+    V3 d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
+    const uint32_t h_pix = pixel_hash(a, p);
+
+    // ---- forward sweep: K1's carry updates (path_step without the
+    //      accumulator), stashing each slot's input and hit ----
+    float st[MAX_SLOTS * STW];
+    float st_t[MAX_SLOTS];
+    int st_idx[MAX_SLOTS];
+    V3 mask = {1.0f, 1.0f, 1.0f};
+    V3 prev_nl = {0.0f, 1.0f, 0.0f};
+    bool specular = true;
+    int ndif = 0, nspec = 0, nscat = 0, n_run = 0;
+    for (int depth = 0; depth < a.max_bounces && depth < MAX_SLOTS; ++depth) {
+      float *sk = st + depth * STW;
+      sk[0] = o.x, sk[1] = o.y, sk[2] = o.z, sk[3] = d.x, sk[4] = d.y, sk[5] = d.z;
+      sk[6] = mask.x, sk[7] = mask.y, sk[8] = mask.z;
+      sk[9] = prev_nl.x, sk[10] = prev_nl.y, sk[11] = prev_nl.z;
+      sk[12] = specular ? 1.0f : 0.0f;
+      n_run = depth + 1;
+
+      float tmin;
+      int idx;
+      const bool sdf_hit = intersect_packed<true>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx);
+      st_t[depth] = tmin;
+      st_idx[depth] = idx;
+      // a miss, an emissive or a DIR_LIGHT hit ends the path
+      if (!(tmin < a.inf) || s.mat[idx] == MAT_LIGHT || s.mat[idx] == MAT_DIR_LIGHT) break;
+      const V3 x = o + d * tmin;
+      const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+      V3 c, e;
+      blended_color_emission(a, s, ps, idx, x, n, c, e);
+      c = vmax(c, 0.001f);
+      e = vmax(e, 0.001f);
+      const float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
+      const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
+      const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
+      const V3 nl = n * inside;
+      const Bounce bb = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
+                                    u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps,
+                                    a.use_biased);
+      o = bb.o;
+      d = bb.d;
+      mask = mask * bb.mult;
+      specular = bb.specular;
+      prev_nl = nl;
+      ndif += bb.dif;
+      nspec += bb.spec;
+      nscat += bb.scat;
+      if (fmaxf(fmaxf(mask.x, mask.y), mask.z) < 0.01f || ndif >= a.max_diff ||
+          nspec >= a.max_spec || nscat >= a.max_scatter)
+        break;
+    }
+
+    // ---- reverse sweep: newest slot first ----
+    const V3 ct = {b.ct[3 * p], b.ct[3 * p + 1], b.ct[3 * p + 2]};
+    V3 g_o = zero3(), g_d = zero3(), g_mask = zero3(), g_pnl = zero3();
+    for (int k = n_run - 1; k >= 0; --k)
+      wide_slot_bwd(s, ps, pk, a, k, h_pix, st + k * STW, st_t[k], st_idx[k], ct, g_o, g_d,
+                    g_mask, g_pnl, G);
+    b.d_ro[3 * p] = g_o.x;
+    b.d_ro[3 * p + 1] = g_o.y;
+    b.d_ro[3 * p + 2] = g_o.z;
+    b.d_rd[3 * p] = g_d.x;
+    b.d_rd[3 * p + 1] = g_d.y;
+    b.d_rd[3 * p + 2] = g_d.z;
+  }
+
+  // ---- this block's partial of d_table, its columns summed in order ----
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_g; e += blockDim.x) {
+    float sum = 0.0f;
+    for (int c = 0; c < n_cols; ++c) sum += kWarpCols ? gsm[c * n_g + e] : gsm[e * n_cols + c];
+    b.partials[(size_t)blockIdx.x * n_g + e] = sum;
+  }
+}
+
 // d_table[entry] = sum over blocks of the partials, in a fixed order: one
-// block per table entry, a strided sum per thread, then a fixed tree.
+// block per table entry, a strided sum per thread, then a fixed tree.  A
+// column outside `cols` (the ng columns kept) is 0.
 __global__ void __launch_bounds__(RED_THREADS)
-    reduce_kernel(const float *partials, int n_blocks, int n_mesh, float *d_table) {
+    reduce_kernel(const float *partials, int n_blocks, int n_mesh, unsigned long long cols,
+                  int ng, float *d_table) {
   __shared__ float red[RED_THREADS];
   const int entry = blockIdx.x;
   const int mesh = entry / NCOLS, col = entry % NCOLS;
-  int g = -1;
-  for (int k = 0; k < NG; ++k)
-    if (table_col_of(k) == col) g = k;
   float sum = 0.0f;
-  if (g >= 0)
+  if ((cols >> col) & 1ull) {
+    const int g = cols_below(cols, col);
     for (int blk = threadIdx.x; blk < n_blocks; blk += RED_THREADS)
-      sum += partials[(size_t)blk * n_mesh * NG + mesh * NG + g];
+      sum += partials[(size_t)blk * n_mesh * ng + mesh * ng + g];
+  }
   red[threadIdx.x] = sum;
   __syncthreads();
   for (int w = RED_THREADS / 2; w > 0; w >>= 1) {
@@ -476,13 +862,19 @@ __global__ void __launch_bounds__(RED_THREADS)
   if (threadIdx.x == 0) d_table[entry] = red[0];
 }
 
-// K2's layout of a block of `threads` threads on the current device: a
-// column of cotangent accumulators per thread while
-// THREAD_COLS_FEWEST_BLOCKS blocks of them (each with the shared memory the
-// runtime reserves per block) fit one SM's shared memory; a column per warp
-// beyond (warp_cols).  `smem` is the block's dynamic shared memory.
-// Returns the first CUDA error of the device queries, or 0.
-inline int bwd_layout(int n_mesh, int n_lights, int threads, bool &warp_cols, size_t &smem) {
+// The column count of a column mask.
+inline int count_cols(unsigned long long cols) { return cols_below(cols, 64); }
+
+// K2's layout of a block of `threads` threads on the current device, for
+// a scene of n_mesh meshes (n_sdf of them SDF rows) and n_lights light
+// slots, the copy `wide` and its `ng` columns a mesh: a column of
+// cotangent accumulators per thread while THREAD_COLS_FEWEST_BLOCKS blocks
+// of them (each with the shared memory the runtime reserves per block) fit
+// one SM's shared memory; a column per warp beyond (warp_cols).  `smem`
+// is the block's dynamic shared memory.  Returns the first CUDA error of
+// the device queries, or 0.
+inline int bwd_layout(int n_mesh, int n_lights, int n_sdf, bool wide, int ng, int threads,
+                      bool &warp_cols, size_t &smem) {
   int dev = 0, lanes = 32, per_sm = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&lanes, cudaDevAttrWarpSize, dev);
@@ -491,75 +883,91 @@ inline int bwd_layout(int n_mesh, int n_lights, int threads, bool &warp_cols, si
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (e != cudaSuccess) return (int)e;
-  smem = bwd_smem_bytes(n_mesh, n_lights, threads);
+  smem = bwd_smem_bytes(n_mesh, n_lights, n_sdf, wide, ng, threads);
   warp_cols = (size_t)THREAD_COLS_FEWEST_BLOCKS * (smem + (size_t)reserved) > (size_t)per_sm;
-  if (warp_cols) smem = bwd_smem_bytes(n_mesh, n_lights, (threads + lanes - 1) / lanes);
+  if (warp_cols) smem = bwd_smem_bytes(n_mesh, n_lights, n_sdf, wide, ng, (threads + lanes - 1) / lanes);
   return 0;
+}
+
+// The copy of K2 for `wide` and a column per warp (`warp_cols`).
+inline void (*bwd_copy(bool wide, bool warp_cols))(BwdArgs) {
+  if (wide) return warp_cols ? bwd_wide_kernel<true> : bwd_wide_kernel<false>;
+  return warp_cols ? bwd_kernel<true> : bwd_kernel<false>;
 }
 
 }  // namespace
 
 // Launch K2 on `stream`: the adjoint kernel, then the reduction of its
-// per-block partials [ceil(n_pix / threads), n_mesh, 10] into d_table.
-// Returns the first CUDA error of the two launches, or 0.
-extern "C" int rt0_trace_backward(const float *table, const int32_t *mesh, const int32_t *mat,
-                                  int n_mesh, const int32_t *lights, int n_lights,
-                                  const float *ro, const float *rd, const int64_t *pix,
-                                  const float *ct, float *d_ro, float *d_rd, float *partials,
-                                  float *d_table, long long n_pix, unsigned pass_idx,
-                                  unsigned sample_idx, int max_bounces, int max_diff,
-                                  int max_spec, int max_scatter, float eps, float inf,
-                                  int sample_lights, int use_mis, int use_sky, int threads,
-                                  void *stream) {
-  if (threads <= 0 || threads > BWD_THREADS || n_mesh <= 0) return (int)cudaErrorInvalidValue;
-  TraceArgs t = {table,       mesh,       mat,       lights,   n_mesh,      n_lights,
-                 ro,          rd,         pix,       nullptr,  n_pix,       pass_idx,
-                 sample_idx,  max_bounces, max_diff, max_spec, max_scatter, eps,
-                 inf,         sample_lights, use_mis, use_sky};
-  BwdArgs b = {t, ct, d_ro, d_rd, partials};
+// per-block partials [ceil(n_pix / threads), n_mesh, ng] into d_table.
+// The arguments up to `t0` are K1's (rt0_trace_forward; `out` unused).
+// `cols` is the mask of scene-table columns with a cotangent: the Cornell
+// copy's 10 (CORNELL_COLS) with `wide` 0, the scene's set with `wide` 1
+// (megakernel.bwd_columns); every other column of d_table is 0.  Returns
+// the first CUDA error of the two launches, or 0.
+extern "C" int rt0_trace_backward(
+    const float *table, const int32_t *mesh, const int32_t *mat, int n_mesh,
+    const int32_t *lights, int n_lights, const float *ro, const float *rd, const int64_t *pix,
+    float *out, long long n_pix, unsigned pass_idx, unsigned sample_idx, int max_bounces,
+    int max_diff, int max_spec, int max_scatter, float eps, float inf, int sample_lights,
+    int use_mis, int use_sky, const float *cubemap, int cube_h, int cube_w, int use_cubemap,
+    int use_biased, const int32_t *tex, const int32_t *blend, const float *images, int img_h,
+    int img_w, const float *noise, int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
+    int n_sdf, int steps, float fudge, float t0, const float *ct, float *d_ro, float *d_rd,
+    float *partials, float *d_table, unsigned long long cols, int wide, int threads,
+    void *stream) {
+  const int ng = count_cols(cols);
+  if (threads <= 0 || threads > BWD_THREADS || n_mesh <= 0 || (cols >> NCOLS) != 0ull ||
+      (!wide && cols != CORNELL_COLS))
+    return (int)cudaErrorInvalidValue;
+  (void)out;
+  TraceArgs t = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
+                 ro,      rd,     pix,         nullptr,    n_pix,       pass_idx,
+                 sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
+                 inf,     sample_lights, use_mis, use_sky, cubemap, cube_h, cube_w,
+                 use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
+                 use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
+  BwdArgs b = {t, ct, d_ro, d_rd, partials, cols, ng};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = n_pix > 0 ? (unsigned)((n_pix + threads - 1) / threads) : 0u;
   if (blocks > 0) {
     bool warp_cols = false;
     size_t smem = 0;
-    int rc = bwd_layout(n_mesh, n_lights, threads, warp_cols, smem);
+    int rc = bwd_layout(n_mesh, n_lights, n_sdf, wide != 0, ng, threads, warp_cols, smem);
     if (rc != 0) return rc;
+    void (*kern)(BwdArgs) = bwd_copy(wide != 0, warp_cols);
     cudaError_t e = cudaSuccess;
     if (smem > 48 * 1024)
-      e = warp_cols ? cudaFuncSetAttribute(bwd_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-                    : cudaFuncSetAttribute(bwd_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    if (warp_cols)
-      bwd_kernel<true><<<blocks, threads, smem, st>>>(b);
-    else
-      bwd_kernel<false><<<blocks, threads, smem, st>>>(b);
+    kern<<<blocks, threads, smem, st>>>(b);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  reduce_kernel<<<n_mesh * NCOLS, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, d_table);
+  const int n_entries = n_mesh * NCOLS;
+  reduce_kernel<<<n_entries, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, cols, ng, d_table);
   return (int)cudaGetLastError();
 }
 
 // K2's layout for a block of `threads` threads on the current device
-// (bwd_layout): out[0] is 1 with a column of accumulators per warp, 0 per
-// thread, out[1] the block's dynamic shared memory in bytes.
-extern "C" int rt0_trace_backward_layout(int n_mesh, int n_lights, int threads,
+// (bwd_layout, for the column mask `cols` of copy `wide`): out[0] is 1
+// with a column of accumulators per warp, 0 per thread, out[1] the block's
+// dynamic shared memory in bytes.
+extern "C" int rt0_trace_backward_layout(int n_mesh, int n_lights, int n_sdf,
+                                         unsigned long long cols, int wide, int threads,
                                          long long *out) {
   bool warp_cols = false;
   size_t smem = 0;
-  const int rc = bwd_layout(n_mesh, n_lights, threads, warp_cols, smem);
+  const int rc = bwd_layout(n_mesh, n_lights, n_sdf, wide != 0, count_cols(cols), threads,
+                            warp_cols, smem);
   out[0] = warp_cols ? 1 : 0;
   out[1] = (long long)smem;
   return rc;
 }
 
 // K2's occupancy at `threads` threads and `smem` bytes of dynamic shared
-// memory (trace_common.cuh::kernel_occupancy): the copy with a column per
-// warp when `warp_cols` is set.
-extern "C" int rt0_trace_backward_occupancy(int warp_cols, int threads, long long smem,
-                                            int *out) {
-  return warp_cols ? kernel_occupancy(bwd_kernel<true>, threads, (size_t)smem, out)
-                   : kernel_occupancy(bwd_kernel<false>, threads, (size_t)smem, out);
+// memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
+// bit 0 a column per warp, bit 1 the wide copy.
+extern "C" int rt0_trace_backward_occupancy(int flags, int threads, long long smem, int *out) {
+  return kernel_occupancy(bwd_copy((flags & 2) != 0, (flags & 1) != 0), threads, (size_t)smem,
+                          out);
 }

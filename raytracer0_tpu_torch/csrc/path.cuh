@@ -79,9 +79,9 @@ __device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x,
   return b;
 }
 
-// What K1, K4, K6v and K7 keep in shared memory after load_scene()'s part (K2's view
-// of the scene is unchanged): the texture codes and blend flags of the
-// meshes and the SDF rows' shapes.
+// What K1, K4, K6v, K7 and K2's wide copy keep in shared memory after
+// load_scene()'s part (K2's Cornell copy reads load_scene()'s alone): the
+// texture codes and blend flags of the meshes and the SDF rows' shapes.
 struct PathSmem {
   const int *tex, *blend;
   SdfScene sd;
@@ -105,6 +105,26 @@ __device__ __forceinline__ PathSmem load_path(const TraceArgs &a, float *smem, S
   for (int i = threadIdx.x; i < a.n_sdf; i += blockDim.x) s_sdf[i] = a.sdf[i];
   s = load_scene(a, smem);
   return {s_tex, s_blend, {s_sdf, a.n_analytic, a.n_sdf, a.steps, a.fudge, a.t0}};
+}
+
+// The color and emission of a hit on mesh `idx` at `x` (geometric normal
+// `n`) before their floor of 0.001: the mesh's own, with its texel blended
+// in by the texel's alpha where the mesh's flags ask for it
+// (integrator.hit_color_emission).  K2 replays it (megakernel_bwd.cu).
+__device__ __forceinline__ void blended_color_emission(const TraceArgs &a, const SceneSmem &s,
+                                                       const PathSmem &ps, int idx, V3 x, V3 n,
+                                                       V3 &c, V3 &e) {
+  c = s.c(idx);
+  e = s.e(idx);
+  if (a.use_tex && ps.blend[idx]) {
+    const V4 t = get_texel(ps.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
+                           a.img_w, a.noise, a.noise_n);
+    const V3 tc = {t.x, t.y, t.z};
+    const float bc = (ps.blend[idx] & 1) ? t.w : 0.0f, be = (ps.blend[idx] & 2) ? t.w : 0.0f;
+    const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
+    c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
+    e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
+  }
 }
 
 // A lane's path between two bounces: the state of trace_path's loop, so a
@@ -165,18 +185,8 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   V3 x = o + d * tmin;
   // an SDF hit's normal is the field's gradient; SDF rows carry no texture
   V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
-  V3 c = s.c(idx);
-  V3 e = s.e(idx);
-  // ---- textured color / emission: the texel's alpha blends it in ----
-  if (a.use_tex && ps.blend[idx]) {
-    const V4 t = get_texel(ps.tex[idx], s.mesh[idx], s.col(idx, C_TP), x, n, a.images, a.img_h,
-                           a.img_w, a.noise, a.noise_n);
-    const V3 tc = {t.x, t.y, t.z};
-    const float bc = (ps.blend[idx] & 1) ? t.w : 0.0f, be = (ps.blend[idx] & 2) ? t.w : 0.0f;
-    const float *cm = s.col(idx, C_CM), *em = s.col(idx, C_EM);
-    c = c + (tc * V3{cm[0], cm[1], cm[2]} - c) * bc;
-    e = e + (tc * V3{em[0], em[1], em[2]} - e) * be;
-  }
+  V3 c, e;
+  blended_color_emission(a, s, ps, idx, x, n, c, e);
   c = vmax(c, 0.001f);
   e = vmax(e, 0.001f);
   float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;

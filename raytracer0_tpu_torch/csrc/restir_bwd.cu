@@ -429,33 +429,8 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
     g_x = go_out;
     V3 g_nl = gp_out + go_out * (transmit ? -a.eps : a.eps);
     V3 g_ma = gm_out;
-    if (diffuse) {
-      g_nl = g_nl + sample_biased_bwd(nl, u1, u2, gd_out);
-    } else {
-      // normalize(e rand_dir + reflect(d, nl)) or normalize(e rand_dir + refract(...))
-      const V3 rand_dir = sample_biased(nl, u1, u2);
-      V3 raw;
-      float nt = 0.0f, nnt = 0.0f;
-      if (transmit) {
-        nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
-        nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
-        bool tir;
-        raw = refract(d, nl, nnt, tir);
-      } else {
-        raw = reflect(d, nl);
-      }
-      const V3 g_v = normalize_bwd(e * rand_dir + raw, gd_out);
-      g_nl = g_nl + sample_biased_bwd(nl, u1, u2, e * g_v);
-      if (transmit) {
-        float g_eta = 0.0f;
-        refract_bwd(d, nl, nnt, g_v, g_d, g_nl, g_eta);
-        const float g_nt = inside > 0.0f ? -g_eta * IOR_AIR / (nt * nt) : g_eta / IOR_AIR;
-        const float ior = s.ior(idx);
-        if (fabsf(ior) >= 1e-3f) G.add(idx, C_IOR, g_nt * signf(ior));
-      } else {
-        reflect_bwd(d, nl, g_v, g_d, g_nl);
-      }
-    }
+    // K7's class samples cosine-weighted (restir_kernel.unsupported_restir_bwd)
+    bounce_dir_bwd(s, idx, b, d, nl, e, inside, u1, u2, true, gd_out, g_d, g_nl, G);
     if (diffuse && a.sample_lights) {
       const V3 out = vertex_bwd(v, x, nl, idx, h_depth, ct * mask_after, gr, g_x, g_nl, g_taps,
                                 g_hist, G);

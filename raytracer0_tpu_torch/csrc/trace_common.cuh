@@ -66,7 +66,7 @@ struct TraceArgs {
   int img_h, img_w;
   const float *noise;      // [noise_n, noise_n, 4] value-noise LUT
   int noise_n;
-  int use_tex;             // some mesh blends a texture
+  int use_tex;             // bit 0: some mesh blends a texture; bit 1: a LIGHT mesh has one
   const int32_t *sdf;      // [n_sdf] SdfShape codes of the SDF rows
   int n_analytic, n_sdf;   // SDF rows follow the analytic ones
   int steps;               // cfg.marching_steps
@@ -789,14 +789,30 @@ __device__ __forceinline__ V4 get_texel(int t, int mesh, const float *tp, V3 x, 
   return {val, val, val, val};
 }
 
+// The color of a shadow ray's hit of LIGHT mesh `idx` at `hp` in a scene
+// with textures: the mesh's color c with its texel blended in by the texel's
+// alpha, whatever the mesh's blend flags (lighting.direct_light_slot, the
+// reference's raytracer.glsl:1203); a shadow hit has no normal, so a
+// planar UV is the (x, -y) one.
+__device__ __forceinline__ V3 shadow_texel_color(const TraceArgs &a, const SceneSmem &s,
+                                                 const int *tex, int idx, V3 hp, V3 c) {
+  const V4 t = get_texel(tex[idx], s.mesh[idx], s.col(idx, C_TP), hp, V3{0.0f, 0.0f, 0.0f},
+                         a.images, a.img_h, a.img_w, a.noise, a.noise_n);
+  return c + (V3{t.x, t.y, t.z} - c) * t.w;
+}
+
 // lighting.sample_lights_nee without the throughput factor: the sum over
 // light slots of the shadow-tested contribution.  A sphere light is sampled
 // by a uniform cone; a directional light (its pos is the direction) is lit
 // where the occlusion ray escapes, and under MIS its weight is 0 (its light
-// pdf is 0), so it adds nothing; any other slot adds nothing.
-template <bool kSdf>
+// pdf is 0), so it adds nothing; any other slot adds nothing.  kTex (a
+// scene whose LIGHT meshes have textures, use_tex bit 1) blends the shadow
+// hit's texel into its color (shadow_texel_color, from `a` and the texture
+// codes `tex`); any other scene runs the code without it.
+template <bool kSdf, bool kTex>
 __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x, V3 nl,
-                        uint32_t h_depth, float eps, float inf, bool use_mis) {
+                        uint32_t h_depth, float eps, float inf, bool use_mis, const TraceArgs *a,
+                        const int *tex) {
   V3 total = {0.0f, 0.0f, 0.0f};
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
@@ -827,7 +843,9 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScen
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_term = fmaxf(dot(sr, nl), 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);
-    V3 contrib = vmax(s.c(hidx), 0.001f) * s.e(hidx) * (weight * cos_term);
+    V3 lc = s.c(hidx);
+    if constexpr (kTex) lc = shadow_texel_color(*a, s, tex, hidx, x + nl * eps + sr * ts, lc);
+    V3 contrib = vmax(lc, 0.001f) * s.e(hidx) * (weight * cos_term);
     if (use_mis) {
       // weight applied only when the sample carries energy
       if (!(dot(contrib, contrib) > 1e-6f)) continue;

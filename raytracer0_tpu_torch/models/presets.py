@@ -2,10 +2,10 @@
 `cornell_box`, `mis_demo`, `restir_demo`, `restir_stress`,
 `animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
 `textured_emitter`), `animated_untextured`, the variant of
-`animated_restir` that the port renders, and two variants that the port's
-tests and timing scripts share: `many_lights` (K2's class with many
-meshes) and `textured_restir_demo` (a ReSTIR scene with a blended
-texture).
+`animated_restir` that the port renders, and three scenes that the port's
+tests and timing scripts share: `many_lights` (K2's Cornell copy with many
+meshes), `textured_restir_demo` (a ReSTIR scene with a blended texture)
+and `config2` (glass, a mirror and coat under MIS).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
@@ -81,6 +81,27 @@ def mis_demo(device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=90.0,
                          device=device)
     return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def config2(device="cuda", **cfg_kw):
+    """Config 2 of tests/test_golden_cornell.py:66-79 (no preset in the JAX
+    package): REFR_SCHLICK glass, a mirror and a COAT sphere in a closed
+    box under a sphere light, with MIS."""
+    scene = parse_scene("""
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
+        MAT_REFR_CLEAR_2, SPHERE, vec3(-0.5, -0.6, 0.0), vec4(0.4)
+        MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
+        MAT_COAT_PURPLE, SPHERE, vec3(0.0, -1.4, 0.8), vec4(0.35)
+    """, device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_mis=True, use_procedural_sky=False, **cfg_kw)
 
 
 _RESTIR_9_LIGHTS = """

@@ -2,7 +2,8 @@
 ops/lighting.py; raytracer.glsl:1174-1262, 1947-1975).
 
 A sphere-light slot is sampled with a uniform cone toward the sphere and
-verified by a shadow re-trace; a directional slot (DIR_LIGHT material, its
+verified by a shadow re-trace, whose hit's texel (in a scene with textures)
+blends into the hit's color by its alpha; a directional slot (DIR_LIGHT material, its
 `pos` is the direction) is lit where an occlusion ray toward it escapes.
 Under MIS each sample is weighted by the power heuristic against the
 cosine BSDF pdf; a directional light's sampling pdf is 0, so under MIS it
@@ -19,6 +20,7 @@ from raytracer0_tpu_torch.models.materials import MatType, MeshType
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import intersect as isect
 from raytracer0_tpu_torch.ops import sampling as smp
+from raytracer0_tpu_torch.ops import textures as tex
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 
@@ -68,10 +70,16 @@ def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
     sr_dir = smp.sample_cone(vm.normalize(sw), 1.0 - cos_a_max, u1, u2)
 
     # shadow re-trace (raytracer.glsl:1193); the contribution uses sr_dir
-    hit = isect.intersect(scene, x + nl * cfg.epsilon, sr_dir, cfg,
-                          need_normal=False, need_uv=False)
+    hit = isect.intersect(scene, x + nl * cfg.epsilon, sr_dir, cfg, need_normal=False)
     hit_is_light = (scene.mat_type[hit.idx] == MatType.LIGHT) & ~hit.missed
-    lit_c = torch.clamp_min(scene.color[hit.idx], 0.001)
+    hit_c = scene.color[hit.idx]
+    if scene.tex_types_used:
+        # the reference blends the hit mesh's texel into its color by the
+        # texel's alpha, unconditionally (raytracer.glsl:1203), as the JAX
+        # package does; the UV of a hit without a normal is the (x, -y) plane's
+        texel = tex.get_texel(scene, hit.idx, hit.uv, hit.pos)
+        hit_c = vm.mix(hit_c, texel[..., :3], texel[..., 3:4])
+    lit_c = torch.clamp_min(hit_c, 0.001)
     cos_term = torch.clamp_min(vm.vdot(sr_dir, nl), 0.001)
     weight = 2.0 * (1.0 - cos_a_max)
     contrib = lit_c * scene.emission[hit.idx] * (weight * cos_term)[..., None]

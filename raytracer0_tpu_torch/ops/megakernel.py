@@ -16,9 +16,11 @@ backward launches K2.  K1 covers the class that `integrator.unsupported`
 states without ReSTIR (every surface material, textures of all ten types,
 sphere and directional lights, cubemaps, uniform sampling, BOX and
 ROUND_BOX SDF meshes: `unsupported`; a ReSTIR pass runs on K6,
-`ops/restir_kernel.py`); K2 covers its Cornell subset (analytic DIFF and
-LIGHT meshes, no blended texture, sphere-light slots, no cubemap, cosine
-sampling; `unsupported_bwd`).  Their plain PyTorch version is
+`ops/restir_kernel.py`); K2 covers the same class (`unsupported_bwd`), in
+two copies: the Cornell copy (analytic DIFF and LIGHT meshes, no texture,
+sphere-light slots, no cubemap, cosine sampling: `cornell_copy`) and the
+wide copy for the rest, each with its set of scene-table columns that
+have a cotangent (`bwd_columns`).  Their plain PyTorch version is
 `render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
 on the same inputs K1 traces the same paths, pixel for pixel, and K2
 gives the same gradients up to float32 rounding.
@@ -34,7 +36,9 @@ scene table, the type codes and the light slots in shared memory, read by
 all threads of a warp at once; every ray scans the meshes through packed
 float4 records.  K2 stashes the carry entering each slot and the hit its
 ray found in local memory and replays the slots newest first through a
-hand-derived adjoint, without scanning a slot's ray again; it sums the
+hand-derived adjoint (`csrc/adjoint.cuh`: every BSDF's direction, the SDF
+distances and the implicit t of an SDF hit, the cubemap fetch, the texels
+and their blend), without scanning a slot's ray again; it sums the
 scene-table cotangents in shared memory, in a column per thread for a few
 meshes and per warp for many (`bwd_layout`: lanes grouped by mesh,
 summed over a fixed tree), per block in column order and across blocks in
@@ -44,8 +48,9 @@ The kernels are built with nvcc on first use (`cuda_build`) and launched
 through ctypes on PyTorch's current stream.  On CPU tensors
 `trace_forward` is the plain version and plain autograd gives the
 gradient; on CUDA tensors it launches the kernels or raises, forward and
-backward alike.  A gradient on CUDA for a scene outside K2's class
-raises before anything is launched; it never runs the plain backward.
+backward alike.  A gradient on CUDA for a scene outside K2's class, or
+w.r.t. a texel array, raises before anything is launched; it never runs
+the plain backward.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ import numpy as np
 import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
-from raytracer0_tpu_torch.models.materials import MatType
+from raytracer0_tpu_torch.models.materials import MatType, TexType
 from raytracer0_tpu_torch.ops import cuda_build, lighting, textures
 from raytracer0_tpu_torch.render import integrator
 
@@ -72,10 +77,8 @@ BWD_SOURCES = ("megakernel_bwd.cu",)
 _NCOLS = 36
 # dynamic shared memory one block may take without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
-# K2: stash depth (MAX_SLOTS in megakernel_bwd.cu), cotangent columns kept
-# per mesh (NG) and the block size
+# K2: stash depth (MAX_SLOTS in megakernel_bwd.cu) and the block size
 MAX_SLOTS = 16
-_BWD_NG = 10
 BWD_THREADS = 128
 
 _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -97,15 +100,10 @@ _ARGTYPES = (
     _c_int, _c_float, _c_float,                   # marching steps, fudge, t0
     _c_void_p,                                    # stream
 )
-_BWD_ARGTYPES = (
-    _c_void_p, _c_void_p, _c_void_p, _c_int,      # table, mesh, mat, n_mesh
-    _c_void_p, _c_int,                            # lights, n_lights
-    _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # ro, rd, pix, ct
-    _c_void_p, _c_void_p, _c_void_p, _c_void_p,   # d_ro, d_rd, partials, d_table
-    _c_ll, _c_uint, _c_uint,                      # n_pix, pass, sample
-    _c_int, _c_int, _c_int, _c_int,               # bounce budgets
-    _c_float, _c_float,                           # epsilon, infinity
-    _c_int, _c_int, _c_int,                       # sample_lights, use_mis, sky
+_BWD_ARGTYPES = _ARGTYPES[:-1] + (            # K1's (out unused), then
+    _c_void_p, _c_void_p, _c_void_p,              # ct, d_ro, d_rd
+    _c_void_p, _c_void_p,                         # partials, d_table
+    ctypes.c_ulonglong, _c_int,                   # column mask, wide copy
     _c_int, _c_void_p,                            # threads per block, stream
 )
 
@@ -153,71 +151,127 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     return integrator.unsupported(scene, cfg) or check_smem(packed_smem_bytes(scene))
 
 
-def bwd_slots(cfg: RenderConfig) -> int:
-    """The most bounce slots a path runs, hence K2's stash depth: every slot
-    that does not end the path is a diffuse bounce, and the path stops once
-    `max_diff_bounces` of them ran (or at `max_bounces`)."""
-    return min(cfg.max_bounces, max(cfg.max_diff_bounces, 1) + 1)
+def bwd_slots(scene, cfg: RenderConfig) -> int:
+    """The most bounce slots a path runs on (scene, cfg), hence K2's stash
+    depth.  On the Cornell copy (`cornell_copy`) every slot that does not
+    end the path is a diffuse bounce, and the path stops once
+    `max_diff_bounces` of them ran; elsewhere each such slot adds one to
+    one of the three bounce counters (diffuse, specular, scattering), and
+    the path stops once one of them reaches its cap.  Either way it stops
+    at `max_bounces`."""
+    if cornell_copy(scene, cfg):
+        return min(cfg.max_bounces, max(cfg.max_diff_bounces, 1) + 1)
+    caps = (cfg.max_diff_bounces, cfg.max_spec_bounces, cfg.max_scattering_events)
+    return min(cfg.max_bounces, sum(max(c, 1) - 1 for c in caps) + 1)
 
 
-def bwd_layout(scene, threads: int = BWD_THREADS, fn=None) -> tuple[bool, int]:
-    """How K2's launcher lays out a block of `threads` threads for `scene`
-    on the current device, as the library says (`rt0_trace_backward_layout`
-    of `fn`'s library, else of the built one): whether each warp, not each
-    thread, keeps a column of cotangent accumulators (where 3 blocks of
-    per-thread columns would not fit an SM's shared memory), and the
-    block's dynamic shared memory in bytes."""
+_K2_MATS = (int(MatType.DIFF), int(MatType.LIGHT))
+_K2_ITEM = "ROADMAP queue 1 item 14"
+# scene-table columns (scene_table): pos 0:3, joker 3:7, color 7:10,
+# emission 10:13, ior 13, tex_params 26:30, tex_cmask 30:33, tex_emask 33:36
+_CORNELL_COLS = (0, 1, 2, 3, 7, 8, 9, 10, 11, 12)
+# texture types whose params reach the texel with a gradient: CHECK and
+# RIPPLE (the divisor of their remainder), the noise types (their scale)
+_PARAM_TEX = (int(TexType.CHECK), int(TexType.RIPPLE), int(TexType.GRADIENT_NOISE),
+              int(TexType.VALUE_NOISE), int(TexType.METAL))
+
+
+def cornell_copy(scene, cfg: RenderConfig) -> bool:
+    """Whether K2 runs its Cornell copy on (scene, cfg): analytic DIFF and
+    LIGHT meshes, no texture, LIGHT-sphere slots, no cubemap, cosine
+    sampling, 10 cotangent columns a mesh.  Anything else in K2's class
+    runs the wide copy, which takes 2.6x the Cornell copy's time on Cornell
+    (PERF.md §6)."""
+    return (not scene.num_sdfs
+            and all(m in _K2_MATS for m in scene.mat_types_static)
+            and all(li < 0 or lighting.slot_kind(scene, slot) == "sphere"
+                    for slot, li in enumerate(scene.lights_static))
+            and not cfg.use_cubemap and not scene.tex_types_used
+            and cfg.use_biased_sampling)
+
+
+def bwd_columns(scene, cfg: RenderConfig) -> tuple[int, ...]:
+    """The scene-table columns K2 keeps a cotangent for on (scene, cfg),
+    in table order: Cornell's 10 (pos, joker.x, color, emission), and in
+    the wide copy also joker 4:7 under SDF rows (a box's half extents and
+    a rounded box's radius), the IOR under refraction, a texture's params
+    (CHECK, RIPPLE and the noise types; a shadow ray reads the texel of
+    any mesh it hits), and the color and emission masks where a mesh
+    blends its texel into its color or emission.  No other column has a
+    gradient in this class (aux, for one, is read by no BOX or ROUND_BOX
+    distance)."""
+    cols = set(_CORNELL_COLS)
+    if not cornell_copy(scene, cfg):
+        if scene.num_sdfs:
+            cols |= {4, 5, 6}
+        if any(m in (int(MatType.REFR_FRESNEL), int(MatType.REFR_SCHLICK))
+               for m in scene.mat_types_static):
+            cols.add(13)
+        blends = [(t, c, e) for t, (c, e, *_) in zip(scene.tex_types_static, scene.opts_static)
+                  if t != int(TexType.NONE) and (c or e)]
+        # a shadow ray reads the texel of the mesh it hits whatever its flags
+        if any(t in _PARAM_TEX for t in scene.tex_types_static):
+            cols |= {26, 27, 28, 29}
+        if any(c for _, c, _ in blends):
+            cols |= {30, 31, 32}
+        if any(e for _, _, e in blends):
+            cols |= {33, 34, 35}
+    return tuple(sorted(cols))
+
+
+def _cols_mask(cols) -> int:
+    return sum(1 << c for c in cols)
+
+
+def bwd_layout(scene, cfg: RenderConfig, threads: int = BWD_THREADS,
+               fn=None) -> tuple[bool, int]:
+    """How K2's launcher lays out a block of `threads` threads for (scene,
+    cfg) on the current device, as the library says
+    (`rt0_trace_backward_layout` of `fn`'s library, else of the built one),
+    for the copy K2 runs and its columns (`cornell_copy`, `bwd_columns`):
+    whether each warp, not each thread, keeps a column of cotangent
+    accumulators (where 3 blocks of per-thread columns would not fit an
+    SM's shared memory), and the block's dynamic shared memory in bytes."""
     if fn is None:
         fn = getattr(cuda_build.load("megakernel_bwd", BWD_SOURCES)[0],
                      "rt0_trace_backward_layout")
-    fn.argtypes = (_c_int, _c_int, _c_int, ctypes.c_void_p)
+    fn.argtypes = (_c_int, _c_int, _c_int, ctypes.c_ulonglong, _c_int, _c_int,
+                   ctypes.c_void_p)
     fn.restype = _c_int
     out = (_c_ll * 2)()
-    rc = fn(scene.num_meshes, scene.num_lights, threads, out)
+    rc = fn(scene.num_meshes, scene.num_lights, scene.num_sdfs,
+            _cols_mask(bwd_columns(scene, cfg)), int(not cornell_copy(scene, cfg)), threads, out)
     if rc != 0:
         raise RuntimeError(f"rt0_trace_backward_layout failed: CUDA error {rc}")
     return bool(out[0]), int(out[1])
 
 
-_K2_MATS = (int(MatType.DIFF), int(MatType.LIGHT))
-_K2_ITEM = "ROADMAP queue 1 item 14"
-
-
-def _outside_k2_class(scene, cfg: RenderConfig) -> Optional[str]:
-    """What of (scene, cfg) K2's adjoint does not model: it replays DIFF
-    bounces with cosine sampling, sphere-light NEE and the procedural sky
-    (every slot that does not end a path is diffuse, `bwd_slots`) over
-    analytic meshes, and untextured colors and emissions."""
-    if cfg.use_restir:
-        return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
-                "ROADMAP queue 1 item 11), not K2")
-    if scene.num_sdfs:
-        return f"SDF meshes (K2 has no SDF march): {_K2_ITEM}"
-    if any(m not in _K2_MATS for m in scene.mat_types_static):
-        return f"SPEC/REFR/COAT/DIR_LIGHT materials: {_K2_ITEM}"
-    for slot, li in enumerate(scene.lights_static):
-        if li >= 0 and lighting.slot_kind(scene, slot) != "sphere":
-            return f"light slots that are not LIGHT spheres: {_K2_ITEM}"
-    if cfg.use_cubemap:
-        return f"cubemap environments (texel cotangents): {_K2_ITEM}"
-    if textures.blended(scene):
-        return f"textures blended into color or emission: {_K2_ITEM}"
-    if not cfg.use_biased_sampling:
-        return f"uniform hemisphere sampling: {_K2_ITEM}"
-    return None
+def _texel_leaves(scene) -> tuple[str, ...]:
+    """The texel arrays of the scene (images, the noise LUT, the cubemap)
+    that require a gradient."""
+    return tuple(k for k in ("images", "noise", "cubemap") if getattr(scene, k).requires_grad)
 
 
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
-    class (whose table fits the shared memory, `check_smem`) narrowed to
-    the Cornell class K2 models (DIFF and LIGHT materials, no blended
-    texture, LIGHT-sphere slots, no cubemap, cosine sampling), with a
-    stash of at most MAX_SLOTS slots.  On many meshes K2 keeps a column of
-    cotangent accumulators per warp, 160 bytes per mesh a block
-    (`bwd_layout`), so any table K1 takes fits."""
-    reason = unsupported(scene, cfg) or _outside_k2_class(scene, cfg)
-    if reason is None and bwd_slots(cfg) > MAX_SLOTS:
-        reason = (f"paths of {bwd_slots(cfg)} slots, more than K2's stash of "
+    class (`unsupported`: every surface material, textures, sphere and
+    directional lights, cubemaps, uniform sampling, BOX and ROUND_BOX SDF
+    rows, a table that fits the shared memory; ReSTIR runs on K6 and K7),
+    with a stash of at most MAX_SLOTS slots.  K2 gives the cotangents of
+    the scene table and of the rays; a gradient asked of a texel array
+    (the images, the noise LUT, the cubemap), which the JAX package also
+    computes outside its kernels, is refused.  On many meshes K2 keeps a
+    column of cotangent accumulators per warp (`bwd_layout`), so any table
+    K1 takes fits."""
+    if cfg.use_restir:
+        return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
+                "ROADMAP queue 1 item 11), not K2")
+    reason = unsupported(scene, cfg)
+    if reason is None and _texel_leaves(scene):
+        reason = (f"a gradient w.r.t. the texel arrays {', '.join(_texel_leaves(scene))} "
+                  f"(K2 differentiates the scene table and the rays): {_K2_ITEM}")
+    if reason is None and bwd_slots(scene, cfg) > MAX_SLOTS:
+        reason = (f"paths of {bwd_slots(scene, cfg)} slots, more than K2's stash of "
                   f"{MAX_SLOTS}")
     return reason
 
@@ -276,6 +330,16 @@ def _cfg_args(cfg: RenderConfig, pass_idx, sample_idx):
             int(cfg.sample_lights), int(cfg.use_mis), int(cfg.use_procedural_sky))
 
 
+def tex_flags(scene) -> int:
+    """The kernels' `use_tex`: bit 0 when some mesh blends a texture into
+    its color or emission, bit 1 when some LIGHT mesh has a texture, whose
+    texel NEE blends into the color of a shadow ray's hit (K1 and K2 run
+    a copy without that blend where bit 1 is clear)."""
+    light_tex = any(t != int(TexType.NONE) and m == int(MatType.LIGHT)
+                    for t, m in zip(scene.tex_types_static, scene.mat_types_static))
+    return int(textures.blended(scene)) | 2 * int(light_tex)
+
+
 def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
     """K1's launch arguments before the stream, checked: (the arguments,
     the tensors they point into, which the caller keeps alive until the
@@ -296,7 +360,7 @@ def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
             int(cfg.use_cubemap), int(cfg.use_biased_sampling),
             tex.data_ptr(), blend.data_ptr(), images.data_ptr(),
             images.shape[1], images.shape[2], lut.data_ptr(), lut.shape[0],
-            int(textures.blended(scene)), sdf.data_ptr(), scene.num_analytic,
+            tex_flags(scene), sdf.data_ptr(), scene.num_analytic,
             scene.num_sdfs, cfg.marching_steps, cfg.fudge_factor,
             float(np.float32(cfg.epsilon * 4.0)))
     return args, (mesh, mat, lights, tex, blend, sdf)
@@ -329,19 +393,17 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, ct):
     _check("ct", ct, torch.float32, (h, w, 3), dev)
     threads = BWD_THREADS
     blocks = -(-(h * w) // threads)
-    mesh, mat, lights = _codes(scene)
+    cols = bwd_columns(scene, cfg)
+    args, _keep = forward_args(scene, cfg, table, ro, rd, pix, None, pass_idx, sample_idx)
     d_ro, d_rd = torch.empty_like(ro), torch.empty_like(rd)
-    partials = torch.empty((blocks, scene.num_meshes, _BWD_NG),
+    partials = torch.empty((blocks, scene.num_meshes, len(cols)),
                            dtype=torch.float32, device=dev)
     d_table = torch.empty_like(table)
     fn, _ = build_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(table.data_ptr(), mesh.data_ptr(), mat.data_ptr(),
-                scene.num_meshes, lights.data_ptr(), scene.num_lights,
-                ro.data_ptr(), rd.data_ptr(), pix.data_ptr(), ct.data_ptr(),
-                d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
-                d_table.data_ptr(), h * w, *_cfg_args(cfg, pass_idx, sample_idx),
+        rc = fn(*args, ct.data_ptr(), d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
+                d_table.data_ptr(), _cols_mask(cols), int(not cornell_copy(scene, cfg)),
                 threads, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
@@ -386,7 +448,7 @@ def trace_forward(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
     gradient is needed (the scene's parameters, its images, noise LUT or
     cubemap, `ro` or `rd` require grad) the call is recorded as
     `_TraceCore` and its backward launches K2, or it raises when K2 does
-    not cover the scene.
+    not cover the scene or a texel array requires grad.
     """
     if ro.device.type == "cpu":
         return integrator.trace(scene, cfg, ro, rd, pix, pass_idx, sample_idx)

@@ -256,9 +256,9 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
                                   mask_after * env_rad, torch.zeros_like(acc))
 
         # ---- NEE on diffuse bounces (1899-1976) ----
-        # NEE reads the light row's untextured color and emission, as the
-        # JAX integrator does: a textured emitter is textured only where a
-        # BSDF-sampled ray hits it
+        # NEE reads the light row's emission untextured and blends the
+        # shadow hit's texel into its color by the texel's alpha alone, as
+        # the JAX integrator does (lighting.direct_light_slot)
         if gbuffer_slots:
             for k, rec in enumerate(gbuf):
                 sel = diffuse_lane & (n_diff == k)

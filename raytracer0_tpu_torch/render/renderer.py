@@ -14,12 +14,13 @@ kernel does not cover raises; it never falls back to the plain version.
 of `trace_fn` calls, so a loss on the image back-propagates to the scene's
 parameters (and to the camera, through the rays).  On the CPU the plain
 integrator's autograd serves every class the integrator renders.  On CUDA
-K2, the adjoint kernel behind `megakernel.trace_forward`, serves the
-Cornell class only (DIFF and LIGHT materials, sphere-light slots, no
-cubemap, cosine sampling: `megakernel.unsupported_bwd`); a gradient
-through any other scene on CUDA, `cubemap_demo` for one, raises
-NotImplementedError before anything is launched.  A render that needs no
-gradient launches K1 alone.
+K2, the adjoint kernel behind `megakernel.trace_forward`, serves the whole
+class K1 renders without ReSTIR (every material, directional lights,
+uniform sampling, BOX and ROUND_BOX SDF meshes, the cubemap, textures),
+with respect to the scene table and the rays; a gradient w.r.t. a texel
+array (the images, the noise LUT, the cubemap) raises NotImplementedError
+before anything is launched (`megakernel.unsupported_bwd`).  A render that
+needs no gradient launches K1 alone.
 
 A ReSTIR pass (`cfg.use_restir`) goes through `render_pass` alone, since
 it reads and writes the reservoir ring: on a CUDA device through the

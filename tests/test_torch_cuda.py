@@ -3,12 +3,14 @@ the reservoir-vertex kernel K6v) and its adjoint K7, and the ray-cast
 kernel K5 on the GPU against their plain versions on the same card: K1 on
 the Cornell class and on the widened class (mirror, glass and coat,
 directional lights, cubemaps, uniform sampling, textures, SDF meshes), K2
-on the Cornell class (47 meshes too, and the same bits on two launches),
+on the Cornell class (47 meshes too, and the same bits on two launches)
+and, in its wide copy, on the rest of that class,
 K6 on the ReSTIR presets (with MIS too, and under
 ANIMATED accumulation), K6v in both forms, K7 against the plain version's
 autograd over chains of passes, `fit` through the reservoir ring, K4 and
 K5 bit for bit and the split ReSTIR pass K4 and K6v serve, and the refusal
-of gradients outside K2's and K7's classes and through the split path,
+of gradients outside K2's and K7's classes (texel arrays, other SDF
+shapes) and through the split path,
 and of blended textures and cubemaps on the split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
@@ -45,7 +47,8 @@ from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
 from raytracer0_tpu_torch.models import scene as scene_mod
-from test_torch_kernel_host import assert_grads_close, refreshed_ring, restir_chain_grads
+from test_torch_kernel_host import (TABLE_LEAVES, adjoint_case, assert_grads_close,
+                                    assert_grads_close_f64, refreshed_ring, restir_chain_grads)
 from test_torch_texture_scenes import SCENE_VIEWS
 
 pytestmark = pytest.mark.cuda
@@ -189,6 +192,63 @@ def test_adjoint_same_bits_twice(cuda, where):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
 
 
+def _table_grads(trace, scene, cfg, ro, rd, pix, dtype=torch.float32, mask=None):
+    """(radiance, gradients of sum(trace * w) (w seeded on the card) w.r.t.
+    every scene-table leaf, ro and rd), with the scene's float tensors and
+    the rays in `dtype` and w kept on the (H, W) `mask`; a leaf the trace
+    does not read has a zero gradient."""
+    f = {k: getattr(scene, k).to(dtype) for k in ("images", "noise", "cubemap")}
+    leaves = {k: getattr(scene, k).detach().to(dtype).requires_grad_(True) for k in TABLE_LEAVES}
+    o, d = (v.detach().to(dtype).requires_grad_(True) for v in (ro, rd))
+    out = trace(scene.replace(**leaves, **f), cfg, o, d, pix, 2, 0)
+    wt = torch.rand(out.shape, generator=torch.Generator(out.device).manual_seed(5),
+                    device=out.device).to(dtype) + 0.5
+    if mask is not None:
+        wt = wt * mask[..., None]
+    g = torch.autograd.grad((out * wt).sum(), [*leaves.values(), o, d], allow_unused=True)
+    keys = (*TABLE_LEAVES, "ro", "rd")
+    vals = [*leaves.values(), o, d]
+    return out.detach(), {k: torch.zeros_like(v) if x is None else x
+                          for k, v, x in zip(keys, vals, g)}
+
+
+WIDE = ["config2", "mis_demo", "dir", "cornell_uniform", "cubemap", "cornell_box",
+        "textured_light", "textured_cornell", "textured_gloss", "textured_emitter", "procedural",
+        "gradient_noise", "check_sphere"]
+
+
+@pytest.mark.parametrize("where", WIDE)
+def test_wide_adjoint_matches_plain_autograd(cuda, where):
+    """K2's wide copy against torch.autograd of the plain version on the
+    card at 64x64 and 4 bounces, per table leaf and the rays within 1e-4
+    relative (where a pixel's gradient passes through a float32
+    cancellation, arbitrated by the plain autograd in float64,
+    `assert_grads_close_f64`): one K1 and one K2 launch, and two K2
+    launches give the same bits where it keeps a column per thread."""
+    scene, cam, cfg = adjoint_case("cornell" if where == "cornell_uniform" else where, cuda)
+    cfg = cfg.replace(max_bounces=4, use_biased_sampling=where != "cornell_uniform")
+    assert megakernel.unsupported_bwd(scene, cfg) is None
+    assert not megakernel.cornell_copy(scene, cfg)
+    h = w = 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    _, got = _table_grads(megakernel.trace_forward, scene, cfg, ro, rd, pix)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _, want = _table_grads(integrator.trace, scene, cfg, ro, rd, pix)
+    assert_grads_close_f64(got, want, lambda kind, mask: _table_grads(
+        megakernel.trace_forward if kind == "kernel" else integrator.trace, scene, cfg, ro, rd,
+        pix, torch.float64 if kind == "plain64" else torch.float32, mask))
+    assert got["color"].abs().max().item() > 0.0
+    if not megakernel.bwd_layout(scene, cfg)[0]:   # a column per thread: the same bits
+        ct = torch.rand((h, w, 3), generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+        table = megakernel.scene_table(scene)
+        runs = [megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 2, 0, ct)
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_render_pass_differentiates_through_kernels(cuda):
     """A loss on render_pass's accumulator reaches the scene through K1 and
     K2, with the plain route's gradient."""
@@ -224,16 +284,17 @@ def test_forward_only_launches_no_adjoint(cuda):
 
 def test_adjoint_raises_outside_the_class(cuda):
     """A gradient through a scene K1/K2 do not cover raises; it never runs
-    the plain backward instead."""
+    the plain backward instead: an SDF shape other than BOX and ROUND_BOX
+    (item 8), and paths longer than K2's stash."""
     scene = parse_scene("""
         MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
         MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
-        MAT_MIRROR, SPHERE, vec3(0.6, -0.6, -0.5), vec4(0.4)
-    """, device=cuda)
+        MAT_WHITE, SDF, vec3(0.0, 0.0, 0.0), vec4(0.3, 0.0, 0.0, 0.0)
+    """, sdf_shapes=[SdfShape.SPHERE], device=cuda)
     _, cam, cfg = cornell_default(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
     em = scene.emission.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 8"):
         megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
                                  rng.pixel_ids(8, 8, device=cuda), 0, 0)
     cornell, _, _ = cornell_default(device=cuda)
@@ -319,17 +380,18 @@ def test_cubemap_render_goes_through_kernel_only(cuda):
 
 
 def test_gradient_outside_k2_class_launches_nothing(cuda):
-    """A gradient through cubemap_demo on the card raises before K1 or K2
-    is launched; it never falls back to the plain backward."""
+    """A gradient w.r.t. cubemap_demo's cubemap texels on the card raises,
+    naming ROADMAP item 14, before K1 or K2 is launched; it never falls back
+    to the plain backward.  (Its table leaves run through K2.)"""
     scene, cam, cfg = cubemap_demo(device=cuda)
-    em = scene.emission.clone().requires_grad_(True)
+    cube = scene.cubemap.clone().requires_grad_(True)
     ro, rd = generate_rays(cam, 8, 8, 0)
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
+    with pytest.raises(NotImplementedError, match="cubemap.*item 14"):
+        megakernel.trace_forward(scene.replace(cubemap=cube), cfg, ro, rd,
                                  rng.pixel_ids(8, 8, device=cuda), 0, 0)
     with pytest.raises(NotImplementedError, match="item 14"):
-        render_pass(scene.replace(emission=em), cam, cfg,
+        render_pass(scene.replace(cubemap=cube), cam, cfg,
                     RenderState.create(8, 8, device=cuda), 8, 8)
     assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before
 
@@ -386,18 +448,23 @@ def test_textured_render_goes_through_kernel_only(cuda):
 
 
 def test_gradient_through_textures_launches_nothing(cuda):
-    """A gradient through a textured scene on the card raises before K1 or
-    K2 is launched (K2 models no texture, ROADMAP queue 1 item 14)."""
+    """A gradient w.r.t. the texel arrays of a textured scene (the images,
+    the noise LUT) on the card raises, naming ROADMAP item 14, before K1 or
+    K2 is launched; the color's gradient runs through K2's wide copy."""
     scene, cam, cfg = presets.textured_cornell(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
-    for leaf in ("color", "images"):
+    for leaf in ("images", "noise"):
         s = scene.replace(**{leaf: getattr(scene, leaf).clone().requires_grad_(True)})
-        with pytest.raises(NotImplementedError, match="textures.*item 14"):
+        with pytest.raises(NotImplementedError, match=f"{leaf}.*item 14"):
             megakernel.trace_forward(s, cfg, ro, rd, rng.pixel_ids(8, 8, device=cuda), 0, 0)
         with pytest.raises(NotImplementedError, match="item 14"):
             render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == before
+    s = scene.replace(color=scene.color.clone().requires_grad_(True))
+    megakernel.trace_forward(s, cfg, ro, rd, rng.pixel_ids(8, 8, device=cuda), 0, 0).sum().backward()
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("where,kw", [
@@ -479,21 +546,28 @@ def test_restir_render_goes_through_k6_only(cuda):
 
 
 def test_gradient_through_sdf_or_restir_launches_nothing(cuda):
-    """A gradient through `mis_demo` (SDF; K2 has no march) or through a
-    ReSTIR pass of `restir_demo` that asks for a leaf K7 does not compute
-    (aux) raises before any kernel is launched."""
+    """A gradient through an SDF shape other than BOX and ROUND_BOX (item
+    8), or through a ReSTIR pass of `restir_demo` that asks for a leaf K7
+    does not compute (aux), raises before any kernel is launched; the BOX
+    of `mis_demo` runs through K2's wide copy."""
     counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
                       restir_kernel.BWD_LAUNCHES)
     before = counts()
     scene, cam, cfg = presets.mis_demo(device=cuda)
-    s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="SDF.*item 14"):
-        render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
+    other = scene.replace(sdf_shapes_static=(int(SdfShape.SPHERE),),
+                          emission=scene.emission.clone().requires_grad_(True))
+    with pytest.raises(NotImplementedError, match="SDF.*item 8"):
+        render_pass(other, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     scene, cam, cfg = presets.restir_demo(device=cuda)
     s = scene.replace(aux=scene.aux.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="K7"):
         render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)
     assert counts() == before
+    scene, cam, cfg = presets.mis_demo(device=cuda)
+    s = scene.replace(emission=scene.emission.clone().requires_grad_(True))
+    render_pass(s, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8).accum.sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1) + before[2:]
 
 
 @pytest.mark.parametrize("where", ["restir_demo", "restir_stress"])
@@ -547,7 +621,7 @@ def test_kernel_occupancy_exports(cuda):
     rows = [("megakernel", megakernel.SOURCES, "rt0_trace_forward", 128,
              megakernel.packed_smem_bytes(cornell)),
             ("megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward", k2_t,
-             megakernel.bwd_layout(cornell, k2_t)[1]),
+             megakernel.bwd_layout(cornell, cornell_default(device=cuda)[2], k2_t)[1]),
             ("gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward", 128,
              megakernel.packed_smem_bytes(demo)),
             ("cast", restir_split.CAST_SOURCES, "rt0_cast_rays", 128,
@@ -574,13 +648,13 @@ def test_adjoint_layout_matches_occupancy(cuda, n_lights):
     from raytracer0_tpu_torch.ops import cuda_build
 
     if n_lights is None:
-        scene = cornell_default(device=cuda)[0]
+        scene, _, cfg = cornell_default(device=cuda)
     else:
-        scene = presets.many_lights(device=cuda, n_lights=n_lights)[0]
+        scene, _, cfg = presets.many_lights(device=cuda, n_lights=n_lights)
     n = scene.num_meshes
     scene_bytes = 4 * (n * (36 + 2) + scene.num_lights)
     per_thread = -(-scene_bytes // 16) * 16 + 4 * (4 + 5 * n) + 4 * n * 10 * 128
-    warp, smem = megakernel.bwd_layout(scene)
+    warp, smem = megakernel.bwd_layout(scene, cfg)
     o = cuda_build.occupancy("megakernel_bwd", megakernel.BWD_SOURCES,
                              "rt0_trace_backward_occupancy", 128, per_thread, False)
     assert warp == (o["blocks"] < 3) and warp == (n_lights == 9), (n, o)

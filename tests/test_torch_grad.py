@@ -164,15 +164,26 @@ def test_wrapper_on_cpu_gives_plain_gradient():
 
 
 def test_kernel_class_checks_on_cpu():
-    """K2's own limits, computed without a card: its stash depth and its
-    block size; the shared memory of its block (the library's
-    `bwd_layout`, held in tests/test_torch_kernel_host.py) no longer limits
-    the meshes K2 takes."""
+    """K2's own limits, computed without a card: its stash depth (on the
+    Cornell copy every slot that goes on is a diffuse bounce; elsewhere
+    each adds one to one of three capped counters) and its block size; the
+    shared memory of its block (the library's `bwd_layout`, held in
+    tests/test_torch_kernel_host.py) no longer limits the meshes K2 takes."""
     ts, _, cfg = tpresets.cornell_default(device="cpu", use_mis=True)
-    assert tmk.bwd_slots(cfg) == 5            # 4 diffuse bounces + the last hit
-    assert tmk.bwd_slots(cfg.replace(max_bounces=3)) == 3
+    assert tmk.bwd_slots(ts, cfg) == 5            # 4 diffuse bounces + the last hit
+    assert tmk.bwd_slots(ts, cfg.replace(max_bounces=3)) == 3
+    # Cornell at 24 bounces: 5 slots, within the stash
+    assert tmk.unsupported_bwd(ts, cfg.replace(max_bounces=24)) is None
+    # the wide copy: 3 + 3 + 11 going slots under the caps 4, 4, 12, and the
+    # last: 18, cut to max_bounces
+    wide = cfg.replace(use_biased_sampling=False)
+    assert not tmk.cornell_copy(ts, wide)
+    assert tmk.bwd_slots(ts, wide) == 12
+    assert tmk.bwd_slots(ts, wide.replace(max_bounces=16, max_scattering_events=2)) == 8
+    assert "stash" in tmk.unsupported_bwd(ts, wide.replace(max_bounces=24))
     assert tmk.BWD_THREADS == 128
-    assert tmk.unsupported_bwd(ts, cfg) is None
+    assert tmk.unsupported_bwd(ts, cfg) is None and tmk.cornell_copy(ts, cfg)
+    assert tmk.bwd_columns(ts, cfg) == (0, 1, 2, 3, 7, 8, 9, 10, 11, 12)
     deep = cfg.replace(max_bounces=40, max_diff_bounces=30)
     assert "stash" in tmk.unsupported_bwd(ts, deep)
     sb = SceneBuilder()

@@ -259,17 +259,25 @@ def test_plain_matches_jax_env_kernel_interpret():
 
 
 def test_gradient_gate_names_k2_class():
-    """K2 differentiates the Cornell class only: scenes that K1 now renders
-    but K2 does not cover are refused by `unsupported_bwd` with the ROADMAP
-    item that widens it, before anything is launched."""
+    """K2 differentiates the whole class K1 renders without ReSTIR: the
+    cubemap, config 2 (glass, mirror, coat), the sun and uniform sampling
+    run its wide copy (with the IOR's column under refraction), Cornell its
+    own; what it refuses, before anything is launched, names the ROADMAP
+    item that adds it: a gradient w.r.t. a texel array (item 14), ReSTIR
+    (K7, item 11)."""
     cornell, _, cfg = tpresets.cornell_default(device="cpu", use_mis=True)
     assert tmk.unsupported(cornell, cfg) is None
-    assert tmk.unsupported_bwd(cornell, cfg) is None
+    assert tmk.unsupported_bwd(cornell, cfg) is None and tmk.cornell_copy(cornell, cfg)
     cube, _, ccfg = tpresets.cubemap_demo(device="cpu")
     config2 = tparse(CONFIG2, device="cpu")
     sun = dir_scene(TBuilder, device="cpu")
     for scene, c in [(cube, ccfg), (config2, cfg), (sun, cfg),
                      (cornell, cfg.replace(use_biased_sampling=False))]:
         assert tmk.unsupported(scene, c) is None
-        reason = tmk.unsupported_bwd(scene, c)
-        assert reason is not None and "ROADMAP queue 1 item 14" in reason, reason
+        assert tmk.unsupported_bwd(scene, c) is None and not tmk.cornell_copy(scene, c)
+    assert 13 in tmk.bwd_columns(config2, cfg) and 13 not in tmk.bwd_columns(sun, cfg)
+    texel = cube.replace(cubemap=cube.cubemap.clone().requires_grad_(True))
+    reason = tmk.unsupported_bwd(texel, ccfg)
+    assert "cubemap" in reason and "ROADMAP queue 1 item 14" in reason, reason
+    reason = tmk.unsupported_bwd(cornell, cfg.replace(use_restir=True))
+    assert "K7" in reason and "item 11" in reason, reason

@@ -259,7 +259,8 @@ def test_reservoir_ops_match_jax():
 def test_gates():
     """K1 refuses ReSTIR in its own words; K6's gate admits the ReSTIR
     presets and refuses what the JAX `supported_restir_fused` refuses;
-    K2's gate refuses SDF meshes (item 14) and ReSTIR (K7, item 11)."""
+    K2's gate admits the BOX SDF of `mis_demo` (its wide copy) and
+    refuses ReSTIR (K7, item 11)."""
     demo, _, cfg = tpresets.restir_demo(device="cpu")
     stress, _, scfg = tpresets.restir_stress(device="cpu")
     assert "K6" in tmk.unsupported(demo, cfg) and "item 11" in tmk.unsupported(demo, cfg)
@@ -284,8 +285,8 @@ def test_gates():
     assert "not LIGHT spheres" in tk6.unsupported_restir(sun, cfg)
     mis, _, mcfg = tpresets.mis_demo(device="cpu")
     assert tmk.unsupported(mis, mcfg) is None
-    assert "SDF" in tmk.unsupported_bwd(mis, mcfg) and "item 14" in tmk.unsupported_bwd(mis, mcfg)
-    restir_bwd = tmk._outside_k2_class(cornell, ccfg.replace(use_restir=True))
+    assert tmk.unsupported_bwd(mis, mcfg) is None and not tmk.cornell_copy(mis, mcfg)
+    restir_bwd = tmk.unsupported_bwd(cornell, ccfg.replace(use_restir=True))
     assert "K7" in restir_bwd and "item 11" in restir_bwd
 
 

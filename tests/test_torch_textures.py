@@ -239,20 +239,31 @@ def test_plain_grad_matches_jax_images_and_color():
 
 
 def test_gradient_gate_refuses_textures():
-    """K2 models no texture: a scene with a blended texture is refused by
-    `unsupported_bwd` (ROADMAP queue 1 item 14) though K1 renders it; the
-    DIFF/LIGHT presets are refused for their textures alone."""
+    """K2 differentiates textured scenes through the scene table (its wide
+    copy, with the blended texture's masks, and its params where they have
+    a gradient, as columns): the four textured presets are in its class;
+    a gradient w.r.t. the images or the noise LUT is refused by
+    `unsupported_bwd` (ROADMAP queue 1 item 14), as the JAX package
+    computes it outside its kernels too.  A texture that blends into
+    nothing takes the wide copy all the same: a shadow ray reads the texel
+    of any mesh it hits (lighting.direct_light_slot)."""
     for name in ("textured_cornell", "textured_gloss", "textured_emitter", "cornell_box"):
         ts, _, cfg = getattr(tpresets, name)(device="cpu")
         assert tmk.unsupported(ts, cfg) is None
-        reason = tmk.unsupported_bwd(ts, cfg)
-        assert reason is not None and "ROADMAP queue 1 item 14" in reason, reason
-        if name in ("textured_cornell", "textured_emitter"):
-            assert "textures" in reason, reason
-    # a texture that blends into nothing leaves the scene in K2's class
+        assert tmk.unsupported_bwd(ts, cfg) is None and not tmk.cornell_copy(ts, cfg)
+        assert {30, 31, 32} <= set(tmk.bwd_columns(ts, cfg))
+        for leaf in ("images", "noise"):
+            grad_leaf = getattr(ts, leaf).clone().requires_grad_(True)
+            reason = tmk.unsupported_bwd(ts.replace(**{leaf: grad_leaf}), cfg)
+            assert leaf in reason and "ROADMAP queue 1 item 14" in reason, reason
+    ts, _, cfg = tpresets.textured_emitter(device="cpu")
+    assert {33, 34, 35} <= set(tmk.bwd_columns(ts, cfg))
+    # a texture that blends into nothing: in K2's class, on its wide copy
     b = TBuilder()
     b.add(tex_material(tmat, tmat.TexType.CHECK, (5.0, 5.0, 2.0, 0.0), opts=(False,) * 4),
           tmat.MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     b.add("MAT_LIGHT_4", tmat.MeshType.SPHERE, (0.0, 1.5, 0.0), (0.4,))
     _, _, cfg = tpresets.cornell_default(device="cpu")
-    assert tmk.unsupported_bwd(b.build(device="cpu"), cfg) is None
+    plain = b.build(device="cpu")
+    assert tmk.unsupported_bwd(plain, cfg) is None and not tmk.cornell_copy(plain, cfg)
+    assert {26, 27, 28, 29} <= set(tmk.bwd_columns(plain, cfg))
