@@ -15,7 +15,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    and ptxas' register, stack and spill lines; prints each kernel's blocks
    and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
    with the shared memory, registers and local memory they were computed
-   for (its main path's scene; K6v in both forms; K2's copies on each
+   for (its main path's scene; K1's whole-SDF copy on `mandelbulb`; K6v in
+   both forms; K2's copies on each
    scene class, `k2_cases`: its Cornell copy on Cornell and the 47-mesh
    scene of `presets.many_lights`, its wide copy on config 2, `mis_demo`,
    `textured_cornell`, `cubemap_demo` and the 47-mesh scene under uniform
@@ -187,9 +188,25 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    ANIMATED frame through K6 (no ad-hoc motion) and through K1 (ReSTIR
    off, held bit for bit against the plain version);
 25. checks that a gradient through the split path, `animated_restir`
-   itself (a METAL texture on its SDF mesh, item 8) on every route, and
-   `restir_demo` on the split path with a blended texture or a cubemap
-   (item 11), raise NotImplementedError before any launch.
+   itself (a METAL texture on its SDF mesh, item 8) under ReSTIR on K6
+   and on the split path, and `restir_demo` on the split path with a
+   blended texture or a cubemap (item 11), raise NotImplementedError
+   before any launch; and that the gates of K2, K4, K5, K6, K6v, K7 and
+   ReSTIR refuse a Mandelbulb, a textured BOX SDF (`default_scene`) and
+   an SDF light naming item 8, and their routes (a gradient, a ReSTIR
+   pass, the split path, a ReSTIR gradient, K5's cast) raise before any
+   launch;
+26. drives the whole SDF class on K1, the reference's presets
+   `default_scene` (a METAL-textured BOX SDF under the cubemap),
+   `mandelbulb` and `menger_sponge` (a COAT Menger sponge under the
+   cubemap), each through `Renderer(...).render(2)` at 512x512 with 12
+   bounces and 128 marching steps: K1 launched twice, K2 and the plain
+   version never, a finite image that is not black; holds K1's image bit
+   for bit against the plain version on the card (the count of differing
+   pixels printed); times a `sample_radiance` pass (CUDA events) and K1's
+   device time (`k1_device_time.py`), prints the path events (march
+   steps, the march's lane use) and K1's bound with the float operations
+   of each distance.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -245,11 +262,15 @@ OPS_FETCH = 67      # cubemap fetch: face select, bilinear weights and lerp, acc
 OPS_NEE = 108       # per sphere light: cone toward the light, shadow-ray setup, contribution
 OPS_NEE_MIS = 43    # per sphere light under MIS: energy gate, both pdfs, heuristic
 OPS_NEE_DIR = 32    # per directional light without MIS: direction, origin, contribution
+OPS_NEE_SDF = 52    # per SDF light: the sphere point, direction, origin, contribution
+OPS_NEE_SDF_MIS = 37  # per SDF light under MIS: energy gate, the BSDF pdf, heuristic
 OPS_LIGHT = 12      # emissive hit: acc += mask c e w
 OPS_LIGHT_MIS = 48  # its BSDF-side MIS weight
 OPS_MISS = 28       # procedural sky and acc
 OPS_BLEND = 24      # textured hit: c and e mixed toward texel * mask by alpha
-OPS_UV = {0: 14, 1: 9, 2: 9}  # UV of a sphere (asin, atan2), a plane, a box
+# UV of a sphere (asin, atan2), a plane, a box, an SDF row (its row's box
+# normal, then the planar UV)
+OPS_UV = {0: 14, 1: 9, 2: 9, 3: 29}
 # one texel by TexType code: bilinear image, CHECK, RIPPLE, VORONOI (27
 # cells), GRADIENT_NOISE (8 hashed corners, 3 sin each), VALUE_NOISE (two
 # bilinear LUT channels), METAL (3 octaves of value noise)
@@ -260,6 +281,13 @@ TEX_LUT = (4, 6, 9)           # Voronoi, value noise and metal read the LUT
 # bounding-sphere gate; per step besides the evaluation; per marched ray the
 # first and the final evaluation's point; the 4-tap normal of an SDF hit
 OPS_SDF_EVAL = 20
+# one distance by SdfShape code, counted from trace_common.cuh::sdf_entry_all
+# (q = p - pos included): BOX, ROUND_BOX, SPHERE, TRI_PRISM, CONE, MENGER (4
+# iterations), MANDELBULB (3 iterations, log and sqrt), ELLIPSOID, CAPSULE,
+# SNOWBALL (one value-noise fetch), SEA_BOX (two displacements, 6 sin/cos),
+# SIGGRAPH, TRIANGLE, QUAD
+OPS_SDF_SHAPE = {0: OPS_SDF_EVAL, 1: OPS_SDF_EVAL, 2: 11, 3: 14, 4: 24, 5: 164, 6: 260, 7: 17,
+                 8: 34, 9: 67, 10: 58, 11: 42, 12: 171, 13: 219}
 OPS_SDF_GATE = 33
 OPS_MARCH_STEP = 11
 OPS_MARCH_RAY = 12
@@ -502,7 +530,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
                 gbuffer=False, resident_warps=None):
     """Events of every pixel's path, counted over the image: rays by mesh
     scan, BSDF samples by material and by outcome (diffuse, specular,
-    transmitted), shadow rays to sphere and to directional lights, gather
+    transmitted), shadow rays to sphere, SDF and directional lights, gather
     rays, cubemap fetches, emissive hits (and those with a MIS weight),
     procedural-sky misses, texels by texture type and UVs by mesh type
     (at hits on meshes that blend a texture), and in scenes with SDF meshes
@@ -529,8 +557,8 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
 
     n = ro.shape[:-1].numel()
     kinds = [lighting.slot_kind(scene, i) for i in range(scene.num_lights)]
-    n_sphere, n_dir = kinds.count("sphere"), kinds.count("dir")
-    ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0,
+    n_sphere, n_dir, n_sdf_light = kinds.count("sphere"), kinds.count("dir"), kinds.count("sdf")
+    ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0, shadow_sdf=0,
               gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
               gated=0, marched=0, march_steps=0, sdf_hits=0, vertices=0,
               v_gated=0, v_marched=0, v_march_steps=0, bsdf={}, texel={}, uv={})
@@ -631,6 +659,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
                                                sample_idx, depth)
                     march_work(diffuse)
                 ev["shadow"] += n_diffuse * n_sphere
+                ev["shadow_sdf"] += n_diffuse * n_sdf_light
                 if not cfg.use_mis:
                     ev["shadow_dir"] += n_diffuse * n_dir
             sel = surf[..., None]
@@ -677,23 +706,27 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     n_sdf = scene.num_sdfs
+    # one scene map: each entry's distance by its shape
+    smap = sum(OPS_SDF_SHAPE[int(s)] for s in scene.sdf_shapes_static)
     march = (ev["gated"] * n_sdf * OPS_SDF_GATE
-             + ev["marched"] * (2 * (OPS_MARCH_RAY + n_sdf * OPS_SDF_EVAL))
-             + ev["march_steps"] * (OPS_MARCH_STEP + n_sdf * OPS_SDF_EVAL)
-             + ev["sdf_hits"] * n_sdf * OPS_SDF_NORMAL)
+             + ev["marched"] * (2 * (OPS_MARCH_RAY + smap))
+             + ev["march_steps"] * (OPS_MARCH_STEP + smap)
+             + ev["sdf_hits"] * (n_sdf * (OPS_SDF_NORMAL - 4 * OPS_SDF_EVAL) + 4 * smap))
     nee = OPS_NEE + (OPS_NEE_MIS if cfg.use_mis else 0)
     samples = sum(ev["bsdf"].values())
     hits = samples + ev["light"] + ev["dir_hit"]
     sweep = (ev["rays"] * per_ray + hits * OPS_HIT + samples * OPS_DIFFUSE
              + sum(k * OPS_BSDF.get(code, 0) for code, k in ev["bsdf"].items()))
+    nee_sdf = OPS_NEE_SDF + (OPS_NEE_SDF_MIS if cfg.use_mis else 0)
     fwd = (sweep + ev["shadow"] * (per_ray + nee) + ev["shadow_dir"] * (per_ray + OPS_NEE_DIR)
+           + ev["shadow_sdf"] * (per_ray + nee_sdf)
            + ev["gather"] * (per_ray + OPS_GATHER) + ev["fetch"] * OPS_FETCH
            + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS
            + sum(k * (OPS_TEXEL[code] + OPS_BLEND) for code, k in ev["texel"].items())
            + sum(k * OPS_UV[m] for m, k in ev["uv"].items()) + march)
     if restir:
         fwd += vertex_ops(ev, scene, cfg, per_ray)
-    scans = (ev["rays"] + ev["shadow"] + ev["shadow_dir"] + ev["gather"]
+    scans = (ev["rays"] + ev["shadow"] + ev["shadow_dir"] + ev["shadow_sdf"] + ev["gather"]
              + (2 * ev["vertices"] if restir else 0)) * per_ray + march
     adjoint_ops = fwd - scans
     table = 4 * scene.num_meshes * 36
@@ -793,7 +826,7 @@ def cast_bound(torch, scene, cfg, o, d):
 def kernel_occupancy(dev):
     """{(kernel, scene): cuda_build.occupancy(...)} of the six kernels at
     the block size and shared memory of their main paths' scenes: K1 and
-    K2 on Cornell, K4 and K5 on the real-time scene (the SDF copies), K6v
+    K2 on Cornell, K1's whole-SDF copy on `mandelbulb`, K4 and K5 on the real-time scene (the SDF copies), K6v
     (fused form) and K7 on `restir_demo`, K7 on `restir_stress` too, and
     K6v's split form on the real-time scene."""
     from raytracer0_tpu_torch.models import presets
@@ -804,9 +837,12 @@ def kernel_occupancy(dev):
     realtime = presets.animated_untextured(device=dev)[0]
     demo, stress = presets.restir_demo(device=dev)[0], presets.restir_stress(device=dev)[0]
     k7_threads = restir_kernel.bwd_threads
+    bulb = presets.mandelbulb(device=dev)[0]
     rows = [
         ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
          128, megakernel.packed_smem_bytes(cornell), False),
+        ("K1 whole-SDF", "mandelbulb", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
+         128, megakernel.packed_smem_bytes(bulb), 5),
         ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
          "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(realtime), True),
         ("K4", "restir_demo", "gbuffer", restir_split.GBUF_SOURCES,
@@ -827,8 +863,9 @@ def kernel_occupancy(dev):
         flag = int(warp) | 2 * int(not megakernel.cornell_copy(sc, c))
         rows.append(("K2", where, "megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
                      megakernel.BWD_THREADS, smem, flag))
-    # the flag is the SDF copy's (K4, K5), K6v's form or K2's copy (bit 0 a
-    # column per warp, bit 1 the wide copy)
+    # the flag is K1's copy (bit 0 the SDF march, bit 2 the whole SDF class),
+    # the SDF copy's (K4, K5), K6v's form or K2's copy (bit 0 a column per
+    # warp, bit 1 the wide copy)
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
 
@@ -848,6 +885,29 @@ def sun_scene(dev):
     sb.lights([3])
     cam = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=dev)
     return sb.build(device=dev), cam
+
+
+def sdf_light_scene(dev):
+    """(scene, camera, cfg) of tests/test_megakernel.py:700-716 (and
+    tests/test_torch_sdf_scenes.py): Cornell walls, a box and an SDF
+    ROUND_BOX light in the only light slot."""
+    from raytracer0_tpu_torch.config import OFFLINE_CONFIG
+    from raytracer0_tpu_torch.models.camera import Camera
+    from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
+    from raytracer0_tpu_torch.models.scene import SceneBuilder
+
+    sb = SceneBuilder()
+    for mat, n, w in (("MAT_CORNELL_WHITE", (0.0, 1.0, 0.0), 1.5),
+                      ("MAT_CORNELL_WHITE", (0.0, -1.0, 0.0), 1.5),
+                      ("MAT_CORNELL_WHITE", (0.0, 0.0, 1.0), 2.5),
+                      ("MAT_CORNELL_RED", (1.0, 0.0, 0.0), 1.5),
+                      ("MAT_CORNELL_GREEN", (-1.0, 0.0, 0.0), 1.5)):
+        sb.add(mat, MeshType.PLANE, n, (w,))
+    sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.5, -1.0, -1.8), (1.0,))
+    sb.add("MAT_LIGHT_4", MeshType.SDF, (0.0, 1.0, -1.2), (0.3, 0.3, 0.3, 0.05),
+           sdf_shape=SdfShape.ROUND_BOX)
+    cam = Camera.make(origin=(0.0, 0.0, 2.8), lookat=(0.0, 0.0, -1.0), fov=50.0, device=dev)
+    return sb.build(device=dev), cam, OFFLINE_CONFIG.replace(max_bounces=2)
 
 
 def k2_cases(dev):
@@ -2427,10 +2487,41 @@ def main() -> int:
             rt_scene.replace(emission=em25), rt_adhoc, rt_cam, 16, 16, passes=2),
     }
     m_scene, m_cam, m_cfg = presets.animated_restir(device=dev)
-    for label, c in (("on K6", m_cfg), ("on the split path", m_cfg.replace(restir_adhoc_motion=True)),
-                     ("on K1", m_cfg.replace(use_restir=False))):
+    for label, c in (("on K6", m_cfg), ("on the split path", m_cfg.replace(restir_adhoc_motion=True))):
         refusals[f"animated_restir (MAT_METAL on its SDF) {label}"] = \
             lambda c=c: Renderer(m_scene, m_cam, c, 16, 16).step(0.1)
+    # the classes only K1 renders: every other kernel refuses them before any
+    # launch, naming item 8 (a gradient is K2's, a ReSTIR pass K4's and K6's,
+    # the split path K4's and K6v's, a ReSTIR gradient K7's, a cast K5's)
+    new_classes = {"a Mandelbulb": presets.mandelbulb(device=dev),
+                   "a textured BOX SDF (default_scene)": presets.default_scene(device=dev),
+                   "an SDF light": sdf_light_scene(dev)}
+    for label, (sc25, cam25, cfg25) in new_classes.items():
+        em_n = sc25.emission.clone().requires_grad_(True)
+        rc25 = cfg25.replace(use_restir=True, use_mis=False)
+        ro25, rd25 = generate_rays(cam25, 8, 8, 0)
+        gates = {"K2": megakernel.unsupported_bwd(sc25, cfg25),
+                 "K4": restir_split.unsupported_gbuffer(sc25, rc25),
+                 "K5": restir_split.unsupported_cast(sc25),
+                 "K6": restir_kernel.unsupported_restir(sc25, rc25),
+                 "K6v": restir_vertex.unsupported(sc25, restir_split.gbuffer_slots(rc25)),
+                 "K7": restir_kernel.unsupported_restir_bwd(sc25, rc25),
+                 "ReSTIR": integrator.unsupported(sc25, rc25)}
+        for gate, why in gates.items():
+            print(f"phase 25: {gate}'s gate on {label}: {why}")
+            if why is None or "item 8" not in why:
+                raise AssertionError(f"{gate} admits {label} or refuses it without naming item 8")
+        refusals[f"a gradient through {label} (K2)"] = lambda sc=sc25, c=cfg25, e=em_n, o=ro25, \
+            r=rd25: megakernel.trace_forward(sc.replace(emission=e), c, o, r,
+                                             rng.pixel_ids(8, 8, device=dev), 0, 0)
+        refusals[f"a ReSTIR pass on {label} (K4, K6)"] = lambda sc=sc25, cm=cam25, c=rc25: \
+            Renderer(sc, cm, c, 8, 8).step()
+        refusals[f"the split path on {label} (K4, K6v)"] = lambda sc=sc25, cm=cam25, c=rc25: \
+            Renderer(sc, cm, c.replace(restir_adhoc_motion=True), 8, 8).step(0.1)
+        refusals[f"a ReSTIR gradient on {label} (K7)"] = lambda sc=sc25, cm=cam25, c=rc25, \
+            e=em_n: optimize.render_linear(sc.replace(emission=e), c, cm, 8, 8, passes=2)
+        refusals[f"K5's cast on {label}"] = lambda sc=sc25, c=cfg25, o=ro25, r=rd25: \
+            restir_split.cast_rays(sc, c, o, r)
     demo25, demo_cam25, demo_cfg25 = presets.restir_demo(device=dev)
     adhoc25 = demo_cfg25.replace(restir_adhoc_motion=True)
     textured25 = presets.textured_restir_demo(device=dev)[0]
@@ -2444,14 +2535,76 @@ def main() -> int:
             call()
         except NotImplementedError as exc:
             print(f"phase 25: {what} raises NotImplementedError: {exc}")
-            if what.startswith("animated_restir") and "item 8" not in str(exc):
-                raise AssertionError("animated_restir is refused without naming item 8")
+            if (what.startswith("animated_restir") or any(label in what for label in new_classes)) \
+                    and "item 8" not in str(exc):
+                raise AssertionError(f"{what} is refused without naming item 8")
             if what.startswith("restir_demo") and "item 11" not in str(exc):
                 raise AssertionError(f"{what} is refused without naming item 11")
         else:
             raise AssertionError(f"{what} did not raise")
     if split_counts() != before:
         raise AssertionError("a refused call launched a kernel")
+
+    # ---- phase 26: the whole SDF class on K1: the reference's presets 0, 2 and 3 ----
+    plain_trace, plain_calls = integrator.trace, [0]
+
+    def counted_plain(*args, **kw):
+        plain_calls[0] += 1
+        return plain_trace(*args, **kw)
+
+    whole = {}
+    for name in ("default_scene", "mandelbulb", "menger_sponge"):
+        sc26, cam26, cfg26 = getattr(presets, name)(device=dev)
+        if megakernel.unsupported(sc26, cfg26) is not None or not megakernel.whole_sdf(sc26):
+            raise AssertionError(f"{name}: expected in K1's whole-SDF class")
+        # the main path, its counts set to 0 just before and read just after
+        megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = plain_calls[0] = 0
+        integrator.trace = counted_plain
+        try:
+            img26 = Renderer(sc26, cam26, cfg26, H, W).render(2)
+            torch.cuda.synchronize()
+        finally:
+            integrator.trace = plain_trace
+        launches26 = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, plain_calls[0])
+        print(f"phase 26: {name}: Renderer.render(2) at {H}x{W}, {cfg26.max_bounces} bounces, "
+              f"{cfg26.marching_steps} marching steps: {launches26[0]} K1 launches, "
+              f"{launches26[1]} K2, {launches26[2]} calls of the plain version; image mean "
+              f"{img26.mean().item():.6f}")
+        if launches26 != (2, 0, 0) or not bool(torch.isfinite(img26).all()) \
+                or not img26.mean().item() > 0.01:
+            raise AssertionError(f"{name}: the main path did not run K1 alone, or its image is "
+                                 "not finite or black")
+        ro26, rd26 = generate_rays(cam26, H, W, 0)
+        pix26 = rng.pixel_ids(H, W, device=dev)
+        out26 = megakernel.trace_forward(sc26, cfg26, ro26, rd26, pix26, 0, 0)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        ref26 = integrator.trace(sc26, cfg26, ro26, rd26, pix26, 0, 0)
+        ev1.record()
+        torch.cuda.synchronize()
+        n_diff = int((out26 != ref26).any(dim=-1).sum())
+        err26 = (out26 - ref26).abs().max().item()
+        print(f"phase 26: {name}: K1 against the plain version at {H}x{W}: {n_diff} of {H * W} "
+              f"pixels differ (share {n_diff / (H * W):.6f}), max abs err {err26:.3e}; means "
+              f"{out26.mean().item():.6f} and {ref26.mean().item():.6f}")
+        if n_diff:
+            raise AssertionError(f"{name}: K1's whole-SDF copy differs from the plain version")
+        pass26 = time_stats(torch, lambda: sample_radiance(sc26, cfg26, cam26, H, W, 0))
+        dev26 = k1_device_ms((name,), dev)[name]
+        ev26 = path_events(torch, sc26, cfg26, ro26, rd26, pix26, 0, 0)
+        b26 = bound(ev26, sc26, cfg26, adjoint=False)
+        flops = {SdfShape(s).name: OPS_SDF_SHAPE[int(s)] for s in sc26.sdf_shapes_static}
+        print(f"phase 26: path events of {name} at {H}x{W}: {json.dumps(ev26)}")
+        print(f"phase 26: {card}: {name}: sample_radiance pass {pass26[0]:.3f} ms (q1 "
+              f"{pass26[1]:.3f}, q3 {pass26[2]:.3f}; CUDA events), K1 device time "
+              f"{dev26[0]:.5f} ms (k1_device_time.py, rounds {[round(x, 5) for x in dev26[1]]}), "
+              f"plain version {ev0.elapsed_time(ev1):.3f} ms; bound {b26[0]:.6f} ms ({b26[1]}), "
+              f"float operations per distance {flops}; march lane use "
+              f"{ev26.get('march_lane_use', 1.0):.4f}")
+        whole[name] = {"launches": launches26[0], "max_abs_err": err26, "pixels_differing": n_diff,
+                       "ms": pass26[0], "device_ms": dev26[0], "plain_ms": ev0.elapsed_time(ev1),
+                       "bound_ms": b26[0], "bound_by": b26[1]}
+        del out26, ref26
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -2464,7 +2617,8 @@ def main() -> int:
          "launches_by_path": {"render": launches, "gradient": launches_grad,
                               "cubemap_render": launches_cube, "texture_render": launches_tex,
                               "gloss_render": launches_gloss,
-                              "animated_render": launches_k1_anim},
+                              "animated_render": launches_k1_anim,
+                              "whole_sdf_render": sum(v["launches"] for v in whole.values())},
          "max_abs_err": max_abs_err, "ms": ms_trace, "plain_ms": plain_ms_trace,
          "bound_ms": k1_bound, "bound_by": k1_by,
          "ms_config2": k1_ms["config2"], "device_ms_config2": k1_dev_ms["config2"],
@@ -2473,7 +2627,8 @@ def main() -> int:
          "max_abs_err_mis_demo": sdf_err[("mis_demo", H)],
          "ms_mis_demo": ms_sdf, "device_ms_mis_demo": k1_dev["mis_demo"][0],
          "plain_ms_mis_demo": plain_ms_sdf, "bound_ms_mis_demo": sdf_bound,
-         "device_ms_cornell_alone": k1_dev["cornell_default"][0]},
+         "device_ms_cornell_alone": k1_dev["cornell_default"][0],
+         "whole_sdf_copy": whole},
         {"name": "K2 adjoint megakernel", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2545",

@@ -9,7 +9,11 @@ checkout lacks are skipped):
     python3 k1_device_time.py
 
 Prints the card's name and power limit, then one JSON line: ptxas' register
-and spill lines for K1 and K7, and per preset the median over 5 rounds of
+and spill lines for K1, K2, K4, K5, K6v and K7 (K1's copies in the order
+nvcc compiles them: the four of the BOX/ROUND_BOX class, then the
+whole-SDF copies), and per preset of PRESETS (Cornell, the textured
+presets, `mis_demo`, `cubemap_demo`, config 2 and the reference's SDF
+presets `default_scene`, `mandelbulb` and `menger_sponge`) the median over 5 rounds of
 K1's device time (torch.profiler, 20 launches per round) at 512x512 with 12
 bounces, after 5 warm-up launches; and the same for K7 (the adjoint kernel
 alone, and with its tap gather and reduction) on `restir_demo` and
@@ -65,14 +69,17 @@ import statistics
 import subprocess
 import sys
 
-PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", "cubemap_demo")
+PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", "cubemap_demo",
+           "config2", "textured_emitter", "cornell_box", "default_scene", "mandelbulb",
+           "menger_sponge")
 K7_PRESETS = ("restir_demo", "restir_stress")
 
 
 def k1_device_ms(names, dev):
     """{preset: (median, rounds)} of K1's device milliseconds per launch at
     512x512, 12 bounces, for each preset of `names` this checkout has
-    (`cornell_default` with MIS)."""
+    (`cornell_default` with MIS): each round the profiler's K1 time over
+    the K1 launches it recorded of 20."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,9 +104,13 @@ def k1_device_ms(names, dev):
                 for _ in range(20):
                     megakernel.trace_forward(scene, cfg, ro, rd, pix, 0, 0)
                 torch.cuda.synchronize()
+            k1 = [e for e in prof.key_averages() if "fwd_kernel" in e.key]
             us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                     for e in prof.key_averages() if "fwd_kernel" in e.key)
-            rounds.append(us / 20 / 1e3)
+                     for e in k1)
+            # per recorded launch: late in a long process the profiler can
+            # miss some launches of a window of long kernels (6 of 20 in
+            # rounds of 2-4 ms launches, which then read 0.70x)
+            rounds.append(us / max(sum(e.count for e in k1), 1) / 1e3)
         res[name] = (statistics.median(rounds), rounds)
     return res
 
@@ -431,6 +442,8 @@ def output_digests(dev):
     res = {}
     pix = rng.pixel_ids(512, 512, device=dev)
     for name in PRESETS:
+        if not hasattr(presets, name):
+            continue
         kw = dict(use_mis=True) if name == "cornell_default" else {}
         scene, cam, cfg = getattr(presets, name)(device=dev, **kw)
         ro, rd = generate_rays(cam, 512, 512, 0)
@@ -489,7 +502,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k1_device_time: no CUDA device", file=sys.stderr)
         return 2
-    from raytracer0_tpu_torch.ops import megakernel, restir_split
+    from raytracer0_tpu_torch.ops import megakernel, restir_split, restir_vertex
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -501,6 +514,8 @@ def main() -> int:
     res = {"tree": os.path.basename(os.getcwd()), "ptxas": ptxas(megakernel.build()[1]),
            "ptxas_k2": ptxas(megakernel.build_bwd()[1]),
            "ptxas_k4": ptxas(restir_split.build_gbuffer()[1]),
+           "ptxas_k5": ptxas(restir_split.build_cast()[1]),
+           "ptxas_k6v": ptxas(restir_vertex.build()[1]),
            "ptxas_k7": ptxas(restir_kernel.build_bwd()[1])}
     dev = torch.device("cuda", 0)
     res.update(occupancy(dev))

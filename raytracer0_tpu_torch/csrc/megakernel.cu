@@ -89,7 +89,7 @@ constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // __launch_bounds__: 64 registers
 
 // Per-light NEE (trace_common.cuh::shade_nee) as trace_path's direct light.
-template <bool kSdf, bool kTex>
+template <bool kSdf, bool kTex, bool kAll>
 struct Nee {
   const SceneSmem &s;
   const PathSmem &ps;
@@ -97,36 +97,42 @@ struct Nee {
   const TraceArgs &a;
   __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int, uint32_t h_depth, int, int,
                                            V3) const {
-    return shade_nee<kSdf, kTex>(s, ps.sd, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis, &a,
-                                 ps.tex);
+    return shade_nee<kSdf, kTex, kAll>(s, ps.sd, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis, &a,
+                                       ps.tex);
   }
 };
 
 // kSdf: the SDF march; kTex: a scene whose LIGHT meshes have textures,
 // whose NEE blends the shadow hit's texel (any other scene runs the code
 // without it: the blend's branch cost a textured scene's K1 8-10 % though
-// no light there had a texture, k1_device_time.py on an H100).
-template <bool kSdf, bool kTex>
+// no light there had a texture, k1_device_time.py on an H100); kAll (with
+// kSdf): the whole SDF class, every shape of ops/sdf.py (the 14 distances of
+// the Pallas `_sdf_distance`), the texel of an SDF hit and SDF-light NEE
+// (the NEE_SDF_POINT draw of `_build_bounce`), a copy of its own so the
+// scenes of BOX and ROUND_BOX rows run the code they ran before.
+template <bool kSdf, bool kTex, bool kAll>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fwd_kernel(TraceArgs a) {
   extern __shared__ __align__(16) float smem[];
   SceneSmem s;
   const PathSmem ps = load_path(a, smem, s);
   const PackedScene pk =
-      load_packed(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
-  Nee<kSdf, kTex> nee = {s, ps, pk, a};
+      load_packed<kAll>(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
+  Nee<kSdf, kTex, kAll> nee = {s, ps, pk, a};
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.n_pix) return;  // ragged edge
-  const V3 acc = trace_path<kSdf>(a, s, ps, pk, p, nee);
+  const V3 acc = trace_path<kSdf, kAll>(a, s, ps, pk, p, nee);
   a.out[3 * p] = acc.x;
   a.out[3 * p + 1] = acc.y;
   a.out[3 * p + 2] = acc.z;
 }
 
-// The copy of K1 for a scene with SDF rows (`sdf`) and with textured LIGHT
-// meshes (`tex`).
-inline void (*fwd_copy(bool sdf, bool tex))(TraceArgs) {
-  if (tex) return sdf ? fwd_kernel<true, true> : fwd_kernel<false, true>;
-  return sdf ? fwd_kernel<true, false> : fwd_kernel<false, false>;
+// The copy of K1 for a scene with SDF rows (`sdf`), with textured LIGHT
+// meshes (`tex`) and with SDF rows outside BOX and ROUND_BOX, textured or
+// lit (`all`, which implies `sdf`).
+inline void (*fwd_copy(bool sdf, bool tex, bool all))(TraceArgs) {
+  if (all) return tex ? fwd_kernel<true, true, true> : fwd_kernel<true, false, true>;
+  if (tex) return sdf ? fwd_kernel<true, true, false> : fwd_kernel<false, true, false>;
+  return sdf ? fwd_kernel<true, false, false> : fwd_kernel<false, false, false>;
 }
 
 }  // namespace
@@ -134,7 +140,8 @@ inline void (*fwd_copy(bool sdf, bool tex))(TraceArgs) {
 // Launch K1 on `stream`; returns cudaGetLastError() of the launch.  A scene
 // without SDF rows runs the copy of the kernel built without the march, a
 // scene without textured LIGHT meshes (use_tex bit 1) the copy without the
-// shadow hit's texel.
+// shadow hit's texel, a scene whose SDF rows go beyond BOX and ROUND_BOX,
+// untextured and unlit (use_tex bit 2), the whole-SDF copy.
 extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const int32_t *mat,
                                  int n_mesh, const int32_t *lights, int n_lights, const float *ro,
                                  const float *rd, const int64_t *pix, float *out, long long n_pix,
@@ -156,15 +163,16 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
   const size_t smem = packed_smem_bytes(path_smem_bytes(n_mesh, n_lights, n_sdf), n_mesh, n_sdf);
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void (*kern)(TraceArgs) = fwd_copy(n_sdf > 0, (use_tex & 2) != 0);
+  void (*kern)(TraceArgs) = fwd_copy(n_sdf > 0, (use_tex & 2) != 0, (use_tex & 4) != 0);
   kern<<<blocks, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // K1's occupancy at `threads` threads and `smem` bytes of dynamic shared
 // memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
-// bit 0 the SDF march, bit 1 the shadow hit's texel.
+// bit 0 the SDF march, bit 1 the shadow hit's texel, bit 2 the whole SDF
+// class.
 extern "C" int rt0_trace_forward_occupancy(int flags, int threads, long long smem, int *out) {
-  return kernel_occupancy(fwd_copy((flags & 1) != 0, (flags & 2) != 0), threads, (size_t)smem,
-                          out);
+  return kernel_occupancy(fwd_copy((flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0),
+                          threads, (size_t)smem, out);
 }

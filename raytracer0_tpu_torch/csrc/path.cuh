@@ -15,7 +15,8 @@
 // scenes without SDF meshes.  K1 runs one pixel per thread (trace_path);
 // K4 keeps its lanes busy with new pixels as paths end
 // (gbuffer.cu::regenerate_paths).  Both scan the scene through its packed
-// records (intersect_packed).
+// records (intersect_packed).  `kAll` compiles K1's copy for the whole SDF
+// class: every SDF shape, the texel of an SDF hit and SDF-light NEE.
 
 #pragma once
 
@@ -161,7 +162,7 @@ __device__ __forceinline__ PathState path_start(const TraceArgs &a, long long p)
 // diffuse bounces before it ndif, bounce depth, throughput after the
 // bounce mask_after) it adds direct(x, nl, idx, h_depth, ndif, depth,
 // mask_after) * mask_after.
-template <bool kSdf, class Direct>
+template <bool kSdf, bool kAll = false, class Direct>
 __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s,
                                           const PathSmem &ps, const PackedScene &pk,
                                           PathState &st, Direct &direct) {
@@ -169,7 +170,11 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   const int depth = st.depth;
   float tmin;
   int idx;
-  const bool sdf_hit = intersect_packed<kSdf>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx);
+  // the value-noise LUT of a SNOWBALL, for the whole-SDF copy's scene map
+  const float *lut = kAll ? a.noise : nullptr;
+  const int lut_n = kAll ? a.noise_n : 0;
+  const bool sdf_hit =
+      intersect_packed<kSdf, kAll>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx, lut, lut_n);
 
   // ---- miss: environment, suppressed for non-specular paths under NEE ----
   if (!(tmin < a.inf)) {
@@ -183,10 +188,12 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   }
 
   V3 x = o + d * tmin;
-  // an SDF hit's normal is the field's gradient; SDF rows carry no texture
-  V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+  // an SDF hit's normal is the field's gradient; its texel (kAll: K1's
+  // whole-SDF copy, the only one that meets textured SDF rows) reads the UV
+  // of its row's box normal, as intersect.parse_hit gives it
+  V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
   V3 c, e;
-  blended_color_emission(a, s, ps, idx, x, n, c, e);
+  blended_color_emission(a, s, ps, idx, x, kAll && sdf_hit ? normal_at(s, idx, x) : n, c, e);
   c = vmax(c, 0.001f);
   e = vmax(e, 0.001f);
   float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
@@ -224,7 +231,8 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
       const V3 env_dir = random_direction(nl, u01(h_env), u01(pcg(h_env)), a.use_biased);
       float te;
       int ie;
-      intersect_packed<kSdf>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
+      intersect_packed<kSdf, kAll>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie,
+                                   lut, lut_n);
       if (!(te < a.inf))
         st.acc = st.acc + mask_after * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
     }
@@ -252,13 +260,13 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
 
 // The radiance of pixel `p`'s path: path_step until the path ends, one
 // pixel per thread (K1's driver).
-template <bool kSdf, class Direct>
+template <bool kSdf, bool kAll = false, class Direct>
 __device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps,
                                          const PackedScene &pk, long long p, Direct &direct) {
   PathState st = path_start(a, p);
   for (int depth = 0; depth < a.max_bounces; ++depth) {
     st.depth = depth;
-    if (!path_step<kSdf>(a, s, ps, pk, st, direct)) break;
+    if (!path_step<kSdf, kAll>(a, s, ps, pk, st, direct)) break;
   }
   return st.acc;
 }

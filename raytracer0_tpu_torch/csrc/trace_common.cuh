@@ -4,7 +4,9 @@
 // memory, intersection, normals, direction sampling, reflection, refraction
 // and the Fresnel models, the MIS pdfs, the procedural sky, the cubemap
 // fetch, sphere/directional-light NEE, the texel of a hit (image,
-// UV-pattern and noise textures) and the SDF march.
+// UV-pattern and noise textures) and the SDF march.  K1's copy for the whole
+// SDF class (kAll) also compiles the 14 distances of ops/sdf.py, the texel of
+// an SDF hit and SDF-light NEE; no other kernel instantiates them.
 //
 // The kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the
@@ -26,19 +28,24 @@ constexpr float EPS = 1e-12f;
 
 // scene table columns (raytracer0_tpu/ops/megakernel.py::_scene_table)
 constexpr int NCOLS = 36;
-constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13, C_TP = 26, C_CM = 30,
-              C_EM = 33;
+constexpr int C_PX = 0, C_J0 = 3, C_CR = 7, C_ER = 10, C_IOR = 13, C_AUX = 14, C_TP = 26,
+              C_CM = 30, C_EM = 33;
 
 // raytracer0_tpu_torch/models/materials.py codes
-constexpr int MESH_SPHERE = 0, MESH_PLANE = 1, MESH_BOX = 2;
-constexpr int SDF_ROUND_BOX = 1;  // SdfShape codes: BOX 0, ROUND_BOX 1
+constexpr int MESH_SPHERE = 0, MESH_PLANE = 1, MESH_BOX = 2, MESH_SDF = 3;
+// SdfShape codes
+constexpr int SDF_BOX = 0, SDF_ROUND_BOX = 1, SDF_SPHERE = 2, SDF_TRI_PRISM = 3, SDF_CONE = 4,
+              SDF_MENGER = 5, SDF_MANDELBULB = 6, SDF_ELLIPSOID = 7, SDF_CAPSULE = 8,
+              SDF_SNOWBALL = 9, SDF_SEA_BOX = 10, SDF_SIGGRAPH = 11, SDF_TRIANGLE = 12,
+              SDF_QUAD = 13;
 constexpr int MAT_LIGHT = 0, MAT_DIR_LIGHT = 1, MAT_DIFF = 2, MAT_SPEC = 3, MAT_REFR_FRESNEL = 4,
               MAT_REFR_SCHLICK = 5, MAT_COAT = 6;
 constexpr int TEX_IMAGE3 = 3, TEX_VORONOI = 4, TEX_GRADIENT_NOISE = 5, TEX_VALUE_NOISE = 6,
               TEX_CHECK = 7, TEX_RIPPLE = 8, TEX_METAL = 9;
 constexpr float PI = 3.14159265f;
 // raytracer0_tpu_torch/rng.py Stream codes
-constexpr uint32_t S_BSDF_DIR = 3u, S_BSDF_CHOICE = 4u, S_NEE_CONE = 5u, S_ENV_DIR = 7u;
+constexpr uint32_t S_BSDF_DIR = 3u, S_BSDF_CHOICE = 4u, S_NEE_CONE = 5u, S_NEE_SDF_POINT = 6u,
+                   S_ENV_DIR = 7u;
 // nc in brdf (ops/bsdf.py IOR_AIR)
 constexpr float IOR_AIR = 1.00029f;
 
@@ -194,7 +201,11 @@ __device__ __forceinline__ void intersect(const SceneSmem &s, V3 o, V3 d, float 
 }
 
 // ------------------------------------------------------------------ SDF
-// ops/sdf.py for the BOX and ROUND_BOX shapes, operation for operation.
+// ops/sdf.py for the BOX and ROUND_BOX shapes, operation for operation;
+// kAll = true (K1's whole-SDF copy) evaluates every shape through
+// sdf_map_all, after the textures below, and takes the value-noise LUT
+// (`lut`, `lut_n`: a SNOWBALL's) as arguments that the other kernels leave
+// at their defaults.
 struct SdfScene {
   const int *shape;  // [count] SdfShape codes, in shared memory
   int first, count;  // first SDF row (the analytic rows come first), SDF rows
@@ -213,8 +224,23 @@ __device__ __forceinline__ float sdf_entry(const SceneSmem &s, int row, int shap
   return len + fminf(fmaxf(fmaxf(dx, dy), dz), 0.0f);
 }
 
+// The scene map of the whole SDF class: distance and ordinal.
+struct SdfNear {
+  float d;
+  int k;
+};
+__device__ __attribute__((noinline)) SdfNear sdf_map_all(SceneSmem s, SdfScene sd, V3 p,
+                                                         const float *lut, int lut_n);
+
 // sdf.scene_map: the nearest entry's distance and ordinal (first on a tie).
-__device__ __forceinline__ float sdf_map(const SceneSmem &s, const SdfScene &sd, V3 p, int &k) {
+template <bool kAll = false>
+__device__ __forceinline__ float sdf_map(const SceneSmem &s, const SdfScene &sd, V3 p, int &k,
+                                         const float *lut = nullptr, int lut_n = 0) {
+  if constexpr (kAll) {
+    const SdfNear r = sdf_map_all(s, sd, p, lut, lut_n);
+    k = r.k;
+    return r.d;
+  }
   float best = sdf_entry(s, sd.first, sd.shape[0], p);
   k = 0;
   for (int i = 1; i < sd.count; ++i) {
@@ -226,9 +252,31 @@ __device__ __forceinline__ float sdf_map(const SceneSmem &s, const SdfScene &sd,
 }
 
 // sdf.bound_radius of an SDF row with joker `j` and shape `shape`: the
-// radius of the bounding sphere the march's gate tests.
+// radius of the bounding sphere the march's gate tests.  kAll: every shape;
+// one without a bound (capsule, prism, cone, sea box, SIGGRAPH, triangle,
+// quad) has an infinite radius, which admits every ray: the plain
+// version's march without a gate.
+template <bool kAll = false>
 __device__ __forceinline__ float sdf_gate_radius(const float *j, int shape) {
   const float norm3 = sqrtf(j[0] * j[0] + j[1] * j[1] + j[2] * j[2]);
+  if constexpr (kAll) {
+    switch (shape) {
+      case SDF_BOX:
+      case SDF_ROUND_BOX:
+      case SDF_MENGER:  // a BOX's radius
+        break;
+      case SDF_SPHERE:
+        return fabsf(j[0]) + 0.05f;
+      case SDF_SNOWBALL:
+        return fabsf(j[0]) + 0.15f;
+      case SDF_MANDELBULB:
+        return 2.5f;
+      case SDF_ELLIPSOID:
+        return fabsf(j[0]) + fabsf(j[1]) + fabsf(j[2]) + 0.05f;
+      default:
+        return __int_as_float(0x7f800000);
+    }
+  }
   return shape == SDF_ROUND_BOX ? norm3 * 1.05f + fabsf(j[3]) + 0.05f : norm3 * 1.05f + 0.05f;
 }
 
@@ -239,10 +287,11 @@ __device__ __forceinline__ float sdf_gate_radius(const float *j, int shape) {
 // since a lane that is done no longer moves.  Returns whether the ray hit
 // (t <= tl), with its t and the ordinal of the entry nearest to it.
 // `radius(i)` is the gate radius of the i-th SDF row.
-template <class Radius>
+template <bool kAll = false, class Radius>
 __device__ __forceinline__ bool sdf_march_gated(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
                                                 float tl, float eps, float &t_out, int &k_out,
-                                                Radius radius) {
+                                                Radius radius, const float *lut = nullptr,
+                                                int lut_n = 0) {
   bool can_hit = false;
   for (int i = 0; i < sd.count; ++i) {
     const int row = sd.first + i;
@@ -257,15 +306,15 @@ __device__ __forceinline__ bool sdf_march_gated(const SceneSmem &s, const SdfSce
   if (!can_hit) return false;
   float t = sd.t0;
   int k;
-  bool done = fabsf(sdf_map(s, sd, o + d * t, k)) < eps;
+  bool done = fabsf(sdf_map<kAll>(s, sd, o + d * t, k, lut, lut_n)) < eps;
   for (int step = 0; step < sd.steps - 1 && !done; ++step) {
-    const float h = fabsf(sdf_map(s, sd, o + d * t, k));
+    const float h = fabsf(sdf_map<kAll>(s, sd, o + d * t, k, lut, lut_n));
     if (h < eps || t > tl)
       done = true;
     else
       t = t + h * sd.fudge;
   }
-  sdf_map(s, sd, o + d * t, k_out);  // the entry at the settled t
+  sdf_map<kAll>(s, sd, o + d * t, k_out, lut, lut_n);  // the entry at the settled t
   t_out = t;
   return t <= tl;
 }
@@ -279,12 +328,15 @@ __device__ __forceinline__ bool sdf_march(const SceneSmem &s, const SdfScene &sd
 }
 
 // sdf.calc_normal: the tetrahedral 4-tap gradient.
-__device__ __forceinline__ V3 sdf_normal(const SceneSmem &s, const SdfScene &sd, V3 p, float eps) {
+template <bool kAll = false>
+__device__ __forceinline__ V3 sdf_normal(const SceneSmem &s, const SdfScene &sd, V3 p, float eps,
+                                         const float *lut = nullptr, int lut_n = 0) {
   const V3 taps[4] = {{1.0f, -1.0f, -1.0f}, {-1.0f, -1.0f, 1.0f}, {-1.0f, 1.0f, -1.0f},
                       {1.0f, 1.0f, 1.0f}};
   V3 n = {0.0f, 0.0f, 0.0f};
   int k;
-  for (int i = 0; i < 4; ++i) n = n + taps[i] * sdf_map(s, sd, p + taps[i] * eps, k);
+  for (int i = 0; i < 4; ++i)
+    n = n + taps[i] * sdf_map<kAll>(s, sd, p + taps[i] * eps, k, lut, lut_n);
   return normalize(n);
 }
 
@@ -356,6 +408,7 @@ __device__ __forceinline__ bool packable(const SceneSmem &s, int i) {
 // Pack the scene (in shared memory already, as load_path leaves it) into
 // the packed area of dynamic shared memory `smem`, after `before` bytes.
 // Every thread of the block must call it: it ends with __syncthreads().
+template <bool kAll = false>
 __device__ __forceinline__ PackedScene load_packed(const SceneSmem &s, const SdfScene &sd,
                                                    float *smem, size_t before) {
   float4 *area = reinterpret_cast<float4 *>(reinterpret_cast<char *>(smem) + packed_offset(before));
@@ -382,7 +435,7 @@ __device__ __forceinline__ PackedScene load_packed(const SceneSmem &s, const Sdf
   }
   if (threadIdx.x == 0) *reinterpret_cast<int4 *>(area) = make_int4(ns, ns + np, ns + np + nb, 0);
   for (int i = threadIdx.x; i < sd.count; i += blockDim.x)
-    gate[i] = sdf_gate_radius(s.col(sd.first + i, C_J0), sd.shape[i]);
+    gate[i] = sdf_gate_radius<kAll>(s.col(sd.first + i, C_J0), sd.shape[i]);
   __syncthreads();
   return {area, s.n_mesh};
 }
@@ -439,18 +492,21 @@ __device__ __forceinline__ void intersect_packed_analytic(const PackedScene &pk,
   }
 }
 
-// intersect_scene over the packed records and gate radii.
-template <bool kSdf>
+// intersect_scene over the packed records and gate radii (kAll: of every
+// SDF shape).
+template <bool kSdf, bool kAll = false>
 __device__ __forceinline__ bool intersect_packed(const SceneSmem &s, const SdfScene &sd,
                                                  const PackedScene &pk, V3 o, V3 d, float eps,
-                                                 float inf, float &tmin, int &idx) {
+                                                 float inf, float &tmin, int &idx,
+                                                 const float *lut = nullptr, int lut_n = 0) {
   intersect_packed_analytic(pk, o, d, eps, tmin, idx);
   if constexpr (kSdf) {
     if (sd.count > 0) {
       const float tl = tmin < inf ? tmin : inf;
       float ts;
       int k;
-      if (sdf_march_gated(s, sd, o, d, tl, eps, ts, k, [&](int i) { return pk.gate(i); }) &&
+      if (sdf_march_gated<kAll>(
+              s, sd, o, d, tl, eps, ts, k, [&](int i) { return pk.gate(i); }, lut, lut_n) &&
           ts < tl) {
         tmin = ts;
         idx = sd.first + k;
@@ -741,6 +797,219 @@ __device__ __forceinline__ float metal_fbm(const float *__restrict__ lut, int n,
   return f;
 }
 
+// ------------------------------------------------------------------ SDF shapes
+// The distances of ops/sdf.py beyond BOX and ROUND_BOX, operation for
+// operation (K1's whole-SDF copy).  Where a shape clamps or selects, a NaN
+// argument gives NaN as torch.clamp, torch.maximum and torch.minimum do
+// (fmaxf and fminf would drop it), so a Mandelbulb evaluated where its
+// polynomial overflows gives the plain version's NaN.
+
+__device__ __forceinline__ bool isnan_(float x) { return x != x; }
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return isnan_(a) ? a : (isnan_(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return isnan_(a) ? a : (isnan_(b) ? b : fminf(a, b));
+}
+// vecmath.length and safe_length
+__device__ __forceinline__ float len3(V3 a) { return safe_sqrt(dot(a, a)); }
+__device__ __forceinline__ float safe_len3(V3 a) { return sqrtf(max_nan(dot(a, a), EPS)); }
+__device__ __forceinline__ float clamp01(float x) { return min_nan(max_nan(x, 0.0f), 1.0f); }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+// sdf.sd_cone: (sin, cos, height) c about the y axis
+__device__ __forceinline__ float sd_cone(V3 q, const float *c) {
+  const float qx = safe_sqrt(q.x * q.x + q.z * q.z), qy = q.y;
+  const float d1 = -qy - c[2];
+  const float d2 = max_nan(qx * c[0] + qy * c[1], qy);
+  const float m1 = max_nan(d1, 0.0f), m2 = max_nan(d2, 0.0f);
+  return safe_sqrt(m1 * m1 + m2 * m2) + min_nan(max_nan(d1, d2), 0.0f);
+}
+
+// sdf.sd_tri_prism
+__device__ __forceinline__ float sd_tri_prism(V3 q, const float *h) {
+  return max_nan(fabsf(q.z) - h[1],
+                 max_nan(fabsf(q.x) * 0.866025f + q.y * 0.5f, -q.y) - h[0] * 0.5f);
+}
+
+// sdf.sd_capsule from a to b, radius r, at the world point p
+__device__ __forceinline__ float sd_capsule(V3 p, V3 a, V3 b, float r) {
+  const V3 pa = p - a, ba = b - a;
+  const float h = clamp01(dot(pa, ba) / max_nan(dot(ba, ba), 1e-12f));
+  return len3(pa - ba * h) - r;
+}
+
+// sdf._edge_dist2: squared distance from pv to the segment 0 -> edge
+__device__ __forceinline__ float edge_dist2(V3 edge, V3 pv) {
+  const float h = clamp01(dot(edge, pv) / max_nan(dot(edge, edge), 1e-12f));
+  const V3 v = edge * h - pv;
+  return dot(v, v);
+}
+
+// sdf._face_or_edge: the edge distance in the edge region, else the plane's
+__device__ __forceinline__ float face_or_edge(V3 nor, V3 pa, bool edge_region, float d_edge) {
+  const float dn = dot(nor, pa);
+  const float d_face = dn * dn / max_nan(dot(nor, nor), 1e-12f);
+  return safe_sqrt(edge_region ? d_edge : d_face);
+}
+
+// sdf.ud_triangle and sdf.ud_quad, vertices relative to the row's pos
+__device__ __forceinline__ float ud_triangle(V3 q, V3 a, V3 b, V3 c) {
+  const V3 ba = b - a, pa = q - a, cb = c - b, pb = q - b, ac = a - c, pc = q - c;
+  const V3 nor = cross(ba, ac);
+  const bool edge = (signf(dot(cross(ba, nor), pa)) + signf(dot(cross(cb, nor), pb)) +
+                     signf(dot(cross(ac, nor), pc))) < 2.0f;
+  const float d_edge = min_nan(min_nan(edge_dist2(ba, pa), edge_dist2(cb, pb)), edge_dist2(ac, pc));
+  return face_or_edge(nor, pa, edge, d_edge);
+}
+__device__ __forceinline__ float ud_quad(V3 q, V3 a, V3 b, V3 c, V3 d) {
+  const V3 ba = b - a, pa = q - a, cb = c - b, pb = q - b, dc = d - c, pc = q - c, ad = a - d,
+           pd = q - d;
+  const V3 nor = cross(ba, ad);
+  const bool edge = (signf(dot(cross(ba, nor), pa)) + signf(dot(cross(cb, nor), pb)) +
+                     signf(dot(cross(dc, nor), pc)) + signf(dot(cross(ad, nor), pd))) < 3.0f;
+  const float d_edge = min_nan(min_nan(edge_dist2(ba, pa), edge_dist2(cb, pb)),
+                               min_nan(edge_dist2(dc, pc), edge_dist2(ad, pd)));
+  return face_or_edge(nor, pa, edge, d_edge);
+}
+
+// sdf.disp at power 1 (torch.pow copies its base for an exponent of 1)
+__device__ __forceinline__ float disp(V3 p, float phase) {
+  return 0.5f + 0.5f * cosf(p.x + 1.5f * phase) * sinf(p.y + 2.0f * phase) *
+                    sinf(p.z + 1.0f * phase);
+}
+
+// sdf.sd_sea_box: the box (its distance `box`) below a displaced sea plane
+// at `level`
+__device__ __forceinline__ float sd_sea_box(V3 q, float box, float level) {
+  const float sea = (q.x * 0.0f + q.y * -1.0f + q.z * 0.0f + level) -
+                    disp(q * 10.0f, 2.5f) * 0.07f - disp(q * 15.0f, 4.5f) * 0.03f;
+  return max_nan(-sea, box);
+}
+
+// sdf.siggraph_obj; its axis (-2, 2, 1) / 3 rounded once in float32
+__device__ __forceinline__ float siggraph_obj(V3 q) {
+  const V3 ax = {-2.0f / 3.0f, 2.0f / 3.0f, 1.0f / 3.0f};
+  const float d1 = dot(q, ax) - 0.1f;
+  const float d2 = len3(q) - 1.0f;
+  const V3 pc = q - V3{0.0f, -0.2f, -0.2f};
+  const float d3 = len3(pc - ax * dot(pc, ax)) - 1.0f;
+  return max_nan(max_nan(d1, d2), -d3);
+}
+
+// sdf.menger_sponge: 4 iterations carved from a box (its distance `box`)
+__device__ __forceinline__ float menger_sponge(V3 q, float box) {
+  float d = box;
+  float sc = 1.0f;
+  for (int it = 0; it < 4; ++it) {
+    const V3 ps = q * sc;
+    const V3 a = {float_remainder(ps.x, 2.0f) - 1.0f, float_remainder(ps.y, 2.0f) - 1.0f,
+                  float_remainder(ps.z, 2.0f) - 1.0f};
+    sc = sc * 3.0f;
+    const V3 r = {fabsf(1.0f - 3.0f * fabsf(a.x)), fabsf(1.0f - 3.0f * fabsf(a.y)),
+                  fabsf(1.0f - 3.0f * fabsf(a.z))};
+    const float da = max_nan(r.x, r.y), db = max_nan(r.y, r.z), dc = max_nan(r.z, r.x);
+    const float c = (min_nan(da, min_nan(db, dc)) - 1.0f) / sc;
+    d = max_nan(c, d);
+  }
+  return d;
+}
+
+// sdf.mandelbulb: power 8, 3 iterations, the done-mask of the early break
+__device__ __forceinline__ float mandelbulb(V3 q) {
+  V3 w = q;
+  float m = dot(w, w);
+  float dz = 1.0f;
+  bool done = false;
+  for (int it = 0; it < 3; ++it) {
+    const float m2 = m * m, m4 = m2 * m2;
+    const float dz_new = 8.0f * sqrtf(max_nan(m4 * m2 * m, 1e-20f)) * dz + 1.0f;
+    const float x = w.x, y = w.y, z = w.z;
+    const float x2 = x * x, y2 = y * y, z2 = z * z;
+    const float x4 = x2 * x2, y4 = y2 * y2, z4 = z2 * z2;
+    const float k3 = x2 + z2;
+    const float k3_2 = k3 * k3;
+    const float k3_7 = (k3 * k3_2) * (k3_2 * k3_2);  // jnp's integer_pow(k3, 7)
+    const float k2 = 1.0f / sqrtf(max_nan(k3_7, 1e-20f));
+    const float k1 = x4 + y4 + z4 - 6.0f * y2 * z2 - 6.0f * x2 * y2 + 2.0f * z2 * x2;
+    const float k4 = x2 - y2 + z2;
+    const float wx = q.x + 64.0f * x * y * z * (x2 - z2) * k4 * (x4 - 6.0f * x2 * z2 + z4) * k1 * k2;
+    const float wy = q.y + -16.0f * y2 * k3 * k4 * k4 + k1 * k1;
+    const float wz = q.z + -8.0f * y * k4 *
+                               (x4 * x4 - 28.0f * x4 * x2 * z2 + 70.0f * x4 * z4 -
+                                28.0f * x2 * z2 * z4 + z4 * z4) *
+                               k1 * k2;
+    if (!done) {
+      w = {wx, wy, wz};
+      dz = dz_new;
+      m = dot(w, w);
+    }
+    done = done || m > 4.0f;
+  }
+  const float ms = max_nan(m, 1e-12f);
+  return 0.25f * logf(ms) * sqrtf(ms) / dz;
+}
+
+// sdf._entry_distance of SDF row `row` of shape `shape` at p.
+__device__ __forceinline__ float sdf_entry_all(const SceneSmem &s, int row, int shape, V3 p,
+                                               const float *lut, int lut_n) {
+  const V3 pos = s.p(row);
+  const V3 q = p - pos;
+  const float *j = s.col(row, C_J0);
+  const float *ax = s.col(row, C_AUX);
+  switch (shape) {
+    case SDF_BOX:
+    case SDF_ROUND_BOX:
+      return sdf_entry(s, row, shape, p);
+    case SDF_SPHERE:
+      return len3(q) - j[0];
+    case SDF_TRI_PRISM:
+      return sd_tri_prism(q, j);
+    case SDF_CONE:
+      return sd_cone(q, j);
+    case SDF_MENGER:  // the box of half-extents joker.xyz (sdf.sd_box, BOX's row)
+      return menger_sponge(q, sdf_entry(s, row, SDF_BOX, p));
+    case SDF_MANDELBULB:
+      return mandelbulb(q);
+    case SDF_ELLIPSOID: {
+      const V3 qr = {q.x / j[0], q.y / j[1], q.z / j[2]};
+      return (safe_len3(qr) - 1.0f) * min_nan(min_nan(j[0], j[1]), j[2]);
+    }
+    case SDF_CAPSULE:
+      return sd_capsule(p, pos, V3{j[0], j[1], j[2]}, j[3]);
+    case SDF_SNOWBALL:
+      return (len3(q) - j[0]) - value_noise(lut, lut_n, q * 8.0f) * 0.04f;
+    case SDF_SEA_BOX:
+      return sd_sea_box(q, sdf_entry(s, row, SDF_BOX, p), j[3]);
+    case SDF_SIGGRAPH:
+      return siggraph_obj(q);
+    case SDF_TRIANGLE:
+      return ud_triangle(q, V3{ax[0], ax[1], ax[2]}, V3{ax[3], ax[4], ax[5]},
+                         V3{ax[6], ax[7], ax[8]});
+    default:  // SDF_QUAD
+      return ud_quad(q, V3{ax[0], ax[1], ax[2]}, V3{ax[3], ax[4], ax[5]}, V3{ax[6], ax[7], ax[8]},
+                     V3{ax[9], ax[10], ax[11]});
+  }
+}
+
+// sdf.scene_map over every shape: the first entry of the least distance,
+// a NaN distance winning as torch.minimum lets it.  Not inlined: K1's
+// whole-SDF copy calls it from each march and normal tap, and one copy of
+// the 14 distances keeps the kernel's code (and nvcc's time) small.
+__device__ __attribute__((noinline)) SdfNear sdf_map_all(SceneSmem s, SdfScene sd, V3 p,
+                                                         const float *lut, int lut_n) {
+  float best = sdf_entry_all(s, sd.first, sd.shape[0], p, lut, lut_n);
+  int k = 0;
+  for (int i = 1; i < sd.count; ++i) {
+    const float d = sdf_entry_all(s, sd.first + i, sd.shape[i], p, lut, lut_n);
+    if (d < best) k = i;
+    best = min_nan(d, best);
+  }
+  return {best, k};
+}
+
 // textures.get_texel for a hit at `x` with geometric normal `n` of a mesh
 // of texture type `t`, mesh type `mesh` and texture params `tp` (the UV of
 // intersect.parse_hit for the image and pattern types).  No texture gives
@@ -808,8 +1077,11 @@ __device__ __forceinline__ V3 shadow_texel_color(const TraceArgs &a, const Scene
 // pdf is 0), so it adds nothing; any other slot adds nothing.  kTex (a
 // scene whose LIGHT meshes have textures, use_tex bit 1) blends the shadow
 // hit's texel into its color (shadow_texel_color, from `a` and the texture
-// codes `tex`); any other scene runs the code without it.
-template <bool kSdf, bool kTex>
+// codes `tex`); any other scene runs the code without it.  kAll (K1's
+// whole-SDF copy) marches every SDF shape and samples an SDF light (a LIGHT
+// SDF row) at a uniform point of its bounding ellipsoid, pos + direction *
+// joker.xyz, unweighted, its MIS pdf the uniform sphere's 1/4pi.
+template <bool kSdf, bool kTex, bool kAll = false>
 __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x, V3 nl,
                         uint32_t h_depth, float eps, float inf, bool use_mis, const TraceArgs *a,
                         const int *tex) {
@@ -822,10 +1094,39 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScen
       V3 lp = s.p(li);
       float ts;
       int hidx;
-      intersect_packed<kSdf>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
+      intersect_packed<kSdf, kAll>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx,
+                                   kAll ? a->noise : nullptr, kAll ? a->noise_n : 0);
       if (ts < inf) continue;  // occluded
       total = total + s.c(li) * s.e(li) * fmaxf(dot(lp, nl), 0.001f);
       continue;
+    }
+    if constexpr (kAll) {
+      if (s.mat[li] == MAT_LIGHT && s.mesh[li] == MESH_SDF) {
+        // sampling.random_sphere_direction from the NEE_SDF_POINT stream
+        const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_NEE_SDF_POINT, 5u);
+        const float u1 = u01(h), u2 = u01(pcg(h));
+        const float z = 1.0f - 2.0f * u1;
+        const float r = safe_sqrt(1.0f - z * z);
+        const float phi = TWO_PI * u2;
+        const V3 lp = s.p(li);
+        const float *j = s.col(li, C_J0);
+        const V3 sr = normalize(lp + V3{r * cosf(phi), r * sinf(phi), z} * V3{j[0], j[1], j[2]} - x);
+        float ts;
+        int hidx;
+        intersect_packed<kSdf, kAll>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx,
+                                   kAll ? a->noise : nullptr, kAll ? a->noise_n : 0);
+        if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
+        V3 lc = s.c(hidx);
+        if constexpr (kTex) lc = shadow_texel_color(*a, s, tex, hidx, x + nl * eps + sr * ts, lc);
+        V3 contrib = vmax(lc, 0.001f) * s.e(hidx) * fmaxf(dot(sr, nl), 0.001f);
+        if (use_mis) {
+          if (!(dot(contrib, contrib) > 1e-6f)) continue;
+          const float b_pdf = fmaxf(dot(normalize(lp - x), nl), 0.0f) * ONE_OVER_PI;
+          contrib = contrib * power_heuristic(INV_FOUR_PI, b_pdf);
+        }
+        total = total + contrib;
+        continue;
+      }
     }
     if (s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
     uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_NEE_CONE, 5u);
@@ -839,7 +1140,8 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScen
     V3 sr = sample_cone(ldir, 1.0f - cos_a_max, u1, u2);
     float ts;
     int hidx;
-    intersect_packed<kSdf>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx);
+    intersect_packed<kSdf, kAll>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx,
+                                   kAll ? a->noise : nullptr, kAll ? a->noise_n : 0);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
     float cos_term = fmaxf(dot(sr, nl), 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);

@@ -1,5 +1,6 @@
 """Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
-`cornell_box`, `mis_demo`, `restir_demo`, `restir_stress`,
+`default_scene`, `cornell_box`, `mandelbulb`, `menger_sponge`, `mis_demo`,
+`restir_demo`, `restir_stress`,
 `animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
 `textured_emitter`), `animated_untextured`, the variant of
 `animated_restir` that the port renders, and three scenes that the port's
@@ -9,10 +10,12 @@ and `config2` (glass, a mirror and coat under MIS).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
-items 8, 10 and 12).
+items 10 and 12).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -47,6 +50,19 @@ def cornell_default(device="cuda", **cfg_kw):
     return scene, camera, _cfg(**cfg_kw)
 
 
+def default_scene(device="cuda", **cfg_kw):
+    """Preset 0 (index.html:752-789): two SDF boxes, the upper one METAL
+    (a SPEC surface whose glossiness carries the METAL fBm texture), under
+    the cubemap sky."""
+    scene = parse_scene("""
+        MAT_METAL, SDF, vec3(0.0, -0.49, 0.0), vec4(1.0)
+        MAT_WHITE, SDF, vec3(0.0, -1.6, -0.2), vec4(1.5, 0.1, 1.5, 0.0)
+    """, sdf_shapes=[SdfShape.BOX, SdfShape.BOX], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 4.0), lookat=(0.0, -math.pi / 18.0, -1.0),
+                         fov=45.0, device=device)
+    return scene, camera, _cfg(use_cubemap=True, use_procedural_sky=False, **cfg_kw)
+
+
 def cornell_box(device="cuda", **cfg_kw):
     """Preset 1 (index.html:789-820): closed Cornell box with a textured
     sphere light and an orange glass sphere."""
@@ -63,6 +79,33 @@ def cornell_box(device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)
     return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def mandelbulb(device="cuda", **cfg_kw):
+    """Preset 2 (index.html:821-855): Cornell walls and a Mandelbulb SDF."""
+    scene = parse_scene("""
+        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, -1.0, 0.0), vec4(2.0)
+        MAT_GREEN, PLANE, vec3(1.0, 0.0, 0.0), vec4(2.0)
+        MAT_RED, PLANE, vec3(-1.0, 0.0, 0.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0), vec4(2.0)
+        MAT_WHITE, PLANE, vec3(0.0, 0.0, -1.0), vec4(2.0)
+        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, 1.5), vec4(0.5)
+        MAT_WHITE, SDF, vec3(0.0), vec4(0.0)
+    """, sdf_shapes=[SdfShape.MANDELBULB], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.15, 0.15, -1.0), fov=45.0,
+                         device=device)
+    return scene, camera, _cfg(use_procedural_sky=False, **cfg_kw)
+
+
+def menger_sponge(device="cuda", **cfg_kw):
+    """Preset 3 (index.html:856-877): a wax (COAT) Menger sponge under the
+    cubemap."""
+    scene = parse_scene("MAT_COAT_WAX, SDF, vec3(0.0), vec4(1.0)",
+                        sdf_shapes=[SdfShape.MENGER_SPONGE], device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 2.0), lookat=(0.0, 0.0, -1.0), fov=33.0,
+                         device=device)
+    return scene, camera, _cfg(use_cubemap=True, use_procedural_sky=False, **cfg_kw)
 
 
 def mis_demo(device="cuda", **cfg_kw):

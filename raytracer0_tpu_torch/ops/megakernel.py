@@ -8,15 +8,19 @@ photographic cubemaps), `_imgtex_kernel_body` (launched by
 `_imgtex_forward`, image textures) and `_gloss_kernel_body` (launched by
 `_gloss_launch`, image textures on a SPEC surface's glossiness): it
 fetches the cubemap's and the images' texels itself, where the Pallas
-kernels export records that the host resolves; K2 replaces
+kernels export records that the host resolves; a copy of it built for the
+whole SDF class (`whole_sdf`) marches all 14 distances of `_sdf_distance`,
+reads the texels of SDF hits and samples SDF-bound lights; K2 replaces
 `_bwd_slotted_kernel_body` (launched by `_backward`) and computes the same
 outputs as its whole-trace twin `_bwd_kernel_body`.  `_TraceCore` pairs
 them as the JAX `_trace_core` custom_vjp does: forward launches K1,
 backward launches K2.  K1 covers the class that `integrator.unsupported`
-states without ReSTIR (every surface material, textures of all ten types,
-sphere and directional lights, cubemaps, uniform sampling, BOX and
-ROUND_BOX SDF meshes: `unsupported`; a ReSTIR pass runs on K6,
-`ops/restir_kernel.py`); K2 covers the same class (`unsupported_bwd`), in
+states without ReSTIR (every surface material, textures of all ten types
+on analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
+uniform sampling, SDF meshes of every shape: `unsupported`; a ReSTIR pass
+runs on K6, `ops/restir_kernel.py`); K2 covers that class with its SDF
+rows narrowed to BOX and ROUND_BOX, untextured and unlit
+(`unsupported_bwd`), in
 two copies: the Cornell copy (analytic DIFF and LIGHT meshes, no texture,
 sphere-light slots, no cubemap, cosine sampling: `cornell_copy`) and the
 wide copy for the rest, each with its set of scene-table columns that
@@ -255,8 +259,10 @@ def _texel_leaves(scene) -> tuple[str, ...]:
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
     class (`unsupported`: every surface material, textures, sphere and
-    directional lights, cubemaps, uniform sampling, BOX and ROUND_BOX SDF
-    rows, a table that fits the shared memory; ReSTIR runs on K6 and K7),
+    directional lights, cubemaps, uniform sampling, a table that fits the
+    shared memory; ReSTIR runs on K6 and K7) with K1's SDF class narrowed
+    to BOX and ROUND_BOX rows, untextured and unlit
+    (`integrator.outside_box_sdf`),
     with a stash of at most MAX_SLOTS slots.  K2 gives the cotangents of
     the scene table and of the rays; a gradient asked of a texel array
     (the images, the noise LUT, the cubemap), which the JAX package also
@@ -266,7 +272,7 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     if cfg.use_restir:
         return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
                 "ROADMAP queue 1 item 11), not K2")
-    reason = unsupported(scene, cfg)
+    reason = integrator.outside_box_sdf(scene, "K2") or unsupported(scene, cfg)
     if reason is None and _texel_leaves(scene):
         reason = (f"a gradient w.r.t. the texel arrays {', '.join(_texel_leaves(scene))} "
                   f"(K2 differentiates the scene table and the rays): {_K2_ITEM}")
@@ -330,14 +336,25 @@ def _cfg_args(cfg: RenderConfig, pass_idx, sample_idx):
             int(cfg.sample_lights), int(cfg.use_mis), int(cfg.use_procedural_sky))
 
 
+def whole_sdf(scene) -> bool:
+    """Whether K1 runs its copy for the whole SDF class on `scene`: an SDF
+    row of a shape other than BOX and ROUND_BOX, with a texture blended
+    into its color or emission, or in a light slot
+    (`integrator.outside_box_sdf`).  Every other scene runs the copies
+    built without them."""
+    return integrator.outside_box_sdf(scene, "K1") is not None
+
+
 def tex_flags(scene) -> int:
     """The kernels' `use_tex`: bit 0 when some mesh blends a texture into
     its color or emission, bit 1 when some LIGHT mesh has a texture, whose
     texel NEE blends into the color of a shadow ray's hit (K1 and K2 run
-    a copy without that blend where bit 1 is clear)."""
+    a copy without that blend where bit 1 is clear), bit 2 when K1 runs
+    its copy for the whole SDF class (`whole_sdf`; the other kernels
+    refuse such scenes)."""
     light_tex = any(t != int(TexType.NONE) and m == int(MatType.LIGHT)
                     for t, m in zip(scene.tex_types_static, scene.mat_types_static))
-    return int(textures.blended(scene)) | 2 * int(light_tex)
+    return int(textures.blended(scene)) | 2 * int(light_tex) | 4 * int(whole_sdf(scene))
 
 
 def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):

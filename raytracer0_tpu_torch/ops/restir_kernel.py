@@ -116,8 +116,9 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
     `supported_restir_fused`: ReSTIR engaged, LIGHT-sphere slots, no
     photographic cubemap, cosine sampling, static or animated
     accumulation) with the pixel's own history (the ad-hoc reprojection
-    runs on the split path, `ops/restir_split.py`), without blended
-    textures, which no test holds K6 to yet, or a cubemap, whose gather ray
+    runs on the split path, `ops/restir_split.py`), BOX and ROUND_BOX SDF
+    rows, untextured and unlit (`integrator.outside_box_sdf`), without
+    blended textures, which no test holds K6 to yet, or a cubemap, whose gather ray
     adds to the radiance between the vertices K6v sums, in K4's and K6v's
     classes."""
     if not cfg.use_restir:
@@ -126,7 +127,7 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
         return ("ReSTIR's ad-hoc temporal reprojection runs on the split path of K4 and K6v's "
                 "split form (ops/restir_split.py, restir_split.render_sample_fast), not the K6 "
                 f"pass: {_ITEM}")
-    reason = integrator.unsupported(scene, cfg)
+    reason = integrator.outside_box_sdf(scene, "K6") or integrator.unsupported(scene, cfg)
     if reason is None and textures.blended(scene):
         reason = f"textures blended into color or emission under ReSTIR on K6: {_ITEM}"
     if reason is None and cfg.use_cubemap:
@@ -167,7 +168,7 @@ def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     accumulators that fit the shared memory of a block of 32 threads, and
     no gradient asked of a leaf K7 leaves without one (aux, the texture
     columns, images, the noise LUT, the cubemap)."""
-    reason = unsupported_restir(scene, cfg)
+    reason = integrator.outside_box_sdf(scene, "K7") or unsupported_restir(scene, cfg)
     if reason is not None:
         return reason
     if any(s != int(SdfShape.ROUND_BOX) for s in scene.sdf_shapes_static):

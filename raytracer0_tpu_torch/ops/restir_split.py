@@ -100,21 +100,24 @@ def unsupported_gbuffer(scene, cfg: RenderConfig) -> Optional[str]:
     `supported_restir` (raytracer0_tpu/ops/megakernel.py:545-560), a ReSTIR
     config in the class of `integrator.unsupported` (ReSTIR engaged,
     LIGHT-sphere slots, no photographic cubemap, cosine sampling, static or
-    animated, the ad-hoc reprojection or not), with at most MAX_GBUF_SLOTS
-    slots and a table that fits the shared memory."""
+    animated, the ad-hoc reprojection or not) with BOX and ROUND_BOX SDF
+    rows, untextured and unlit (`integrator.outside_box_sdf`), at most
+    MAX_GBUF_SLOTS slots and a table that fits the shared memory."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
-    reason = integrator.unsupported(scene, cfg)
+    reason = integrator.outside_box_sdf(scene, "K4") or integrator.unsupported(scene, cfg)
     if reason is None and gbuffer_slots(cfg) > MAX_GBUF_SLOTS:
         reason = f"{gbuffer_slots(cfg)} G-buffer slots, more than K4's {MAX_GBUF_SLOTS}"
     return reason or megakernel.check_smem(megakernel.packed_smem_bytes(scene))
 
 
 def unsupported_cast(scene) -> Optional[str]:
-    """Why K5 cannot cast rays in `scene`, or None when it can: the port's
-    geometry (analytic SPHERE/PLANE/BOX, BOX/ROUND_BOX SDF) with a table
-    that fits the shared memory."""
+    """Why K5 cannot cast rays in `scene`, or None when it can: analytic
+    SPHERE/PLANE/BOX meshes and BOX/ROUND_BOX SDF rows, untextured and unlit
+    (`integrator.outside_box_sdf`), with a table that fits the shared
+    memory."""
     return (integrator.unsupported_geometry(scene)
+            or integrator.outside_box_sdf(scene, "K5")
             or megakernel.check_smem(cast_smem_bytes(scene)))
 
 
@@ -351,7 +354,8 @@ def check_split(scene, cfg: RenderConfig, camera, state, time_s=0.0):
     yet (K6's gate, `restir_kernel.unsupported_restir`, refuses both too);
     or a gradient (any scene leaf, camera field, ring field or the frame
     time that requires grad), which the split path has no adjoint for."""
-    reason = (unsupported_gbuffer(scene, cfg)
+    reason = (integrator.outside_box_sdf(scene, "the split path")
+              or unsupported_gbuffer(scene, cfg)
               or restir_vertex.unsupported(scene, gbuffer_slots(cfg)))
     if reason is None and textures.blended(scene):
         reason = f"textures blended into color or emission under ReSTIR on the split path: {_ITEM}"

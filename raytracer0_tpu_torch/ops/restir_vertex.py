@@ -45,6 +45,7 @@ import torch
 
 from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir
+from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, Reservoirs
 
 #: K6v launches since import (or since a caller reset it to 0), both forms.
@@ -85,10 +86,13 @@ def smem_bytes(scene) -> int:
 
 def unsupported(scene, slots: int) -> Optional[str]:
     """Why K6v cannot run the vertices of `slots` G-buffer slots in
-    `scene`, or None when it can (the class of its G-buffer is K4's gate)."""
+    `scene`, or None when it can (the class of its G-buffer is K4's gate;
+    its shadow rays march BOX and ROUND_BOX SDF rows alone,
+    `integrator.outside_box_sdf`)."""
     if slots > MAX_SLOTS:
         return f"{slots} G-buffer slots, more than K6v's {MAX_SLOTS}"
-    return megakernel.check_smem(smem_bytes(scene))
+    return (integrator.outside_box_sdf(scene, "K6v")
+            or megakernel.check_smem(smem_bytes(scene)))
 
 
 def build():

@@ -2,9 +2,9 @@
 ops/sampling.py; raytracer.glsl:480-492, 1109-1141, 1233-1262).
 
 Cosine-weighted and uniform hemisphere and uniform cone sampling consume
-explicit uniforms from `rng` streams.  The uniform sphere direction (SDF
-lights, ROADMAP queue 1 item 8) and Henyey-Greenstein sampling (media,
-item 10) come with their slices.  Integer powers are written out as
+explicit uniforms from `rng` streams, and the uniform sphere direction
+picks the point of an SDF light.  Henyey-Greenstein sampling (media,
+ROADMAP queue 1 item 10) comes with its slice.  Integer powers are written out as
 products in the order JAX's `integer_pow` multiplies, which the CUDA
 kernel follows too.
 """
@@ -56,6 +56,15 @@ def random_direction(n, u1, u2, biased: bool):
     if biased:
         return sample_biased(n, 1.0, u1, u2)
     return sample_cone(n, 1.0, u1, u2)
+
+
+def random_sphere_direction(u1, u2):
+    """Uniform direction on the sphere: z = 1 - 2u1, φ = 2πu2 (the JAX
+    package's mapping, not the reference's sin/cos products)."""
+    z = 1.0 - 2.0 * u1
+    r = vm.safe_sqrt(1.0 - z * z)
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def schlick(d, n, nc, nt):

@@ -20,7 +20,10 @@ kernel (`ops/megakernel.py`), pixel for pixel:
   * with a `restir_sampler` (ops/restir.py), the reservoir pipeline in
     place of per-light NEE on diffuse bounces, whose reservoir the last
     diffuse bounce of each path leaves behind
-  * SDF meshes marched in every intersection (ops/sdf.py)
+  * SDF meshes of every shape marched in every intersection (ops/sdf.py),
+    their texels read at the UV of their row's box normal, as in the JAX
+    package, and SDF-bound lights sampled at a point of their bounding
+    ellipsoid (ops/lighting.py)
 
 Differentiability: discrete events (winner index, light validity) are
 boolean masks whose continuous integrands carry gradients; `torch.where`
@@ -38,7 +41,7 @@ from typing import Optional
 import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
-from raytracer0_tpu_torch.models.materials import MatType, MeshType
+from raytracer0_tpu_torch.models.materials import MatType, MeshType, SdfShape
 from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.ops import bsdf as bsdf_ops
 from raytracer0_tpu_torch.ops import intersect as isect
@@ -64,12 +67,37 @@ def restir_engaged(scene, cfg: RenderConfig) -> bool:
                 and (not cfg.use_mis or n_lights > 8))
 
 
+def outside_box_sdf(scene, who: str) -> Optional[str]:
+    """What of the scene's SDF rows lies outside the SDF class that every
+    kernel but K1 models, or None: BOX and ROUND_BOX shapes, no texture
+    blended into an SDF row's color or emission, no light slot on an SDF
+    row.  `who` names the kernel or route in the message.  K1 and the
+    plain version render the whole class (`unsupported`)."""
+    na = scene.num_analytic
+    other = sorted({SdfShape(s).name if s in sdf.SHAPES else str(s)
+                    for s in scene.sdf_shapes_static if s not in sdf.BOX_SHAPES})
+    if other:
+        what = f"SDF shapes other than BOX and ROUND_BOX ({', '.join(other)})"
+    elif any(t >= 0 and (o[0] or o[1]) for t, o in
+             zip(scene.tex_types_static[na:], scene.opts_static[na:])):
+        what = "textures on SDF meshes"
+    elif any(li >= na for li in scene.lights_static):
+        what = "SDF-bound light slots"
+    else:
+        return None
+    return f"{what}, outside {who}'s class: {_SDF_ITEM}"
+
+
 def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
     """What of a ReSTIR (scene, cfg) the port does not render: the class of
     the JAX `supported_restir` (raytracer0_tpu/ops/megakernel.py:545-560):
     ReSTIR engaged, LIGHT spheres in every light slot, no photographic
     cubemap, cosine sampling; the pixel's own history or the ad-hoc
-    reprojection, static or animated."""
+    reprojection, static or animated; BOX and ROUND_BOX SDF meshes,
+    untextured (`outside_box_sdf`)."""
+    reason = outside_box_sdf(scene, "ReSTIR")
+    if reason is not None:
+        return reason
     if not restir_engaged(scene, cfg):
         return ("ReSTIR that keeps per-light NEE (no light, sample_lights "
                 f"off, or MIS with at most 8 lights): {_RESTIR_ITEM}")
@@ -87,39 +115,33 @@ def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
 
 def unsupported_geometry(scene) -> Optional[str]:
     """What of the scene's geometry the port does not intersect, or None:
-    analytic SPHERE/PLANE/BOX meshes and BOX/ROUND_BOX SDF meshes."""
+    analytic SPHERE/PLANE/BOX meshes and SDF meshes of every shape."""
     na = scene.num_analytic
-    if any(t not in _ANALYTIC for t in scene.mesh_types_static[:na]):
+    if any(t not in _ANALYTIC for t in scene.mesh_types_static[:na]) \
+            or any(t != int(MeshType.SDF) for t in scene.mesh_types_static[na:]):
         return f"mesh types other than SPHERE/PLANE/BOX/SDF: {_SDF_ITEM}"
-    if any(t != int(MeshType.SDF) for t in scene.mesh_types_static[na:]) \
-            or any(s not in sdf.SHAPES for s in scene.sdf_shapes_static):
-        return f"SDF shapes other than BOX and ROUND_BOX: {_SDF_ITEM}"
+    if any(s not in sdf.SHAPES for s in scene.sdf_shapes_static):
+        return f"unknown SDF shape codes: {_SDF_ITEM}"
     return None
 
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
-    The class: analytic SPHERE/PLANE/BOX meshes and BOX/ROUND_BOX SDF
-    meshes, every surface material (the IOR taken as |ior|), textures of
-    all ten types on analytic meshes, sphere and directional light slots,
-    cosine-weighted or uniform sampling, a cubemap, the procedural sky or
-    no environment, static or animated accumulation; and ReSTIR in the
-    class of `_outside_restir_class`.
+    The class: analytic SPHERE/PLANE/BOX meshes and SDF meshes of all 14
+    shapes, every surface material (the IOR taken as |ior|), textures of
+    all ten types on analytic and SDF meshes, sphere, directional and
+    SDF-bound light slots, cosine-weighted or uniform sampling, a
+    cubemap, the procedural sky or no environment, static or animated
+    accumulation; and ReSTIR in the class of `_outside_restir_class`.
     """
     if cfg.use_spectral or cfg.use_volumetrics:
         return "spectral transport and media: ROADMAP queue 1 item 10"
     reason = unsupported_geometry(scene)
     if reason is not None:
         return reason
-    na = scene.num_analytic
-    if any(t >= 0 and (o[0] or o[1]) for t, o in
-           zip(scene.tex_types_static[na:], scene.opts_static[na:])):
-        return f"textures on SDF meshes: {_SDF_ITEM}"
     if any(li >= scene.num_meshes for li in scene.lights_static):
         return "a light slot names no mesh of the scene"
-    if any(li >= na for li in scene.lights_static):
-        return f"SDF-bound light slots: {_SDF_ITEM}"
     if cfg.use_restir:
         return _outside_restir_class(scene, cfg)
     return None

@@ -212,8 +212,8 @@ def test_animated_gates():
     """ANIMATED is inside the port's class on both devices: the integrator,
     K1 and K2 (the scene is animated on the host before the table is
     built), K6, K7 and K4 admit the real-time scene; `animated_restir`
-    itself, with MAT_METAL's METAL texture on its SDF mesh, is refused on
-    both devices naming item 8."""
+    itself, with MAT_METAL's METAL texture on its SDF mesh, is refused
+    under ReSTIR on both devices naming item 8."""
     from raytracer0_tpu_torch.ops import megakernel as tmk
 
     scene, cam, cfg = tpresets.animated_untextured(device="cpu")
@@ -228,8 +228,10 @@ def test_animated_gates():
 
 def test_animated_restir_refused():
     """The preset ported exactly: 18 rows, 9 sphere lights, a ROUND_BOX of
-    MAT_METAL; the port refuses it on the CPU and on CUDA (before any
-    launch), naming item 8."""
+    MAT_METAL; the port refuses it under ReSTIR on the CPU and on CUDA
+    (before any launch), naming item 8: K4, K6v and K7 do not model a
+    texture on an SDF mesh.  Without ReSTIR it renders, through K1's
+    whole-SDF copy on CUDA and the plain version on the CPU."""
     scene, cam, cfg = tpresets.animated_restir(device="cpu")
     js, jc, jcfg = jpresets.animated_restir()
     assert scene.num_meshes == 18 and scene.num_lights == 9
@@ -237,11 +239,16 @@ def test_animated_restir_refused():
         {f: getattr(jcfg, f) for f in cfg.__dataclass_fields__}
     for k in ("pos", "joker", "color", "emission", "tex_type"):
         np.testing.assert_array_equal(getattr(scene, k).numpy(), np.asarray(getattr(js, k)))
-    with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
-        tren._route("cuda", scene, cfg.replace(use_restir=False))
-    with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
-        tren.sample_radiance(scene, cfg.replace(use_restir=False), cam, 4, 8, 0, 0.5)
+    assert tren._route("cuda", scene, cfg.replace(use_restir=False)) == "kernel"
+    from raytracer0_tpu_torch.ops import megakernel as tmk
+
+    assert tmk.whole_sdf(scene)
+    out = tren.sample_radiance(scene, cfg.replace(use_restir=False, max_bounces=2), cam, 4, 8,
+                               0, 0.5)
+    assert out.shape == (4, 8, 3) and bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
         tren.Renderer(scene, cam, cfg, 4, 8).step(0.5)
+    with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
+        tren.Renderer(scene, cam, cfg.replace(restir_adhoc_motion=True), 4, 8).step(0.5)
     assert "item 8" in tk6.unsupported_restir(scene, cfg)
     assert "item 8" in tsplit.unsupported_gbuffer(scene, cfg.replace(restir_adhoc_motion=True))

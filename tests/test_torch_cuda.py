@@ -50,6 +50,8 @@ from raytracer0_tpu_torch.models import scene as scene_mod
 from test_torch_kernel_host import (TABLE_LEAVES, adjoint_case, assert_grads_close,
                                     assert_grads_close_f64, refreshed_ring, restir_chain_grads)
 from test_torch_texture_scenes import SCENE_VIEWS
+from test_torch_sdf_scenes import GATES, NEW_CLASSES, gate_reason, new_class_case
+from test_torch_sdf_scenes import SCENE_VIEWS as SDF_VIEWS
 
 pytestmark = pytest.mark.cuda
 
@@ -93,11 +95,12 @@ def test_kernel_matches_plain(cuda, h, w, kw):
 
 
 def test_kernel_raises_outside_the_class(cuda):
+    """A GRID_SDF mesh is outside K1's class (item 8) and raises before any
+    launch; every SDF shape is inside it (test_whole_sdf_kernel_matches_plain)."""
     sb = SceneBuilder()
     sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sb.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
-    sb.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
-           sdf_shape=SdfShape.MANDELBULB)
+    sb.add("MAT_WHITE", MeshType.GRID_SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05))
     scene = sb.build(device=cuda)
     _, cam, cfg = cornell_default(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
@@ -487,6 +490,68 @@ def test_sdf_kernel_matches_plain(cuda, where, kw):
     assert megakernel.LAUNCHES == before + 1
     assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
     _parity(out, ref)
+
+
+def _whole_sdf_case(where, device):
+    if where in SDF_VIEWS:
+        make, (origin, lookat, fov), kw = SDF_VIEWS[where]
+        return (make(SceneBuilder, materials, device=device),
+                Camera.make(origin=origin, lookat=lookat, fov=fov, device=device),
+                OFFLINE_CONFIG.replace(**kw))
+    return getattr(presets, where)(device=device)
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("default_scene", {}), ("mandelbulb", {}), ("menger_sponge", {}), ("sdf_light", {}),
+    ("sdf_light", dict(use_mis=True)), ("every_shape", {}),
+], ids=["default_scene", "mandelbulb", "menger_sponge", "sdf_light", "sdf_light_mis",
+        "every_shape"])
+def test_whole_sdf_kernel_matches_plain(cuda, where, kw):
+    """K1's whole-SDF copy (every shape, textured SDF meshes, SDF lights),
+    one launch at 64x64 with 12 bounces and 128 marching steps, against
+    the plain version: the same bits."""
+    scene, cam, cfg = _whole_sdf_case(where, cuda)
+    cfg = cfg.replace(max_bounces=12, marching_steps=128, **kw)
+    assert megakernel.whole_sdf(scene)
+    ro, rd = generate_rays(cam, 64, 64, 1)
+    pix = rng.pixel_ids(64, 64, device=cuda)
+    before = megakernel.LAUNCHES
+    out = megakernel.trace_forward(scene, cfg, ro, rd, pix, 1, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 1, 0)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    assert int((out != ref).any(-1).sum()) == 0
+
+
+@pytest.mark.parametrize("where", NEW_CLASSES)
+def test_new_sdf_classes_refused_before_any_launch(cuda, where):
+    """Every gate but K1's refuses a Mandelbulb, a textured BOX SDF and an
+    SDF light naming item 8, and the routes behind them raise before any
+    launch: a gradient (K2), a ReSTIR pass (K4, K6), the split path (K4,
+    K6v), a ReSTIR gradient (K7) and K5's cast."""
+    scene, cam, cfg = new_class_case(where, cuda)
+    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
+                      restir_kernel.BWD_LAUNCHES, restir_split.GBUF_LAUNCHES,
+                      restir_split.CAST_LAUNCHES, restir_vertex.VERTEX_LAUNCHES)
+    before = counts()
+    for gate in GATES:
+        assert "item 8" in gate_reason(gate, scene, cam, cfg), gate
+    rcfg = cfg.replace(use_restir=True, use_mis=False)
+    em = scene.emission.clone().requires_grad_(True)
+    ro, rd = generate_rays(cam, 8, 8, 0)
+    calls = [
+        lambda: megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
+                                         rng.pixel_ids(8, 8, device=cuda), 0, 0),
+        lambda: Renderer(scene, cam, rcfg, 8, 8).step(),
+        lambda: Renderer(scene, cam, rcfg.replace(restir_adhoc_motion=True), 8, 8).step(0.1),
+        lambda: optimize.render_linear(scene.replace(emission=em), rcfg, cam, 8, 8, passes=2),
+        lambda: restir_split.cast_rays(scene, cfg, ro, rd),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            call()
+    assert counts() == before
 
 
 def _restir_contract(out, ref, new, new_ref):

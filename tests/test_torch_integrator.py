@@ -102,15 +102,17 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_plain_raises_outside_the_class():
     """What the port does not render yet raises, naming its ROADMAP item:
-    SDF shapes other than BOX and ROUND_BOX (8), spectral transport (10),
-    ReSTIR outside the fused kernel's class (11).  Mirrors, glass, coats,
-    directional lights, cubemaps, uniform sampling, textures, BOX and
-    ROUND_BOX SDF meshes and ReSTIR in K6's class are inside the class."""
+    GRID_SDF meshes (8), spectral transport (10), ReSTIR outside the fused
+    kernel's class (11).  Mirrors, glass, coats, directional lights,
+    cubemaps, uniform sampling, textures, SDF meshes of every shape (a
+    Mandelbulb renders) and ReSTIR in K6's class are inside the class."""
     sdf = SceneBuilder()
     sdf.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sdf.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
     sdf.add("MAT_WHITE", MeshType.SDF, (0.0, -0.5, -1.0), (0.3, 0.3, 0.3, 0.05),
             sdf_shape=SdfShape.MANDELBULB)
+    bulb = sdf.build(device="cpu")
+    sdf.add("MAT_WHITE", MeshType.GRID_SDF, (0.5, -0.5, -1.0), (0.3, 0.3, 0.3, 0.0))
     sdf = sdf.build(device="cpu")
     textured = parse_scene("""
         MAT_CHECK_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
@@ -122,6 +124,8 @@ def test_plain_raises_outside_the_class():
     rd[..., 2] = -1.0
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         tint.trace(sdf, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)
+    assert tint.unsupported(bulb, cfg) is None
+    assert bool(torch.isfinite(tint.trace(bulb, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0)).all())
     assert tint.unsupported(textured, cfg) is None
     assert tint.trace(textured, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0).shape == (2, 2, 3)
     ts, _, _ = tpresets.cornell_default(device="cpu")

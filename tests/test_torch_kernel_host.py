@@ -799,6 +799,58 @@ def test_host_sdf_forward_matches_plain(kernels_on_cpu, where):
     assert err.mean().item() < 5e-7, err.mean().item()
 
 
+def whole_sdf_case(where, device="cpu"):
+    """(scene, camera, cfg) of a preset K1 renders with its whole-SDF copy
+    or of a scene of tests/test_torch_sdf_scenes.py."""
+    from test_torch_sdf_scenes import SCENE_VIEWS as SDF_VIEWS
+
+    if where in SDF_VIEWS:
+        make, (origin, lookat, fov), kw = SDF_VIEWS[where]
+        cam = Camera.make(origin=origin, lookat=lookat, fov=fov, device=device)
+        return make(SceneBuilder, materials, device=device), cam, OFFLINE_CONFIG.replace(**kw)
+    return getattr(presets, where)(device=device)
+
+
+@pytest.mark.parametrize("where,kw", [
+    ("default_scene", dict(max_bounces=4)),
+    ("mandelbulb", dict(max_bounces=3, use_mis=True)),
+    ("menger_sponge", dict(max_bounces=3)),
+    ("sdf_light", dict(max_bounces=3)),
+    ("sdf_light", dict(max_bounces=3, use_mis=True)),
+    ("every_shape", dict(max_bounces=2)),
+], ids=["default_scene", "mandelbulb", "menger_sponge", "sdf_light", "sdf_light_mis",
+        "every_shape"])
+def test_host_whole_sdf_forward_matches_plain(kernels_on_cpu, where, kw):
+    """K1's whole-SDF copy (the 14 distances, a METAL texture on an SDF
+    box, a CHECK texture on an SDF quad, SDF-light NEE with and without
+    MIS), one launch, against the plain version under the parity contract
+    at 16x32 with 32 marching steps; the fractals, whose march and normal
+    an ULP of the host's logf or of torch's CPU sqrt moves, as the JAX
+    package's `test_procedural_cubemap_presets_interpret` holds them
+    (tests/test_megakernel.py:357-385): at least 97 % of the pixels within
+    1e-4 and the means within 2 %."""
+    scene, cam, cfg = whole_sdf_case(where)
+    cfg = cfg.replace(marching_steps=32, **kw)
+    assert megakernel.unsupported(scene, cfg) is None and megakernel.whole_sdf(scene)
+    h, w = 16, 32
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene),
+                                     ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    print(f"{where}: {int((err > 0).sum())} of {h * w} pixels differ, max {err.max().item():.3e}")
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    if where in ("mandelbulb", "menger_sponge"):
+        assert (err < 1e-4).float().mean().item() >= 0.97
+        assert abs(out.mean() - ref.mean()).item() <= 0.02 * ref.mean().item()
+    else:
+        assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+            err.max().item()
+
+
 def test_host_restir_matches_plain(kernels_on_cpu):
     """K6 against the plain `restir.render_sample` on `restir_demo`, each
     threading its own reservoir ring through passes 0-3 (temporal reuse
