@@ -20,8 +20,13 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    scene class, `k2_cases`: its Cornell copy on Cornell and the 47-mesh
    scene of `presets.many_lights`, its wide copy on config 2, `mis_demo`,
    `textured_cornell`, `cubemap_demo` and the 47-mesh scene under uniform
-   sampling, with its layout, columns and spills, and fails if a column
-   per thread leaves it fewer than 3 blocks per SM);
+   sampling, its whole-SDF copy on `default_scene`, `mandelbulb`,
+   `menger_sponge` and the scene of every shape the presets lack, with its
+   layout, columns and spills, and fails if a column per thread leaves it
+   fewer than 3 blocks per SM); prints K2's ptxas line per copy (by the
+   template instance of its kernel) and fails unless its Cornell and wide
+   copies keep their registers and local memory (128 and 928 B on
+   Cornell; 128 and 2,160 B, per warp 64 and 2,464 B on the wide copy);
    checks that K7, which shares K6v's vertex code, keeps its 168 registers
    and 1,328-byte stack (the vertex's split form must not move K7's code);
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
@@ -113,8 +118,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    expected) and the max error; prints Cornell's and `mis_demo`'s K1
    device time (`k1_device_time.py`), times K1 and the plain version on
    `mis_demo` and prints its path events and K1's bound; checks that a
-   gradient through an SDF shape other than BOX and ROUND_BOX raises
-   before any launch, naming item 8;
+   gradient through a mesh type K1 does not render (`mis_demo`'s box made
+   a GRID_SDF) raises before any launch, naming item 8;
 16. holds the ReSTIR pass K6 (K4, then K6v's fused form) against the
    plain `restir.render_sample` on the card, on `restir_demo`,
    `restir_stress` and `restir_demo` with MIS, each threading its own
@@ -191,9 +196,9 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    itself (a METAL texture on its SDF mesh, item 8) under ReSTIR on K6
    and on the split path, and `restir_demo` on the split path with a
    blended texture or a cubemap (item 11), raise NotImplementedError
-   before any launch; and that the gates of K2, K4, K5, K6, K6v, K7 and
-   ReSTIR refuse a Mandelbulb, a textured BOX SDF (`default_scene`) and
-   an SDF light naming item 8, and their routes (a gradient, a ReSTIR
+   before any launch; and that K2 admits a Mandelbulb, a textured BOX SDF
+   (`default_scene`) and an SDF light while the gates of K4, K5, K6, K6v,
+   K7 and ReSTIR refuse them naming item 8, and their routes (a ReSTIR
    pass, the split path, a ReSTIR gradient, K5's cast) raise before any
    launch;
 26. drives the whole SDF class on K1, the reference's presets
@@ -206,7 +211,33 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    pixels printed); times a `sample_radiance` pass (CUDA events) and K1's
    device time (`k1_device_time.py`), prints the path events (march
    steps, the march's lane use) and K1's bound with the float operations
-   of each distance.
+   of each distance;
+27. differentiates the whole SDF class on K2 (its whole-SDF copy, a
+   library of its own): holds its adjoint of each of the 14 distances in
+   the scene that holds the shape (the scene of every shape the presets
+   lack, presets 0, 2 and 3) at 64x64, 2 bounces, 64 marching steps, on
+   the cotangents of that shape's rows and of the rays whose first hit is
+   one of them; holds its gradient w.r.t. every scene-table leaf (aux
+   among them) and the rays on the scene of every shape, the SDF light
+   with and without MIS and the textured SDF scene at 64x64, and on the
+   presets 0, 2 and 3 at 128x128, 4 bounces and 64 marching steps, one K1
+   and one K2 launch each and K1's radiance the plain version's bit for
+   bit; each against the plain autograd, arbitrated as phase 6 does
+   (`arbitrated_errors`: `menger_sponge` on the pixels where float32 and
+   float64 take the same decisions, `default_scene`'s pos, joker and rays
+   held against the float64 plain autograd, whose misses are printed);
+   holds d sum / d the SDF light's pos.y and joker scale and the textured
+   SDF sphere's pos.y against K1's central differences on the pixels
+   linear in them (and prints those of `menger_sponge`'s joker scale and
+   `default_scene`'s upper box pos.y, which a central difference cannot
+   hold: PERF.md §7); runs 10-step `optimize.fit`s at 64x64 of
+   `mandelbulb`'s emission and color, `menger_sponge`'s color and joker
+   and the SDF light's position, each lowering its loss through 10 K1 and
+   10 K2 launches and no call of the plain version; times K2 on the three
+   presets at 512x512, 12 bounces, 128 marching steps (CUDA events;
+   device time from `k1_device_time.py`) beside its bound (the winning
+   distance's reverse counted at each SDF hit), the plain backward at
+   128x128, its registers, local memory, blocks per SM and ptxas line.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -227,6 +258,8 @@ GOLDEN_TOL, GOLDEN_FRAC = 2e-3, 0.99     # tests/test_golden_cornell.py:26
 MEDIAN_TOL = 1e-4                        # tests/test_golden_cornell.py:35
 GRAD_TOL = 1e-4                          # tests/test_megakernel.py:128-129
 GRAD_TOL_FULL = 1e-3                     # 512x512: sums in another order
+ILL_CONDITIONED_LEFT_OUT = 0.15          # tests/test_torch_kernel_host.py
+F64_LEAF_TOL = 5e-2                      # tests/test_torch_kernel_host.py
 FD_TOL = 0.05                            # tests/test_golden_cornell.py:112
 H = W = 512
 PASSES = 16
@@ -307,6 +340,7 @@ OPS_SHADE = 120
 # extra operations of a BSDF sample by material code, on top of OPS_DIFFUSE
 OPS_BSDF = {2: 0, 3: OPS_REFLECT, 4: OPS_REFLECT + OPS_REFRACT + OPS_FRESNEL,
             5: OPS_REFLECT + OPS_REFRACT + OPS_SCHLICK, 6: OPS_REFLECT + OPS_SCHLICK}
+
 
 
 def compare(name, out, ref, tol, frac, phase=3):
@@ -390,22 +424,65 @@ def table_grads(torch, trace, scene, cfg, ro, rd, pix, pass_idx=2, dtype=None, m
                           for k, v, g in zip((*TABLE_LEAVES, "ro", "rd"), vals, got)}
 
 
-def arbitrated_errors(got, want, grads_of):
+def agreeing_pixels(grads_of):
+    """(H, W) bool: the pixels where the float32 and float64 plain radiances
+    agree within 1e-3 (tests/test_torch_kernel_host.py::_agreeing_pixels)."""
+    out32, out64 = grads_of("plain", None)[0], grads_of("plain64", None)[0]
+    return (out32.double() - out64).abs().amax(-1) <= 1e-3 * out64.abs().amax(-1) + 1e-7
+
+
+def arbitrated_errors(got, want, grads_of, ill_conditioned=False, f64_leaves=()):
     """({leaf: (max|a - b| / max|b|, the same after arbitration)}, pixels
-    left out, entries arbitrated) of K2's gradient `got` against the plain
-    float32 one `want` (tests/test_torch_kernel_host.py::
-    assert_grads_close_f64).  Every entry stays within GRAD_TOL_FULL of its
-    leaf.  Where one misses GRAD_TOL, all three gradients are taken again
-    (`grads_of(kind, mask)` -> (radiance, gradients), kind "kernel",
-    "plain" or "plain64") with the weights kept on the pixels where the
-    float32 and float64 plain radiances agree within 1e-3 (at the others
-    float64 may take another discrete decision), at most 0.1 % of them (or
-    4) left out; there an entry that misses counts only what K2 misses the
-    float64 value by beyond the float32 plain version's own miss (a float32
-    cancellation at a grazing hit or a high-frequency texel, where either
-    float32 program may be the nearer), on at most 0.1 % of a leaf's
-    entries (or a mesh's 3)."""
-    errs, scales = {}, {}
+    left out, entries arbitrated, {leaf of `f64_leaves`: (the float32 plain
+    autograd's miss, K2's miss) of the float64 one}) of K2's gradient `got`
+    against the plain float32 one `want`, under tests/
+    test_torch_kernel_host.py::assert_grads_close_f64.  Every entry stays
+    within GRAD_TOL_FULL of its leaf.  Where one misses GRAD_TOL, all three
+    gradients are taken again (`grads_of(kind, mask)` -> (radiance,
+    gradients), kind "kernel", "plain" or "plain64") with the weights kept
+    on the pixels where the float32 and float64 plain radiances agree
+    within 1e-3 (`agreeing_pixels`; at the others float64 may take another
+    discrete decision), at most 0.1 % of them (or 4) left out; there an
+    entry that misses counts only what K2 misses the float64 value by
+    beyond the float32 plain version's own miss (a float32 cancellation at
+    a grazing hit or a high-frequency texel, where either float32 program
+    may be the nearer), on at most 0.1 % of a leaf's entries (or a mesh's
+    3).  `ill_conditioned` (`menger_sponge`): every gradient is taken on
+    the agreeing pixels, at most ILL_CONDITIONED_LEFT_OUT of them left out.
+    `f64_leaves` (`default_scene`'s pos, joker and rays): held against the
+    float64 plain autograd on the agreeing pixels, K2 within F64_LEAF_TOL
+    of the leaf and within GRAD_TOL_FULL or the float32 plain version's own
+    miss plus GRAD_TOL (the flat faces' normal taps cancel: the plain
+    version sums each tap over the batch first, K2 per pixel)."""
+    errs, scales, held = {}, {}, {}
+    left0 = 0
+    if ill_conditioned:
+        agree0 = agreeing_pixels(grads_of)
+        left0 = int((~agree0).sum().item())
+        if left0 > ILL_CONDITIONED_LEFT_OUT * agree0.numel():
+            raise AssertionError(f"{left0} pixels' float32 and float64 radiances disagree")
+        grads_all = grads_of
+        grads_of = lambda kind, mask: grads_all(kind, agree0 if mask is None else mask & agree0)
+        got, want = grads_of("kernel", None)[1], grads_of("plain", None)[1]
+    if f64_leaves:
+        agree = agreeing_pixels(grads_of)
+        if int((~agree).sum().item()) > max(4, 0.001 * agree.numel()) + left0:
+            raise AssertionError(f"{int((~agree).sum().item())} pixels' float32 and float64 "
+                                 "radiances disagree")
+        (_, a_m), (_, b_m), (_, c_m) = (grads_of(kind, agree)
+                                        for kind in ("kernel", "plain", "plain64"))
+        for k in f64_leaves:
+            if not bool(a_m[k].isfinite().all()):
+                raise AssertionError(f"the kernel's gradient of {k} is not finite")
+            c = c_m[k]
+            scale = max(c.abs().max().item(), 1e-12)
+            e32 = (b_m[k].double() - c).abs().max().item() / scale
+            e_k2 = (a_m[k].double() - c).abs().max().item() / scale
+            held[k] = (e32, e_k2)
+            if not (e_k2 < F64_LEAF_TOL and (e_k2 <= e32 + GRAD_TOL or e_k2 < GRAD_TOL_FULL)):
+                raise AssertionError(f"K2's gradient of {k} misses the float64 plain one by "
+                                     f"{e_k2:.3e}, the float32 plain by {e32:.3e}")
+        want = {k: v for k, v in want.items() if k not in f64_leaves}
     for k, b in want.items():
         a = got[k]
         if not bool(a.isfinite().all()):
@@ -415,12 +492,11 @@ def arbitrated_errors(got, want, grads_of):
         if errs[k][0] >= GRAD_TOL_FULL:
             raise AssertionError(f"K2's gradient of {k} misses the plain one by "
                                  f"{errs[k][0]:.3e} of the leaf")
-    if all(e[0] < GRAD_TOL for e in errs.values()):
-        return errs, 0, 0
-    out32, out64 = grads_of("plain", None)[0], grads_of("plain64", None)[0]
-    agree = (out32.double() - out64).abs().amax(-1) <= 1e-3 * out64.abs().amax(-1) + 1e-7
+    if all(errs[k][0] < GRAD_TOL for k in want):
+        return errs, left0, 0, held
+    agree = agreeing_pixels(grads_of)
     left_out = int((~agree).sum().item())
-    if left_out > max(4, 0.001 * agree.numel()):
+    if left_out > max(4, 0.001 * agree.numel()) + left0:
         raise AssertionError(f"{left_out} pixels' float32 and float64 radiances disagree")
     (_, a_m), (_, b_m), (_, c_m) = (grads_of(kind, agree) for kind in ("kernel", "plain", "plain64"))
     arbitrated = 0
@@ -434,7 +510,10 @@ def arbitrated_errors(got, want, grads_of):
         slack = ((a.double() - c).abs() - (b.double() - c).abs()).max().item() / scales[k]
         errs[k] = (errs[k][0], (a - b).abs().max().item() / scales[k] if n == 0
                    else max(slack, 0.0))
-    return errs, left_out, arbitrated
+        if errs[k][1] >= GRAD_TOL:
+            raise AssertionError(f"K2's gradient of {k} misses the float64 one by "
+                                 f"{errs[k][1]:.3e} beyond the float32 plain one's miss")
+    return errs, left_out, arbitrated, held
 
 
 def textured_scenes(dev):
@@ -685,7 +764,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     return ev
 
 
-def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
+def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=False):
     """(bound_ms, bound_by) of K1 (or K2 when `adjoint`, K6 when `restir`,
     K7 when both) for these events: the larger of the bytes over the HBM
     rate and the float operations over the float32 rate.  The bytes are
@@ -702,7 +781,12 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     sweep, reverse sweep with the vertices, each scanning the slot's ray)
     and runs their adjoint.  K4 (`gbuffer_slots` > 0)
     runs K1's sweep without NEE and writes the G-buffer: per slot and pixel
-    45 bytes (position, normal, throughput, mesh, depth, valid)."""
+    45 bytes (position, normal, throughput, mesh, depth, valid).
+    `sdf_adjoint` (K2's whole-SDF copy) adds, at each SDF hit, the reverse
+    of the winning distance at the 5 points where the replay evaluated the
+    scene map (the implicit t's point and the normal's 4 taps, counted in
+    the forward): at least the operations of the scene's cheapest shape's
+    distance each."""
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     n_sdf = scene.num_sdfs
@@ -729,6 +813,9 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0):
     scans = (ev["rays"] + ev["shadow"] + ev["shadow_dir"] + ev["shadow_sdf"] + ev["gather"]
              + (2 * ev["vertices"] if restir else 0)) * per_ray + march
     adjoint_ops = fwd - scans
+    if sdf_adjoint and n_sdf:
+        adjoint_ops += ev["sdf_hits"] * 5 * min(OPS_SDF_SHAPE[int(s)]
+                                                for s in scene.sdf_shapes_static)
     table = 4 * scene.num_meshes * 36
     assets = 4 * scene.cubemap.numel() if cfg.use_cubemap else 0
     assets += 4 * scene.images.numel() if any(t <= 3 for t in ev["texel"]) else 0
@@ -860,12 +947,13 @@ def kernel_occupancy(dev):
     ]
     for where, (sc, c) in k2_cases(dev).items():
         warp, smem = megakernel.bwd_layout(sc, c)
-        flag = int(warp) | 2 * int(not megakernel.cornell_copy(sc, c))
-        rows.append(("K2", where, "megakernel_bwd", megakernel.BWD_SOURCES, "rt0_trace_backward",
-                     megakernel.BWD_THREADS, smem, flag))
+        copy = megakernel.bwd_copy(sc, c)
+        flag = int(warp) | 2 * int(copy == "wide") | 4 * int(copy == "whole_sdf")
+        rows.append(("K2", where, *megakernel.bwd_library(copy == "whole_sdf"),
+                     "rt0_trace_backward", megakernel.BWD_THREADS, smem, flag))
     # the flag is K1's copy (bit 0 the SDF march, bit 2 the whole SDF class),
     # the SDF copy's (K4, K5), K6v's form or K2's copy (bit 0 a column per
-    # warp, bit 1 the wide copy)
+    # warp, bit 1 the wide copy, bit 2 the whole-SDF copy)
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
 
@@ -887,43 +975,24 @@ def sun_scene(dev):
     return sb.build(device=dev), cam
 
 
-def sdf_light_scene(dev):
-    """(scene, camera, cfg) of tests/test_megakernel.py:700-716 (and
-    tests/test_torch_sdf_scenes.py): Cornell walls, a box and an SDF
-    ROUND_BOX light in the only light slot."""
-    from raytracer0_tpu_torch.config import OFFLINE_CONFIG
-    from raytracer0_tpu_torch.models.camera import Camera
-    from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
-    from raytracer0_tpu_torch.models.scene import SceneBuilder
-
-    sb = SceneBuilder()
-    for mat, n, w in (("MAT_CORNELL_WHITE", (0.0, 1.0, 0.0), 1.5),
-                      ("MAT_CORNELL_WHITE", (0.0, -1.0, 0.0), 1.5),
-                      ("MAT_CORNELL_WHITE", (0.0, 0.0, 1.0), 2.5),
-                      ("MAT_CORNELL_RED", (1.0, 0.0, 0.0), 1.5),
-                      ("MAT_CORNELL_GREEN", (-1.0, 0.0, 0.0), 1.5)):
-        sb.add(mat, MeshType.PLANE, n, (w,))
-    sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.5, -1.0, -1.8), (1.0,))
-    sb.add("MAT_LIGHT_4", MeshType.SDF, (0.0, 1.0, -1.2), (0.3, 0.3, 0.3, 0.05),
-           sdf_shape=SdfShape.ROUND_BOX)
-    cam = Camera.make(origin=(0.0, 0.0, 2.8), lookat=(0.0, 0.0, -1.0), fov=50.0, device=dev)
-    return sb.build(device=dev), cam, OFFLINE_CONFIG.replace(max_bounces=2)
-
-
 def k2_cases(dev):
     """{name: (scene, cfg)} of K2's scene classes in phase 2: Cornell and
     the 47-mesh scene on its Cornell copy (a column per thread, per warp),
     and on its wide copy config 2 (glass, mirror, coat), `mis_demo` (a BOX
     SDF), `textured_cornell` and `cubemap_demo` (a column per thread) and
-    the 47-mesh scene under uniform sampling (a column per warp)."""
+    the 47-mesh scene under uniform sampling (a column per warp), and on
+    its whole-SDF copy the presets `default_scene`, `mandelbulb` and
+    `menger_sponge` and the scene of every shape the presets lack."""
     from raytracer0_tpu_torch.models import presets
 
     cases = {"cornell_default": presets.cornell_default(device=dev, use_mis=True),
              "many_meshes": presets.many_lights(device=dev)}
-    for name in ("config2", "mis_demo", "textured_cornell", "cubemap_demo"):
+    for name in ("config2", "mis_demo", "textured_cornell", "cubemap_demo", "default_scene",
+                 "mandelbulb", "menger_sponge"):
         cases[name] = getattr(presets, name)(device=dev)
     scene, cam, cfg = cases["many_meshes"]
     cases["many_meshes_uniform"] = (scene, cam, cfg.replace(use_biased_sampling=False))
+    cases["every_shape"] = presets.sdf_view("every_shape", device=dev)
     return {k: (v[0], v[2]) for k, v in cases.items()}
 
 
@@ -974,7 +1043,7 @@ def main() -> int:
     try:
         from raytracer0_tpu_torch import optimize, rng
         from raytracer0_tpu_torch.models.camera import generate_rays
-        from raytracer0_tpu_torch.models.materials import SdfShape
+        from raytracer0_tpu_torch.models.materials import MeshType, SdfShape
         from raytracer0_tpu_torch.models.presets import cornell_default, cubemap_demo
         from raytracer0_tpu_torch.ops import bsdf, intersect, sky
         from raytracer0_tpu_torch.ops import megakernel
@@ -984,7 +1053,7 @@ def main() -> int:
         from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split, restir_vertex
         from raytracer0_tpu_torch.render.renderer import Renderer, render_pass, sample_radiance
         from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState
-        from k1_device_time import k1_device_ms
+        from k1_device_time import K2_COPIES, k1_device_ms, k2_device_ms, ptxas_functions
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
@@ -1000,13 +1069,14 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build the six kernels at once ----
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    # ---- phase 2: build the six kernels at once (K2 in two libraries) ----
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
                   pool.submit(restir_vertex.build), pool.submit(restir_kernel.build_bwd),
-                  pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast)]
+                  pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast),
+                  pool.submit(megakernel.build_bwd_sdf)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5"), infos):
+    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5", "K2 whole-SDF"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -1030,13 +1100,20 @@ def main() -> int:
               f"({o4['blocks']} blocks per SM x {sms} SMs) at {o4['registers']} registers "
               f"({o4['local_bytes']} bytes of local memory); {-(-H * W // 128)} blocks of pixels "
               f"at {H}x{W}")
-    k2_ptxas = [line.strip() for line in infos[1].log.splitlines() if "spill" in line]
-    print(f"phase 2: K2 ptxas, its copies in order (Cornell per thread, per warp; wide per "
-          f"thread, per warp) and the reduction: {'; '.join(k2_ptxas)}")
+    k2_fns = {**ptxas_functions(infos[1].log), **ptxas_functions(infos[6].log)}
+    k2_ptxas = {}
+    for copy, tag in K2_COPIES.items():
+        line = [v for k, v in k2_fns.items() if tag in k]
+        k2_ptxas[copy] = line[0] if line else None
+        print(f"phase 2: K2 ptxas, its {copy} copy: {k2_ptxas[copy]}")
+    for name, line in k2_fns.items():
+        if not any(tag in name for tag in K2_COPIES.values()):
+            print(f"phase 2: K2 ptxas, {name}: {line}")
     for where, (sc, c2) in k2_cases(dev).items():
         o2 = occ[("K2", where)]
         warp2 = megakernel.bwd_layout(sc, c2)[0]
-        copy2 = "Cornell" if megakernel.cornell_copy(sc, c2) else "wide"
+        copy2 = {"cornell": "Cornell", "wide": "wide", "whole_sdf": "whole-SDF"}[
+            megakernel.bwd_copy(sc, c2)]
         print(f"phase 2: K2 on {where} ({sc.num_meshes} meshes, its {copy2} copy, "
               f"{len(megakernel.bwd_columns(sc, c2))} columns a mesh): {o2['registers']} "
               f"registers, {o2['local_bytes']} bytes of local memory per thread, {o2['smem']} "
@@ -1044,6 +1121,16 @@ def main() -> int:
               f"accumulators per {'warp' if warp2 else 'thread'}), {o2['blocks']} blocks per SM")
         if not warp2 and o2["blocks"] < 3:
             raise AssertionError("K2 keeps a column per thread where it fits < 3 blocks per SM")
+    # the Cornell and wide copies keep the lines they had before the
+    # whole-SDF copy came (PERF.md §6)
+    held = {("K2", "cornell_default"): (128, 928), ("K2", "mis_demo"): (128, 2160),
+            ("K2", "many_meshes_uniform"): (64, 2464)}
+    for key, want2 in held.items():
+        got2 = (occ[key]["registers"], occ[key]["local_bytes"])
+        print(f"phase 2: K2 on {key[1]} keeps its {want2[0]} registers and {want2[1]} bytes "
+              f"of local memory: {got2 == want2}")
+        if got2 != want2:
+            raise AssertionError(f"K2's copy on {key[1]} moved: {got2}, expected {want2}")
     o7 = occ[("K7", "restir_demo")]
     print(f"phase 2: K7 keeps its 168 registers and 1,328-byte stack: "
           f"{(o7['registers'], o7['local_bytes']) == (168, 1328)}")
@@ -1203,7 +1290,7 @@ def main() -> int:
         if megakernel.BWD_LAUNCHES != before + 1:
             raise AssertionError("expected one K2 launch per backward")
         _, want = table_grads(torch, integrator.trace, sw, cfgw, row, rdw, pix, 0)
-        errs, left_out, arbitrated = arbitrated_errors(got, want, lambda kind, mask: table_grads(
+        errs, left_out, arbitrated, _ = arbitrated_errors(got, want, lambda kind, mask: table_grads(
             torch, megakernel.trace_forward if kind == "kernel" else integrator.trace, sw, cfgw,
             row, rdw, pix, 0, torch.float64 if kind == "plain64" else None, mask))
         rel, raw = max(e[1] for e in errs.values()), max(e[0] for e in errs.values())
@@ -1284,7 +1371,7 @@ def main() -> int:
         fd = (d1 * lin[..., None]).sum().item() / (2.0 * step)
         lf = base.detach().clone().requires_grad_(True)
         img = sample_radiance(sc.replace(**{leaf: lf}), c7, cm7, size, size, 0)
-        ad = torch.autograd.grad((img * lin[..., None].float()).sum(), lf)[0][index].item()
+        ad = torch.autograd.grad((img * lin[..., None].float()).sum(), lf)[0][index].sum().item()
         return ad, fd, lin.float().mean().item()
 
     c2_scene, c2_cam, c2_cfg = presets.config2(device=dev)
@@ -1695,16 +1782,19 @@ def main() -> int:
           f"{ms_sdf:.3f} ms, plain {plain_ms_sdf:.3f} ms; bound {sdf_bound:.6f} ms ({sdf_by})")
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
     em = m_scene.emission.clone().requires_grad_(True)
-    other = m_scene.replace(emission=em, sdf_shapes_static=(int(SdfShape.SPHERE),))
+    grid = tuple(int(MeshType.GRID_SDF) if t == int(MeshType.SDF) else t
+                 for t in m_scene.mesh_types_static)
+    other = m_scene.replace(emission=em, mesh_types_static=grid, mesh_type=torch.tensor(
+        grid, dtype=m_scene.mesh_type.dtype, device=dev))
     try:
         sample_radiance(other, m_cfg, m_cam, 16, 16, 0)
     except NotImplementedError as exc:
-        print(f"phase 15: a gradient through mis_demo with its box made an SDF sphere raises "
+        print(f"phase 15: a gradient through mis_demo with its box made a GRID_SDF raises "
               f"NotImplementedError: {exc}")
         if "item 8" not in str(exc):
-            raise AssertionError("another SDF shape is refused without naming item 8")
+            raise AssertionError("a GRID_SDF is refused without naming item 8")
     else:
-        raise AssertionError("a gradient through an SDF sphere did not raise")
+        raise AssertionError("a gradient through a GRID_SDF did not raise")
     if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != before:
         raise AssertionError("the refused SDF gradient launched a kernel")
 
@@ -2490,18 +2580,19 @@ def main() -> int:
     for label, c in (("on K6", m_cfg), ("on the split path", m_cfg.replace(restir_adhoc_motion=True))):
         refusals[f"animated_restir (MAT_METAL on its SDF) {label}"] = \
             lambda c=c: Renderer(m_scene, m_cam, c, 16, 16).step(0.1)
-    # the classes only K1 renders: every other kernel refuses them before any
-    # launch, naming item 8 (a gradient is K2's, a ReSTIR pass K4's and K6's,
-    # the split path K4's and K6v's, a ReSTIR gradient K7's, a cast K5's)
+    # the classes only K1 and K2 serve: every other kernel refuses them
+    # before any launch, naming item 8 (a ReSTIR pass K4's and K6's, the
+    # split path K4's and K6v's, a ReSTIR gradient K7's, a cast K5's)
     new_classes = {"a Mandelbulb": presets.mandelbulb(device=dev),
                    "a textured BOX SDF (default_scene)": presets.default_scene(device=dev),
-                   "an SDF light": sdf_light_scene(dev)}
+                   "an SDF light": presets.sdf_view("sdf_light", device=dev)}
     for label, (sc25, cam25, cfg25) in new_classes.items():
         em_n = sc25.emission.clone().requires_grad_(True)
         rc25 = cfg25.replace(use_restir=True, use_mis=False)
         ro25, rd25 = generate_rays(cam25, 8, 8, 0)
-        gates = {"K2": megakernel.unsupported_bwd(sc25, cfg25),
-                 "K4": restir_split.unsupported_gbuffer(sc25, rc25),
+        if megakernel.unsupported_bwd(sc25, cfg25) is not None:
+            raise AssertionError(f"K2 refuses {label}: {megakernel.unsupported_bwd(sc25, cfg25)}")
+        gates = {"K4": restir_split.unsupported_gbuffer(sc25, rc25),
                  "K5": restir_split.unsupported_cast(sc25),
                  "K6": restir_kernel.unsupported_restir(sc25, rc25),
                  "K6v": restir_vertex.unsupported(sc25, restir_split.gbuffer_slots(rc25)),
@@ -2511,9 +2602,6 @@ def main() -> int:
             print(f"phase 25: {gate}'s gate on {label}: {why}")
             if why is None or "item 8" not in why:
                 raise AssertionError(f"{gate} admits {label} or refuses it without naming item 8")
-        refusals[f"a gradient through {label} (K2)"] = lambda sc=sc25, c=cfg25, e=em_n, o=ro25, \
-            r=rd25: megakernel.trace_forward(sc.replace(emission=e), c, o, r,
-                                             rng.pixel_ids(8, 8, device=dev), 0, 0)
         refusals[f"a ReSTIR pass on {label} (K4, K6)"] = lambda sc=sc25, cm=cam25, c=rc25: \
             Renderer(sc, cm, c, 8, 8).step()
         refusals[f"the split path on {label} (K4, K6v)"] = lambda sc=sc25, cm=cam25, c=rc25: \
@@ -2606,6 +2694,253 @@ def main() -> int:
                        "bound_ms": b26[0], "bound_by": b26[1]}
         del out26, ref26
 
+    # ---- phase 27: the whole SDF class on K2 ----
+    t27 = time.perf_counter()
+    failed27 = []
+
+    def hold27(what, check):
+        """Run `check`; a failure is kept, and phase 27 fails after its last
+        comparison, so one run prints every reading."""
+        try:
+            return check()
+        except AssertionError as exc:
+            failed27.append(f"{what}: {exc}")
+            print(f"phase 27: FAILED {what}: {exc}")
+            return None
+
+    def grads27(sc, c, r, d, p):
+        """grads_of(kind, mask) of K2 ("kernel") and the plain autograd
+        ("plain", "plain64") on (sc, c) for arbitrated_errors, each kind and
+        mask computed once."""
+        cache = {}
+
+        def grads_of(kind, mask):
+            key = (kind, None if mask is None else mask.cpu().numpy().tobytes())
+            if key not in cache:
+                cache[key] = table_grads(
+                    torch, megakernel.trace_forward if kind == "kernel" else integrator.trace,
+                    sc, c, r, d, p, 0, torch.float64 if kind == "plain64" else None, mask)
+            return cache[key]
+
+        return grads_of
+
+    def picked27(grads_of, on, rows):
+        """`grads_of` with the cotangents of the mesh `rows` and of the rays
+        of the `on` pixels alone."""
+        def picked(kind, mask):
+            out, g = grads_of(kind, mask)
+            return out, {k: v[on] if k in ("ro", "rd") else v[rows] for k, v in g.items()}
+
+        return picked
+
+    def held_text(errs, left_out, arbitrated, held):
+        return (f"(after float64 arbitration: {left_out} pixels left out, {arbitrated} entries "
+                "arbitrated) " + ", ".join(f"{k} {e[0]:.2e} ({e[1]:.2e})" for k, e in errs.items())
+                + "".join(f"; {k} held against float64: K2 misses it by {e[1]:.3e}, the float32 "
+                          f"plain autograd by {e[0]:.3e}" for k, e in held.items()))
+
+    # K2's adjoint of each SDF shape's distance, in the scene that holds it
+    # (the every-shape scene, presets 0, 2 and 3): the cotangents of that
+    # shape's rows and of the rays whose first hit is one of them
+    from raytracer0_tpu_torch.ops import intersect as intersect27
+
+    shape_scene27 = {"BOX": "default_scene", "MENGER_SPONGE": "menger_sponge",
+                     "MANDELBULB": "mandelbulb"}
+    scene_grads27, dist27 = {}, {}
+    for shape in [sh.name for sh in SdfShape] + ["every_shape"]:
+        where = shape_scene27.get(shape, "every_shape")
+        if where not in scene_grads27:
+            sc, cm, c = (presets.sdf_view(where, device=dev) if where == "every_shape"
+                         else getattr(presets, where)(device=dev))
+            c = c.replace(max_bounces=2, marching_steps=64)
+            r27, d27 = generate_rays(cm, 64, 64, 0)
+            p27 = rng.pixel_ids(64, 64, device=dev)
+            hit27 = intersect27.intersect(sc, r27, d27, c, need_normal=False)
+            scene_grads27[where] = (sc, torch.where(hit27.missed, -1, hit27.idx),
+                                    grads27(sc, c, r27, d27, p27))
+        sc, first27, all27 = scene_grads27[where]
+        rows = [sc.num_analytic + k for k, sh in enumerate(sc.sdf_shapes_static)
+                if shape == "every_shape" or sh == int(SdfShape[shape])]
+        on = torch.isin(first27, torch.tensor(rows, device=dev))
+        grads_of = picked27(all27, on, rows)
+        res = hold27(f"{shape}'s distance adjoint", lambda: arbitrated_errors(
+            grads_of("kernel", None)[1], grads_of("plain", None)[1], grads_of,
+            ill_conditioned=where == "menger_sponge",
+            f64_leaves=("pos", "joker", "ro", "rd") if where == "default_scene" else ()))
+        if res is not None:
+            dist27[shape] = {"scene": where, "pixels": int(on.sum().item()),
+                             "max_rel_err": max(e[1] for e in res[0].values()),
+                             "float64_held": res[3]}
+            print(f"phase 27: {shape}'s distance adjoint on its {dist27[shape]['pixels']} pixels "
+                  f"of {where} at 64x64, 2 bounces, 64 marching steps: max relative error per "
+                  "leaf against plain autograd " + held_text(*res))
+    del scene_grads27
+
+    # K2's whole-SDF copy against plain autograd: the class scenes at 64x64,
+    # the presets at 128x128, 4 bounces and 64 marching steps
+    cases27 = {name: presets.sdf_view(name, device=dev)
+               for name in ("every_shape", "sdf_light", "textured_sdf")}
+    cases27["sdf_light_mis"] = cases27["sdf_light"][:2] + (
+        cases27["sdf_light"][2].replace(use_mis=True),)
+    for name in ("default_scene", "mandelbulb", "menger_sponge"):
+        cases27[name] = getattr(presets, name)(device=dev)
+    k2_whole = {}
+    for name, (sc, cm, c) in cases27.items():
+        c = c.replace(max_bounces=4, marching_steps=64)
+        size = 128 if hasattr(presets, name) else 64
+        if megakernel.unsupported_bwd(sc, c) is not None or megakernel.bwd_copy(sc, c) != "whole_sdf":
+            raise AssertionError(f"{name}: expected in K2's whole-SDF copy")
+        r27, d27 = generate_rays(cm, size, size, 0)
+        p27 = rng.pixel_ids(size, size, device=dev)
+        grads_of = grads27(sc, c, r27, d27, p27)
+        before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+        out27, got = grads_of("kernel", None)
+        torch.cuda.synchronize()
+        if (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("expected one K1 and one K2 launch per backward")
+        ref27, want = grads_of("plain", None)
+        if not torch.equal(out27, ref27):
+            raise AssertionError(f"{name}: K1 differs from the plain version under the gradient")
+        res = hold27(f"K2 on {name}", lambda: arbitrated_errors(
+            got, want, grads_of, ill_conditioned=name == "menger_sponge",
+            f64_leaves=("pos", "joker", "ro", "rd") if name == "default_scene" else ()))
+        if res is None:
+            k2_whole[name] = {}
+            continue
+        errs, left_out, arbitrated, held = res
+        shown = {k: e for k, e in errs.items() if want[k].abs().max().item() > 0.0}
+        print(f"phase 27: {name} {size}x{size}, {c.max_bounces} bounces, {c.marching_steps} "
+              f"marching steps, K2's whole-SDF copy: max relative error per leaf against plain "
+              "autograd " + held_text(shown, left_out, arbitrated, held))
+        k2_whole[name] = {"max_rel_err": max(e[1] for e in errs.values()),
+                          "max_rel_err_raw": max(e[0] for e in errs.values()),
+                          "pixels_left_out": left_out, "entries_arbitrated": arbitrated,
+                          "float64_held": held}
+        del got, want, grads_of
+    print(f"phase 27: gradients held in {time.perf_counter() - t27:.1f} s")
+
+    # central differences of K1 on the pixels linear in the parameter: held
+    # where the parameter moves smooth SDF surfaces (the SDF light's pos.y and
+    # joker scale: its NEE point and the implicit t of its shadow rays; the
+    # textured SDF sphere's pos.y: its hits' implicit t and texel); printed
+    # alone on the fractal and the box (PERF.md §7): `menger_sponge`'s
+    # gradient w.r.t. its scale is the tetrahedral normal's derivative where
+    # its taps straddle carvings finer than the step (the plain version's
+    # alike), and `default_scene`'s SPEC box under the cubemap at infinity
+    # moves no linear pixel
+    fd27 = {}
+    mg_scene, mg_cam, mg_cfg = presets.menger_sponge(device=dev)
+    ds_scene, ds_cam, ds_cfg = presets.default_scene(device=dev)
+    sl_scene, sl_cam, sl_cfg = presets.sdf_view("sdf_light", device=dev)
+    tx_scene, tx_cam, tx_cfg = presets.sdf_view("textured_sdf", device=dev)
+    for name, sc, cm7, c7, leaf, row, comp, held in (
+            ("sdf_light pos[6].y (the SDF light)", sl_scene, sl_cam, sl_cfg, "pos", 6, 1, True),
+            ("sdf_light joker[6, 0:3] (the SDF light's scale)", sl_scene, sl_cam, sl_cfg, "joker",
+             6, slice(0, 3), True),
+            ("textured_sdf pos[5].y (the textured SDF sphere)", tx_scene, tx_cam, tx_cfg, "pos",
+             5, 1, True),
+            ("menger_sponge joker[0, 0:3] (its scale)", mg_scene, mg_cam, mg_cfg, "joker", 0,
+             slice(0, 3), False),
+            ("default_scene pos[0].y (the upper box)", ds_scene, ds_cam, ds_cfg, "pos", 0, 1,
+             False)):
+        c7 = c7.replace(max_bounces=4, marching_steps=64)
+        ad, fd, share = masked_fd(sc, c7, cm7, leaf, row, comp, 1e-2, fd_size)
+        rel = abs(ad - fd) / max(abs(fd), 1e-6)
+        fd27[name] = {"ad": ad, "fd": fd, "rel": rel, "linear_share": share, "held": held}
+        print(f"phase 27: d sum / d {name} at {fd_size}x{fd_size}, {c7.max_bounces} bounces, on "
+              f"the {share:.4f} of pixels linear in it (step 1e-2): K2 {ad:.6f}, K1 central "
+              f"difference {fd:.6f}, relative error {rel:.2e}"
+              + ("" if held else " (printed, not held)"))
+        if held and not rel < FD_TOL:
+            failed27.append(f"K2 disagrees with finite differences of K1 ({name})")
+
+    # the gradient main path on the class: optimize.fit through K1 and K2
+    # alone, on `mandelbulb`'s emission and color, `menger_sponge`'s color
+    # and joker (its scale: a geometric leaf through the implicit t and the
+    # normal) and the SDF light's position (a geometric leaf through the
+    # implicit t of its shadow rays), each lowering its loss
+    fits27 = {}
+    light_row = (torch.arange(sl_scene.num_meshes, device=dev) == 6).float()[:, None]
+    for name, names27, start27, mask27 in (
+            ("mandelbulb", ("emission", "color"), lambda sc: dict(
+                emission=sc.emission * 0.7, color=sc.color * 0.7), None),
+            ("menger_sponge", ("color",), lambda sc: dict(color=sc.color * 0.7), None),
+            ("sdf_light", ("pos",), lambda sc: dict(pos=sc.pos - 0.1 * light_row * torch.tensor(
+                [0.0, 1.0, 0.0], device=dev)), {"pos": light_row}),
+            ("menger_sponge joker", ("joker",), lambda sc: dict(joker=sc.joker * 0.9), None)):
+        sc, cm, c = (presets.sdf_view("sdf_light", device=dev) if name == "sdf_light"
+                     else getattr(presets, name.split()[0])(device=dev))
+        c = c.replace(max_bounces=4, marching_steps=64)
+        target27 = sample_radiance(sc, c, cm, 64, 64, 0)
+        megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = plain_calls[0] = 0
+        integrator.trace = counted_plain
+        try:
+            _, losses27 = optimize.fit(sc.replace(**start27(sc)), c, cm, target27, list(names27),
+                                       steps=10, learning_rate=2e-2, param_mask=mask27)
+            torch.cuda.synchronize()
+        finally:
+            integrator.trace = plain_trace
+        counts27 = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, plain_calls[0])
+        fits27[name] = {"loss_first": losses27[0], "loss_last": losses27[-1],
+                        "k1_launches": counts27[0], "k2_launches": counts27[1],
+                        "plain_calls": counts27[2]}
+        print(f"phase 27: optimize.fit of {name.split()[0]}'s {', '.join(names27)} at 64x64, 10 "
+              f"steps: loss {losses27[0]:.6e} -> {losses27[-1]:.6e}; {counts27[0]} K1 launches, "
+              f"{counts27[1]} K2, {counts27[2]} calls of the plain version")
+        if counts27 != (10, 10, 0) or not losses27[-1] < losses27[0]:
+            failed27.append(f"the fit of {name} did not lower its loss through K1 and K2 alone")
+    whole_grad_launches = sum(v["k2_launches"] for v in fits27.values())
+    print(f"phase 27: central differences and fits in {time.perf_counter() - t27:.1f} s")
+    if failed27:
+        raise AssertionError("phase 27: " + "; ".join(failed27))
+
+    # K2's whole-SDF copy timed on the presets at 512x512, 12 bounces, 128 steps
+    occ27 = kernel_occupancy(dev)
+    k2_dev27 = k2_device_ms(dev, tuple(f"k2_{n}" for n in ("default_scene", "mandelbulb",
+                                                              "menger_sponge")))
+    pix27 = rng.pixel_ids(H, W, device=dev)
+    for name in ("default_scene", "mandelbulb", "menger_sponge"):
+        sc, cm, c = getattr(presets, name)(device=dev)
+        r27, d27 = generate_rays(cm, H, W, 0)
+        ct27 = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
+        table27 = megakernel.scene_table(sc)
+        ms27 = time_stats(torch, lambda: megakernel._launch_backward(
+            sc, c, table27, r27, d27, pix27, 0, 0, ct27), runs=5, warmup=1)
+        ev27 = path_events(torch, sc, c, r27, d27, pix27, 0, 0)
+        b27 = bound(ev27, sc, c, adjoint=True, sdf_adjoint=True)
+        # the plain backward alone, at 128x128 (its graph at 512x512 takes minutes)
+        rp, dp = generate_rays(cm, 128, 128, 0)
+        pp = rng.pixel_ids(128, 128, device=dev)
+        leaves27 = {k: getattr(sc, k).detach().clone().requires_grad_(True) for k in LEAVES}
+        img27 = integrator.trace(sc.replace(**leaves27), c, rp, dp, pp, 0, 0)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.autograd.grad(img27.sum(), list(leaves27.values()))
+        e1.record()
+        torch.cuda.synchronize()
+        plain27 = e0.elapsed_time(e1)
+        dev_ms = k2_dev27.get(f"k2_{name}", {}).get("ms")
+        o27 = occ27[("K2", name)]
+        share27 = None if dev_ms is None else b27[0] / dev_ms
+        k2_whole[name].update({"ms": ms27[0], "device_ms": dev_ms, "plain_ms_128": plain27,
+                               "bound_ms": b27[0], "bound_by": b27[1], "share_of_bound": share27,
+                               "registers": o27["registers"], "local_bytes": o27["local_bytes"],
+                               "blocks_per_sm": o27["blocks"],
+                               "ptxas": k2_ptxas["whole-SDF per thread"]
+                               if not megakernel.bwd_layout(sc, c)[0]
+                               else k2_ptxas["whole-SDF per warp"]})
+        print(f"phase 27: {card}: K2 on {name} at {H}x{W}, {c.max_bounces} bounces, "
+              f"{c.marching_steps} marching steps: {ms27[0]:.3f} ms (q1 {ms27[1]:.3f}, q3 "
+              f"{ms27[2]:.3f}; CUDA events), device "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f" (k1_device_time.py); bound {b27[0]:.6f} ms ({b27[1]}, the distance adjoints "
+              f"counted), share of the bound "
+              + ("not measured" if share27 is None else f"{share27:.4f}")
+              + f"; the plain backward alone at 128x128 {plain27:.1f} ms; {o27['registers']} "
+              f"registers, {o27['local_bytes']} bytes of local memory, {o27['blocks']} blocks "
+              f"per SM; ptxas {k2_whole[name]['ptxas']}")
+        del leaves27, img27
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     common = dict(route="cuda", library_ms=None)
@@ -2636,11 +2971,14 @@ def main() -> int:
                         "adjoint body, same outputs)",
          "launches": bwd_launches,
          "launches_by_path": {"render": bwd_render, "gradient": bwd_launches,
-                              "config2_fit": fit2_launches[1]},
+                              "config2_fit": fit2_launches[1],
+                              "whole_sdf_gradient": whole_grad_launches},
          "max_abs_err": k2_abs, "max_rel_err": k2_rel,
          "max_rel_err_many_meshes": k2_many_rel, "ms": ms_k2,
          "plain_ms": plain_ms_bwd, "bound_ms": k2_bound, "bound_by": k2_by,
-         "wide_copy": k2_wide, "finite_differences_wide": fd_wide},
+         "wide_copy": k2_wide, "finite_differences_wide": fd_wide,
+         "whole_sdf_copy": k2_whole, "whole_sdf_distances": dist27,
+         "finite_differences_whole_sdf": fd27, "whole_sdf_fits": fits27},
         {"name": "K9 env forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3414",

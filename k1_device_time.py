@@ -33,9 +33,14 @@ gradient step d sum(`render_linear(passes=4)`) / d(emission, color, pos,
 joker, ior) with its peak memory above the inputs, all at 512x512.
 Finally a sha256 prefix of each kernel route's outputs on fixed inputs
 (K1, K4, K7, the K6 pass and the real-time frame), so two checkouts that
-should agree bit for bit can be seen to.
+should agree bit for bit can be seen to; with `--plain-nan`, the count of
+non-finite entries of the plain version's gradient of a `mandelbulb` pass
+(`plain_grad_nonfinite`), which differs between checkouts before and
+after ROADMAP fault 14.
 
-It also prints the ptxas lines of K2 and K4, and K1's (Cornell) and K4's
+It also prints the ptxas lines of K2's two libraries (the whole-SDF copy
+is a library of its own; also by function, `ptxas_functions`: each
+copy's template instance, `K2_COPIES`) and K4, and K1's (Cornell) and K4's
 (`restir_demo`, the real-time scene) blocks per SM, registers and K4's
 persistent grid.
 
@@ -45,8 +50,11 @@ and the first 4, 5, 8, 9, 10, 18 or all 41 of its sphere lights: 10, 11,
 14, 15, 16, 24 and 47 meshes, on both sides of the switch from a column
 of cotangent accumulators per thread to one per warp), all on its Cornell
 copy; Cornell with MIS forced onto its wide copy (`cornell_mis_wide`);
-and the scenes of the wide copy: `k2_` and the preset `config2`,
-`mis_demo`, `cornell_box`, `textured_gloss`, `cubemap_demo` (a scene a
+the scenes of the wide copy: `k2_` and the preset `config2`,
+`mis_demo`, `cornell_box`, `textured_gloss`, `cubemap_demo`; and those of
+the whole-SDF copy: `k2_default_scene`, `k2_mandelbulb`,
+`k2_menger_sponge` and `k2_every_shape` (`presets.sdf_view`'s
+scene of every shape the presets lack) at 128 marching steps (a scene a
 checkout cannot differentiate on the card is skipped); the median over 5
 rounds of 20 launches of its device time (torch.profiler), alone and
 with its reduction, on the rays of pass 0 with ones as cotangents, its
@@ -68,6 +76,29 @@ import os
 import statistics
 import subprocess
 import sys
+
+def ptxas_functions(log):
+    """{function: its ptxas line} of an nvcc build log: the stack, spill and
+    register lines under each "Compiling entry function" or "Function
+    properties for" line, joined."""
+    out, name = {}, None
+    for line in log.splitlines():
+        for key in ("Compiling entry function '", "Function properties for "):
+            if key in line:
+                name = line.split(key, 1)[1].split("'")[0].strip()
+                out.setdefault(name, [])
+        if name is not None and ("stack" in line or "registers" in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items() if v}
+
+
+#: K2's copies by the template instance of its kernel in the mangled name
+K2_COPIES = {"Cornell per thread": "10bwd_kernelILb0E", "Cornell per warp": "10bwd_kernelILb1E",
+             "wide per thread": "15bwd_wide_kernelILb0ELb0E",
+             "wide per warp": "15bwd_wide_kernelILb1ELb0E",
+             "whole-SDF per thread": "15bwd_wide_kernelILb0ELb1E",
+             "whole-SDF per warp": "15bwd_wide_kernelILb1ELb1E"}
+
 
 PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", "cubemap_demo",
            "config2", "textured_emitter", "cornell_box", "default_scene", "mandelbulb",
@@ -173,7 +204,11 @@ K2_MANY_LIGHTS = {"meshes_10": 4, "meshes_11": 5, "meshes_14": 8, "meshes_15": 9
                   "meshes_16": 10, "meshes_24": 18, "many_meshes": 41}
 #: K2's scenes of its wide copy: "k2_" and a preset's name
 K2_WIDE = ("k2_config2", "k2_mis_demo", "k2_cornell_box", "k2_textured_gloss", "k2_cubemap_demo")
-K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS, "cornell_mis_wide", *K2_WIDE)
+#: K2's scenes of its whole-SDF copy: the reference's SDF presets and the
+#: scene of every shape they lack (presets.SDF_SCENE_VIEWS)
+K2_WHOLE = ("k2_default_scene", "k2_mandelbulb", "k2_menger_sponge", "k2_every_shape")
+K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS, "cornell_mis_wide", *K2_WIDE,
+             *K2_WHOLE)
 
 
 def k2_scene(name, device):
@@ -182,7 +217,9 @@ def k2_scene(name, device):
 
     if name in K2_MANY_LIGHTS:
         return presets.many_lights(device=device, n_lights=K2_MANY_LIGHTS[name])
-    if name in K2_WIDE:
+    if name == "k2_every_shape":
+        return presets.sdf_view("every_shape", device=device, max_bounces=12)
+    if name in K2_WIDE + K2_WHOLE:
         return getattr(presets, name[3:])(device=device)
     return presets.cornell_default(device=device, use_mis=name != "cornell_nomis")
 
@@ -204,7 +241,8 @@ def _k2_scenes(megakernel, dev):
 
     names = []
     for name in K2_SCENES:
-        if name in K2_WIDE and not hasattr(presets, name[3:]):
+        if name in K2_WIDE + K2_WHOLE and name != "k2_every_shape" \
+                and not hasattr(presets, name[3:]):
             continue
         if name == "cornell_mis_wide" and not hasattr(megakernel, "cornell_copy"):
             continue
@@ -214,8 +252,8 @@ def _k2_scenes(megakernel, dev):
     return names
 
 
-def k2_device_ms(dev):
-    """{scene: result} of K2 on each of K2_SCENES at 512x512 with its
+def k2_device_ms(dev, names=None):
+    """{scene: result} of K2 on each of K2_SCENES (or of `names`) at 512x512 with its
     budgets (12 bounces), on the rays of pass 0 with ones as the radiance's
     cotangent, through `megakernel._launch_backward`: the median over 5
     rounds of 20 launches of the adjoint kernel's device milliseconds per
@@ -233,6 +271,8 @@ def k2_device_ms(dev):
     pix = rng.pixel_ids(512, 512, device=dev)
     ct = torch.ones((512, 512, 3), dtype=torch.float32, device=dev)
     for name in _k2_scenes(megakernel, dev):
+        if names is not None and name not in names:
+            continue
         scene, cam, cfg = k2_scene(name, dev)
         ro, rd = generate_rays(cam, 512, 512, 0)
         table = megakernel.scene_table(scene)
@@ -247,14 +287,20 @@ def k2_device_ms(dev):
                     for _ in range(20):
                         launch()
                     torch.cuda.synchronize()
-                # the adjoint (bwd_kernel, or the wide copy's bwd_wide_kernel) and the reduction
-                us = {k: sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                             for e in prof.key_averages()
-                             if any(n in e.key for n in names) and "restir" not in e.key)
-                      for k, names in (("adjoint", ("bwd_kernel", "bwd_wide_kernel")),
-                                       ("reduce", ("reduce_kernel",)))}
-                rounds.append(us["adjoint"] / 20 / 1e3)
-                whole.append(sum(us.values()) / 20 / 1e3)
+                # the adjoint (bwd_kernel, or the wide and whole-SDF copies'
+                # bwd_wide_kernel) and the reduction, per launch the profiler
+                # recorded (late in a long process it misses some launches of
+                # a window of long kernels, as k1_device_ms notes)
+                us, count = {}, {}
+                for k, kernels in (("adjoint", ("bwd_kernel", "bwd_wide_kernel")),
+                                   ("reduce", ("reduce_kernel",))):
+                    evts = [e for e in prof.key_averages()
+                            if any(n in e.key for n in kernels) and "restir" not in e.key]
+                    us[k] = sum(getattr(e, "self_device_time_total", None)
+                                or e.self_cuda_time_total for e in evts)
+                    count[k] = max(sum(e.count for e in evts), 1)
+                rounds.append(us["adjoint"] / count["adjoint"] / 1e3)
+                whole.append(sum(us[k] / count[k] for k in us) / 1e3)
         res[name] = {"ms": statistics.median(rounds), "rounds": rounds,
                      "ms_with_reduction": statistics.median(whole),
                      "digest_d_table": _digest(d_table), "digest_d_ro": _digest(d_ro),
@@ -274,13 +320,16 @@ def k2_occupancy(dev):
         with _k2_copy(megakernel, name):
             warp, smem = megakernel.bwd_layout(scene, cfg)
             wide = not megakernel.cornell_copy(scene, cfg)
-        # the export's flag: bit 0 a column per warp, bit 1 the wide copy
-        o = cuda_build.occupancy("megakernel_bwd", megakernel.BWD_SOURCES,
+            whole = megakernel.bwd_copy(scene, cfg) == "whole_sdf"
+        # the export's flag: bit 0 a column per warp, bit 1 the wide copy,
+        # bit 2 the whole-SDF copy
+        o = cuda_build.occupancy(*megakernel.bwd_library(whole),
                                  "rt0_trace_backward_occupancy", megakernel.BWD_THREADS,
-                                 smem, int(warp) | 2 * int(wide))
+                                 smem, int(warp) | 2 * int(wide and not whole) | 4 * int(whole))
         res[f"occupancy_k2_{name}"] = {**{k: o[k] for k in ("blocks", "threads", "registers",
                                                             "local_bytes", "smem")},
-                                       "warp_columns": warp, "wide_copy": wide}
+                                       "warp_columns": warp, "wide_copy": wide,
+                                       "whole_sdf_copy": whole}
     return res
 
 
@@ -465,6 +514,36 @@ def output_digests(dev):
     return res
 
 
+def plain_grad_nonfinite(dev):
+    """The non-finite entries of the plain version's autograd (the CPU
+    route's, on the card) of one `mandelbulb` pass at 512x512 with the
+    preset's budgets, d sum / d(pos, joker, color, emission, ro, rd), per
+    leaf, and the pixels with a non-finite d ro or d rd: a Mandelbulb lane
+    that is done and iterates on its own overflowing w gives NaN there
+    (ROADMAP fault 14)."""
+    import torch
+
+    from raytracer0_tpu_torch import rng
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.render import integrator
+
+    scene, cam, cfg = presets.mandelbulb(device=dev)
+    ro, rd = generate_rays(cam, 512, 512, 0)
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in ("pos", "joker", "color", "emission")}
+    o, d = ro.clone().requires_grad_(True), rd.clone().requires_grad_(True)
+    out = integrator.trace(scene.replace(**leaves), cfg, o, d,
+                           rng.pixel_ids(512, 512, device=dev), 0, 0)
+    grads = torch.autograd.grad(out.sum(), [*leaves.values(), o, d])
+    counts = {k: int((~torch.isfinite(g)).sum()) for k, g in zip((*leaves, "ro", "rd"), grads)}
+    counts["pixels"] = int((~torch.isfinite(grads[-2]).all(-1)
+                            | ~torch.isfinite(grads[-1]).all(-1)).sum())
+    del out, grads
+    torch.cuda.empty_cache()
+    return {"plain_grad_nonfinite_mandelbulb": counts}
+
+
 def occupancy(dev):
     """K1's (Cornell) and K4's (`restir_demo`, the real-time scene) blocks
     per SM and registers at the shared memory they launch with, and K4's
@@ -493,6 +572,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", nargs="+", metavar="JSON",
                     help="compare the outputs of earlier runs (the first is the reference)")
+    ap.add_argument("--plain-nan", action="store_true",
+                    help="also count the non-finite entries of the plain version's gradient "
+                         "of a mandelbulb pass (plain_grad_nonfinite)")
     args = ap.parse_args()
     if args.compare:
         compare(args.compare)
@@ -513,6 +595,9 @@ def main() -> int:
                           if "registers" in line or "spill" in line or "stack" in line]
     res = {"tree": os.path.basename(os.getcwd()), "ptxas": ptxas(megakernel.build()[1]),
            "ptxas_k2": ptxas(megakernel.build_bwd()[1]),
+           "ptxas_k2_whole_sdf": ptxas(megakernel.build_bwd_sdf()[1]),
+           "ptxas_k2_by_function": {**ptxas_functions(megakernel.build_bwd()[1].log),
+                                    **ptxas_functions(megakernel.build_bwd_sdf()[1].log)},
            "ptxas_k4": ptxas(restir_split.build_gbuffer()[1]),
            "ptxas_k5": ptxas(restir_split.build_cast()[1]),
            "ptxas_k6v": ptxas(restir_vertex.build()[1]),
@@ -530,6 +615,8 @@ def main() -> int:
         res["k7_" + name + "_with_gather_and_reduction"] = whole
     res.update(restir_route_ms(dev))
     res.update(output_digests(dev))
+    if args.plain_nan:
+        res.update(plain_grad_nonfinite(dev))
     print(json.dumps(res))
     return 0
 

@@ -365,6 +365,539 @@ __device__ V3 sd_box_bwd(const SceneSmem &s, int row, V3 p, float g, const Acc &
   return gp;
 }
 
+// ------------------------------------------------------------ SDF shapes
+// The adjoints of the distances beyond BOX and ROUND_BOX (trace_common.cuh,
+// "SDF shapes"; K2's whole-SDF copy alone), each the reverse of the plain
+// version's operations under torch.autograd: torch.maximum and
+// torch.minimum split the gradient evenly at a tie (dmax, dmin), amin
+// between all tied values, clamp_min and clamp pass it at the bound, abs
+// and sign give 0 at 0, vecmath.length and safe_sqrt give 0 at 0,
+// remainder has derivative 1 in its dividend.  Each takes the cotangent g
+// of the distance and returns the cotangent of its point; those of the
+// row's parameters go into G.
+
+__device__ V3 value_noise_bwd(const float *__restrict__ lut, int n, V3 x, float g);  // below
+
+// d |v| / d v (vecmath.length: 0 at 0) times g
+__device__ __forceinline__ V3 len3_bwd(V3 v, float g) {
+  const float s = dot(v, v);
+  return s > 0.0f ? v * (g / sqrtf(s)) : zero3();
+}
+
+// sd_tri_prism(q, h): max(|q.z| - h1, max(|q.x| 0.866025 + q.y 0.5, -q.y) - h0 0.5)
+__device__ V3 tri_prism_bwd(V3 q, const float *h, float g, float &g_h0, float &g_h1) {
+  const float a = fabsf(q.z) - h[1];
+  const float b1 = fabsf(q.x) * 0.866025f + q.y * 0.5f, b2 = -q.y;
+  const float b = fmaxf(b1, b2) - h[0] * 0.5f;
+  const float g_a = g * dmax(a, b), g_b = g * dmax(b, a);
+  const float g_b1 = g_b * dmax(b1, b2), g_b2 = g_b * dmax(b2, b1);
+  g_h1 = -g_a;
+  g_h0 = -0.5f * g_b;
+  return {g_b1 * 0.866025f * signf(q.x), g_b1 * 0.5f - g_b2, g_a * signf(q.z)};
+}
+
+// sd_cone(q, c) of (sin, cos, height) c about the y axis
+__device__ V3 cone_bwd(V3 q, const float *c, float g, float (&g_c)[3]) {
+  const float r2 = q.x * q.x + q.z * q.z;
+  const float qx = safe_sqrt(r2), qy = q.y;
+  const float d1 = -qy - c[2];
+  const float e2 = qx * c[0] + qy * c[1];
+  const float d2 = fmaxf(e2, qy);
+  const float m1 = fmaxf(d1, 0.0f), m2 = fmaxf(d2, 0.0f);
+  const float ss = m1 * m1 + m2 * m2;
+  const float mm = fmaxf(d1, d2);
+  const float g_mm = mm <= 0.0f ? g : 0.0f;  // clamp_max(., 0) passes at 0
+  float g_d1 = g_mm * dmax(d1, d2), g_d2 = g_mm * dmax(d2, d1);
+  const float g_ss = ss > 0.0f ? g / (2.0f * sqrtf(ss)) : 0.0f;
+  if (d1 >= 0.0f) g_d1 += 2.0f * m1 * g_ss;
+  if (d2 >= 0.0f) g_d2 += 2.0f * m2 * g_ss;
+  const float g_e2 = g_d2 * dmax(e2, qy);
+  float g_qy = g_d2 * dmax(qy, e2) + g_e2 * c[1] - g_d1;
+  const float g_qx = g_e2 * c[0];
+  g_c[0] = g_e2 * qx;
+  g_c[1] = g_e2 * qy;
+  g_c[2] = -g_d1;
+  const float g_r2 = r2 > 0.0f ? g_qx / (2.0f * qx) : 0.0f;
+  return {2.0f * q.x * g_r2, g_qy, 2.0f * q.z * g_r2};
+}
+
+// (safe_length(q / r) - 1) amin(r), the gradient of amin split between ties
+__device__ V3 ellipsoid_bwd(V3 q, const float *r, float g, float (&g_r)[3]) {
+  const V3 qr = {q.x / r[0], q.y / r[1], q.z / r[2]};
+  const float s = dot(qr, qr);
+  const float len = sqrtf(fmaxf(s, EPS));
+  const float mn = fminf(fminf(r[0], r[1]), r[2]);
+  const float g_len = g * mn, g_mn = g * (len - 1.0f);
+  const float g_s = s >= EPS ? g_len / (2.0f * len) : 0.0f;
+  const float ties = (float)((r[0] == mn) + (r[1] == mn) + (r[2] == mn));
+  const float qq[3] = {q.x, q.y, q.z}, qrr[3] = {qr.x, qr.y, qr.z};
+  float g_q[3];
+  for (int k = 0; k < 3; ++k) {
+    const float g_qr = 2.0f * qrr[k] * g_s;
+    g_q[k] = g_qr / r[k];
+    g_r[k] = -g_qr * qq[k] / (r[k] * r[k]) + (r[k] == mn ? g_mn / ties : 0.0f);
+  }
+  return {g_q[0], g_q[1], g_q[2]};
+}
+
+// sd_capsule(p, a, b, r) at the world point p: the cotangents of p (returned), a and b
+__device__ V3 capsule_bwd(V3 p, V3 a, V3 b, float g, V3 &g_a, V3 &g_b) {
+  const V3 pa = p - a, ba = b - a;
+  const float num = dot(pa, ba), ee = dot(ba, ba);
+  const float den = fmaxf(ee, 1e-12f);
+  const float hr = num / den;
+  const float h = fminf(fmaxf(hr, 0.0f), 1.0f);
+  const V3 v = pa - ba * h;
+  const V3 g_v = len3_bwd(v, g);
+  const float g_h = -dot(g_v, ba);
+  const float g_hr = (hr >= 0.0f && hr <= 1.0f) ? g_h : 0.0f;  // torch.clamp passes at its bounds
+  const float g_num = g_hr / den;
+  const float g_ee = ee >= 1e-12f ? -g_hr * num / (den * den) : 0.0f;
+  const V3 g_pa = g_v + ba * g_num;
+  g_b = g_v * -h + pa * g_num + ba * (2.0f * g_ee);
+  g_a = (g_pa + g_b) * -1.0f;
+  return g_pa;
+}
+
+// the sea's disp(P, phase) = 0.5 + 0.5 cos(P.x + 1.5 phase) sin(P.y + 2 phase)
+// sin(P.z + phase) (torch.pow at 1 passes its gradient): the cotangent of P
+__device__ __forceinline__ V3 disp_bwd(V3 P, float phase, float g) {
+  const float A = P.x + 1.5f * phase, B = P.y + 2.0f * phase, C = P.z + 1.0f * phase;
+  const float ca = cosf(A), sa = sinf(A), cb = cosf(B), sb = sinf(B), cc = cosf(C), sc = sinf(C);
+  return {-0.5f * g * sa * sb * sc, 0.5f * g * ca * cb * sc, 0.5f * g * ca * sb * cc};
+}
+
+// sd_sea_box's sea plane (q.y * -1 + level) - disp(10 q) 0.07 - disp(15 q) 0.03,
+// the cotangent of q for the cotangent g of the sea (that of level is g)
+__device__ __forceinline__ V3 sea_bwd(V3 q, float g) {
+  return V3{0.0f, -g, 0.0f} + disp_bwd(q * 10.0f, 2.5f, -0.07f * g) * 10.0f +
+         disp_bwd(q * 15.0f, 4.5f, -0.03f * g) * 15.0f;
+}
+
+// siggraph_obj(q) = max(max(d1, d2), -d3)
+__device__ V3 siggraph_bwd(V3 q, float g) {
+  const V3 ax = {-2.0f / 3.0f, 2.0f / 3.0f, 1.0f / 3.0f};
+  const float d1 = dot(q, ax) - 0.1f;
+  const float d2 = len3(q) - 1.0f;
+  const V3 pc = q - V3{0.0f, -0.2f, -0.2f};
+  const V3 w = pc - ax * dot(pc, ax);
+  const float nd3 = -(len3(w) - 1.0f);
+  const float m12 = fmaxf(d1, d2);
+  const float g_m12 = g * dmax(m12, nd3), g_d3 = -g * dmax(nd3, m12);
+  const V3 g_w = len3_bwd(w, g_d3);
+  const V3 g_pc = g_w - ax * dot(g_w, ax);
+  return ax * (g_m12 * dmax(d1, d2)) + len3_bwd(q, g_m12 * dmax(d2, d1)) + g_pc;
+}
+
+// menger_sponge(q, box): the cotangent of q for g; that of the box's
+// distance in g_box.  Each iteration's c and the running max are
+// recomputed, then the chain of torch.maximum is walked back.
+__device__ V3 menger_bwd(V3 q, float box, float g, float &g_box) {
+  float cs[4], ds[4];
+  float d = box, sc = 1.0f;
+  for (int it = 0; it < 4; ++it) {
+    const V3 ps = q * sc;
+    const V3 a = {float_remainder(ps.x, 2.0f) - 1.0f, float_remainder(ps.y, 2.0f) - 1.0f,
+                  float_remainder(ps.z, 2.0f) - 1.0f};
+    sc = sc * 3.0f;
+    const V3 r = {fabsf(1.0f - 3.0f * fabsf(a.x)), fabsf(1.0f - 3.0f * fabsf(a.y)),
+                  fabsf(1.0f - 3.0f * fabsf(a.z))};
+    const float c = (fminf(fmaxf(r.x, r.y), fminf(fmaxf(r.y, r.z), fmaxf(r.z, r.x))) - 1.0f) / sc;
+    ds[it] = d;
+    cs[it] = c;
+    d = fmaxf(c, d);
+  }
+  V3 g_q = zero3();
+  float g_d = g;
+  for (int it = 3; it >= 0; --it) {
+    const float g_c = g_d * dmax(cs[it], ds[it]);
+    g_d = g_d * dmax(ds[it], cs[it]);
+    if (g_c == 0.0f) continue;
+    const float s_in = it == 0 ? 1.0f : (it == 1 ? 3.0f : (it == 2 ? 9.0f : 27.0f));
+    const V3 ps = q * s_in;
+    const float av[3] = {float_remainder(ps.x, 2.0f) - 1.0f, float_remainder(ps.y, 2.0f) - 1.0f,
+                         float_remainder(ps.z, 2.0f) - 1.0f};
+    float r[3], g_r[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < 3; ++k) r[k] = fabsf(1.0f - 3.0f * fabsf(av[k]));
+    const float da = fmaxf(r[0], r[1]), db = fmaxf(r[1], r[2]), dc = fmaxf(r[2], r[0]);
+    const float mbc = fminf(db, dc);
+    const float g_mn = g_c / (s_in * 3.0f);
+    const float g_da = g_mn * dmin(da, mbc), g_mbc = g_mn * dmin(mbc, da);
+    const float g_db = g_mbc * dmin(db, dc), g_dc = g_mbc * dmin(dc, db);
+    g_r[0] += g_da * dmax(r[0], r[1]) + g_dc * dmax(r[0], r[2]);
+    g_r[1] += g_da * dmax(r[1], r[0]) + g_db * dmax(r[1], r[2]);
+    g_r[2] += g_db * dmax(r[2], r[1]) + g_dc * dmax(r[2], r[0]);
+    float g_ps[3];
+    for (int k = 0; k < 3; ++k)
+      g_ps[k] = g_r[k] * signf(1.0f - 3.0f * fabsf(av[k])) * -3.0f * signf(av[k]);
+    g_q = g_q + V3{g_ps[0], g_ps[1], g_ps[2]} * s_in;
+  }
+  g_box = g_d;
+  return g_q;
+}
+
+// mandelbulb(q): the cotangent of q.  The forward's three iterations are
+// replayed, keeping each live one's input; a lane that is done skips the
+// rest (they leave w, m and dz as they are), so no overflow of a dead
+// iteration reaches the adjoint (ops/sdf.mandelbulb iterates those on 0).
+// The polynomial's adjoint follows its products factor by factor.
+__device__ __attribute__((noinline)) V3 mandelbulb_bwd(V3 q, float g) {
+  V3 ws[3];
+  float ms[3], dzs[3];
+  V3 w = q;
+  float m = dot(w, w), dz = 1.0f;
+  int live = 0;
+  for (int it = 0; it < 3; ++it) {
+    ws[it] = w;
+    ms[it] = m;
+    dzs[it] = dz;
+    ++live;
+    const float m2 = m * m, m4 = m2 * m2;
+    dz = 8.0f * sqrtf(fmaxf(m4 * m2 * m, 1e-20f)) * dz + 1.0f;
+    const float x = w.x, y = w.y, z = w.z;
+    const float x2 = x * x, y2 = y * y, z2 = z * z;
+    const float x4 = x2 * x2, y4 = y2 * y2, z4 = z2 * z2;
+    const float k3 = x2 + z2;
+    const float k3_2 = k3 * k3;
+    const float k2 = 1.0f / sqrtf(fmaxf((k3 * k3_2) * (k3_2 * k3_2), 1e-20f));
+    const float k1 = x4 + y4 + z4 - 6.0f * y2 * z2 - 6.0f * x2 * y2 + 2.0f * z2 * x2;
+    const float k4 = x2 - y2 + z2;
+    w = {q.x + 64.0f * x * y * z * (x2 - z2) * k4 * (x4 - 6.0f * x2 * z2 + z4) * k1 * k2,
+         q.y + -16.0f * y2 * k3 * k4 * k4 + k1 * k1,
+         q.z + -8.0f * y * k4 *
+                   (x4 * x4 - 28.0f * x4 * x2 * z2 + 70.0f * x4 * z4 - 28.0f * x2 * z2 * z4 +
+                    z4 * z4) *
+                   k1 * k2};
+    m = dot(w, w);
+    if (m > 4.0f) break;
+  }
+  // d = 0.25 log(ms) sqrt(ms) / dz, ms = clamp_min(m, 1e-12)
+  const float mc = fmaxf(m, 1e-12f);
+  const float lg = 0.25f * logf(mc), sq = sqrtf(mc);
+  const float g_num = g / dz;
+  float g_dz = -g * (lg * sq) / (dz * dz);
+  float g_m = m >= 1e-12f ? g_num * (0.25f / mc * sq + lg / (2.0f * sq)) : 0.0f;
+  V3 g_w = zero3(), g_q = zero3();
+  for (int it = live - 1; it >= 0; --it) {
+    // the output of iteration `it`: w (m = w.w), dz; its input ws, ms, dzs
+    g_w = g_w + w * (2.0f * g_m);
+    g_q = g_q + g_w;  // w = q + ...
+    const float x = ws[it].x, y = ws[it].y, z = ws[it].z;
+    const float x2 = x * x, y2 = y * y, z2 = z * z;
+    const float x4 = x2 * x2, y4 = y2 * y2, z4 = z2 * z2;
+    const float k3 = x2 + z2;
+    const float k3_2 = k3 * k3;
+    const float k3_7 = (k3 * k3_2) * (k3_2 * k3_2);
+    const float k2 = 1.0f / sqrtf(fmaxf(k3_7, 1e-20f));
+    const float k1 = x4 + y4 + z4 - 6.0f * y2 * z2 - 6.0f * x2 * y2 + 2.0f * z2 * x2;
+    const float k4 = x2 - y2 + z2;
+    const float U = x2 - z2, A = x4 - 6.0f * x2 * z2 + z4;
+    const float B = x4 * x4 - 28.0f * x4 * x2 * z2 + 70.0f * x4 * z4 - 28.0f * x2 * z2 * z4 +
+                    z4 * z4;
+    const float S = 64.0f * x * y * z;
+    float gx2 = 0.0f, gy2 = 0.0f, gz2 = 0.0f, gx4 = 0.0f, gy4 = 0.0f, gz4 = 0.0f;
+    float gx = 0.0f, gy = 0.0f, gz = 0.0f, gk1 = 0.0f, gk2 = 0.0f, gk3 = 0.0f, gk4 = 0.0f;
+    // wx = q.x + S U k4 A k1 k2
+    {
+      const float t = g_w.x;
+      const float gS = t * U * k4 * A * k1 * k2;
+      gx += gS * 64.0f * y * z;
+      gy += gS * 64.0f * x * z;
+      gz += gS * 64.0f * x * y;
+      const float gU = t * S * k4 * A * k1 * k2;
+      gx2 += gU;
+      gz2 -= gU;
+      gk4 += t * S * U * A * k1 * k2;
+      const float gA = t * S * U * k4 * k1 * k2;
+      gx4 += gA;
+      gz4 += gA;
+      gx2 += -6.0f * z2 * gA;
+      gz2 += -6.0f * x2 * gA;
+      gk1 += t * S * U * k4 * A * k2;
+      gk2 += t * S * U * k4 * A * k1;
+    }
+    // wy = q.y + -16 y2 k3 k4 k4 + k1 k1
+    {
+      const float t = g_w.y;
+      gy2 += t * -16.0f * k3 * k4 * k4;
+      gk3 += t * -16.0f * y2 * k4 * k4;
+      gk4 += t * -16.0f * y2 * k3 * 2.0f * k4;
+      gk1 += t * 2.0f * k1;
+    }
+    // wz = q.z + -8 y k4 B k1 k2
+    {
+      const float t = g_w.z;
+      gy += t * -8.0f * k4 * B * k1 * k2;
+      gk4 += t * -8.0f * y * B * k1 * k2;
+      const float gB = t * -8.0f * y * k4 * k1 * k2;
+      gx4 += gB * (2.0f * x4 - 28.0f * x2 * z2 + 70.0f * z4);
+      gx2 += gB * (-28.0f * x4 * z2 - 28.0f * z2 * z4);
+      gz2 += gB * (-28.0f * x4 * x2 - 28.0f * x2 * z4);
+      gz4 += gB * (70.0f * x4 - 28.0f * x2 * z2 + 2.0f * z4);
+      gk1 += t * -8.0f * y * k4 * B * k2;
+      gk2 += t * -8.0f * y * k4 * B * k1;
+    }
+    // k2 = 1 / sqrt(max(k3^7, 1e-20)), k3^7 = (k3 k3_2)(k3_2 k3_2)
+    if (k3_7 >= 1e-20f) {
+      const float g7 = -gk2 * k2 * k2 / (2.0f * sqrtf(k3_7));
+      const float ga = g7 * (k3_2 * k3_2), gb = g7 * (k3 * k3_2);
+      const float gk3_2 = ga * k3 + gb * 2.0f * k3_2;
+      gk3 += ga * k3_2 + gk3_2 * 2.0f * k3;
+    }
+    gx2 += gk3;
+    gz2 += gk3;
+    gx2 += gk4;
+    gy2 -= gk4;
+    gz2 += gk4;
+    gx4 += gk1;
+    gy4 += gk1;
+    gz4 += gk1;
+    gy2 += gk1 * (-6.0f * z2 - 6.0f * x2);
+    gz2 += gk1 * (-6.0f * y2 + 2.0f * x2);
+    gx2 += gk1 * (-6.0f * y2 + 2.0f * z2);
+    gx2 += 2.0f * x2 * gx4;
+    gy2 += 2.0f * y2 * gy4;
+    gz2 += 2.0f * z2 * gz4;
+    gx += 2.0f * x * gx2;
+    gy += 2.0f * y * gy2;
+    gz += 2.0f * z * gz2;
+    // dz' = 8 sqrt(max(m^7, 1e-20)) dz + 1, m^7 = (m4 m2) m
+    const float mi = ms[it], m2 = mi * mi, m4 = m2 * m2, m7 = m4 * m2 * mi;
+    const float sq7 = sqrtf(fmaxf(m7, 1e-20f));
+    float g_mi = 0.0f;
+    if (m7 >= 1e-20f) {
+      const float g7 = g_dz * 8.0f * dzs[it] / (2.0f * sq7);
+      const float g42 = g7 * mi;
+      const float g_m4 = g42 * m2;
+      const float g_m2 = g42 * m4 + 2.0f * m2 * g_m4;
+      g_mi = g7 * (m4 * m2) + 2.0f * mi * g_m2;
+    }
+    g_dz = g_dz * 8.0f * sq7;
+    // the input: w = ws[it], m = ms[it] = ws[it].ws[it]
+    g_w = {gx, gy, gz};
+    g_m = g_mi;
+    w = ws[it];
+  }
+  // iteration 0's input is q itself, m = q.q, dz = 1
+  return g_q + g_w + q * (2.0f * g_m);
+}
+
+// ud_triangle(q, a, b, c) and ud_quad(q, a, b, c, d): the cotangent of q;
+// those of the vertices in g_v.  _edge_dist2(edge, pv) first.
+__device__ __forceinline__ void edge_dist2_bwd(V3 edge, V3 pv, float g, V3 &g_edge, V3 &g_pv) {
+  const float ee = dot(edge, edge), num = dot(edge, pv);
+  const float den = fmaxf(ee, 1e-12f);
+  const float hr = num / den;
+  const float h = fminf(fmaxf(hr, 0.0f), 1.0f);
+  const V3 v = edge * h - pv;
+  const V3 g_vv = v * (2.0f * g);
+  const float g_h = dot(g_vv, edge);
+  const float g_hr = (hr >= 0.0f && hr <= 1.0f) ? g_h : 0.0f;
+  const float g_num = g_hr / den;
+  const float g_ee = ee >= 1e-12f ? -g_hr * num / (den * den) : 0.0f;
+  g_edge = g_edge + g_vv * h + pv * g_num + edge * (2.0f * g_ee);
+  g_pv = g_pv - g_vv + edge * g_num;
+}
+
+// the face branch dn dn / max(nor.nor, 1e-12), dn = nor.pa, for its cotangent g
+__device__ __forceinline__ void face_bwd(V3 nor, V3 pa, float g, V3 &g_nor, V3 &g_pa) {
+  const float dn = dot(nor, pa), nn = dot(nor, nor);
+  const float den = fmaxf(nn, 1e-12f);
+  const float g_dn = 2.0f * dn * (g / den);
+  const float g_nn = nn >= 1e-12f ? -g * dn * dn / (den * den) : 0.0f;
+  g_nor = g_nor + pa * g_dn + nor * (2.0f * g_nn);
+  g_pa = g_pa + nor * g_dn;
+}
+
+// d cross(a, b) for its cotangent g: a gets cross(b, g), b cross(g, a)
+__device__ __forceinline__ void cross_bwd(V3 a, V3 b, V3 g, V3 &g_a, V3 &g_b) {
+  g_a = g_a + cross(b, g);
+  g_b = g_b + cross(g, a);
+}
+
+template <int N>
+__device__ V3 polygon_bwd(V3 q, const V3 (&v)[N], float g, V3 (&g_v)[N]) {
+  V3 e[N], pv[N], g_e[N], g_pv[N];
+  for (int i = 0; i < N; ++i) {
+    e[i] = v[(i + 1) % N] - v[i];  // ba, cb, (dc,) then the closing edge
+    pv[i] = q - v[i];
+    g_e[i] = g_pv[i] = zero3();
+  }
+  // the triangle's normal is cross(ba, ac), the quad's cross(ba, ad): the
+  // closing edge in both
+  const V3 nor = cross(e[0], e[N - 1]);
+  float sgn = 0.0f;
+  for (int i = 0; i < N; ++i) sgn += signf(dot(cross(e[i], nor), pv[i]));
+  const bool edge_region = sgn < (float)(N - 1);
+  float d2[N];
+  for (int i = 0; i < N; ++i) d2[i] = edge_dist2(e[i], pv[i]);
+  float val;
+  if (edge_region) {
+    val = N == 3 ? fminf(fminf(d2[0], d2[1]), d2[2]) : fminf(fminf(d2[0], d2[1]), fminf(d2[2], d2[N - 1]));
+  } else {
+    const float dn = dot(nor, pv[0]);
+    val = dn * dn / fmaxf(dot(nor, nor), 1e-12f);
+  }
+  const float g_val = val > 0.0f ? g / (2.0f * sqrtf(val)) : 0.0f;
+  if (edge_region) {
+    float g_d[N];
+    if (N == 3) {
+      const float m1 = fminf(d2[0], d2[1]);
+      const float g_m1 = g_val * dmin(m1, d2[2]);
+      g_d[2] = g_val * dmin(d2[2], m1);
+      g_d[0] = g_m1 * dmin(d2[0], d2[1]);
+      g_d[1] = g_m1 * dmin(d2[1], d2[0]);
+    } else {
+      const float m1 = fminf(d2[0], d2[1]), m2 = fminf(d2[2], d2[N - 1]);
+      const float g_m1 = g_val * dmin(m1, m2), g_m2 = g_val * dmin(m2, m1);
+      g_d[0] = g_m1 * dmin(d2[0], d2[1]);
+      g_d[1] = g_m1 * dmin(d2[1], d2[0]);
+      g_d[2] = g_m2 * dmin(d2[2], d2[N - 1]);
+      g_d[N - 1] = g_m2 * dmin(d2[N - 1], d2[2]);
+    }
+    for (int i = 0; i < N; ++i)
+      if (g_d[i] != 0.0f) edge_dist2_bwd(e[i], pv[i], g_d[i], g_e[i], g_pv[i]);
+  } else {
+    V3 g_nor = zero3();
+    face_bwd(nor, pv[0], g_val, g_nor, g_pv[0]);
+    cross_bwd(e[0], e[N - 1], g_nor, g_e[0], g_e[N - 1]);
+  }
+  V3 g_q = zero3();
+  for (int i = 0; i < N; ++i) {
+    g_q = g_q + g_pv[i];
+    g_v[i] = g_pv[i] * -1.0f - g_e[i] + g_e[(i + N - 1) % N];
+  }
+  return g_q;
+}
+
+// d sdf_entry_all / d(p, the row's pos, joker, aux) of SDF row `row` of
+// shape `shape` at p, times g: returns the cotangent of p and adds the
+// row's into G, only into the columns the shape reads
+// (megakernel.bwd_columns keeps those).
+template <class Acc>
+__device__ V3 sdf_entry_all_bwd(const SceneSmem &s, int row, int shape, V3 p, float g,
+                                const float *lut, int lut_n, const Acc &G) {
+  const V3 q = p - s.p(row);
+  const float *j = s.col(row, C_J0);
+  V3 g_q;
+  switch (shape) {
+    case SDF_BOX:
+      return sd_box_bwd(s, row, p, g, G);
+    case SDF_ROUND_BOX:
+      return round_box_bwd(s, row, p, g, G);
+    case SDF_SPHERE:
+      g_q = len3_bwd(q, g);
+      G.add(row, C_J0, -g);
+      break;
+    case SDF_TRI_PRISM: {
+      float g_h0, g_h1;
+      g_q = tri_prism_bwd(q, j, g, g_h0, g_h1);
+      G.add(row, C_J0, g_h0);
+      G.add(row, C_J0 + 1, g_h1);
+      break;
+    }
+    case SDF_CONE: {
+      float g_c[3];
+      g_q = cone_bwd(q, j, g, g_c);
+      G.add3(row, C_J0, {g_c[0], g_c[1], g_c[2]});
+      break;
+    }
+    case SDF_MENGER: {
+      float g_box;
+      g_q = menger_bwd(q, sdf_entry(s, row, SDF_BOX, p), g, g_box);
+      G.add3(row, C_PX, g_q * -1.0f);
+      return g_q + sd_box_bwd(s, row, p, g_box, G);  // adds the box's pos and joker
+    }
+    case SDF_MANDELBULB:
+      g_q = mandelbulb_bwd(q, g);
+      break;
+    case SDF_ELLIPSOID: {
+      float g_r[3];
+      g_q = ellipsoid_bwd(q, j, g, g_r);
+      G.add3(row, C_J0, {g_r[0], g_r[1], g_r[2]});
+      break;
+    }
+    case SDF_CAPSULE: {
+      V3 g_a, g_b;
+      const V3 g_p = capsule_bwd(p, s.p(row), V3{j[0], j[1], j[2]}, g, g_a, g_b);
+      G.add3(row, C_PX, g_a);
+      G.add3(row, C_J0, g_b);
+      G.add(row, C_J0 + 3, -g);
+      return g_p;
+    }
+    case SDF_SNOWBALL:
+      g_q = len3_bwd(q, g) + value_noise_bwd(lut, lut_n, q * 8.0f, -0.04f * g) * 8.0f;
+      G.add(row, C_J0, -g);
+      break;
+    case SDF_SEA_BOX: {
+      const float box = sdf_entry(s, row, SDF_BOX, p);
+      const float sea = (q.x * 0.0f + q.y * -1.0f + q.z * 0.0f + j[3]) -
+                        disp(q * 10.0f, 2.5f) * 0.07f - disp(q * 15.0f, 4.5f) * 0.03f;
+      const float g_sea = -g * dmax(-sea, box), g_box = g * dmax(box, -sea);
+      G.add(row, C_J0 + 3, g_sea);
+      g_q = sea_bwd(q, g_sea);
+      G.add3(row, C_PX, g_q * -1.0f);
+      return g_q + sd_box_bwd(s, row, p, g_box, G);
+    }
+    case SDF_SIGGRAPH:
+      g_q = siggraph_bwd(q, g);
+      break;
+    case SDF_TRIANGLE: {
+      const float *ax = s.col(row, C_AUX);
+      const V3 v[3] = {{ax[0], ax[1], ax[2]}, {ax[3], ax[4], ax[5]}, {ax[6], ax[7], ax[8]}};
+      V3 g_v[3];
+      g_q = polygon_bwd<3>(q, v, g, g_v);
+      for (int i = 0; i < 3; ++i) G.add3(row, C_AUX + 3 * i, g_v[i]);
+      break;
+    }
+    default: {  // SDF_QUAD
+      const float *ax = s.col(row, C_AUX);
+      const V3 v[4] = {{ax[0], ax[1], ax[2]}, {ax[3], ax[4], ax[5]}, {ax[6], ax[7], ax[8]},
+                       {ax[9], ax[10], ax[11]}};
+      V3 g_v[4];
+      g_q = polygon_bwd<4>(q, v, g, g_v);
+      for (int i = 0; i < 4; ++i) G.add3(row, C_AUX + 3 * i, g_v[i]);
+      break;
+    }
+  }
+  G.add3(row, C_PX, g_q * -1.0f);
+  return g_q;
+}
+
+// The adjoint of sdf_map_all (the scene map of the whole SDF class) at p
+// for its cotangent g: returns the cotangent of p and adds the rows' into
+// G, the gradient split at ties as sdf_map_bwd<true> splits it.  Not
+// inlined, as sdf_map_all is not.
+template <class Acc>
+__device__ __attribute__((noinline)) V3 sdf_map_all_bwd(const SceneSmem &s, const SdfScene &sd,
+                                                        V3 p, float g, const float *lut, int lut_n,
+                                                        const Acc &G) {
+  float best = sdf_entry_all(s, sd.first, sd.shape[0], p, lut, lut_n);
+  int k = 0, ties = 1;
+  for (int i = 1; i < sd.count; ++i) {
+    const float d = sdf_entry_all(s, sd.first + i, sd.shape[i], p, lut, lut_n);
+    if (d < best) {
+      best = d;
+      k = i;
+      ties = 1;
+    } else if (d == best) {
+      ++ties;
+    }
+  }
+  if (ties == 1) return sdf_entry_all_bwd(s, sd.first + k, sd.shape[k], p, g, lut, lut_n, G);
+  V3 gp = zero3();
+  float gr = g;
+  for (int i = sd.count - 1; i >= k; --i) {
+    if (!(sdf_entry_all(s, sd.first + i, sd.shape[i], p, lut, lut_n) == best)) continue;
+    --ties;
+    const float gi = ties > 0 ? 0.5f * gr : gr;
+    gp = gp + sdf_entry_all_bwd(s, sd.first + i, sd.shape[i], p, gi, lut, lut_n, G);
+    if (ties == 0) break;
+    gr = gr - gi;
+  }
+  return gp;
+}
+
 // The SDF rows' distance at p (sdf_map) times g.  kShapes = false (K7):
 // ROUND_BOX rows, the nearest entry's cotangents (the first on a tie, as
 // the forward's winner).  kShapes = true (K2): BOX and ROUND_BOX rows, the
@@ -399,20 +932,34 @@ __device__ V3 sdf_map_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float g,
   }
 }
 
+// The scene map's adjoint at p for its cotangent g: sdf_map_bwd<kShapes>,
+// or with kAll (K2's whole-SDF copy) sdf_map_all_bwd with the value-noise
+// LUT of a SNOWBALL.
+template <bool kShapes, bool kAll, class Acc>
+__device__ __forceinline__ V3 scene_map_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float g,
+                                            const Acc &G, const float *lut, int lut_n) {
+  if constexpr (kAll)
+    return sdf_map_all_bwd(s, sd, p, g, lut, lut_n, G);
+  else
+    return sdf_map_bwd<kShapes>(s, sd, p, g, G);
+}
+
 // sdf_normal(p) = normalize(sum_i tap_i f(p + tap_i eps)) for its cotangent
-// g_n: returns the cotangent of p.
-template <bool kShapes = false, class Acc>
+// g_n: returns the cotangent of p.  kAll: the whole SDF class.
+template <bool kShapes = false, bool kAll = false, class Acc>
 __device__ V3 sdf_normal_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float eps, V3 g_n,
-                             const Acc &G) {
+                             const Acc &G, const float *lut = nullptr, int lut_n = 0) {
   const V3 taps[4] = {{1.0f, -1.0f, -1.0f}, {-1.0f, -1.0f, 1.0f}, {-1.0f, 1.0f, -1.0f},
                       {1.0f, 1.0f, 1.0f}};
   V3 n = {0.0f, 0.0f, 0.0f};
   int k;
-  for (int i = 0; i < 4; ++i) n = n + taps[i] * sdf_map(s, sd, p + taps[i] * eps, k);
+  for (int i = 0; i < 4; ++i)
+    n = n + taps[i] * sdf_map<kAll>(s, sd, p + taps[i] * eps, k, lut, lut_n);
   const V3 g_raw = normalize_bwd(n, g_n);
   V3 g_p = zero3();
   for (int i = 0; i < 4; ++i)
-    g_p = g_p + sdf_map_bwd<kShapes>(s, sd, p + taps[i] * eps, dot(g_raw, taps[i]), G);
+    g_p = g_p + scene_map_bwd<kShapes, kAll>(s, sd, p + taps[i] * eps, dot(g_raw, taps[i]), G,
+                                             lut, lut_n);
   return g_p;
 }
 
@@ -420,17 +967,18 @@ __device__ V3 sdf_normal_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float
 // gradient, and t = t* - (f(x*) - sg f(x*)) / sg(df/dt) at x* = o + d t*,
 // with df/dt the central difference at x* along d (step eps, `two_eps` =
 // f32(2 eps)), floored to +-0.05.  Adds the cotangents of o and d for the
-// cotangent g_t of t.
-template <bool kShapes = false, class Acc>
+// cotangent g_t of t.  kAll: the whole SDF class.
+template <bool kShapes = false, bool kAll = false, class Acc>
 __device__ void sdf_t_bwd(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d, float t, float eps,
-                          float two_eps, float g_t, V3 &g_o, V3 &g_d, const Acc &G) {
+                          float two_eps, float g_t, V3 &g_o, V3 &g_d, const Acc &G,
+                          const float *lut = nullptr, int lut_n = 0) {
   const V3 xs = o + d * t;
   int k;
-  const float f_fwd = sdf_map(s, sd, xs + d * eps, k);
-  const float f_bwd = sdf_map(s, sd, xs - d * eps, k);
+  const float f_fwd = sdf_map<kAll>(s, sd, xs + d * eps, k, lut, lut_n);
+  const float f_bwd = sdf_map<kAll>(s, sd, xs - d * eps, k, lut, lut_n);
   float dfdt = (f_fwd - f_bwd) / two_eps;
   if (fabsf(dfdt) < 0.05f) dfdt = dfdt < 0.0f ? -0.05f : 0.05f;
-  const V3 g_xs = sdf_map_bwd<kShapes>(s, sd, xs, -g_t / dfdt, G);
+  const V3 g_xs = scene_map_bwd<kShapes, kAll>(s, sd, xs, -g_t / dfdt, G, lut, lut_n);
   g_o = g_o + g_xs;
   g_d = g_d + g_xs * t;
 }

@@ -5,9 +5,10 @@
 // raytracer0_tpu/ops/megakernel.py::_bwd_slotted_kernel_body (launched by
 // `_backward`), and computes the same outputs as its whole-trace twin
 // `_bwd_kernel_body` (RT0_BWD_SLOTTED=0), over K1's whole class without
-// ReSTIR: every surface material, sphere and directional lights, cosine
-// and uniform sampling, BOX and ROUND_BOX SDF meshes, the cubemap or the
-// procedural sky, and textures of all ten types.  Given K1's inputs and
+// ReSTIR: every surface material, sphere, directional and SDF-bound
+// lights, cosine and uniform sampling, SDF meshes of all 14 shapes, the
+// cubemap or the procedural sky, and textures of all ten types on
+// analytic and SDF meshes.  Given K1's inputs and
 // the cotangent ct f32[n_pix, 3] of its radiance it returns d_table
 // f32[n_mesh, 36] and d_ro, d_rd f32[n_pix, 3]: the gradients that
 // torch.autograd gives through the plain version
@@ -16,7 +17,7 @@
 // w.r.t. them.  CUDA has no autodiff, so the adjoint of each step of a
 // bounce is written out by hand, below and in adjoint.cuh (shared with K7).
 //
-// Two copies, each a template instance for a column of accumulators per
+// Three copies, each a template instance for a column of accumulators per
 // thread and per warp:
 //  * the Cornell copy (bwd_kernel, slot_bwd): analytic DIFF and LIGHT
 //    meshes, sphere-light slots, no texture, the procedural sky, cosine
@@ -28,6 +29,17 @@
 //    bwd_columns, mapped to accumulators in shared memory): Cornell's, and
 //    joker 4:7 under SDF rows, the IOR under refraction, the texture
 //    params, color mask and emission mask where textures are used.
+//  * the whole-SDF copy (bwd_wide_kernel<., true>, wide_slot_bwd<true>)
+//    for the scenes K1 runs its whole-SDF copy on (use_tex bit 2): every
+//    SDF shape through adjoint.cuh::sdf_map_all_bwd (the adjoints of the
+//    14 distances, a `noinline` call as K1's scene map is), the texel of
+//    an SDF hit at the UV of its row's box normal, SDF-light NEE
+//    (sdf_light_bwd), and the aux columns of TRIANGLE and QUAD rows.  The
+//    other two copies compile none of it.
+// The whole-SDF copy is a library of its own (megakernel_bwd_sdf.cu: this
+// file with RT0_K2_WHOLE_SDF set), so that nvcc compiles it beside the
+// library of the other two copies; each library's launcher refuses the
+// copies it does not hold.
 //
 // Scheme: the per-slot stash of the Pallas kernel, one thread per pixel.
 //  * forward sweep: run K1's bounce loop without NEE, the gather ray and
@@ -101,6 +113,11 @@
 #include <type_traits>
 
 #include "adjoint.cuh"
+
+// 1 in megakernel_bwd_sdf.cu: this library holds the whole-SDF copy alone
+#ifndef RT0_K2_WHOLE_SDF
+#define RT0_K2_WHOLE_SDF 0
+#endif
 
 namespace {
 
@@ -228,6 +245,108 @@ struct ThreadAcc {
   }
 };
 
+// One SDF-light sample of shade_nee (K1's NEE_SDF_POINT branch,
+// lighting.direct_light_slot's "sdf" kind) from slot `slot`, the LIGHT SDF
+// row `li`, at (x, nl): a shadow ray toward pos + dir * joker.xyz, dir a
+// uniform direction, its contribution max(c, 0.001) e max(dot(sr, nl),
+// 0.001) where it hits a LIGHT mesh, weighted under MIS against the cosine
+// pdf of normalize(pos - x) with the uniform sphere's 1/4pi.  Returns the
+// contribution and adds the cotangents of x, nl and the scene for its
+// cotangent g_c: through the direction, the light's pos and joker.xyz, and
+// where the scene's LIGHT meshes have textures (use_tex bit 1) the texel
+// at the shadow hit, whose point carries the hit's t (the SDF march's
+// implicit t, or the analytic one).  The shadow hit is a discrete choice.
+template <class Acc>
+__device__ V3 sdf_light_bwd(const TraceArgs &a, const SceneSmem &s, const SdfScene &sd,
+                            const PackedScene &pk, const int *tex, int slot, int li, V3 x, V3 nl,
+                            uint32_t h_depth, float eps, float inf, bool use_mis, V3 g_c,
+                            V3 &g_x, V3 &g_nl, const Acc &G) {
+  const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_NEE_SDF_POINT, 5u);
+  const float u1 = u01(h), u2 = u01(pcg(h));
+  const float z = 1.0f - 2.0f * u1;
+  const float r = safe_sqrt(1.0f - z * z);
+  const float phi = TWO_PI * u2;
+  const V3 lp = s.p(li);
+  const float *j = s.col(li, C_J0);
+  const V3 dir = V3{r * cosf(phi), r * sinf(phi), z};
+  const V3 lv = lp + dir * V3{j[0], j[1], j[2]} - x;
+  const V3 sr = normalize(lv);
+  const V3 so = x + nl * eps;
+  float ts;
+  int hidx;
+  const bool sdf_shadow =
+      intersect_packed<true, true>(s, sd, pk, so, sr, eps, inf, ts, hidx, a.noise, a.noise_n);
+  if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) return zero3();
+  const bool textured = (a.use_tex & 2) != 0;
+  const V3 c0 = s.c(hidx);
+  V3 lc_raw = c0;
+  V4 tx = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (textured) {
+    tx = get_texel(tex[hidx], s.mesh[hidx], s.col(hidx, C_TP), so + sr * ts, zero3(), a.images,
+                   a.img_h, a.img_w, a.noise, a.noise_n);
+    lc_raw = lc_raw + (V3{tx.x, tx.y, tx.z} - lc_raw) * tx.w;
+  }
+  const V3 lc = vmax(lc_raw, 0.001f), le = s.e(hidx);
+  const float cos_raw = dot(sr, nl);
+  const float cos_term = fmaxf(cos_raw, 0.001f);
+  V3 contrib = lc * le * cos_term;
+  if (use_mis) {
+    if (!(dot(contrib, contrib) > 1e-6f)) return zero3();
+    const V3 sw = lp - x;
+    const V3 ldir = normalize(sw);
+    const float b_cos = dot(ldir, nl);
+    const float b_pdf = fmaxf(b_cos, 0.0f) * ONE_OVER_PI;
+    const float w = power_heuristic(INV_FOUR_PI, b_pdf);
+    const float g_w = dot(g_c, contrib);
+    contrib = contrib * w;
+    g_c = g_c * w;
+    float g_l, g_b;
+    power_heuristic_bwd(INV_FOUR_PI, b_pdf, g_w, g_l, g_b);
+    if (b_cos >= 0.0f) {
+      const float gb = g_b * ONE_OVER_PI;
+      g_nl = g_nl + ldir * gb;
+      const V3 g_sw = normalize_bwd(sw, nl * gb);
+      G.add3(li, C_PX, g_sw);
+      g_x = g_x - g_sw;
+    }
+  }
+  // contrib = max(c', 0.001) e max(dot(sr, nl), 0.001)
+  const V3 g_lr = pass_ge(lc_raw, 0.001f, g_c * le * cos_term);
+  G.add3(hidx, C_ER, g_c * lc * cos_term);
+  V3 g_sr = zero3();
+  const float g_cos = dot(g_c, lc * le);
+  if (cos_raw >= 0.001f) {
+    g_sr = nl * g_cos;
+    g_nl = g_nl + sr * g_cos;
+  }
+  if (!textured) {
+    G.add3(hidx, C_CR, g_lr);
+  } else {
+    // c' = c + (texel - c) alpha, the texel at hp = so + sr ts(so, sr, scene)
+    G.add3(hidx, C_CR, g_lr * (1.0f - tx.w));
+    const V3 g_hp = texel_bwd(hidx, tex[hidx], s.mesh[hidx], s.col(hidx, C_TP), so + sr * ts,
+                              zero3(), a.images, a.img_h, a.img_w, a.noise, a.noise_n,
+                              V4{g_lr.x * tx.w, g_lr.y * tx.w, g_lr.z * tx.w,
+                                 dot(g_lr, V3{tx.x, tx.y, tx.z} - c0)}, G);
+    V3 g_so = g_hp;
+    g_sr = g_sr + g_hp * ts;
+    const float g_ts = dot(g_hp, sr);
+    if (sdf_shadow)
+      sdf_t_bwd<true, true>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts, g_so, g_sr, G, a.noise,
+                            a.noise_n);
+    else
+      isect_bwd(s, hidx, so, sr, eps, g_ts, g_so, g_sr, G);
+    g_x = g_x + g_so;
+    g_nl = g_nl + g_so * eps;
+  }
+  // sr = normalize(pos + dir joker.xyz - x)
+  const V3 g_lv = normalize_bwd(lv, g_sr);
+  G.add3(li, C_PX, g_lv);
+  G.add3(li, C_J0, g_lv * dir);
+  g_x = g_x - g_lv;
+  return contrib;
+}
+
 // shade_nee forward and adjoint in one pass: returns the NEE total (before
 // the throughput factor) and adds the cotangents of x, nl and the scene for
 // the cotangent g_tot of that total.  The wide copy (kWide) also lights by
@@ -235,12 +354,16 @@ struct ThreadAcc {
 // slots of any other kind, marches the SDF rows and, where LIGHT meshes
 // have textures, blends the shadow hit's texel into its color
 // (trace_common.cuh::shadow_texel_color), as K1 does; the Cornell copy
-// compiles those parts out.
-template <bool kWide, class Acc>
+// compiles those parts out.  The whole-SDF copy (kAll) marches every SDF
+// shape and samples SDF-bound lights (shade_nee's NEE_SDF_POINT branch).
+template <bool kWide, bool kAll, class Acc>
 __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfScene &sd,
                             const PackedScene &pk, const int *tex, V3 x, V3 nl, uint32_t h_depth,
                             float eps, float inf, bool use_mis, V3 g_tot, V3 &g_x, V3 &g_nl,
                             const Acc &G) {
+  // the value-noise LUT of a SNOWBALL, for the whole-SDF copy's scene map
+  const float *lut = kAll ? a.noise : nullptr;
+  const int lut_n = kAll ? a.noise_n : 0;
   V3 total = zero3();
   for (int slot = 0; slot < s.n_lights; ++slot) {
     int li = s.lights[slot];
@@ -252,7 +375,8 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
         const V3 lp = s.p(li);
         float ts;
         int hidx;
-        intersect_packed<true>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx);
+        intersect_packed<true, kAll>(s, sd, pk, x + nl * eps, normalize(lp), eps, inf, ts, hidx,
+                                     lut, lut_n);
         if (ts < inf) continue;
         const V3 lc = s.c(li), le = s.e(li);
         const float cos_raw = dot(lp, nl);
@@ -266,6 +390,13 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
           g_nl = g_nl + lp * g_cos;
         }
         continue;
+      }
+      if constexpr (kAll) {
+        if (s.mat[li] == MAT_LIGHT && s.mesh[li] == MESH_SDF) {
+          total = total + sdf_light_bwd(a, s, sd, pk, tex, slot, li, x, nl, h_depth, eps, inf,
+                                        use_mis, g_tot, g_x, g_nl, G);
+          continue;
+        }
       }
       if (s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
     }
@@ -285,7 +416,8 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
     int hidx;
     bool sdf_shadow = false;
     if constexpr (kWide)
-      sdf_shadow = intersect_packed<true>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx);
+      sdf_shadow = intersect_packed<true, kAll>(s, sd, pk, x + nl * eps, sr, eps, inf, ts, hidx,
+                                                lut, lut_n);
     else
       intersect_packed_analytic(pk, x + nl * eps, sr, eps, ts, hidx);
     if (!(ts < inf) || s.mat[hidx] != MAT_LIGHT) continue;
@@ -354,7 +486,7 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
       g_sr = g_hp * ts;
       const float g_ts = dot(g_hp, sr);
       if (sdf_shadow)
-        sdf_t_bwd<true>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts, g_so, g_sr, G);
+        sdf_t_bwd<true, kAll>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts, g_so, g_sr, G, lut, lut_n);
       else
         isect_bwd(s, hidx, so, sr, eps, g_ts, g_so, g_sr, G);
       g_x = g_x + g_so;
@@ -463,7 +595,7 @@ __device__ void slot_bwd(const SceneSmem &s, const PackedScene &pk, const TraceA
     V3 g_ma = gm_out;
     if (a.sample_lights) {
       const SdfScene no_sdf = {};
-      V3 total = shade_nee_bwd<false>(a, s, no_sdf, pk, nullptr, x, nl, h_depth, a.eps, a.inf,
+      V3 total = shade_nee_bwd<false, false>(a, s, no_sdf, pk, nullptr, x, nl, h_depth, a.eps, a.inf,
                                       a.use_mis, ct * mask_after, g_x, g_nl, G);
       g_ma = g_ma + ct * total;
     }
@@ -485,8 +617,10 @@ constexpr int STW = 13;
 // path_step over K1's whole non-ReSTIR class).  In: the stashed carry
 // entering the slot `sk`, the hit (t, idx) of its ray and, in g_*, the
 // cotangents of the carry leaving it.  Out: g_* hold the cotangents of the
-// carry entering it; the scene's are added into G.
-template <class Acc>
+// carry entering it; the scene's are added into G.  kAll (the whole-SDF
+// copy): every SDF shape, the texel of an SDF hit at the UV of its row's
+// box normal (path_step's), SDF-light NEE.
+template <bool kAll, class Acc>
 __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const PackedScene &pk,
                               const TraceArgs &a, int depth, uint32_t h_pix, const float *sk,
                               float t, int idx, V3 ct, V3 &g_o, V3 &g_d, V3 &g_mask, V3 &g_pnl,
@@ -513,11 +647,17 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
   const int mat = s.mat[idx];
   if (mat == MAT_DIR_LIGHT) return;  // the path ends without a contribution
 
+  const float *lut = kAll ? a.noise : nullptr;  // a SNOWBALL's value noise
+  const int lut_n = kAll ? a.noise_n : 0;
   const bool sdf_hit = idx >= ps.sd.first;  // the SDF rows follow the analytic ones
   const V3 x = o + d * t;
-  const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+  const V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
+  // the normal whose dominant axis picks a texel's planar UV: an SDF hit's
+  // row's box normal in the whole-SDF copy, as in path_step (piecewise
+  // constant in x, so it carries no gradient)
+  const V3 n_tex = kAll && sdf_hit ? normal_at(s, idx, x) : n;
   V3 c, e;
-  blended_color_emission(a, s, ps, idx, x, n, c, e);
+  blended_color_emission(a, s, ps, idx, x, n_tex, c, e);
   c = vmax(c, 0.001f);
   e = vmax(e, 0.001f);
   V3 g_x = zero3(), g_c = zero3(), g_e = zero3();
@@ -556,7 +696,7 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
         g_o = g_o + g_op;
       }
     }
-    g_x = g_x + blend_bwd(a, s, ps, idx, x, n, g_c, g_e, G);
+    g_x = g_x + blend_bwd(a, s, ps, idx, x, n_tex, g_c, g_e, G);
   } else {
     // ---- a BSDF bounce: o', d' = bsdf_sample(...), mask' = mask mult,
     //      prev_nl' = nl; at a diffuse vertex the gather ray and NEE ----
@@ -582,7 +722,8 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
         const V3 env_dir = random_direction(nl, eu1, eu2, a.use_biased);
         float te;
         int ie;
-        intersect_packed<true>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie);
+        intersect_packed<true, kAll>(s, ps.sd, pk, x + nl * a.eps, env_dir, a.eps, a.inf, te, ie,
+                                     lut, lut_n);
         if (!(te < a.inf)) {
           g_ma = g_ma + ct * sample_cubemap(a.cubemap, a.cube_h, a.cube_w, env_dir);
           g_nl = g_nl + random_direction_bwd(nl, eu1, eu2, a.use_biased,
@@ -591,7 +732,7 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
         }
       }
       if (a.sample_lights) {
-        const V3 total = shade_nee_bwd<true>(a, s, ps.sd, pk, ps.tex, x, nl, h_depth, a.eps,
+        const V3 total = shade_nee_bwd<true, kAll>(a, s, ps.sd, pk, ps.tex, x, nl, h_depth, a.eps,
                                              a.inf, a.use_mis, ct * mask_after, g_x, g_nl, G);
         g_ma = g_ma + ct * total;
       }
@@ -600,10 +741,10 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
     const bool attenuates = mat == MAT_DIFF || mat == MAT_SPEC || transmit ||
                             (mat == MAT_COAT && !b.specular);
     if (attenuates) g_c = g_ma * mask;
-    g_x = g_x + blend_bwd(a, s, ps, idx, x, n, g_c, g_e, G);
+    g_x = g_x + blend_bwd(a, s, ps, idx, x, n_tex, g_c, g_e, G);
     const V3 g_n = g_nl * inside;
     if (sdf_hit)
-      g_x = g_x + sdf_normal_bwd<true>(s, ps.sd, x, a.eps, g_n, G);
+      g_x = g_x + sdf_normal_bwd<true, kAll>(s, ps.sd, x, a.eps, g_n, G, lut, lut_n);
     else
       normal_bwd(s, idx, x, g_n, g_x, G);
   }
@@ -613,7 +754,7 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
   g_d = g_d + g_x * t;
   const float g_t = dot(g_x, d);
   if (sdf_hit)
-    sdf_t_bwd<true>(s, ps.sd, o, d, t, a.eps, 2.0f * a.eps, g_t, g_o, g_d, G);
+    sdf_t_bwd<true, kAll>(s, ps.sd, o, d, t, a.eps, 2.0f * a.eps, g_t, g_o, g_d, G, lut, lut_n);
   else
     isect_bwd(s, idx, o, d, a.eps, g_t, g_o, g_d, G);
 }
@@ -731,8 +872,9 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
 
 // The wide copy: K1's whole non-ReSTIR class (every material, directional
 // lights, uniform sampling, the cubemap, textures, BOX and ROUND_BOX SDF
-// rows), with the scene's column set.
-template <bool kWarpCols>
+// rows), with the scene's column set; kAll, the whole-SDF copy, adds every
+// SDF shape, textured SDF rows and SDF lights, as K1's whole-SDF copy does.
+template <bool kWarpCols, bool kAll>
 __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
                                                          : MIN_BLOCKS_THREAD_COLS)
     bwd_wide_kernel(BwdArgs b) {
@@ -757,7 +899,9 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
     G = {gsm + (threadIdx.x / warpSize) * n_g, cols};
   else
     G = {gsm + threadIdx.x, (int)blockDim.x, cols};
-  const PackedScene pk = load_packed(s, ps.sd, smem, path_bytes);  // synchronises the block
+  const PackedScene pk = load_packed<kAll>(s, ps.sd, smem, path_bytes);  // synchronises the block
+  const float *lut = kAll ? a.noise : nullptr;  // a SNOWBALL's value noise
+  const int lut_n = kAll ? a.noise_n : 0;
 
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p < a.n_pix) {  // ragged edge: idle threads still join the block sum
@@ -784,15 +928,16 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
 
       float tmin;
       int idx;
-      const bool sdf_hit = intersect_packed<true>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx);
+      const bool sdf_hit = intersect_packed<true, kAll>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx,
+                                                        lut, lut_n);
       st_t[depth] = tmin;
       st_idx[depth] = idx;
       // a miss, an emissive or a DIR_LIGHT hit ends the path
       if (!(tmin < a.inf) || s.mat[idx] == MAT_LIGHT || s.mat[idx] == MAT_DIR_LIGHT) break;
       const V3 x = o + d * tmin;
-      const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
+      const V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
       V3 c, e;
-      blended_color_emission(a, s, ps, idx, x, n, c, e);
+      blended_color_emission(a, s, ps, idx, x, kAll && sdf_hit ? normal_at(s, idx, x) : n, c, e);
       c = vmax(c, 0.001f);
       e = vmax(e, 0.001f);
       const float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
@@ -819,8 +964,8 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
     const V3 ct = {b.ct[3 * p], b.ct[3 * p + 1], b.ct[3 * p + 2]};
     V3 g_o = zero3(), g_d = zero3(), g_mask = zero3(), g_pnl = zero3();
     for (int k = n_run - 1; k >= 0; --k)
-      wide_slot_bwd(s, ps, pk, a, k, h_pix, st + k * STW, st_t[k], st_idx[k], ct, g_o, g_d,
-                    g_mask, g_pnl, G);
+      wide_slot_bwd<kAll>(s, ps, pk, a, k, h_pix, st + k * STW, st_t[k], st_idx[k], ct, g_o, g_d,
+                          g_mask, g_pnl, G);
     b.d_ro[3 * p] = g_o.x;
     b.d_ro[3 * p + 1] = g_o.y;
     b.d_ro[3 * p + 2] = g_o.z;
@@ -889,10 +1034,18 @@ inline int bwd_layout(int n_mesh, int n_lights, int n_sdf, bool wide, int ng, in
   return 0;
 }
 
-// The copy of K2 for `wide` and a column per warp (`warp_cols`).
-inline void (*bwd_copy(bool wide, bool warp_cols))(BwdArgs) {
-  if (wide) return warp_cols ? bwd_wide_kernel<true> : bwd_wide_kernel<false>;
+// The copy of K2 for `wide`, a column per warp (`warp_cols`) and the whole
+// SDF class (`all`, which implies `wide`), or nullptr where this library
+// does not hold it (RT0_K2_WHOLE_SDF).
+inline void (*bwd_copy(bool wide, bool warp_cols, bool all))(BwdArgs) {
+  if (all != (RT0_K2_WHOLE_SDF != 0)) return nullptr;
+#if RT0_K2_WHOLE_SDF
+  (void)wide;
+  return warp_cols ? bwd_wide_kernel<true, true> : bwd_wide_kernel<false, true>;
+#else
+  if (wide) return warp_cols ? bwd_wide_kernel<true, false> : bwd_wide_kernel<false, false>;
   return warp_cols ? bwd_kernel<true> : bwd_kernel<false>;
+#endif
 }
 
 }  // namespace
@@ -934,7 +1087,8 @@ extern "C" int rt0_trace_backward(
     size_t smem = 0;
     int rc = bwd_layout(n_mesh, n_lights, n_sdf, wide != 0, ng, threads, warp_cols, smem);
     if (rc != 0) return rc;
-    void (*kern)(BwdArgs) = bwd_copy(wide != 0, warp_cols);
+    void (*kern)(BwdArgs) = bwd_copy(wide != 0, warp_cols, wide != 0 && (use_tex & 4) != 0);
+    if (kern == nullptr) return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaSuccess;
     if (smem > 48 * 1024)
       e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -966,8 +1120,9 @@ extern "C" int rt0_trace_backward_layout(int n_mesh, int n_lights, int n_sdf,
 
 // K2's occupancy at `threads` threads and `smem` bytes of dynamic shared
 // memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
-// bit 0 a column per warp, bit 1 the wide copy.
+// bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy.
 extern "C" int rt0_trace_backward_occupancy(int flags, int threads, long long smem, int *out) {
-  return kernel_occupancy(bwd_copy((flags & 2) != 0, (flags & 1) != 0), threads, (size_t)smem,
-                          out);
+  void (*kern)(BwdArgs) = bwd_copy((flags & 6) != 0, (flags & 1) != 0, (flags & 4) != 0);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return kernel_occupancy(kern, threads, (size_t)smem, out);
 }

@@ -4,9 +4,10 @@
 // memory, intersection, normals, direction sampling, reflection, refraction
 // and the Fresnel models, the MIS pdfs, the procedural sky, the cubemap
 // fetch, sphere/directional-light NEE, the texel of a hit (image,
-// UV-pattern and noise textures) and the SDF march.  K1's copy for the whole
-// SDF class (kAll) also compiles the 14 distances of ops/sdf.py, the texel of
-// an SDF hit and SDF-light NEE; no other kernel instantiates them.
+// UV-pattern and noise textures) and the SDF march.  The copies of K1 and
+// K2 for the whole SDF class (kAll) also compile the 14 distances of
+// ops/sdf.py, the texel of an SDF hit and SDF-light NEE; no other kernel
+// instantiates them.
 //
 // The kernels compile these functions from this one copy with the same
 // flags (no fast math, -fmad=false), so K2's replay of a bounce makes the

@@ -6,7 +6,12 @@
 `animated_restir` that the port renders, and three scenes that the port's
 tests and timing scripts share: `many_lights` (K2's Cornell copy with many
 meshes), `textured_restir_demo` (a ReSTIR scene with a blended texture)
-and `config2` (glass, a mirror and coat under MIS).
+and `config2` (glass, a mirror and coat under MIS).  The whole SDF class
+has scenes of its own beside presets 0, 2 and 3 (`SDF_SCENE_VIEWS`,
+`sdf_view`): every SDF shape the presets lack, an SDF light, textured SDF
+rows and the two polygon shapes, each built alike by either package's
+SceneBuilder (so the tests can hold the two packages on the same scene),
+and a scene of one SDF row of each shape (`one_row_scene`).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
@@ -15,6 +20,7 @@ items 10 and 12).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -22,6 +28,7 @@ import torch
 
 from raytracer0_tpu_torch.config import ANIMATED_CONFIG, OFFLINE_CONFIG, RenderConfig
 from raytracer0_tpu_torch.models.camera import Camera
+from raytracer0_tpu_torch.models import materials as _materials
 from raytracer0_tpu_torch.models.dsl import parse_scene
 from raytracer0_tpu_torch.models.materials import TEX_1, Material, MatType, MeshType, SdfShape
 from raytracer0_tpu_torch.models.scene import SceneBuilder
@@ -388,3 +395,162 @@ def cubemap_demo(cubemap=None, device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.2, 2.6), lookat=(0.0, -0.2, -1.0),
                          fov=60.0, device=device)
     return scene, camera, _cfg(use_cubemap=True, use_procedural_sky=False, **cfg_kw)
+
+
+def _builder(builder, m):
+    return (builder or SceneBuilder)(), (m or _materials)
+
+
+def _build(b, device):
+    return b.build() if device is None else b.build(device=device)
+
+
+def sdf_light_scene(device="cuda", builder=None, m=None):
+    """The Cornell geometry of the reference's tests/test_megakernel.py:
+    700-716 with its light an SDF ROUND_BOX (the only light slot), which
+    NEE samples at a point of its bounding ellipsoid.  `builder` and `m`
+    (default: this package's SceneBuilder and materials module) may be
+    another package's; `device` None builds on that builder's default."""
+    b, m = _builder(builder, m)
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, -1.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (2.5,))
+    b.add("MAT_CORNELL_RED", m.MeshType.PLANE, (1.0, 0.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_GREEN", m.MeshType.PLANE, (-1.0, 0.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.BOX, (0.5, -1.0, -1.8), (1.0,))
+    b.add("MAT_LIGHT_4", m.MeshType.SDF, (0.0, 1.0, -1.2), (0.3, 0.3, 0.3, 0.05),
+          sdf_shape=m.SdfShape.ROUND_BOX)
+    return _build(b, device)
+
+
+def every_shape_scene(device="cuda", builder=None, m=None):
+    """The 11 SDF shapes no preset of the reference holds (ROUND_BOX,
+    SPHERE, TRI_PRISM, CONE, ELLIPSOID, CAPSULE, SNOWBALL, SEA_BOX,
+    SIGGRAPH, TRIANGLE and QUAD), three rows of them in front of the
+    camera, in a box of five planes under a sphere light; the quad carries
+    a CHECK texture on its color.  The capsule, prism, cone, sea box,
+    SIGGRAPH object, triangle and quad have no bounding sphere, so the
+    march's gate is off.  `builder`, `m`, `device`: as `sdf_light_scene`."""
+    b, m = _builder(builder, m)
+    S = m.SdfShape
+    check = m.Material(c=(0.7, 0.5, 0.3), t=m.MatType.DIFF,
+                       tex=m.Texture(t=m.TexType.CHECK, params=(4.0, 4.0, 2.0, 2.0)),
+                       opts=(True, False, False, False))
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, -1.0, 0.0), (2.0,))
+    b.add("MAT_GREEN", m.MeshType.PLANE, (1.0, 0.0, 0.0), (2.0,))
+    b.add("MAT_RED", m.MeshType.PLANE, (-1.0, 0.0, 0.0), (2.0,))
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (3.0,))
+    b.add("MAT_LIGHT_4", m.MeshType.SPHERE, (0.0, 1.6, -0.6), (0.3,))
+    sdf = m.MeshType.SDF
+    b.add("MAT_WHITE", sdf, (-1.2, 0.8, -1.2), (0.2, 0.15, 0.2, 0.05), sdf_shape=S.ROUND_BOX)
+    b.add("MAT_WHITE", sdf, (-0.4, 0.8, -1.2), (0.3,), sdf_shape=S.SPHERE)
+    b.add("MAT_WHITE", sdf, (0.4, 0.8, -1.2), (0.4, 0.2), sdf_shape=S.TRI_PRISM)
+    b.add("MAT_WHITE", sdf, (1.2, 1.1, -1.2), (0.6, 0.8, 0.4), sdf_shape=S.CONE)
+    b.add("MAT_WHITE", sdf, (-1.2, 0.0, -1.2), (0.35, 0.2, 0.25), sdf_shape=S.ELLIPSOID)
+    b.add("MAT_WHITE", sdf, (-0.6, -0.15, -1.2), (-0.2, 0.2, -1.1, 0.12),
+          sdf_shape=S.CAPSULE)
+    b.add("MAT_WHITE", sdf, (0.4, 0.0, -1.2), (0.3,), sdf_shape=S.SNOWBALL)
+    b.add("MAT_WHITE", sdf, (1.2, 0.0, -1.2), (0.3, 0.3, 0.3, 0.05), sdf_shape=S.SEA_BOX)
+    b.add("MAT_WHITE", sdf, (0.0, -1.0, -2.2), (0.0,), sdf_shape=S.SIGGRAPH)
+    b.add("MAT_WHITE", sdf, (-1.2, -1.0, -1.2), (0.0,), sdf_shape=S.TRIANGLE,
+          aux=(-0.3, -0.3, 0.0, 0.3, -0.3, 0.0, 0.0, 0.3, 0.1))
+    b.add(check, sdf, (1.2, -1.0, -1.2), (0.0,), sdf_shape=S.QUAD,
+          aux=(-0.3, -0.3, 0.0, 0.3, -0.3, 0.0, 0.3, 0.3, 0.0, -0.3, 0.3, 0.0))
+    return _build(b, device)
+
+
+def textured_sdf_scene(device="cuda", builder=None, m=None):
+    """The textures of SDF rows whose texels carry a gradient into the hit
+    point: Cornell walls, an SDF sphere with an image (the textured
+    presets' IMAGE1) blended into its color, read at the UV of its row's
+    box normal, an SDF ellipsoid, and an SDF ROUND_BOX light (the only
+    light slot) with value noise blended into its emission, whose texel
+    NEE's shadow rays blend into its color at the hit of the SDF shadow
+    march.  `builder`, `m`, `device`: as `sdf_light_scene`."""
+    b, m = _builder(builder, m)
+    image = m.Material(c=(0.6, 0.6, 0.6), t=m.MatType.DIFF,
+                       tex=m.Texture(t=m.TexType.IMAGE1), opts=(True, False, False, False))
+    light = m.Material(c=(1.0, 1.0, 1.0), e=(4.0, 4.0, 4.0), t=m.MatType.LIGHT,
+                       tex=m.Texture(t=m.TexType.VALUE_NOISE, params=(3.0, 3.0, 3.0, 0.0)),
+                       opts=(False, True, False, False))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, -1.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (2.5,))
+    b.add("MAT_CORNELL_RED", m.MeshType.PLANE, (1.0, 0.0, 0.0), (1.5,))
+    b.add("MAT_CORNELL_GREEN", m.MeshType.PLANE, (-1.0, 0.0, 0.0), (1.5,))
+    b.add(image, m.MeshType.SDF, (-0.45, -0.8, -1.4), (0.5,), sdf_shape=m.SdfShape.SPHERE)
+    b.add("MAT_CORNELL_WHITE", m.MeshType.SDF, (0.55, -1.0, -1.6), (0.35, 0.5, 0.3),
+          sdf_shape=m.SdfShape.ELLIPSOID)
+    b.add(light, m.MeshType.SDF, (0.0, 1.0, -1.2), (0.3, 0.3, 0.3, 0.05),
+          sdf_shape=m.SdfShape.ROUND_BOX)
+    b.lights([7])   # a light found by its material's name alone otherwise
+    b.images(synthetic_texture())
+    return _build(b, device)
+
+
+def polygon_scene(device="cuda", builder=None, m=None):
+    """An SDF triangle and an SDF quad (the shapes that read aux) in a box
+    of five planes, lit directly by a sphere light, with no other SDF row:
+    the every-shape scene's cone puts its own square root's NaN into the
+    JAX package's gradient wherever a path touches it, which reaches every
+    leaf of such a path.  `builder`, `m`, `device`: as `sdf_light_scene`."""
+    b, m = _builder(builder, m)
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, -1.0, 0.0), (2.0,))
+    b.add("MAT_GREEN", m.MeshType.PLANE, (1.0, 0.0, 0.0), (2.0,))
+    b.add("MAT_RED", m.MeshType.PLANE, (-1.0, 0.0, 0.0), (2.0,))
+    b.add("MAT_WHITE", m.MeshType.PLANE, (0.0, 0.0, 1.0), (3.0,))
+    b.add("MAT_LIGHT_4", m.MeshType.SPHERE, (0.0, 1.2, -0.2), (0.3,))
+    sdf = m.MeshType.SDF
+    b.add("MAT_WHITE", sdf, (-0.6, -0.2, -1.4), (0.0,), sdf_shape=m.SdfShape.TRIANGLE,
+          aux=(-0.5, -0.5, 0.1, 0.5, -0.4, 0.0, 0.0, 0.5, -0.1))
+    b.add("MAT_CORNELL_WHITE", sdf, (0.6, -0.2, -1.4), (0.0,), sdf_shape=m.SdfShape.QUAD,
+          aux=(-0.4, -0.4, 0.0, 0.4, -0.45, 0.1, 0.45, 0.4, 0.0, -0.4, 0.4, -0.1))
+    return _build(b, device)
+
+
+#: the whole SDF class's scenes beside the presets: name -> (scene
+#: function, (camera origin, lookat, fov), config overrides)
+SDF_SCENE_VIEWS = {
+    "sdf_light": (sdf_light_scene, ((0.0, 0.0, 2.8), (0.0, 0.0, -1.0), 50.0),
+                  dict(max_bounces=2)),
+    "every_shape": (every_shape_scene, ((0.0, 0.0, 1.6), (0.0, -0.05, -1.0), 75.0),
+                    dict(max_bounces=2)),
+    "textured_sdf": (textured_sdf_scene, ((0.0, 0.9, 2.6), (0.0, -0.5, -1.2), 50.0),
+                     dict(max_bounces=2)),
+    "polygons": (polygon_scene, ((0.0, 0.0, 1.6), (0.0, -0.15, -1.0), 60.0),
+                 dict(max_bounces=2)),
+}
+
+
+def sdf_view(name, device="cuda", **cfg_kw):
+    """(scene, camera, config) of the scene `name` of SDF_SCENE_VIEWS."""
+    make, (origin, lookat, fov), kw = SDF_SCENE_VIEWS[name]
+    camera = Camera.make(origin=origin, lookat=lookat, fov=fov, device=device)
+    return make(device=device), camera, _cfg(**{**kw, **cfg_kw})
+
+
+@functools.cache
+def shape_rows():
+    """{shape: (pos, joker, aux)} of one SDF row of each shape: the
+    every-shape scene's, `default_scene`'s BOX, `menger_sponge`'s and
+    `mandelbulb`'s."""
+    rows = {}
+    scenes = [every_shape_scene(device="cpu")] + [
+        f(device="cpu")[0] for f in (default_scene, menger_sponge, mandelbulb)]
+    for s in scenes:
+        for k, shape in enumerate(s.sdf_shapes_static):
+            i = s.num_analytic + k
+            rows.setdefault(shape, tuple(getattr(s, f)[i].tolist() for f in ("pos", "joker", "aux")))
+    return rows
+
+
+def one_row_scene(shape, device="cuda", builder=None):
+    """A scene of the one SDF row of `shape` (an SdfShape code) of
+    `shape_rows`, lit by the procedural sky; `builder` (default this
+    package's SceneBuilder) may be another package's, with `device` None."""
+    pos, joker, aux = shape_rows()[shape]
+    b = (builder or SceneBuilder)().add("MAT_WHITE", MeshType.SDF, pos, joker, sdf_shape=shape,
+                                         aux=aux)
+    return _build(b, device)

@@ -18,13 +18,14 @@ backward launches K2.  K1 covers the class that `integrator.unsupported`
 states without ReSTIR (every surface material, textures of all ten types
 on analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
 uniform sampling, SDF meshes of every shape: `unsupported`; a ReSTIR pass
-runs on K6, `ops/restir_kernel.py`); K2 covers that class with its SDF
-rows narrowed to BOX and ROUND_BOX, untextured and unlit
-(`unsupported_bwd`), in
-two copies: the Cornell copy (analytic DIFF and LIGHT meshes, no texture,
-sphere-light slots, no cubemap, cosine sampling: `cornell_copy`) and the
-wide copy for the rest, each with its set of scene-table columns that
-have a cotangent (`bwd_columns`).  Their plain PyTorch version is
+runs on K6, `ops/restir_kernel.py`); K2 covers the same class
+(`unsupported_bwd`) in three copies (`bwd_copy`): the Cornell copy
+(analytic DIFF and LIGHT meshes, no texture, sphere-light slots, no
+cubemap, cosine sampling: `cornell_copy`), the whole-SDF copy for the
+scenes K1 runs its own whole-SDF copy on (`whole_sdf`: every SDF shape's
+distance adjoint, the texel of an SDF hit, SDF-light NEE) and the wide
+copy for the rest, each with its set of scene-table columns that have a
+cotangent (`bwd_columns`).  Their plain PyTorch version is
 `render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
 on the same inputs K1 traces the same paths, pixel for pixel, and K2
 gives the same gradients up to float32 rounding.
@@ -66,7 +67,7 @@ import numpy as np
 import torch
 
 from raytracer0_tpu_torch.config import RenderConfig
-from raytracer0_tpu_torch.models.materials import MatType, TexType
+from raytracer0_tpu_torch.models.materials import MatType, SdfShape, TexType
 from raytracer0_tpu_torch.ops import cuda_build, lighting, textures
 from raytracer0_tpu_torch.render import integrator
 
@@ -78,6 +79,9 @@ BWD_LAUNCHES = 0
 
 SOURCES = ("megakernel.cu",)
 BWD_SOURCES = ("megakernel_bwd.cu",)
+# K2's whole-SDF copy: the same source built alone (RT0_K2_WHOLE_SDF), a
+# library of its own that nvcc compiles beside the other two copies'
+BWD_SDF_SOURCES = ("megakernel_bwd_sdf.cu",)
 _NCOLS = 36
 # dynamic shared memory one block may take without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
@@ -178,6 +182,19 @@ _CORNELL_COLS = (0, 1, 2, 3, 7, 8, 9, 10, 11, 12)
 # RIPPLE (the divisor of their remainder), the noise types (their scale)
 _PARAM_TEX = (int(TexType.CHECK), int(TexType.RIPPLE), int(TexType.GRADIENT_NOISE),
               int(TexType.VALUE_NOISE), int(TexType.METAL))
+# the joker components (table columns 3 + k) and the count of aux entries
+# (columns 14 + k) that each SDF shape's distance reads (ops/sdf.py); a BOX
+# keeps joker.w's column too, as the wide copy has since it served BOX and
+# ROUND_BOX rows alone (a column no add reaches is 0), so those scenes keep
+# their layout
+_S = SdfShape
+_SDF_JOKER = {int(_S.BOX): (0, 1, 2, 3), int(_S.ROUND_BOX): (0, 1, 2, 3), int(_S.SPHERE): (0,),
+              int(_S.TRI_PRISM): (0, 1), int(_S.CONE): (0, 1, 2),
+              int(_S.MENGER_SPONGE): (0, 1, 2), int(_S.MANDELBULB): (),
+              int(_S.ELLIPSOID): (0, 1, 2), int(_S.CAPSULE): (0, 1, 2, 3),
+              int(_S.SNOWBALL): (0,), int(_S.SEA_BOX): (0, 1, 2, 3), int(_S.SIGGRAPH): (),
+              int(_S.TRIANGLE): (), int(_S.QUAD): ()}
+_SDF_AUX = {**{s: 0 for s in _SDF_JOKER}, int(_S.TRIANGLE): 9, int(_S.QUAD): 12}
 
 
 def cornell_copy(scene, cfg: RenderConfig) -> bool:
@@ -197,17 +214,20 @@ def cornell_copy(scene, cfg: RenderConfig) -> bool:
 def bwd_columns(scene, cfg: RenderConfig) -> tuple[int, ...]:
     """The scene-table columns K2 keeps a cotangent for on (scene, cfg),
     in table order: Cornell's 10 (pos, joker.x, color, emission), and in
-    the wide copy also joker 4:7 under SDF rows (a box's half extents and
-    a rounded box's radius), the IOR under refraction, a texture's params
-    (CHECK, RIPPLE and the noise types; a shadow ray reads the texel of
-    any mesh it hits), and the color and emission masks where a mesh
-    blends its texel into its color or emission.  No other column has a
-    gradient in this class (aux, for one, is read by no BOX or ROUND_BOX
-    distance)."""
+    the wide copy also the joker and aux columns that the scene's SDF rows
+    read (`_SDF_JOKER`, `_SDF_AUX`; an SDF light's sample reads its joker
+    0:3), the IOR under refraction, a texture's params (CHECK, RIPPLE and
+    the noise types; a shadow ray reads the texel of any mesh it hits),
+    and the color and emission masks where a mesh blends its texel into
+    its color or emission.  No other column has a gradient in this
+    class."""
     cols = set(_CORNELL_COLS)
     if not cornell_copy(scene, cfg):
-        if scene.num_sdfs:
-            cols |= {4, 5, 6}
+        na = scene.num_analytic
+        for shape in scene.sdf_shapes_static:
+            cols |= {3 + k for k in _SDF_JOKER[shape]} | {14 + k for k in range(_SDF_AUX[shape])}
+        if any(li >= na for li in scene.lights_static):
+            cols |= {3, 4, 5}
         if any(m in (int(MatType.REFR_FRESNEL), int(MatType.REFR_SCHLICK))
                for m in scene.mat_types_static):
             cols.add(13)
@@ -221,6 +241,16 @@ def bwd_columns(scene, cfg: RenderConfig) -> tuple[int, ...]:
         if any(e for _, _, e in blends):
             cols |= {33, 34, 35}
     return tuple(sorted(cols))
+
+
+def bwd_copy(scene, cfg: RenderConfig) -> str:
+    """The copy of K2 that runs (scene, cfg): "cornell" (`cornell_copy`),
+    "whole_sdf" (K1's whole-SDF class, `whole_sdf`: every SDF shape,
+    textured SDF rows, SDF lights) or "wide" (the rest).  The library picks
+    the same from its `wide` argument and `use_tex` bit 2 (`tex_flags`)."""
+    if cornell_copy(scene, cfg):
+        return "cornell"
+    return "whole_sdf" if whole_sdf(scene) else "wide"
 
 
 def _cols_mask(cols) -> int:
@@ -237,8 +267,8 @@ def bwd_layout(scene, cfg: RenderConfig, threads: int = BWD_THREADS,
     accumulators (where 3 blocks of per-thread columns would not fit an
     SM's shared memory), and the block's dynamic shared memory in bytes."""
     if fn is None:
-        fn = getattr(cuda_build.load("megakernel_bwd", BWD_SOURCES)[0],
-                     "rt0_trace_backward_layout")
+        lib = cuda_build.load(*bwd_library(bwd_copy(scene, cfg) == "whole_sdf"))[0]
+        fn = lib.rt0_trace_backward_layout
     fn.argtypes = (_c_int, _c_int, _c_int, ctypes.c_ulonglong, _c_int, _c_int,
                    ctypes.c_void_p)
     fn.restype = _c_int
@@ -258,12 +288,11 @@ def _texel_leaves(scene) -> tuple[str, ...]:
 
 def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
-    class (`unsupported`: every surface material, textures, sphere and
-    directional lights, cubemaps, uniform sampling, a table that fits the
-    shared memory; ReSTIR runs on K6 and K7) with K1's SDF class narrowed
-    to BOX and ROUND_BOX rows, untextured and unlit
-    (`integrator.outside_box_sdf`),
-    with a stash of at most MAX_SLOTS slots.  K2 gives the cotangents of
+    whole class (`unsupported`: every surface material, textures on
+    analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
+    uniform sampling, SDF meshes of every shape, a table that fits the
+    shared memory; ReSTIR runs on K6 and K7), with a stash of at most
+    MAX_SLOTS slots.  K2 gives the cotangents of
     the scene table and of the rays; a gradient asked of a texel array
     (the images, the noise LUT, the cubemap), which the JAX package also
     computes outside its kernels, is refused.  On many meshes K2 keeps a
@@ -272,7 +301,7 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     if cfg.use_restir:
         return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
                 "ROADMAP queue 1 item 11), not K2")
-    reason = integrator.outside_box_sdf(scene, "K2") or unsupported(scene, cfg)
+    reason = unsupported(scene, cfg)
     if reason is None and _texel_leaves(scene):
         reason = (f"a gradient w.r.t. the texel arrays {', '.join(_texel_leaves(scene))} "
                   f"(K2 differentiates the scene table and the rays): {_K2_ITEM}")
@@ -292,10 +321,25 @@ def build():
     return fn, info
 
 
+def bwd_library(whole: bool = False) -> tuple[str, tuple[str, ...]]:
+    """(name, sources) of the K2 library that holds its whole-SDF copy
+    (`whole`) or its Cornell and wide copies."""
+    return ("megakernel_bwd_sdf", BWD_SDF_SOURCES) if whole else ("megakernel_bwd", BWD_SOURCES)
+
+
 def build_bwd():
-    """Build (or load from `build/kernels/`) the K2 library.
-    Returns (ctypes function, cuda_build.BuildInfo)."""
-    lib, info = cuda_build.load("megakernel_bwd", BWD_SOURCES)
+    """Build (or load from `build/kernels/`) the K2 library of its Cornell
+    and wide copies.  Returns (ctypes function, cuda_build.BuildInfo)."""
+    return _bind_bwd(*cuda_build.load(*bwd_library()))
+
+
+def build_bwd_sdf():
+    """Build (or load from `build/kernels/`) the K2 library of its
+    whole-SDF copy.  Returns (ctypes function, cuda_build.BuildInfo)."""
+    return _bind_bwd(*cuda_build.load(*bwd_library(True)))
+
+
+def _bind_bwd(lib, info):
     fn = lib.rt0_trace_backward
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
@@ -416,7 +460,7 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, ct):
     partials = torch.empty((blocks, scene.num_meshes, len(cols)),
                            dtype=torch.float32, device=dev)
     d_table = torch.empty_like(table)
-    fn, _ = build_bwd()
+    fn, _ = build_bwd_sdf() if bwd_copy(scene, cfg) == "whole_sdf" else build_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, ct.data_ptr(), d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),

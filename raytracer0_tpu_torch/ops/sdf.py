@@ -199,17 +199,27 @@ def menger_sponge(p, scale):
 
 def mandelbulb(p):
     """Power-8 Mandelbulb, 3 iterations, DE = 0.25·log(m)·√m/dz; the GLSL
-    early break at |w|² > 4 is a done-mask."""
+    early break at |w|² > 4 is a done-mask.
+
+    A lane that is done iterates on w = 0 and m = 0, whose result the
+    `where` drops: iterated on its own large w, its polynomial overflows
+    (k3⁷ to inf, the products to inf · 0 = NaN), and autograd would carry
+    that NaN through the dropped branch as NaN · 0 (the double-`where` of
+    `vecmath.length`).  The forward value is the same either way; K2's
+    adjoint (`csrc/adjoint.cuh::mandelbulb_bwd`) skips the dead
+    iterations."""
     w = p
     m = vm.vdot(w, w)
     dz = torch.ones_like(m)
     done = torch.zeros_like(m, dtype=torch.bool)
     for _ in range(3):
-        m2 = m * m
+        w_live = vm.where3(done, torch.zeros_like(w), w)
+        m_live = torch.where(done, torch.zeros_like(m), m)
+        m2 = m_live * m_live
         m4 = m2 * m2
-        dz_new = 8.0 * torch.sqrt(torch.clamp_min(m4 * m2 * m, 1e-20)) * dz + 1.0
+        dz_new = 8.0 * torch.sqrt(torch.clamp_min(m4 * m2 * m_live, 1e-20)) * dz + 1.0
 
-        x, y, z = w[..., 0], w[..., 1], w[..., 2]
+        x, y, z = w_live[..., 0], w_live[..., 1], w_live[..., 2]
         x2, y2, z2 = x * x, y * y, z * z
         x4, y4, z4 = x2 * x2, y2 * y2, z2 * z2
         k3 = x2 + z2

@@ -3,14 +3,15 @@ the reservoir-vertex kernel K6v) and its adjoint K7, and the ray-cast
 kernel K5 on the GPU against their plain versions on the same card: K1 on
 the Cornell class and on the widened class (mirror, glass and coat,
 directional lights, cubemaps, uniform sampling, textures, SDF meshes), K2
-on the Cornell class (47 meshes too, and the same bits on two launches)
-and, in its wide copy, on the rest of that class,
+on the Cornell class (47 meshes too, and the same bits on two launches),
+in its wide copy on the rest of that class and in its whole-SDF copy on
+every SDF shape, textured SDF meshes and SDF lights (and `fit` through it),
 K6 on the ReSTIR presets (with MIS too, and under
 ANIMATED accumulation), K6v in both forms, K7 against the plain version's
 autograd over chains of passes, `fit` through the reservoir ring, K4 and
 K5 bit for bit and the split ReSTIR pass K4 and K6v serve, and the refusal
-of gradients outside K2's and K7's classes (texel arrays, other SDF
-shapes) and through the split path,
+of gradients outside K2's and K7's classes (texel arrays, mesh types K1
+does not render) and through the split path,
 and of blended textures and cubemaps on the split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
@@ -47,11 +48,10 @@ from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
 from raytracer0_tpu_torch.models import scene as scene_mod
-from test_torch_kernel_host import (TABLE_LEAVES, adjoint_case, assert_grads_close,
+from test_torch_kernel_host import (SHAPE_SCENES, TABLE_LEAVES, adjoint_case, assert_grads_close,
                                     assert_grads_close_f64, refreshed_ring, restir_chain_grads)
 from test_torch_texture_scenes import SCENE_VIEWS
 from test_torch_sdf_scenes import GATES, NEW_CLASSES, gate_reason, new_class_case
-from test_torch_sdf_scenes import SCENE_VIEWS as SDF_VIEWS
 
 pytestmark = pytest.mark.cuda
 
@@ -287,13 +287,13 @@ def test_forward_only_launches_no_adjoint(cuda):
 
 def test_adjoint_raises_outside_the_class(cuda):
     """A gradient through a scene K1/K2 do not cover raises; it never runs
-    the plain backward instead: an SDF shape other than BOX and ROUND_BOX
-    (item 8), and paths longer than K2's stash."""
-    scene = parse_scene("""
-        MAT_WHITE, PLANE, vec3(0.0, 1.0, 0.0), vec4(2.0)
-        MAT_LIGHT_4, SPHERE, vec3(0.0, 1.5, -1.0), vec4(0.3)
-        MAT_WHITE, SDF, vec3(0.0, 0.0, 0.0), vec4(0.3, 0.0, 0.0, 0.0)
-    """, sdf_shapes=[SdfShape.SPHERE], device=cuda)
+    the plain backward instead: a GRID_SDF mesh (item 8; K2 differentiates
+    every SDF shape K1 renders), and paths longer than K2's stash."""
+    sb = SceneBuilder()
+    sb.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
+    sb.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
+    sb.add("MAT_WHITE", MeshType.GRID_SDF, (0.0, 0.0, 0.0), (0.3, 0.3, 0.3, 0.05))
+    scene = sb.build(device=cuda)
     _, cam, cfg = cornell_default(device=cuda)
     ro, rd = generate_rays(cam, 8, 8, 0)
     em = scene.emission.clone().requires_grad_(True)
@@ -493,11 +493,8 @@ def test_sdf_kernel_matches_plain(cuda, where, kw):
 
 
 def _whole_sdf_case(where, device):
-    if where in SDF_VIEWS:
-        make, (origin, lookat, fov), kw = SDF_VIEWS[where]
-        return (make(SceneBuilder, materials, device=device),
-                Camera.make(origin=origin, lookat=lookat, fov=fov, device=device),
-                OFFLINE_CONFIG.replace(**kw))
+    if where in presets.SDF_SCENE_VIEWS:
+        return presets.sdf_view(where, device=device)
     return getattr(presets, where)(device=device)
 
 
@@ -526,10 +523,10 @@ def test_whole_sdf_kernel_matches_plain(cuda, where, kw):
 
 @pytest.mark.parametrize("where", NEW_CLASSES)
 def test_new_sdf_classes_refused_before_any_launch(cuda, where):
-    """Every gate but K1's refuses a Mandelbulb, a textured BOX SDF and an
-    SDF light naming item 8, and the routes behind them raise before any
-    launch: a gradient (K2), a ReSTIR pass (K4, K6), the split path (K4,
-    K6v), a ReSTIR gradient (K7) and K5's cast."""
+    """Every gate but K1's and K2's refuses a Mandelbulb, a textured BOX
+    SDF and an SDF light naming item 8, and the routes behind them raise
+    before any launch: a ReSTIR pass (K4, K6), the split path (K4, K6v), a
+    ReSTIR gradient (K7) and K5's cast."""
     scene, cam, cfg = new_class_case(where, cuda)
     counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
                       restir_kernel.BWD_LAUNCHES, restir_split.GBUF_LAUNCHES,
@@ -541,8 +538,6 @@ def test_new_sdf_classes_refused_before_any_launch(cuda, where):
     em = scene.emission.clone().requires_grad_(True)
     ro, rd = generate_rays(cam, 8, 8, 0)
     calls = [
-        lambda: megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
-                                         rng.pixel_ids(8, 8, device=cuda), 0, 0),
         lambda: Renderer(scene, cam, rcfg, 8, 8).step(),
         lambda: Renderer(scene, cam, rcfg.replace(restir_adhoc_motion=True), 8, 8).step(0.1),
         lambda: optimize.render_linear(scene.replace(emission=em), rcfg, cam, 8, 8, passes=2),
@@ -552,6 +547,125 @@ def test_new_sdf_classes_refused_before_any_launch(cuda, where):
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
     assert counts() == before
+
+
+@pytest.mark.parametrize("shape", [s.name for s in SdfShape] + ["every_shape"])
+def test_sdf_map_adjoint_matches_plain(cuda, shape):
+    """K2's adjoint of each SDF shape's distance on the card, in the scene
+    that holds it (tests/test_torch_kernel_host.py's SHAPE_SCENES) at
+    64x64, 2 bounces and 64 marching steps, one launch of the whole-SDF
+    copy: the cotangents of the rows of that shape and of the rays whose
+    first hit is one of them, against the plain autograd on the card under
+    `assert_grads_close_f64` (as test_whole_sdf_adjoint_matches_plain_autograd
+    holds those scenes)."""
+    from raytracer0_tpu_torch.ops import intersect
+
+    where = SHAPE_SCENES.get(shape, "every_shape")
+    scene, cam, cfg = _whole_sdf_case(where, cuda)
+    cfg = cfg.replace(max_bounces=2, marching_steps=64)
+    ro, rd = generate_rays(cam, 64, 64, 2)
+    pix = rng.pixel_ids(64, 64, device=cuda)
+    rows = [scene.num_analytic + k for k, sh in enumerate(scene.sdf_shapes_static)
+            if shape == "every_shape" or sh == int(SdfShape[shape])]
+    hit = intersect.intersect(scene, ro, rd, cfg, need_normal=False)
+    on = ~hit.missed & torch.isin(hit.idx, torch.tensor(rows, device=cuda))
+    assert int(on.sum()) >= 8
+
+    def grads_of(kind, mask):
+        out, g = _table_grads(megakernel.trace_forward if kind == "kernel" else integrator.trace,
+                              scene, cfg, ro, rd, pix,
+                              torch.float64 if kind == "plain64" else torch.float32, mask)
+        return out, {k: v[on] if k in ("ro", "rd") else v[rows] for k, v in g.items()}
+
+    before = megakernel.BWD_LAUNCHES
+    _, got = grads_of("kernel", None)
+    torch.cuda.synchronize()
+    assert megakernel.BWD_LAUNCHES == before + 1
+    _, want = grads_of("plain", None)
+    assert_grads_close_f64(got, want, grads_of, ill_conditioned=where == "menger_sponge",
+                           f64_leaves=("pos", "joker", "ro", "rd") if where == "default_scene"
+                           else ())
+    assert got["pos"].abs().max().item() > 0.0
+
+
+#: K2's whole-SDF copy on the card: (scene, config overrides)
+WHOLE_SDF_ADJOINT = {
+    "every_shape": ("every_shape", dict(max_bounces=4)),
+    "polygons": ("polygons", dict(max_bounces=4)),
+    "sdf_light": ("sdf_light", dict(max_bounces=4)),
+    "sdf_light_mis": ("sdf_light", dict(max_bounces=4, use_mis=True)),
+    "textured_sdf": ("textured_sdf", dict(max_bounces=4, use_mis=True)),
+    "default_scene": ("default_scene", dict(max_bounces=4)),
+    "mandelbulb": ("mandelbulb", dict(max_bounces=4, use_mis=True)),
+    "menger_sponge": ("menger_sponge", dict(max_bounces=4)),
+}
+
+
+@pytest.mark.parametrize("name", list(WHOLE_SDF_ADJOINT))
+def test_whole_sdf_adjoint_matches_plain_autograd(cuda, name):
+    """K2's whole-SDF copy against torch.autograd of the plain version on
+    the card at 64x64, 4 bounces and 64 marching steps, per table leaf
+    (aux among them) and the rays within 1e-4 relative, arbitrated in
+    float64 as `assert_grads_close_f64` does (`menger_sponge` on the pixels
+    where float32 and float64 take the same decisions, `default_scene`'s
+    pos, joker and rays held against float64): one K1 and one K2 launch,
+    K1's radiance the plain version's bit for bit."""
+    where, kw = WHOLE_SDF_ADJOINT[name]
+    scene, cam, cfg = _whole_sdf_case(where, cuda)
+    cfg = cfg.replace(marching_steps=64, **kw)
+    assert megakernel.unsupported_bwd(scene, cfg) is None
+    assert megakernel.bwd_copy(scene, cfg) == "whole_sdf"
+    h = w = 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    out, got = _table_grads(megakernel.trace_forward, scene, cfg, ro, rd, pix)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref, want = _table_grads(integrator.trace, scene, cfg, ro, rd, pix)
+    assert torch.equal(out, ref)
+    assert_grads_close_f64(got, want, lambda kind, mask: _table_grads(
+        megakernel.trace_forward if kind == "kernel" else integrator.trace, scene, cfg, ro, rd,
+        pix, torch.float64 if kind == "plain64" else torch.float32, mask),
+        ill_conditioned=where == "menger_sponge",
+        f64_leaves=("pos", "joker", "ro", "rd") if where == "default_scene" else ())
+    assert got["color"].abs().max().item() > 0.0 and got["pos"].abs().max().item() > 0.0
+    assert (got["aux"].abs().max().item() > 0.0) == (where in ("every_shape", "polygons"))
+
+
+@pytest.mark.parametrize("where", ["mandelbulb", "menger_sponge", "sdf_light"])
+def test_whole_sdf_fit_goes_through_k1_and_k2_only(cuda, monkeypatch, where):
+    """`optimize.fit` at 32x32 for 5 steps of `mandelbulb`'s light emission
+    and colors, `menger_sponge`'s color and the SDF light's position (a
+    geometric leaf through the implicit t of its shadow rays): the loss
+    falls, K1 and K2 launch once per step, the plain version never runs.
+    (`menger_sponge`'s joker is left out: its gradient, as the plain
+    version's, is the tetrahedral normal's derivative where its taps
+    straddle carvings finer than a step, and a fit of it may not descend.)"""
+    scene, cam, cfg = _whole_sdf_case(where, cuda)
+    cfg = cfg.replace(max_bounces=4, marching_steps=64)
+    mask = None
+    if where == "mandelbulb":
+        names, start = ("emission", "color"), dict(emission=scene.emission * 0.7,
+                                                   color=scene.color * 0.7)
+    elif where == "menger_sponge":
+        names, start = ("color",), dict(color=scene.color * 0.7)
+    else:
+        row = (torch.arange(scene.num_meshes, device=cuda) == 6).float()[:, None]
+        names, mask = ("pos",), {"pos": row}
+        start = dict(pos=scene.pos - 0.1 * row * torch.tensor([0.0, 1.0, 0.0], device=cuda))
+    target = megakernel.trace_forward(
+        scene, cfg, *generate_rays(cam, 32, 32, 0), rng.pixel_ids(32, 32, device=cuda), 0, 0)
+    plain_calls = []
+    plain = integrator.trace
+    monkeypatch.setattr(integrator, "trace", lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    _, losses = optimize.fit(scene.replace(**start), cfg, cam, target, list(names), steps=5,
+                             learning_rate=2e-2, param_mask=mask)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES - before[0], megakernel.BWD_LAUNCHES - before[1]) == (5, 5)
+    assert not plain_calls
+    assert losses[-1] < losses[0], losses
 
 
 def _restir_contract(out, ref, new, new_ref):
@@ -611,15 +725,18 @@ def test_restir_render_goes_through_k6_only(cuda):
 
 
 def test_gradient_through_sdf_or_restir_launches_nothing(cuda):
-    """A gradient through an SDF shape other than BOX and ROUND_BOX (item
-    8), or through a ReSTIR pass of `restir_demo` that asks for a leaf K7
-    does not compute (aux), raises before any kernel is launched; the BOX
-    of `mis_demo` runs through K2's wide copy."""
+    """A gradient through a mesh type K1 does not render (`mis_demo`'s box
+    made a GRID_SDF, item 8), or through a ReSTIR pass of `restir_demo` that
+    asks for a leaf K7 does not compute (aux), raises before any kernel is
+    launched; the BOX of `mis_demo` runs through K2's wide copy."""
     counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
                       restir_kernel.BWD_LAUNCHES)
     before = counts()
     scene, cam, cfg = presets.mis_demo(device=cuda)
-    other = scene.replace(sdf_shapes_static=(int(SdfShape.SPHERE),),
+    grid = tuple(int(MeshType.GRID_SDF) if t == int(MeshType.SDF) else t
+                 for t in scene.mesh_types_static)
+    other = scene.replace(mesh_types_static=grid,
+                          mesh_type=torch.tensor(grid, dtype=scene.mesh_type.dtype, device=cuda),
                           emission=scene.emission.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="SDF.*item 8"):
         render_pass(other, cam, cfg, RenderState.create(8, 8, device=cuda), 8, 8)

@@ -1,11 +1,12 @@
 """The whole SDF class against the JAX package, and the gates that keep it
 off the kernels that do not model it.
 
-The gates come first.  K1 and the plain version render every SDF shape,
-textures on SDF meshes and SDF-bound lights; K2, K4, K5, K6, K6v, K7, the
-split path and ReSTIR on both devices serve BOX and ROUND_BOX rows,
-untextured and unlit, and refuse the rest before any launch, naming
-ROADMAP queue 1 item 8 (`integrator.outside_box_sdf`).
+The gates come first.  K1, its adjoint K2 and the plain version render
+and differentiate every SDF shape, textures on SDF meshes and SDF-bound
+lights; K4, K5, K6, K6v, K7, the split path and ReSTIR on both devices
+serve BOX and ROUND_BOX rows, untextured and unlit, and refuse the rest
+before any launch, naming ROADMAP queue 1 item 8
+(`integrator.outside_box_sdf`).
 
 Then the plain version against `raytracer0_tpu`, on seeded numpy inputs:
 each of the 14 distances at a few hundred points within 1e-5, the scene
@@ -25,7 +26,6 @@ tests/test_megakernel.py:357-385): at least 97 % of the pixels within 1e-4
 and the means within 2 %.
 """
 
-import functools
 import os
 
 import numpy as np
@@ -46,11 +46,9 @@ from raytracer0_tpu.ops import sampling as jsampling
 from raytracer0_tpu.ops import sdf as jsdf
 from raytracer0_tpu.render import integrator as jint
 from raytracer0_tpu_torch import rng as trng
-from raytracer0_tpu_torch.models import materials as tmat
 from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.models.camera import Camera
 from raytracer0_tpu_torch.models.materials import SdfShape
-from raytracer0_tpu_torch.models.scene import SceneBuilder as TBuilder
 from raytracer0_tpu_torch.ops import lighting as tlighting
 from raytracer0_tpu_torch.ops import megakernel as tmk
 from raytracer0_tpu_torch.ops import sampling as tsampling
@@ -58,8 +56,9 @@ from raytracer0_tpu_torch.ops import sdf as tsdf
 from raytracer0_tpu_torch.render import integrator as tint
 from raytracer0_tpu_torch.render.renderer import Renderer
 
-from test_torch_sdf_scenes import (GATES, NEW_CLASSES, SCENE_VIEWS, every_shape_scene,
-                                   gate_reason, new_class_case)
+from test_torch_sdf_scenes import GATES, NEW_CLASSES, gate_reason, new_class_case
+
+SCENE_VIEWS = tpresets.SDF_SCENE_VIEWS
 
 # pytest-xdist runs the test files in worker processes that share the
 # cores: one torch thread each, or their intra-op pools oversubscribe them
@@ -77,11 +76,24 @@ FRACTALS = ("menger_sponge", "mandelbulb")
 @pytest.mark.parametrize("where", NEW_CLASSES)
 @pytest.mark.parametrize("gate", GATES)
 def test_gates_refuse_the_new_classes(gate, where):
-    """Every gate but K1's refuses a Mandelbulb, a textured BOX SDF and an
-    SDF light, naming item 8."""
+    """Every gate but K1's and K2's refuses a Mandelbulb, a textured BOX SDF
+    and an SDF light, naming item 8."""
     scene, cam, cfg = new_class_case(where, "cpu")
     reason = gate_reason(gate, scene, cam, cfg)
     assert reason is not None and "ROADMAP queue 1 item 8" in reason, reason
+
+
+@pytest.mark.parametrize("where", NEW_CLASSES)
+def test_k2_admits_the_new_classes(where):
+    """K2 admits a Mandelbulb, a textured BOX SDF and an SDF light in its
+    whole-SDF copy (K1's whole class), and still refuses a gradient through
+    them w.r.t. a texel array (item 14) or under ReSTIR (K7's)."""
+    scene, _, cfg = new_class_case(where, "cpu")
+    assert tmk.unsupported_bwd(scene, cfg) is None
+    assert tmk.bwd_copy(scene, cfg) == "whole_sdf" and not tmk.cornell_copy(scene, cfg)
+    noise = scene.noise.clone().requires_grad_(True)
+    assert "item 14" in tmk.unsupported_bwd(scene.replace(noise=noise), cfg)
+    assert "K7" in tmk.unsupported_bwd(scene, cfg.replace(use_restir=True))
 
 
 @pytest.mark.parametrize("where", NEW_CLASSES)
@@ -97,36 +109,15 @@ def test_k1_admits_the_new_classes(where):
 
 # ---------------------------------------------------------------- distances
 
-@functools.cache
-def _rows():
-    """{shape: (pos, joker, aux)} of one SDF row of each shape: the
-    every-shape scene's, `default_scene`'s BOX, `menger_sponge`'s and
-    `mandelbulb`'s."""
-    rows = {}
-    scenes = [every_shape_scene(TBuilder, tmat, device="cpu")] + [
-        getattr(tpresets, n)(device="cpu")[0] for n in ("default_scene", "menger_sponge",
-                                                        "mandelbulb")]
-    for s in scenes:
-        for k, shape in enumerate(s.sdf_shapes_static):
-            i = s.num_analytic + k
-            rows.setdefault(shape, tuple(getattr(s, f)[i].tolist() for f in ("pos", "joker", "aux")))
-    return rows
-
-
-def _one_row(builder, shape, **kw):
-    pos, joker, aux = _rows()[shape]
-    return builder().add("MAT_WHITE", tmat.MeshType.SDF, pos, joker, sdf_shape=shape,
-                         aux=aux).build(**kw)
-
-
 @pytest.mark.parametrize("shape", [s.name for s in SdfShape])
 def test_distance_matches_jax(shape):
     """Each distance of `_entry_distance` at 300 seeded points about its
     row (half of them near the surface), within 1e-5 of the JAX
     package's."""
     shape = int(SdfShape[shape])
-    ts, js = _one_row(TBuilder, shape, device="cpu"), _one_row(JBuilder, shape)
-    pos, joker, _ = (np.asarray(v, np.float32) for v in _rows()[shape])
+    ts = tpresets.one_row_scene(shape, device="cpu")
+    js = tpresets.one_row_scene(shape, device=None, builder=JBuilder)
+    pos, joker, _ = (np.asarray(v, np.float32) for v in tpresets.shape_rows()[shape])
     center = (pos + joker[:3]) / 2 if shape == SdfShape.CAPSULE else pos
     r = np.random.default_rng(shape)
     p = (center + np.concatenate([r.uniform(-1.2, 1.2, (150, 3)),
@@ -143,8 +134,8 @@ def test_scene_map_normal_and_bounds_match_jax():
     4-tap normal at seeded points, and the entries without a bounding
     sphere (whose presence turns the march's gate off) with the radii of
     the others."""
-    ts = every_shape_scene(TBuilder, tmat, device="cpu")
-    js = every_shape_scene(JBuilder, jmat)
+    ts = tpresets.every_shape_scene(device="cpu")
+    js = tpresets.every_shape_scene(device=None, builder=JBuilder, m=jmat)
     p = np.random.default_rng(7).uniform([-1.8, -1.6, -2.4], [1.8, 1.4, -0.6],
                                          (400, 3)).astype(np.float32)
     td, ti = tsdf.scene_map(ts, T(p))
@@ -173,7 +164,7 @@ def test_sdf_light_sampling_matches_jax():
                                np.asarray(jsampling.random_sphere_direction(u[0], u[1])),
                                rtol=0, atol=1e-6)
     make = SCENE_VIEWS["sdf_light"][0]
-    ts, js = make(TBuilder, tmat, device="cpu"), make(JBuilder, jmat)
+    ts, js = make(device="cpu"), make(device=None, builder=JBuilder, m=jmat)
     x = np.random.default_rng(4).uniform(-1.0, 1.0, (64, 3)).astype(np.float32)
     assert tlighting.slot_kind(ts, 0) == "sdf"
     np.testing.assert_array_equal(tlighting.light_pdf_slot(ts, 0, T(x)).numpy(),
@@ -196,7 +187,7 @@ def _case(where, mis, steps):
     """(JAX scene, port scene, JAX camera, config) of a case."""
     if where in SCENE_VIEWS:
         make, (origin, lookat, fov), kw = SCENE_VIEWS[where]
-        js, ts = make(JBuilder, jmat), make(TBuilder, tmat, device="cpu")
+        js, ts = make(device=None, builder=JBuilder, m=jmat), make(device="cpu")
         jc, cfg = jcam.Camera.make(origin=origin, lookat=lookat, fov=fov), J_OFFLINE.replace(**kw)
     else:
         js, jc, cfg = getattr(jpresets, where)()
