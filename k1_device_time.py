@@ -30,7 +30,12 @@ quartiles of 9 after 2 warm-ups) of a `Renderer.step` of `restir_demo`, of
 the real-time frame (`animated_untextured` with `restir_adhoc_motion`, the
 split path) and of the ANIMATED frame through K6, and of the ReSTIR
 gradient step d sum(`render_linear(passes=4)`) / d(emission, color, pos,
-joker, ior) with its peak memory above the inputs, all at 512x512.
+joker, ior) with its peak memory above the inputs, all at 512x512.  In a
+checkout with K4's and K6v's whole-SDF copies (`presets.restir_sdf_view`)
+the same K6 numbers and digests for `animated_restir` as shipped (its METAL
+ROUND_BOX, at t = 0.5) and the `mandelbulb` ReSTIR view, and the real-time
+frame of the preset as shipped (`realtime_frame_as_shipped_ms`,
+`digest_realtime_frames_as_shipped`).
 Finally a sha256 prefix of each kernel route's outputs on fixed inputs
 (K1, K4, K7, the K6 pass and the real-time frame), so two checkouts that
 should agree bit for bit can be seen to; with `--plain-nan`, the count of
@@ -410,6 +415,11 @@ def restir_route_ms(dev):
     cases = [(name, *getattr(presets, name)(device=dev), None) for name in RESTIR_PRESETS]
     if hasattr(presets, "animated_untextured"):
         cases.append(("animated", *presets.animated_untextured(device=dev), 0.5))
+    whole_sdf = hasattr(presets, "restir_sdf_view")   # K4's and K6v's whole-SDF copies
+    if whole_sdf:
+        cases.append(("animated_restir", *presets.animated_restir(device=dev), 0.5))
+        cases.append(("mandelbulb_restir", *presets.restir_sdf_view("mandelbulb", device=dev),
+                      None))
     for name, scene, cam, cfg, t in cases:
         renderer = Renderer(scene, cam, cfg, 512, 512)
         for k in range(16):
@@ -442,7 +452,7 @@ def restir_route_ms(dev):
         res[f"k6_{name}_by_kernel"] = {k: statistics.median(r[k] for r in per_kernel)
                                        for k in per_kernel[0]}
         if t is not None:
-            res["animated_k6_frame_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
+            res[f"{name}_k6_frame_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
         elif name == "restir_demo":
             res["restir_demo_pass_ms"] = _stats_ms(torch, renderer.step)
         del renderer, st, out, new
@@ -455,6 +465,15 @@ def restir_route_ms(dev):
         res["digest_realtime_frames"] = _digest(renderer.state.accum,
                                                 *renderer.state.restir_back.fields().values())
         res["realtime_frame_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
+        del renderer
+    if whole_sdf:   # the real-time frame of the preset as shipped
+        scene, cam, cfg = presets.animated_restir(device=dev, restir_adhoc_motion=True)
+        renderer = Renderer(scene, cam, cfg, 512, 512)
+        for k in range(16):
+            renderer.step(k / 30)
+        res["digest_realtime_frames_as_shipped"] = _digest(
+            renderer.state.accum, *renderer.state.restir_back.fields().values())
+        res["realtime_frame_as_shipped_ms"] = _stats_ms(torch, lambda: renderer.step(0.5))
         del renderer
 
     scene, cam, cfg = presets.restir_demo(device=dev)

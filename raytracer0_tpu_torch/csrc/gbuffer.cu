@@ -41,7 +41,12 @@
 // their paths.  The counter RNG keys on the pixel, so the bits do not
 // depend on which lane traces it; the last block to finish resets the
 // counter.  The meshes are scanned through their packed records
-// (trace_common.cuh::intersect_packed).  __launch_bounds__(128, 6) holds it
+// (trace_common.cuh::intersect_packed).  A scene whose SDF rows go beyond
+// BOX and ROUND_BOX, or are textured (use_tex bit 2, megakernel.whole_sdf),
+// runs the whole-SDF copy (kAll), as K1 does: every shape's distance in one
+// `noinline` scene map (trace_common.cuh::sdf_map_all) and an SDF hit's
+// texel at its row's box normal; the other scenes run the copies they ran
+// before.  __launch_bounds__(128, 6) holds it
 // to 80 registers, 6 blocks per SM against 5 at 96 (20-28 bytes spilled),
 // which was faster (PERF.md's ablation).  Numerics: no fast math, no FMA
 // contraction.
@@ -144,7 +149,7 @@ __device__ __forceinline__ long long next_ticket(unsigned *tickets) {
 // block count `tickets[1]` for the next launch, so a launch needs no host
 // call to clear them.  Every thread of the block must call it: it ends
 // with __syncthreads().
-template <bool kSdf>
+template <bool kSdf, bool kAll>
 __device__ __forceinline__ void regenerate_paths(const TraceArgs &a, const SceneSmem &s,
                                                  const PathSmem &ps, const PackedScene &pk,
                                                  unsigned *tickets, GbufLane &lane) {
@@ -161,7 +166,8 @@ __device__ __forceinline__ void regenerate_paths(const TraceArgs &a, const Scene
       lane.start(p);
       live = a.max_bounces > 0;
     }
-    if (live) live = path_step<kSdf>(a, s, ps, pk, st, lane.direct) && ++st.depth < a.max_bounces;
+    if (live)
+      live = path_step<kSdf, kAll>(a, s, ps, pk, st, lane.direct) && ++st.depth < a.max_bounces;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -173,16 +179,24 @@ __device__ __forceinline__ void regenerate_paths(const TraceArgs &a, const Scene
   }
 }
 
-template <bool kSdf>
+// kSdf: the SDF march; kAll (with kSdf): the whole SDF class.
+template <bool kSdf, bool kAll>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 gbuf_kernel(TraceArgs a, GbufArgs g, unsigned *tickets) {
   extern __shared__ __align__(16) float smem[];
   SceneSmem s;
   const PathSmem ps = load_path(a, smem, s);
   const PackedScene pk =
-      load_packed(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
+      load_packed<kAll>(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
   GbufLane lane = {a, {g, -1, a.n_pix, 0u}};
-  regenerate_paths<kSdf>(a, s, ps, pk, tickets, lane);
+  regenerate_paths<kSdf, kAll>(a, s, ps, pk, tickets, lane);
+}
+
+// The copy of K4 `flags` names: bit 0 the SDF march, bit 1 the whole SDF
+// class (which implies the march).
+inline void (*gbuf_copy(int flags))(TraceArgs, GbufArgs, unsigned *) {
+  if (flags & 2) return gbuf_kernel<true, true>;
+  return (flags & 1) ? gbuf_kernel<true, false> : gbuf_kernel<false, false>;
 }
 
 }  // namespace
@@ -194,7 +208,8 @@ gbuf_kernel(TraceArgs a, GbufArgs g, unsigned *tickets) {
 // than the image needs run) and the ticket counter: two zeroed uint32 on
 // the device, which the launch leaves zeroed, of this launch alone while it
 // runs.  A scene without SDF rows runs the copy of the kernel built
-// without the march.
+// without the march, a scene whose SDF rows go beyond BOX and ROUND_BOX,
+// untextured and unlit (use_tex bit 2), the whole-SDF copy.
 extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, const int32_t *mat,
                                    int n_mesh, const int32_t *lights, int n_lights,
                                    const float *ro, const float *rd, const int64_t *pix,
@@ -224,16 +239,15 @@ extern "C" int rt0_gbuffer_forward(const float *table, const int32_t *mesh, cons
   const long long cover = (n_pix + THREADS - 1) / THREADS;  // blocks of one pixel a thread
   const unsigned blocks = (unsigned)(grid > cover ? cover : grid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_sdf > 0)
-    gbuf_kernel<true><<<blocks, THREADS, smem, st>>>(a, g, tickets);
-  else
-    gbuf_kernel<false><<<blocks, THREADS, smem, st>>>(a, g, tickets);
+  void (*kern)(TraceArgs, GbufArgs, unsigned *) =
+      gbuf_copy(int(n_sdf > 0) | ((use_tex & 4) ? 2 : 0));
+  kern<<<blocks, THREADS, smem, st>>>(a, g, tickets);
   return (int)cudaGetLastError();
 }
 
 // K4's occupancy at `threads` threads and `smem` bytes of dynamic shared
-// memory (trace_common.cuh::kernel_occupancy; the copy with the SDF march when `sdf` is set).
-extern "C" int rt0_gbuffer_forward_occupancy(int sdf, int threads, long long smem, int *out) {
-  return sdf ? kernel_occupancy(gbuf_kernel<true>, threads, (size_t)smem, out)
-             : kernel_occupancy(gbuf_kernel<false>, threads, (size_t)smem, out);
+// memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
+// bit 0 the SDF march, bit 1 the whole SDF class.
+extern "C" int rt0_gbuffer_forward_occupancy(int flags, int threads, long long smem, int *out) {
+  return kernel_occupancy(gbuf_copy(flags), threads, (size_t)smem, out);
 }

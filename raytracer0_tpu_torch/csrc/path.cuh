@@ -15,8 +15,9 @@
 // scenes without SDF meshes.  K1 runs one pixel per thread (trace_path);
 // K4 keeps its lanes busy with new pixels as paths end
 // (gbuffer.cu::regenerate_paths).  Both scan the scene through its packed
-// records (intersect_packed).  `kAll` compiles K1's copy for the whole SDF
-// class: every SDF shape, the texel of an SDF hit and SDF-light NEE.
+// records (intersect_packed).  `kAll` compiles K1's and K4's copies for the
+// whole SDF class: every SDF shape, the texel of an SDF hit and (K1's)
+// SDF-light NEE.
 
 #pragma once
 
@@ -188,8 +189,8 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   }
 
   V3 x = o + d * tmin;
-  // an SDF hit's normal is the field's gradient; its texel (kAll: K1's
-  // whole-SDF copy, the only one that meets textured SDF rows) reads the UV
+  // an SDF hit's normal is the field's gradient; its texel (kAll: K1's and
+  // K4's whole-SDF copies, the only ones that meet textured SDF rows) reads the UV
   // of its row's box normal, as intersect.parse_hit gives it
   V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
   V3 c, e;

@@ -32,6 +32,15 @@
 // (`RestirVertex`) is the fused form K6v and K7 run; the split form's
 // additions are `if constexpr`, so they leave its code, and K7's, as they
 // are (chip_smoke.py phase 2 checks K7's registers).
+//
+// `kAll` selects K6v's whole-SDF copy, for scenes whose SDF rows go beyond
+// BOX and ROUND_BOX or are textured (use_tex bit 2,
+// megakernel.whole_sdf): its two shadow rays march every shape
+// (trace_common.cuh::intersect_scene<true, true>, the scene map of K1's
+// whole-SDF copy), which the casts of the plain version's
+// intersect.intersect and of the TPU's cast kernel run.  It reads no
+// texel: the target function and the shading read the rows' own color and
+// emission, as the plain version does.  K7 compiles neither flag.
 
 #pragma once
 
@@ -150,9 +159,9 @@ __device__ __forceinline__ void load_slots(const TraceArgs &a, float *slots) {
 
 // The reservoir vertex (restir.reservoir_direct) of one diffuse vertex:
 // `run` returns the shaded direct light without the throughput and keeps
-// the vertex's reservoir in `r`.  `kSplit` selects the split form (the
-// header comment).
-template <bool kSplit = false>
+// the vertex's reservoir in `r`.  `kSplit` selects the split form, `kAll`
+// the whole-SDF copy (the header comment).
+template <bool kSplit = false, bool kAll = false>
 struct RestirVertexT {
   using R = std::conditional_t<kSplit, ResL, Res>;
   const SceneSmem &s;
@@ -170,6 +179,15 @@ struct RestirVertexT {
     return {slots[l * NSLOT + 3], slots[l * NSLOT + 4], slots[l * NSLOT + 5]};
   }
   __device__ __forceinline__ bool in_range(int l) const { return l >= 0 && l < s.n_lights; }
+
+  // A shadow ray's nearest hit (intersect.intersect): the march over the
+  // BOX and ROUND_BOX rows, or over every shape in the whole-SDF copy.
+  __device__ __forceinline__ void cast(V3 o, V3 d, float &t, int &idx) const {
+    if constexpr (kAll)
+      intersect_scene<true, true>(s, sd, o, d, a.eps, a.inf, t, idx, a.noise, a.noise_n);
+    else
+      intersect_scene<true>(s, sd, o, d, a.eps, a.inf, t, idx);
+  }
 
   // The light data reservoir q holds: the carried copy in the split form,
   // else its slot's (zeros for no slot).
@@ -391,7 +409,7 @@ struct RestirVertexT {
     const V3 sdir = {sdv.x / dist, sdv.y / dist, sdv.z / dist};
     float tv;
     int iv;
-    intersect_scene<true>(s, sd, x + sdir * ra.eps2, sdir, a.eps, a.inf, tv, iv);
+    cast(x + sdir * ra.eps2, sdir, tv, iv);
     const bool blocked = tv < a.inf && tv < dist - ra.eps2;
     return dist < ra.eps10 || !blocked || s.mat[iv] == MAT_LIGHT;
   }
@@ -477,7 +495,7 @@ struct RestirVertexT {
     const V3 sr = sample_cone(normalize(sw), 1.0f - cos_a_max, u1, u2);
     float ts;
     int hidx;
-    intersect_scene<true>(s, sd, x + nl * a.eps, sr, a.eps, a.inf, ts, hidx);
+    cast(x + nl * a.eps, sr, ts, hidx);
     V3 light = {0.0f, 0.0f, 0.0f};
     const bool lit = ts < a.inf && s.mat[hidx] == MAT_LIGHT;
     if (lit) {

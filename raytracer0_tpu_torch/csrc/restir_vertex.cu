@@ -39,7 +39,10 @@
 // depth (62.6 % of its lane slots useful on restir_demo) with the whole
 // bounce state live; here a warp's lanes take their slots in step (96.5 %
 // of the (pixel, slot) pairs are valid there) and no bounce state is live.
-// Numerics: no fast math, no FMA contraction.
+// A scene whose SDF rows go beyond BOX and ROUND_BOX, or are textured
+// (use_tex bit 2, megakernel.whole_sdf), runs the whole-SDF copy of either
+// form (kAll), whose shadow rays march every shape; the other scenes run
+// the copies they ran before.  Numerics: no fast math, no FMA contraction.
 
 #include "restir.cuh"
 
@@ -66,7 +69,7 @@ __device__ __forceinline__ void store3(float *dst, long long q, V3 v) {
   dst[3 * q + 2] = v.z;
 }
 
-template <bool kSplit>
+template <bool kSplit, bool kAll>
 __global__ void __launch_bounds__(THREADS)
     restir_vertex_kernel(TraceArgs a, RestirArgs ra, VertexArgs g) {
   extern __shared__ float smem[];
@@ -78,7 +81,7 @@ __global__ void __launch_bounds__(THREADS)
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.n_pix) return;  // ragged edge
 
-  using Vertex = RestirVertexT<kSplit>;
+  using Vertex = RestirVertexT<kSplit, kAll>;
   const uint32_t id = (uint32_t)a.pix[p];
   Vertex v = {s, ps.sd, a, ra, slots, (int)(id / (uint32_t)ra.width),
               (int)(id % (uint32_t)ra.width), Vertex::empty()};
@@ -113,6 +116,14 @@ __global__ void __launch_bounds__(THREADS)
   ra.idx[p] = kept.idx;
 }
 
+// The copy of K6v `flags` names: bit 0 the split form, bit 1 the whole SDF
+// class.
+inline void (*vertex_copy(int flags))(TraceArgs, RestirArgs, VertexArgs) {
+  if (flags & 2)
+    return (flags & 1) ? restir_vertex_kernel<true, true> : restir_vertex_kernel<false, true>;
+  return (flags & 1) ? restir_vertex_kernel<true, false> : restir_vertex_kernel<false, false>;
+}
+
 }  // namespace
 
 // Launch K6v on `stream`; returns cudaGetLastError() of the launch.  The
@@ -124,7 +135,9 @@ __global__ void __launch_bounds__(THREADS)
 // light_color, ws, m, w, age, light_index), all device pointers; `taps`
 // (host memory) the 8 spatial taps' (row, column) offsets; then K4's
 // G-buffer, the running sum (split form, else null), the slot count, the
-// form and the ad-hoc reprojection (split form only).
+// form and the ad-hoc reprojection (split form only).  A scene whose SDF
+// rows go beyond BOX and ROUND_BOX, untextured and unlit (use_tex bit 2),
+// runs the form's whole-SDF copy.
 extern "C" int rt0_restir_vertex(const float *table, const int32_t *mesh, const int32_t *mat,
                                  int n_mesh, const int32_t *lights, int n_lights, const float *ro,
                                  const float *rd, const int64_t *pix, float *out, long long n_pix,
@@ -165,17 +178,15 @@ extern "C" int rt0_restir_vertex(const float *table, const int32_t *mesh, const 
   const size_t smem = path_smem_bytes(n_mesh, n_lights, n_sdf) + sizeof(float) * NSLOT * n_lights;
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (split)
-    restir_vertex_kernel<true><<<blocks, THREADS, smem, st>>>(a, ra, g);
-  else
-    restir_vertex_kernel<false><<<blocks, THREADS, smem, st>>>(a, ra, g);
+  void (*kern)(TraceArgs, RestirArgs, VertexArgs) =
+      vertex_copy((split ? 1 : 0) | ((use_tex & 4) ? 2 : 0));
+  kern<<<blocks, THREADS, smem, st>>>(a, ra, g);
   return (int)cudaGetLastError();
 }
 
 // K6v's occupancy at `threads` threads and `smem` bytes of dynamic shared
-// memory (trace_common.cuh::kernel_occupancy; the split form when `split`
-// is set).
-extern "C" int rt0_restir_vertex_occupancy(int split, int threads, long long smem, int *out) {
-  return split ? kernel_occupancy(restir_vertex_kernel<true>, threads, (size_t)smem, out)
-               : kernel_occupancy(restir_vertex_kernel<false>, threads, (size_t)smem, out);
+// memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
+// bit 0 the split form, bit 1 the whole SDF class.
+extern "C" int rt0_restir_vertex_occupancy(int flags, int threads, long long smem, int *out) {
+  return kernel_occupancy(vertex_copy(flags), threads, (size_t)smem, out);
 }

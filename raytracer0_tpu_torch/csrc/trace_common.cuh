@@ -343,17 +343,28 @@ __device__ __forceinline__ V3 sdf_normal(const SceneSmem &s, const SdfScene &sd,
 
 // intersect.intersect: the analytic hit, then the SDF march up to it (up to
 // `inf` when nothing analytic is hit); the SDF wins where strictly nearer.
-// Returns whether it won.  kSdf = false is the analytic intersection alone.
-template <bool kSdf>
+// Returns whether it won.  kSdf = false is the analytic intersection alone;
+// kAll (K6v's whole-SDF copy) marches every shape through sdf_map_all with
+// the value-noise LUT `lut` of a SNOWBALL, each gate radius from the table.
+template <bool kSdf, bool kAll = false>
 __device__ __forceinline__ bool intersect_scene(const SceneSmem &s, const SdfScene &sd, V3 o, V3 d,
-                                                float eps, float inf, float &tmin, int &idx) {
+                                                float eps, float inf, float &tmin, int &idx,
+                                                const float *lut = nullptr, int lut_n = 0) {
   intersect(s, o, d, eps, tmin, idx);
   if constexpr (kSdf) {
     if (sd.count > 0) {
       const float tl = tmin < inf ? tmin : inf;
       float ts;
       int k;
-      if (sdf_march(s, sd, o, d, tl, eps, ts, k) && ts < tl) {
+      bool hit;
+      if constexpr (kAll)
+        hit = sdf_march_gated<true>(
+            s, sd, o, d, tl, eps, ts, k,
+            [&](int i) { return sdf_gate_radius<true>(s.col(sd.first + i, C_J0), sd.shape[i]); },
+            lut, lut_n);
+      else
+        hit = sdf_march(s, sd, o, d, tl, eps, ts, k);
+      if (hit && ts < tl) {
         tmin = ts;
         idx = sd.first + k;
         return true;

@@ -3,7 +3,8 @@
 `restir_demo`, `restir_stress`,
 `animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
 `textured_emitter`), `animated_untextured`, the variant of
-`animated_restir` that the port renders, and three scenes that the port's
+`animated_restir` without its texture that the port's timings keep for
+comparison, and three scenes that the port's
 tests and timing scripts share: `many_lights` (K2's Cornell copy with many
 meshes), `textured_restir_demo` (a ReSTIR scene with a blended texture)
 and `config2` (glass, a mirror and coat under MIS).  The whole SDF class
@@ -11,7 +12,8 @@ has scenes of its own beside presets 0, 2 and 3 (`SDF_SCENE_VIEWS`,
 `sdf_view`): every SDF shape the presets lack, an SDF light, textured SDF
 rows and the two polygon shapes, each built alike by either package's
 SceneBuilder (so the tests can hold the two packages on the same scene),
-and a scene of one SDF row of each shape (`one_row_scene`).
+and a scene of one SDF row of each shape (`one_row_scene`); ReSTIR views
+of the class (`RESTIR_SDF_VIEWS`, `restir_sdf_view`).
 
 Each preset returns `(scene, camera, config)`.  The other presets of the
 JAX package come with the slices that add their features (ROADMAP queue 1
@@ -276,8 +278,9 @@ _ANIMATED_RESTIR = """
 def animated_restir(device="cuda", **cfg_kw):
     """Preset 7 (index.html:1015-1092): 9 moving lights, real-time budget
     (ANIMATED_CONFIG: 6 bounces, EMA accumulation, ReSTIR on).  Its rounded
-    box is MAT_METAL, a METAL texture blended into an SDF mesh, which the
-    port refuses on both devices (ROADMAP queue 1 item 8)."""
+    box is MAT_METAL, a METAL texture blended into an SDF mesh: on the card
+    K4 and K6v render it in their whole-SDF copies; a gradient through it
+    under ReSTIR is refused (K7 replays no texel, ROADMAP queue 1 item 8)."""
     scene = parse_scene(_ANIMATED_RESTIR, sdf_shapes=[SdfShape.ROUND_BOX], device=device)
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)
@@ -286,8 +289,9 @@ def animated_restir(device="cuda", **cfg_kw):
 
 def animated_untextured(device="cuda", **cfg_kw):
     """`animated_restir` with its rounded box MAT_WHITE (the variant of
-    tests/test_animated.py:73-85): the real-time ReSTIR scene that the port
-    renders."""
+    tests/test_animated.py:73-85): the real-time ReSTIR scene the port
+    measured before it rendered the preset as shipped, kept so its times
+    stay comparable, and a scene K7 differentiates."""
     scene = parse_scene(_ANIMATED_RESTIR.replace("MAT_METAL, SDF", "MAT_WHITE, SDF"),
                         sdf_shapes=[SdfShape.ROUND_BOX], device=device)
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
@@ -554,3 +558,20 @@ def one_row_scene(shape, device="cuda", builder=None):
     b = (builder or SceneBuilder)().add("MAT_WHITE", MeshType.SDF, pos, joker, sdf_shape=shape,
                                          aux=aux)
     return _build(b, device)
+
+
+#: ReSTIR views of the whole SDF class, one sphere light each, so ReSTIR
+#: engages with MIS off (the JAX `supported_restir`): name -> the scene's
+#: (scene, camera, config) function, with `device` and config overrides
+RESTIR_SDF_VIEWS = {
+    "mandelbulb": mandelbulb,
+    "every_shape": functools.partial(sdf_view, "every_shape"),
+    "polygons": functools.partial(sdf_view, "polygons"),
+}
+
+
+def restir_sdf_view(name, device="cuda", **cfg_kw):
+    """(scene, camera, config) of the ReSTIR view `name` of
+    RESTIR_SDF_VIEWS: the scene's own view with ReSTIR on and MIS off."""
+    kw = dict(dict(use_restir=True, use_mis=False), **cfg_kw)
+    return RESTIR_SDF_VIEWS[name](device=device, **kw)

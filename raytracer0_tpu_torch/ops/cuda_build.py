@@ -99,11 +99,12 @@ def load(name: str, sources: tuple[str, ...]):
 
 
 def occupancy(name: str, sources: tuple[str, ...], symbol: str, threads: int, smem: int,
-              sdf: bool = False) -> dict:
+              flags: int = 0) -> dict:
     """What `cudaOccupancyMaxActiveBlocksPerMultiprocessor` gives for a
     kernel of library `name` through its `*_occupancy` export (`symbol`)
     at `threads` threads a block and `smem` bytes of dynamic shared memory
-    (`sdf`: the copy with the SDF march, where the kernel has two):
+    (`flags`: the copy, where the kernel has several, as its export reads
+    them; for K1, K4 and K5 bit 0 is the copy with the SDF march):
     {"blocks", "warps"} per SM, the "registers" and "local_bytes" (stack
     and spills) per thread, and the "threads" and "smem" asked for."""
     lib, _ = load(name, sources)
@@ -111,7 +112,7 @@ def occupancy(name: str, sources: tuple[str, ...], symbol: str, threads: int, sm
     fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p)
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
-    rc = fn(int(sdf), threads, smem, out)
+    rc = fn(int(flags), threads, smem, out)
     if rc != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
     return {"blocks": out[0], "warps": out[0] * -(-threads // 32), "registers": out[1],

@@ -88,6 +88,8 @@ BWD_SOURCES = ("restir_bwd.cu",)
 #: The ring's float fields, which carry a gradient from pass to pass.
 RING_FLOATS = ("weight_sum", "m", "w", "age")
 _ITEM = "ROADMAP queue 1 item 11"
+# K7 over the whole SDF class and blended textures: item 8's remainder
+_K7_ITEM = "ROADMAP queue 1 item 8"
 # K7: stash depth (MAX_SLOTS in restir_bwd.cu), candidates its tape holds,
 # cotangent columns kept per thread (table columns 0:14), the opt-in shared
 # memory of one block, and block sizes tried in order until the per-thread
@@ -115,21 +117,19 @@ def unsupported_restir(scene, cfg: RenderConfig) -> Optional[str]:
     config in the class of `integrator.unsupported` (the JAX
     `supported_restir_fused`: ReSTIR engaged, LIGHT-sphere slots, no
     photographic cubemap, cosine sampling, static or animated
-    accumulation) with the pixel's own history (the ad-hoc reprojection
-    runs on the split path, `ops/restir_split.py`), BOX and ROUND_BOX SDF
-    rows, untextured and unlit (`integrator.outside_box_sdf`), without
-    blended textures, which no test holds K6 to yet, or a cubemap, whose gather ray
-    adds to the radiance between the vertices K6v sums, in K4's and K6v's
-    classes."""
+    accumulation; SDF rows of every shape and textures blended into any
+    row, which K4 and K6v run in their whole-SDF copies where
+    `megakernel.whole_sdf` says so) with the pixel's own history (the
+    ad-hoc reprojection runs on the split path, `ops/restir_split.py`),
+    without a cubemap, whose gather ray adds to the radiance between the
+    vertices K6v sums, in K4's and K6v's classes."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
     if cfg.restir_adhoc_motion:
         return ("ReSTIR's ad-hoc temporal reprojection runs on the split path of K4 and K6v's "
                 "split form (ops/restir_split.py, restir_split.render_sample_fast), not the K6 "
                 f"pass: {_ITEM}")
-    reason = integrator.outside_box_sdf(scene, "K6") or integrator.unsupported(scene, cfg)
-    if reason is None and textures.blended(scene):
-        reason = f"textures blended into color or emission under ReSTIR on K6: {_ITEM}"
+    reason = integrator.unsupported(scene, cfg)
     if reason is None and cfg.use_cubemap:
         reason = f"a cubemap and its gather ray under ReSTIR on K6: {_ITEM}"
     # K6v's gate covers K4's beyond `integrator.unsupported` (slots, and a
@@ -161,18 +161,33 @@ def bwd_threads(scene) -> Optional[int]:
     return None
 
 
+def outside_k7_class(scene) -> Optional[str]:
+    """What of the scene lies outside the class K7 replays, or None: SDF
+    rows of the ROUND_BOX shape alone (the distance whose adjoint it has),
+    no texture blended into any row (it replays no texel), SDF rows
+    included, and no light slot on an SDF row.  K7's own check, made
+    before K6's gate (which admits all of these since K4 and K6v gained
+    their whole-SDF copies), so a wider K6 never sends K7 a scene it would
+    differentiate wrongly."""
+    if any(s != int(SdfShape.ROUND_BOX) for s in scene.sdf_shapes_static):
+        return f"SDF shapes other than ROUND_BOX (K7's SDF adjoint): {_K7_ITEM}"
+    if textures.blended(scene):
+        return ("textures blended into color or emission, on SDF rows or any other, under a "
+                f"ReSTIR gradient (K7 replays no texel): {_K7_ITEM}")
+    return integrator.outside_box_sdf(scene, "K7")
+
+
 def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
-    """Why K7 cannot differentiate (scene, cfg), or None when it can: K6's
-    class with ROUND_BOX SDF meshes (the distance whose adjoint K7 has), a
-    stash of at most MAX_SLOTS slots, at most MAX_CAND candidates,
-    accumulators that fit the shared memory of a block of 32 threads, and
-    no gradient asked of a leaf K7 leaves without one (aux, the texture
-    columns, images, the noise LUT, the cubemap)."""
-    reason = integrator.outside_box_sdf(scene, "K7") or unsupported_restir(scene, cfg)
+    """Why K7 cannot differentiate (scene, cfg), or None when it can: its
+    own class first (`outside_k7_class`: ROUND_BOX SDF rows, no blended
+    texture, no SDF light), then K6's class, a stash of at most MAX_SLOTS
+    slots, at most MAX_CAND candidates, accumulators that fit the shared
+    memory of a block of 32 threads, and no gradient asked of a leaf K7
+    leaves without one (aux, the texture columns, images, the noise LUT,
+    the cubemap)."""
+    reason = outside_k7_class(scene) or unsupported_restir(scene, cfg)
     if reason is not None:
         return reason
-    if any(s != int(SdfShape.ROUND_BOX) for s in scene.sdf_shapes_static):
-        return f"SDF shapes other than ROUND_BOX (K7's SDF adjoint): ROADMAP queue 1 item 8"
     if bwd_slots(cfg) > MAX_SLOTS:
         return f"paths of {bwd_slots(cfg)} slots, more than K7's stash of {MAX_SLOTS}"
     if restir_vertex.restir_args(cfg, scene.num_lights)[0] > MAX_CAND:

@@ -51,7 +51,7 @@ from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models import scene as scene_mod
 from raytracer0_tpu_torch.models.camera import generate_rays
 from raytracer0_tpu_torch.models.scene import TENSOR_FIELDS
-from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_vertex, textures
+from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir, restir_vertex
 from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import Reservoirs
 
@@ -100,12 +100,13 @@ def unsupported_gbuffer(scene, cfg: RenderConfig) -> Optional[str]:
     `supported_restir` (raytracer0_tpu/ops/megakernel.py:545-560), a ReSTIR
     config in the class of `integrator.unsupported` (ReSTIR engaged,
     LIGHT-sphere slots, no photographic cubemap, cosine sampling, static or
-    animated, the ad-hoc reprojection or not) with BOX and ROUND_BOX SDF
-    rows, untextured and unlit (`integrator.outside_box_sdf`), at most
-    MAX_GBUF_SLOTS slots and a table that fits the shared memory."""
+    animated, the ad-hoc reprojection or not; SDF rows of every shape and
+    blended textures, in the whole-SDF copy where `megakernel.whole_sdf`
+    says so), at most MAX_GBUF_SLOTS slots and a table that fits the
+    shared memory."""
     if not cfg.use_restir:
         return "not a ReSTIR config (use_restir is off): K1 renders it"
-    reason = integrator.outside_box_sdf(scene, "K4") or integrator.unsupported(scene, cfg)
+    reason = integrator.unsupported(scene, cfg)
     if reason is None and gbuffer_slots(cfg) > MAX_GBUF_SLOTS:
         reason = f"{gbuffer_slots(cfg)} G-buffer slots, more than K4's {MAX_GBUF_SLOTS}"
     return reason or megakernel.check_smem(megakernel.packed_smem_bytes(scene))
@@ -134,8 +135,15 @@ def build_gbuffer():
 # (device, stream) -> int32[2] zeros: K4's ticket counter and finished-block
 # count, which every launch leaves zeroed (its last block resets them)
 _TICKETS: dict = {}
-# (device, SDF copy, shared memory bytes) -> blocks of K4 that stay resident
+# (device, copy, shared memory bytes) -> blocks of K4 that stay resident
 _RESIDENT: dict = {}
+
+
+def gbuffer_copy(scene) -> int:
+    """The copy of K4 that `scene` runs, as `rt0_gbuffer_forward` picks it:
+    bit 0 the SDF march (a scene with SDF rows), bit 1 the whole SDF class
+    (`megakernel.whole_sdf`)."""
+    return int(scene.num_sdfs > 0) | 2 * int(megakernel.whole_sdf(scene))
 
 
 def ticket_counter(dev, stream: int):
@@ -147,15 +155,16 @@ def ticket_counter(dev, stream: int):
     return _TICKETS[key]
 
 
-def resident_blocks(dev, sdf: bool, smem: int) -> int:
-    """K4's persistent grid on device `dev`: the blocks of 128 threads that
-    stay resident at `smem` bytes of dynamic shared memory
-    (`rt0_gbuffer_forward_occupancy`, the copy with the SDF march when
-    `sdf` is set) times the SMs; computed once per device and size."""
-    key = (dev, sdf, smem)
+def resident_blocks(dev, copy: int, smem: int) -> int:
+    """K4's persistent grid on device `dev`: the blocks of 128 threads of
+    its copy `copy` (`gbuffer_copy`; True is the SDF march's) that stay
+    resident at `smem` bytes of dynamic shared memory
+    (`rt0_gbuffer_forward_occupancy`) times the SMs; computed once per
+    device, copy and size."""
+    key = (dev, int(copy), smem)
     if key not in _RESIDENT:
         occ = cuda_build.occupancy("gbuffer", GBUF_SOURCES, "rt0_gbuffer_forward_occupancy",
-                                   128, smem, sdf)
+                                   128, smem, int(copy))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         if occ["blocks"] < 1:
             raise RuntimeError(f"K4 does not fit an SM at {smem} bytes of shared memory: {occ}")
@@ -243,7 +252,7 @@ def launch_gbuffer(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, out=Non
                 depth=torch.empty((slots, h, w), dtype=torch.int32, device=dev),
                 valid=torch.empty((slots, h, w), dtype=torch.bool, device=dev))
     fn, _ = build_gbuffer()
-    grid = resident_blocks(dev, scene.num_sdfs > 0, megakernel.packed_smem_bytes(scene))
+    grid = resident_blocks(dev, gbuffer_copy(scene), megakernel.packed_smem_bytes(scene))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *[bufs[k].data_ptr() for k in restir_vertex.GBUF_FIELDS], slots, grid,
@@ -349,16 +358,13 @@ def render_sample_split(scene, cfg: RenderConfig, camera, state, height, width, 
 
 def check_split(scene, cfg: RenderConfig, camera, state, time_s=0.0):
     """Raise NotImplementedError for a split pass the kernels do not serve
-    on the card: a (scene, cfg) outside K4's or K6v's class; blended
-    textures or a cubemap, which no test holds K4 and K6v's split form to
-    yet (K6's gate, `restir_kernel.unsupported_restir`, refuses both too);
-    or a gradient (any scene leaf, camera field, ring field or the frame
-    time that requires grad), which the split path has no adjoint for."""
-    reason = (integrator.outside_box_sdf(scene, "the split path")
-              or unsupported_gbuffer(scene, cfg)
-              or restir_vertex.unsupported(scene, gbuffer_slots(cfg)))
-    if reason is None and textures.blended(scene):
-        reason = f"textures blended into color or emission under ReSTIR on the split path: {_ITEM}"
+    on the card: a (scene, cfg) outside K4's or K6v's class; a cubemap,
+    which no test holds K4 and K6v's split form to yet (K6's gate,
+    `restir_kernel.unsupported_restir`, refuses it too); or a gradient (any
+    scene leaf, camera field, ring field or the frame time that requires
+    grad), which the split path has no adjoint for.  SDF rows of every
+    shape and blended textures run in K4's and K6v's whole-SDF copies."""
+    reason = unsupported_gbuffer(scene, cfg) or restir_vertex.unsupported(scene, gbuffer_slots(cfg))
     if reason is None and cfg.use_cubemap:
         reason = f"a cubemap and its gather ray under ReSTIR on the split path: {_ITEM}"
     if reason is not None:

@@ -45,7 +45,6 @@ import torch
 
 from raytracer0_tpu_torch.config import RenderConfig, RenderMode
 from raytracer0_tpu_torch.ops import cuda_build, megakernel, restir
-from raytracer0_tpu_torch.render import integrator
 from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, Reservoirs
 
 #: K6v launches since import (or since a caller reset it to 0), both forms.
@@ -79,20 +78,29 @@ GBUF_FIELDS = ("pos", "nl", "mask", "idx", "depth", "valid")
 
 
 def smem_bytes(scene) -> int:
-    """Dynamic shared memory of one K6v block: K1's and the light-slot
-    table (8 floats per slot)."""
+    """Dynamic shared memory of one K6v block, either copy: K1's
+    (`path.cuh::load_path`: the table, whose columns 14:26 hold the aux
+    rows a TRIANGLE or QUAD reads, the codes, the light slots, the texture
+    codes and blend flags, the SDF shapes) and the light-slot table (8
+    floats per slot)."""
     return megakernel.smem_bytes(scene) + 4 * 8 * scene.num_lights
+
+
+def vertex_copy(scene, split: bool) -> int:
+    """The copy of K6v that `scene` runs, as `rt0_restir_vertex` picks it:
+    bit 0 the split form, bit 1 the whole SDF class
+    (`megakernel.whole_sdf`: its shadow rays march every shape)."""
+    return int(split) | 2 * int(megakernel.whole_sdf(scene))
 
 
 def unsupported(scene, slots: int) -> Optional[str]:
     """Why K6v cannot run the vertices of `slots` G-buffer slots in
     `scene`, or None when it can (the class of its G-buffer is K4's gate;
-    its shadow rays march BOX and ROUND_BOX SDF rows alone,
-    `integrator.outside_box_sdf`)."""
+    its shadow rays march SDF rows of every shape, in its whole-SDF copy
+    where `megakernel.whole_sdf` says so)."""
     if slots > MAX_SLOTS:
         return f"{slots} G-buffer slots, more than K6v's {MAX_SLOTS}"
-    return (integrator.outside_box_sdf(scene, "K6v")
-            or megakernel.check_smem(smem_bytes(scene)))
+    return megakernel.check_smem(smem_bytes(scene))
 
 
 def build():

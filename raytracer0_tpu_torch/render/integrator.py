@@ -68,11 +68,13 @@ def restir_engaged(scene, cfg: RenderConfig) -> bool:
 
 
 def outside_box_sdf(scene, who: str) -> Optional[str]:
-    """What of the scene's SDF rows lies outside the SDF class that every
-    kernel but K1 models, or None: BOX and ROUND_BOX shapes, no texture
-    blended into an SDF row's color or emission, no light slot on an SDF
-    row.  `who` names the kernel or route in the message.  K1 and the
-    plain version render the whole class (`unsupported`)."""
+    """What of the scene's SDF rows lies outside the SDF class of the
+    kernels built without the whole SDF class, or None: BOX and ROUND_BOX
+    shapes, no texture blended into an SDF row's color or emission, no
+    light slot on an SDF row.  `who` names the kernel or route in the
+    message.  K5 and K7 model no more; K1 and K2, K4 and K6v run a copy
+    of their own for the rest (`megakernel.whole_sdf`), and the plain
+    version renders the whole class (`unsupported`)."""
     na = scene.num_analytic
     other = sorted({SdfShape(s).name if s in sdf.SHAPES else str(s)
                     for s in scene.sdf_shapes_static if s not in sdf.BOX_SHAPES})
@@ -91,13 +93,11 @@ def outside_box_sdf(scene, who: str) -> Optional[str]:
 def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
     """What of a ReSTIR (scene, cfg) the port does not render: the class of
     the JAX `supported_restir` (raytracer0_tpu/ops/megakernel.py:545-560):
-    ReSTIR engaged, LIGHT spheres in every light slot, no photographic
-    cubemap, cosine sampling; the pixel's own history or the ad-hoc
-    reprojection, static or animated; BOX and ROUND_BOX SDF meshes,
-    untextured (`outside_box_sdf`)."""
-    reason = outside_box_sdf(scene, "ReSTIR")
-    if reason is not None:
-        return reason
+    ReSTIR engaged, LIGHT spheres in every light slot (so no SDF-bound
+    light), no photographic cubemap, cosine sampling; the pixel's own
+    history or the ad-hoc reprojection, static or animated; SDF meshes of
+    every shape, textures blended into any row, SDF rows included (image
+    textures too, which the JAX package renders on its XLA route)."""
     if not restir_engaged(scene, cfg):
         return ("ReSTIR that keeps per-light NEE (no light, sample_lights "
                 f"off, or MIS with at most 8 lights): {_RESTIR_ITEM}")

@@ -16,7 +16,7 @@ parameters (and to the camera, through the rays).  On the CPU the plain
 integrator's autograd serves every class the integrator renders.  On CUDA
 K2, the adjoint kernel behind `megakernel.trace_forward`, serves the whole
 class K1 renders without ReSTIR (every material, directional lights,
-uniform sampling, BOX and ROUND_BOX SDF meshes, the cubemap, textures),
+uniform sampling, SDF meshes of every shape, the cubemap, textures),
 with respect to the scene table and the rays; a gradient w.r.t. a texel
 array (the images, the noise LUT, the cubemap) raises NotImplementedError
 before anything is launched (`megakernel.unsupported_bwd`).  A render that
@@ -27,11 +27,14 @@ it reads and writes the reservoir ring: on a CUDA device through the
 ReSTIR pass K6 (`ops/restir_kernel.py`: the G-buffer kernel K4, then the
 reservoir-vertex kernel K6v), or, with `cfg.restir_adhoc_motion`, through
 the split path (`ops/restir_split.py`: K4, then K6v's split form), as the
-JAX package routes it; on the CPU through the plain `restir.render_sample`;
-after which the ring rotates.  It is
-differentiable too: on CUDA K6's adjoint K7 computes the gradient (with
-respect to the scene, the rays and the ring's float fields, so it flows from
-pass to pass), on the CPU the plain version's autograd.  On CUDA a ReSTIR
+JAX package routes it, K4 and K6v each in its whole-SDF copy for SDF rows
+beyond BOX and ROUND_BOX or textured (`megakernel.whole_sdf`); on the CPU
+through the plain `restir.render_sample`; after which the ring rotates.
+It is differentiable too: on CUDA K6's adjoint K7 computes the gradient
+(with respect to the scene, the rays and the ring's float fields, so it
+flows from pass to pass) on untextured scenes of ROUND_BOX SDF rows
+(`restir_kernel.outside_k7_class`), on the CPU the plain version's
+autograd.  On CUDA a ReSTIR
 config that K6 does not cover, or a gradient outside K7's class, raises
 before any launch; nothing falls back to the plain version.  The split
 path has no adjoint (the JAX one has none): a gradient through it raises

@@ -6,9 +6,10 @@ off, and the plain `restir.render_sample` under ANIMATED accumulation (the
 history's light data refreshed, alpha x 0.85, spatial taps younger than 2
 passes) over 4 passes at a moving frame time.
 
-The scene is the real-time one: `animated_restir` with its rounded box
-MAT_WHITE (the port refuses the METAL texture on an SDF mesh, ROADMAP
-queue 1 item 8, as `test_animated_restir_refused` checks).  It crosses from
+The scene is `animated_restir` with its rounded box MAT_WHITE, the
+real-time scene the port measured before it rendered the preset as shipped
+(tests/test_torch_restir_sdf.py holds that one; K7 refuses its METAL
+texture on an SDF mesh, as `test_animated_restir_refused` checks).  It crosses from
 JAX through `Scene.from_arrays`, the rings through `Reservoirs.from_arrays`.
 The JAX references run op by op (`jax.disable_jit`), since compiled XLA
 contracts a*b + c into FMAs (tests/test_torch_restir.py).
@@ -30,10 +31,11 @@ from raytracer0_tpu.models.materials import SdfShape as JSdfShape
 from raytracer0_tpu.ops import restir as jrestir
 from raytracer0_tpu.render import renderer as jren
 from raytracer0_tpu.render.state import RenderState as JState
+from raytracer0_tpu_torch import rng as trng
 from raytracer0_tpu_torch.config import RenderMode
 from raytracer0_tpu_torch.models import presets as tpresets
 from raytracer0_tpu_torch.models import scene as tscene
-from raytracer0_tpu_torch.models.camera import Camera
+from raytracer0_tpu_torch.models.camera import Camera, generate_rays
 from raytracer0_tpu_torch.ops import restir as trestir
 from raytracer0_tpu_torch.ops import restir_kernel as tk6
 from raytracer0_tpu_torch.ops import restir_split as tsplit
@@ -212,8 +214,9 @@ def test_animated_gates():
     """ANIMATED is inside the port's class on both devices: the integrator,
     K1 and K2 (the scene is animated on the host before the table is
     built), K6, K7 and K4 admit the real-time scene; `animated_restir`
-    itself, with MAT_METAL's METAL texture on its SDF mesh, is refused
-    under ReSTIR on both devices naming item 8."""
+    itself, with MAT_METAL's METAL texture on its SDF mesh, renders under
+    ReSTIR on both devices, and K7 refuses a gradient through it naming
+    item 8 (`test_animated_restir_refused`)."""
     from raytracer0_tpu_torch.ops import megakernel as tmk
 
     scene, cam, cfg = tpresets.animated_untextured(device="cpu")
@@ -228,10 +231,12 @@ def test_animated_gates():
 
 def test_animated_restir_refused():
     """The preset ported exactly: 18 rows, 9 sphere lights, a ROUND_BOX of
-    MAT_METAL; the port refuses it under ReSTIR on the CPU and on CUDA
-    (before any launch), naming item 8: K4, K6v and K7 do not model a
-    texture on an SDF mesh.  Without ReSTIR it renders, through K1's
-    whole-SDF copy on CUDA and the plain version on the CPU."""
+    MAT_METAL.  Under ReSTIR the port renders it on the CPU and admits it
+    on CUDA to K4 and K6v's whole-SDF copies, with and without the ad-hoc
+    reprojection; K7 refuses a gradient through it before any launch,
+    naming item 8, since it replays no texel (fault 15).  Without ReSTIR it
+    renders, through K1's whole-SDF copy on CUDA and the plain version on
+    the CPU."""
     scene, cam, cfg = tpresets.animated_restir(device="cpu")
     js, jc, jcfg = jpresets.animated_restir()
     assert scene.num_meshes == 18 and scene.num_lights == 9
@@ -246,9 +251,19 @@ def test_animated_restir_refused():
     out = tren.sample_radiance(scene, cfg.replace(use_restir=False, max_bounces=2), cam, 4, 8,
                                0, 0.5)
     assert out.shape == (4, 8, 3) and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
-        tren.Renderer(scene, cam, cfg, 4, 8).step(0.5)
-    with pytest.raises(NotImplementedError, match="textures on SDF meshes.*item 8"):
-        tren.Renderer(scene, cam, cfg.replace(restir_adhoc_motion=True), 4, 8).step(0.5)
-    assert "item 8" in tk6.unsupported_restir(scene, cfg)
-    assert "item 8" in tsplit.unsupported_gbuffer(scene, cfg.replace(restir_adhoc_motion=True))
+    small = cfg.replace(max_bounces=2, marching_steps=16)
+    for c in (small, small.replace(restir_adhoc_motion=True)):
+        img = tren.Renderer(scene, cam, c, 4, 8).render(1, 0.5)
+        assert img.shape == (4, 8, 3) and bool(torch.isfinite(img).all())
+    assert tk6.unsupported_restir(scene, cfg) is None
+    assert tsplit.unsupported_gbuffer(scene, cfg.replace(restir_adhoc_motion=True)) is None
+    assert tsplit.gbuffer_copy(scene) == 3
+    assert "textures" in tk6.unsupported_restir_bwd(scene, cfg)
+    em = scene.emission.clone().requires_grad_(True)
+    ro, rd = generate_rays(cam, 4, 8, 0)
+    ring = RenderState.create(4, 8, "cpu")
+    before = (tk6.LAUNCHES, tk6.BWD_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="K7.*texel.*item 8"):
+        tk6._fused(scene.replace(emission=em), cfg, ro, rd, trng.pixel_ids(4, 8), 0, 0,
+                   ring.restir_back, ring.restir_hist1, ring.restir_hist2)
+    assert (tk6.LAUNCHES, tk6.BWD_LAUNCHES) == before

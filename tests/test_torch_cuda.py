@@ -9,10 +9,12 @@ every SDF shape, textured SDF meshes and SDF lights (and `fit` through it),
 K6 on the ReSTIR presets (with MIS too, and under
 ANIMATED accumulation), K6v in both forms, K7 against the plain version's
 autograd over chains of passes, `fit` through the reservoir ring, K4 and
-K5 bit for bit and the split ReSTIR pass K4 and K6v serve, and the refusal
-of gradients outside K2's and K7's classes (texel arrays, mesh types K1
-does not render) and through the split path,
-and of blended textures and cubemaps on the split path.
+K5 bit for bit and the split ReSTIR pass K4 and K6v serve, K4 and K6v in
+their whole-SDF copies (every SDF shape, blended textures on any row) with
+their old copies' code unchanged, and the refusal of gradients outside
+K2's and K7's classes (texel arrays, mesh types K1 does not render, K7's
+own class before K6's) and through the split path, and of cubemaps on the
+split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -51,7 +53,7 @@ from raytracer0_tpu_torch.models import scene as scene_mod
 from test_torch_kernel_host import (SHAPE_SCENES, TABLE_LEAVES, adjoint_case, assert_grads_close,
                                     assert_grads_close_f64, refreshed_ring, restir_chain_grads)
 from test_torch_texture_scenes import SCENE_VIEWS
-from test_torch_sdf_scenes import GATES, NEW_CLASSES, gate_reason, new_class_case
+from test_torch_sdf_scenes import GATES, NEW_CLASSES, expected_verdict, gate_reason, new_class_case
 
 pytestmark = pytest.mark.cuda
 
@@ -523,29 +525,38 @@ def test_whole_sdf_kernel_matches_plain(cuda, where, kw):
 
 @pytest.mark.parametrize("where", NEW_CLASSES)
 def test_new_sdf_classes_refused_before_any_launch(cuda, where):
-    """Every gate but K1's and K2's refuses a Mandelbulb, a textured BOX
-    SDF and an SDF light naming item 8, and the routes behind them raise
-    before any launch: a ReSTIR pass (K4, K6), the split path (K4, K6v), a
-    ReSTIR gradient (K7) and K5's cast."""
+    """Each gate takes or refuses a Mandelbulb, a textured BOX SDF and an
+    SDF light as `expected_verdict` states (K5 and K7 refuse all three
+    naming item 8), and the routes behind a refusing gate raise before any
+    launch: a ReSTIR pass (K4, K6), the split path (K4, K6v), a ReSTIR
+    gradient (K6's gate, then K7's with fault 15's check first) and K5's
+    cast."""
     scene, cam, cfg = new_class_case(where, cuda)
     counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, restir_kernel.LAUNCHES,
                       restir_kernel.BWD_LAUNCHES, restir_split.GBUF_LAUNCHES,
                       restir_split.CAST_LAUNCHES, restir_vertex.VERTEX_LAUNCHES)
     before = counts()
     for gate in GATES:
-        assert "item 8" in gate_reason(gate, scene, cam, cfg), gate
+        reason, want = gate_reason(gate, scene, cam, cfg), expected_verdict(gate, where)
+        assert (reason is None) if want is None else (want in reason), (gate, reason)
     rcfg = cfg.replace(use_restir=True, use_mis=False)
     em = scene.emission.clone().requires_grad_(True)
     ro, rd = generate_rays(cam, 8, 8, 0)
     calls = [
-        lambda: Renderer(scene, cam, rcfg, 8, 8).step(),
-        lambda: Renderer(scene, cam, rcfg.replace(restir_adhoc_motion=True), 8, 8).step(0.1),
-        lambda: optimize.render_linear(scene.replace(emission=em), rcfg, cam, 8, 8, passes=2),
-        lambda: restir_split.cast_rays(scene, cfg, ro, rd),
+        ("K6", lambda: Renderer(scene, cam, rcfg, 8, 8).step()),
+        ("split", lambda: Renderer(scene, cam, rcfg.replace(restir_adhoc_motion=True), 8,
+                                   8).step(0.1)),
+        ("K7", lambda: optimize.render_linear(scene.replace(emission=em), rcfg, cam, 8, 8,
+                                              passes=2)),
+        ("K5", lambda: restir_split.cast_rays(scene, cfg, ro, rd)),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    for gate, call in calls:
+        # a ReSTIR gradient's route asks K6's gate before K7's
+        want = (expected_verdict("K6", where) or expected_verdict("K7", where) if gate == "K7"
+                else expected_verdict(gate, where))
+        if want is not None:
+            with pytest.raises(NotImplementedError, match=want):
+                call()
     assert counts() == before
 
 
@@ -1047,9 +1058,11 @@ def test_split_pass_matches_plain(cuda):
 
 def test_split_refuses_textures_and_cubemap_before_any_launch(cuda):
     """Fault 11: under ReSTIR with the ad-hoc reprojection the split path
-    refuses blended textures and a cubemap, naming ROADMAP queue 1 item
-    11, before any launch (`render_sample_fast` and `render_pass` alike):
-    no test holds K4 and K6v's split form on such scenes."""
+    refuses a cubemap, naming ROADMAP queue 1 item 11, before any launch
+    (`render_sample_fast` and `render_pass` alike): no test holds K4 and
+    K6v's split form on such scenes.  Blended textures, which it refused
+    until K4 and K6v were held on them, it renders bit for bit against its
+    plain version."""
     scene, cam, cfg = presets.restir_demo(device=cuda)
     adhoc = cfg.replace(restir_adhoc_motion=True)
     h, w = 16, 128
@@ -1057,15 +1070,22 @@ def test_split_refuses_textures_and_cubemap_before_any_launch(cuda):
     counts = lambda: (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
                       restir_split.CAST_LAUNCHES, restir_kernel.LAUNCHES)
     before = counts()
-    cases = ((presets.textured_restir_demo(device=cuda)[0], adhoc, "textures blended"),
-             (scene, adhoc.replace(use_cubemap=True, use_procedural_sky=False), "cubemap"))
-    for sc, c, what in cases:
-        with pytest.raises(NotImplementedError, match=f"{what}.*item 11"):
-            restir_split.render_sample_fast(sc, c, cam, state, h, w, 0)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            render_pass(sc, cam, c, state, h, w)
+    cube = adhoc.replace(use_cubemap=True, use_procedural_sky=False)
+    with pytest.raises(NotImplementedError, match="cubemap.*item 11"):
+        restir_split.render_sample_fast(scene, cube, cam, state, h, w, 0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        render_pass(scene, cam, cube, state, h, w)
     torch.cuda.synchronize()
     assert counts() == before
+    textured = presets.textured_restir_demo(device=cuda)[0]
+    out, new = restir_split.render_sample_fast(textured, adhoc, cam, state, h, w, 0)
+    ref, new_ref = restir_split.render_sample_split(textured, adhoc, cam, state, h, w, 0, 0.0,
+                                                    restir_split.gbuffer_plain,
+                                                    restir.default_cast)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    assert torch.equal(out, ref)
+    assert all(torch.equal(v, getattr(new_ref, k)) for k, v in new.fields().items())
 
 
 @pytest.mark.parametrize("form,where", [("fused", "restir_demo"), ("fused", "restir_stress"),
@@ -1116,3 +1136,118 @@ def test_restir_adjoint_registers_unchanged(cuda):
                              "rt0_restir_backward_occupancy", t,
                              restir_kernel.bwd_smem_bytes(demo, t), True)
     assert (o["registers"], o["local_bytes"], o["blocks"], t) == (168, 1328, 1, 128), o
+
+
+def _restir_sdf_case(where, device):
+    """(scene, camera, cfg) of a ReSTIR scene of the whole SDF class or with
+    blended textures: `animated_restir` as shipped, the ReSTIR views of
+    `presets.RESTIR_SDF_VIEWS`, `textured_cornell` with ReSTIR and MIS off."""
+    if where == "animated_restir":
+        return presets.animated_restir(device=device)
+    if where == "textured_cornell":
+        return presets.textured_cornell(device=device, use_restir=True, use_mis=False)
+    return presets.restir_sdf_view(where, device=device)
+
+
+@pytest.mark.parametrize("where", ["animated_restir", "mandelbulb", "every_shape", "polygons",
+                                   "textured_cornell"])
+def test_restir_whole_sdf_matches_plain(cuda, where):
+    """K4 and the K6 pass (K4, then K6v's fused form, in their whole-SDF
+    copies where `megakernel.whole_sdf` says so) bit for bit against the
+    plain `gbuffer_plain` and `restir.render_sample` at 64x64 over passes
+    0-2, each threading its own ring, at a constant frame time; one K4 and
+    one K6v launch per pass and no other."""
+    scene, cam, cfg = _restir_sdf_case(where, cuda)
+    cfg = cfg.replace(max_bounces=min(cfg.max_bounces, 4), marching_steps=64)
+    t = 0.5 if int(cfg.render_mode) else 0.0
+    h = w = 64
+    frame = scene_mod.animate_positions(scene, t, int(cfg.render_mode))
+    ro, rd = generate_rays(cam, h, w, 0)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    out, gbuf = restir_split.trace_forward_gbuffer(frame, cfg, ro, rd, pix, 0, 0)
+    ref, ref_gbuf = restir_split.gbuffer_plain(frame, cfg, ro, rd, pix, 0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert all(torch.equal(a[f], b[f]) for a, b in zip(gbuf, ref_gbuf) for f in a)
+    kernel = plain = RenderState.create(h, w, device=cuda)
+    counts = lambda: (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
+                      megakernel.LAUNCHES, restir_split.CAST_LAUNCHES)
+    for p in range(3):
+        before = counts()
+        out, new = restir_kernel.render_sample_fused(scene, cfg, cam, kernel, h, w, p, t)
+        ref, new_ref = restir.render_sample(scene, cfg, cam, plain, h, w, p, t)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+        assert torch.equal(out, ref), (p, int((out != ref).any(-1).sum()))
+        for k, v in new.fields().items():
+            assert torch.equal(v, getattr(new_ref, k)), (p, k)
+        kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
+    assert int((new.light_index >= 0).sum()) > h * w // 2 and ref.max().item() > 0.0
+
+
+@pytest.mark.parametrize("where", ["animated_restir", "every_shape"])
+def test_restir_whole_sdf_split_matches_plain(cuda, where):
+    """The split path (K4, then K6v's split form, each in its whole-SDF
+    copy) bit for bit against `render_sample_split` with the plain G-buffer
+    and caster at 64x128 over 5 passes at the frame times (p+1)/30 (the
+    preset as shipped under ANIMATED), each threading its own ring."""
+    scene, cam, cfg = _restir_sdf_case(where, cuda)
+    cfg = cfg.replace(restir_adhoc_motion=True, marching_steps=64)
+    h, w = 64, 128
+    kernel = plain = RenderState.create(h, w, device=cuda)
+    for p in range(5):
+        t = (p + 1) / 30
+        before = (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES)
+        out, new = restir_split.render_sample_fast(scene, cfg, cam, kernel, h, w, p, t)
+        ref, new_ref = restir_split.render_sample_split(
+            scene, cfg, cam, plain, h, w, p, t, restir_split.gbuffer_plain, restir.default_cast)
+        torch.cuda.synchronize()
+        assert (restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1)
+        assert torch.equal(out, ref), (p, int((out != ref).any(-1).sum()))
+        for k, v in new.fields().items():
+            assert torch.equal(v, getattr(new_ref, k)), (p, k)
+        kernel, plain = kernel.rotate_reservoirs(new), plain.rotate_reservoirs(new_ref)
+
+
+@pytest.mark.parametrize("where", ["animated_restir", "mandelbulb", "textured_cornell"])
+def test_k7_refuses_the_new_class_before_any_launch(cuda, where):
+    """Fault 15: a gradient through a K6 pass of a scene K6 now admits (an
+    SDF shape other than ROUND_BOX, a texture blended into any row) raises
+    in K7's gate, naming item 8, before any launch."""
+    scene, cam, cfg = _restir_sdf_case(where, cuda)
+    assert restir_kernel.unsupported_restir(scene, cfg) is None
+    em = scene.emission.clone().requires_grad_(True)
+    counts = lambda: (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES,
+                      restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
+                      megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
+    before = counts()
+    with pytest.raises(NotImplementedError, match="K7 does not cover.*item 8"):
+        optimize.render_linear(scene.replace(emission=em), cfg, cam, 8, 8, passes=2)
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
+def test_gbuffer_and_vertex_old_copies_unchanged(cuda):
+    """K4's and K6v's copies that ran before their whole-SDF copies came
+    keep their code: K4 80 registers and 56 bytes of local memory on
+    `restir_demo` (6 blocks per SM), K6v 64 and 32 (fused form) and 72
+    and 32 (split form); and the whole-SDF copies fit blocks of 128."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    demo = presets.restir_demo(device=cuda)[0]
+    bulb = presets.mandelbulb(device=cuda)[0]
+    k4 = lambda sc, flags: cuda_build.occupancy(
+        "gbuffer", restir_split.GBUF_SOURCES, "rt0_gbuffer_forward_occupancy", 128,
+        megakernel.packed_smem_bytes(sc), flags)
+    k6v = lambda sc, flags: cuda_build.occupancy(
+        "restir_vertex", restir_vertex.SOURCES, "rt0_restir_vertex_occupancy", 128,
+        restir_vertex.smem_bytes(sc), flags)
+    o = k4(demo, restir_split.gbuffer_copy(demo))
+    assert (o["registers"], o["local_bytes"], o["blocks"]) == (80, 56, 6), o
+    for split, want in ((False, (64, 32)), (True, (72, 32))):
+        o = k6v(demo, restir_vertex.vertex_copy(demo, split))
+        assert (o["registers"], o["local_bytes"]) == want, o
+    assert k4(bulb, restir_split.gbuffer_copy(bulb))["blocks"] >= 1
+    for split in (False, True):
+        assert k6v(bulb, restir_vertex.vertex_copy(bulb, split))["blocks"] >= 1

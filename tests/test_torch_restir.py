@@ -150,9 +150,11 @@ def test_render_sample_mis_matches_jax():
 
 def test_k6_gate_after_fault_10():
     """K6's gate (and so K7's) admits restir_demo with MIS, which the tests
-    hold, and refuses the classes no test holds K6 to: blended textures and
-    a cubemap under ReSTIR (ROADMAP queue 1 item 11); the plain version
-    still renders them on the CPU."""
+    hold, and refuses the class no test holds K6 to: a cubemap under
+    ReSTIR (ROADMAP queue 1 item 11).  Blended textures, held since K4 and
+    K6v were held on them (tests/test_torch_restir_sdf.py), K6 admits and
+    K7 refuses first (fault 15: it replays no texel, item 8); the plain
+    version renders both on the CPU."""
     demo, _, cfg = tpresets.restir_demo(device="cpu")
     assert tk6.unsupported_restir(demo, cfg.replace(use_mis=True)) is None
     assert tk6.unsupported_restir_bwd(demo, cfg.replace(use_mis=True)) is None
@@ -163,8 +165,9 @@ def test_k6_gate_after_fault_10():
     textured = tpresets.parse_scene(
         tpresets._RESTIR_9_LIGHTS.replace(back_wall, "MAT_CHECK_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"),
         sdf_shapes=[SdfShape.ROUND_BOX], device="cpu")
-    assert "textures" in tk6.unsupported_restir(textured, cfg)
-    assert "item 11" in tk6.unsupported_restir(textured, cfg)
+    assert tk6.unsupported_restir(textured, cfg) is None
+    assert "textures" in tk6.unsupported_restir_bwd(textured, cfg)
+    assert "item 8" in tk6.unsupported_restir_bwd(textured, cfg)
     cube_cfg = cfg.replace(use_cubemap=True, use_procedural_sky=False)
     assert "cubemap" in tk6.unsupported_restir(demo, cube_cfg)
     assert "item 11" in tk6.unsupported_restir(demo, cube_cfg)

@@ -51,7 +51,9 @@ def vertex_on_cpu(vertex_kernels, monkeypatch):
 
 
 def _case(where, **kw):
-    scene, cam, cfg = getattr(presets, where)(device="cpu", **kw)
+    scene, cam, cfg = (presets.restir_sdf_view(where, device="cpu", **kw)
+                       if where in presets.RESTIR_SDF_VIEWS
+                       else getattr(presets, where)(device="cpu", **kw))
     return scene, cam, cfg.replace(max_bounces=2, max_diff_bounces=2, restir_samples=4,
                                    marching_steps=16)
 
@@ -126,7 +128,10 @@ def test_host_vertex_fused_one_block_grid(vertex_on_cpu, monkeypatch):
     ("restir_demo", True, False),
     ("animated_untextured", True, True),
     ("restir_demo", False, False),
-], ids=["static_adhoc", "animated_adhoc_moving", "static_own_pixel"])
+    ("animated_restir", True, True),
+    ("every_shape", True, False),
+], ids=["static_adhoc", "animated_adhoc_moving", "static_own_pixel",
+        "as_shipped_adhoc_moving", "every_shape_adhoc"])
 def test_host_vertex_split_matches_plain(vertex_on_cpu, where, adhoc, moving):
     """`render_sample_fast`'s route on the card, K4 then K6v (split form:
     carried light data, the ad-hoc reprojection with `adhoc`), against
@@ -135,7 +140,8 @@ def test_host_vertex_split_matches_plain(vertex_on_cpu, where, adhoc, moving):
     relative to max(1, |value|) since the wider image gathers more ULPs of
     libm into its weight sums; ANIMATED at a moving frame time, where the
     history's light data is refreshed and the spatial taps' is the stored
-    copy."""
+    copy.  `animated_restir` as shipped (a METAL texture on its ROUND_BOX)
+    and the `every_shape` ReSTIR view run K4's and K6v's whole-SDF copies."""
     scene, cam, cfg = _case(where, restir_adhoc_motion=adhoc)
     # with the reprojection, wide enough that the motion vector moves a
     # pixel's history and the border test rejects columns

@@ -1,7 +1,7 @@
-"""The classes of the whole SDF class that only K1, K2 and the plain
-version run, the gates that refuse them, shared by the port's SDF tests
-(CPU, host build and card), and a check that both packages build the
-whole SDF class's scenes (`presets.SDF_SCENE_VIEWS`) alike.
+"""Three classes of the whole SDF class, the gates that take them or
+refuse them, shared by the port's SDF tests (CPU, host build and card),
+and a check that both packages build the whole SDF class's scenes
+(`presets.SDF_SCENE_VIEWS`) alike.
 
 This module imports neither JAX nor the JAX package at its top, so the
 card's tests (tests/test_torch_cuda.py, run without JAX) can use it.
@@ -12,11 +12,15 @@ import pytest
 from raytracer0_tpu_torch.models import presets
 
 
-#: the three classes K1 renders and no other kernel models
+#: three classes of the whole SDF class: K1, K2 and the plain version
+#: render them, K4 and K6v in their whole-SDF copies under ReSTIR
 NEW_CLASSES = ("mandelbulb", "textured_box", "sdf_light")
-#: the gates that refuse them, each a kernel or route (K2 admits them: it
+#: the gates of the other kernels and routes (K2 admits them: it
 #: differentiates K1's whole class)
 GATES = ("K4", "K5", "K6", "split", "K7", "restir")
+#: the gates that model BOX and ROUND_BOX rows alone (K5) or ROUND_BOX rows
+#: without a texel (K7), which refuse all three naming item 8
+BOX_ONLY_GATES = ("K5", "K7")
 
 
 def new_class_case(where, device):
@@ -29,6 +33,18 @@ def new_class_case(where, device):
     if where == "textured_box":
         return presets.default_scene(device=device)
     return presets.sdf_view("sdf_light", device=device)
+
+
+def expected_verdict(gate, where):
+    """The ROADMAP item `gate` names when it refuses the class `where`
+    (as a ReSTIR config with MIS off), or None when it admits it: K5 and
+    K7 refuse all three (item 8); the ReSTIR gates admit the Mandelbulb
+    (K4's and K6v's whole-SDF copies) and refuse `default_scene`, which has
+    no light for ReSTIR, and the SDF light, whose slot is not a LIGHT
+    sphere, as the JAX `supported_restir` does (item 11)."""
+    if gate in BOX_ONLY_GATES:
+        return "ROADMAP queue 1 item 8"
+    return None if where == "mandelbulb" else "ROADMAP queue 1 item 11"
 
 
 def gate_reason(gate, scene, cam, cfg):

@@ -3,10 +3,13 @@ off the kernels that do not model it.
 
 The gates come first.  K1, its adjoint K2 and the plain version render
 and differentiate every SDF shape, textures on SDF meshes and SDF-bound
-lights; K4, K5, K6, K6v, K7, the split path and ReSTIR on both devices
-serve BOX and ROUND_BOX rows, untextured and unlit, and refuse the rest
-before any launch, naming ROADMAP queue 1 item 8
-(`integrator.outside_box_sdf`).
+lights; under ReSTIR K4, K6, K6v, the split path and the plain version
+render every shape and textured SDF rows (K4's and K6v's whole-SDF
+copies) and refuse SDF lights as the JAX `supported_restir` does (item
+11); K5 serves BOX and ROUND_BOX rows, untextured and unlit, and K7
+untextured ROUND_BOX rows, each refusing the rest before any launch,
+naming ROADMAP queue 1 item 8 (`integrator.outside_box_sdf`,
+`restir_kernel.outside_k7_class`).
 
 Then the plain version against `raytracer0_tpu`, on seeded numpy inputs:
 each of the 14 distances at a few hundred points within 1e-5, the scene
@@ -56,7 +59,7 @@ from raytracer0_tpu_torch.ops import sdf as tsdf
 from raytracer0_tpu_torch.render import integrator as tint
 from raytracer0_tpu_torch.render.renderer import Renderer
 
-from test_torch_sdf_scenes import GATES, NEW_CLASSES, gate_reason, new_class_case
+from test_torch_sdf_scenes import GATES, NEW_CLASSES, expected_verdict, gate_reason, new_class_case
 
 SCENE_VIEWS = tpresets.SDF_SCENE_VIEWS
 
@@ -76,11 +79,14 @@ FRACTALS = ("menger_sponge", "mandelbulb")
 @pytest.mark.parametrize("where", NEW_CLASSES)
 @pytest.mark.parametrize("gate", GATES)
 def test_gates_refuse_the_new_classes(gate, where):
-    """Every gate but K1's and K2's refuses a Mandelbulb, a textured BOX SDF
-    and an SDF light, naming item 8."""
+    """K5's and K7's gates refuse a Mandelbulb, a textured BOX SDF and an
+    SDF light, naming item 8; the ReSTIR gates (K4, K6, the split path,
+    the plain class) admit the Mandelbulb and refuse the other two for
+    what ReSTIR itself lacks there, naming item 11 (`expected_verdict`)."""
     scene, cam, cfg = new_class_case(where, "cpu")
     reason = gate_reason(gate, scene, cam, cfg)
-    assert reason is not None and "ROADMAP queue 1 item 8" in reason, reason
+    want = expected_verdict(gate, where)
+    assert (reason is None) if want is None else (reason is not None and want in reason), reason
 
 
 @pytest.mark.parametrize("where", NEW_CLASSES)
