@@ -11,7 +11,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
 2. builds the forward megakernel K1, its adjoint K2, the reservoir-vertex
    kernel K6v and the ReSTIR adjoint K7, the G-buffer kernel K4 and the
    ray-cast kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at
-   once (or loads them from `build/kernels/`), and prints the build times
+   once (K2 and K7 each in two libraries, its whole-SDF copy a library of
+   its own), or loads them from `build/kernels/`, and prints the build times
    and ptxas' register, stack and spill lines; prints each kernel's blocks
    and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
    with the shared memory, registers and local memory they were computed
@@ -27,8 +28,11 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    template instance of its kernel) and fails unless its Cornell and wide
    copies keep their registers and local memory (128 and 928 B on
    Cornell; 128 and 2,160 B, per warp 64 and 2,464 B on the wide copy);
-   checks that K7, which shares K6v's vertex code, keeps its 168 registers
-   and 1,328-byte stack (the vertex's split form must not move K7's code);
+   prints K7's ptxas line per copy and checks that its ROUND_BOX copy,
+   which shares K6v's vertex code, keeps its 168 registers and 1,328-byte
+   stack (neither the vertex's split form nor K7's whole-SDF copy, a
+   template instance beside it, may move its code); prints the occupancy
+   of K7's whole-SDF copy on the scenes of `k7_sdf_scenes`;
    prints K4's and K6v's ptxas lines per copy and the occupancy of their
    whole-SDF copies (on `mandelbulb`, and K6v's split form on
    `animated_restir`), and fails unless their old copies keep their
@@ -71,8 +75,9 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    emission, pos, joker) at 512x512, 12 bounces (the step of bench.py's
    headline), checks that each step launched K1 and K2 once, times it
    through K1+K2 and through the plain version's autograd (CUDA events,
-   median and quartiles of 9 after warm-up), prints rays/s, the kernels'
-   device time from torch.profiler and each route's peak memory; then runs
+   median and quartiles of 9 after warm-up, of 3 for the plain version),
+   prints rays/s, the kernels' device time from torch.profiler and each
+   route's peak memory; then runs
    `optimize.fit` of the light's emission at 128x128 for 20 steps and
    checks that the loss falls and K2 ran once per step; then a 10-step
    fit of config 2's light emission through K2's wide copy, which lowers
@@ -199,17 +204,18 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    off, held bit for bit against the plain version);
 25. checks that a gradient through the split path and `restir_demo` on
    the split path with a cubemap (item 11) raise NotImplementedError
-   before any launch; that K6 admits and K7 refuses (fault 15, naming item
-   8) `animated_restir` as shipped, the `mandelbulb`, `every_shape` and
-   `polygons` ReSTIR views, `textured_cornell` with ReSTIR and
-   `restir_demo` with a CHECK texture, and that a ReSTIR gradient through
-   each raises before any launch; and that K2 admits a Mandelbulb, a
-   textured BOX SDF (`default_scene`) and an SDF light, K5 and K7 refuse
-   them naming item 8, the ReSTIR gates (K4, K6, K6v, ReSTIR) admit the
-   Mandelbulb and refuse the other two naming item 11 (no light for
-   ReSTIR; an SDF light slot), and the routes behind a refusing gate (a
-   ReSTIR pass, the split path, a ReSTIR gradient, K5's cast) raise before
-   any launch;
+   before any launch; that K6 and K7 admit the scenes of `k7_sdf_scenes`
+   (`animated_restir` as shipped, STATIC too, the `mandelbulb`,
+   `every_shape` and `polygons` ReSTIR views, `textured_restir_demo` and
+   `textured_cornell` with ReSTIR), K7 in its whole-SDF copy, and that a
+   ReSTIR gradient w.r.t. the noise LUT of each raises before any launch
+   naming item 14, and one on `restir_demo` with its rounded box a BOX
+   (a BOX row outside the whole SDF class) naming item 8; and that K2 admits a Mandelbulb, a textured BOX SDF
+   (`default_scene`) and an SDF light, K5 refuses them naming item 8, the
+   ReSTIR gates (K4, K6, K6v, K7, ReSTIR) admit the Mandelbulb and refuse
+   the other two naming item 11 (no light for ReSTIR; an SDF light slot),
+   and the routes behind a refusing gate (a ReSTIR pass, the split path, a
+   ReSTIR gradient, K5's cast) raise before any launch;
 26. drives the whole SDF class on K1, the reference's presets
    `default_scene` (a METAL-textured BOX SDF under the cubemap),
    `mandelbulb` and `menger_sponge` (a COAT Menger sponge under the
@@ -251,11 +257,12 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    (`restir_sdf_phase`): holds K4 against `gbuffer_plain` and the K6 pass
    (K4, then K6v's fused form, each in its whole-SDF copy where
    `megakernel.whole_sdf` says so) against the plain `restir.render_sample`
-   bit for bit at every pass of a 3-pass ring at 128x128, on the
-   `mandelbulb`, `every_shape` and `polygons` ReSTIR views, `animated_restir`
-   as shipped (MAT_METAL on its ROUND_BOX, at a constant frame time) and
-   `textured_cornell` with ReSTIR and MIS off, one K4 and one K6v launch
-   per pass; holds the split path (`render_sample_fast`) against
+   bit for bit at every pass of a 3-pass ring, on the `polygons` ReSTIR
+   view, `animated_restir` as shipped (MAT_METAL on its ROUND_BOX, at a
+   constant frame time) and `textured_cornell` with ReSTIR and MIS off at
+   128x128, and at 64x64 on the `mandelbulb` view (1 pass) and the
+   `every_shape` view (2 passes), each scene at its own depth, one K4 and
+   one K6v launch per pass; holds the split path (`render_sample_fast`) against
    `render_sample_split` with the plain G-buffer and caster bit for bit
    over 5 ANIMATED frames of `animated_restir` as shipped at t = (k+1)/30;
    drives the real-time main path of `animated_restir` as shipped
@@ -266,7 +273,23 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    shipped through the K6 pass; drives `Renderer.render(2)` of the
    `mandelbulb` ReSTIR view at 512x512 (2 K4, 2 K6v, no other launch) and
    times a K6 pass, K4 and K6v alone (CUDA events, profiler) beside
-   `bound` and `vertex_bound`, with the march's lane use.
+   `bound` and `vertex_bound`, with the march's lane use;
+29. ReSTIR gradients over the whole SDF class and blended textures
+   (`restir_grad_sdf_phase`): prints the occupancy of K7's whole-SDF copy
+   on each scene of `k7_sdf_scenes`; holds it against the plain autograd
+   on each at its own depth (the preset's 6 bounces, the `mandelbulb`
+   view's 12 bounces and 128 marching steps), over passes 0-3 (0-1 on the
+   `mandelbulb` and `every_shape` views and `textured_restir_demo`) from
+   an empty ring at 32x32:
+   every scene-table leaf and ray within 1e-4 of the leaf, the same bits on two launches, one K6 and one launch of
+   the copy per pass; runs a ReSTIR fwd+bwd step (`render_linear`, 2
+   passes, d(emission, color)) at 512x512 of `animated_restir` as shipped
+   and of the `mandelbulb` view (12 bounces, 128 marching steps), its
+   launches counted from 0, timed (median and quartiles of 5), with K7's
+   whole-SDF copy alone per launch (CUDA events, profiler) beside `bound`
+   (`sdf_adjoint`); runs a 6-step `optimize.fit` of the preset at
+   128x128 (the lights' emission and the METAL box's color) through K6 and
+   K7's whole-SDF copy alone, lowering its loss.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -806,9 +829,10 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=Fa
     without NEE that scans each slot's ray, then replays each slot with
     the hit it stashed (its NEE shadow rays scanned again) and runs its
     adjoint.  K6 runs K1's sweep with the reservoir vertex and its two
-    shadow rays in place of NEE; K7 replays K6's slots twice (forward
-    sweep, reverse sweep with the vertices, each scanning the slot's ray)
-    and runs their adjoint.  K4 (`gbuffer_slots` > 0)
+    shadow rays in place of NEE; K7 needs K6's forward once and its
+    adjoint (the ROUND_BOX copy scans each slot's ray again in its reverse
+    sweep, a cost of its design that the bound leaves out; the whole-SDF
+    copy stashes each hit and scans nothing again).  K4 (`gbuffer_slots` > 0)
     runs K1's sweep without NEE and writes the G-buffer: per slot and pixel
     45 bytes (position, normal, throughput, mesh, depth, valid).
     `sdf_adjoint` (K2's whole-SDF copy) adds, at each SDF hit, the reverse
@@ -852,7 +876,7 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=Fa
     px = ev["pixels"]
     if restir and adjoint:   # K6's inputs, ct and the 4 ring cotangents in;
         # d_ro, d_rd, per-tap and history cotangents, d back, d_table out
-        ops = sweep + fwd + adjoint_ops
+        ops = fwd + adjoint_ops
         nbytes = px * (12 + 12 + 8 + 3 * 20 + 12 + 16 + 24 + 8 * 12 + 2 * 12 + 12) + 2 * table
     elif gbuffer_slots:   # ro, rd, pix, table in; radiance and the G-buffer out
         ops, nbytes = fwd, px * (12 + 12 + 8 + 12 + 45 * gbuffer_slots) + table
@@ -947,8 +971,9 @@ def kernel_occupancy(dev):
     K2 on Cornell, K1's whole-SDF copy on `mandelbulb`, K4 and K5 on the
     real-time scene (the SDF copies), K6v (fused form) and K7 on
     `restir_demo`, K7 on `restir_stress` too, K6v's split form on the
-    real-time scene, and K4's and K6v's whole-SDF copies on `mandelbulb`
-    and on `animated_restir` as shipped (the split form)."""
+    real-time scene, K4's and K6v's whole-SDF copies on `mandelbulb`
+    and on `animated_restir` as shipped (the split form), and K7's
+    whole-SDF copy on the scenes of `k7_sdf_scenes`."""
     from raytracer0_tpu_torch.models import presets
     from raytracer0_tpu_torch.ops import (cuda_build, megakernel, restir_kernel, restir_split,
                                           restir_vertex)
@@ -991,6 +1016,10 @@ def kernel_occupancy(dev):
         ("K7", "restir_stress", "restir_bwd", restir_kernel.BWD_SOURCES, "rt0_restir_backward",
          k7_threads(stress), restir_kernel.bwd_smem_bytes(stress, k7_threads(stress)), True),
     ]
+    for where, (sc, _, _) in k7_sdf_scenes(dev).items():
+        rows.append(("K7 whole-SDF", where, *restir_kernel.bwd_library(True),
+                     "rt0_restir_backward", k7_threads(sc),
+                     restir_kernel.bwd_smem_bytes(sc, k7_threads(sc)), 2))
     for where, (sc, c) in k2_cases(dev).items():
         warp, smem = megakernel.bwd_layout(sc, c)
         copy = megakernel.bwd_copy(sc, c)
@@ -1001,8 +1030,25 @@ def kernel_occupancy(dev):
     # K4's (bit 0 the SDF march, bit 1 the whole SDF class), K5's SDF copy,
     # K6v's (bit 0 the split form, bit 1 the whole SDF class) or K2's copy
     # (bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy)
+    # or K7's (unused: each of its libraries holds one copy)
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
+
+
+def k7_sdf_scenes(dev):
+    """{name: (scene, camera, cfg)} of the scenes K7 runs its whole-SDF
+    copy on: `animated_restir` as shipped (ANIMATED) and under STATIC
+    accumulation, the three ReSTIR views, `textured_restir_demo` and
+    `textured_cornell` under ReSTIR."""
+    from raytracer0_tpu_torch.models import presets
+
+    out = {"animated_restir": presets.animated_restir(device=dev),
+           "animated_restir_static": presets.animated_restir(device=dev, render_mode=0)}
+    out.update({name: presets.restir_sdf_view(name, device=dev)
+                for name in presets.RESTIR_SDF_VIEWS})
+    out["textured_restir_demo"] = presets.textured_restir_demo(device=dev)
+    out["textured_cornell"] = presets.textured_cornell(device=dev, use_restir=True, use_mis=False)
+    return out
 
 
 def sun_scene(dev):
@@ -1113,10 +1159,17 @@ def restir_sdf_phase(torch, dev, card, occ):
         return out, ev0.elapsed_time(ev1)
 
     failed, out28 = [], {"held": {}}
-    hs = 128   # the holds' size, which the plain version finishes in seconds
+    # the holds' size and passes, which the plain version finishes in
+    # seconds: 128x128 over a 3-pass ring; the two views whose plain passes
+    # are the slowest (the `mandelbulb` view's 22-25 s each at 128x128 and
+    # at 64x64 alike: the plain version's time is its launches, per bounce
+    # and marching step) at 64x64, each at its own depth, the `mandelbulb`
+    # view over 1 pass and `every_shape` over 2
+    hs_of = {"mandelbulb": 64, "every_shape": 64}
+    passes_of = {"mandelbulb": 1, "every_shape": 2}
 
     # the K6 pass (K4, then K6v's fused form) and K4 alone against the plain
-    # version, bit for bit, at every pass of a 3-pass ring
+    # version, bit for bit, at every pass of the ring
     scenes = {name: presets.restir_sdf_view(name, device=dev)
               for name in presets.RESTIR_SDF_VIEWS}
     scenes["animated_restir"] = presets.animated_restir(device=dev)
@@ -1129,6 +1182,7 @@ def restir_sdf_phase(torch, dev, card, occ):
         t = 0.5 if int(cfg.render_mode) else 0.0   # a constant frame time under ANIMATED
         fr = scene_mod.animate_positions(sc, t, int(cfg.render_mode))
         copy4 = restir_split.gbuffer_copy(fr)
+        hs, n_pass = hs_of.get(name, 128), passes_of.get(name, 3)
         ro, rd = generate_rays(cam, hs, hs, 0)
         pix = rng.pixel_ids(hs, hs, device=dev)
         before = counts()
@@ -1139,7 +1193,7 @@ def restir_sdf_phase(torch, dev, card, occ):
             torch.equal(a[f], b[f]) for a, b in zip(gb4, rgb4) for f in a)
         kring = pring = RenderState.create(hs, hs, device=dev)
         diffs, errs, plain_ms = [], [], []
-        for p in range(3):
+        for p in range(n_pass):
             out, new = restir_kernel.render_sample_fused(sc, cfg, cam, kring, hs, hs, p, t)
             (ref, new_ref), ms = plain_timed(
                 lambda: restir.render_sample(sc, cfg, cam, pring, hs, hs, p, t))
@@ -1155,20 +1209,23 @@ def restir_sdf_phase(torch, dev, card, occ):
               f"{restir_vertex.vertex_copy(fr, False)}, {cfg.max_bounces} bounces, "
               f"{cfg.marching_steps} marching steps) at {hs}x{hs}: K4 against gbuffer_plain "
               f"{'identical bits' if k4_same else 'DIFFER'}; the K6 pass against "
-              f"restir.render_sample at passes 0-2: pixels or fields differing {diffs}, max abs "
+              f"restir.render_sample at passes 0-{n_pass - 1}: pixels or fields differing "
+              f"{diffs}, max abs "
               f"err {[f'{e:.3e}' for e in errs]}; launches (K6, K4, K6v, K5, K1, K2, K7) {got}; "
               f"image mean {ref.mean().item():.6f}, share holding a light {held_light:.4f}; "
               f"plain K4 {plain4_ms:.1f} ms, plain pass {[round(m, 1) for m in plain_ms]} ms")
-        if not k4_same or any(diffs) or got != (3, 4, 3, 0, 0, 0, 0) \
+        if not k4_same or any(diffs) or got != (n_pass, n_pass + 1, n_pass, 0, 0, 0, 0) \
                 or not ref.mean().item() > 0.0:
             failed.append(f"the K6 pass or K4 on {name}")
         out28["held"][name] = {"k4_copy": copy4, "k4_identical": k4_same,
                                "k6_pixels_differing": diffs, "max_abs_err": max(errs),
-                               "plain_ms_k4": plain4_ms, "plain_ms_pass": plain_ms}
+                               "plain_ms_k4": plain4_ms, "plain_ms_pass": plain_ms,
+                               "size": hs}
 
     # the split path against its plain version over ANIMATED frames at t != 0
     sc, cam, cfg = scenes["animated_restir"]
     adhoc = cfg.replace(restir_adhoc_motion=True)
+    hs = 128
     kring = pring = RenderState.create(hs, hs, device=dev)
     split_diff, split_err = [], []
     before = counts()
@@ -1313,6 +1370,217 @@ def restir_sdf_phase(torch, dev, card, occ):
     return out28
 
 
+def restir_grad_sdf_phase(torch, dev, card, occ):
+    """Phase 29: K7's whole-SDF copy (`csrc/restir_bwd_sdf.cu`) over the
+    scenes of `k7_sdf_scenes`: against the plain autograd over chains of
+    passes from an empty ring (the same bits on two launches), a ReSTIR
+    fwd+bwd step at 512x512 of `animated_restir` as shipped and of the
+    `mandelbulb` ReSTIR view timed with K7's bound, and `optimize.fit`
+    through it on the preset.  Returns the figures of the kernels' JSON
+    line and raises after printing every failed comparison."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer0_tpu_torch import optimize, rng
+    from raytracer0_tpu_torch.models import scene as scene_mod
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import megakernel, restir, restir_kernel, restir_split
+    from raytracer0_tpu_torch.render.renderer import render_pass
+    from raytracer0_tpu_torch.render.state import RenderState
+
+    names = ("K6", "K7", "K7 whole-SDF", "K1", "K2", "K5")
+
+    def counts():
+        return (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES,
+                restir_kernel.BWD_SDF_LAUNCHES, megakernel.LAUNCHES, megakernel.BWD_LAUNCHES,
+                restir_split.CAST_LAUNCHES)
+
+    def zero_counts():
+        restir_kernel.LAUNCHES = restir_kernel.BWD_LAUNCHES = restir_kernel.BWD_SDF_LAUNCHES = 0
+        megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = restir_split.CAST_LAUNCHES = 0
+
+    def chain(trace, sc, cfg, cam, size, passes, t):
+        """(loss, {leaf: gradient, "ro"/"rd": every pass's}) of seeded
+        weights on each pass's radiance and on the last ring's float fields,
+        over `passes` passes from an empty ring at the frame time t, every
+        scene-table leaf a leaf
+        (tests/test_torch_kernel_host_restir_sdf.py::chain_grads)."""
+        leaves = {k: getattr(sc, k).detach().clone().requires_grad_(True) for k in TABLE_LEAVES}
+        s = scene_mod.animate_positions(sc.replace(**leaves), t, int(cfg.render_mode))
+        state = RenderState.create(size, size, device=dev)
+        pix = rng.pixel_ids(size, size, device=dev)
+        gen = torch.Generator(dev).manual_seed(5)
+        weights = lambda shape: torch.rand(shape, generator=gen, device=dev) + 0.5
+        loss, rays = 0.0, []
+        for p in range(passes):
+            ro, rd = generate_rays(cam, size, size, p)
+            rays += [ro.detach().requires_grad_(True), rd.detach().requires_grad_(True)]
+            rad, new = trace(s, cfg, rays[-2], rays[-1], pix, p, 0, state.restir_back,
+                             state.restir_hist1, state.restir_hist2)
+            loss = loss + (rad * weights(rad.shape)).sum()
+            state = state.rotate_reservoirs(new)
+        for k in restir_kernel.RING_FLOATS:
+            loss = loss + (getattr(state.restir_back, k) * weights((size, size))).sum() * 0.1
+        got = torch.autograd.grad(loss, list(leaves.values()) + rays, allow_unused=True)
+        out = {k: torch.zeros_like(leaves[k]) if g is None else g
+               for k, g in zip(TABLE_LEAVES, got)}
+        n = len(TABLE_LEAVES)
+        out["ro"], out["rd"] = torch.stack(got[n::2]), torch.stack(got[n + 1::2])
+        return loss.detach().item(), out
+
+    def errors(got, want):
+        """Per leaf (max|a - b| / max|b|, max|a - b|); inf where the kernel's
+        gradient is not finite."""
+        out = {}
+        for k, b in want.items():
+            a = got[k]
+            diff = (a - b).abs().max().item() if bool(a.isfinite().all()) else float("inf")
+            out[k] = (diff / max(b.abs().max().item(), 1e-12), diff)
+        return out
+
+    failed, out29 = [], {"held": {}}
+    scenes = k7_sdf_scenes(dev)
+    for name in scenes:
+        o = occ[("K7 whole-SDF", name)]
+        print(f"phase 29: K7's whole-SDF copy on {name} ({scenes[name][0].num_meshes} meshes, "
+              f"{len(restir_kernel.bwd_columns(scenes[name][0]))} columns a mesh): "
+              f"{o['blocks']} blocks of {o['threads']} threads per SM at {o['registers']} "
+              f"registers, {o['local_bytes']} bytes of local memory, {o['smem']} bytes of shared "
+              f"memory")
+
+    # the holds: K7 against the plain autograd over passes from an empty
+    # ring at 32x32, each scene at its own depth: 4 passes; 2 on the scenes
+    # whose plain passes take 4-35 s each (their launches, not their
+    # pixels): the `mandelbulb` view (12 bounces, 128 marching steps),
+    # `every_shape` and `textured_restir_demo`
+    hs, passes_of = 32, {"mandelbulb": 2, "every_shape": 2, "textured_restir_demo": 2}
+    for name, (sc, cam, c) in scenes.items():
+        passes = passes_of.get(name, 4)
+        t = 0.5 if int(c.render_mode) else 0.0   # a constant frame time under ANIMATED
+        before = counts()
+        loss_k, got = chain(restir_kernel._fused, sc, c, cam, hs, passes, t)
+        torch.cuda.synchronize()
+        n = tuple(a - b for a, b in zip(counts(), before))
+        _, again = chain(restir_kernel._fused, sc, c, cam, hs, passes, t)
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        loss_p, want = chain(restir.trace_sample, sc, c, cam, hs, passes, t)
+        ev1.record()
+        torch.cuda.synchronize()
+        plain_ms = ev0.elapsed_time(ev1) / passes
+        errs = errors(got, want)
+        worst = max(e[0] for e in errs.values())
+        engaged = [k for k in TABLE_LEAVES + ("ro", "rd") if want[k].abs().max().item() > 0.0]
+        print(f"phase 29: K7's whole-SDF copy on {name} ({c.max_bounces} bounces, "
+              f"{c.marching_steps} marching steps) at {hs}x{hs}, passes 0-{passes - 1}, against "
+              f"the plain autograd: worst relative error {worst:.3e}; per leaf "
+              f"{ {k: f'{e[0]:.2e}' for k, e in errs.items()} }; loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}; same bits on two launches: {same}; launches "
+              f"{dict(zip(names, n))}; leaves with a gradient {engaged}; plain autograd "
+              f"{plain_ms:.1f} ms per pass")
+        if (worst >= GRAD_TOL or not same or abs(loss_k - loss_p) > 1e-5 * abs(loss_p)
+                or n != (passes,) * 3 + (0, 0, 0)):
+            failed.append(f"the hold on {name}")
+        out29["held"][name] = {"max_rel_err": worst, "max_abs_err": max(e[1] for e in errs.values()),
+                               "same_bits": same, "plain_ms_per_pass": plain_ms, "size": hs,
+                               "bounces": c.max_bounces, "marching_steps": c.marching_steps}
+
+    # a ReSTIR fwd+bwd step at full size: the preset as shipped, the mandelbulb view
+    step_passes = 2
+    out29["step"] = {}
+    for name in ("animated_restir", "mandelbulb"):
+        sc, cam, cfg = scenes[name]
+
+        def fwd_bwd(sc=sc, cam=cam, cfg=cfg):
+            lv = {k: getattr(sc, k).detach().clone().requires_grad_(True)
+                  for k in ("emission", "color")}
+            img = optimize.render_linear(sc.replace(**lv), cfg, cam, H, W, passes=step_passes)
+            return torch.autograd.grad(img.sum(), list(lv.values()))
+
+        zero_counts()   # the main path: counts from 0 just before, read just after
+        fwd_bwd()
+        torch.cuda.synchronize()
+        got = counts()
+        stats = time_stats(torch, fwd_bwd, runs=5, warmup=1)
+        # K7 alone, its three kernels, on the ring two passes leave
+        frame = scene_mod.animate_positions(sc, 0.0, int(cfg.render_mode))
+        st = RenderState.create(H, W, device=dev)
+        with torch.no_grad():
+            for _ in range(2):
+                st = render_pass(sc, cam, cfg, st, H, W)
+        ro, rd = generate_rays(cam, H, W, 2)
+        pix = rng.pixel_ids(H, W, device=dev)
+        grids = (st.restir_back, st.restir_hist1, st.restir_hist2)
+        ct = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
+        ct_res = [torch.ones((H, W), dtype=torch.float32, device=dev) for _ in range(4)]
+        table = megakernel.scene_table(frame)
+        k7 = lambda: restir_kernel._launch_backward(frame, cfg, table, ro, rd, pix, 2, 0, grids,
+                                                    ct, ct_res)
+        ms_k7 = time_ms(torch, k7, runs=5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                k7()
+            torch.cuda.synchronize()
+        d29, _ = device_times_ms(prof, ("restir_bwd_kernel", "tap_gather_kernel",
+                                        "restir_reduce_kernel"), per_launch=True)
+        dev_ms = None if d29["restir_bwd_kernel"] is None else sum(d29.values())
+        ev = path_events(torch, frame, cfg, ro, rd, pix, 2, 0, ring=st)
+        b = bound(ev, frame, cfg, adjoint=True, restir=True, sdf_adjoint=True)
+        o = occ[("K7 whole-SDF", name)]
+        txt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        print(f"phase 29: {card}: {name} at {H}x{W} ({cfg.max_bounces} bounces, "
+              f"{cfg.marching_steps} marching steps): a ReSTIR fwd+bwd step "
+              f"(render_linear, passes={step_passes}) {stats[0]:.3f} ms (q1 {stats[1]:.3f}, q3 "
+              f"{stats[2]:.3f}; CUDA events), launches per step {dict(zip(names, got))}; K7's "
+              f"whole-SDF copy alone {ms_k7:.3f} ms per launch (CUDA events), device "
+              f"{txt(dev_ms)} per launch (profiler: adjoint {txt(d29['restir_bwd_kernel'])}, tap "
+              f"gather {txt(d29['tap_gather_kernel'])}, reduction "
+              f"{txt(d29['restir_reduce_kernel'])}); bound {b[0]:.6f} ms ({b[1]}); "
+              f"{o['blocks']} blocks of {o['threads']} threads per SM at {o['registers']} "
+              f"registers and {o['local_bytes']} bytes of local memory")
+        if got != (step_passes,) * 3 + (0, 0, 0):
+            failed.append(f"the 512x512 step of {name} did not run through K6 and K7's "
+                          "whole-SDF copy alone")
+        out29["step"][name] = {"step_ms": stats[0], "step_quartiles": stats[1:],
+                               "launches": got[2], "ms": ms_k7, "device_ms": dev_ms,
+                               "device_ms_by_kernel": d29, "bound_ms": b[0], "bound_by": b[1],
+                               "registers": o["registers"], "local_bytes": o["local_bytes"],
+                               "blocks_per_sm": o["blocks"], "threads": o["threads"]}
+        del st, grids, frame
+
+    # optimize.fit through it on the preset as shipped: the METAL rounded
+    # box's color (its METAL texel blends into its emission, the
+    # glossiness) and the lights' emission, toward the shipped values
+    sc, cam, cfg = scenes["animated_restir"]
+    fit_size, fit_steps, fit_passes = 128, 6, 2
+    with torch.no_grad():
+        target = optimize.render_linear(sc, cfg, cam, fit_size, fit_size, passes=fit_passes)
+    is_light = (sc.mat_type == 0).float()[:, None]
+    box = torch.zeros_like(is_light)
+    box[-1] = 1.0   # row 17, the METAL ROUND_BOX
+    start = sc.replace(emission=sc.emission * (1.0 + 0.6 * is_light),
+                       color=sc.color * (1.0 - 0.4 * box))
+    zero_counts()   # the main path: counts from 0 just before, read just after
+    fitted, losses = optimize.fit(start, cfg, cam, target, ("emission", "color"),
+                                  steps=fit_steps, learning_rate=0.08, passes=fit_passes,
+                                  param_mask={"emission": is_light, "color": box})
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"phase 29: optimize.fit of animated_restir as shipped at {fit_size}x{fit_size}, "
+          f"passes={fit_passes}, {fit_steps} steps (the lights' emission from 1.6x, the METAL "
+          f"box's color from 0.6x): loss {losses[0]:.6f} -> {losses[-1]:.6f}, the box's color "
+          f"{[round(v, 4) for v in fitted.color[-1].tolist()]} (truth "
+          f"{[round(v, 4) for v in sc.color[-1].tolist()]}); launches {dict(zip(names, got))}")
+    want = fit_steps * fit_passes
+    if got != (want, want, want, 0, 0, 0) or not losses[-1] < losses[0]:
+        failed.append("the fit did not lower the loss through K6 and K7's whole-SDF copy alone")
+    out29["fit_launches"] = got[2]
+    out29["fit_losses"] = (losses[0], losses[-1])
+    if failed:
+        raise AssertionError(f"phase 29 failed: {'; '.join(failed)}")
+    return out29
+
+
 def main() -> int:
     import time
 
@@ -1353,14 +1621,15 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build the six kernels at once (K2 in two libraries) ----
-    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+    # ---- phase 2: build the six kernels at once (K2 and K7 in two libraries each) ----
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
                   pool.submit(restir_vertex.build), pool.submit(restir_kernel.build_bwd),
                   pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast),
-                  pool.submit(megakernel.build_bwd_sdf)]
+                  pool.submit(megakernel.build_bwd_sdf), pool.submit(restir_kernel.build_bwd_sdf)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5", "K2 whole-SDF"), infos):
+    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5", "K2 whole-SDF", "K7 whole-SDF"),
+                          infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -1416,10 +1685,17 @@ def main() -> int:
         if got2 != want2:
             raise AssertionError(f"K2's copy on {key[1]} moved: {got2}, expected {want2}")
     o7 = occ[("K7", "restir_demo")]
-    print(f"phase 2: K7 keeps its 168 registers and 1,328-byte stack: "
+    k7_fns = {**ptxas_functions(infos[3].log), **ptxas_functions(infos[7].log)}
+    k7_ptxas = {}
+    for copy, tag in (("ROUND_BOX", "restir_bwd_kernelILb0E"),
+                      ("whole-SDF", "restir_bwd_kernelILb1E")):
+        line = [v for k, v in k7_fns.items() if tag in k]
+        k7_ptxas[copy] = line[0] if line else None
+        print(f"phase 2: K7 ptxas, its {copy} copy: {k7_ptxas[copy]}")
+    print(f"phase 2: K7's ROUND_BOX copy keeps its 168 registers and 1,328-byte stack: "
           f"{(o7['registers'], o7['local_bytes']) == (168, 1328)}")
     if (o7["registers"], o7["local_bytes"]) != (168, 1328):
-        raise AssertionError("K7's code moved with the reservoir vertex's template")
+        raise AssertionError("K7's ROUND_BOX copy moved with the whole-SDF copy's template")
     # K4's and K6v's copies by the template instance of their kernels; the
     # old copies keep the lines they had before the whole-SDF copies came
     # (80 registers and a 56-byte stack, 20-28 bytes spilled; 64 and 72
@@ -1730,7 +2006,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         mem[route] = (peak / 2**20, (peak - base_mem) / 2**20)
     step_k = time_stats(torch, lambda: step_fn("kernel"), runs=9)
-    step_p = time_stats(torch, lambda: step_fn("plain"), runs=9)
+    step_p = time_stats(torch, lambda: step_fn("plain"), runs=3, warmup=1)
     step_k2 = time_stats(torch, lambda: step_fn("kernel"), runs=9)
     for name, (med, q1, q3) in (("K1+K2", step_k), ("plain autograd", step_p),
                                 ("K1+K2 again", step_k2)):
@@ -1751,7 +2027,7 @@ def main() -> int:
     d8 = rd.detach().clone().requires_grad_(True)
     plain_out = integrator.trace(scene.replace(**leaves), cfg, o8, d8, pix, 0, 0)
     plain_ms_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        plain_out, list(leaves.values()) + [o8, d8], ct, retain_graph=True))
+        plain_out, list(leaves.values()) + [o8, d8], ct, retain_graph=True), runs=3, warmup=1)
     del plain_out
     print(f"phase 8: {card}: backward alone: K2 {ms_k2:.3f} ms, plain autograd "
           f"{plain_ms_bwd:.3f} ms")
@@ -1868,7 +2144,8 @@ def main() -> int:
         s9, c9, cfg9 = cases[name]
         ro9, rd9 = generate_rays(c9, H, W, 0)
         k1_ms[name] = time_ms(torch, lambda: megakernel.trace_forward(s9, cfg9, ro9, rd9, pix9, 0, 0))
-        plain_ms[name] = time_ms(torch, lambda: integrator.trace(s9, cfg9, ro9, rd9, pix9, 0, 0))
+        plain_ms[name] = time_ms(torch, lambda: integrator.trace(s9, cfg9, ro9, rd9, pix9, 0, 0),
+                                 runs=3, warmup=1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 megakernel.trace_forward(s9, cfg9, ro9, rd9, pix9, 0, 0)
@@ -2478,7 +2755,8 @@ def main() -> int:
         mem20[(route, size)] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     step_full = time_stats(torch, lambda: restir_step("kernel", H), runs=9)
     step_small = time_stats(torch, lambda: restir_step("kernel", 128), runs=9)
-    step_plain = time_stats(torch, lambda: restir_step("plain", 128), runs=3, warmup=1)
+    # the plain step's ops ran in phases 18 and 19: no warm-up
+    step_plain = time_stats(torch, lambda: restir_step("plain", 128), runs=3, warmup=0)
     for name, size, (med, q1, q3) in (("K6+K7", H, step_full), ("K6+K7", 128, step_small),
                                       ("plain autograd", 128, step_plain)):
         print(f"phase 20: {card}: fwd+bwd step of render_linear(passes={fit_passes}) at "
@@ -2885,34 +3163,25 @@ def main() -> int:
             lambda: optimize.render_linear(rt_scene.replace(emission=em25), rt_adhoc, rt_cam, 16,
                                            16, passes=2), None),
     }
-    # fault 15: K6 admits these since K4 and K6v gained their whole-SDF
-    # copies; K7, which replays no texel and the ROUND_BOX distance alone,
-    # refuses a gradient through each before any launch, naming item 8
-    k7_cases = {
-        "animated_restir as shipped (MAT_METAL on its ROUND_BOX)":
-            presets.animated_restir(device=dev),
-        "the mandelbulb ReSTIR view": presets.restir_sdf_view("mandelbulb", device=dev),
-        "the every_shape ReSTIR view": presets.restir_sdf_view("every_shape", device=dev),
-        "the polygons ReSTIR view": presets.restir_sdf_view("polygons", device=dev),
-        "textured_cornell with ReSTIR, MIS off": presets.textured_cornell(
-            device=dev, use_restir=True, use_mis=False),
-        "restir_demo with a CHECK texture on its back wall": presets.textured_restir_demo(
-            device=dev),
-    }
-    for label, (sc25, cam25, cfg25) in k7_cases.items():
+    # fault 15's rule: K6 admits these since K4 and K6v gained their
+    # whole-SDF copies, and K7 since its whole-SDF copy is held (phase 29);
+    # a gradient K7 still does not compute, w.r.t. a texel array (the noise
+    # LUT), is refused before any launch, naming item 14
+    for label, (sc25, cam25, cfg25) in k7_sdf_scenes(dev).items():
         k6_why, k7_why = (restir_kernel.unsupported_restir(sc25, cfg25),
                           restir_kernel.unsupported_restir_bwd(sc25, cfg25))
-        print(f"phase 25: {label}: K6's gate {k6_why}; K7's gate {k7_why}")
-        if k6_why is not None or k7_why is None or "item 8" not in k7_why:
-            raise AssertionError(f"{label}: K6 refuses it or K7 admits it (fault 15)")
-        em_k7 = sc25.emission.clone().requires_grad_(True)
-        refusals[f"a ReSTIR gradient through {label} (K7)"] = (
-            lambda sc=sc25, cm=cam25, c=cfg25, e=em_k7: optimize.render_linear(
-                sc.replace(emission=e), c.replace(max_bounces=2), cm, 8, 8, passes=2), "item 8")
-    # three classes of the whole SDF class: K5 and K7 refuse them naming
-    # item 8; the ReSTIR gates admit the Mandelbulb (K4's and K6v's
-    # whole-SDF copies) and refuse default_scene (no light for ReSTIR) and
-    # the SDF light (its slot is no LIGHT sphere) naming item 11
+        print(f"phase 25: {label}: K6's gate {k6_why}; K7's gate {k7_why}, its copy "
+              f"{restir_kernel.bwd_copy(sc25)}")
+        if k6_why is not None or k7_why is not None or restir_kernel.bwd_copy(sc25) != "whole_sdf":
+            raise AssertionError(f"{label}: K6 or K7 refuses it, or K7 runs its ROUND_BOX copy")
+        lut_k7 = sc25.noise.clone().requires_grad_(True)
+        refusals[f"a ReSTIR gradient w.r.t. the noise LUT of {label} (K7)"] = (
+            lambda sc=sc25, cm=cam25, c=cfg25, n=lut_k7: optimize.render_linear(
+                sc.replace(noise=n), c.replace(max_bounces=2), cm, 8, 8, passes=2), "item 14")
+    # three classes of the whole SDF class: K5 refuses them naming item 8;
+    # the ReSTIR gates, K7's among them, admit the Mandelbulb (K4's, K6v's
+    # and K7's whole-SDF copies) and refuse default_scene (no light for
+    # ReSTIR) and the SDF light (its slot is no LIGHT sphere) naming item 11
     new_classes = {"a Mandelbulb": presets.mandelbulb(device=dev),
                    "a textured BOX SDF (default_scene)": presets.default_scene(device=dev),
                    "an SDF light": presets.sdf_view("sdf_light", device=dev)}
@@ -2930,8 +3199,7 @@ def main() -> int:
                  "ReSTIR": integrator.unsupported(sc25, rc25)}
         restir_item = None if label == "a Mandelbulb" else "item 11"
         for gate, why in gates.items():
-            want = ("item 8" if gate in ("K5", "K7") else None if gate == "K6v"
-                    else restir_item)
+            want = "item 8" if gate == "K5" else None if gate == "K6v" else restir_item
             print(f"phase 25: {gate}'s gate on {label}: {why}")
             if (why is None) != (want is None) or (want is not None and want not in why):
                 raise AssertionError(f"{gate}'s gate on {label}: expected {want}, got {why}")
@@ -2941,15 +3209,21 @@ def main() -> int:
             refusals[f"the split path on {label} (K4, K6v)"] = (
                 lambda sc=sc25, cm=cam25, c=rc25: Renderer(
                     sc, cm, c.replace(restir_adhoc_motion=True), 8, 8).step(0.1), restir_item)
-        # a ReSTIR gradient's route asks K6's gate before K7's
-        refusals[f"a ReSTIR gradient on {label} (K6, then K7)"] = (
-            lambda sc=sc25, cm=cam25, c=rc25, e=em_n: optimize.render_linear(
-                sc.replace(emission=e), c, cm, 8, 8, passes=2), restir_item or "item 8")
+            # a ReSTIR gradient's route asks K6's gate before K7's
+            refusals[f"a ReSTIR gradient on {label} (K6, then K7)"] = (
+                lambda sc=sc25, cm=cam25, c=rc25, e=em_n: optimize.render_linear(
+                    sc.replace(emission=e), c, cm, 8, 8, passes=2), restir_item)
         refusals[f"K5's cast on {label}"] = (
             lambda sc=sc25, c=cfg25, o=ro25, r=rd25: restir_split.cast_rays(sc, c, o, r),
             "item 8")
     demo25, demo_cam25, demo_cfg25 = presets.restir_demo(device=dev)
     adhoc25 = demo_cfg25.replace(restir_adhoc_motion=True)
+    # a BOX row in a scene K4 and K6v march without the whole SDF class:
+    # K7 refuses it, naming item 8
+    box25 = demo25.replace(sdf_shapes_static=(0,),
+                           emission=demo25.emission.clone().requires_grad_(True))
+    refusals["a ReSTIR gradient on restir_demo with its rounded box a BOX (K7)"] = (
+        lambda: optimize.render_linear(box25, demo_cfg25, demo_cam25, 8, 8, passes=2), "item 8")
     refusals["restir_demo with a cubemap on the split path"] = (lambda: Renderer(
         demo25, demo_cam25, adhoc25.replace(use_cubemap=True, use_procedural_sky=False),
         16, 16).step(0.1), "item 11")
@@ -3280,6 +3554,12 @@ def main() -> int:
     bulb28, held28 = p28["mandelbulb"], p28["held"]
     plain_bulb28 = statistics.median(held28["mandelbulb"]["plain_ms_pass"])
 
+    # ---- phase 29: K7 over the whole SDF class and blended textures ----
+    t29 = time.perf_counter()
+    p29 = restir_grad_sdf_phase(torch, dev, card, occ)
+    print(f"phase 29: {time.perf_counter() - t29:.1f} s")
+    held29, step29 = p29["held"], p29["step"]
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     common = dict(route="cuda", library_ms=None)
@@ -3355,7 +3635,7 @@ def main() -> int:
              "ms": bulb28["ms_k6"],
              "device_ms": None if bulb28["device_ms_k6v"] is None
              else bulb28["device_ms_k4"] + bulb28["device_ms_k6v"],
-             "plain_ms_128": plain_bulb28, "bound_ms": bulb28["bound_ms_k6"],
+             "plain_ms_64": plain_bulb28, "bound_ms": bulb28["bound_ms_k6"],
              "bound_by": bulb28["bound_by_k6"], "march_lane_use": bulb28["march_lane_use"],
              "frame_ms_animated_restir_k6": p28["frame_ms_k6"]}},
         {"name": "K6v reservoir-vertex kernel (K6's second stage; the split path's reservoir "
@@ -3381,7 +3661,7 @@ def main() -> int:
              "max_abs_err_split": p28["split_max_abs_err"], "ms": bulb28["ms_k6v"],
              "device_ms": bulb28["device_ms_k6v"],
              "device_ms_split": p28["frame_device"]["animated_restir"]["restir_vertex_kernel"],
-             "plain_ms_128": plain_bulb28, "bound_ms": bulb28["bound_ms_k6v"],
+             "plain_ms_64": plain_bulb28, "bound_ms": bulb28["bound_ms_k6v"],
              "bound_by": bulb28["bound_by_k6v"],
              "registers": occ[("K6v whole-SDF", "mandelbulb")]["registers"],
              "registers_split": occ[("K6v split whole-SDF", "animated_restir")]["registers"],
@@ -3396,6 +3676,26 @@ def main() -> int:
          "compared_at": f"{full}x{full}, passes 0-{n_full - 1}", "ms": ms_k7, "device_ms": k7_dev_ms,
          "plain_ms": plain_ms_k7, "bound_ms": k7_bound, "bound_by": k7_by,
          "blocks_per_sm": occ[("K7", "restir_demo")]["blocks"]},
+        {"name": "K7 fused ReSTIR adjoint, its whole-SDF copy", **common,
+         "source": "raytracer0_tpu_torch/csrc/restir_bwd_sdf.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:3017",
+         "also_serves": "raytracer0_tpu/ops/megakernel.py:3089 (K8)",
+         "launches": p29["fit_launches"],
+         "launches_by_path": {"fit_animated_restir": p29["fit_launches"],
+                              **{f"step_{k}": v["launches"] for k, v in step29.items()}},
+         "max_abs_err": max(v["max_abs_err"] for v in held29.values()),
+         "max_rel_err": max(v["max_rel_err"] for v in held29.values()),
+         "compared_at": "32x32, passes 0-3 (0-1 on mandelbulb, every_shape and "
+                        "textured_restir_demo), each scene at its own depth", "held": held29,
+         "ms": step29["animated_restir"]["ms"],
+         "device_ms": step29["animated_restir"]["device_ms"],
+         "plain_ms": held29["animated_restir"]["plain_ms_per_pass"],
+         "plain_ms_at": "32x32, one pass's fwd+bwd",
+         "bound_ms": step29["animated_restir"]["bound_ms"],
+         "bound_by": step29["animated_restir"]["bound_by"],
+         "mandelbulb": step29["mandelbulb"], "animated_restir": step29["animated_restir"],
+         "blocks_per_sm": step29["animated_restir"]["blocks_per_sm"],
+         "fit_losses": p29["fit_losses"]},
         {"name": "K8 per-slot fused ReSTIR adjoint, served by K7", **common,
          "source": "raytracer0_tpu_torch/csrc/restir_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3089",
@@ -3418,7 +3718,7 @@ def main() -> int:
              "max_abs_err": 0.0 if all(v["k4_identical"] for v in held28.values()) else None,
              "ms": bulb28["ms_k4"], "device_ms": bulb28["device_ms_k4"],
              "device_ms_realtime": p28["frame_device"]["animated_restir"]["gbuf_kernel"],
-             "plain_ms_128": held28["mandelbulb"]["plain_ms_k4"],
+             "plain_ms_64": held28["mandelbulb"]["plain_ms_k4"],
              "bound_ms": bulb28["bound_ms_k4"], "bound_by": bulb28["bound_by_k4"],
              "registers": occ[("K4 whole-SDF", "mandelbulb")]["registers"],
              "blocks_per_sm": occ[("K4 whole-SDF", "mandelbulb")]["blocks"],

@@ -19,7 +19,13 @@ bounces, after 5 warm-up launches; and the same for K7 (the adjoint kernel
 alone, and with its tap gather and reduction) on `restir_demo` and
 `restir_stress` at 512x512, 12 bounces, on the inputs of `chip_smoke.py`'s
 phase 17 (the ring after `Renderer(...).render(16)`, the rays of pass 16)
-with ones as cotangents, through `restir_kernel._launch_backward`.
+with ones as cotangents, through `restir_kernel._launch_backward`; in a
+checkout whose K7 has its whole-SDF copy, the same of that copy on
+`animated_restir` as shipped (`ANIMATED_CONFIG`, frame time 0) and the
+`mandelbulb` ReSTIR view (12 bounces, 128 marching steps;
+`k7_whole_sdf_*`), and on `restir_demo`, whose scenes the ROUND_BOX copy
+serves, with the whole-SDF copy forced (`k7_whole_sdf_restir_demo`: the
+two copies on the same work).
 
 Then the ReSTIR pass K6 (`restir_kernel.trace_forward_restir_fused`: one
 fused kernel in older checkouts, K4 then K6v in newer) on the same inputs, and on the
@@ -109,6 +115,15 @@ PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", 
            "config2", "textured_emitter", "cornell_box", "default_scene", "mandelbulb",
            "menger_sponge")
 K7_PRESETS = ("restir_demo", "restir_stress")
+#: the scenes of K7's whole-SDF copy it times: `animated_restir` as shipped
+#: (at frame time 0) and the `mandelbulb` ReSTIR view
+K7_WHOLE = {"whole_sdf_animated_restir": lambda presets, dev: presets.animated_restir(device=dev),
+            "whole_sdf_mandelbulb": lambda presets, dev: presets.restir_sdf_view(
+                "mandelbulb", device=dev),
+            "whole_sdf_restir_demo": lambda presets, dev: presets.restir_demo(device=dev)}
+#: the names of `K7_WHOLE` whose scene the ROUND_BOX copy serves: timed
+#: with `restir_kernel.bwd_copy` answering "whole_sdf"
+K7_FORCED = ("whole_sdf_restir_demo",)
 
 
 def k1_device_ms(names, dev):
@@ -155,7 +170,8 @@ def k7_device_ms(names, dev):
     """{preset: (median, rounds, median with gather and reduction)} of K7's
     device milliseconds per launch at 512x512, 12 bounces, on phase 17's
     inputs with ones as cotangents, for each preset of `names` this
-    checkout has."""
+    checkout has; a name of `K7_WHOLE` is the scene of K7's whole-SDF copy,
+    skipped where this checkout's K7 refuses it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -167,9 +183,16 @@ def k7_device_ms(names, dev):
 
     res = {}
     for name in names:
-        if not hasattr(presets, name) or not hasattr(restir_kernel, "_launch_backward"):
+        if name in K7_WHOLE:
+            if not hasattr(presets, "restir_sdf_view") or not hasattr(restir_kernel, "bwd_copy"):
+                continue
+            scene, cam, cfg = K7_WHOLE[name](presets, dev)
+            if restir_kernel.unsupported_restir_bwd(scene, cfg) is not None:
+                continue
+        elif not hasattr(presets, name) or not hasattr(restir_kernel, "_launch_backward"):
             continue
-        scene, cam, cfg = getattr(presets, name)(device=dev)
+        else:
+            scene, cam, cfg = getattr(presets, name)(device=dev)
         renderer = Renderer(scene, cam, cfg, 512, 512)
         renderer.render(16)
         st = renderer.state
@@ -183,6 +206,16 @@ def k7_device_ms(names, dev):
             restir_kernel._launch_backward(scene, cfg, table, ro, rd, pix, 16, 0,
                                            (st.restir_back, st.restir_hist1, st.restir_hist2),
                                            ct, ct_res)
+
+        if name in K7_FORCED:
+            own_copy = launch
+
+            def launch(bwd_copy=restir_kernel.bwd_copy):
+                restir_kernel.bwd_copy = lambda _scene: "whole_sdf"
+                try:
+                    own_copy()
+                finally:
+                    restir_kernel.bwd_copy = bwd_copy
 
         for _ in range(5):
             launch()
@@ -628,7 +661,7 @@ def main() -> int:
         res[name] = med
         res[name + "_rounds"] = rounds
     res.update(k2_device_ms(dev))
-    for name, (med, rounds, whole) in k7_device_ms(K7_PRESETS, dev).items():
+    for name, (med, rounds, whole) in k7_device_ms(K7_PRESETS + tuple(K7_WHOLE), dev).items():
         res["k7_" + name] = med
         res["k7_" + name + "_rounds"] = rounds
         res["k7_" + name + "_with_gather_and_reduction"] = whole

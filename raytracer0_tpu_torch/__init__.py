@@ -33,16 +33,25 @@ Layout:
   optimize.py  — inverse rendering: fit scene parameters with Adam
   csrc/        — CUDA C++ sources of the kernels
 
-The forward pass covers analytic primitives and BOX/ROUND_BOX SDF meshes
-with every surface material (DIFF, SPEC, REFR_FRESNEL, REFR_SCHLICK, COAT),
-textures, sphere and directional lights with optional MIS, cosine or
-uniform sampling, a cubemap or the procedural sky, and ReSTIR over
-sphere lights, under STATIC or ANIMATED (real-time) accumulation, with the
-pixel's own history or the ad-hoc reprojection.  Gradients cover that
-class on the CPU (plain autograd); on CUDA its analytic Cornell subset
-(K2: DIFF and LIGHT materials, sphere lights, no cubemap, cosine
-sampling) and ReSTIR without the ad-hoc reprojection (K7).  Other features
-raise NotImplementedError naming the ROADMAP item that adds them.
+The forward pass (K1) covers analytic primitives and SDF meshes of all 14
+shapes with every surface material (DIFF, SPEC, REFR_FRESNEL,
+REFR_SCHLICK, COAT), textures of all ten types on analytic and SDF
+meshes, sphere, directional and SDF-bound lights with optional MIS,
+cosine or uniform sampling, and a cubemap or the procedural sky.  ReSTIR
+(K4 and K6v) covers sphere lights over every SDF shape and textures
+blended into any row, without a cubemap on the card, under STATIC or
+ANIMATED (real-time) accumulation, with the pixel's own history or the
+ad-hoc reprojection.  Gradients cover all of it on the CPU (plain
+autograd).  On CUDA, K2 differentiates K1's whole class, and K7 the ReSTIR
+pass without the ad-hoc reprojection over its whole class
+(`restir_kernel.outside_k7_class`: every SDF shape, textures blended into
+any row, but no BOX row in a scene K4 and K6v march without the whole SDF
+class; at most 32 candidates), each with respect to the scene table
+(aux and the texture columns included) and the rays, K7 also to the
+ring's float fields.  Neither differentiates a texel array (the images,
+the noise LUT, the cubemap), and the split path has no adjoint.  What is
+outside these classes raises NotImplementedError naming the ROADMAP item
+that adds it.
 """
 
 from raytracer0_tpu_torch.config import (  # noqa: F401

@@ -6,9 +6,9 @@
 // and normals, the direction of every BSDF sample (reflection, refraction),
 // the BOX and ROUND_BOX signed distances, the scene map, the tetrahedral
 // SDF normal and the implicit reattachment of an SDF hit's t; and, reached
-// by K2 alone, the texel of a hit (the UV, image bilinear, CHECK, RIPPLE,
-// gradient and value noise, METAL fBm) and its blend into the hit's color
-// and emission.
+// by K2 and K7's whole-SDF copy, the 14 distances, the texel of a hit (the
+// UV, image bilinear, CHECK, RIPPLE, gradient and value noise, METAL fBm)
+// and its blend into the hit's color and emission.
 //
 // Each function is the reverse-mode derivative of its forward twin in
 // trace_common.cuh, which is the plain PyTorch version's operation for
@@ -367,7 +367,7 @@ __device__ V3 sd_box_bwd(const SceneSmem &s, int row, V3 p, float g, const Acc &
 
 // ------------------------------------------------------------ SDF shapes
 // The adjoints of the distances beyond BOX and ROUND_BOX (trace_common.cuh,
-// "SDF shapes"; K2's whole-SDF copy alone), each the reverse of the plain
+// "SDF shapes"; the whole-SDF copies of K2 and K7), each the reverse of the plain
 // version's operations under torch.autograd: torch.maximum and
 // torch.minimum split the gradient evenly at a tie (dmax, dmin), amin
 // between all tied values, clamp_min and clamp pass it at the bound, abs
@@ -898,9 +898,9 @@ __device__ __attribute__((noinline)) V3 sdf_map_all_bwd(const SceneSmem &s, cons
   return gp;
 }
 
-// The SDF rows' distance at p (sdf_map) times g.  kShapes = false (K7):
-// ROUND_BOX rows, the nearest entry's cotangents (the first on a tie, as
-// the forward's winner).  kShapes = true (K2): BOX and ROUND_BOX rows, the
+// The SDF rows' distance at p (sdf_map) times g.  kShapes = false (K7's
+// ROUND_BOX copy): ROUND_BOX rows, the nearest entry's cotangents (the
+// first on a tie, as the forward's winner).  kShapes = true (K2): BOX and ROUND_BOX rows, the
 // gradient split at ties as the plain version's chain of torch.minimum
 // splits it: the last of r tied entries takes half, the one before it a
 // quarter, ..., the first two 1/2^(r-1) each.
@@ -933,8 +933,8 @@ __device__ V3 sdf_map_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float g,
 }
 
 // The scene map's adjoint at p for its cotangent g: sdf_map_bwd<kShapes>,
-// or with kAll (K2's whole-SDF copy) sdf_map_all_bwd with the value-noise
-// LUT of a SNOWBALL.
+// or with kAll (the whole-SDF copies of K2 and K7) sdf_map_all_bwd with
+// the value-noise LUT of a SNOWBALL.
 template <bool kShapes, bool kAll, class Acc>
 __device__ __forceinline__ V3 scene_map_bwd(const SceneSmem &s, const SdfScene &sd, V3 p, float g,
                                             const Acc &G, const float *lut, int lut_n) {

@@ -40,7 +40,8 @@
 // whole-SDF copy), which the casts of the plain version's
 // intersect.intersect and of the TPU's cast kernel run.  It reads no
 // texel: the target function and the shading read the rows' own color and
-// emission, as the plain version does.  K7 compiles neither flag.
+// emission, as the plain version does.  K7's ROUND_BOX copy compiles
+// neither flag, its whole-SDF copy `kAll`.
 
 #pragma once
 

@@ -16,6 +16,25 @@
 // run jax.vjp inside the kernel; CUDA has no autodiff, so each step's
 // adjoint is written out by hand (here and in adjoint.cuh).
 //
+// Two copies, each a template instance of restir_bwd_kernel:
+//  * the ROUND_BOX copy (kAll = false): SDF rows of the ROUND_BOX shape, no
+//    blended texture, the 14 columns 0:14; its code is the code K7 had
+//    before the other copy came.
+//  * the whole-SDF copy (kAll = true): every SDF shape through
+//    adjoint.cuh::sdf_map_all_bwd (a Mandelbulb lane that is done skips
+//    its dead iterations, mandelbulb_bwd), the texel blended into a hit's
+//    color and emission (blend_bwd, texel_bwd: to the texture columns and,
+//    through the texel, to the hit point), K6v's whole-SDF vertex
+//    (RestirVertexT<false, true>, whose shadow rays march every shape),
+//    and the scene's columns (restir_kernel.bwd_columns: 0:14, and the aux
+//    and texture columns K2's wide copy keeps), mapped to accumulators in
+//    shared memory.  Its forward sweep stashes each slot's hit, so its
+//    reverse sweep marches no slot's ray again.
+// The whole-SDF copy is a library of its own (restir_bwd_sdf.cu: this file
+// with RT0_K7_WHOLE_SDF set), so that nvcc compiles it beside the
+// ROUND_BOX copy's library; each library launches its own copy, and the
+// caller picks the library (restir_kernel.bwd_copy).
+//
 // Scheme: a per-slot stash, one thread per pixel.
 //  * forward sweep: run K6's bounce loop (path.cuh::trace_path) without the
 //    accumulator and without the reservoir vertex (neither changes the
@@ -45,8 +64,9 @@
 // a chain of passes from an empty ring with one scene is the plain gradient.
 //
 // Deterministic reductions: scene cotangents (table columns 0:14: pos,
-// joker, color, emission, ior) are summed per thread in shared memory, per
-// block in thread order and across blocks in block order, as K2 does; the
+// joker, color, emission, ior; more in the whole-SDF copy) are summed per
+// thread in shared memory, per block in thread order and across blocks in
+// block order, as K2 does; the
 // tap cotangents are written per pixel and tap and gathered per back-grid
 // cell in tap order, without atomics.  Two runs give the same bits.
 //
@@ -56,19 +76,28 @@
 // about twice their arithmetic; the stash and the vertex tape live in local
 // memory.
 
+#include <cassert>
+
 #include "adjoint.cuh"
 #include "restir.cuh"
+
+// 1 in restir_bwd_sdf.cu: this library holds the whole-SDF copy alone
+#ifndef RT0_K7_WHOLE_SDF
+#define RT0_K7_WHOLE_SDF 0
+#endif
 
 namespace {
 
 constexpr int MAX_SLOTS = 16;  // stash depth; the wrapper checks the bound
 constexpr int ST = 13;         // stashed floats per slot: o, d, mask, prev_nl, specular
+constexpr int ST_ALL = ST + 2; // the whole-SDF copy's: also the hit's t and mesh
 constexpr int MAX_CAND = 32;   // candidates the tape holds; the wrapper checks the bound
 constexpr int MAX_COMB = 2 + MAX_SPATIAL;
 constexpr int BWD_THREADS = 128;
 constexpr int RED_THREADS = 64;
 constexpr int GATHER_THREADS = 256;
 constexpr int NG = 14;  // scene-table columns 0:14 with a cotangent
+constexpr unsigned long long NG_COLS = (1ull << NG) - 1ull;  // the same, as a column mask
 constexpr int NF = 3;   // ring fields with a cotangent: m, w, age
 
 struct Bwd7Args {
@@ -78,10 +107,12 @@ struct Bwd7Args {
   float *partials;         // [n_blocks, n_mesh, NG]
   float *dtap;             // [MAX_SPATIAL, NF, H * W] per spatial tap, by grid cell
   float *dhist;            // [2, NF, H * W] per history level, by grid cell
+  unsigned long long cols; // the scene-table columns kept (NG_COLS in the ROUND_BOX copy)
+  int ng;                  // their count
 };
 
 // This thread's column of the block's cotangent accumulators; `col` is a
-// scene-table column below NG.
+// scene-table column below NG (the ROUND_BOX copy).
 struct GradAcc {
   float *g;     // entry e at g[e * stride]
   int stride;   // blockDim.x
@@ -94,6 +125,35 @@ struct GradAcc {
     add(mesh, col + 2, v.z);
   }
 };
+
+// This thread's column of the block's cotangent accumulators in the
+// whole-SDF copy: `ng` per mesh, the scene's columns (restir_kernel.
+// bwd_columns), `map` from table column to accumulator in shared memory.
+struct ColAcc {
+  float *g;        // entry e at g[e * stride]
+  int stride;      // blockDim.x
+  const int *map;  // [NCOLS]: the accumulator of each column kept, else -1
+  int ng;
+  __device__ __forceinline__ void add(int mesh, int col, float v) const {
+#ifndef __CUDA_ARCH__
+    assert(map[col] >= 0);  // the host build checks that every add has its column
+#endif
+    g[(mesh * ng + map[col]) * stride] += v;
+  }
+  __device__ __forceinline__ void add3(int mesh, int col, V3 v) const {
+    add(mesh, col, v.x);
+    add(mesh, col + 1, v.y);
+    add(mesh, col + 2, v.z);
+  }
+};
+
+// The columns of `cols` below `col`: the accumulator of column `col` when
+// it is in the mask.
+__host__ __device__ inline int cols_below(unsigned long long cols, int col) {
+  int k = 0;
+  for (int j = 0; j < col; ++j) k += (int)((cols >> j) & 1ull);
+  return k;
+}
 
 // The decisions and values of one run of the reservoir vertex that its
 // adjoint needs (restir.cuh's tape hooks).
@@ -148,8 +208,9 @@ struct VertexGrad {
 constexpr float LUM_R = 0.2126f, LUM_G = 0.7152f, LUM_B = 0.0722f;
 
 // restir.evaluate_target of slot l at (x, nl) for its cotangent g.
-__device__ void target_bwd(const RestirVertex &v, int l, V3 x, V3 nl, float brdf, float g,
-                           VertexGrad &vg, const GradAcc &G) {
+template <class V, class Acc>
+__device__ void target_bwd(const V &v, int l, V3 x, V3 nl, float brdf, float g, VertexGrad &vg,
+                           const Acc &G) {
   if (!v.in_range(l) || g == 0.0f) return;
   const int li = v.s.lights[l] < 0 ? 0 : v.s.lights[l];
   const V3 lv = v.slot_pos(l) - x;
@@ -178,7 +239,8 @@ __device__ void target_bwd(const RestirVertex &v, int l, V3 x, V3 nl, float brdf
 }
 
 // RestirVertex::brdf_weight of mesh mi for its cotangent g.
-__device__ void brdf_bwd(const SceneSmem &s, int mi, float g, const GradAcc &G) {
+template <class Acc>
+__device__ void brdf_bwd(const SceneSmem &s, int mi, float g, const Acc &G) {
   if (g == 0.0f) return;
   const V3 mc = s.c(mi);
   const float ior = s.ior(mi);
@@ -204,9 +266,10 @@ __device__ void brdf_bwd(const SceneSmem &s, int mi, float g, const GradAcc &G) 
 // Combine k of the tape (restir.combine_reservoirs) backwards: g_ws, g_m
 // and g_age enter as the cotangents of the reservoir after it and leave as
 // those before it; g_q gets the source's m, w and age.
-__device__ void combine_bwd(const RestirVertex &v, const VertexTape &tp, int k, V3 x, V3 nl,
-                            float brdf, float &g_ws, float &g_m, float &g_age, float g_q[NF],
-                            VertexGrad &vg, const GradAcc &G) {
+template <class V, class Acc>
+__device__ void combine_bwd(const V &v, const VertexTape &tp, int k, V3 x, V3 nl, float brdf,
+                            float &g_ws, float &g_m, float &g_age, float g_q[NF], VertexGrad &vg,
+                            const Acc &G) {
   const Res &q = tp.q[k];
   const bool ok = (tp.ok >> k) & 1u, select = (tp.sel >> k) & 1u;
   const float m_new = tp.m_new[k];
@@ -242,9 +305,9 @@ __device__ void combine_bwd(const RestirVertex &v, const VertexTape &tp, int k, 
 // unless it is the path's last diffuse vertex).  Adds the cotangents of x,
 // nl, the scene, the spatial taps (g_taps) and the history levels (g_hist);
 // returns the direct light.
-__device__ V3 vertex_bwd(RestirVertex &v, V3 x, V3 nl, int mi, uint32_t h_depth, V3 g_out,
-                         const float gr[4], V3 &g_x, V3 &g_nl, float *g_taps, float *g_hist,
-                         const GradAcc &G) {
+template <class V, class Acc>
+__device__ V3 vertex_bwd(V &v, V3 x, V3 nl, int mi, uint32_t h_depth, V3 g_out, const float gr[4],
+                         V3 &g_x, V3 &g_nl, float *g_taps, float *g_hist, const Acc &G) {
   VertexTape tp;
   tp.take = tp.ovf = tp.ok = tp.sel = 0u;
   tp.n = 0;
@@ -344,10 +407,15 @@ __device__ V3 vertex_bwd(RestirVertex &v, V3 x, V3 nl, int mi, uint32_t h_depth,
 // last slot); `gr` the cotangents of the output reservoir when this slot is
 // the path's last diffuse vertex, else zeros.  Out: g_* hold the cotangents
 // of the carry entering it; the scene's go into G, the ring's into g_taps
-// and g_hist.
-__device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_t h_pix,
-                         const float *sk, V3 ct, const float gr[4], V3 &g_o, V3 &g_d, V3 &g_mask,
-                         V3 &g_pnl, float *g_taps, float *g_hist, const GradAcc &G) {
+// and g_hist.  kAll (the whole-SDF copy): the hit (t, mesh) comes from the
+// stash, an SDF hit is of any shape (adjoint.cuh::sdf_map_all_bwd), and
+// the hit's color and emission blend its texel in (blend_bwd carries their
+// cotangents to the texture columns and, through the texel, to the hit
+// point), as K4's path_step<., true> renders them.
+template <bool kAll, class V, class Acc>
+__device__ void slot_bwd(V &v, const PathSmem &ps, int depth, uint32_t h_pix, const float *sk,
+                         V3 ct, const float gr[4], V3 &g_o, V3 &g_d, V3 &g_mask, V3 &g_pnl,
+                         float *g_taps, float *g_hist, const Acc &G) {
   const SceneSmem &s = v.s;
   const TraceArgs &a = v.a;
   const V3 o = {sk[0], sk[1], sk[2]}, d = {sk[3], sk[4], sk[5]};
@@ -358,7 +426,16 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
 
   float t;
   int idx;
-  const bool sdf_hit = intersect_scene<true>(s, ps.sd, o, d, a.eps, a.inf, t, idx);
+  bool sdf_hit;
+  if constexpr (kAll) {
+    t = sk[ST];
+    idx = (int)sk[ST + 1];
+    sdf_hit = idx >= ps.sd.first;  // the SDF rows follow the analytic ones
+  } else {
+    sdf_hit = intersect_scene<true>(s, ps.sd, o, d, a.eps, a.inf, t, idx);
+  }
+  const float *lut = kAll ? a.noise : nullptr;  // a SNOWBALL's value noise
+  const int lut_n = kAll ? a.noise_n : 0;
 
   // ---- miss: acc += mask * sky(d) ----
   if (!(t < a.inf)) {
@@ -370,8 +447,17 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
   }
 
   const V3 x = o + d * t;
-  const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
-  const V3 c_raw = s.c(idx), e_raw = s.e(idx);
+  const V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
+  // the normal whose dominant axis picks a texel's planar UV: an SDF hit's
+  // row's box normal, as in path_step (piecewise constant: no gradient)
+  const V3 n_tex = kAll && sdf_hit ? normal_at(s, idx, x) : n;
+  V3 c_raw, e_raw;
+  if constexpr (kAll) {
+    blended_color_emission(a, s, ps, idx, x, n_tex, c_raw, e_raw);
+  } else {
+    c_raw = s.c(idx);
+    e_raw = s.e(idx);
+  }
   const V3 c = vmax(c_raw, 0.001f), e = vmax(e_raw, 0.001f);
   const float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
   const int mat = s.mat[idx];
@@ -390,8 +476,12 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
       mis_w = power_heuristic(b_pdf, l_pdf);
     }
     g_mask = ct * c * e * mis_w;
-    G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, ct * mask * e * mis_w));
-    G.add3(idx, C_ER, pass_ge(e_raw, 0.001f, ct * mask * c * mis_w));
+    if constexpr (kAll) {
+      g_x = blend_bwd(a, s, ps, idx, x, n_tex, ct * mask * e * mis_w, ct * mask * c * mis_w, G);
+    } else {
+      G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, ct * mask * e * mis_w));
+      G.add3(idx, C_ER, pass_ge(e_raw, 0.001f, ct * mask * c * mis_w));
+    }
     if (mis) {
       float g_b, g_l;
       power_heuristic_bwd(b_pdf, l_pdf, dot(ct, mask * c * e), g_b, g_l);
@@ -439,10 +529,15 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
     g_mask = g_ma * b.mult;
     const bool attenuates = mat == MAT_DIFF || mat == MAT_SPEC || transmit ||
                             (mat == MAT_COAT && diffuse);
-    if (attenuates) G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, g_ma * mask));
+    if constexpr (kAll) {
+      // the emission bends the bounce detached: no cotangent reaches it
+      g_x = g_x + blend_bwd(a, s, ps, idx, x, n_tex, attenuates ? g_ma * mask : zero3(), zero3(), G);
+    } else {
+      if (attenuates) G.add3(idx, C_CR, pass_ge(c_raw, 0.001f, g_ma * mask));
+    }
     const V3 g_n = g_nl * inside;
     if (sdf_hit)
-      g_x = g_x + sdf_normal_bwd(s, ps.sd, x, a.eps, g_n, G);
+      g_x = g_x + sdf_normal_bwd<kAll, kAll>(s, ps.sd, x, a.eps, g_n, G, lut, lut_n);
     else
       normal_bwd(s, idx, x, g_n, g_x, G);
   }
@@ -452,30 +547,52 @@ __device__ void slot_bwd(RestirVertex &v, const PathSmem &ps, int depth, uint32_
   g_d = g_d + g_x * t;
   const float g_t = dot(g_x, d);
   if (sdf_hit)
-    sdf_t_bwd(s, ps.sd, o, d, t, a.eps, v.ra.eps2, g_t, g_o, g_d, G);
+    sdf_t_bwd<kAll, kAll>(s, ps.sd, o, d, t, a.eps, v.ra.eps2, g_t, g_o, g_d, G, lut, lut_n);
   else
     isect_bwd(s, idx, o, d, a.eps, g_t, g_o, g_d, G);
 }
 
 // Dynamic shared memory of one K7 block: K6's (the scene, texture codes,
-// SDF shapes, light slots), then `threads` columns of NG cotangent
-// accumulators per mesh (ops/restir_kernel.py computes the same).
-__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int n_sdf, int threads) {
+// SDF shapes, light slots), then `threads` columns of `ng` cotangent
+// accumulators per mesh (NG in the ROUND_BOX copy; the whole-SDF copy,
+// `all`, keeps the scene's columns and their map, NCOLS ints, before them).
+// ops/restir_kernel.py computes the same.
+__host__ __device__ inline size_t bwd_smem_bytes(int n_mesh, int n_lights, int n_sdf, int threads,
+                                                 bool all = false, int ng = NG) {
   return path_smem_bytes(n_mesh, n_lights, n_sdf) + sizeof(float) * NSLOT * n_lights +
-         sizeof(float) * n_mesh * NG * threads;
+         (all ? sizeof(int) * NCOLS : 0) + sizeof(float) * n_mesh * ng * threads;
 }
 
+// kAll: the whole-SDF copy (every SDF shape, textures blended into any row,
+// the scene's columns; slot_bwd), else the ROUND_BOX copy.
+template <bool kAll>
 __global__ void __launch_bounds__(BWD_THREADS) restir_bwd_kernel(TraceArgs a, RestirArgs ra,
                                                                  Bwd7Args b) {
   extern __shared__ float smem[];
   float *slots = smem + path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf) / sizeof(float);
+  float *gsm = slots + NSLOT * a.n_lights;
+  int *map = nullptr;
+  if constexpr (kAll) {
+    map = reinterpret_cast<int *>(gsm);
+    gsm += NCOLS;
+    for (int c = threadIdx.x; c < NCOLS; c += blockDim.x)
+      map[c] = ((b.cols >> c) & 1ull) ? cols_below(b.cols, c) : -1;
+  }
   load_slots(a, slots);
   SceneSmem s;
   const PathSmem ps = load_path(a, smem, s);  // synchronises the block
-  float *gsm = slots + NSLOT * a.n_lights;
-  const int n_g = a.n_mesh * NG;
+  const int ng = kAll ? b.ng : NG;
+  const int n_g = a.n_mesh * ng;
   for (int e = 0; e < n_g; ++e) gsm[e * blockDim.x + threadIdx.x] = 0.0f;
-  const GradAcc G = {gsm + threadIdx.x, (int)blockDim.x};
+  using Acc = std::conditional_t<kAll, ColAcc, GradAcc>;
+  Acc G;
+  if constexpr (kAll)
+    G = {gsm + threadIdx.x, (int)blockDim.x, map, ng};
+  else
+    G = {gsm + threadIdx.x, (int)blockDim.x};
+  // the value-noise LUT of a SNOWBALL, for the whole-SDF copy's scene map
+  const float *lut = kAll ? a.noise : nullptr;
+  const int lut_n = kAll ? a.noise_n : 0;
 
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p < a.n_pix) {  // ragged edge: idle threads still join the block sum
@@ -483,19 +600,21 @@ __global__ void __launch_bounds__(BWD_THREADS) restir_bwd_kernel(TraceArgs a, Re
     const int row = (int)(id / (uint32_t)ra.width), col = (int)(id % (uint32_t)ra.width);
     const long long own = (long long)row * ra.width + col;
     const long long cells = (long long)ra.height * ra.width;
-    RestirVertex v = {s, ps.sd, a, ra, slots, row, col, {0.0f, 0.0f, 0.0f, 0.0f, -1}};
+    RestirVertexT<false, kAll> v = {s, ps.sd, a, ra, slots, row, col, {0.0f, 0.0f, 0.0f, 0.0f, -1}};
     V3 o = {a.ro[3 * p], a.ro[3 * p + 1], a.ro[3 * p + 2]};
     V3 d = {a.rd[3 * p], a.rd[3 * p + 1], a.rd[3 * p + 2]};
     const uint32_t h_pix = pixel_hash(a, p);
 
-    // ---- forward sweep: K6's carry updates, stashing each slot's input ----
-    float st[MAX_SLOTS * ST];
+    // ---- forward sweep: K6's carry updates, stashing each slot's input
+    //      (and, in the whole-SDF copy, its hit) ----
+    constexpr int STK = kAll ? ST_ALL : ST;
+    float st[MAX_SLOTS * STK];
     V3 mask = {1.0f, 1.0f, 1.0f};
     V3 prev_nl = {0.0f, 1.0f, 0.0f};
     bool specular = true;
     int ndif = 0, nspec = 0, nscat = 0, n_run = 0, last_diff = -1;
     for (int depth = 0; depth < a.max_bounces && depth < MAX_SLOTS; ++depth) {
-      float *sk = st + depth * ST;
+      float *sk = st + depth * STK;
       sk[0] = o.x, sk[1] = o.y, sk[2] = o.z, sk[3] = d.x, sk[4] = d.y, sk[5] = d.z;
       sk[6] = mask.x, sk[7] = mask.y, sk[8] = mask.z;
       sk[9] = prev_nl.x, sk[10] = prev_nl.y, sk[11] = prev_nl.z;
@@ -504,11 +623,24 @@ __global__ void __launch_bounds__(BWD_THREADS) restir_bwd_kernel(TraceArgs a, Re
 
       float tmin;
       int idx;
-      const bool sdf_hit = intersect_scene<true>(s, ps.sd, o, d, a.eps, a.inf, tmin, idx);
+      const bool sdf_hit =
+          intersect_scene<true, kAll>(s, ps.sd, o, d, a.eps, a.inf, tmin, idx, lut, lut_n);
+      if constexpr (kAll) {
+        sk[ST] = tmin;
+        sk[ST + 1] = (float)idx;
+      }
       if (!(tmin < a.inf)) break;
       const V3 x = o + d * tmin;
-      const V3 n = sdf_hit ? sdf_normal(s, ps.sd, x, a.eps) : normal_at(s, idx, x);
-      const V3 c = vmax(s.c(idx), 0.001f), e = vmax(s.e(idx), 0.001f);
+      const V3 n = sdf_hit ? sdf_normal<kAll>(s, ps.sd, x, a.eps, lut, lut_n) : normal_at(s, idx, x);
+      V3 c, e;
+      if constexpr (kAll) {
+        blended_color_emission(a, s, ps, idx, x, sdf_hit ? normal_at(s, idx, x) : n, c, e);
+        c = vmax(c, 0.001f);
+        e = vmax(e, 0.001f);
+      } else {
+        c = vmax(s.c(idx), 0.001f);
+        e = vmax(s.e(idx), 0.001f);
+      }
       const float inside = dot(d, n) > 0.0f ? -1.0f : 1.0f;
       const int mat = s.mat[idx];
       if (mat == MAT_LIGHT || mat == MAT_DIR_LIGHT) break;
@@ -541,8 +673,8 @@ __global__ void __launch_bounds__(BWD_THREADS) restir_bwd_kernel(TraceArgs a, Re
     for (int k = 0; k < 2 * NF; ++k) g_hist[k] = 0.0f;
     V3 g_o = zero3(), g_d = zero3(), g_mask = zero3(), g_pnl = zero3();
     for (int k = n_run - 1; k >= 0; --k)
-      slot_bwd(v, ps, k, h_pix, st + k * ST, ct, k == last_diff ? gr_last : gr_none, g_o, g_d,
-               g_mask, g_pnl, g_taps, g_hist, G);
+      slot_bwd<kAll>(v, ps, k, h_pix, st + k * STK, ct, k == last_diff ? gr_last : gr_none, g_o,
+                     g_d, g_mask, g_pnl, g_taps, g_hist, G);
     b.d_ro[3 * p] = g_o.x;
     b.d_ro[3 * p + 1] = g_o.y;
     b.d_ro[3 * p + 2] = g_o.z;
@@ -581,37 +713,48 @@ __global__ void __launch_bounds__(GATHER_THREADS)
   }
 }
 
-// d_table[mesh, col] for the columns col < NG = sum over blocks of the
-// partials, in a fixed order: one block per (mesh, col), a strided sum per
-// thread, then a fixed tree.  The other columns stay as the caller zeroed
-// them.
+// d_table[mesh, col] for the `ng` columns of `cols` (NG_COLS in the
+// ROUND_BOX copy) = sum over blocks of the partials, in a fixed order: one
+// block per (mesh, column kept), a strided sum per thread, then a fixed
+// tree.  The other columns stay as the caller zeroed them.
 __global__ void __launch_bounds__(RED_THREADS)
-    restir_reduce_kernel(const float *partials, int n_blocks, int n_mesh, float *d_table) {
+    restir_reduce_kernel(const float *partials, int n_blocks, int n_mesh, unsigned long long cols,
+                         int ng, float *d_table) {
   __shared__ float red[RED_THREADS];
-  const int mesh = blockIdx.x / NG, col = blockIdx.x % NG;
+  const int mesh = blockIdx.x / ng, k = blockIdx.x % ng;
   float sum = 0.0f;
   for (int blk = threadIdx.x; blk < n_blocks; blk += RED_THREADS)
-    sum += partials[(size_t)blk * n_mesh * NG + blockIdx.x];
+    sum += partials[(size_t)blk * n_mesh * ng + blockIdx.x];
   red[threadIdx.x] = sum;
   __syncthreads();
   for (int w = RED_THREADS / 2; w > 0; w >>= 1) {
     if ((int)threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) d_table[mesh * NCOLS + col] = red[0];
+  if (threadIdx.x == 0) {
+    int col = 0;  // the k-th column of the mask
+    while (!((cols >> col) & 1ull) || cols_below(cols, col) != k) ++col;
+    d_table[mesh * NCOLS + col] = red[0];
+  }
 }
+
+// The copy of K7 this library holds: the whole-SDF copy where
+// RT0_K7_WHOLE_SDF is set, else the ROUND_BOX copy.
+constexpr bool kWholeSdf = RT0_K7_WHOLE_SDF != 0;
 
 }  // namespace
 
 // Launch K7 on `stream`: the adjoint kernel, the gather of the tap
 // cotangents into the back grid, and the reduction of the per-block
-// partials [ceil(n_pix / threads), n_mesh, 14] into d_table's columns 0:14
-// (the caller zeroes the others).  The arguments
-// up to `eps10` are K6v's (rt0_restir_vertex; `out` unused); `ct_res` holds
-// the four [n_pix] cotangents of the new ws, m, w and age; dtap
-// [8, 3, H * W], dhist [2, 3, H * W] and dback [3, H * W] receive the
-// cotangents of the ring's m, w and age.  Returns the first CUDA error of
-// the launches, or 0.
+// partials [ceil(n_pix / threads), n_mesh, ng] into d_table's columns
+// `cols` (ng of them; the caller zeroes the others).  The arguments up to
+// `eps10` are K6v's (rt0_restir_vertex; `out` unused); `ct_res` holds the
+// four [n_pix] cotangents of the new ws, m, w and age; dtap [8, 3, H * W],
+// dhist [2, 3, H * W] and dback [3, H * W] receive the cotangents of the
+// ring's m, w and age.  This library's copy runs (kWholeSdf): the
+// whole-SDF copy with the columns restir_kernel.bwd_columns lists (NG_COLS
+// and more), or the ROUND_BOX copy with `cols` NG_COLS.  Returns the first
+// CUDA error of the launches, or 0.
 extern "C" int rt0_restir_backward(
     const float *table, const int32_t *mesh, const int32_t *mat, int n_mesh,
     const int32_t *lights, int n_lights, const float *ro, const float *rd, const int64_t *pix,
@@ -624,10 +767,13 @@ extern "C" int rt0_restir_backward(
     int height, int width, int n_cand, int n_spatial, float eps2, float eps10, int animated,
     const float *ct,
     const void *const *ct_res, float *d_ro, float *d_rd, float *partials, float *d_table,
-    float *dtap, float *dhist, float *dback, int threads, void *stream) {
+    float *dtap, float *dhist, float *dback, unsigned long long cols, int threads, void *stream) {
+  const int ng = cols_below(cols, NCOLS);
   if (threads <= 0 || threads > BWD_THREADS || n_mesh <= 0 || n_cand > MAX_CAND ||
-      n_spatial > MAX_SPATIAL)
+      n_spatial > MAX_SPATIAL || (cols >> NCOLS) != 0ull || (cols & NG_COLS) != NG_COLS ||
+      (!kWholeSdf && cols != NG_COLS))
     return (int)cudaErrorInvalidValue;
+  void (*kern)(TraceArgs, RestirArgs, Bwd7Args) = restir_bwd_kernel<kWholeSdf>;
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
@@ -636,18 +782,18 @@ extern "C" int rt0_restir_backward(
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
   const RestirArgs ra = restir_args(res_in, nullptr, taps, height, width, n_cand, n_spatial,
                                     eps2, eps10, animated);
-  Bwd7Args b = {ct, {}, d_ro, d_rd, partials, dtap, dhist};
+  Bwd7Args b = {ct, {}, d_ro, d_rd, partials, dtap, dhist, cols, ng};
   for (int k = 0; k < 4; ++k) b.ct_res[k] = static_cast<const float *>(ct_res[k]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = n_pix > 0 ? (unsigned)((n_pix + threads - 1) / threads) : 0u;
   if (blocks > 0) {
-    const size_t smem = bwd_smem_bytes(n_mesh, n_lights, n_sdf, threads);
+    const size_t smem = bwd_smem_bytes(n_mesh, n_lights, n_sdf, threads, kWholeSdf, ng);
     if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(restir_bwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    restir_bwd_kernel<<<blocks, threads, smem, st>>>(a, ra, b);
+    kern<<<blocks, threads, smem, st>>>(a, ra, b);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -658,13 +804,15 @@ extern "C" int rt0_restir_backward(
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  restir_reduce_kernel<<<n_mesh * NG, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, d_table);
+  const int n_red = n_mesh * ng;
+  restir_reduce_kernel<<<n_red, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, cols, ng, d_table);
   return (int)cudaGetLastError();
 }
 
 // K7's occupancy at `threads` threads and `smem` bytes of dynamic shared
-// memory (trace_common.cuh::kernel_occupancy; `sdf` unused).
-extern "C" int rt0_restir_backward_occupancy(int sdf, int threads, long long smem, int *out) {
-  (void)sdf;
-  return kernel_occupancy(restir_bwd_kernel, threads, (size_t)smem, out);
+// memory (trace_common.cuh::kernel_occupancy) of this library's copy
+// (`flags` unused).
+extern "C" int rt0_restir_backward_occupancy(int flags, int threads, long long smem, int *out) {
+  (void)flags;
+  return kernel_occupancy(restir_bwd_kernel<kWholeSdf>, threads, (size_t)smem, out);
 }

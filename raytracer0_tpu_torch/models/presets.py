@@ -244,8 +244,9 @@ def many_lights(device="cuda", n_lights=41, **cfg_kw):
 
 def textured_restir_demo(device="cuda", **cfg_kw):
     """`restir_demo` with a CHECK texture blended into its back wall's
-    color: a ReSTIR scene that K6 and the split path refuse on the card
-    (ROADMAP queue 1 item 11)."""
+    color: a ReSTIR scene of analytic rows and a ROUND_BOX with a blended
+    texture, which K6 and the split path render and K7 differentiates in
+    its whole-SDF copy."""
     back_wall = "MAT_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"
     text = _RESTIR_9_LIGHTS.replace(back_wall, "MAT_CHECK_WHITE, PLANE, vec3(0.0, 0.0, 1.0)")
     assert text != _RESTIR_9_LIGHTS
@@ -279,8 +280,8 @@ def animated_restir(device="cuda", **cfg_kw):
     """Preset 7 (index.html:1015-1092): 9 moving lights, real-time budget
     (ANIMATED_CONFIG: 6 bounces, EMA accumulation, ReSTIR on).  Its rounded
     box is MAT_METAL, a METAL texture blended into an SDF mesh: on the card
-    K4 and K6v render it in their whole-SDF copies; a gradient through it
-    under ReSTIR is refused (K7 replays no texel, ROADMAP queue 1 item 8)."""
+    K4 and K6v render it in their whole-SDF copies, and K7 differentiates
+    it in its own."""
     scene = parse_scene(_ANIMATED_RESTIR, sdf_shapes=[SdfShape.ROUND_BOX], device=device)
     camera = Camera.make(origin=(0.0, 0.0, 1.99), lookat=(0.0, 0.0, -1.0), fov=60.0,
                          device=device)

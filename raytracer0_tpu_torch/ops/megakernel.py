@@ -221,25 +221,31 @@ def bwd_columns(scene, cfg: RenderConfig) -> tuple[int, ...]:
     and the color and emission masks where a mesh blends its texel into
     its color or emission.  No other column has a gradient in this
     class."""
+    return _CORNELL_COLS if cornell_copy(scene, cfg) else wide_columns(scene)
+
+
+def wide_columns(scene) -> tuple[int, ...]:
+    """The columns of `bwd_columns` beyond the Cornell copy, which depend
+    on the scene alone; K7's whole-SDF copy keeps them too
+    (`restir_kernel.bwd_columns`)."""
     cols = set(_CORNELL_COLS)
-    if not cornell_copy(scene, cfg):
-        na = scene.num_analytic
-        for shape in scene.sdf_shapes_static:
-            cols |= {3 + k for k in _SDF_JOKER[shape]} | {14 + k for k in range(_SDF_AUX[shape])}
-        if any(li >= na for li in scene.lights_static):
-            cols |= {3, 4, 5}
-        if any(m in (int(MatType.REFR_FRESNEL), int(MatType.REFR_SCHLICK))
-               for m in scene.mat_types_static):
-            cols.add(13)
-        blends = [(t, c, e) for t, (c, e, *_) in zip(scene.tex_types_static, scene.opts_static)
-                  if t != int(TexType.NONE) and (c or e)]
-        # a shadow ray reads the texel of the mesh it hits whatever its flags
-        if any(t in _PARAM_TEX for t in scene.tex_types_static):
-            cols |= {26, 27, 28, 29}
-        if any(c for _, c, _ in blends):
-            cols |= {30, 31, 32}
-        if any(e for _, _, e in blends):
-            cols |= {33, 34, 35}
+    na = scene.num_analytic
+    for shape in scene.sdf_shapes_static:
+        cols |= {3 + k for k in _SDF_JOKER[shape]} | {14 + k for k in range(_SDF_AUX[shape])}
+    if any(li >= na for li in scene.lights_static):
+        cols |= {3, 4, 5}
+    if any(m in (int(MatType.REFR_FRESNEL), int(MatType.REFR_SCHLICK))
+           for m in scene.mat_types_static):
+        cols.add(13)
+    blends = [(t, c, e) for t, (c, e, *_) in zip(scene.tex_types_static, scene.opts_static)
+              if t != int(TexType.NONE) and (c or e)]
+    # a shadow ray reads the texel of the mesh it hits whatever its flags
+    if any(t in _PARAM_TEX for t in scene.tex_types_static):
+        cols |= {26, 27, 28, 29}
+    if any(c for _, c, _ in blends):
+        cols |= {30, 31, 32}
+    if any(e for _, _, e in blends):
+        cols |= {33, 34, 35}
     return tuple(sorted(cols))
 
 

@@ -36,9 +36,17 @@ scene cotangents per thread, per block in thread order and across blocks in
 block order; its tap cotangents are gathered into the back grid in tap
 order, so it is deterministic.
 
-The gradient flows to the scene table's pos, joker, color, emission and ior
-columns, to the rays, and to the ring's m, w and age (a source's
-weight_sum only gates its validity: its cotangent is zero).  A light's
+K7 has two copies (`bwd_copy`): the ROUND_BOX copy, its code before the
+whole SDF class came, for scenes whose SDF rows are untextured ROUND_BOX
+rows and that blend no texture; and the whole-SDF copy
+(`csrc/restir_bwd_sdf.cu`, a library of its own) for the scenes K4 and
+K6v run their whole-SDF copies on and those that blend a texture, which
+replays every SDF shape, the texel blended into a hit's color and
+emission and K6v's whole-SDF vertex.  The gradient flows to the
+scene table's pos, joker, color, emission and ior columns (in the
+whole-SDF copy also aux and the texture columns, `bwd_columns`), to the
+rays, and to the ring's m, w and age (a source's weight_sum only gates
+its validity: its cotangent is zero).  A light's
 position and color·emission in the new reservoirs are gathered from the
 scene by `light_index` outside the kernels (`light_data`), so autograd
 carries their cotangents to the scene.  K6 and K7 read a light's data from
@@ -83,24 +91,34 @@ LAUNCHES = 0
 #: K7 launches since import (or since a caller reset it to 0); one per
 #: backward of a K6 pass: the adjoint, the tap gather and the reduction.
 BWD_LAUNCHES = 0
+#: Those of them that launched K7's whole-SDF copy (`bwd_copy`).
+BWD_SDF_LAUNCHES = 0
 
 BWD_SOURCES = ("restir_bwd.cu",)
+#: K7's whole-SDF copy, a library of its own (restir_bwd.cu with
+#: RT0_K7_WHOLE_SDF set), which nvcc builds beside the ROUND_BOX copy's.
+BWD_SDF_SOURCES = ("restir_bwd_sdf.cu",)
 #: The ring's float fields, which carry a gradient from pass to pass.
 RING_FLOATS = ("weight_sum", "m", "w", "age")
 _ITEM = "ROADMAP queue 1 item 11"
-# K7 over the whole SDF class and blended textures: item 8's remainder
+# K7 on BOX rows of a scene K4 and K6v march without the whole SDF class
 _K7_ITEM = "ROADMAP queue 1 item 8"
 # K7: stash depth (MAX_SLOTS in restir_bwd.cu), candidates its tape holds,
-# cotangent columns kept per thread (table columns 0:14), the opt-in shared
-# memory of one block, and block sizes tried in order until the per-thread
-# accumulators fit
+# the cotangent columns of its ROUND_BOX copy (table columns 0:14: pos,
+# joker, color, emission, ior), the opt-in shared memory of one block, and
+# block sizes tried in order until the per-thread accumulators fit
 MAX_SLOTS = 16
 MAX_CAND = 32
 _BWD_NG = 14
 _BWD_SMEM_LIMIT = 227 * 1024
 _BWD_THREADS = (128, 64, 32)
-#: Scene leaves whose table columns or arrays K7 leaves without a cotangent.
-NO_GRAD_LEAVES = ("aux", "tex_params", "tex_cmask", "tex_emask", "images", "noise", "cubemap")
+#: Scene leaves that neither copy of K7 differentiates: the texel arrays
+#: (ROADMAP queue 1 item 14).
+NO_GRAD_LEAVES = ("images", "noise", "cubemap")
+#: Scene leaves whose table columns the ROUND_BOX copy does not keep (its
+#: scenes read none of them); a gradient asked of them there is refused,
+#: not left zero.
+ROUND_BOX_NO_GRAD = ("aux", "tex_params", "tex_cmask", "tex_emask")
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (_c_void_p,) + restir_vertex.RESTIR_ARGTYPES + (
@@ -108,6 +126,7 @@ _BWD_ARGTYPES = megakernel._ARGTYPES[:-1] + (_c_void_p,) + restir_vertex.RESTIR_
     _c_void_p, _c_void_p,             # d_ro, d_rd
     _c_void_p, _c_void_p,             # partials, d_table
     _c_void_p, _c_void_p, _c_void_p,  # dtap, dhist, dback
+    ctypes.c_ulonglong,               # the mask of bwd_columns
     _c_int, _c_void_p,                # threads per block, stream
 )
 
@@ -146,10 +165,37 @@ def bwd_slots(cfg: RenderConfig) -> int:
     return min(cfg.max_bounces, sum(max(c, 1) - 1 for c in caps) + 1)
 
 
+def bwd_copy(scene) -> str:
+    """The copy of K7 that differentiates `scene`, and so the library
+    `_launch_backward` loads: "whole_sdf" where K4 and K6v run their
+    whole-SDF copies (`megakernel.whole_sdf`) or a texture is blended into
+    some row (`textures.blended`); else "round_box", the copy K7 had
+    before (its code, registers and stack), whose SDF rows are ROUND_BOX
+    rows (`outside_k7_class` refuses BOX rows there)."""
+    whole = megakernel.whole_sdf(scene) or textures.blended(scene)
+    return "whole_sdf" if whole else "round_box"
+
+
+def bwd_columns(scene) -> tuple[int, ...]:
+    """The scene-table columns K7 keeps a cotangent for, in table order:
+    0:14 (pos, joker, color, emission, ior; the reservoir vertex reads a
+    COAT's IOR and every light's joker.x), and in the whole-SDF copy also
+    the aux and texture columns K2's wide copy keeps for the scene
+    (`megakernel.wide_columns`: the vertices of TRIANGLE and QUAD rows, a
+    texture's params, the color and emission masks of blended rows)."""
+    cols = set(range(_BWD_NG))
+    if bwd_copy(scene) == "whole_sdf":
+        cols |= set(megakernel.wide_columns(scene))
+    return tuple(sorted(cols))
+
+
 def bwd_smem_bytes(scene, threads: int) -> int:
     """Dynamic shared memory of one K7 block: K6v's, plus `threads` columns
-    of 14 cotangent accumulators per mesh."""
-    return restir_vertex.smem_bytes(scene) + 4 * scene.num_meshes * _BWD_NG * threads
+    of `bwd_columns` cotangent accumulators per mesh and, in the whole-SDF
+    copy, the map of those columns (36 ints)."""
+    whole = bwd_copy(scene) == "whole_sdf"
+    return (restir_vertex.smem_bytes(scene) + 4 * megakernel._NCOLS * whole
+            + 4 * scene.num_meshes * len(bwd_columns(scene)) * threads)
 
 
 def bwd_threads(scene) -> Optional[int]:
@@ -162,29 +208,35 @@ def bwd_threads(scene) -> Optional[int]:
 
 
 def outside_k7_class(scene) -> Optional[str]:
-    """What of the scene lies outside the class K7 replays, or None: SDF
-    rows of the ROUND_BOX shape alone (the distance whose adjoint it has),
-    no texture blended into any row (it replays no texel), SDF rows
-    included, and no light slot on an SDF row.  K7's own check, made
-    before K6's gate (which admits all of these since K4 and K6v gained
-    their whole-SDF copies), so a wider K6 never sends K7 a scene it would
-    differentiate wrongly."""
-    if any(s != int(SdfShape.ROUND_BOX) for s in scene.sdf_shapes_static):
-        return f"SDF shapes other than ROUND_BOX (K7's SDF adjoint): {_K7_ITEM}"
-    if textures.blended(scene):
-        return ("textures blended into color or emission, on SDF rows or any other, under a "
-                f"ReSTIR gradient (K7 replays no texel): {_K7_ITEM}")
-    return integrator.outside_box_sdf(scene, "K7")
+    """What of the scene lies outside the class of K7's two copies, or
+    None: a light slot on an SDF row (the reservoir vertex samples and
+    shades sphere lights), and a BOX row in a scene K4 and K6v march
+    without the whole SDF class (`megakernel.whole_sdf` false: the
+    ROUND_BOX copy has no BOX adjoint, and the whole-SDF copy marches with
+    another scene map than K6 did there, which no test holds).  Every SDF
+    shape and textures blended into any row, SDF rows included, are
+    otherwise inside: K7 runs its whole-SDF copy there (`bwd_copy`).
+    K7's own check, made before K6's gate, so a wider K6 never sends K7 a
+    scene it would differentiate wrongly."""
+    if any(li >= scene.num_analytic for li in scene.lights_static):
+        return f"SDF-bound light slots (K7 samples sphere lights): {_ITEM}"
+    if (any(s == int(SdfShape.BOX) for s in scene.sdf_shapes_static)
+            and not megakernel.whole_sdf(scene)):
+        return ("BOX SDF rows in a scene K4 and K6v march without the whole SDF class (K7's "
+                "ROUND_BOX copy has no BOX adjoint, and its whole-SDF copy marches them with "
+                f"another scene map): {_K7_ITEM}")
+    return None
 
 
 def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K7 cannot differentiate (scene, cfg), or None when it can: its
-    own class first (`outside_k7_class`: ROUND_BOX SDF rows, no blended
-    texture, no SDF light), then K6's class, a stash of at most MAX_SLOTS
-    slots, at most MAX_CAND candidates, accumulators that fit the shared
-    memory of a block of 32 threads, and no gradient asked of a leaf K7
-    leaves without one (aux, the texture columns, images, the noise LUT,
-    the cubemap)."""
+    own class first (`outside_k7_class`: no SDF light, no BOX row outside
+    the whole SDF class), then K6's class, a
+    stash of at most MAX_SLOTS slots, at most MAX_CAND candidates,
+    accumulators that fit the shared memory of a block of 32 threads, and
+    no gradient asked of a leaf K7 leaves without one (the images, the
+    noise LUT, the cubemap; in the ROUND_BOX copy also aux and the texture
+    columns, `ROUND_BOX_NO_GRAD`)."""
     reason = outside_k7_class(scene) or unsupported_restir(scene, cfg)
     if reason is not None:
         return reason
@@ -193,19 +245,41 @@ def unsupported_restir_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     if restir_vertex.restir_args(cfg, scene.num_lights)[0] > MAX_CAND:
         return f"more than {MAX_CAND} ReSTIR candidates (K7's tape): {_ITEM}"
     if bwd_threads(scene) is None:
-        return (f"{scene.num_meshes} meshes: K7's cotangent accumulators do not fit "
-                f"{_BWD_SMEM_LIMIT} bytes of shared memory")
+        return (f"{scene.num_meshes} meshes of {len(bwd_columns(scene))} columns: K7's "
+                f"cotangent accumulators do not fit {_BWD_SMEM_LIMIT} bytes of shared memory "
+                "at 32 threads a block")
     asked = [k for k in NO_GRAD_LEAVES if getattr(scene, k).requires_grad]
     if asked:
-        return (f"a gradient with respect to {', '.join(asked)}, which K7 does not "
-                "compute: ROADMAP queue 1 item 14")
+        return (f"a gradient with respect to the texel arrays {', '.join(asked)}, which K7 "
+                "does not compute: ROADMAP queue 1 item 14")
+    if bwd_copy(scene) == "round_box":
+        asked = [k for k in ROUND_BOX_NO_GRAD if getattr(scene, k).requires_grad]
+        if asked:
+            return (f"a gradient with respect to {', '.join(asked)}, whose columns K7's "
+                    "ROUND_BOX copy does not keep: the scene reads none of them (ROUND_BOX "
+                    "SDF rows alone, no blended texture), so their gradient is 0")
     return None
 
 
+def bwd_library(whole: bool = False) -> tuple[str, tuple[str, ...]]:
+    """(name, sources) of the K7 library that holds its whole-SDF copy
+    (`whole`) or its ROUND_BOX copy."""
+    return ("restir_bwd_sdf", BWD_SDF_SOURCES) if whole else ("restir_bwd", BWD_SOURCES)
+
+
 def build_bwd():
-    """Build (or load from `build/kernels/`) the K7 library.
-    Returns (ctypes function, cuda_build.BuildInfo)."""
-    lib, info = cuda_build.load("restir_bwd", BWD_SOURCES)
+    """Build (or load from `build/kernels/`) the library of K7's ROUND_BOX
+    copy.  Returns (ctypes function, cuda_build.BuildInfo)."""
+    return _bind_bwd(*cuda_build.load(*bwd_library()))
+
+
+def build_bwd_sdf():
+    """Build (or load from `build/kernels/`) the library of K7's whole-SDF
+    copy.  Returns (ctypes function, cuda_build.BuildInfo)."""
+    return _bind_bwd(*cuda_build.load(*bwd_library(True)))
+
+
+def _bind_bwd(lib, info):
     fn = lib.rt0_restir_backward
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
@@ -244,7 +318,7 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids
     new reservoirs' weight_sum, m, w and age: (d_table, d_ro, d_rd, the
     cotangents of the ring's float fields as a list in `_RestirCore`'s
     order)."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_SDF_LAUNCHES
     reason = unsupported_restir_bwd(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"K7 does not cover this scene: {reason}")
@@ -255,10 +329,12 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids
         megakernel._check(f"ct {k}", t, torch.float32, (h, w), dev)
     res_in = restir_vertex.check_ring(h, w, dev, *grids)
     threads = bwd_threads(scene)
+    cols = bwd_columns(scene)
     blocks = -(-(h * w) // threads)
     d_ro, d_rd = torch.empty_like(ro), torch.empty_like(rd)
-    partials = torch.empty((blocks, scene.num_meshes, _BWD_NG), dtype=torch.float32, device=dev)
-    d_table = torch.zeros_like(table)   # K7 writes the columns 0:14
+    partials = torch.empty((blocks, scene.num_meshes, len(cols)), dtype=torch.float32,
+                           device=dev)
+    d_table = torch.zeros_like(table)   # K7 writes the columns `cols`
     f32 = dict(dtype=torch.float32, device=dev)
     dtap = torch.zeros((restir.RESTIR_SPATIAL_SAMPLES, 3, h, w), **f32)
     dhist = torch.zeros((2, 3, h, w), **f32)
@@ -267,17 +343,19 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, grids
                                           pass_idx, sample_idx)
     ins = (ctypes.c_void_p * 15)(*[t.data_ptr() for t in res_in])
     cts = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in ct_res])
-    fn, _ = build_bwd()
+    whole = bwd_copy(scene) == "whole_sdf"
+    fn, _ = build_bwd_sdf() if whole else build_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, ins, restir_vertex.TAPS, h, w,
                 *restir_vertex.restir_args(cfg, scene.num_lights),
                 ct.data_ptr(), cts, d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
                 d_table.data_ptr(), dtap.data_ptr(), dhist.data_ptr(), dback.data_ptr(),
-                threads, stream)
+                megakernel._cols_mask(cols), threads, stream)
     if rc != 0:
         raise RuntimeError(f"K7 launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
+    BWD_SDF_LAUNCHES += int(whole)
     d_ring = []
     for m_w_age in (dback, dhist[0], dhist[1]):
         # a source's weight_sum only gates its validity

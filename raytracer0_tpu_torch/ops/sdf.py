@@ -40,7 +40,9 @@ from raytracer0_tpu_torch.ops import vecmath as vm
 
 #: The shapes this module evaluates: every SdfShape code.
 SHAPES = tuple(int(s) for s in SdfShape)
-#: The shapes of the SDF class K2, K4, K5, K6v and K7 serve.
+#: The shapes of the SDF class that K5 and the copies of K2, K4 and K6v
+#: built without the whole SDF class serve (K7's ROUND_BOX copy serves the
+#: ROUND_BOX alone).
 BOX_SHAPES = (int(SdfShape.BOX), int(SdfShape.ROUND_BOX))
 
 # calcNormal's tetrahedron taps (raytracer.glsl:714-722)

@@ -72,8 +72,8 @@ def outside_box_sdf(scene, who: str) -> Optional[str]:
     kernels built without the whole SDF class, or None: BOX and ROUND_BOX
     shapes, no texture blended into an SDF row's color or emission, no
     light slot on an SDF row.  `who` names the kernel or route in the
-    message.  K5 and K7 model no more; K1 and K2, K4 and K6v run a copy
-    of their own for the rest (`megakernel.whole_sdf`), and the plain
+    message.  K5 models no more; K1 and K2, K4, K6v and K7 run a copy of
+    their own for the rest (`megakernel.whole_sdf`), and the plain
     version renders the whole class (`unsupported`)."""
     na = scene.num_analytic
     other = sorted({SdfShape(s).name if s in sdf.SHAPES else str(s)

@@ -32,9 +32,9 @@ beyond BOX and ROUND_BOX or textured (`megakernel.whole_sdf`); on the CPU
 through the plain `restir.render_sample`; after which the ring rotates.
 It is differentiable too: on CUDA K6's adjoint K7 computes the gradient
 (with respect to the scene, the rays and the ring's float fields, so it
-flows from pass to pass) on untextured scenes of ROUND_BOX SDF rows
-(`restir_kernel.outside_k7_class`), on the CPU the plain version's
-autograd.  On CUDA a ReSTIR
+flows from pass to pass) over K6's class, in its whole-SDF copy for SDF
+rows beyond ROUND_BOX or blended textures (`restir_kernel.bwd_copy`), on
+the CPU the plain version's autograd.  On CUDA a ReSTIR
 config that K6 does not cover, or a gradient outside K7's class, raises
 before any launch; nothing falls back to the plain version.  The split
 path has no adjoint (the JAX one has none): a gradient through it raises

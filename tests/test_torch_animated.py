@@ -8,8 +8,8 @@ passes) over 4 passes at a moving frame time.
 
 The scene is `animated_restir` with its rounded box MAT_WHITE, the
 real-time scene the port measured before it rendered the preset as shipped
-(tests/test_torch_restir_sdf.py holds that one; K7 refuses its METAL
-texture on an SDF mesh, as `test_animated_restir_refused` checks).  It crosses from
+(tests/test_torch_restir_sdf.py holds that one, with its METAL texture on
+an SDF mesh; `test_animated_restir_refused` checks its gates).  It crosses from
 JAX through `Scene.from_arrays`, the rings through `Reservoirs.from_arrays`.
 The JAX references run op by op (`jax.disable_jit`), since compiled XLA
 contracts a*b + c into FMAs (tests/test_torch_restir.py).
@@ -215,8 +215,8 @@ def test_animated_gates():
     K1 and K2 (the scene is animated on the host before the table is
     built), K6, K7 and K4 admit the real-time scene; `animated_restir`
     itself, with MAT_METAL's METAL texture on its SDF mesh, renders under
-    ReSTIR on both devices, and K7 refuses a gradient through it naming
-    item 8 (`test_animated_restir_refused`)."""
+    ReSTIR on both devices, and K7 differentiates it in its whole-SDF copy
+    (`test_animated_restir_refused`)."""
     from raytracer0_tpu_torch.ops import megakernel as tmk
 
     scene, cam, cfg = tpresets.animated_untextured(device="cpu")
@@ -233,10 +233,10 @@ def test_animated_restir_refused():
     """The preset ported exactly: 18 rows, 9 sphere lights, a ROUND_BOX of
     MAT_METAL.  Under ReSTIR the port renders it on the CPU and admits it
     on CUDA to K4 and K6v's whole-SDF copies, with and without the ad-hoc
-    reprojection; K7 refuses a gradient through it before any launch,
-    naming item 8, since it replays no texel (fault 15).  Without ReSTIR it
-    renders, through K1's whole-SDF copy on CUDA and the plain version on
-    the CPU."""
+    reprojection; K7 admits a gradient through it in its whole-SDF copy
+    and refuses one w.r.t. a texel array (its noise LUT) before any launch,
+    naming item 14.  Without ReSTIR it renders, through K1's whole-SDF copy
+    on CUDA and the plain version on the CPU."""
     scene, cam, cfg = tpresets.animated_restir(device="cpu")
     js, jc, jcfg = jpresets.animated_restir()
     assert scene.num_meshes == 18 and scene.num_lights == 9
@@ -258,12 +258,12 @@ def test_animated_restir_refused():
     assert tk6.unsupported_restir(scene, cfg) is None
     assert tsplit.unsupported_gbuffer(scene, cfg.replace(restir_adhoc_motion=True)) is None
     assert tsplit.gbuffer_copy(scene) == 3
-    assert "textures" in tk6.unsupported_restir_bwd(scene, cfg)
-    em = scene.emission.clone().requires_grad_(True)
+    assert tk6.unsupported_restir_bwd(scene, cfg) is None and tk6.bwd_copy(scene) == "whole_sdf"
+    noise = scene.noise.clone().requires_grad_(True)
     ro, rd = generate_rays(cam, 4, 8, 0)
     ring = RenderState.create(4, 8, "cpu")
     before = (tk6.LAUNCHES, tk6.BWD_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="K7.*texel.*item 8"):
-        tk6._fused(scene.replace(emission=em), cfg, ro, rd, trng.pixel_ids(4, 8), 0, 0,
+    with pytest.raises(NotImplementedError, match="K7.*noise.*item 14"):
+        tk6._fused(scene.replace(noise=noise), cfg, ro, rd, trng.pixel_ids(4, 8), 0, 0,
                    ring.restir_back, ring.restir_hist1, ring.restir_hist2)
     assert (tk6.LAUNCHES, tk6.BWD_LAUNCHES) == before

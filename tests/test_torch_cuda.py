@@ -11,9 +11,11 @@ ANIMATED accumulation), K6v in both forms, K7 against the plain version's
 autograd over chains of passes, `fit` through the reservoir ring, K4 and
 K5 bit for bit and the split ReSTIR pass K4 and K6v serve, K4 and K6v in
 their whole-SDF copies (every SDF shape, blended textures on any row) with
-their old copies' code unchanged, and the refusal of gradients outside
-K2's and K7's classes (texel arrays, mesh types K1 does not render, K7's
-own class before K6's) and through the split path, and of cubemaps on the
+their old copies' code unchanged, K7's whole-SDF copy against the plain
+autograd on the scenes of that class (and `fit` through it) with its
+ROUND_BOX copy's code unchanged, and the refusal of gradients outside K2's
+and K7's classes (texel arrays, mesh types K1 does not render, K7's own
+class before K6's) and through the split path, and of cubemaps on the
 split path.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
@@ -52,6 +54,8 @@ from raytracer0_tpu_torch.render.state import RenderState
 from raytracer0_tpu_torch.models import scene as scene_mod
 from test_torch_kernel_host import (SHAPE_SCENES, TABLE_LEAVES, adjoint_case, assert_grads_close,
                                     assert_grads_close_f64, refreshed_ring, restir_chain_grads)
+from test_torch_kernel_host_restir_sdf import READS, animated, chain_grads, k7_case
+from test_torch_kernel_host_restir_sdf import SCENES as K7_SDF_SCENES
 from test_torch_texture_scenes import SCENE_VIEWS
 from test_torch_sdf_scenes import GATES, NEW_CLASSES, expected_verdict, gate_reason, new_class_case
 
@@ -874,12 +878,16 @@ def test_restir_fit_goes_through_k6_and_k7_only(cuda):
 
 def test_restir_adjoint_refuses_outside_its_class(cuda):
     """A ReSTIR gradient K7 does not model raises on the card before any
-    launch: an SDF shape without its adjoint (BOX), a path deeper than the
-    stash, more candidates than the tape holds (restir_stress's 41 lights)."""
+    launch: an SDF shape without its adjoint there (BOX, in a scene K4 and
+    K6v march without the whole SDF class), a gradient w.r.t. a texel
+    array (the images), a path deeper than the stash, more candidates than
+    the tape holds (restir_stress's 41 lights)."""
     scene, cam, cfg = presets.restir_demo(device=cuda)
     stress, _, scfg = presets.restir_stress(device=cuda)
     em = scene.emission.clone().requires_grad_(True)
+    images = scene.images.clone().requires_grad_(True)
     cases = [(scene.replace(emission=em, sdf_shapes_static=(0,)), cfg, "ROUND_BOX"),
+             (scene.replace(emission=em, images=images), cfg, "images.*item 14"),
              (scene.replace(emission=em), cfg.replace(max_bounces=17, max_spec_bounces=17),
               "stash"),
              (stress.replace(emission=stress.emission.clone().requires_grad_(True)),
@@ -1124,10 +1132,11 @@ def test_vertex_kernel_matches_plain(cuda, form, where):
 
 
 def test_restir_adjoint_registers_unchanged(cuda):
-    """K7 includes the reservoir vertex K6v templates (csrc/restir.cuh);
-    its default form compiles to the code K7 had before: 168 registers and
-    a 1,328-byte stack per thread (ptxas, PERF.md §6), one block of 128
-    threads per SM on restir_demo."""
+    """K7 includes the reservoir vertex K6v templates (csrc/restir.cuh)
+    and, since its whole-SDF copy came, is a template itself; its ROUND_BOX
+    copy compiles to the code K7 had before: 168 registers and a 1,328-byte
+    stack per thread (ptxas, PERF.md §6), one block of 128 threads per SM
+    on restir_demo."""
     from raytracer0_tpu_torch.ops import cuda_build
 
     demo = presets.restir_demo(device=cuda)[0]
@@ -1212,20 +1221,105 @@ def test_restir_whole_sdf_split_matches_plain(cuda, where):
 
 @pytest.mark.parametrize("where", ["animated_restir", "mandelbulb", "textured_cornell"])
 def test_k7_refuses_the_new_class_before_any_launch(cuda, where):
-    """Fault 15: a gradient through a K6 pass of a scene K6 now admits (an
-    SDF shape other than ROUND_BOX, a texture blended into any row) raises
-    in K7's gate, naming item 8, before any launch."""
+    """What K7 still refuses on a scene of the class its whole-SDF copy now
+    differentiates (an SDF shape other than ROUND_BOX, a texture blended
+    into any row) raises in K7's gate before any launch: a gradient w.r.t.
+    a texel array (the noise LUT), naming item 14."""
     scene, cam, cfg = _restir_sdf_case(where, cuda)
     assert restir_kernel.unsupported_restir(scene, cfg) is None
-    em = scene.emission.clone().requires_grad_(True)
+    assert restir_kernel.unsupported_restir_bwd(scene, cfg) is None
+    noise = scene.noise.clone().requires_grad_(True)
     counts = lambda: (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES,
                       restir_split.GBUF_LAUNCHES, restir_vertex.VERTEX_LAUNCHES,
                       megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
     before = counts()
-    with pytest.raises(NotImplementedError, match="K7 does not cover.*item 8"):
-        optimize.render_linear(scene.replace(emission=em), cfg, cam, 8, 8, passes=2)
+    with pytest.raises(NotImplementedError, match="K7 does not cover.*noise.*item 14"):
+        optimize.render_linear(scene.replace(noise=noise), cfg, cam, 8, 8, passes=2)
     torch.cuda.synchronize()
     assert counts() == before
+
+
+#: the scenes of K7's whole-SDF copy on the card: the host build's, and the
+#: preset under STATIC accumulation
+K7_CARD = K7_SDF_SCENES + ("animated_restir_static",)
+#: (passes, size) of a hold on the card, each scene at its own depth: 4
+#: passes at 32x32; the `mandelbulb` view, whose plain passes at 12 bounces
+#: and 128 marching steps take ~30 s each (its launches, not its pixels), 2
+K7_CARD_SIZE = {"mandelbulb": (2, 32)}
+
+
+def _k7_card_case(where, dev):
+    if where == "animated_restir_static":
+        return k7_case("animated_restir", dev, render_mode=0)
+    return k7_case(where, dev)
+
+
+@pytest.mark.parametrize("where", K7_CARD)
+def test_restir_whole_sdf_adjoint_matches_plain_autograd(cuda, where):
+    """K7's whole-SDF copy against the plain autograd on the card, each
+    scene at its own depth (the preset's 6 bounces, the `mandelbulb`
+    view's 12 bounces and 128 marching steps), over the passes of
+    `K7_CARD_SIZE` from an empty ring (the ANIMATED preset at a constant
+    frame time): every table leaf and ray within 1e-4 of the leaf
+    (`assert_grads_close`), the aux and texture leaves each scene reads
+    engaged, one K6 and one K7 launch per pass and no other kernel; a
+    second run gives the same bits."""
+    scene, cam, cfg = _k7_card_case(where, cuda)
+    passes, n = K7_CARD_SIZE.get(where, (4, 32))
+    assert restir_kernel.bwd_copy(scene) == "whole_sdf"
+    counts = lambda: (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES, megakernel.LAUNCHES,
+                      megakernel.BWD_LAUNCHES, restir_split.CAST_LAUNCHES)
+    before = counts()
+    _, got = chain_grads(animated(restir_kernel._fused, cfg), scene, cfg, cam, n, n, passes)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + passes, before[1] + passes) + before[2:]
+    _, want = chain_grads(animated(restir.trace_sample, cfg), scene, cfg, cam, n, n, passes)
+    assert_grads_close(got, want)
+    for k in ("emission", "color", "pos", "rd") + READS.get(where, ()):
+        assert got[k].abs().max().item() > 0.0, k
+    _, again = chain_grads(animated(restir_kernel._fused, cfg), scene, cfg, cam, n, n, passes)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_restir_whole_sdf_fit_goes_through_k6_and_k7_only(cuda):
+    """`optimize.fit` through K7's whole-SDF copy on `animated_restir` as
+    shipped (a constant frame time; its METAL rounded box's color and the
+    lights' emission, toward a target rendered from the shipped values):
+    each step launches K6 and K7 twice and neither K1 nor K2, and the loss
+    falls."""
+    scene, cam, cfg = presets.animated_restir(device=cuda, max_bounces=4)
+    with torch.no_grad():
+        target = optimize.render_linear(scene, cfg, cam, 32, 32, passes=2)
+    is_light = (scene.mat_type == 0).float()[:, None]
+    box = torch.zeros_like(is_light)
+    box[-1] = 1.0
+    start = scene.replace(emission=scene.emission * (1.0 + 0.6 * is_light),
+                          color=scene.color * (1.0 - 0.5 * box))
+    counts = lambda: (restir_kernel.LAUNCHES, restir_kernel.BWD_LAUNCHES, megakernel.LAUNCHES,
+                      megakernel.BWD_LAUNCHES)
+    before = counts()
+    _, losses = optimize.fit(start, cfg, cam, target, ("emission", "color"), steps=4,
+                             learning_rate=0.1, passes=2,
+                             param_mask={"emission": is_light, "color": box})
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 8, before[1] + 8, before[2], before[3])
+    assert losses[-1] < losses[0], losses
+
+
+def test_k7_whole_sdf_occupancy(cuda):
+    """K7's whole-SDF copy fits at least one block per SM on each scene of
+    its class at the block size `bwd_threads` picks (128, or 64 on
+    `every_shape`, whose 17 meshes keep 33 columns)."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    for where in K7_SDF_SCENES:
+        sc = k7_case(where, cuda)[0]
+        t = restir_kernel.bwd_threads(sc)
+        o = cuda_build.occupancy("restir_bwd_sdf", restir_kernel.BWD_SDF_SOURCES,
+                                 "rt0_restir_backward_occupancy", t,
+                                 restir_kernel.bwd_smem_bytes(sc, t), 2)
+        assert o["blocks"] >= 1 and t == (64 if where == "every_shape" else 128), (where, o)
 
 
 def test_gbuffer_and_vertex_old_copies_unchanged(cuda):

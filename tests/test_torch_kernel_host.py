@@ -1123,16 +1123,18 @@ def test_host_restir_animated_matches_plain(kernels_on_cpu, moving):
 RESTIR_LEAVES = ("emission", "color", "pos", "joker", "ior")
 
 
-def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5, l2_over=None):
+def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5, l2_over=None,
+                       names=RESTIR_LEAVES):
     """A loss over `passes` ReSTIR passes from an empty ring, each traced by
     `trace` (`restir_kernel._fused`, K6 with K7 under autograd, or the
     plain `restir.trace_sample`): seeded weights on every pass's radiance
     and on the last ring's weight_sum, m, w and age; or, with `l2_over` =
     n, `optimize.make_loss`'s L2 of the passes' mean radiance against a
     seeded target, divided by n values instead of h x w x 3 (the
-    cotangents an n-value image gives).  Returns (loss, {scene leaf:
-    gradient, "ro"/"rd": the rays' gradients of all passes})."""
-    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in RESTIR_LEAVES}
+    cotangents an n-value image gives).  Returns (loss, {scene leaf of
+    `names`: gradient (zeros for a leaf the passes do not read), "ro"/"rd":
+    the rays' gradients of all passes})."""
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in names}
     s = scene.replace(**leaves)
     state = RenderState.create(h, w, device=scene.device)
     pix = rng.pixel_ids(h, w, device=scene.device)
@@ -1154,8 +1156,8 @@ def restir_chain_grads(trace, scene, cfg, cam, h, w, passes, seed=5, l2_over=Non
             loss = loss + (getattr(state.restir_back, k) * weights((h, w))).sum() * 0.1
     else:
         loss = ((accum / passes - weights(accum.shape)) ** 2).sum() / l2_over
-    got = torch.autograd.grad(loss, list(leaves.values()) + rays)
-    out = dict(zip(RESTIR_LEAVES, got))
+    got = torch.autograd.grad(loss, list(leaves.values()) + rays, allow_unused=True)
+    out = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(names, got)}
     out["ro"], out["rd"] = torch.stack(got[-2 * passes::2]), torch.stack(got[-2 * passes + 1::2])
     return loss.detach(), out
 

@@ -152,9 +152,10 @@ def test_k6_gate_after_fault_10():
     """K6's gate (and so K7's) admits restir_demo with MIS, which the tests
     hold, and refuses the class no test holds K6 to: a cubemap under
     ReSTIR (ROADMAP queue 1 item 11).  Blended textures, held since K4 and
-    K6v were held on them (tests/test_torch_restir_sdf.py), K6 admits and
-    K7 refuses first (fault 15: it replays no texel, item 8); the plain
-    version renders both on the CPU."""
+    K6v were held on them (tests/test_torch_restir_sdf.py), K6 admits, and
+    K7 too in its whole-SDF copy, held since it replays the texel
+    (tests/test_torch_kernel_host_restir_sdf.py); the plain version renders
+    both on the CPU."""
     demo, _, cfg = tpresets.restir_demo(device="cpu")
     assert tk6.unsupported_restir(demo, cfg.replace(use_mis=True)) is None
     assert tk6.unsupported_restir_bwd(demo, cfg.replace(use_mis=True)) is None
@@ -166,8 +167,8 @@ def test_k6_gate_after_fault_10():
         tpresets._RESTIR_9_LIGHTS.replace(back_wall, "MAT_CHECK_WHITE, PLANE, vec3(0.0, 0.0, 1.0)"),
         sdf_shapes=[SdfShape.ROUND_BOX], device="cpu")
     assert tk6.unsupported_restir(textured, cfg) is None
-    assert "textures" in tk6.unsupported_restir_bwd(textured, cfg)
-    assert "item 8" in tk6.unsupported_restir_bwd(textured, cfg)
+    assert tk6.unsupported_restir_bwd(textured, cfg) is None
+    assert tk6.bwd_copy(textured) == "whole_sdf" and tk6.bwd_copy(demo) == "round_box"
     cube_cfg = cfg.replace(use_cubemap=True, use_procedural_sky=False)
     assert "cubemap" in tk6.unsupported_restir(demo, cube_cfg)
     assert "item 11" in tk6.unsupported_restir(demo, cube_cfg)
@@ -297,8 +298,10 @@ def test_gradient_through_restir_raises():
     """A ReSTIR pass with a leaf that requires a gradient, which raised
     before K7, now differentiates on the CPU through render_sample and
     render_pass (plain autograd); the kernels' wrapper refuses, before any
-    launch, a gradient K7 does not compute (the aux leaf, item 14) and an
-    SDF shape whose adjoint it lacks (BOX, item 8)."""
+    launch, a gradient K7 does not compute: the aux leaf, whose column the
+    ROUND_BOX copy restir_demo runs does not keep, a texel array (the
+    images, item 14), and a BOX row in a scene K4 and K6v march without the
+    whole SDF class (item 8)."""
     scene, cam, cfg = tpresets.restir_demo(device="cpu")
     cfg = _cfg(cfg)
     state = RenderState.create(4, 8, "cpu")
@@ -314,9 +317,13 @@ def test_gradient_through_restir_raises():
     pix = trng_mod.pixel_ids(4, 8)
     before = (tk6.LAUNCHES, tk6.BWD_LAUNCHES)
     aux = scene.aux.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K7.*aux.*item 14"):
+    with pytest.raises(NotImplementedError, match="K7.*aux.*ROUND_BOX copy"):
         tk6._fused(scene.replace(aux=aux), cfg, ro, rd, pix, 0, 0, state.restir_back,
                    state.restir_hist1, state.restir_hist2)
+    images = scene.replace(images=scene.images.clone().requires_grad_(True), emission=em)
+    with pytest.raises(NotImplementedError, match="K7.*images.*item 14"):
+        tk6._fused(images, cfg, ro, rd, pix, 0, 0, state.restir_back, state.restir_hist1,
+                   state.restir_hist2)
     box = scene.replace(sdf_shapes_static=(0,), emission=em)
     with pytest.raises(NotImplementedError, match="K7.*ROUND_BOX.*item 8"):
         tk6._fused(box, cfg, ro, rd, pix, 0, 0, state.restir_back, state.restir_hist1,

@@ -1,5 +1,5 @@
 """ReSTIR over the whole SDF class and blended textures against the JAX
-package, on the same inputs, and the gate that keeps K7 off that class.
+package, on the same inputs, and K7's gate over that class.
 
 * the plain `restir.render_sample` against JAX's on the reference's preset 7
   as shipped (`animated_restir`: a METAL texture blended into its rounded
@@ -15,7 +15,10 @@ package, on the same inputs, and the gate that keeps K7 off that class.
   preset as shipped;
 * the plain gradient of a ReSTIR pass of the preset w.r.t. emission
   against `jax.grad` at tests/test_restir.py:151-175's sizes;
-* fault 15: K7's gate refuses each class K6 now admits, before any launch.
+* fault 15's rule: K7's gate admits each class K6 admits now that its
+  whole-SDF copy is held, and refuses what it still does not cover (texel
+  arrays, a cubemap, more than 32 candidates, SDF lights) before any
+  launch.
 
 The contract is the parity contract of tests/test_megakernel.py:79-94
 (max error below 1e-4, at least 99 % of pixels within 1e-5) on the
@@ -270,25 +273,42 @@ def _k7_case(name):
 @pytest.mark.parametrize("name", ["animated_restir", "mandelbulb", "every_shape", "polygons",
                                   "textured_cornell", "textured_restir_demo"])
 def test_k7_gate_after_fault_15(name):
-    """Fault 15: K6's gate, K4's, the split path's and the plain class admit
-    each class this slice adds (every SDF shape, textured SDF rows,
-    textures blended into any row), and K7's refuses it first, naming
-    ROADMAP queue 1 item 8, since it replays no texel and the ROUND_BOX
-    distance alone; a gradient through a K6 pass then raises before any
-    launch."""
+    """Fault 15's rule, the gate widened last: K6's gate, K4's, the split
+    path's and the plain class admit each class slice 15 added (every SDF
+    shape, textured SDF rows, textures blended into any row), and K7's
+    admits it too now that its whole-SDF copy is held
+    (tests/test_torch_kernel_host_restir_sdf.py, the card).  What K7 still
+    refuses, it refuses before any launch, naming a ROADMAP item: a
+    gradient w.r.t. a texel array (item 14), a cubemap under ReSTIR (K6's
+    gate, item 11) and an SDF-bound light slot (item 11); more than 32
+    candidates, which these scenes' few lights cannot reach, are held on
+    the card (tests/test_torch_cuda.py)."""
     scene, cam, cfg = _k7_case(name)
     assert tk6.unsupported_restir(scene, cfg) is None
     assert tsplit.unsupported_gbuffer(scene, cfg) is None and tint.unsupported(scene, cfg) is None
     tsplit.check_split(scene, cfg.replace(restir_adhoc_motion=True), cam,
                        RenderState.create(4, 4, "cpu"))
-    reason = tk6.outside_k7_class(scene)
-    assert reason is not None and "ROADMAP queue 1 item 8" in reason
-    assert tk6.unsupported_restir_bwd(scene, cfg) == reason
+    assert tk6.outside_k7_class(scene) is None and tk6.unsupported_restir_bwd(scene, cfg) is None
+    assert tk6.bwd_copy(scene) == "whole_sdf"
+    lit = scene.replace(lights_static=(scene.num_analytic,) + scene.lights_static[1:])
+    refused = {
+        "images": (scene.replace(images=scene.images.clone().requires_grad_(True)), cfg,
+                   "images.*item 14"),
+        "noise": (scene.replace(noise=scene.noise.clone().requires_grad_(True)), cfg,
+                  "noise.*item 14"),
+        "cubemap": (scene, cfg.replace(use_cubemap=True, use_procedural_sky=False),
+                    "cubemap.*item 11"),
+    }
+    if scene.num_sdfs:   # the first light slot on the first SDF row
+        refused["SDF light"] = (lit, cfg, "light slots.*item 11")
+        assert "SDF-bound light slots" in tk6.outside_k7_class(lit)
+        assert tk6.unsupported_restir_bwd(lit, cfg) == tk6.outside_k7_class(lit)
     em = scene.emission.clone().requires_grad_(True)
     ro, rd = generate_rays(cam, 4, 8, 0)
     ring = RenderState.create(4, 8, "cpu")
     before = (tk6.LAUNCHES, tk6.BWD_LAUNCHES, tsplit.GBUF_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="K7 does not cover.*item 8"):
-        tk6._fused(scene.replace(emission=em), cfg, ro, rd, trng.pixel_ids(4, 8), 0, 0,
-                   ring.restir_back, ring.restir_hist1, ring.restir_hist2)
+    for what, (s, c, words) in refused.items():
+        with pytest.raises(NotImplementedError, match="K[67] does not cover.*" + words):
+            tk6._fused(s.replace(emission=em), c, ro, rd, trng.pixel_ids(4, 8), 0, 0,
+                       ring.restir_back, ring.restir_hist1, ring.restir_hist2)
     assert (tk6.LAUNCHES, tk6.BWD_LAUNCHES, tsplit.GBUF_LAUNCHES) == before

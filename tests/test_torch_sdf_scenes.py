@@ -18,9 +18,10 @@ NEW_CLASSES = ("mandelbulb", "textured_box", "sdf_light")
 #: the gates of the other kernels and routes (K2 admits them: it
 #: differentiates K1's whole class)
 GATES = ("K4", "K5", "K6", "split", "K7", "restir")
-#: the gates that model BOX and ROUND_BOX rows alone (K5) or ROUND_BOX rows
-#: without a texel (K7), which refuse all three naming item 8
-BOX_ONLY_GATES = ("K5", "K7")
+#: the gate that models BOX and ROUND_BOX rows alone (K5), which refuses
+#: all three naming item 8; K7 differentiates the whole SDF class in its
+#: whole-SDF copy
+BOX_ONLY_GATES = ("K5",)
 
 
 def new_class_case(where, device):
@@ -37,11 +38,12 @@ def new_class_case(where, device):
 
 def expected_verdict(gate, where):
     """The ROADMAP item `gate` names when it refuses the class `where`
-    (as a ReSTIR config with MIS off), or None when it admits it: K5 and
-    K7 refuse all three (item 8); the ReSTIR gates admit the Mandelbulb
-    (K4's and K6v's whole-SDF copies) and refuse `default_scene`, which has
-    no light for ReSTIR, and the SDF light, whose slot is not a LIGHT
-    sphere, as the JAX `supported_restir` does (item 11)."""
+    (as a ReSTIR config with MIS off), or None when it admits it: K5
+    refuses all three (item 8); the ReSTIR gates, K7's among them, admit
+    the Mandelbulb (K4's, K6v's and K7's whole-SDF copies) and refuse
+    `default_scene`, which has no light for ReSTIR, and the SDF light,
+    whose slot is not a LIGHT sphere, as the JAX `supported_restir` does
+    (item 11)."""
     if gate in BOX_ONLY_GATES:
         return "ROADMAP queue 1 item 8"
     return None if where == "mandelbulb" else "ROADMAP queue 1 item 11"

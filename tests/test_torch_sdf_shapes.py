@@ -79,8 +79,8 @@ FRACTALS = ("menger_sponge", "mandelbulb")
 @pytest.mark.parametrize("where", NEW_CLASSES)
 @pytest.mark.parametrize("gate", GATES)
 def test_gates_refuse_the_new_classes(gate, where):
-    """K5's and K7's gates refuse a Mandelbulb, a textured BOX SDF and an
-    SDF light, naming item 8; the ReSTIR gates (K4, K6, the split path,
+    """K5's gate refuses a Mandelbulb, a textured BOX SDF and an SDF
+    light, naming item 8; the ReSTIR gates (K4, K6, the split path, K7,
     the plain class) admit the Mandelbulb and refuse the other two for
     what ReSTIR itself lacks there, naming item 11 (`expected_verdict`)."""
     scene, cam, cfg = new_class_case(where, "cpu")
