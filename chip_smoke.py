@@ -37,7 +37,10 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    whole-SDF copies (on `mandelbulb`, and K6v's split form on
    `animated_restir`), and fails unless their old copies keep their
    registers and local memory (K4 80 and 56 B; K6v 64 and 32 B, split 72
-   and 32 B);
+   and 32 B); prints K1's ptxas line per copy and fails unless its copies
+   other than the medium copy keep the lines they had before it came
+   (`K1_PTXAS`), and prints the medium copy's occupancy on
+   `spectral_caustics`;
 3. holds K1 against its plain PyTorch version (`render/integrator.trace`)
    on the card, on `cornell_default(use_mis=True)`: at 16x128 with 3
    bounces under the parity contract (>= 99 % of pixels within 1e-5,
@@ -289,7 +292,24 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    whole-SDF copy alone per launch (CUDA events, profiler) beside `bound`
    (`sdf_adjoint`); runs a 6-step `optimize.fit` of the preset at
    128x128 (the lights' emission and the METAL box's color) through K6 and
-   K7's whole-SDF copy alone, lowering its loss.
+   K7's whole-SDF copy alone, lowering its loss;
+30. hero-wavelength spectral transport and the homogeneous medium on K1's
+   medium copy (`medium_phase`): holds it against the plain version bit
+   for bit at 64x64 at each scene's own depth on the reference's preset 8
+   (`spectral_caustics`) as shipped, with spectral transport alone and
+   with the medium alone, and with both on `mis_demo` (an SDF box under
+   MIS) and `cubemap_demo` (`MEDIUM_HOLDS`), one launch each; drives
+   `Renderer(*spectral_caustics()).render(2)` at 512x512 with 12 bounces
+   (2 K1 launches, no other kernel, no call of the plain version, a finite
+   image that is not black); times a `sample_radiance` pass (median and
+   quartiles of 7) and K1 through `trace_forward` (CUDA events), K1's device
+   time in a fresh process (`k1_device_time.k1_device_ms`) and the plain
+   version (median of 3), and prints the path events (free paths, scatter
+   events, in-scatter shadow rays, fogged shadow rays, dispersive hits) and
+   `bound` beside the copy's occupancy; checks that a gradient through the
+   preset (K2) and a ReSTIR pass, the split path with the medium or
+   spectral transport raise NotImplementedError naming ROADMAP item 10
+   before any launch.
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -325,6 +345,16 @@ ADJ_CONFIGS = [                          # tests/test_torch_cuda.py
     (16, 128, dict(max_bounces=4, sample_lights=False)),
 ]
 
+# ptxas' line of each of K1's copies as it was before the medium copy came
+# (PERF.md §6), which phase 2 holds
+_K1_LINE = ("{0} bytes stack frame, {1} bytes spill stores, {2} bytes spill loads; Used 64 "
+            "registers, used 1 barriers, {0} bytes cumulative stack size")
+K1_PTXAS = {"analytic": _K1_LINE.format(88, 148, 188), "SDF": _K1_LINE.format(152, 346, 696),
+            "textured light": _K1_LINE.format(128, 294, 500),
+            "SDF, textured light": _K1_LINE.format(184, 446, 976),
+            "whole-SDF": _K1_LINE.format(256, 566, 1428),
+            "whole-SDF, textured light": _K1_LINE.format(256, 562, 1436)}
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and float32 outside
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -349,6 +379,20 @@ OPS_NEE_MIS = 43    # per sphere light under MIS: energy gate, both pdfs, heuris
 OPS_NEE_DIR = 32    # per directional light without MIS: direction, origin, contribution
 OPS_NEE_SDF = 52    # per SDF light: the sphere point, direction, origin, contribution
 OPS_NEE_SDF_MIS = 37  # per SDF light under MIS: energy gate, the BSDF pdf, heuristic
+# K1's medium copy (csrc/path.cuh, trace_common.cuh::medium_nee): the free
+# path of each ray (max, log, negation, division, min, compare); a scatter
+# event (its point, the throughput, the cutoff tests, acc += mask * in-scatter)
+# with its HG direction (the sample, an orthonormal basis, sin and cos, the
+# normalized sum); per LIGHT sphere at a scatter event the in-scatter shadow
+# ray's setup (distance, cone, direction, origin) and weight (HG phase, fog,
+# solid angle; its mesh scan counted apart); Beer-Lambert fog on a sphere
+# light's NEE shadow ray; the hero wavelength and Cauchy's IOR at a hit on a
+# dispersive (negative-IOR) mesh
+OPS_FREEPATH = 6
+OPS_SCATTER = 87
+OPS_VOL_NEE = 115
+OPS_FOG = 3
+OPS_CAUCHY = 10
 OPS_LIGHT = 12      # emissive hit: acc += mask c e w
 OPS_LIGHT_MIS = 48  # its BSDF-side MIS weight
 OPS_MISS = 28       # procedural sky and acc
@@ -671,7 +715,12 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     pipeline (`vertices`, each with two shadow rays, whose march work is
     also counted apart as `v_gated`, `v_marched`, `v_march_steps`) in
     place of NEE; with
-    `gbuffer` (K4) a diffuse vertex runs neither and is recorded.
+    `gbuffer` (K4) a diffuse vertex runs neither and is recorded.  Under
+    the homogeneous medium it counts each ray's free path (`freepath`),
+    the scatter events (`scatter`), their in-scatter shadow rays
+    (`vol_shadow`, one per LIGHT sphere, whose march work counts with the
+    rest) and the fogged NEE shadow rays (`fog`); under spectral
+    transport the hits on dispersive meshes (`cauchy`).
     Replays the kernels' decisions with the plain version's functions
     (`bsdf.sample`, `integrator.hit_color_emission`, `sdf.march_loop`,
     `restir.reservoir_direct` among them), which make the same ones bit
@@ -683,7 +732,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     regeneration on that many warps (`regenerated_lane_use`)."""
     from raytracer0_tpu_torch import rng
     from raytracer0_tpu_torch.ops import (bsdf, intersect, lighting, restir, sampling,
-                                          sdf, vecmath)
+                                          sdf, spectral, vecmath)
     from raytracer0_tpu_torch.render import integrator
 
     n = ro.shape[:-1].numel()
@@ -692,7 +741,8 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     ev = dict(rays=0, diffuse=0, specular=0, transmit=0, shadow=0, shadow_dir=0, shadow_sdf=0,
               gather=0, fetch=0, light=0, light_mis=0, dir_hit=0, miss=0, sky=0,
               gated=0, marched=0, march_steps=0, sdf_hits=0, vertices=0,
-              v_gated=0, v_marched=0, v_march_steps=0, bsdf={}, texel={}, uv={})
+              v_gated=0, v_marched=0, v_march_steps=0, bsdf={}, texel={}, uv={},
+              freepath=0, scatter=0, vol_shadow=0, fog=0, cauchy=0)
     marches, march_loop = [], sdf.march_loop
 
     def counted(*args):
@@ -719,6 +769,9 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
     counts = [torch.zeros(shape, dtype=torch.int32, device=ro.device) for _ in range(3)]
     bounces = torch.zeros(shape, dtype=torch.int64, device=ro.device)
     march_steps, march_longest = 0, 0
+    hero_wl = (spectral.sample_wavelength(rng.uniform(pix, pass_idx, sample_idx,
+                                                      rng.Stream.WAVELENGTH))
+               if cfg.use_spectral else None)
     sdf.march_loop = counted
     try:
         for depth in range(cfg.max_bounces):
@@ -730,6 +783,31 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
                 march_steps += int(steps.sum())
                 march_longest += int(steps.amax(1).sum())
             march_work(active)
+            scat = torch.zeros_like(active)
+            if cfg.use_volumetrics:   # the medium event, as integrator.trace runs it
+                u_fp = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.VOL_FREEPATH)
+                s_d = -torch.log(torch.clamp_min(u_fp, 1e-6)) / torch.full_like(
+                    u_fp, cfg.vol_sigma_t)
+                scat = active & (s_d < torch.clamp_max(hit.t, cfg.infinity))
+                s_pos = o + s_d[..., None] * d
+                mask = torch.where(scat[..., None],
+                                   mask * (cfg.vol_sigma_s / cfg.vol_sigma_t), mask)
+                ev["freepath"] += int(active.sum())
+                ev["scatter"] += int(scat.sum())
+                ev["rays"] += int(scat.sum())   # scanned, then scattered
+                if cfg.sample_lights and n_sphere:
+                    if scene.num_sdfs:   # the in-scatter shadow rays' march work
+                        integrator._volumetric_nee(scene, cfg, s_pos, d, mask, pix, pass_idx,
+                                                   sample_idx, depth)
+                        march_work(scat)
+                    ev["vol_shadow"] += int(scat.sum()) * n_sphere
+                h1, h2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.VOL_PHASE)
+                hg_dir = sampling.sample_hg(d, cfg.vol_g, h1, h2)
+                counts[2] = counts[2] + scat.to(torch.int32)
+                specular = specular & ~scat
+                vol_on = scat & ~((counts[2] >= cfg.max_scattering_events)
+                                  | (mask.amax(-1) < 0.01))
+                active = active & ~scat
             mat = scene.mat_type[hit.idx]
             missed = active & hit.missed
             is_light = active & ~hit.missed & (mat == 0)
@@ -762,7 +840,10 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
             nl = hit.n * inside[..., None]
             u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
             uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
-            bs = bsdf.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
+            bs = bsdf.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc, hero_wl)
+            if cfg.use_spectral:
+                refr = (mat == 4) | (mat == 5) | (mat == 6)
+                ev["cauchy"] += int((surf & refr & (scene.ior[hit.idx] < 0.0)).sum())
             diffuse = surf & ~bs.specular
             transmit = surf & (bs.scatter_inc > 0)
             ev["diffuse"] += int(diffuse.sum())
@@ -790,6 +871,7 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
                                                sample_idx, depth)
                     march_work(diffuse)
                 ev["shadow"] += n_diffuse * n_sphere
+                ev["fog"] += n_diffuse * n_sphere if cfg.use_volumetrics else 0
                 ev["shadow_sdf"] += n_diffuse * n_sdf_light
                 if not cfg.use_mis:
                     ev["shadow_dir"] += n_diffuse * n_dir
@@ -803,6 +885,10 @@ def path_events(torch, scene, cfg, ro, rd, pix, pass_idx, sample_idx, ring=None,
             capped = ((counts[0] >= cfg.max_diff_bounces) | (counts[1] >= cfg.max_spec_bounces)
                       | (counts[2] >= cfg.max_scattering_events))
             active = surf & ~(mask.amax(-1) < 0.01) & ~capped
+            if cfg.use_volumetrics:   # scattered lanes go on along their HG direction
+                o = torch.where(scat[..., None], s_pos, o)
+                d = torch.where(scat[..., None], hg_dir, d)
+                active = active | vol_on
             if not bool(active.any()):
                 break
     finally:
@@ -855,7 +941,11 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=Fa
     sweep = (ev["rays"] * per_ray + hits * OPS_HIT + samples * OPS_DIFFUSE
              + sum(k * OPS_BSDF.get(code, 0) for code, k in ev["bsdf"].items()))
     nee_sdf = OPS_NEE_SDF + (OPS_NEE_SDF_MIS if cfg.use_mis else 0)
-    fwd = (sweep + ev["shadow"] * (per_ray + nee) + ev["shadow_dir"] * (per_ray + OPS_NEE_DIR)
+    medium = (ev.get("freepath", 0) * OPS_FREEPATH + ev.get("scatter", 0) * OPS_SCATTER
+              + ev.get("vol_shadow", 0) * (per_ray + OPS_VOL_NEE) + ev.get("fog", 0) * OPS_FOG
+              + ev.get("cauchy", 0) * OPS_CAUCHY)
+    fwd = (sweep + medium + ev["shadow"] * (per_ray + nee)
+           + ev["shadow_dir"] * (per_ray + OPS_NEE_DIR)
            + ev["shadow_sdf"] * (per_ray + nee_sdf)
            + ev["gather"] * (per_ray + OPS_GATHER) + ev["fetch"] * OPS_FETCH
            + ev["light"] * OPS_LIGHT + ev["light_mis"] * OPS_LIGHT_MIS + ev["sky"] * OPS_MISS
@@ -968,7 +1058,8 @@ def cast_bound(torch, scene, cfg, o, d):
 def kernel_occupancy(dev):
     """{(kernel, scene): cuda_build.occupancy(...)} of the six kernels at
     the block size and shared memory of their main paths' scenes: K1 and
-    K2 on Cornell, K1's whole-SDF copy on `mandelbulb`, K4 and K5 on the
+    K2 on Cornell, K1's whole-SDF copy on `mandelbulb`, K1's medium copy on
+    `spectral_caustics`, K4 and K5 on the
     real-time scene (the SDF copies), K6v (fused form) and K7 on
     `restir_demo`, K7 on `restir_stress` too, K6v's split form on the
     real-time scene, K4's and K6v's whole-SDF copies on `mandelbulb`
@@ -984,11 +1075,14 @@ def kernel_occupancy(dev):
     k7_threads = restir_kernel.bwd_threads
     bulb = presets.mandelbulb(device=dev)[0]
     shipped = presets.animated_restir(device=dev)[0]
+    caustics = presets.spectral_caustics(device=dev)[0]
     rows = [
         ("K1", "cornell_default", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
          128, megakernel.packed_smem_bytes(cornell), False),
         ("K1 whole-SDF", "mandelbulb", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
          128, megakernel.packed_smem_bytes(bulb), 5),
+        ("K1 medium", "spectral_caustics", "megakernel", megakernel.SOURCES,
+         "rt0_trace_forward", 128, megakernel.packed_smem_bytes(caustics), 8),
         ("K4", "animated_untextured", "gbuffer", restir_split.GBUF_SOURCES,
          "rt0_gbuffer_forward", 128, megakernel.packed_smem_bytes(realtime), True),
         ("K4", "restir_demo", "gbuffer", restir_split.GBUF_SOURCES,
@@ -1026,7 +1120,8 @@ def kernel_occupancy(dev):
         flag = int(warp) | 2 * int(copy == "wide") | 4 * int(copy == "whole_sdf")
         rows.append(("K2", where, *megakernel.bwd_library(copy == "whole_sdf"),
                      "rt0_trace_backward", megakernel.BWD_THREADS, smem, flag))
-    # the flag is K1's copy (bit 0 the SDF march, bit 2 the whole SDF class),
+    # the flag is K1's copy (bit 0 the SDF march, bit 2 the whole SDF class,
+    # bit 3 the medium copy),
     # K4's (bit 0 the SDF march, bit 1 the whole SDF class), K5's SDF copy,
     # K6v's (bit 0 the split form, bit 1 the whole SDF class) or K2's copy
     # (bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy)
@@ -1370,6 +1465,179 @@ def restir_sdf_phase(torch, dev, card, occ):
     return out28
 
 
+#: K1's medium copy's holds in phase 30: {name: (preset, config changes)},
+#: each at 64x64 and at its own depth: the reference's preset 8 as shipped
+#: (spectral transport and the medium), spectral alone and the medium alone,
+#: and both on an SDF box under MIS and under a photographic cubemap
+MEDIUM_HOLDS = {
+    "spectral_caustics": ("spectral_caustics", {}),
+    "spectral_only": ("spectral_caustics", dict(use_volumetrics=False)),
+    "media_only": ("spectral_caustics", dict(use_spectral=False)),
+    "mis_demo": ("mis_demo", dict(use_mis=True, use_spectral=True, use_volumetrics=True)),
+    "cubemap_demo": ("cubemap_demo", dict(use_spectral=True, use_volumetrics=True)),
+}
+
+
+def medium_phase(torch, dev, card, occ):
+    """Phase 30: hero-wavelength spectral transport and the homogeneous
+    medium on K1's medium copy.  Returns the figures of the kernels' JSON
+    line and raises after printing every failed check."""
+    from raytracer0_tpu_torch import rng
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import megakernel, restir_kernel, restir_split, restir_vertex
+    from raytracer0_tpu_torch.render import integrator
+    from raytracer0_tpu_torch.render.renderer import Renderer, sample_radiance
+
+    counters = ((megakernel, "LAUNCHES"), (megakernel, "BWD_LAUNCHES"),
+                (restir_kernel, "LAUNCHES"), (restir_kernel, "BWD_LAUNCHES"),
+                (restir_split, "GBUF_LAUNCHES"), (restir_split, "CAST_LAUNCHES"),
+                (restir_vertex, "VERTEX_LAUNCHES"))
+    plain_trace, plain_calls = integrator.trace, [0]
+
+    def counted_plain(*args, **kw):
+        plain_calls[0] += 1
+        return plain_trace(*args, **kw)
+
+    def counts():
+        return tuple(getattr(m, a) for m, a in counters) + (plain_calls[0],)
+
+    def plain_timed(fn):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    failed, out30 = [], {"held": {}}
+    # K1's medium copy against the plain version, bit for bit
+    for name, (where, kw) in MEDIUM_HOLDS.items():
+        sc, cam, cfg = getattr(presets, where)(device=dev)
+        cfg = cfg.replace(**kw)
+        if megakernel.unsupported(sc, cfg) is not None:
+            failed.append(f"{name}: not in K1's class")
+            continue
+        ro, rd = generate_rays(cam, 64, 64, 0)
+        pix = rng.pixel_ids(64, 64, device=dev)
+        before = megakernel.LAUNCHES
+        got = megakernel.trace_forward(sc, cfg, ro, rd, pix, 0, 0)
+        ref, plain_ms = plain_timed(lambda: integrator.trace(sc, cfg, ro, rd, pix, 0, 0))
+        n_diff = int((got != ref).any(dim=-1).sum())
+        err = (got - ref).abs().max().item()
+        launched = megakernel.LAUNCHES - before
+        print(f"phase 30: {name} at 64x64, {cfg.max_bounces} bounces (use_spectral "
+              f"{cfg.use_spectral}, use_volumetrics {cfg.use_volumetrics}): K1's medium copy "
+              f"against the plain version: {n_diff} of 4096 pixels differ, max abs err "
+              f"{err:.3e}, {launched} K1 launch; means {got.mean().item():.6f} and "
+              f"{ref.mean().item():.6f}; plain version {plain_ms:.1f} ms")
+        out30["held"][name] = {"pixels_differing": n_diff, "max_abs_err": err,
+                               "plain_ms_64": plain_ms}
+        if n_diff or launched != 1 or not bool(torch.isfinite(got).all()) \
+                or not ref.max().item() > 0.02:
+            failed.append(f"{name}: {n_diff} pixels differ, {launched} launches")
+
+    # the main path, its counts set to 0 just before and read just after
+    sc, cam, cfg = presets.spectral_caustics(device=dev)
+    for m, a in counters:
+        setattr(m, a, 0)
+    plain_calls[0] = 0
+    integrator.trace = counted_plain
+    try:
+        img = Renderer(sc, cam, cfg, H, W).render(2)
+        torch.cuda.synchronize()
+    finally:
+        integrator.trace = plain_trace
+    launches = counts()
+    print(f"phase 30: spectral_caustics: Renderer.render(2) at {H}x{W}, {cfg.max_bounces} "
+          f"bounces: launches (K1, K2, K6 passes, K7, K4, K5, K6v, plain calls) {launches}; "
+          f"image mean {img.mean().item():.6f}")
+    if launches != (2, 0, 0, 0, 0, 0, 0, 0) or not bool(torch.isfinite(img).all()) \
+            or not img.mean().item() > 0.01:
+        failed.append(f"the main path ran {launches}, or its image is not finite or black")
+    out30["launches"] = launches[0]
+
+    # timings at 512x512: the pass, K1 through its wrapper, K1's device time
+    # in a fresh process, the plain version; the bound from the path events
+    ro, rd = generate_rays(cam, H, W, 0)
+    pix = rng.pixel_ids(H, W, device=dev)
+    pass30 = time_stats(torch, lambda: sample_radiance(sc, cfg, cam, H, W, 0))
+    kept = {}
+
+    def keep(key, fn):
+        kept[key] = fn()
+
+    k1_30 = time_stats(torch, lambda: keep("k1", lambda: megakernel.trace_forward(
+        sc, cfg, ro, rd, pix, 0, 0)))
+    plain30 = statistics.median(
+        plain_timed(lambda: keep("plain", lambda: integrator.trace(sc, cfg, ro, rd, pix, 0, 0)))[1]
+        for _ in range(3))
+    # the main path's shapes held: the last outputs of both timing runs
+    got, ref = kept.pop("k1"), kept.pop("plain")
+    n_diff = int((got != ref).any(dim=-1).sum())
+    err = (got - ref).abs().max().item()
+    print(f"phase 30: spectral_caustics at {H}x{W}, {cfg.max_bounces} bounces: K1's medium copy "
+          f"against the plain version: {n_diff} of {H * W} pixels differ, max abs err "
+          f"{err:.3e}; means {got.mean().item():.6f} and {ref.mean().item():.6f}")
+    out30["held"][f"spectral_caustics_{H}"] = {"pixels_differing": n_diff, "max_abs_err": err}
+    if n_diff or not bool(torch.isfinite(got).all()):
+        failed.append(f"spectral_caustics at {H}x{W}: {n_diff} pixels differ")
+    del got, ref
+    fresh = subprocess.run(
+        [sys.executable, "-c", "import json, torch; from k1_device_time import k1_device_ms; "
+         "print(json.dumps(k1_device_ms(('spectral_caustics',), torch.device('cuda', 0))))"],
+        capture_output=True, text=True, timeout=600, check=True)
+    dev30 = json.loads(fresh.stdout.strip().splitlines()[-1])["spectral_caustics"]
+    ev30 = path_events(torch, sc, cfg, ro, rd, pix, 0, 0)
+    b30 = bound(ev30, sc, cfg, adjoint=False)
+    o30 = occ[("K1 medium", "spectral_caustics")]
+    print(f"phase 30: path events of spectral_caustics at {H}x{W}: {json.dumps(ev30)}")
+    print(f"phase 30: {card}: spectral_caustics at {H}x{W}, {cfg.max_bounces} bounces: "
+          f"sample_radiance pass {pass30[0]:.3f} ms (q1 {pass30[1]:.3f}, q3 {pass30[2]:.3f}; "
+          f"median of 7, CUDA events), K1's medium copy through trace_forward "
+          f"{k1_30[0]:.3f} ms (q1 {k1_30[1]:.3f}, q3 {k1_30[2]:.3f}), its device time "
+          f"{dev30[0]:.5f} ms (k1_device_time.py in a fresh process, rounds "
+          f"{[round(x, 5) for x in dev30[1]]}), plain version {plain30:.3f} ms (median of 3); "
+          f"bound {b30[0]:.6f} ms ({b30[1]}; {100 * b30[0] / dev30[0]:.2f} % of the device "
+          f"time); {o30['blocks']} blocks of 128 per SM at {o30['registers']} registers, "
+          f"{o30['local_bytes']} bytes of local memory; lane use {ev30['lane_use']:.4f}")
+    out30.update(ms=k1_30[0], pass_ms=pass30[0], pass_quartiles=pass30[1:],
+                 device_ms=dev30[0], plain_ms=plain30, bound_ms=b30[0], bound_by=b30[1],
+                 blocks_per_sm=o30["blocks"], registers=o30["registers"],
+                 local_bytes=o30["local_bytes"])
+
+    # refused before any launch: K2 (no adjoint of the medium yet) and ReSTIR
+    before = counts()
+    refusals = []
+    em = sc.emission.clone().requires_grad_(True)
+    try:
+        megakernel.trace_forward(sc.replace(emission=em), cfg, ro[:16, :16].contiguous(),
+                                 rd[:16, :16].contiguous(), rng.pixel_ids(16, 16, device=dev),
+                                 0, 0)
+        refusals.append("K2: not refused")
+    except NotImplementedError as exc:
+        refusals.append(f"K2: {'item 10' in str(exc)}")
+    demo, dcam, dcfg = presets.restir_demo(device=dev)
+    for kw in (dict(use_volumetrics=True), dict(use_spectral=True),
+               dict(use_volumetrics=True, restir_adhoc_motion=True)):
+        try:
+            Renderer(demo, dcam, dcfg.replace(**kw), 16, 16).step()
+            refusals.append(f"ReSTIR {kw}: not refused")
+        except NotImplementedError as exc:
+            refusals.append(f"ReSTIR {kw}: {'item 10' in str(exc)}")
+    torch.cuda.synchronize()
+    print(f"phase 30: refused before any launch, naming item 10: {refusals}; launch counts "
+          f"unchanged: {counts() == before}")
+    if not all(r.endswith("True") for r in refusals) or counts() != before:
+        failed.append(f"refusals {refusals}, counts {before} -> {counts()}")
+
+    for f in failed:
+        print(f"phase 30: FAILED: {f}")
+    if failed:
+        raise AssertionError(f"phase 30: {len(failed)} checks failed")
+    return out30
+
+
 def restir_grad_sdf_phase(torch, dev, card, occ):
     """Phase 29: K7's whole-SDF copy (`csrc/restir_bwd_sdf.cu`) over the
     scenes of `k7_sdf_scenes`: against the plain autograd over chains of
@@ -1605,7 +1873,8 @@ def main() -> int:
         from raytracer0_tpu_torch.ops import restir, restir_kernel, restir_split, restir_vertex
         from raytracer0_tpu_torch.render.renderer import Renderer, render_pass, sample_radiance
         from raytracer0_tpu_torch.render.state import RESERVOIR_FIELDS, RenderState
-        from k1_device_time import K2_COPIES, k1_device_ms, k2_device_ms, ptxas_functions
+        from k1_device_time import (K1_COPIES, K2_COPIES, k1_device_ms, k2_device_ms,
+                                    ptxas_functions)
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
@@ -1641,6 +1910,17 @@ def main() -> int:
               f"{o['warps']} warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at "
               f"{o['smem']} bytes of dynamic shared memory, {o['registers']} registers and "
               f"{o['local_bytes']} bytes of local memory per thread")
+    # K1's copies by their kernel's name; the old copies keep the lines they
+    # had before the medium copy came (K1_PTXAS: the parent's, PERF.md §6)
+    k1_fns = ptxas_functions(infos[0].log)
+    for copy, tag in K1_COPIES.items():
+        line = [v for k, v in k1_fns.items() if tag in k]
+        line = line[0] if line else None
+        held1 = K1_PTXAS.get(copy)
+        print(f"phase 2: K1 ptxas, its {copy} copy: {line}"
+              + ("" if held1 is None else f"; as before the medium copy: {line == held1}"))
+        if held1 is not None and line != held1:
+            raise AssertionError(f"K1's {copy} copy moved: {line}, expected {held1}")
     o1 = occ[("K1", "cornell_default")]
     print(f"phase 2: K1 on Cornell at {H}x{W}: one pixel per thread, a grid of "
           f"{-(-H * W // 128)} blocks of 128, {o1['blocks']} blocks per SM at {o1['registers']} "
@@ -3560,6 +3840,11 @@ def main() -> int:
     print(f"phase 29: {time.perf_counter() - t29:.1f} s")
     held29, step29 = p29["held"], p29["step"]
 
+    # ---- phase 30: spectral transport and the homogeneous medium on K1 ----
+    t30 = time.perf_counter()
+    p30 = medium_phase(torch, dev, card, occ)
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     common = dict(route="cuda", library_ms=None)
@@ -3583,6 +3868,20 @@ def main() -> int:
          "plain_ms_mis_demo": plain_ms_sdf, "bound_ms_mis_demo": sdf_bound,
          "device_ms_cornell_alone": k1_dev["cornell_default"][0],
          "whole_sdf_copy": whole},
+        {"name": "K1 forward megakernel, its medium copy (spectral transport and the "
+                 "homogeneous medium)", **common,
+         "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:1731",
+         "also_replaces": "raytracer0_tpu/ops/megakernel.py:461, :434, :454, :1551, :2056, "
+                          ":2237 (the hero wavelength, HG, the fog, Cauchy's IOR, the HG "
+                          "continuation of _build_bounce)",
+         "scene": "spectral_caustics (the reference's preset 8)",
+         "launches": p30["launches"],
+         "max_abs_err": max(v["max_abs_err"] for v in p30["held"].values()),
+         "held": p30["held"], "ms": p30["ms"], "device_ms": p30["device_ms"],
+         "pass_ms": p30["pass_ms"], "plain_ms": p30["plain_ms"], "bound_ms": p30["bound_ms"],
+         "bound_by": p30["bound_by"], "blocks_per_sm": p30["blocks_per_sm"],
+         "registers": p30["registers"], "local_bytes": p30["local_bytes"]},
         {"name": "K2 adjoint megakernel", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel_bwd.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:2545",

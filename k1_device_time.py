@@ -11,9 +11,11 @@ checkout lacks are skipped):
 Prints the card's name and power limit, then one JSON line: ptxas' register
 and spill lines for K1, K2, K4, K5, K6v and K7 (K1's copies in the order
 nvcc compiles them: the four of the BOX/ROUND_BOX class, then the
-whole-SDF copies), and per preset of PRESETS (Cornell, the textured
-presets, `mis_demo`, `cubemap_demo`, config 2 and the reference's SDF
-presets `default_scene`, `mandelbulb` and `menger_sponge`) the median over 5 rounds of
+whole-SDF copies, then the medium copy), and per preset of PRESETS
+(Cornell, the textured presets, `mis_demo`, `cubemap_demo`, config 2, the
+reference's SDF presets `default_scene`, `mandelbulb` and `menger_sponge`
+and its preset 8 `spectral_caustics`, which runs K1's medium copy) the
+median over 5 rounds of
 K1's device time (torch.profiler, 20 launches per round) at 512x512 with 12
 bounces, after 5 warm-up launches; and the same for K7 (the adjoint kernel
 alone, and with its tap gather and reduction) on `restir_demo` and
@@ -111,9 +113,19 @@ K2_COPIES = {"Cornell per thread": "10bwd_kernelILb0E", "Cornell per warp": "10b
              "whole-SDF per warp": "15bwd_wide_kernelILb1ELb1E"}
 
 
+#: K1's copies by the template instance of its kernel in the mangled name:
+#: the SDF march, the shadow hit's texel, the whole SDF class; the medium copy
+K1_COPIES = {"analytic": "10fwd_kernelILb0ELb0ELb0E", "SDF": "10fwd_kernelILb1ELb0ELb0E",
+             "textured light": "10fwd_kernelILb0ELb1ELb0E",
+             "SDF, textured light": "10fwd_kernelILb1ELb1ELb0E",
+             "whole-SDF": "10fwd_kernelILb1ELb0ELb1E",
+             "whole-SDF, textured light": "10fwd_kernelILb1ELb1ELb1E",
+             "medium": "17fwd_kernel_medium"}
+
+
 PRESETS = ("cornell_default", "textured_cornell", "textured_gloss", "mis_demo", "cubemap_demo",
            "config2", "textured_emitter", "cornell_box", "default_scene", "mandelbulb",
-           "menger_sponge")
+           "menger_sponge", "spectral_caustics")
 K7_PRESETS = ("restir_demo", "restir_stress")
 #: the scenes of K7's whole-SDF copy it times: `animated_restir` as shipped
 #: (at frame time 0) and the `mandelbulb` ReSTIR view

@@ -24,7 +24,7 @@ Layout:
   rng.py       — the counter RNG on int64 tensors (bit-identical draws)
   models/      — scene dataclass, DSL, camera, presets
   ops/         — vecmath, intersect, sdf, sampling, bsdf, lighting, sky,
-                 textures, noise, tonemap, restir (the reservoir pipeline),
+                 textures, noise, spectral, tonemap, restir (the reservoir pipeline),
                  megakernel (the autograd pairing of the CUDA forward
                  kernel K1 and its adjoint K2), restir_kernel (the K6
                  pass and K7), restir_vertex (K6v), restir_split (K4, K5,
@@ -37,12 +37,17 @@ The forward pass (K1) covers analytic primitives and SDF meshes of all 14
 shapes with every surface material (DIFF, SPEC, REFR_FRESNEL,
 REFR_SCHLICK, COAT), textures of all ten types on analytic and SDF
 meshes, sphere, directional and SDF-bound lights with optional MIS,
-cosine or uniform sampling, and a cubemap or the procedural sky.  ReSTIR
-(K4 and K6v) covers sphere lights over every SDF shape and textures
-blended into any row, without a cubemap on the card, under STATIC or
-ANIMATED (real-time) accumulation, with the pixel's own history or the
-ad-hoc reprojection.  Gradients cover all of it on the CPU (plain
-autograd).  On CUDA, K2 differentiates K1's whole class, and K7 the ReSTIR
+cosine or uniform sampling, a cubemap or the procedural sky, and
+hero-wavelength spectral transport (Cauchy dispersion of negative-IOR
+glass) and the homogeneous medium (free paths, in-scatter NEE from sphere
+lights, Henyey-Greenstein scattering, fogged shadow rays) in its medium
+copy.  ReSTIR (K4 and K6v) covers sphere lights over every SDF shape and
+textures blended into any row, without a cubemap on the card, under
+STATIC or ANIMATED (real-time) accumulation, with the pixel's own history
+or the ad-hoc reprojection, and without spectral transport or the medium
+on any route.  Gradients cover all of it on the CPU (plain autograd).  On
+CUDA, K2 differentiates K1's whole class but spectral transport and the
+medium, and K7 the ReSTIR
 pass without the ad-hoc reprojection over its whole class
 (`restir_kernel.outside_k7_class`: every SDF shape, textures blended into
 any row, but no BOX row in a scene K4 and K6v march without the whole SDF

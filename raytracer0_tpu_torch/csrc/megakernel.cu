@@ -78,6 +78,22 @@
 // launcher runs only for scenes with SDF rows, so other scenes run the same
 // code as before.
 //
+// Spectral transport and the homogeneous medium (the hero wavelength, Cauchy
+// dispersion, the medium event with its in-scatter NEE and Henyey-Greenstein
+// direction, Beer-Lambert fog on sphere-light shadow rays: the Pallas
+// `_build_bounce` under use_spectral and use_volumetrics) are compiled into a
+// copy of their own, `fwd_kernel_medium`, which the launcher runs whenever
+// either flag is on and the other copies never see.  It is built on the
+// whole-SDF copy with the shadow hit's texel, which runs the same operations
+// as the other copies on analytic, BOX/ROUND_BOX and untextured scenes, so
+// one copy serves K1's whole class.  The medium adds to each bounce a free
+// path (a log) and, where a path scatters, one shadow-ray scan per LIGHT
+// sphere: on the reference's preset 8, whose box is open at the front, rays
+// that leave it scatter instead of ending, so the paths run longer and the
+// kernel stays bound by latency and divergence, not by memory.  The hero
+// wavelength's RGB weight is applied after the launch
+// (ops/megakernel.trace_forward), as the JAX `trace_forward` does.
+//
 // The device functions it shares with its adjoint K2 live in trace_common.cuh;
 // its bounce loop, shared with the G-buffer kernel K4, in path.cuh.
 
@@ -88,8 +104,9 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;  // __launch_bounds__: 64 registers
 
-// Per-light NEE (trace_common.cuh::shade_nee) as trace_path's direct light.
-template <bool kSdf, bool kTex, bool kAll>
+// Per-light NEE (trace_common.cuh::shade_nee) as trace_path's direct light;
+// kMedium: with the medium copy's fog on sphere-light shadow rays.
+template <bool kSdf, bool kTex, bool kAll, bool kMedium = false>
 struct Nee {
   const SceneSmem &s;
   const PathSmem &ps;
@@ -97,8 +114,8 @@ struct Nee {
   const TraceArgs &a;
   __device__ __forceinline__ V3 operator()(V3 x, V3 nl, int, uint32_t h_depth, int, int,
                                            V3) const {
-    return shade_nee<kSdf, kTex, kAll>(s, ps.sd, pk, x, nl, h_depth, a.eps, a.inf, a.use_mis, &a,
-                                       ps.tex);
+    return shade_nee<kSdf, kTex, kAll, kMedium>(s, ps.sd, pk, x, nl, h_depth, a.eps, a.inf,
+                                                a.use_mis, &a, ps.tex);
   }
 };
 
@@ -126,6 +143,30 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fwd_kernel(TraceArgs a) {
   a.out[3 * p + 2] = acc.z;
 }
 
+// K1's medium copy: hero-wavelength spectral transport and the homogeneous
+// medium (the Pallas `_build_bounce`'s `_hero_wavelength`, its medium event
+// with `_sample_hg` and `_hg_phase` and in-scatter NEE, the fog on NEE
+// shadow rays and Cauchy dispersion), each under its run-time flag, over
+// K1's whole class: it is built on the whole-SDF copy with the shadow hit's
+// texel, which renders analytic and untextured scenes with the same
+// operations as the other copies, so one copy serves every scene under
+// `use_spectral` or `use_volumetrics` and the other copies compile what
+// they did.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fwd_kernel_medium(MediumArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  SceneSmem s;
+  const PathSmem ps = load_path(a, smem, s);
+  const PackedScene pk =
+      load_packed<true>(s, ps.sd, smem, path_smem_bytes(a.n_mesh, a.n_lights, a.n_sdf));
+  Nee<true, true, true, true> nee = {s, ps, pk, a};
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= a.n_pix) return;  // ragged edge
+  const V3 acc = trace_path<true, true, true>(a, s, ps, pk, p, nee);
+  a.out[3 * p] = acc.x;
+  a.out[3 * p + 1] = acc.y;
+  a.out[3 * p + 2] = acc.z;
+}
+
 // The copy of K1 for a scene with SDF rows (`sdf`), with textured LIGHT
 // meshes (`tex`) and with SDF rows outside BOX and ROUND_BOX, textured or
 // lit (`all`, which implies `sdf`).
@@ -141,7 +182,9 @@ inline void (*fwd_copy(bool sdf, bool tex, bool all))(TraceArgs) {
 // without SDF rows runs the copy of the kernel built without the march, a
 // scene without textured LIGHT meshes (use_tex bit 1) the copy without the
 // shadow hit's texel, a scene whose SDF rows go beyond BOX and ROUND_BOX,
-// untextured and unlit (use_tex bit 2), the whole-SDF copy.
+// untextured and unlit (use_tex bit 2), the whole-SDF copy; spectral
+// transport or the medium (use_spectral, use_volumetrics) the medium copy,
+// with the medium's constants formed on the host (MediumArgs).
 extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const int32_t *mat,
                                  int n_mesh, const int32_t *lights, int n_lights, const float *ro,
                                  const float *rd, const int64_t *pix, float *out, long long n_pix,
@@ -152,7 +195,10 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
                                  int use_biased, const int32_t *tex, const int32_t *blend,
                                  const float *images, int img_h, int img_w, const float *noise,
                                  int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
-                                 int n_sdf, int steps, float fudge, float t0, void *stream) {
+                                 int n_sdf, int steps, float fudge, float t0, int use_spectral,
+                                 int use_volumetrics, float sigma_t, float vol_w, float vol_eps,
+                                 float hg_g, float hg_1pg2, float hg_2g, float hg_1mg2,
+                                 void *stream) {
   TraceArgs a = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
                  ro,      rd,     pix,         out,        n_pix,       pass_idx,
                  sample_idx, max_bounces, max_diff, max_spec, max_scatter, eps,
@@ -163,6 +209,21 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
   const size_t smem = packed_smem_bytes(path_smem_bytes(n_mesh, n_lights, n_sdf), n_mesh, n_sdf);
   const unsigned blocks = (unsigned)((n_pix + THREADS - 1) / THREADS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (use_spectral || use_volumetrics) {
+    MediumArgs m;
+    static_cast<TraceArgs &>(m) = a;
+    m.use_spectral = use_spectral;
+    m.use_volumetrics = use_volumetrics;
+    m.sigma_t = sigma_t;
+    m.vol_w = vol_w;
+    m.vol_eps = vol_eps;
+    m.hg_g = hg_g;
+    m.hg_1pg2 = hg_1pg2;
+    m.hg_2g = hg_2g;
+    m.hg_1mg2 = hg_1mg2;
+    fwd_kernel_medium<<<blocks, THREADS, smem, st>>>(m);
+    return (int)cudaGetLastError();
+  }
   void (*kern)(TraceArgs) = fwd_copy(n_sdf > 0, (use_tex & 2) != 0, (use_tex & 4) != 0);
   kern<<<blocks, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
@@ -171,8 +232,9 @@ extern "C" int rt0_trace_forward(const float *table, const int32_t *mesh, const 
 // K1's occupancy at `threads` threads and `smem` bytes of dynamic shared
 // memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
 // bit 0 the SDF march, bit 1 the shadow hit's texel, bit 2 the whole SDF
-// class.
+// class, bit 3 the medium copy.
 extern "C" int rt0_trace_forward_occupancy(int flags, int threads, long long smem, int *out) {
+  if (flags & 8) return kernel_occupancy(fwd_kernel_medium, threads, (size_t)smem, out);
   return kernel_occupancy(fwd_copy((flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0),
                           threads, (size_t)smem, out);
 }

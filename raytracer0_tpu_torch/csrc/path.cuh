@@ -17,7 +17,8 @@
 // (gbuffer.cu::regenerate_paths).  Both scan the scene through its packed
 // records (intersect_packed).  `kAll` compiles K1's and K4's copies for the
 // whole SDF class: every SDF shape, the texel of an SDF hit and (K1's)
-// SDF-light NEE.
+// SDF-light NEE.  `kMedium` compiles K1's medium copy: the medium event
+// before the miss test and Cauchy dispersion (K4 never instantiates it).
 
 #pragma once
 
@@ -25,16 +26,21 @@
 
 namespace {
 
-// One BSDF sample (ops/bsdf.py::sample) for a hit of material `mat`.
+// One BSDF sample (ops/bsdf.py::sample) for a hit of material `mat`.  With
+// kMedium (K1's medium copy) and `spectral`, a negative IOR is dispersive:
+// Cauchy's IOR at the hero wavelength `hero_wl` with |ior| as A, for the
+// refraction and the Schlick or Fresnel reflectance (COAT's too).
 struct Bounce {
   V3 o, d, mult;   // next origin and direction, throughput multiplier
   bool specular;   // NEE and the gather ray skip specular bounces
   int dif, spec, scat;  // bounce-counter increments
 };
 
+template <bool kMedium = false>
 __device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x, V3 nl, V3 d, V3 c,
                                               V3 e, float inside, float u1, float u2, float uc,
-                                              float eps, bool biased) {
+                                              float eps, bool biased, bool spectral = false,
+                                              float hero_wl = 0.0f) {
   const int mat = s.mat[idx];
   const V3 rand_dir = random_direction(nl, u1, u2, biased);
   Bounce b = {x + nl * eps, rand_dir, c, false, 1, 0, 0};  // DIFF
@@ -50,7 +56,14 @@ __device__ __forceinline__ Bounce bsdf_sample(const SceneSmem &s, int idx, V3 x,
     b.spec = 1;
     return b;
   }
-  const float nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+  float nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+  if constexpr (kMedium) {
+    const float ior = s.ior(idx);
+    if (spectral && ior < 0.0f) {  // spectral.cauchy_ior(hero_wl, |ior|)
+      const float lu = hero_wl * 0.001f;
+      nt = fmaxf(fabsf(ior) + 0.04f / fmaxf(lu * lu, 1e-6f), 1e-3f);
+    }
+  }
   if (mat == MAT_REFR_FRESNEL || mat == MAT_REFR_SCHLICK) {
     const float nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
     bool tir;
@@ -162,8 +175,10 @@ __device__ __forceinline__ PathState path_start(const TraceArgs &a, long long p)
 // vertex (hit point x, oriented normal nl, mesh idx, RNG key h_depth, the
 // diffuse bounces before it ndif, bounce depth, throughput after the
 // bounce mask_after) it adds direct(x, nl, idx, h_depth, ndif, depth,
-// mask_after) * mask_after.
-template <bool kSdf, bool kAll = false, class Direct>
+// mask_after) * mask_after.  kMedium (K1's medium copy) adds the medium
+// event of `a.use_volumetrics` before the miss test, so a ray that misses
+// can scatter, and Cauchy dispersion under `a.use_spectral`.
+template <bool kSdf, bool kAll = false, bool kMedium = false, class Direct>
 __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s,
                                           const PathSmem &ps, const PackedScene &pk,
                                           PathState &st, Direct &direct) {
@@ -176,6 +191,36 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   const int lut_n = kAll ? a.noise_n : 0;
   const bool sdf_hit =
       intersect_packed<kSdf, kAll>(s, ps.sd, pk, o, d, a.eps, a.inf, tmin, idx, lut, lut_n);
+
+  // ---- medium event: a free path shorter than the hit (or than `inf` on a
+  // miss) scatters; the throughput takes sigma_s / sigma_t, the in-scatter
+  // NEE adds with it, the path goes on along an HG direction (prev_nl and
+  // the other counters stay, so the next light hit's MIS weight reads the
+  // stale prev_nl) ----
+  if constexpr (kMedium) {
+    const MediumArgs &m = medium_args(a);
+    if (m.use_volumetrics) {
+      const uint32_t h_vol = fold_step(st.h_pix, (uint32_t)depth, 3u);
+      const float scatter_d =
+          -logf(fmaxf(u01(fold_step(h_vol, S_VOL_FREEPATH, 4u)), 1e-6f)) / m.sigma_t;
+      if (scatter_d < fminf(a.inf, tmin)) {
+        const V3 sp = o + d * scatter_d;
+        st.mask = mask * m.vol_w;
+        if (a.sample_lights && s.n_lights > 0)
+          st.acc = st.acc + st.mask * medium_nee<kSdf, kAll>(s, ps.sd, pk, sp, d, h_vol, m);
+        const uint32_t h_hg = fold_step(h_vol, S_VOL_PHASE, 4u);
+        const V3 hg_dir = sample_hg(d, m.hg_g, u01(h_hg), u01(pcg(h_hg)));
+        st.nscat += 1;
+        st.specular = false;
+        if (st.nscat >= a.max_scatter ||
+            fmaxf(fmaxf(st.mask.x, st.mask.y), st.mask.z) < 0.01f)
+          return false;
+        st.o = sp;
+        st.d = hg_dir;
+        return true;
+      }
+    }
+  }
 
   // ---- miss: environment, suppressed for non-specular paths under NEE ----
   if (!(tmin < a.inf)) {
@@ -221,8 +266,15 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
   const uint32_t h_depth = fold_step(st.h_pix, (uint32_t)depth, 3u);
   const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
   const V3 nl = n * inside;
-  const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
-                               u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+  bool spectral = false;
+  float hero_wl = 0.0f;  // spectral.sample_wavelength of the WAVELENGTH draw (no depth)
+  if constexpr (kMedium) {
+    spectral = medium_args(a).use_spectral != 0;
+    hero_wl = u01(fold_step(st.h_pix, S_WAVELENGTH, 3u)) * 340.0f + 380.0f;
+  }
+  const Bounce b = bsdf_sample<kMedium>(s, idx, x, nl, d, c, e, inside, u01(h_dir),
+                                        u01(pcg(h_dir)), u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)),
+                                        a.eps, a.use_biased, spectral, hero_wl);
   const V3 mask_after = mask * b.mult;
 
   if (!b.specular) {
@@ -261,13 +313,13 @@ __device__ __forceinline__ bool path_step(const TraceArgs &a, const SceneSmem &s
 
 // The radiance of pixel `p`'s path: path_step until the path ends, one
 // pixel per thread (K1's driver).
-template <bool kSdf, bool kAll = false, class Direct>
+template <bool kSdf, bool kAll = false, bool kMedium = false, class Direct>
 __device__ __forceinline__ V3 trace_path(const TraceArgs &a, const SceneSmem &s, const PathSmem &ps,
                                          const PackedScene &pk, long long p, Direct &direct) {
   PathState st = path_start(a, p);
   for (int depth = 0; depth < a.max_bounces; ++depth) {
     st.depth = depth;
-    if (!path_step<kSdf, kAll>(a, s, ps, pk, st, direct)) break;
+    if (!path_step<kSdf, kAll, kMedium>(a, s, ps, pk, st, direct)) break;
   }
   return st.acc;
 }

@@ -47,6 +47,10 @@ constexpr float PI = 3.14159265f;
 // raytracer0_tpu_torch/rng.py Stream codes
 constexpr uint32_t S_BSDF_DIR = 3u, S_BSDF_CHOICE = 4u, S_NEE_CONE = 5u, S_NEE_SDF_POINT = 6u,
                    S_ENV_DIR = 7u;
+// the draws of K1's medium copy: the hero wavelength, the free path, the HG
+// direction and the in-scatter NEE cone
+constexpr uint32_t S_WAVELENGTH = 2u, S_VOL_FREEPATH = 8u, S_VOL_PHASE = 9u, S_VOL_NEE = 10u;
+constexpr float FOUR_PI = 12.5663706f;
 // nc in brdf (ops/bsdf.py IOR_AIR)
 constexpr float IOR_AIR = 1.00029f;
 
@@ -80,6 +84,24 @@ struct TraceArgs {
   int steps;               // cfg.marching_steps
   float fudge, t0;         // cfg.fudge_factor, f32(cfg.epsilon * 4)
 };
+
+// K1's medium copy's arguments: TraceArgs (whose layout the other kernels
+// keep: K2 holds a copy on its stack), then the flags and the config
+// constants formed on the host as the plain version forms them (in double,
+// then f32).  The copy's device code reaches them from its TraceArgs
+// through `medium_args`.
+struct MediumArgs : TraceArgs {
+  int use_spectral, use_volumetrics;
+  float sigma_t;           // cfg.vol_sigma_t
+  float vol_w;             // cfg.vol_sigma_s / cfg.vol_sigma_t
+  float vol_eps;           // cfg.epsilon * 20: the in-scatter shadow ray's offset
+  float hg_g;              // cfg.vol_g, the HG sampler's (float32 arithmetic on it)
+  float hg_1pg2, hg_2g, hg_1mg2;  // 1 + g^2, 2 g, 1 - g^2: the HG phase's
+};
+// The MediumArgs of the medium copy, whose TraceArgs is always one.
+__device__ __forceinline__ const MediumArgs &medium_args(const TraceArgs &a) {
+  return static_cast<const MediumArgs &>(a);
+}
 
 // ------------------------------------------------------------------ vec3
 struct V3 {
@@ -590,6 +612,26 @@ __device__ __forceinline__ V3 random_direction(V3 n, float u1, float u2, bool bi
   return biased ? sample_biased(n, u1, u2) : sample_cone(n, 1.0f, u1, u2);
 }
 
+// sampling.sample_hg: Henyey-Greenstein importance sampling about w, in
+// float32 arithmetic on g; |g| < 1e-3 samples the uniform sphere.
+__device__ __forceinline__ V3 sample_hg(V3 w, float g, float u1, float u2) {
+  float cos_t;
+  if (fabsf(g) < 1e-3f) {
+    cos_t = 1.0f - 2.0f * u1;
+  } else {
+    const float sqr = (1.0f - g * g) / ((1.0f - g) + 2.0f * g * u1);
+    cos_t = ((1.0f + g * g) - sqr * sqr) / (2.0f * g);
+  }
+  return around(w, u2, safe_sqrt(1.0f - cos_t * cos_t), cos_t);
+}
+
+// sampling.hg_phase with the host-formed constants 1 + g^2, 2 g, 1 - g^2.
+__device__ __forceinline__ float hg_phase(float cos_theta, float one_p_g2, float two_g,
+                                          float one_m_g2) {
+  const float denom = fmaxf(one_p_g2 - two_g * cos_theta, 1e-6f);
+  return one_m_g2 / (FOUR_PI * denom * sqrtf(denom));
+}
+
 // vecmath.reflect: d - 2 dot(d, n) n
 __device__ __forceinline__ V3 reflect(V3 d, V3 n) { return d - n * (2.0f * dot(d, n)); }
 
@@ -1092,8 +1134,11 @@ __device__ __forceinline__ V3 shadow_texel_color(const TraceArgs &a, const Scene
 // codes `tex`); any other scene runs the code without it.  kAll (K1's
 // whole-SDF copy) marches every SDF shape and samples an SDF light (a LIGHT
 // SDF row) at a uniform point of its bounding ellipsoid, pos + direction *
-// joker.xyz, unweighted, its MIS pdf the uniform sphere's 1/4pi.
-template <bool kSdf, bool kTex, bool kAll = false>
+// joker.xyz, unweighted, its MIS pdf the uniform sphere's 1/4pi.  kMedium
+// (K1's medium copy) attenuates a sphere light's shadow ray by Beer-Lambert
+// fog over its hit's distance under `a->use_volumetrics` (the SDF and
+// directional lights' stay unfogged, as in the plain version).
+template <bool kSdf, bool kTex, bool kAll = false, bool kMedium = false>
 __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x, V3 nl,
                         uint32_t h_depth, float eps, float inf, bool use_mis, const TraceArgs *a,
                         const int *tex) {
@@ -1159,7 +1204,12 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScen
     float weight = 2.0f * (1.0f - cos_a_max);
     V3 lc = s.c(hidx);
     if constexpr (kTex) lc = shadow_texel_color(*a, s, tex, hidx, x + nl * eps + sr * ts, lc);
-    V3 contrib = vmax(lc, 0.001f) * s.e(hidx) * (weight * cos_term);
+    float weight_t = weight * cos_term;
+    if constexpr (kMedium) {
+      const MediumArgs &m = medium_args(*a);
+      if (m.use_volumetrics) weight_t = weight_t * expf(-m.sigma_t * ts);
+    }
+    V3 contrib = vmax(lc, 0.001f) * s.e(hidx) * weight_t;
     if (use_mis) {
       // weight applied only when the sample carries energy
       if (!(dot(contrib, contrib) > 1e-6f)) continue;
@@ -1167,6 +1217,41 @@ __device__ V3 shade_nee(const SceneSmem &s, const SdfScene &sd, const PackedScen
       contrib = contrib * power_heuristic(sphere_light_pdf(lp, r, x), b_pdf);
     }
     total = total + contrib;
+  }
+  return total;
+}
+
+// integrator._volumetric_nee without the throughput factor: the in-scatter
+// light at the medium event at `x` of a ray along `d` (RNG key h_depth).  Per
+// LIGHT-sphere slot a uniform cone toward the sphere from the VOL_NEE stream,
+// a shadow ray from vol_eps along it that counts only where it hits that
+// light, weighted by the HG phase, the fog over its length, pi and the cone's
+// solid angle; the light's table color and emission, untextured.
+template <bool kSdf, bool kAll>
+__device__ V3 medium_nee(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x, V3 d,
+                         uint32_t h_depth, const MediumArgs &a) {
+  V3 total = {0.0f, 0.0f, 0.0f};
+  for (int slot = 0; slot < s.n_lights; ++slot) {
+    const int li = s.lights[slot];
+    if (li < 0 || s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
+    const V3 dl = s.p(li) - x;
+    const float dist = sqrtf(fmaxf(dot(dl, dl), EPS));
+    const float r = s.j0(li);
+    const float r2 = r * r;
+    const float cos_a_max =
+        safe_sqrt(1.0f - fminf(fmaxf(r2 / fmaxf(dist * dist, EPS), 0.0f), 1.0f));
+    const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_VOL_NEE, 5u);
+    const V3 dir = sample_cone(V3{dl.x / dist, dl.y / dist, dl.z / dist}, 1.0f - cos_a_max,
+                               u01(h), u01(pcg(h)));
+    float ts;
+    int hidx;
+    intersect_packed<kSdf, kAll>(s, sd, pk, x + dir * a.vol_eps, dir, a.eps, a.inf, ts, hidx,
+                                 kAll ? a.noise : nullptr, kAll ? a.noise_n : 0);
+    if (!(ts < a.inf) || hidx != li) continue;  // must hit this light
+    const float omega = 2.0f * (1.0f - cos_a_max);
+    const float phase = hg_phase(dot(d, dir), a.hg_1pg2, a.hg_2g, a.hg_1mg2);
+    const float t_fog = expf(-a.sigma_t * ts);
+    total = total + s.c(li) * s.e(li) * (phase * t_fog * PI * omega);
   }
   return total;
 }

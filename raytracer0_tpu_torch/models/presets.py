@@ -1,8 +1,9 @@
 """Scene presets (port of models/presets.py: `_cfg`, `cornell_default`,
 `default_scene`, `cornell_box`, `mandelbulb`, `menger_sponge`, `mis_demo`,
 `restir_demo`, `restir_stress`,
-`animated_restir`, `textured_cornell`, `textured_gloss`, `cubemap_demo` and
-`textured_emitter`), `animated_untextured`, the variant of
+`animated_restir`, `spectral_caustics`, `textured_cornell`,
+`textured_gloss`, `cubemap_demo` and `textured_emitter`: every preset of
+the JAX `PRESETS` table), `animated_untextured`, the variant of
 `animated_restir` without its texture that the port's timings keep for
 comparison, and three scenes that the port's
 tests and timing scripts share: `many_lights` (K2's Cornell copy with many
@@ -15,9 +16,8 @@ SceneBuilder (so the tests can hold the two packages on the same scene),
 and a scene of one SDF row of each shape (`one_row_scene`); ReSTIR views
 of the class (`RESTIR_SDF_VIEWS`, `restir_sdf_view`).
 
-Each preset returns `(scene, camera, config)`.  The other presets of the
-JAX package come with the slices that add their features (ROADMAP queue 1
-items 10 and 12).
+Each preset returns `(scene, camera, config)`.  The JAX package's
+`PRESETS` table comes with the CLI (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -400,6 +400,29 @@ def cubemap_demo(cubemap=None, device="cuda", **cfg_kw):
     camera = Camera.make(origin=(0.0, 0.2, 2.6), lookat=(0.0, -0.2, -1.0),
                          fov=60.0, device=device)
     return scene, camera, _cfg(use_cubemap=True, use_procedural_sky=False, **cfg_kw)
+
+
+def spectral_caustics(device="cuda", **cfg_kw):
+    """Preset 8 (index.html:1093-1146): a dispersive flint sphere (a
+    negative IOR, Cauchy's A), a mirror and fog in a Cornell box open at
+    the front, under hero-wavelength spectral transport and the
+    homogeneous medium, no sky (vol_cornell_spectral)."""
+    scene = parse_scene("""
+        MAT_CORNELL_WHITE,  PLANE,  vec3( 0.0, 1.0, 0.0), vec4(1.5, 0.0, 0.0, 0.0)
+        MAT_CORNELL_WHITE,  PLANE,  vec3( 0.0,-1.0, 0.0), vec4(1.5, 0.0, 0.0, 0.0)
+        MAT_CORNELL_WHITE,  PLANE,  vec3( 0.0, 0.0, 1.0), vec4(2.5, 0.0, 0.0, 0.0)
+        MAT_CORNELL_RED,    PLANE,  vec3( 1.0, 0.0, 0.0), vec4(1.5, 0.0, 0.0, 0.0)
+        MAT_CORNELL_GREEN,  PLANE,  vec3(-1.0, 0.0, 0.0), vec4(1.5, 0.0, 0.0, 0.0)
+        MAT_LIGHT_DEMO,     SPHERE, vec3( 0.0, 1.38,-1.0), vec4(0.14, 0.0, 0.0, 0.0)
+        MAT_LIGHT_CANDLE_4, SPHERE, vec3(-0.85, 1.25,-1.8), vec4(0.14, 0.0, 0.0, 0.0)
+        MAT_SPECTRAL_FLINT, SPHERE, vec3( 0.05,-0.45,-1.15), vec4(0.55, 0.0, 0.0, 0.0)
+        MAT_CORNELL_WHITE,  BOX,    vec3( 0.65,-1.2,-1.7), vec4(0.65, 0.0, 0.0, 0.0)
+        MAT_MIRROR,         SPHERE, vec3(-0.9,-1.05,-2.05), vec4(0.45, 0.0, 0.0, 0.0)
+    """, device=device)
+    camera = Camera.make(origin=(0.0, 0.0, 2.2), lookat=(0.0, -0.15, -1.0), fov=60.0,
+                         device=device)
+    return scene, camera, _cfg(use_spectral=True, use_volumetrics=True,
+                               use_procedural_sky=False, **cfg_kw)
 
 
 def _builder(builder, m):

@@ -12,10 +12,12 @@ branch-free over the whole wavefront:
   stochastic reflect/transmit choice by reflectance (1837-1868)
 * COAT — stochastic specular-vs-diffuse by Schlick (1869-1884)
 
-The IOR is |ior| (negative IORs mark spectral glass, whose Cauchy IOR comes
-with spectral transport, ROADMAP queue 1 item 10).  As in the reference,
-transmission increments SCATTERING_EVENTS, not TRANS_BOUNCES (435-438,
-1866).
+Under spectral transport a negative IOR marks dispersive glass: its
+refraction and its Schlick or Fresnel reflectance (COAT's too) take
+Cauchy's IOR at the path's hero wavelength, with |ior| as Cauchy's A
+(1820-1824); without it, and for a positive IOR, the IOR is |ior|.  As in
+the reference, transmission increments SCATTERING_EVENTS, not
+TRANS_BOUNCES (435-438, 1866).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from raytracer0_tpu_torch.models.materials import MatType
 from raytracer0_tpu_torch.ops import sampling as smp
+from raytracer0_tpu_torch.ops import spectral as spec
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 IOR_AIR = 1.00029  # nc in brdf (raytracer.glsl:1815)
@@ -42,12 +45,13 @@ class BsdfSample:
     scatter_inc: torch.Tensor  # i32[...] SCATTERING_EVENTS increment
 
 
-def sample(scene, cfg, hit, c, e, inside, rd, u_dir1, u_dir2, u_choice):
+def sample(scene, cfg, hit, c, e, inside, rd, u_dir1, u_dir2, u_choice, hero_wl=None):
     """Sample the next ray of every lane of the wavefront.
 
     `c`, `e`: clamped color and emission of the hit; `inside`: +1 entering
     / -1 exiting; `rd`: the incoming direction; `u_dir1`, `u_dir2`: the
-    BSDF_DIR draws; `u_choice`: the BSDF_CHOICE draw.
+    BSDF_DIR draws; `u_choice`: the BSDF_CHOICE draw; `hero_wl`: the
+    lanes' hero wavelength in nm, read under `cfg.use_spectral`.
     """
     x = hit.pos
     nl = hit.n * inside[..., None]
@@ -59,7 +63,12 @@ def sample(scene, cfg, hit, c, e, inside, rd, u_dir1, u_dir2, u_choice):
     roughness = e.detach() * rand_dir
 
     nc = IOR_AIR
-    nt = torch.clamp_min(torch.abs(scene.ior[hit.idx]), 1e-3)
+    nt = scene.ior[hit.idx]
+    if cfg.use_spectral:
+        nt = torch.where(nt < 0.0, spec.cauchy_ior(hero_wl, torch.abs(nt)), nt)
+    else:
+        nt = torch.abs(nt)   # the reference's non-spectral handling (1823)
+    nt = torch.clamp_min(nt, 1e-3)   # guard the NULL/light materials (nt = 0)
 
     o_out = x + nl * cfg.epsilon
     o_in = x - nl * cfg.epsilon

@@ -11,7 +11,11 @@ where an occlusion ray toward it escapes.  Under MIS each sample is
 weighted by the power heuristic against the cosine BSDF pdf: a sphere
 light's pdf is its cone's, an SDF light's the uniform sphere's 1/4π, a
 directional light's 0, so under MIS it contributes nothing, as in the JAX
-package.  A slot of any other kind contributes nothing.
+package.  A slot of any other kind contributes nothing.  In the
+homogeneous medium (`cfg.use_volumetrics`) a sphere light's shadow ray
+is attenuated by Beer-Lambert fog, exp(-σt t) over its hit's distance
+(raytracer.glsl:1198-1202); SDF and directional lights stay unfogged, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,8 +98,10 @@ def direct_light_slot(scene, cfg, slot, x, nl, pix, pass_idx, sample_idx, depth)
     if kind == "sdf":
         contrib = lit_c * scene.emission[hit.idx] * cos_term[..., None]
     else:
-        weight = 2.0 * (1.0 - cos_a_max)
-        contrib = lit_c * scene.emission[hit.idx] * (weight * cos_term)[..., None]
+        weight = 2.0 * (1.0 - cos_a_max) * cos_term
+        if cfg.use_volumetrics:   # Beer-Lambert fog on the shadow ray
+            weight = weight * torch.exp(-cfg.vol_sigma_t * hit.t)
+        contrib = lit_c * scene.emission[hit.idx] * weight[..., None]
     contrib = vm.where3(hit_is_light, contrib, torch.zeros_like(contrib))
     return contrib, vm.normalize(sw)
 

@@ -10,17 +10,26 @@ photographic cubemaps), `_imgtex_kernel_body` (launched by
 fetches the cubemap's and the images' texels itself, where the Pallas
 kernels export records that the host resolves; a copy of it built for the
 whole SDF class (`whole_sdf`) marches all 14 distances of `_sdf_distance`,
-reads the texels of SDF hits and samples SDF-bound lights; K2 replaces
+reads the texels of SDF hits and samples SDF-bound lights; its medium
+copy (`medium`: hero-wavelength spectral transport and the homogeneous
+medium of `_build_bounce`, over K1's whole class) draws the hero
+wavelength, disperses negative-IOR glass by Cauchy's IOR, samples the
+free path, the in-scatter NEE and the HG direction and fogs sphere-light
+shadow rays, and `trace_forward` scales its radiance by the hero
+wavelength's RGB weight after the launch, as the JAX `trace_forward`
+does; K2 replaces
 `_bwd_slotted_kernel_body` (launched by `_backward`) and computes the same
 outputs as its whole-trace twin `_bwd_kernel_body`.  `_TraceCore` pairs
 them as the JAX `_trace_core` custom_vjp does: forward launches K1,
 backward launches K2.  K1 covers the class that `integrator.unsupported`
 states without ReSTIR (every surface material, textures of all ten types
 on analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
-uniform sampling, SDF meshes of every shape: `unsupported`; a ReSTIR pass
-runs on K6, `ops/restir_kernel.py`); K2 covers the same class
-(`unsupported_bwd`) in three copies (`bwd_copy`): the Cornell copy
-(analytic DIFF and LIGHT meshes, no texture, sphere-light slots, no
+uniform sampling, SDF meshes of every shape, spectral transport and the
+medium: `unsupported`; a ReSTIR pass runs on K6, `ops/restir_kernel.py`);
+K2 covers the same class without spectral transport and the medium
+(`unsupported_bwd`, ROADMAP queue 1 item 10) in three copies
+(`bwd_copy`): the Cornell copy (analytic DIFF and LIGHT meshes, no
+texture, sphere-light slots, no
 cubemap, cosine sampling: `cornell_copy`), the whole-SDF copy for the
 scenes K1 runs its own whole-SDF copy on (`whole_sdf`: every SDF shape's
 distance adjoint, the texel of an SDF hit, SDF-light NEE) and the wide
@@ -66,9 +75,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raytracer0_tpu_torch import rng
 from raytracer0_tpu_torch.config import RenderConfig
 from raytracer0_tpu_torch.models.materials import MatType, SdfShape, TexType
-from raytracer0_tpu_torch.ops import cuda_build, lighting, textures
+from raytracer0_tpu_torch.ops import cuda_build, lighting, spectral, textures
 from raytracer0_tpu_torch.render import integrator
 
 #: K1 launches since import (or since a caller reset it to 0).
@@ -106,6 +116,13 @@ _ARGTYPES = (
     _c_void_p, _c_int, _c_int,                    # noise LUT, its size, use_tex
     _c_void_p, _c_int, _c_int,                    # SDF shapes, n_analytic, n_sdf
     _c_int, _c_float, _c_float,                   # marching steps, fudge, t0
+    _c_void_p,                                    # stream
+)
+# K1's own: the shared ones, then the medium copy's flags and constants
+_FWD_ARGTYPES = _ARGTYPES[:-1] + (
+    _c_int, _c_int,                               # use_spectral, use_volumetrics
+    _c_float, _c_float, _c_float,                 # sigma_t, sigma_s / sigma_t, eps * 20
+    _c_float, _c_float, _c_float, _c_float,       # g, 1 + g^2, 2 g, 1 - g^2
     _c_void_p,                                    # stream
 )
 _BWD_ARGTYPES = _ARGTYPES[:-1] + (            # K1's (out unused), then
@@ -150,8 +167,9 @@ def check_smem(nbytes: int) -> Optional[str]:
 
 def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K1 cannot render (scene, cfg), or None when it can: the class
-    of `integrator.unsupported` without ReSTIR, with a table that fits the
-    shared memory."""
+    of `integrator.unsupported` without ReSTIR (spectral transport and the
+    medium in its medium copy), with a table that fits the shared
+    memory."""
     if cfg.use_restir:
         # K1 has no reservoir vertex: it would render per-light NEE
         return ("a ReSTIR pass and its gradient run on K6 and K7 "
@@ -297,7 +315,8 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     whole class (`unsupported`: every surface material, textures on
     analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
     uniform sampling, SDF meshes of every shape, a table that fits the
-    shared memory; ReSTIR runs on K6 and K7), with a stash of at most
+    shared memory; ReSTIR runs on K6 and K7) without spectral transport
+    and the medium, whose adjoints K2 lacks, with a stash of at most
     MAX_SLOTS slots.  K2 gives the cotangents of
     the scene table and of the rays; a gradient asked of a texel array
     (the images, the noise LUT, the cubemap), which the JAX package also
@@ -307,6 +326,11 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     if cfg.use_restir:
         return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
                 "ROADMAP queue 1 item 11), not K2")
+    if cfg.use_spectral or cfg.use_volumetrics:
+        # K1's medium copy renders them; K2 has no adjoint of them yet
+        return ("a gradient through spectral transport or the medium (K2 has no adjoint of "
+                "the medium event, its in-scatter NEE, HG or Cauchy's IOR): ROADMAP queue 1 "
+                "item 10")
     reason = unsupported(scene, cfg)
     if reason is None and _texel_leaves(scene):
         reason = (f"a gradient w.r.t. the texel arrays {', '.join(_texel_leaves(scene))} "
@@ -322,7 +346,7 @@ def build():
     Returns (ctypes function, cuda_build.BuildInfo)."""
     lib, info = cuda_build.load("megakernel", SOURCES)
     fn = lib.rt0_trace_forward
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn, info
 
@@ -433,8 +457,19 @@ def forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx, sample_idx):
     return args, (mesh, mat, lights, tex, blend, sdf)
 
 
+def medium_args(cfg: RenderConfig) -> tuple:
+    """K1's medium arguments: the two flags, then σt, σs/σt, the in-scatter
+    shadow ray's offset 20 eps, g (which the HG sampler takes in float32),
+    and the HG phase's 1 + g², 2g and 1 - g², each formed in double and
+    rounded to float32 once, as the plain version forms them."""
+    g = cfg.vol_g
+    return (int(cfg.use_spectral), int(cfg.use_volumetrics), cfg.vol_sigma_t,
+            cfg.vol_sigma_s / cfg.vol_sigma_t, cfg.epsilon * 20.0, g,
+            1.0 + g * g, 2.0 * g, 1.0 - g * g)
+
+
 def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
-    """Launch K1: radiance f32[H, W, 3]."""
+    """Launch K1: radiance f32[H, W, 3], before the spectral RGB scale."""
     global LAUNCHES
     out = torch.empty_like(ro)
     args, _keep = forward_args(scene, cfg, table, ro, rd, pix, out, pass_idx,
@@ -442,7 +477,7 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
     fn, _ = build()
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
-        rc = fn(*args, stream)
+        rc = fn(*args, *medium_args(cfg), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -540,4 +575,15 @@ def trace_forward(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
             raise NotImplementedError(f"K2 does not cover this scene: {reason}")
         return _TraceCore.apply(table, ro, rd, scene, cfg, pix, pass_idx,
                                 sample_idx)
-    return _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx)
+    out = _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx)
+    # outside the kernel, as the JAX `trace_forward` applies it (the plain
+    # version on the CPU applies it itself)
+    return out * spectral_rgb(pix, pass_idx, sample_idx) if cfg.use_spectral else out
+
+
+def spectral_rgb(pix, pass_idx, sample_idx):
+    """The RGB weight f32[H, W, 3] of each pixel's hero wavelength
+    (`spectral.wavelength_to_rgb` of the WAVELENGTH draw), a constant of
+    the RNG alone, which scales K1's radiance under spectral transport."""
+    return spectral.wavelength_to_rgb(spectral.sample_wavelength(
+        rng.uniform(pix, pass_idx, sample_idx, rng.Stream.WAVELENGTH)))

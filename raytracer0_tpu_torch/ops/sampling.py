@@ -2,15 +2,16 @@
 ops/sampling.py; raytracer.glsl:480-492, 1109-1141, 1233-1262).
 
 Cosine-weighted and uniform hemisphere and uniform cone sampling consume
-explicit uniforms from `rng` streams, and the uniform sphere direction
-picks the point of an SDF light.  Henyey-Greenstein sampling (media,
-ROADMAP queue 1 item 10) comes with its slice.  Integer powers are written out as
-products in the order JAX's `integer_pow` multiplies, which the CUDA
+explicit uniforms from `rng` streams, the uniform sphere direction
+picks the point of an SDF light, and the Henyey-Greenstein phase function
+scatters a path in the homogeneous medium.  Integer powers are written out
+as products in the order JAX's `integer_pow` multiplies, which the CUDA
 kernel follows too.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytracer0_tpu_torch.ops import vecmath as vm
@@ -65,6 +66,35 @@ def random_sphere_direction(u1, u2):
     r = vm.safe_sqrt(1.0 - z * z)
     phi = TWO_PI * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def sample_hg(w, g, u1, u2):
+    """Henyey-Greenstein importance sampling about the direction `w`
+    (raytracer.glsl:1157-1171).  `g` is a config constant; as in the JAX
+    package it enters as a float32 value and the arithmetic on it is
+    float32, the near-isotropic |g| < 1e-3 as the uniform sphere."""
+    g = np.float32(g)
+    if np.abs(g) < np.float32(1e-3):
+        cos_t = 1.0 - 2.0 * u1
+    else:
+        # float32 constants as Python floats (exact), and tensor divisors:
+        # a division by a number is a reciprocal multiply
+        one_m_g2, one_p_g2 = float(1 - g * g), float(1 + g * g)
+        sqr = torch.full_like(u1, one_m_g2) / (float(1 - g) + float(2 * g) * u1)
+        cos_t = (one_p_g2 - sqr * sqr) / torch.full_like(u1, float(2 * g))
+    sin_t = vm.safe_sqrt(1.0 - cos_t * cos_t)
+    t_vec, b_vec = vm.onb(w)
+    return _around(w, t_vec, b_vec, TWO_PI * u2, sin_t, cos_t)
+
+
+def hg_phase(cos_theta, g):
+    """HG phase function value (raytracer.glsl:2032-2037).  `g` is a
+    Python float, so g², 1 + g², 2g and 1 - g² are formed in double and
+    rounded to float32 once, as JAX folds them."""
+    g = float(g)
+    g2 = g * g
+    denom = torch.clamp_min((1.0 + g2) - (2.0 * g) * cos_theta, 1e-6)
+    return torch.full_like(denom, 1.0 - g2) / (FOUR_PI * denom * torch.sqrt(denom))
 
 
 def schlick(d, n, nc, nt):

@@ -24,6 +24,16 @@ kernel (`ops/megakernel.py`), pixel for pixel:
     their texels read at the UV of their row's box normal, as in the JAX
     package, and SDF-bound lights sampled at a point of their bounding
     ellipsoid (ops/lighting.py)
+  * hero-wavelength spectral transport (`cfg.use_spectral`): one
+    wavelength per sample from the WAVELENGTH stream, Cauchy dispersion
+    of negative-IOR glass (ops/bsdf.py), the radiance scaled to RGB at
+    the end (ops/spectral.py)
+  * the homogeneous medium (`cfg.use_volumetrics`): a free-path distance
+    per bounce, drawn before the miss test, so a ray that misses can
+    scatter; a scattered path's throughput takes σs/σt, it gathers
+    in-scatter NEE from LIGHT spheres alone and goes on along a
+    Henyey-Greenstein direction; Beer-Lambert fog on sphere-light shadow
+    rays (ops/lighting.py)
 
 Differentiability: discrete events (winner index, light validity) are
 boolean masks whose continuous integrands carry gradients; `torch.where`
@@ -50,12 +60,14 @@ from raytracer0_tpu_torch.ops import restir
 from raytracer0_tpu_torch.ops import sampling as smp
 from raytracer0_tpu_torch.ops import sdf
 from raytracer0_tpu_torch.ops import sky
+from raytracer0_tpu_torch.ops import spectral
 from raytracer0_tpu_torch.ops import textures as tex
 from raytracer0_tpu_torch.ops import vecmath as vm
 
 _ANALYTIC = (int(MeshType.SPHERE), int(MeshType.PLANE), int(MeshType.BOX))
 _SDF_ITEM = "ROADMAP queue 1 item 8"
 _RESTIR_ITEM = "ROADMAP queue 1 item 11"
+_MEDIUM_ITEM = "ROADMAP queue 1 item 10"
 
 
 def restir_engaged(scene, cfg: RenderConfig) -> bool:
@@ -97,7 +109,12 @@ def _outside_restir_class(scene, cfg: RenderConfig) -> Optional[str]:
     light), no photographic cubemap, cosine sampling; the pixel's own
     history or the ad-hoc reprojection, static or animated; SDF meshes of
     every shape, textures blended into any row, SDF rows included (image
-    textures too, which the JAX package renders on its XLA route)."""
+    textures too, which the JAX package renders on its XLA route); no
+    spectral transport and no medium, which the ReSTIR kernels (K4, K6v,
+    K7) and the plain ReSTIR pass do not model yet.  Every ReSTIR route
+    chains through here."""
+    if cfg.use_spectral or cfg.use_volumetrics:
+        return f"ReSTIR with spectral transport or a medium: {_MEDIUM_ITEM}"
     if not restir_engaged(scene, cfg):
         return ("ReSTIR that keeps per-light NEE (no light, sample_lights "
                 f"off, or MIS with at most 8 lights): {_RESTIR_ITEM}")
@@ -129,14 +146,15 @@ def unsupported(scene, cfg: RenderConfig) -> Optional[str]:
     """Why (scene, cfg) is outside the ported class, or None when inside.
 
     The class: analytic SPHERE/PLANE/BOX meshes and SDF meshes of all 14
-    shapes, every surface material (the IOR taken as |ior|), textures of
-    all ten types on analytic and SDF meshes, sphere, directional and
-    SDF-bound light slots, cosine-weighted or uniform sampling, a
-    cubemap, the procedural sky or no environment, static or animated
-    accumulation; and ReSTIR in the class of `_outside_restir_class`.
+    shapes, every surface material (a negative IOR dispersive under
+    spectral transport, else taken as |ior|), textures of all ten types on
+    analytic and SDF meshes, sphere, directional and SDF-bound light
+    slots, cosine-weighted or uniform sampling, a cubemap, the procedural
+    sky or no environment, static or animated accumulation,
+    hero-wavelength spectral transport and the homogeneous medium; and
+    ReSTIR in the class of `_outside_restir_class`, which refuses the
+    last two.
     """
-    if cfg.use_spectral or cfg.use_volumetrics:
-        return "spectral transport and media: ROADMAP queue 1 item 10"
     reason = unsupported_geometry(scene)
     if reason is not None:
         return reason
@@ -154,6 +172,36 @@ def _light_pdf_mesh(scene, idx, x):
     pdf_sphere = smp.sphere_light_pdf(scene.pos[idx], scene.joker[idx][..., 0], x)
     return torch.where(is_sphere, pdf_sphere,
                        torch.full_like(pdf_sphere, 1.0 / smp.FOUR_PI))
+
+
+def _volumetric_nee(scene, cfg, scatter_pos, rd, mask, pix, pass_idx, sample_idx, depth):
+    """In-scatter NEE at a medium event (raytracer.glsl:2011-2044): per
+    LIGHT-sphere slot, a uniform cone sample toward the sphere from the
+    VOL_NEE stream, a shadow ray from 20 eps along it that counts only if
+    it hits that light, weighted by the HG phase, the fog over its length,
+    pi and the cone's solid angle; times the throughput `mask`."""
+    total = torch.zeros_like(scatter_pos)
+    for slot in range(scene.num_lights):
+        if lighting.slot_kind(scene, slot) != "sphere":
+            continue
+        li = scene.lights_static[slot]
+        dl = scene.pos[li] - scatter_pos
+        dist = vm.safe_length(dl)
+        r2 = scene.joker[li, 0] * scene.joker[li, 0]
+        cos_a_max = vm.safe_sqrt(
+            1.0 - torch.clamp(r2 / torch.clamp_min(dist * dist, 1e-12), 0.0, 1.0))
+        u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, slot, rng.Stream.VOL_NEE)
+        dir_l = smp.sample_cone(dl / dist[..., None], 1.0 - cos_a_max, u1, u2)
+        sh = isect.intersect(scene, scatter_pos + dir_l * (cfg.epsilon * 20.0), dir_l, cfg,
+                             need_normal=False, need_uv=False)
+        reached = (sh.idx == li) & ~sh.missed   # must hit this light (2028)
+        omega = 2.0 * (1.0 - cos_a_max)
+        phase = smp.hg_phase(vm.vdot(rd, dir_l), cfg.vol_g)
+        t_fog = torch.exp(-cfg.vol_sigma_t * sh.t)
+        contrib = (scene.color[li] * scene.emission[li]
+                   * (phase * t_fog * smp.PI * omega)[..., None])
+        total = total + vm.where3(reached, contrib, torch.zeros_like(contrib))
+    return mask * total
 
 
 def hit_color_emission(scene, hit):
@@ -215,10 +263,39 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
     if restir_sampler is not None:
         reservoir = restir.empty_reservoir(batch, dev)
     gbuf = [_empty_slot(batch, dev) for _ in range(gbuffer_slots)]
+    # the hero wavelength: the WAVELENGTH stream keys on no depth
+    hero_wl = (spectral.sample_wavelength(
+        rng.uniform(pix, pass_idx, sample_idx, rng.Stream.WAVELENGTH))
+        if cfg.use_spectral else None)
+    if cfg.use_volumetrics:   # σt as a tensor: a division by a number is a reciprocal multiply
+        sigma_t = torch.full(batch, cfg.vol_sigma_t, dtype=torch.float32, device=dev)
 
     for depth in range(cfg.max_bounces):
         hit = isect.intersect(scene, o, d, cfg)
-        surface = active
+
+        # ---- medium event, before the miss test (raytracer.glsl:1999-2053) ----
+        if cfg.use_volumetrics:
+            u_fp = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.VOL_FREEPATH)
+            scatter_d = -torch.log(torch.clamp_min(u_fp, 1e-6)) / sigma_t
+            scatters = active & (scatter_d < torch.clamp_max(hit.t, cfg.infinity))
+            scatter_pos = o + scatter_d[..., None] * d
+            mask = vm.where3(scatters, mask * (cfg.vol_sigma_s / cfg.vol_sigma_t), mask)
+            if cfg.sample_lights and scene.num_lights > 0:
+                vol_light = _volumetric_nee(scene, cfg, scatter_pos, d, mask, pix, pass_idx,
+                                            sample_idx, depth)
+                acc = acc + vm.where3(scatters, vol_light, torch.zeros_like(acc))
+            hg1, hg2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.VOL_PHASE)
+            hg_dir = smp.sample_hg(d, cfg.vol_g, hg1, hg2)
+            n_scat = n_scat + scatters.to(torch.int32)
+            # the stale prev_nl stays: the next light hit's MIS weight reads it
+            specular = specular & ~scatters
+            vol_done = scatters & ((n_scat >= cfg.max_scattering_events)
+                                   | (vm.max3(mask) < 0.01))
+            active = active & ~vol_done
+            surface = active & ~scatters
+        else:
+            scatters = None
+            surface = active
 
         # ---- miss: environment or NEE-suppressed break (2055-2066) ----
         missed = surface & hit.missed
@@ -261,7 +338,7 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
         new_prev_nl = hit.n * inside[..., None]
         u1, u2 = rng.uniform2(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_DIR)
         uc = rng.uniform(pix, pass_idx, sample_idx, depth, rng.Stream.BSDF_CHOICE)
-        bs = bsdf_ops.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc)
+        bs = bsdf_ops.sample(scene, cfg, hit, c, e, inside, d, u1, u2, uc, hero_wl)
         mask_after = mask * bs.mask_mult
         diffuse_lane = surface & ~bs.specular
 
@@ -317,6 +394,13 @@ def trace(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx,
                             | (n_scat >= cfg.max_scattering_events))
         active = active & ~(cutoff | capped)
 
+        # scattered lanes go on along their HG direction
+        if scatters is not None:
+            o = vm.where3(scatters, scatter_pos, o)
+            d = vm.where3(scatters, hg_dir, d)
+
+    if cfg.use_spectral:
+        acc = acc * spectral.wavelength_to_rgb(hero_wl)
     if restir_sampler is not None:
         return acc, reservoir
     if gbuffer_slots:

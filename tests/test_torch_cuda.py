@@ -13,10 +13,13 @@ K5 bit for bit and the split ReSTIR pass K4 and K6v serve, K4 and K6v in
 their whole-SDF copies (every SDF shape, blended textures on any row) with
 their old copies' code unchanged, K7's whole-SDF copy against the plain
 autograd on the scenes of that class (and `fit` through it) with its
-ROUND_BOX copy's code unchanged, and the refusal of gradients outside K2's
-and K7's classes (texel arrays, mesh types K1 does not render, K7's own
-class before K6's) and through the split path, and of cubemaps on the
-split path.
+ROUND_BOX copy's code unchanged, K1's medium copy (hero-wavelength spectral
+transport and the homogeneous medium) bit for bit on the reference's preset
+8 and across K1's class with K1's old copies' code unchanged, and the
+refusal of gradients outside K2's and K7's classes (texel arrays, mesh
+types K1 does not render, K7's own class before K6's, spectral transport
+and the medium) and through the split path, of cubemaps on the split path,
+and of spectral transport and the medium on every ReSTIR route.
 
 These tests need a CUDA device and nvcc (the kernels are built on first
 use); without them they skip.  On the GPU machine run:
@@ -52,8 +55,9 @@ from raytracer0_tpu_torch.render.renderer import Renderer, render_pass
 from raytracer0_tpu_torch.render.state import RenderState
 
 from raytracer0_tpu_torch.models import scene as scene_mod
-from test_torch_kernel_host import (SHAPE_SCENES, TABLE_LEAVES, adjoint_case, assert_grads_close,
-                                    assert_grads_close_f64, refreshed_ring, restir_chain_grads)
+from test_torch_kernel_host import (LAUNCH_COUNTS, MEDIUM_CASES, SHAPE_SCENES, TABLE_LEAVES,
+                                    adjoint_case, assert_grads_close, assert_grads_close_f64,
+                                    medium_case, refreshed_ring, restir_chain_grads)
 from test_torch_kernel_host_restir_sdf import READS, animated, chain_grads, k7_case
 from test_torch_kernel_host_restir_sdf import SCENES as K7_SDF_SCENES
 from test_torch_texture_scenes import SCENE_VIEWS
@@ -1345,3 +1349,88 @@ def test_gbuffer_and_vertex_old_copies_unchanged(cuda):
     assert k4(bulb, restir_split.gbuffer_copy(bulb))["blocks"] >= 1
     for split in (False, True):
         assert k6v(bulb, restir_vertex.vertex_copy(bulb, split))["blocks"] >= 1
+
+
+@pytest.mark.parametrize("name", list(MEDIUM_CASES))
+def test_medium_kernel_matches_plain(cuda, name):
+    """K1's medium copy, through `trace_forward` (its RGB scale applied
+    after the launch), against the plain version on the card bit for bit
+    at 64x64, each scene at its own depth (preset 8: 12 bounces), one
+    launch: both call the card's libm, and the kernel follows the plain
+    version's operations in order without FMA contraction."""
+    scene, cam, cfg = medium_case(name, device=cuda)
+    ro, rd = generate_rays(cam, 64, 64, 2)
+    pix = rng.pixel_ids(64, 64, device=cuda)
+    before = megakernel.LAUNCHES
+    out = megakernel.trace_forward(scene, cfg, ro, rd, pix, 2, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    n_diff = int((out != ref).any(dim=-1).sum())
+    assert n_diff == 0, f"{n_diff} pixels differ, max {(out - ref).abs().max().item():.3e}"
+
+
+def test_medium_render_goes_through_k1_only(cuda, monkeypatch):
+    """`Renderer(*spectral_caustics()).render(2)` launches K1 twice and
+    nothing else, and never calls the plain version."""
+    scene, cam, cfg = presets.spectral_caustics(device=cuda)
+    calls = []
+    plain = integrator.trace
+    monkeypatch.setattr(integrator, "trace", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    counts = {(m, a): getattr(m, a) for m, a in LAUNCH_COUNTS}
+    img = Renderer(scene, cam, cfg, 32, 32).render(2)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == counts[(megakernel, "LAUNCHES")] + 2 and not calls
+    assert all(getattr(m, a) == n for (m, a), n in counts.items() if a != "LAUNCHES"
+               or m is not megakernel)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0.01
+
+
+def test_medium_refused_by_k2_and_restir_before_any_launch(cuda):
+    """A gradient through preset 8 (K2 has no adjoint of the medium yet)
+    and a ReSTIR pass, the split path and a ReSTIR gradient with spectral
+    transport or the medium raise NotImplementedError naming ROADMAP item
+    10, and launch nothing."""
+    scene, cam, cfg = presets.spectral_caustics(device=cuda)
+    counts = {(m, a): getattr(m, a) for m, a in LAUNCH_COUNTS}
+    ro, rd = generate_rays(cam, 16, 16, 0)
+    em = scene.emission.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
+                                 rng.pixel_ids(16, 16, device=cuda), 0, 0)
+    demo, dcam, dcfg = presets.restir_demo(device=cuda)
+    for kw in (dict(use_volumetrics=True), dict(use_spectral=True),
+               dict(use_volumetrics=True, restir_adhoc_motion=True)):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            Renderer(demo, dcam, dcfg.replace(**kw), 16, 16).step()
+    em = demo.emission.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        render_pass(demo.replace(emission=em), dcam, dcfg.replace(use_volumetrics=True),
+                    RenderState.create(16, 16, cuda), 16, 16)
+    assert all(getattr(m, a) == n for (m, a), n in counts.items())
+
+
+#: K1's copies other than the medium copy, by the flags of its occupancy
+#: export (bit 0 the SDF march, bit 1 the shadow hit's texel, bit 2 the
+#: whole SDF class), with the registers and bytes of local memory they had
+#: before the medium copy came (PERF.md §6)
+K1_OLD_COPIES = {0: (64, 88), 1: (64, 152), 2: (64, 128), 3: (64, 184), 5: (64, 256),
+                 7: (64, 256)}
+
+
+def test_medium_copy_and_k1_old_copies(cuda):
+    """K1's old copies keep their code beside the medium copy (registers
+    and local memory per copy, as before it came: K1_OLD_COPIES), and the
+    medium copy fits blocks of 128 on preset 8."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    occ = lambda sc, flags: cuda_build.occupancy(
+        "megakernel", megakernel.SOURCES, "rt0_trace_forward_occupancy", 128,
+        megakernel.packed_smem_bytes(sc), flags)
+    scene = presets.spectral_caustics(device=cuda)[0]
+    for flags, want in K1_OLD_COPIES.items():
+        o = occ(scene, flags)
+        assert (o["registers"], o["local_bytes"]) == want, (flags, o)
+    assert occ(scene, 8)["blocks"] >= 1
+

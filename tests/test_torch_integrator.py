@@ -102,10 +102,12 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_plain_raises_outside_the_class():
     """What the port does not render yet raises, naming its ROADMAP item:
-    GRID_SDF meshes (8), spectral transport (10), ReSTIR outside the fused
-    kernel's class (11).  Mirrors, glass, coats, directional lights,
-    cubemaps, uniform sampling, textures, SDF meshes of every shape (a
-    Mandelbulb renders) and ReSTIR in K6's class are inside the class."""
+    GRID_SDF meshes (8), spectral transport and the medium under ReSTIR
+    (10), ReSTIR outside the fused kernel's class (11).  Mirrors, glass,
+    coats, directional lights, cubemaps, uniform sampling, textures, SDF
+    meshes of every shape (a Mandelbulb renders), spectral transport and
+    the medium without ReSTIR, and ReSTIR in K6's class are inside the
+    class."""
     sdf = SceneBuilder()
     sdf.add("MAT_WHITE", MeshType.PLANE, (0.0, 1.0, 0.0), (2.0,))
     sdf.add("MAT_LIGHT_4", MeshType.SPHERE, (0.0, 1.5, -1.0), (0.3,))
@@ -130,9 +132,12 @@ def test_plain_raises_outside_the_class():
     assert tint.trace(textured, cfg, ro, rd, trng.pixel_ids(2, 2), 0, 0).shape == (2, 2, 3)
     ts, _, _ = tpresets.cornell_default(device="cpu")
     for kw, item in [(dict(use_restir=True, use_mis=True), "11"),
-                     (dict(use_spectral=True), "10"), (dict(use_volumetrics=True), "10")]:
+                     (dict(use_restir=True, use_spectral=True), "10"),
+                     (dict(use_restir=True, use_volumetrics=True), "10")]:
         assert f"item {item}" in tint.unsupported(ts, cfg.replace(**kw))
     assert tint.unsupported(ts, cfg) is None
+    for kw in (dict(use_spectral=True), dict(use_volumetrics=True)):
+        assert tint.unsupported(ts, cfg.replace(**kw)) is None
     for name in ("mis_demo", "restir_demo", "restir_stress"):
         preset, _, pcfg = getattr(tpresets, name)(device="cpu")
         assert tint.unsupported(preset, pcfg) is None

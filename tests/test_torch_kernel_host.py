@@ -173,7 +173,7 @@ def _host_source(text):
 #: kernel library the host tests build, by the launch count's kernel.
 HOST_LIBRARIES = {
     "K1": (megakernel, "build", "megakernel", megakernel.SOURCES, "rt0_trace_forward",
-           megakernel._ARGTYPES),
+           megakernel._FWD_ARGTYPES),
     "K2": (megakernel, "build_bwd", "megakernel_bwd", megakernel.BWD_SOURCES,
            "rt0_trace_backward", megakernel._BWD_ARGTYPES),
     "K2 whole-SDF": (megakernel, "build_bwd_sdf", "megakernel_bwd_sdf",
@@ -1631,6 +1631,74 @@ def test_host_animated_forward_matches_plain(kernels_on_cpu):
     assert megakernel.LAUNCHES == before + 1
     ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
     err = (out - ref).abs().amax(-1)
+    assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
+    assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
+        err.max().item()
+
+
+#: {case: (scene, config changes)} of K1's medium copy: the reference's
+#: preset 8 as shipped (spectral transport and the medium), spectral alone
+#: and the medium alone; the medium and spectral transport beside an SDF
+#: box under MIS, a photographic cubemap, the procedural sky, a textured
+#: SDF box under the cubemap (the whole SDF class), an SDF light and a
+#: directional sun.  The card's tests and `chip_smoke.py` hold the same.
+MEDIUM_CASES = {
+    "spectral_caustics": ("spectral_caustics", {}),
+    "spectral_only": ("spectral_caustics", dict(use_volumetrics=False)),
+    "media_only": ("spectral_caustics", dict(use_spectral=False)),
+    "mis_demo": ("mis_demo", dict(use_mis=True, use_spectral=True, use_volumetrics=True)),
+    "cubemap_demo": ("cubemap_demo", dict(use_spectral=True, use_volumetrics=True)),
+    "procedural_sky": ("cubemap_demo", dict(use_cubemap=False, use_procedural_sky=True,
+                                            use_volumetrics=True)),
+    "default_scene": ("default_scene", dict(use_volumetrics=True)),
+    "sdf_light": ("sdf_light", dict(use_mis=True, use_volumetrics=True)),
+    "sun": ("sun", dict(use_volumetrics=True)),
+}
+
+
+def medium_case(name, device="cpu"):
+    """(scene, camera, cfg) of K1's medium case `name` (MEDIUM_CASES)."""
+    where, kw = MEDIUM_CASES[name]
+    if where == "sun":   # tests/test_megakernel.py:685-698's sun scene
+        sb = SceneBuilder()
+        sb.add("MAT_CORNELL_WHITE", MeshType.BOX, (0.0, -2.2, -1.0), (2.0,))
+        sb.add("MAT_CORNELL_RED", MeshType.BOX, (-0.8, -0.8, -1.4), (0.8,))
+        sb.add("MAT_MIRROR", MeshType.SPHERE, (0.6, -0.7, -1.0), (0.5,))
+        sb.add("MAT_DIRECT_SUNLIGHT", MeshType.SPHERE, (0.5, 0.8, 0.3), (0.01,))
+        sb.lights([3])
+        cam = Camera.make(origin=(0.0, 0.3, 2.0), lookat=(0.0, -0.6, -1.0), device=device)
+        scene, cfg = sb.build(device=device), OFFLINE_CONFIG
+    elif where in presets.SDF_SCENE_VIEWS:
+        scene, cam, cfg = presets.sdf_view(where, device=device)
+    else:
+        scene, cam, cfg = getattr(presets, where)(device=device)
+    return scene, cam, cfg.replace(**kw)
+
+
+@pytest.mark.parametrize("name", list(MEDIUM_CASES))
+def test_host_medium_forward_matches_plain(kernels_on_cpu, name):
+    """K1's medium copy (the hero wavelength, Cauchy dispersion, the medium
+    event with its in-scatter NEE and HG direction, fog on sphere-light
+    shadow rays), one launch, times the hero wavelength's RGB weight
+    (`megakernel.spectral_rgb`, which `trace_forward` applies on the card),
+    against the plain version under the parity contract at 16x32 with 4
+    bounces and 32 marching steps: host libm's logf, expf, sinf and cosf
+    round like torch's CPU functions to within an ULP."""
+    scene, cam, cfg = medium_case(name)
+    cfg = cfg.replace(max_bounces=min(cfg.max_bounces, 4), marching_steps=32)
+    assert megakernel.unsupported(scene, cfg) is None
+    assert "item 10" in megakernel.unsupported_bwd(scene, cfg)
+    h, w = 16, 32
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w)
+    before = megakernel.LAUNCHES
+    out = megakernel._launch_forward(scene, cfg, megakernel.scene_table(scene), ro, rd, pix, 2, 0)
+    assert megakernel.LAUNCHES == before + 1
+    if cfg.use_spectral:
+        out = out * megakernel.spectral_rgb(pix, 2, 0)
+    ref = integrator.trace(scene, cfg, ro, rd, pix, 2, 0)
+    err = (out - ref).abs().amax(-1)
+    print(f"{name}: {int((err > 0).sum())} of {h * w} pixels differ, max {err.max().item():.3e}")
     assert bool(torch.isfinite(out).all()) and ref.max().item() > 0.02
     assert (err < 1e-5).float().mean().item() >= 0.99 and err.median().item() < 1e-4, \
         err.max().item()
