@@ -5,14 +5,17 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (each prints readable lines; any failure raises and exits non-zero):
+Phases (each prints readable lines, and a line with the seconds since the
+script started at its start and at the steps of the long ones; any failure
+raises and exits non-zero):
 
 1. requires a CUDA device; prints `nvidia-smi`'s name and power limit;
 2. builds the forward megakernel K1, its adjoint K2, the reservoir-vertex
    kernel K6v and the ReSTIR adjoint K7, the G-buffer kernel K4 and the
    ray-cast kernel K5 from `raytracer0_tpu_torch/csrc/` with nvcc, all at
-   once (K2 and K7 each in two libraries, its whole-SDF copy a library of
-   its own), or loads them from `build/kernels/`, and prints the build times
+   once (K2 in three libraries, its whole-SDF copy and its medium copy each
+   a library of its own; K7 in two), or loads them from `build/kernels/`,
+   and prints the build times
    and ptxas' register, stack and spill lines; prints each kernel's blocks
    and warps per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
    with the shared memory, registers and local memory they were computed
@@ -22,7 +25,8 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    scene of `presets.many_lights`, its wide copy on config 2, `mis_demo`,
    `textured_cornell`, `cubemap_demo` and the 47-mesh scene under uniform
    sampling, its whole-SDF copy on `default_scene`, `mandelbulb`,
-   `menger_sponge` and the scene of every shape the presets lack, with its
+   `menger_sponge` and the scene of every shape the presets lack, its medium
+   copy on `spectral_caustics`, with its
    layout, columns and spills, and fails if a column per thread leaves it
    fewer than 3 blocks per SM); prints K2's ptxas line per copy (by the
    template instance of its kernel) and fails unless its Cornell and wide
@@ -254,18 +258,21 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    10 K2 launches and no call of the plain version; times K2 on the three
    presets at 512x512, 12 bounces, 128 marching steps (CUDA events;
    device time from `k1_device_time.py`) beside its bound (the winning
-   distance's reverse counted at each SDF hit), the plain backward at
-   128x128, its registers, local memory, blocks per SM and ptxas line;
+   distance's reverse counted at each SDF hit, from phase 26's path events
+   of the same rays), the plain forward and backward of its hold above
+   (128x128, 4 bounces), its registers, local memory, blocks per SM and
+   ptxas line;
 28. ReSTIR over the whole SDF class and blended textures
    (`restir_sdf_phase`): holds K4 against `gbuffer_plain` and the K6 pass
    (K4, then K6v's fused form, each in its whole-SDF copy where
    `megakernel.whole_sdf` says so) against the plain `restir.render_sample`
-   bit for bit at every pass of a 3-pass ring, on the `polygons` ReSTIR
-   view, `animated_restir` as shipped (MAT_METAL on its ROUND_BOX, at a
-   constant frame time) and `textured_cornell` with ReSTIR and MIS off at
-   128x128, and at 64x64 on the `mandelbulb` view (1 pass) and the
-   `every_shape` view (2 passes), each scene at its own depth, one K4 and
-   one K6v launch per pass; holds the split path (`render_sample_fast`) against
+   bit for bit at every pass of a 3-pass ring, on `animated_restir` as
+   shipped (MAT_METAL on its ROUND_BOX, at a constant frame time) and
+   `textured_cornell` with ReSTIR and MIS off at 128x128, of a 2-pass ring
+   on the `polygons` ReSTIR view at 128x128, and at 64x64 over 1 pass on
+   the `mandelbulb` view (its K4 held through the K6 pass alone) and the
+   `every_shape` view, each scene at its own depth, one K4 and one K6v
+   launch per pass; holds the split path (`render_sample_fast`) against
    `render_sample_split` with the plain G-buffer and caster bit for bit
    over 5 ANIMATED frames of `animated_restir` as shipped at t = (k+1)/30;
    drives the real-time main path of `animated_restir` as shipped
@@ -281,16 +288,19 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    (`restir_grad_sdf_phase`): prints the occupancy of K7's whole-SDF copy
    on each scene of `k7_sdf_scenes`; holds it against the plain autograd
    on each at its own depth (the preset's 6 bounces, the `mandelbulb`
-   view's 12 bounces and 128 marching steps), over passes 0-3 (0-1 on the
-   `mandelbulb` and `every_shape` views and `textured_restir_demo`) from
-   an empty ring at 32x32:
+   view's 12 bounces and 128 marching steps), over passes 0-3 of the
+   preset as shipped, 0-1 of its STATIC twin, the `polygons` view and
+   `textured_cornell`, and pass 0 alone on the `mandelbulb` and
+   `every_shape` views and `textured_restir_demo`, whose plain passes take
+   4-35 s each, from an empty ring at 32x32:
    every scene-table leaf and ray within 1e-4 of the leaf, the same bits on two launches, one K6 and one launch of
    the copy per pass; runs a ReSTIR fwd+bwd step (`render_linear`, 2
    passes, d(emission, color)) at 512x512 of `animated_restir` as shipped
    and of the `mandelbulb` view (12 bounces, 128 marching steps), its
    launches counted from 0, timed (median and quartiles of 5), with K7's
    whole-SDF copy alone per launch (CUDA events, profiler) beside `bound`
-   (`sdf_adjoint`); runs a 6-step `optimize.fit` of the preset at
+   (`sdf_adjoint`; the `mandelbulb` view's path events are phase 28's of
+   the same pass); runs a 6-step `optimize.fit` of the preset at
    128x128 (the lights' emission and the METAL box's color) through K6 and
    K7's whole-SDF copy alone, lowering its loss;
 30. hero-wavelength spectral transport and the homogeneous medium on K1's
@@ -306,10 +316,27 @@ Phases (each prints readable lines; any failure raises and exits non-zero):
    time in a fresh process (`k1_device_time.k1_device_ms`) and the plain
    version (median of 3), and prints the path events (free paths, scatter
    events, in-scatter shadow rays, fogged shadow rays, dispersive hits) and
-   `bound` beside the copy's occupancy; checks that a gradient through the
-   preset (K2) and a ReSTIR pass, the split path with the medium or
-   spectral transport raise NotImplementedError naming ROADMAP item 10
-   before any launch.
+   `bound` beside the copy's occupancy; checks that a gradient w.r.t. the
+   preset's noise LUT (K2, item 14) and a ReSTIR pass, the split path with
+   the medium or spectral transport (item 10) raise NotImplementedError
+   naming their ROADMAP item before any launch;
+31. the adjoint of spectral transport and the medium on K2's medium copy
+   (`medium_grad_phase`, `csrc/megakernel_bwd_medium.cu`): holds it against
+   the plain autograd at 64x64, each scene of `MEDIUM_HOLDS` at its own
+   depth (preset 8: 12 bounces, where the flint's IOR carries a gradient),
+   every scene-table leaf and the rays within 1e-4 of the leaf arbitrated
+   as phase 6 does, one K1 and one launch of the copy each, K1's radiance
+   the plain version's bit for bit, the same bits on two launches; drives
+   the main path, a 10-step `optimize.fit` of preset 8's two lights'
+   emission at 64x64 (10 K1 and 10 K2 launches of the medium copies, no
+   call of the plain version, the loss falls); times a fwd+bwd step
+   d sum(`sample_radiance`) / d(color, emission, pos, joker, ior) at
+   512x512, 12 bounces (median and quartiles of 5, one K1 and one K2
+   launch), the kernels' device time per step (profiler), K2's medium copy
+   alone (CUDA events; device time from `k1_device_time.py`, key
+   `k2_spectral_caustics`) beside `bound` (the forward once and its
+   adjoint, from phase 30's path events) and its occupancy; checks that a
+   ReSTIR gradient with the medium is refused before any launch (item 10).
 
 The line before the last is a JSON object describing the kernels; the last
 line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside
@@ -324,6 +351,15 @@ import json
 import statistics
 import subprocess
 import sys
+import time
+
+_START = time.perf_counter()
+
+
+def stamp(what):
+    """Print the seconds since the script started beside `what`: each
+    phase's start and the steps of the long ones."""
+    print(f"chip_smoke: at {time.perf_counter() - _START:.1f} s: {what}", flush=True)
 
 PARITY_TOL, PARITY_FRAC = 1e-5, 0.99     # tests/test_megakernel.py:94
 GOLDEN_TOL, GOLDEN_FRAC = 2e-3, 0.99     # tests/test_golden_cornell.py:26
@@ -518,6 +554,34 @@ def table_grads(torch, trace, scene, cfg, ro, rd, pix, pass_idx=2, dtype=None, m
     got = torch.autograd.grad((out * w).sum(), vals, allow_unused=True)
     return out.detach(), {k: torch.zeros_like(v) if g is None else g
                           for k, v, g in zip((*TABLE_LEAVES, "ro", "rd"), vals, got)}
+
+
+def cached_grads(torch, sc, c, r, d, p, timed=None):
+    """grads_of(kind, mask) of K2 ("kernel", through `trace_forward`) and
+    the plain autograd ("plain", "plain64") on (sc, c) and pass 0's rays,
+    for arbitrated_errors, each kind and mask computed once; the
+    milliseconds of the unmasked plain autograd (forward and backward, CUDA
+    events) go into timed["plain"]."""
+    from raytracer0_tpu_torch.ops import megakernel
+    from raytracer0_tpu_torch.render import integrator
+
+    cache = {}
+
+    def grads_of(kind, mask):
+        key = (kind, None if mask is None else mask.cpu().numpy().tobytes())
+        if key not in cache:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            cache[key] = table_grads(
+                torch, megakernel.trace_forward if kind == "kernel" else integrator.trace,
+                sc, c, r, d, p, 0, torch.float64 if kind == "plain64" else None, mask)
+            e1.record()
+            torch.cuda.synchronize()
+            if timed is not None and kind == "plain" and mask is None:
+                timed["plain"] = e0.elapsed_time(e1)
+        return cache[key]
+
+    return grads_of
 
 
 def agreeing_pixels(grads_of):
@@ -925,7 +989,9 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=Fa
     of the winning distance at the 5 points where the replay evaluated the
     scene map (the implicit t's point and the normal's 4 taps, counted in
     the forward): at least the operations of the scene's cheapest shape's
-    distance each."""
+    distance each.  Under the medium (K2's medium copy) the forward's
+    medium events count once in the replay and once in the adjoint, whose
+    in-scatter shadow rays read the light they hit alone."""
     types = [int(t) for t in scene.mesh_types_static[:scene.num_analytic]]
     per_ray = sum(OPS_MESH.get(t, 0) + 2 for t in types)
     n_sdf = scene.num_sdfs
@@ -954,7 +1020,7 @@ def bound(ev, scene, cfg, adjoint, restir=False, gbuffer_slots=0, sdf_adjoint=Fa
     if restir:
         fwd += vertex_ops(ev, scene, cfg, per_ray)
     scans = (ev["rays"] + ev["shadow"] + ev["shadow_dir"] + ev["shadow_sdf"] + ev["gather"]
-             + (2 * ev["vertices"] if restir else 0)) * per_ray + march
+             + ev.get("vol_shadow", 0) + (2 * ev["vertices"] if restir else 0)) * per_ray + march
     adjoint_ops = fwd - scans
     if sdf_adjoint and n_sdf:
         adjoint_ops += ev["sdf_hits"] * 5 * min(OPS_SDF_SHAPE[int(s)]
@@ -1117,14 +1183,16 @@ def kernel_occupancy(dev):
     for where, (sc, c) in k2_cases(dev).items():
         warp, smem = megakernel.bwd_layout(sc, c)
         copy = megakernel.bwd_copy(sc, c)
-        flag = int(warp) | 2 * int(copy == "wide") | 4 * int(copy == "whole_sdf")
-        rows.append(("K2", where, *megakernel.bwd_library(copy == "whole_sdf"),
+        flag = (int(warp) | 2 * int(copy in ("wide", "medium")) | 4 * int(copy == "whole_sdf")
+                | 8 * int(copy == "medium"))
+        rows.append(("K2", where, *megakernel.bwd_library(copy),
                      "rt0_trace_backward", megakernel.BWD_THREADS, smem, flag))
     # the flag is K1's copy (bit 0 the SDF march, bit 2 the whole SDF class,
     # bit 3 the medium copy),
     # K4's (bit 0 the SDF march, bit 1 the whole SDF class), K5's SDF copy,
     # K6v's (bit 0 the split form, bit 1 the whole SDF class) or K2's copy
-    # (bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy)
+    # (bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy,
+    # bit 3 the medium copy)
     # or K7's (unused: each of its libraries holds one copy)
     return {(k, where): cuda_build.occupancy(lib, src, sym + "_occupancy", threads, smem, flag)
             for k, where, lib, src, sym, threads, smem, flag in rows}
@@ -1168,15 +1236,16 @@ def k2_cases(dev):
     the 47-mesh scene on its Cornell copy (a column per thread, per warp),
     and on its wide copy config 2 (glass, mirror, coat), `mis_demo` (a BOX
     SDF), `textured_cornell` and `cubemap_demo` (a column per thread) and
-    the 47-mesh scene under uniform sampling (a column per warp), and on
-    its whole-SDF copy the presets `default_scene`, `mandelbulb` and
-    `menger_sponge` and the scene of every shape the presets lack."""
+    the 47-mesh scene under uniform sampling (a column per warp), on its
+    whole-SDF copy the presets `default_scene`, `mandelbulb` and
+    `menger_sponge` and the scene of every shape the presets lack, and on
+    its medium copy the reference's preset 8, `spectral_caustics`."""
     from raytracer0_tpu_torch.models import presets
 
     cases = {"cornell_default": presets.cornell_default(device=dev, use_mis=True),
              "many_meshes": presets.many_lights(device=dev)}
     for name in ("config2", "mis_demo", "textured_cornell", "cubemap_demo", "default_scene",
-                 "mandelbulb", "menger_sponge"):
+                 "mandelbulb", "menger_sponge", "spectral_caustics"):
         cases[name] = getattr(presets, name)(device=dev)
     scene, cam, cfg = cases["many_meshes"]
     cases["many_meshes_uniform"] = (scene, cam, cfg.replace(use_biased_sampling=False))
@@ -1255,13 +1324,16 @@ def restir_sdf_phase(torch, dev, card, occ):
 
     failed, out28 = [], {"held": {}}
     # the holds' size and passes, which the plain version finishes in
-    # seconds: 128x128 over a 3-pass ring; the two views whose plain passes
-    # are the slowest (the `mandelbulb` view's 22-25 s each at 128x128 and
-    # at 64x64 alike: the plain version's time is its launches, per bounce
-    # and marching step) at 64x64, each at its own depth, the `mandelbulb`
-    # view over 1 pass and `every_shape` over 2
+    # seconds: 128x128 over a 3-pass ring (`polygons` over 2); the two views
+    # whose plain passes are the slowest (the `mandelbulb` view's 22-25 s
+    # each at 128x128 and at 64x64 alike: the plain version's time is its
+    # launches, per bounce and marching step) at 64x64 over 1 pass, each at
+    # its own depth; the `mandelbulb` view's K4 is held through the K6 pass
+    # alone (K6v reads its G-buffer), K4's whole-SDF copy on its own on the
+    # other four scenes
     hs_of = {"mandelbulb": 64, "every_shape": 64}
-    passes_of = {"mandelbulb": 1, "every_shape": 2}
+    passes_of = {"mandelbulb": 1, "every_shape": 1, "polygons": 2}
+    k4_alone = ("every_shape", "polygons", "animated_restir", "textured_cornell")
 
     # the K6 pass (K4, then K6v's fused form) and K4 alone against the plain
     # version, bit for bit, at every pass of the ring
@@ -1281,11 +1353,13 @@ def restir_sdf_phase(torch, dev, card, occ):
         ro, rd = generate_rays(cam, hs, hs, 0)
         pix = rng.pixel_ids(hs, hs, device=dev)
         before = counts()
-        rad4, gb4 = restir_split.trace_forward_gbuffer(fr, cfg, ro, rd, pix, 0, 0)
-        (ref4, rgb4), plain4_ms = plain_timed(
-            lambda: restir_split.gbuffer_plain(fr, cfg, ro, rd, pix, 0, 0))
-        k4_same = torch.equal(rad4, ref4) and all(
-            torch.equal(a[f], b[f]) for a, b in zip(gb4, rgb4) for f in a)
+        k4_same, plain4_ms = None, None
+        if name in k4_alone:
+            rad4, gb4 = restir_split.trace_forward_gbuffer(fr, cfg, ro, rd, pix, 0, 0)
+            (ref4, rgb4), plain4_ms = plain_timed(
+                lambda: restir_split.gbuffer_plain(fr, cfg, ro, rd, pix, 0, 0))
+            k4_same = torch.equal(rad4, ref4) and all(
+                torch.equal(a[f], b[f]) for a, b in zip(gb4, rgb4) for f in a)
         kring = pring = RenderState.create(hs, hs, device=dev)
         diffs, errs, plain_ms = [], [], []
         for p in range(n_pass):
@@ -1300,22 +1374,27 @@ def restir_sdf_phase(torch, dev, card, occ):
             kring, pring = kring.rotate_reservoirs(new), pring.rotate_reservoirs(new_ref)
         got = tuple(c - b for c, b in zip(counts(), before))
         held_light = (new.light_index >= 0).float().mean().item()
+        k4_text = ("held through the K6 pass" if k4_same is None
+                   else "identical bits" if k4_same else "DIFFER")
         print(f"phase 28: {name} (K4 copy {copy4}, K6v copy "
               f"{restir_vertex.vertex_copy(fr, False)}, {cfg.max_bounces} bounces, "
               f"{cfg.marching_steps} marching steps) at {hs}x{hs}: K4 against gbuffer_plain "
-              f"{'identical bits' if k4_same else 'DIFFER'}; the K6 pass against "
+              f"{k4_text}; the K6 pass against "
               f"restir.render_sample at passes 0-{n_pass - 1}: pixels or fields differing "
               f"{diffs}, max abs "
               f"err {[f'{e:.3e}' for e in errs]}; launches (K6, K4, K6v, K5, K1, K2, K7) {got}; "
               f"image mean {ref.mean().item():.6f}, share holding a light {held_light:.4f}; "
-              f"plain K4 {plain4_ms:.1f} ms, plain pass {[round(m, 1) for m in plain_ms]} ms")
-        if not k4_same or any(diffs) or got != (n_pass, n_pass + 1, n_pass, 0, 0, 0, 0) \
+              + ("" if plain4_ms is None else f"plain K4 {plain4_ms:.1f} ms, ")
+              + f"plain pass {[round(m, 1) for m in plain_ms]} ms")
+        n_k4 = n_pass + (k4_same is not None)
+        if k4_same is False or any(diffs) or got != (n_pass, n_k4, n_pass, 0, 0, 0, 0) \
                 or not ref.mean().item() > 0.0:
             failed.append(f"the K6 pass or K4 on {name}")
         out28["held"][name] = {"k4_copy": copy4, "k4_identical": k4_same,
                                "k6_pixels_differing": diffs, "max_abs_err": max(errs),
                                "plain_ms_k4": plain4_ms, "plain_ms_pass": plain_ms,
                                "size": hs}
+        stamp(f"phase 28: K4 and the K6 pass held on {name}")
 
     # the split path against its plain version over ANIMATED frames at t != 0
     sc, cam, cfg = scenes["animated_restir"]
@@ -1341,6 +1420,7 @@ def restir_sdf_phase(torch, dev, card, occ):
         failed.append("the split path on animated_restir")
     out28["split_pixels_differing"] = split_diff
     out28["split_max_abs_err"] = max(split_err)
+    stamp("phase 28: the split path held")
 
     # the real-time frame of the preset as shipped, and of phase 24's variant
     frames = 16
@@ -1399,6 +1479,7 @@ def restir_sdf_phase(torch, dev, card, occ):
     out28["frame_ms_k6"] = k6_frame[0]
 
     # the mandelbulb ReSTIR view at full size: the main path, a K6 pass timed
+    stamp("phase 28: the real-time frames timed")
     sc, cam, cfg = scenes["mandelbulb"]
     zero_counts()
     rb = Renderer(sc, cam, cfg, H, W)
@@ -1429,7 +1510,10 @@ def restir_sdf_phase(torch, dev, card, occ):
             k6_call()
         torch.cuda.synchronize()
     d28, _ = device_times_ms(prof, ("gbuf_kernel", "restir_vertex_kernel"), per_launch=True)
-    ev = path_events(torch, sc, cfg, ro, rd, pix, 2, 0, ring=st)
+    # the events of pass 2 on the ring two passes leave, which phase 29's
+    # bound of K7 on the same pass reads too
+    ev = out28["mandelbulb_events"] = path_events(torch, sc, cfg, ro, rd, pix, 2, 0, ring=st)
+    stamp("phase 28: the mandelbulb view's path events counted")
     slots = restir_split.gbuffer_slots(cfg)
     b_pass = bound(ev, sc, cfg, adjoint=False, restir=True)
     ev4 = dict(ev)   # K4 marches no reservoir vertex's shadow ray
@@ -1603,20 +1687,22 @@ def medium_phase(torch, dev, card, occ):
           f"{o30['local_bytes']} bytes of local memory; lane use {ev30['lane_use']:.4f}")
     out30.update(ms=k1_30[0], pass_ms=pass30[0], pass_quartiles=pass30[1:],
                  device_ms=dev30[0], plain_ms=plain30, bound_ms=b30[0], bound_by=b30[1],
+                 events=ev30,
                  blocks_per_sm=o30["blocks"], registers=o30["registers"],
                  local_bytes=o30["local_bytes"])
 
-    # refused before any launch: K2 (no adjoint of the medium yet) and ReSTIR
+    # refused before any launch: a gradient w.r.t. a texel array (K2, item
+    # 14) and ReSTIR with either flag (item 10)
     before = counts()
     refusals = []
-    em = sc.emission.clone().requires_grad_(True)
+    noise = sc.noise.clone().requires_grad_(True)
     try:
-        megakernel.trace_forward(sc.replace(emission=em), cfg, ro[:16, :16].contiguous(),
+        megakernel.trace_forward(sc.replace(noise=noise), cfg, ro[:16, :16].contiguous(),
                                  rd[:16, :16].contiguous(), rng.pixel_ids(16, 16, device=dev),
                                  0, 0)
-        refusals.append("K2: not refused")
+        refusals.append("K2 (texels): not refused")
     except NotImplementedError as exc:
-        refusals.append(f"K2: {'item 10' in str(exc)}")
+        refusals.append(f"K2 (texels): {'item 14' in str(exc)}")
     demo, dcam, dcfg = presets.restir_demo(device=dev)
     for kw in (dict(use_volumetrics=True), dict(use_spectral=True),
                dict(use_volumetrics=True, restir_adhoc_motion=True)):
@@ -1626,7 +1712,7 @@ def medium_phase(torch, dev, card, occ):
         except NotImplementedError as exc:
             refusals.append(f"ReSTIR {kw}: {'item 10' in str(exc)}")
     torch.cuda.synchronize()
-    print(f"phase 30: refused before any launch, naming item 10: {refusals}; launch counts "
+    print(f"phase 30: refused before any launch, naming item 14 or 10: {refusals}; launch counts "
           f"unchanged: {counts() == before}")
     if not all(r.endswith("True") for r in refusals) or counts() != before:
         failed.append(f"refusals {refusals}, counts {before} -> {counts()}")
@@ -1638,14 +1724,221 @@ def medium_phase(torch, dev, card, occ):
     return out30
 
 
-def restir_grad_sdf_phase(torch, dev, card, occ):
+def medium_grad_phase(torch, dev, card, occ, events):
+    """Phase 31: K2's medium copy (`csrc/megakernel_bwd_medium.cu`), the
+    adjoint of hero-wavelength spectral transport and the homogeneous
+    medium.  `events` are phase 30's path events of preset 8 at 512x512
+    (pass 0's rays).  Returns the figures of the kernels' JSON line and
+    raises after printing every failed check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer0_tpu_torch import optimize, rng
+    from raytracer0_tpu_torch.models import presets
+    from raytracer0_tpu_torch.models.camera import generate_rays
+    from raytracer0_tpu_torch.ops import megakernel, restir_kernel, restir_split, restir_vertex
+    from raytracer0_tpu_torch.render import integrator
+    from raytracer0_tpu_torch.render.renderer import sample_radiance
+
+    counters = ((megakernel, "LAUNCHES"), (megakernel, "BWD_LAUNCHES"),
+                (megakernel, "BWD_MEDIUM_LAUNCHES"), (restir_kernel, "LAUNCHES"),
+                (restir_kernel, "BWD_LAUNCHES"), (restir_split, "GBUF_LAUNCHES"),
+                (restir_vertex, "VERTEX_LAUNCHES"))
+    plain_trace, plain_calls = integrator.trace, [0]
+
+    def counted_plain(*args, **kw):
+        plain_calls[0] += 1
+        return plain_trace(*args, **kw)
+
+    def counts():
+        return tuple(getattr(m, a) for m, a in counters) + (plain_calls[0],)
+
+    def zero_counts():
+        for m, a in counters:
+            setattr(m, a, 0)
+        plain_calls[0] = 0
+
+    failed, out31 = [], {"held": {}}
+
+    # K2's medium copy against the plain autograd at 64x64, each scene at
+    # its own depth (preset 8: 12 bounces, where the flint's IOR carries a
+    # gradient), arbitrated as phase 6 does; two launches, the same bits
+    for name, (where, kw) in MEDIUM_HOLDS.items():
+        sc, cam, cfg = getattr(presets, where)(device=dev)
+        cfg = cfg.replace(**kw)
+        if megakernel.unsupported_bwd(sc, cfg) is not None or \
+                megakernel.bwd_copy(sc, cfg) != "medium":
+            failed.append(f"{name}: not in K2's medium copy")
+            continue
+        ro, rd = generate_rays(cam, 64, 64, 0)
+        pix = rng.pixel_ids(64, 64, device=dev)
+        timed = {}
+        grads_of = cached_grads(torch, sc, cfg, ro, rd, pix, timed)
+        before = counts()
+        out, got = grads_of("kernel", None)
+        launched = tuple(a - b for a, b in zip(counts(), before))[:3]
+        ref, want = grads_of("plain", None)
+        identical = torch.equal(out, ref)
+        try:
+            errs, left_out, arbitrated, _ = arbitrated_errors(got, want, grads_of)
+        except AssertionError as exc:
+            failed.append(f"{name}: {exc}")
+            print(f"phase 31: FAILED {name}: {exc}")
+            continue
+        table = megakernel.scene_table(sc)
+        ct = torch.rand(ro.shape, generator=torch.Generator(dev).manual_seed(3), device=dev)
+        first, second = (megakernel._launch_backward(sc, cfg, table, ro, rd, pix, 0, 0, ct)
+                         for _ in range(2))
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        shown = {k: e for k, e in errs.items() if want[k].abs().max().item() > 0.0}
+        print(f"phase 31: {name} at 64x64, {cfg.max_bounces} bounces (use_spectral "
+              f"{cfg.use_spectral}, use_volumetrics {cfg.use_volumetrics}): K2's medium copy "
+              f"against plain autograd, max relative error per leaf (after float64 arbitration:"
+              f" {left_out} pixels left out, {arbitrated} entries arbitrated) "
+              + ", ".join(f"{k} {e[0]:.2e} ({e[1]:.2e})" for k, e in shown.items())
+              + f"; launches (K1, K2, K2 medium) {launched}; K1's radiance the plain version's "
+              f"bit for bit: {identical}; the same bits on two launches: {same}; plain "
+              f"autograd {timed['plain']:.1f} ms")
+        out31["held"][name] = {"max_rel_err": max(e[1] for e in errs.values()),
+                               "max_rel_err_raw": max(e[0] for e in errs.values()),
+                               "max_abs_err": max((got[k] - want[k]).abs().max().item()
+                                                  for k in want),
+                               "pixels_left_out": left_out, "entries_arbitrated": arbitrated,
+                               "same_bits": same, "plain_fwd_bwd_ms_64": timed["plain"],
+                               "ior_gradient": got["ior"].abs().max().item()}
+        if launched != (1, 1, 1) or not identical or not same:
+            failed.append(f"{name}: launches {launched}, identical {identical}, same {same}")
+        if where == "spectral_caustics" and cfg.use_spectral and \
+                not got["ior"].abs().max().item() > 0.0:
+            failed.append(f"{name}: the flint's IOR carries no gradient")
+        del grads_of, first, second
+    stamp("phase 31: K2's medium copy held")
+
+    # the main path: optimize.fit of the two lights' emission at 64x64, its
+    # counts set to 0 just before and read just after
+    sc, cam, cfg = presets.spectral_caustics(device=dev)
+    rows = torch.zeros(sc.num_meshes, 1, device=dev)
+    rows[[k for k, m in enumerate(sc.mat_types_static) if m == 0]] = 1.0
+    fit_steps = 10
+    with torch.no_grad():
+        target = optimize.render_linear(sc, cfg, cam, 64, 64)
+    start = sc.replace(emission=sc.emission * (1.0 - 0.3 * rows))
+    zero_counts()
+    integrator.trace = counted_plain
+    try:
+        fitted, losses = optimize.fit(start, cfg, cam, target, ("emission",), steps=fit_steps,
+                                      learning_rate=0.05, param_mask={"emission": rows})
+        torch.cuda.synchronize()
+    finally:
+        integrator.trace = plain_trace
+    fit_counts = counts()
+    print(f"phase 31: optimize.fit of spectral_caustics' two lights' emission at 64x64, "
+          f"{fit_steps} steps from 0.7 of it: loss {losses[0]:.6e} -> {losses[-1]:.6e}; "
+          f"launches (K1, K2, K2 medium, K6, K7, K4, K6v, plain calls) {fit_counts}")
+    if fit_counts != (fit_steps,) * 3 + (0,) * 5 or not losses[-1] < losses[0]:
+        failed.append(f"the fit ran {fit_counts}, loss {losses[0]} -> {losses[-1]}")
+    out31["fit_launches"] = fit_counts[2]
+    out31["fit_losses"] = (losses[0], losses[-1])
+
+    # a fwd+bwd step at 512x512, 12 bounces: d sum(sample_radiance) /
+    # d(color, emission, pos, joker, ior), its counts from 0
+    leaves31 = ("color", "emission", "pos", "joker", "ior")
+
+    def step():
+        lv = {k: getattr(sc, k).detach().clone().requires_grad_(True) for k in leaves31}
+        img = sample_radiance(sc.replace(**lv), cfg, cam, H, W, 0)
+        return torch.autograd.grad(img.sum(), list(lv.values()))
+
+    zero_counts()
+    integrator.trace = counted_plain
+    try:
+        g = step()
+        torch.cuda.synchronize()
+    finally:
+        integrator.trace = plain_trace
+    step_counts = counts()
+    finite = all(bool(x.isfinite().all()) for x in g)
+    if step_counts != (1, 1, 1) + (0,) * 5 or not finite or not bool((g[4] != 0).any()):
+        failed.append(f"the 512x512 step ran {step_counts}, finite {finite}")
+    stats = time_stats(torch, step, runs=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    d31, tot31 = device_times_ms(prof, ("fwd_kernel_medium", "bwd_wide_kernel", "reduce_kernel"),
+                                 per_launch=True)
+    # K2 alone on pass 0's rays, ones as the cotangent, as k1_device_time.py
+    # times it (key k2_spectral_caustics), and the plain backward at 64x64
+    ro, rd = generate_rays(cam, H, W, 0)
+    pix = rng.pixel_ids(H, W, device=dev)
+    ct = torch.ones((H, W, 3), dtype=torch.float32, device=dev)
+    table = megakernel.scene_table(sc)
+    k2_ms = time_stats(torch, lambda: megakernel._launch_backward(
+        sc, cfg, table, ro, rd, pix, 0, 0, ct), runs=5, warmup=1)
+    from k1_device_time import k2_device_ms
+
+    k2_dev = k2_device_ms(dev, ("k2_spectral_caustics",)).get("k2_spectral_caustics", {})
+    b31 = bound(events, sc, cfg, adjoint=True)
+    o31 = occ[("K2", "spectral_caustics")]
+    warp31 = megakernel.bwd_layout(sc, cfg)[0]
+    txt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+    dev_ms = k2_dev.get("ms")
+    print(f"phase 31: {card}: spectral_caustics at {H}x{W}, {cfg.max_bounces} bounces: a fwd+bwd "
+          f"step d sum(sample_radiance) / d({', '.join(leaves31)}) {stats[0]:.3f} ms (q1 "
+          f"{stats[1]:.3f}, q3 {stats[2]:.3f}; median and quartiles of 5, CUDA events), launches "
+          f"(K1, K2, K2 medium, K6, K7, K4, K6v, plain calls) {step_counts}; device time per "
+          f"step (profiler): K1's medium copy {txt(d31['fwd_kernel_medium'])}, K2's "
+          f"{txt(d31['bwd_wide_kernel'])}, its reduction {txt(d31['reduce_kernel'])}, all "
+          f"kernels {txt(None if tot31 is None else tot31 / 3)}; K2's medium copy alone "
+          f"{k2_ms[0]:.3f} ms (q1 {k2_ms[1]:.3f}, q3 {k2_ms[2]:.3f}; CUDA events), device "
+          f"{txt(dev_ms)} (k1_device_time.py, rounds "
+          f"{[round(x, 5) for x in k2_dev.get('rounds', [])]}); bound {b31[0]:.6f} ms "
+          f"({b31[1]}; the forward once and its adjoint, from phase 30's path events)"
+          + ("" if dev_ms is None else f", {100 * b31[0] / dev_ms:.2f} % of the device time")
+          + f"; {o31['blocks']} blocks of {o31['threads']} per SM at {o31['registers']} "
+          f"registers, {o31['local_bytes']} bytes of local memory, a column of cotangents per "
+          f"{'warp' if warp31 else 'thread'}")
+    plain64 = [v["plain_fwd_bwd_ms_64"] for k, v in out31["held"].items()
+               if k == "spectral_caustics"]
+    out31.update(step_ms=stats[0], step_quartiles=stats[1:], step_launches=step_counts[:3],
+                 ms=k2_ms[0], device_ms=dev_ms, device_ms_in_step=d31["bwd_wide_kernel"],
+                 plain_ms=plain64[0] if plain64 else None, bound_ms=b31[0], bound_by=b31[1],
+                 registers=o31["registers"], local_bytes=o31["local_bytes"],
+                 blocks_per_sm=o31["blocks"], digest_d_table=k2_dev.get("digest_d_table"))
+
+    # refused before any launch: a ReSTIR gradient with the medium (item 10)
+    demo, dcam, dcfg = presets.restir_demo(device=dev)
+    before = counts()
+    try:
+        em = demo.emission.clone().requires_grad_(True)
+        optimize.render_linear(demo.replace(emission=em), dcfg.replace(use_volumetrics=True),
+                               dcam, 16, 16).sum().backward()
+        refused = "not refused"
+    except NotImplementedError as exc:
+        refused = str("item 10" in str(exc))
+    torch.cuda.synchronize()
+    print(f"phase 31: a ReSTIR gradient with the medium refused before any launch, naming item "
+          f"10: {refused}; launch counts unchanged: {counts() == before}")
+    if refused != "True" or counts() != before:
+        failed.append(f"the ReSTIR gradient with the medium: {refused}")
+
+    for f in failed:
+        print(f"phase 31: FAILED: {f}")
+    if failed:
+        raise AssertionError(f"phase 31: {len(failed)} checks failed")
+    return out31
+
+
+def restir_grad_sdf_phase(torch, dev, card, occ, events=None):
     """Phase 29: K7's whole-SDF copy (`csrc/restir_bwd_sdf.cu`) over the
     scenes of `k7_sdf_scenes`: against the plain autograd over chains of
     passes from an empty ring (the same bits on two launches), a ReSTIR
     fwd+bwd step at 512x512 of `animated_restir` as shipped and of the
     `mandelbulb` ReSTIR view timed with K7's bound, and `optimize.fit`
-    through it on the preset.  Returns the figures of the kernels' JSON
-    line and raises after printing every failed comparison."""
+    through it on the preset.  `events` ({scene: path_events}) holds the
+    events of a scene's pass 2 at 512x512 where another phase counted them
+    (phase 28: the `mandelbulb` view's).  Returns the figures of the
+    kernels' JSON line and raises after printing every failed
+    comparison."""
     from torch.profiler import ProfilerActivity, profile
 
     from raytracer0_tpu_torch import optimize, rng
@@ -1716,11 +2009,15 @@ def restir_grad_sdf_phase(torch, dev, card, occ):
               f"memory")
 
     # the holds: K7 against the plain autograd over passes from an empty
-    # ring at 32x32, each scene at its own depth: 4 passes; 2 on the scenes
-    # whose plain passes take 4-35 s each (their launches, not their
-    # pixels): the `mandelbulb` view (12 bounces, 128 marching steps),
-    # `every_shape` and `textured_restir_demo`
-    hs, passes_of = 32, {"mandelbulb": 2, "every_shape": 2, "textured_restir_demo": 2}
+    # ring at 32x32, each scene at its own depth: 4 passes on the preset as
+    # shipped, 2 on its STATIC twin, `polygons` and `textured_cornell` (the
+    # ring's reuse from pass to pass), 1 on the scenes whose plain passes
+    # take 4-35 s each (their launches, not their pixels): the `mandelbulb`
+    # view (12 bounces, 128 marching steps), `every_shape` and
+    # `textured_restir_demo`
+    hs = 32
+    passes_of = {"mandelbulb": 1, "every_shape": 1, "textured_restir_demo": 1,
+                 "animated_restir_static": 2, "polygons": 2, "textured_cornell": 2}
     for name, (sc, cam, c) in scenes.items():
         passes = passes_of.get(name, 4)
         t = 0.5 if int(c.render_mode) else 0.0   # a constant frame time under ANIMATED
@@ -1752,6 +2049,7 @@ def restir_grad_sdf_phase(torch, dev, card, occ):
         out29["held"][name] = {"max_rel_err": worst, "max_abs_err": max(e[1] for e in errs.values()),
                                "same_bits": same, "plain_ms_per_pass": plain_ms, "size": hs,
                                "bounces": c.max_bounces, "marching_steps": c.marching_steps}
+        stamp(f"phase 29: K7 held on {name}")
 
     # a ReSTIR fwd+bwd step at full size: the preset as shipped, the mandelbulb view
     step_passes = 2
@@ -1792,7 +2090,8 @@ def restir_grad_sdf_phase(torch, dev, card, occ):
         d29, _ = device_times_ms(prof, ("restir_bwd_kernel", "tap_gather_kernel",
                                         "restir_reduce_kernel"), per_launch=True)
         dev_ms = None if d29["restir_bwd_kernel"] is None else sum(d29.values())
-        ev = path_events(torch, frame, cfg, ro, rd, pix, 2, 0, ring=st)
+        ev = (events or {}).get(name) or path_events(torch, frame, cfg, ro, rd, pix, 2, 0,
+                                                     ring=st)
         b = bound(ev, frame, cfg, adjoint=True, restir=True, sdf_adjoint=True)
         o = occ[("K7 whole-SDF", name)]
         txt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
@@ -1815,6 +2114,7 @@ def restir_grad_sdf_phase(torch, dev, card, occ):
                                "registers": o["registers"], "local_bytes": o["local_bytes"],
                                "blocks_per_sm": o["blocks"], "threads": o["threads"]}
         del st, grids, frame
+        stamp(f"phase 29: the 512x512 step of {name} timed")
 
     # optimize.fit through it on the preset as shipped: the METAL rounded
     # box's color (its METAL texel blends into its emission, the
@@ -1880,6 +2180,7 @@ def main() -> int:
         return 2
 
     # ---- phase 1: the card ----
+    stamp("phase 1 starts (the card)")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1890,15 +2191,18 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    # ---- phase 2: build the six kernels at once (K2 and K7 in two libraries each) ----
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+    # ---- phase 2: build the six kernels at once (K2 in three libraries, K7 in two) ----
+    stamp("phase 2 starts (build the six kernels at once (K2 in three libraries, K7 in two))")
+    # the longest builds first: nvcc takes minutes for K2's and K7's copies
+    with concurrent.futures.ThreadPoolExecutor(9) as pool:
         builds = [pool.submit(megakernel.build), pool.submit(megakernel.build_bwd),
                   pool.submit(restir_vertex.build), pool.submit(restir_kernel.build_bwd),
                   pool.submit(restir_split.build_gbuffer), pool.submit(restir_split.build_cast),
-                  pool.submit(megakernel.build_bwd_sdf), pool.submit(restir_kernel.build_bwd_sdf)]
+                  pool.submit(megakernel.build_bwd_sdf), pool.submit(restir_kernel.build_bwd_sdf),
+                  pool.submit(megakernel.build_bwd_medium)]
         infos = [f.result()[1] for f in builds]
-    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5", "K2 whole-SDF", "K7 whole-SDF"),
-                          infos):
+    for name, info in zip(("K1", "K2", "K6v", "K7", "K4", "K5", "K2 whole-SDF", "K7 whole-SDF",
+                           "K2 medium"), infos):
         print(f"phase 2: {name} build {info.seconds:.2f} s, cache "
               f"{'hit' if info.cache_hit else 'miss'}, {info.path}")
         for line in info.log.splitlines():
@@ -1933,7 +2237,8 @@ def main() -> int:
               f"({o4['blocks']} blocks per SM x {sms} SMs) at {o4['registers']} registers "
               f"({o4['local_bytes']} bytes of local memory); {-(-H * W // 128)} blocks of pixels "
               f"at {H}x{W}")
-    k2_fns = {**ptxas_functions(infos[1].log), **ptxas_functions(infos[6].log)}
+    k2_fns = {**ptxas_functions(infos[1].log), **ptxas_functions(infos[6].log),
+              **ptxas_functions(infos[8].log)}
     k2_ptxas = {}
     for copy, tag in K2_COPIES.items():
         line = [v for k, v in k2_fns.items() if tag in k]
@@ -1945,8 +2250,8 @@ def main() -> int:
     for where, (sc, c2) in k2_cases(dev).items():
         o2 = occ[("K2", where)]
         warp2 = megakernel.bwd_layout(sc, c2)[0]
-        copy2 = {"cornell": "Cornell", "wide": "wide", "whole_sdf": "whole-SDF"}[
-            megakernel.bwd_copy(sc, c2)]
+        copy2 = {"cornell": "Cornell", "wide": "wide", "whole_sdf": "whole-SDF",
+                 "medium": "medium"}[megakernel.bwd_copy(sc, c2)]
         print(f"phase 2: K2 on {where} ({sc.num_meshes} meshes, its {copy2} copy, "
               f"{len(megakernel.bwd_columns(sc, c2))} columns a mesh): {o2['registers']} "
               f"registers, {o2['local_bytes']} bytes of local memory per thread, {o2['smem']} "
@@ -2007,6 +2312,7 @@ def main() -> int:
         return ro, rd, rng.pixel_ids(h, w, device=dev)
 
     # ---- phase 3: K1 against its plain version ----
+    stamp("phase 3 starts (K1 against its plain version)")
     small = cfg.replace(max_bounces=3)
     ro, rd, pix = rays(16, 128, 0)
     out = megakernel.trace_forward(scene, small, ro, rd, pix, 0, 0)
@@ -2025,6 +2331,7 @@ def main() -> int:
     del out, ref
 
     # ---- phase 4: the render main path ----
+    stamp("phase 4 starts (the render main path)")
     megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
     renderer = Renderer(scene, cam, cfg, H, W)
     img = renderer.render(PASSES)
@@ -2049,6 +2356,7 @@ def main() -> int:
         raise AssertionError("walls do not show red (left) and green (right)")
 
     # ---- phase 5: time per pass, K1 and the plain version ----
+    stamp("phase 5 starts (time per pass, K1 and the plain version)")
     def plain_pass():
         ro, rd = generate_rays(cam, H, W, 0)
         return integrator.trace(scene, cfg, ro, rd, pix, 0, 0)
@@ -2075,6 +2383,7 @@ def main() -> int:
           f"use {ev['lane_use']:.4f} (plain replay, 32 pixels a warp, one pixel per thread)")
 
     # ---- phase 6: K2 against the plain version's autograd ----
+    stamp("phase 6 starts (K2 against the plain version's autograd)")
     for h, w, kw in ADJ_CONFIGS:
         c6 = cfg.replace(**kw)
         ro6, rd6, pix6 = rays(h, w, 2)
@@ -2186,6 +2495,7 @@ def main() -> int:
               + f", profiler); bound {bound_w:.6f} ms ({by_w})")
 
     # ---- phase 7: K2 against finite differences of K1 ----
+    stamp("phase 7 starts (K2 against finite differences of K1)")
     fd_size = 128
     light = scene.lights_static[0]
     wall = 3   # MAT_CORNELL_RED, the plane at x = +1.5
@@ -2253,6 +2563,7 @@ def main() -> int:
             raise AssertionError(f"K2 disagrees with finite differences of K1 ({name})")
 
     # ---- phase 8: the gradient main path, timed, and a fit ----
+    stamp("phase 8 starts (the gradient main path, timed, and a fit)")
     def step_fn(trace_route):
         leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
                   for k in LEAVES}
@@ -2366,6 +2677,7 @@ def main() -> int:
         raise AssertionError("the config2 fit did not lower the loss through K2 alone")
 
     # ---- phase 9: the widened K1 against its plain version ----
+    stamp("phase 9 starts (the widened K1 against its plain version)")
     cube_scene, cube_cam, cube_cfg = cubemap_demo(device=dev)
     cases = {
         "cubemap_demo": (cube_scene, cube_cam, cube_cfg),
@@ -2442,6 +2754,7 @@ def main() -> int:
               f"({k1_bound9[name][1]})")
 
     # ---- phase 10: the cubemap main path ----
+    stamp("phase 10 starts (the cubemap main path)")
     megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
     img = Renderer(cube_scene, cube_cam, cube_cfg, H, W).render(PASSES)
     torch.cuda.synchronize()
@@ -2477,6 +2790,7 @@ def main() -> int:
           + f" (profiler, 3 passes), bound {cube_bound:.6f} ms ({cube_by})")
 
     # ---- phase 11: no gradient w.r.t. texel arrays ----
+    stamp("phase 11 starts (no gradient w.r.t. texel arrays)")
     before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
     texels = cube_scene.cubemap.clone().requires_grad_(True)
     try:
@@ -2492,6 +2806,7 @@ def main() -> int:
         raise AssertionError("the refused gradient launched a kernel")
 
     # ---- phase 12: K1 against its plain version on textured scenes ----
+    stamp("phase 12 starts (K1 against its plain version on textured scenes)")
     tex_cases = textured_scenes(dev)
     # no libm call in their texture paths: CHECK/RIPPLE on planes, the LUT types
     exact_scenes = ("procedural",)
@@ -2544,6 +2859,7 @@ def main() -> int:
         raise AssertionError("the textured color's gradient did not run through K1 and K2")
 
     # ---- phase 13: the texture main path ----
+    stamp("phase 13 starts (the texture main path)")
     megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
     img = Renderer(t_scene, t_cam, t_cfg, H, W).render(PASSES)
     torch.cuda.synchronize()
@@ -2578,6 +2894,7 @@ def main() -> int:
     del img
 
     # ---- phase 14: K1 and the plain version on the textured scenes, timed ----
+    stamp("phase 14 starts (K1 and the plain version on the textured scenes, timed)")
     tex_ms, tex_plain_ms, tex_dev_ms, tex_bound = {}, {}, {}, {}
     for name in ("textured_cornell", "textured_gloss"):
         s14, c14, cfg14 = tex_cases[name]
@@ -2602,6 +2919,7 @@ def main() -> int:
               f"{tex_bound[name][0]:.6f} ms ({tex_bound[name][1]})")
 
     # ---- phase 15: K1 with the SDF march against its plain version ----
+    stamp("phase 15 starts (K1 with the SDF march against its plain version)")
     r_scene, r_cam, r_cfg = presets.restir_demo(device=dev)
     sdf_cases = {"mis_demo": presets.mis_demo(device=dev),
                  "restir_demo_nee": (r_scene, r_cam, r_cfg.replace(use_restir=False))}
@@ -2663,6 +2981,7 @@ def main() -> int:
         raise AssertionError("the refused SDF gradient launched a kernel")
 
     # ---- phase 16: K6 against the plain restir.render_sample ----
+    stamp("phase 16 starts (K6 against the plain restir.render_sample)")
     def restir_contract(name, out, ref, new, new_ref, bits=False):
         """JAX's fused-versus-wavefront contract (tests/test_restir.py:312-352),
         with `bits` equality of the radiance and every reservoir field;
@@ -2720,6 +3039,7 @@ def main() -> int:
     k6_max_err = max(v for (name, h, p), v in k6_err.items() if h == H and name == "restir_demo")
 
     # ---- phase 17: the ReSTIR main path ----
+    stamp("phase 17 starts (the ReSTIR main path)")
     restir_kernel.LAUNCHES = megakernel.LAUNCHES = megakernel.BWD_LAUNCHES = 0
     restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = restir_vertex.VERTEX_LAUNCHES = 0
     r_renderer = Renderer(r_scene, r_cam, r_cfg, H, W)
@@ -2846,6 +3166,7 @@ def main() -> int:
     if counts() != before:
         raise AssertionError("the refused ReSTIR gradient launched a kernel")
     # ---- phase 18: K7 against the plain version's autograd ----
+    stamp("phase 18 starts (K7 against the plain version's autograd)")
     def restir_chain(trace, s, cfg_, cam_, h, w, passes, seed=5):
         """(loss, d loss / d(scene leaves, every pass's rays)) for seeded
         weights on every pass's radiance and on the last ring's floats, over
@@ -2944,6 +3265,7 @@ def main() -> int:
     del rad18, leaves
 
     # ---- phase 19: K7 against K6's finite differences ----
+    stamp("phase 19 starts (K7 against K6's finite differences)")
     fd_passes = 4
     is_light = (r_scene.mat_type == 0).float()[:, None]
 
@@ -2988,6 +3310,7 @@ def main() -> int:
           "gradient leaves out)")
 
     # ---- phase 20: the ReSTIR gradient main path ----
+    stamp("phase 20 starts (the ReSTIR gradient main path)")
     fit_size, fit_steps, fit_passes = 128, 20, 4
     with torch.no_grad():
         target = optimize.render_linear(r_scene, r_cfg, r_cam, fit_size, fit_size,
@@ -3084,6 +3407,7 @@ def main() -> int:
           "shared memory")
 
     # ---- phase 21: K5 against the plain intersect.intersect ----
+    stamp("phase 21 starts (K5 against the plain intersect.intersect)")
     rt_scene, rt_cam, rt_cfg = presets.animated_untextured(device=dev)   # the slice's scene
     rt_adhoc = rt_cfg.replace(restir_adhoc_motion=True)
     frame = lambda t: scene_mod.animate_positions(rt_scene, t, int(rt_cfg.render_mode))
@@ -3119,6 +3443,7 @@ def main() -> int:
     k5_max_err = max(k5_err.values())
 
     # ---- phase 22: K4 against its plain version ----
+    stamp("phase 22 starts (K4 against its plain version)")
     k4_err = {}
     for name, (s22, c22, cfg22) in (("restir_demo", presets.restir_demo(device=dev)),
                                     ("the real-time scene at t = 0.5",
@@ -3161,6 +3486,7 @@ def main() -> int:
     k4_max_err = max(k4_err.values())
 
     # ---- phase 23: K6 and K7 under ANIMATED accumulation ----
+    stamp("phase 23 starts (K6 and K7 under ANIMATED accumulation)")
     def refreshed(fr, st):
         """The ring `st` with its light data replaced by the frame's
         (`restir_kernel.light_data`), which is what K6 reads."""
@@ -3237,6 +3563,7 @@ def main() -> int:
         raise AssertionError("the ANIMATED gradient did not run on K6 and K7")
 
     # ---- phase 24: the real-time main path ----
+    stamp("phase 24 starts (the real-time main path)")
     frames = 16
     slots = restir_split.gbuffer_slots(rt_adhoc)
     restir_split.GBUF_LAUNCHES = restir_split.CAST_LAUNCHES = restir_vertex.VERTEX_LAUNCHES = 0
@@ -3431,6 +3758,7 @@ def main() -> int:
         raise AssertionError("the ANIMATED frames did not run on K6 and K1, or K1 disagrees")
 
     # ---- phase 25: refusals before any launch ----
+    stamp("phase 25 starts (refusals before any launch)")
     split_counts = lambda: (restir_split.GBUF_LAUNCHES, restir_split.CAST_LAUNCHES,
                             restir_vertex.VERTEX_LAUNCHES) + counts()
     before = split_counts()
@@ -3520,13 +3848,14 @@ def main() -> int:
         raise AssertionError("a refused call launched a kernel")
 
     # ---- phase 26: the whole SDF class on K1: the reference's presets 0, 2 and 3 ----
+    stamp("phase 26 starts (the whole SDF class on K1: the reference's presets 0, 2 and 3)")
     plain_trace, plain_calls = integrator.trace, [0]
 
     def counted_plain(*args, **kw):
         plain_calls[0] += 1
         return plain_trace(*args, **kw)
 
-    whole = {}
+    whole, events26 = {}, {}
     for name in ("default_scene", "mandelbulb", "menger_sponge"):
         sc26, cam26, cfg26 = getattr(presets, name)(device=dev)
         if megakernel.unsupported(sc26, cfg26) is not None or not megakernel.whole_sdf(sc26):
@@ -3548,6 +3877,7 @@ def main() -> int:
                 or not img26.mean().item() > 0.01:
             raise AssertionError(f"{name}: the main path did not run K1 alone, or its image is "
                                  "not finite or black")
+        stamp(f"phase 26: {name}: the main path ran")
         ro26, rd26 = generate_rays(cam26, H, W, 0)
         pix26 = rng.pixel_ids(H, W, device=dev)
         out26 = megakernel.trace_forward(sc26, cfg26, ro26, rd26, pix26, 0, 0)
@@ -3563,9 +3893,14 @@ def main() -> int:
               f"{out26.mean().item():.6f} and {ref26.mean().item():.6f}")
         if n_diff:
             raise AssertionError(f"{name}: K1's whole-SDF copy differs from the plain version")
+        stamp(f"phase 26: {name}: held against the plain version")
         pass26 = time_stats(torch, lambda: sample_radiance(sc26, cfg26, cam26, H, W, 0))
         dev26 = k1_device_ms((name,), dev)[name]
-        ev26 = path_events(torch, sc26, cfg26, ro26, rd26, pix26, 0, 0)
+        stamp(f"phase 26: {name}: timed")
+        # the path events of pass 0's rays, which phase 27's bound of K2 on
+        # the same rays reads too
+        ev26 = events26[name] = path_events(torch, sc26, cfg26, ro26, rd26, pix26, 0, 0)
+        stamp(f"phase 26: {name}: path events counted")
         b26 = bound(ev26, sc26, cfg26, adjoint=False)
         flops = {SdfShape(s).name: OPS_SDF_SHAPE[int(s)] for s in sc26.sdf_shapes_static}
         print(f"phase 26: path events of {name} at {H}x{W}: {json.dumps(ev26)}")
@@ -3581,6 +3916,7 @@ def main() -> int:
         del out26, ref26
 
     # ---- phase 27: the whole SDF class on K2 ----
+    stamp("phase 27 starts (the whole SDF class on K2)")
     t27 = time.perf_counter()
     failed27 = []
 
@@ -3593,22 +3929,6 @@ def main() -> int:
             failed27.append(f"{what}: {exc}")
             print(f"phase 27: FAILED {what}: {exc}")
             return None
-
-    def grads27(sc, c, r, d, p):
-        """grads_of(kind, mask) of K2 ("kernel") and the plain autograd
-        ("plain", "plain64") on (sc, c) for arbitrated_errors, each kind and
-        mask computed once."""
-        cache = {}
-
-        def grads_of(kind, mask):
-            key = (kind, None if mask is None else mask.cpu().numpy().tobytes())
-            if key not in cache:
-                cache[key] = table_grads(
-                    torch, megakernel.trace_forward if kind == "kernel" else integrator.trace,
-                    sc, c, r, d, p, 0, torch.float64 if kind == "plain64" else None, mask)
-            return cache[key]
-
-        return grads_of
 
     def picked27(grads_of, on, rows):
         """`grads_of` with the cotangents of the mesh `rows` and of the rays
@@ -3643,7 +3963,7 @@ def main() -> int:
             p27 = rng.pixel_ids(64, 64, device=dev)
             hit27 = intersect27.intersect(sc, r27, d27, c, need_normal=False)
             scene_grads27[where] = (sc, torch.where(hit27.missed, -1, hit27.idx),
-                                    grads27(sc, c, r27, d27, p27))
+                                    cached_grads(torch, sc, c, r27, d27, p27))
         sc, first27, all27 = scene_grads27[where]
         rows = [sc.num_analytic + k for k, sh in enumerate(sc.sdf_shapes_static)
                 if shape == "every_shape" or sh == int(SdfShape[shape])]
@@ -3661,6 +3981,7 @@ def main() -> int:
                   f"of {where} at 64x64, 2 bounces, 64 marching steps: max relative error per "
                   "leaf against plain autograd " + held_text(*res))
     del scene_grads27
+    stamp("phase 27: the distance adjoints held")
 
     # K2's whole-SDF copy against plain autograd: the class scenes at 64x64,
     # the presets at 128x128, 4 bounces and 64 marching steps
@@ -3670,7 +3991,7 @@ def main() -> int:
         cases27["sdf_light"][2].replace(use_mis=True),)
     for name in ("default_scene", "mandelbulb", "menger_sponge"):
         cases27[name] = getattr(presets, name)(device=dev)
-    k2_whole = {}
+    k2_whole, plain27 = {}, {}
     for name, (sc, cm, c) in cases27.items():
         c = c.replace(max_bounces=4, marching_steps=64)
         size = 128 if hasattr(presets, name) else 64
@@ -3678,7 +3999,8 @@ def main() -> int:
             raise AssertionError(f"{name}: expected in K2's whole-SDF copy")
         r27, d27 = generate_rays(cm, size, size, 0)
         p27 = rng.pixel_ids(size, size, device=dev)
-        grads_of = grads27(sc, c, r27, d27, p27)
+        plain27[name] = {}
+        grads_of = cached_grads(torch, sc, c, r27, d27, p27, plain27[name])
         before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES)
         out27, got = grads_of("kernel", None)
         torch.cuda.synchronize()
@@ -3703,6 +4025,7 @@ def main() -> int:
                           "pixels_left_out": left_out, "entries_arbitrated": arbitrated,
                           "float64_held": held}
         del got, want, grads_of
+        stamp(f"phase 27: K2 held on {name}")
     print(f"phase 27: gradients held in {time.perf_counter() - t27:.1f} s")
 
     # central differences of K1 on the pixels linear in the parameter: held
@@ -3739,6 +4062,7 @@ def main() -> int:
               + ("" if held else " (printed, not held)"))
         if held and not rel < FD_TOL:
             failed27.append(f"K2 disagrees with finite differences of K1 ({name})")
+    stamp("phase 27: the central differences held")
 
     # the gradient main path on the class: optimize.fit through K1 and K2
     # alone, on `mandelbulb`'s emission and color, `menger_sponge`'s color
@@ -3780,7 +4104,9 @@ def main() -> int:
     if failed27:
         raise AssertionError("phase 27: " + "; ".join(failed27))
 
-    # K2's whole-SDF copy timed on the presets at 512x512, 12 bounces, 128 steps
+    # K2's whole-SDF copy timed on the presets at 512x512, 12 bounces, 128
+    # steps, its bound from phase 26's path events of the same rays
+    stamp("phase 27: the fits ran")
     occ27 = kernel_occupancy(dev)
     k2_dev27 = k2_device_ms(dev, tuple(f"k2_{n}" for n in ("default_scene", "mandelbulb",
                                                               "menger_sponge")))
@@ -3792,23 +4118,16 @@ def main() -> int:
         table27 = megakernel.scene_table(sc)
         ms27 = time_stats(torch, lambda: megakernel._launch_backward(
             sc, c, table27, r27, d27, pix27, 0, 0, ct27), runs=5, warmup=1)
-        ev27 = path_events(torch, sc, c, r27, d27, pix27, 0, 0)
-        b27 = bound(ev27, sc, c, adjoint=True, sdf_adjoint=True)
-        # the plain backward alone, at 128x128 (its graph at 512x512 takes minutes)
-        rp, dp = generate_rays(cm, 128, 128, 0)
-        pp = rng.pixel_ids(128, 128, device=dev)
-        leaves27 = {k: getattr(sc, k).detach().clone().requires_grad_(True) for k in LEAVES}
-        img27 = integrator.trace(sc.replace(**leaves27), c, rp, dp, pp, 0, 0)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        torch.autograd.grad(img27.sum(), list(leaves27.values()))
-        e1.record()
-        torch.cuda.synchronize()
-        plain27 = e0.elapsed_time(e1)
+        b27 = bound(events26[name], sc, c, adjoint=True, sdf_adjoint=True)
+        # the plain version's forward and backward: its hold's above, at
+        # 128x128, 4 bounces, 64 marching steps (its time is its launches,
+        # per bounce and marching step, not its pixels)
+        plain_ms27 = plain27[name].get("plain")
         dev_ms = k2_dev27.get(f"k2_{name}", {}).get("ms")
         o27 = occ27[("K2", name)]
         share27 = None if dev_ms is None else b27[0] / dev_ms
-        k2_whole[name].update({"ms": ms27[0], "device_ms": dev_ms, "plain_ms_128": plain27,
+        k2_whole[name].update({"ms": ms27[0], "device_ms": dev_ms,
+                               "plain_fwd_bwd_ms_128_4_bounces": plain_ms27,
                                "bound_ms": b27[0], "bound_by": b27[1], "share_of_bound": share27,
                                "registers": o27["registers"], "local_bytes": o27["local_bytes"],
                                "blocks_per_sm": o27["blocks"],
@@ -3822,12 +4141,13 @@ def main() -> int:
               + f" (k1_device_time.py); bound {b27[0]:.6f} ms ({b27[1]}, the distance adjoints "
               f"counted), share of the bound "
               + ("not measured" if share27 is None else f"{share27:.4f}")
-              + f"; the plain backward alone at 128x128 {plain27:.1f} ms; {o27['registers']} "
+              + f"; the plain forward and backward at 128x128, 4 bounces, 64 marching steps "
+              f"{plain_ms27:.1f} ms; {o27['registers']} "
               f"registers, {o27['local_bytes']} bytes of local memory, {o27['blocks']} blocks "
               f"per SM; ptxas {k2_whole[name]['ptxas']}")
-        del leaves27, img27
 
     # ---- phase 28: ReSTIR over the whole SDF class and blended textures ----
+    stamp("phase 28 starts (ReSTIR over the whole SDF class and blended textures)")
     t28 = time.perf_counter()
     p28 = restir_sdf_phase(torch, dev, card, occ)
     print(f"phase 28: {time.perf_counter() - t28:.1f} s")
@@ -3835,15 +4155,24 @@ def main() -> int:
     plain_bulb28 = statistics.median(held28["mandelbulb"]["plain_ms_pass"])
 
     # ---- phase 29: K7 over the whole SDF class and blended textures ----
+    stamp("phase 29 starts (K7 over the whole SDF class and blended textures)")
     t29 = time.perf_counter()
-    p29 = restir_grad_sdf_phase(torch, dev, card, occ)
+    p29 = restir_grad_sdf_phase(torch, dev, card, occ,
+                                {"mandelbulb": p28["mandelbulb_events"]})
     print(f"phase 29: {time.perf_counter() - t29:.1f} s")
     held29, step29 = p29["held"], p29["step"]
 
     # ---- phase 30: spectral transport and the homogeneous medium on K1 ----
+    stamp("phase 30 starts (spectral transport and the homogeneous medium on K1)")
     t30 = time.perf_counter()
     p30 = medium_phase(torch, dev, card, occ)
     print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
+    # ---- phase 31: the adjoint of spectral transport and the medium on K2 ----
+    stamp("phase 31 starts (the adjoint of spectral transport and the medium on K2)")
+    t31 = time.perf_counter()
+    p31 = medium_grad_phase(torch, dev, card, occ, p30["events"])
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -3897,6 +4226,26 @@ def main() -> int:
          "wide_copy": k2_wide, "finite_differences_wide": fd_wide,
          "whole_sdf_copy": k2_whole, "whole_sdf_distances": dist27,
          "finite_differences_whole_sdf": fd27, "whole_sdf_fits": fits27},
+        {"name": "K2 adjoint megakernel, its medium copy (the adjoint of spectral transport "
+                 "and the homogeneous medium)", **common,
+         "source": "raytracer0_tpu_torch/csrc/megakernel_bwd_medium.cu",
+         "replaces": "raytracer0_tpu/ops/megakernel.py:2545",
+         "also_replaces": "the vjp of raytracer0_tpu/ops/megakernel.py:1728-1760, :2237-2239, "
+                          ":1551-1556, :2056-2060 (the medium event and its in-scatter NEE, "
+                          "the HG continuation, the fog, Cauchy's IOR of _build_bounce)",
+         "scene": "spectral_caustics (the reference's preset 8)",
+         "launches": p31["fit_launches"],
+         "launches_by_path": {"fit": p31["fit_launches"], "step": p31["step_launches"][2]},
+         "max_abs_err": max(v["max_abs_err"] for v in p31["held"].values()),
+         "max_rel_err": max(v["max_rel_err"] for v in p31["held"].values()),
+         "compared_at": "64x64, each scene at its own depth", "held": p31["held"],
+         "ms": p31["ms"], "device_ms": p31["device_ms"],
+         "device_ms_in_step": p31["device_ms_in_step"], "step_ms": p31["step_ms"],
+         "step_quartiles": p31["step_quartiles"], "plain_ms": p31["plain_ms"],
+         "plain_ms_at": "64x64, 12 bounces, the plain autograd's forward and backward",
+         "bound_ms": p31["bound_ms"], "bound_by": p31["bound_by"],
+         "blocks_per_sm": p31["blocks_per_sm"], "registers": p31["registers"],
+         "local_bytes": p31["local_bytes"], "fit_losses": p31["fit_losses"]},
         {"name": "K9 env forward, served by K1", **common,
          "source": "raytracer0_tpu_torch/csrc/megakernel.cu",
          "replaces": "raytracer0_tpu/ops/megakernel.py:3414",
@@ -3984,8 +4333,10 @@ def main() -> int:
                               **{f"step_{k}": v["launches"] for k, v in step29.items()}},
          "max_abs_err": max(v["max_abs_err"] for v in held29.values()),
          "max_rel_err": max(v["max_rel_err"] for v in held29.values()),
-         "compared_at": "32x32, passes 0-3 (0-1 on mandelbulb, every_shape and "
-                        "textured_restir_demo), each scene at its own depth", "held": held29,
+         "compared_at": "32x32, passes 0-3 on animated_restir, 0-1 on its STATIC twin, "
+                        "polygons and textured_cornell, pass 0 alone on mandelbulb, "
+                        "every_shape and textured_restir_demo, each scene at its own depth",
+         "held": held29,
          "ms": step29["animated_restir"]["ms"],
          "device_ms": step29["animated_restir"]["device_ms"],
          "plain_ms": held29["animated_restir"]["plain_ms_per_pass"],
@@ -4014,10 +4365,12 @@ def main() -> int:
              "launches": p28["launches_k6_mandelbulb"],
              "launches_realtime": p28["launches_k4"],
              "identical_bits": {k: v["k4_identical"] for k, v in held28.items()},
-             "max_abs_err": 0.0 if all(v["k4_identical"] for v in held28.values()) else None,
+             "max_abs_err": 0.0 if all(v["k4_identical"] is not False for v in held28.values())
+             else None,
              "ms": bulb28["ms_k4"], "device_ms": bulb28["device_ms_k4"],
              "device_ms_realtime": p28["frame_device"]["animated_restir"]["gbuf_kernel"],
-             "plain_ms_64": held28["mandelbulb"]["plain_ms_k4"],
+             "plain_ms_64": held28["every_shape"]["plain_ms_k4"],
+             "plain_ms_64_scene": "the every_shape ReSTIR view",
              "bound_ms": bulb28["bound_ms_k4"], "bound_by": bulb28["bound_by_k4"],
              "registers": occ[("K4 whole-SDF", "mandelbulb")]["registers"],
              "blocks_per_sm": occ[("K4 whole-SDF", "mandelbulb")]["blocks"],

@@ -107,10 +107,12 @@ def ptxas_functions(log):
 
 #: K2's copies by the template instance of its kernel in the mangled name
 K2_COPIES = {"Cornell per thread": "10bwd_kernelILb0E", "Cornell per warp": "10bwd_kernelILb1E",
-             "wide per thread": "15bwd_wide_kernelILb0ELb0E",
-             "wide per warp": "15bwd_wide_kernelILb1ELb0E",
-             "whole-SDF per thread": "15bwd_wide_kernelILb0ELb1E",
-             "whole-SDF per warp": "15bwd_wide_kernelILb1ELb1E"}
+             "wide per thread": "15bwd_wide_kernelILb0ELb0ELb0E",
+             "wide per warp": "15bwd_wide_kernelILb1ELb0ELb0E",
+             "whole-SDF per thread": "15bwd_wide_kernelILb0ELb1ELb0E",
+             "whole-SDF per warp": "15bwd_wide_kernelILb1ELb1ELb0E",
+             "medium per thread": "15bwd_wide_kernelILb0ELb1ELb1E",
+             "medium per warp": "15bwd_wide_kernelILb1ELb1ELb1E"}
 
 
 #: K1's copies by the template instance of its kernel in the mangled name:
@@ -257,8 +259,10 @@ K2_WIDE = ("k2_config2", "k2_mis_demo", "k2_cornell_box", "k2_textured_gloss", "
 #: K2's scenes of its whole-SDF copy: the reference's SDF presets and the
 #: scene of every shape they lack (presets.SDF_SCENE_VIEWS)
 K2_WHOLE = ("k2_default_scene", "k2_mandelbulb", "k2_menger_sponge", "k2_every_shape")
+#: K2's scene of its medium copy: the reference's preset 8
+K2_MEDIUM = ("k2_spectral_caustics",)
 K2_SCENES = ("cornell_mis", "cornell_nomis", *K2_MANY_LIGHTS, "cornell_mis_wide", *K2_WIDE,
-             *K2_WHOLE)
+             *K2_WHOLE, *K2_MEDIUM)
 
 
 def k2_scene(name, device):
@@ -269,7 +273,7 @@ def k2_scene(name, device):
         return presets.many_lights(device=device, n_lights=K2_MANY_LIGHTS[name])
     if name == "k2_every_shape":
         return presets.sdf_view("every_shape", device=device, max_bounces=12)
-    if name in K2_WIDE + K2_WHOLE:
+    if name in K2_WIDE + K2_WHOLE + K2_MEDIUM:
         return getattr(presets, name[3:])(device=device)
     return presets.cornell_default(device=device, use_mis=name != "cornell_nomis")
 
@@ -291,7 +295,7 @@ def _k2_scenes(megakernel, dev):
 
     names = []
     for name in K2_SCENES:
-        if name in K2_WIDE + K2_WHOLE and name != "k2_every_shape" \
+        if name in K2_WIDE + K2_WHOLE + K2_MEDIUM and name != "k2_every_shape" \
                 and not hasattr(presets, name[3:]):
             continue
         if name == "cornell_mis_wide" and not hasattr(megakernel, "cornell_copy"):
@@ -370,16 +374,18 @@ def k2_occupancy(dev):
         with _k2_copy(megakernel, name):
             warp, smem = megakernel.bwd_layout(scene, cfg)
             wide = not megakernel.cornell_copy(scene, cfg)
-            whole = megakernel.bwd_copy(scene, cfg) == "whole_sdf"
+            copy = megakernel.bwd_copy(scene, cfg) if wide else "cornell"
+        whole = copy == "whole_sdf"
         # the export's flag: bit 0 a column per warp, bit 1 the wide copy,
-        # bit 2 the whole-SDF copy
-        o = cuda_build.occupancy(*megakernel.bwd_library(whole),
+        # bit 2 the whole-SDF copy, bit 3 the medium copy
+        o = cuda_build.occupancy(*megakernel.bwd_library(copy),
                                  "rt0_trace_backward_occupancy", megakernel.BWD_THREADS,
-                                 smem, int(warp) | 2 * int(wide and not whole) | 4 * int(whole))
+                                 smem, int(warp) | 2 * int(wide and not whole) | 4 * int(whole)
+                                 | 8 * int(copy == "medium"))
         res[f"occupancy_k2_{name}"] = {**{k: o[k] for k in ("blocks", "threads", "registers",
                                                             "local_bytes", "smem")},
                                        "warp_columns": warp, "wide_copy": wide,
-                                       "whole_sdf_copy": whole}
+                                       "whole_sdf_copy": whole, "medium_copy": copy == "medium"}
     return res
 
 
@@ -657,11 +663,27 @@ def main() -> int:
 
     ptxas = lambda info: [line.strip() for line in info.log.splitlines()
                           if "registers" in line or "spill" in line or "stack" in line]
+    # every library at once (nvcc takes minutes for K2's and K7's copies),
+    # then each loads from build/kernels
+    import concurrent.futures
+
+    builds = [megakernel.build, megakernel.build_bwd, megakernel.build_bwd_sdf,
+              restir_split.build_gbuffer, restir_split.build_cast, restir_vertex.build,
+              restir_kernel.build_bwd]
+    builds += [getattr(m, b) for m, b in ((megakernel, "build_bwd_medium"),
+                                          (restir_kernel, "build_bwd_sdf")) if hasattr(m, b)]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
+            f.result()
+    medium = hasattr(megakernel, "build_bwd_medium")
     res = {"tree": os.path.basename(os.getcwd()), "ptxas": ptxas(megakernel.build()[1]),
            "ptxas_k2": ptxas(megakernel.build_bwd()[1]),
            "ptxas_k2_whole_sdf": ptxas(megakernel.build_bwd_sdf()[1]),
-           "ptxas_k2_by_function": {**ptxas_functions(megakernel.build_bwd()[1].log),
-                                    **ptxas_functions(megakernel.build_bwd_sdf()[1].log)},
+           **({"ptxas_k2_medium": ptxas(megakernel.build_bwd_medium()[1])} if medium else {}),
+           "ptxas_k2_by_function": {
+               **ptxas_functions(megakernel.build_bwd()[1].log),
+               **ptxas_functions(megakernel.build_bwd_sdf()[1].log),
+               **(ptxas_functions(megakernel.build_bwd_medium()[1].log) if medium else {})},
            "ptxas_k4": ptxas(restir_split.build_gbuffer()[1]),
            "ptxas_k5": ptxas(restir_split.build_cast()[1]),
            "ptxas_k6v": ptxas(restir_vertex.build()[1]),

@@ -46,8 +46,8 @@ textures blended into any row, without a cubemap on the card, under
 STATIC or ANIMATED (real-time) accumulation, with the pixel's own history
 or the ad-hoc reprojection, and without spectral transport or the medium
 on any route.  Gradients cover all of it on the CPU (plain autograd).  On
-CUDA, K2 differentiates K1's whole class but spectral transport and the
-medium, and K7 the ReSTIR
+CUDA, K2 differentiates K1's whole class, spectral transport and the
+medium in its medium copy, and K7 the ReSTIR
 pass without the ad-hoc reprojection over its whole class
 (`restir_kernel.outside_k7_class`: every SDF shape, textures blended into
 any row, but no BOX row in a scene K4 and K6v march without the whole SDF

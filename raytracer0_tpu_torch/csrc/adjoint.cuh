@@ -8,7 +8,9 @@
 // SDF normal and the implicit reattachment of an SDF hit's t; and, reached
 // by K2 and K7's whole-SDF copy, the 14 distances, the texel of a hit (the
 // UV, image bilinear, CHECK, RIPPLE, gradient and value noise, METAL fBm)
-// and its blend into the hit's color and emission.
+// and its blend into the hit's color and emission; and, reached by K2's
+// medium copy alone, the HG sampler and phase, Cauchy's IOR and the
+// in-scatter NEE of a medium event.
 //
 // Each function is the reverse-mode derivative of its forward twin in
 // trace_common.cuh, which is the plain PyTorch version's operation for
@@ -115,6 +117,37 @@ __device__ __forceinline__ V3 random_direction_bwd(V3 w, float u1, float u2, boo
   float g_extent;
   sample_cone_bwd(w, 1.0f, u1, u2, g, g_w, g_extent);
   return g_w;
+}
+
+// sample_hg(w, g, u1, u2) for its cotangent g_out: the cotangent of w.  The
+// polar cosine and its sine depend on the constant g and the draws alone.
+__device__ V3 sample_hg_bwd(V3 w, float g, float u1, float u2, V3 g_out) {
+  float cos_t;
+  if (fabsf(g) < 1e-3f) {
+    cos_t = 1.0f - 2.0f * u1;
+  } else {
+    const float sqr = (1.0f - g * g) / ((1.0f - g) + 2.0f * g * u1);
+    cos_t = ((1.0f + g * g) - sqr * sqr) / (2.0f * g);
+  }
+  V3 g_w;
+  float g_om, g_ry;
+  around_bwd(w, u2, safe_sqrt(1.0f - cos_t * cos_t), cos_t, g_out, g_w, g_om, g_ry);
+  return g_w;
+}
+
+// hg_phase(cos_theta) = (1 - g^2) / (4 pi denom sqrt(denom)), denom =
+// max(1 + g^2 - 2 g cos_theta, 1e-6), for its cotangent g_out: the
+// cotangent of cos_theta (clamp_min passes it at the floor).
+__device__ float hg_phase_bwd(float cos_theta, float one_p_g2, float two_g, float one_m_g2,
+                              float g_out) {
+  const float raw = one_p_g2 - two_g * cos_theta;
+  if (!(raw >= 1e-6f)) return 0.0f;
+  const float sq = sqrtf(raw);
+  const float p = FOUR_PI * raw;
+  const float den = p * sq;
+  const float g_den = -g_out * one_m_g2 / (den * den);
+  const float g_raw = g_den * sq * FOUR_PI + (g_den * p) / (2.0f * sq);
+  return -two_g * g_raw;
 }
 
 // power_heuristic(f, g) = max(f^2, 0) / max(f^2 + g^2, 1e-12), 0 when f^2 + g^2 <= 0
@@ -1039,11 +1072,15 @@ __device__ V3 cone_light_bwd(const SceneSmem &s, int li, int hidx, V3 x, V3 nl, 
 // reflect(d, nl)) or normalize(e rand_dir + refract(d, nl, eta)), where the
 // emission bends the direction detached, as in the plain version.  The
 // IOR enters as max(|ior|, 1e-3), whose gradient passes at the floor.
-template <class Acc>
+// kMedium (K2's medium copy): under `spectral` a negative IOR enters as
+// Cauchy's max(|ior| + 0.04 / max(lu^2, 1e-6), 1e-3) at the hero
+// wavelength `hero_wl` (lu its micrometres), whose d/d ior is -1.
+template <bool kMedium = false, class Acc>
 __device__ __forceinline__ void bounce_dir_bwd(const SceneSmem &s, int idx, const Bounce &b, V3 d,
                                                V3 nl, V3 e, float inside, float u1, float u2,
                                                bool biased, V3 gd, V3 &g_d, V3 &g_nl,
-                                               const Acc &G) {
+                                               const Acc &G, bool spectral = false,
+                                               float hero_wl = 0.0f) {
   if (!b.specular) {
     g_nl = g_nl + random_direction_bwd(nl, u1, u2, biased, gd);
     return;
@@ -1052,8 +1089,19 @@ __device__ __forceinline__ void bounce_dir_bwd(const SceneSmem &s, int idx, cons
   const V3 rand_dir = random_direction(nl, u1, u2, biased);
   V3 raw;
   float nt = 0.0f, nnt = 0.0f;
+  bool cauchy = false;  // kMedium: the IOR is Cauchy's at the hero wavelength
+  float nt_raw = 0.0f;
   if (transmit) {
     nt = fmaxf(fabsf(s.ior(idx)), 1e-3f);
+    if constexpr (kMedium) {
+      const float ior = s.ior(idx);
+      if (spectral && ior < 0.0f) {
+        const float lu = hero_wl * 0.001f;
+        nt_raw = fabsf(ior) + 0.04f / fmaxf(lu * lu, 1e-6f);
+        nt = fmaxf(nt_raw, 1e-3f);
+        cauchy = true;
+      }
+    }
     nnt = inside > 0.0f ? IOR_AIR / nt : nt / IOR_AIR;
     bool tir;
     raw = refract(d, nl, nnt, tir);
@@ -1067,7 +1115,11 @@ __device__ __forceinline__ void bounce_dir_bwd(const SceneSmem &s, int idx, cons
     refract_bwd(d, nl, nnt, g_v, g_d, g_nl, g_eta);
     const float g_nt = inside > 0.0f ? -g_eta * IOR_AIR / (nt * nt) : g_eta / IOR_AIR;
     const float ior = s.ior(idx);
-    if (fabsf(ior) >= 1e-3f) G.add(idx, C_IOR, g_nt * signf(ior));
+    if (cauchy) {
+      if (nt_raw >= 1e-3f) G.add(idx, C_IOR, -g_nt);
+    } else if (fabsf(ior) >= 1e-3f) {
+      G.add(idx, C_IOR, g_nt * signf(ior));
+    }
   } else {
     reflect_bwd(d, nl, g_v, g_d, g_nl);
   }
@@ -1367,6 +1419,87 @@ __device__ V3 blend_bwd(const TraceArgs &a, const SceneSmem &s, const PathSmem &
   }
   return texel_bwd(idx, tex, s.mesh[idx], tp, x, n, a.images, a.img_h, a.img_w, a.noise,
                    a.noise_n, V4{g_tc.x, g_tc.y, g_tc.z, g_w}, G);
+}
+
+// trace_common.cuh::medium_nee forward and adjoint in one pass (K2's
+// medium copy): returns the in-scatter light at the medium event at x of a
+// ray along d (RNG key h_depth) and adds the cotangents of x, d and the
+// scene for its cotangent g_tot.  Per LIGHT-sphere slot: dl = pos - x and
+// dist = sqrt(max(dl.dl, EPS)), cos_a_max from the radius (joker.x), the
+// cone sample about dl / dist, the shadow ray's t to that sphere from
+// x + dir vol_eps (isect_bwd: the hit must be the light), the solid angle
+// 2 (1 - cos_a_max), the HG phase of dot(d, dir), the fog exp(-sigma_t t)
+// and the light's table color and emission.  Whether the shadow ray
+// reaches the light is a discrete choice.
+template <bool kSdf, bool kAll, class Acc>
+__device__ V3 medium_nee_bwd(const SceneSmem &s, const SdfScene &sd, const PackedScene &pk, V3 x,
+                             V3 d, uint32_t h_depth, const MediumArgs &a, V3 g_tot, V3 &g_x,
+                             V3 &g_d, const Acc &G) {
+  V3 total = zero3();
+  for (int slot = 0; slot < s.n_lights; ++slot) {
+    const int li = s.lights[slot];
+    if (li < 0 || s.mat[li] != MAT_LIGHT || s.mesh[li] != MESH_SPHERE) continue;
+    const V3 dl = s.p(li) - x;
+    const float dd = dot(dl, dl);
+    const float dist = sqrtf(fmaxf(dd, EPS));
+    const float r = s.j0(li);
+    const float r2 = r * r;
+    const float m2 = fmaxf(dist * dist, EPS);
+    const float q = r2 / m2;
+    const float qc = fminf(fmaxf(q, 0.0f), 1.0f);
+    const float cos_a_max = safe_sqrt(1.0f - qc);
+    const V3 w = {dl.x / dist, dl.y / dist, dl.z / dist};
+    const float extent = 1.0f - cos_a_max;
+    const uint32_t h = fold_step(fold_step(h_depth, (uint32_t)slot, 4u), S_VOL_NEE, 5u);
+    const float u1 = u01(h), u2 = u01(pcg(h));
+    const V3 dir = sample_cone(w, extent, u1, u2);
+    const V3 so = x + dir * a.vol_eps;
+    float ts;
+    int hidx;
+    intersect_packed<kSdf, kAll>(s, sd, pk, so, dir, a.eps, a.inf, ts, hidx,
+                                 kAll ? a.noise : nullptr, kAll ? a.noise_n : 0);
+    if (!(ts < a.inf) || hidx != li) continue;  // must hit this light
+    const float omega = 2.0f * (1.0f - cos_a_max);
+    const float cos_d = dot(d, dir);
+    const float phase = hg_phase(cos_d, a.hg_1pg2, a.hg_2g, a.hg_1mg2);
+    const float fog = expf(-a.sigma_t * ts);
+    const float k = phase * fog * PI * omega;
+    const V3 lc = s.c(li), le = s.e(li);
+    total = total + lc * le * k;
+    // contrib = c e (((phase fog) pi) omega)
+    const V3 g_ce = g_tot * k;
+    G.add3(li, C_CR, g_ce * le);
+    G.add3(li, C_ER, g_ce * lc);
+    const float g_k = dot(g_tot, lc * le);
+    const float g_phase = g_k * omega * PI * fog;
+    const float g_fog = g_k * omega * PI * phase;
+    float g_cam = -2.0f * (g_k * (phase * fog * PI));
+    const float g_cos = hg_phase_bwd(cos_d, a.hg_1pg2, a.hg_2g, a.hg_1mg2, g_phase);
+    V3 g_dir = d * g_cos;
+    g_d = g_d + dir * g_cos;
+    // ts = t(so, dir) on the light, so = x + dir vol_eps
+    V3 g_so = zero3();
+    isect_bwd(s, li, so, dir, a.eps, g_fog * fog * -a.sigma_t, g_so, g_dir, G);
+    g_x = g_x + g_so;
+    g_dir = g_dir + g_so * a.vol_eps;
+    // dir = sample_cone(dl / dist, 1 - cos_a_max, u1, u2)
+    V3 g_w;
+    float g_ext;
+    sample_cone_bwd(w, extent, u1, u2, g_dir, g_w, g_ext);
+    g_cam -= g_ext;
+    // cos_a_max = safe_sqrt(1 - clamp(r^2 / max(dist^2, EPS), 0, 1))
+    const float g_qc = (1.0f - qc) > 0.0f ? -g_cam / (2.0f * cos_a_max) : 0.0f;
+    const float g_q = (q >= 0.0f && q <= 1.0f) ? g_qc : 0.0f;
+    const float g_r2 = g_q / m2;
+    float g_dist = dist * dist >= EPS ? 2.0f * dist * (-g_q * r2 / (m2 * m2)) : 0.0f;
+    V3 g_dl = {g_w.x / dist, g_w.y / dist, g_w.z / dist};
+    g_dist += -dot(g_w, dl) / (dist * dist);
+    if (dd >= EPS) g_dl = g_dl + dl * (2.0f * (g_dist / (2.0f * dist)));
+    G.add(li, C_J0, 2.0f * r * g_r2);
+    G.add3(li, C_PX, g_dl);
+    g_x = g_x - g_dl;
+  }
+  return total;
 }
 
 }  // namespace

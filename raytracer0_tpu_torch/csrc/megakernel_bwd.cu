@@ -7,8 +7,9 @@
 // `_bwd_kernel_body` (RT0_BWD_SLOTTED=0), over K1's whole class without
 // ReSTIR: every surface material, sphere, directional and SDF-bound
 // lights, cosine and uniform sampling, SDF meshes of all 14 shapes, the
-// cubemap or the procedural sky, and textures of all ten types on
-// analytic and SDF meshes.  Given K1's inputs and
+// cubemap or the procedural sky, textures of all ten types on analytic
+// and SDF meshes, hero-wavelength spectral transport and the homogeneous
+// medium.  Given K1's inputs and
 // the cotangent ct f32[n_pix, 3] of its radiance it returns d_table
 // f32[n_mesh, 36] and d_ro, d_rd f32[n_pix, 3]: the gradients that
 // torch.autograd gives through the plain version
@@ -17,7 +18,7 @@
 // w.r.t. them.  CUDA has no autodiff, so the adjoint of each step of a
 // bounce is written out by hand, below and in adjoint.cuh (shared with K7).
 //
-// Three copies, each a template instance for a column of accumulators per
+// Four copies, each a template instance for a column of accumulators per
 // thread and per warp:
 //  * the Cornell copy (bwd_kernel, slot_bwd): analytic DIFF and LIGHT
 //    meshes, sphere-light slots, no texture, the procedural sky, cosine
@@ -35,11 +36,22 @@
 //    14 distances, a `noinline` call as K1's scene map is), the texel of
 //    an SDF hit at the UV of its row's box normal, SDF-light NEE
 //    (sdf_light_bwd), and the aux columns of TRIANGLE and QUAD rows.  The
-//    other two copies compile none of it.
-// The whole-SDF copy is a library of its own (megakernel_bwd_sdf.cu: this
-// file with RT0_K2_WHOLE_SDF set), so that nvcc compiles it beside the
-// library of the other two copies; each library's launcher refuses the
-// copies it does not hold.
+//    Cornell and wide copies compile none of it.
+//  * the medium copy (bwd_wide_kernel<., true, true>) for every scene of
+//    K1's class under use_spectral or use_volumetrics, as K1's medium copy
+//    serves them: the whole-SDF copy plus the hero wavelength and Cauchy's
+//    IOR (adjoint.cuh::bounce_dir_bwd<true>), the medium event with its
+//    in-scatter NEE (medium_nee_bwd) and HG continuation (sample_hg_bwd),
+//    and the fog on sphere-light shadow rays (shade_nee_bwd<., ., true>),
+//    whose shadow ray's t then carries a cotangent.  Its stash is the
+//    whole-SDF copy's: the reverse sweep decides a slot's medium event
+//    again from its free-path draw and the stashed t.
+// The whole-SDF copy and the medium copy are libraries of their own
+// (megakernel_bwd_sdf.cu and megakernel_bwd_medium.cu: this file with
+// RT0_K2_WHOLE_SDF or RT0_K2_MEDIUM set), so that nvcc compiles them beside
+// the library of the other two copies; each library's launcher refuses the
+// copies it does not hold, and the medium copy's takes the medium's
+// constants (MediumArgs) as K1's launcher does.
 //
 // Scheme: the per-slot stash of the Pallas kernel, one thread per pixel.
 //  * forward sweep: run K1's bounce loop without NEE, the gather ray and
@@ -118,6 +130,11 @@
 #ifndef RT0_K2_WHOLE_SDF
 #define RT0_K2_WHOLE_SDF 0
 #endif
+// 1 in megakernel_bwd_medium.cu: this library holds the medium copy alone,
+// and its launcher takes the medium's constants
+#ifndef RT0_K2_MEDIUM
+#define RT0_K2_MEDIUM 0
+#endif
 
 namespace {
 
@@ -168,14 +185,20 @@ struct SceneCols {
   }
 };
 
-struct BwdArgs {
-  TraceArgs t;             // K1's arguments (t.out unused)
+template <class T>
+struct BwdArgsT {
+  T t;                     // K1's arguments (t.out unused)
   const float *ct;         // [n_pix, 3] cotangent of the radiance
   float *d_ro, *d_rd;      // [n_pix, 3]
   float *partials;         // [n_blocks, n_mesh, ng]
   unsigned long long cols; // the scene-table columns kept, ng of them
   int ng;
 };
+using BwdArgs = BwdArgsT<TraceArgs>;
+// the medium copy's: K1's arguments with the medium's constants
+// (MediumArgs), passed to that copy alone, so the other copies' TraceArgs
+// and stacks keep their size
+using BwdMediumArgs = BwdArgsT<MediumArgs>;
 
 // Sum v[0:N] over the lanes of `grp` (a group of the warp's active lanes,
 // each calling with the same grp): the group's lowest lane ends with the
@@ -356,7 +379,10 @@ __device__ V3 sdf_light_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
 // (trace_common.cuh::shadow_texel_color), as K1 does; the Cornell copy
 // compiles those parts out.  The whole-SDF copy (kAll) marches every SDF
 // shape and samples SDF-bound lights (shade_nee's NEE_SDF_POINT branch).
-template <bool kWide, bool kAll, class Acc>
+// The medium copy (kMedium, with kAll) fogs a sphere light's shadow ray by
+// exp(-sigma_t ts) under use_volumetrics, so its t carries a cotangent
+// (through the analytic intersection or the SDF march's implicit t).
+template <bool kWide, bool kAll, bool kMedium = false, class Acc>
 __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfScene &sd,
                             const PackedScene &pk, const int *tex, V3 x, V3 nl, uint32_t h_depth,
                             float eps, float inf, bool use_mis, V3 g_tot, V3 &g_x, V3 &g_nl,
@@ -424,6 +450,10 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
     float cos_raw = dot(sr, nl);
     float cos_term = fmaxf(cos_raw, 0.001f);
     float weight = 2.0f * (1.0f - cos_a_max);
+    float fog = 1.0f;  // kMedium: Beer-Lambert fog over the shadow ray
+    if constexpr (kMedium) {
+      if (medium_args(a).use_volumetrics) fog = expf(-medium_args(a).sigma_t * ts);
+    }
     V3 lc_raw = s.c(hidx);
     // in a scene with textured lights the shadow hit's texel blends into its
     // color (trace_common.cuh::shadow_texel_color)
@@ -440,6 +470,7 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
     V3 lc = vmax(lc_raw, 0.001f);
     V3 le = s.e(hidx);
     float sc = weight * cos_term;
+    if constexpr (kMedium) sc = sc * fog;
     V3 contrib = lc * le * sc;
     V3 g_c = g_tot;  // cotangent of contrib
     V3 g_ldir = zero3();
@@ -468,10 +499,28 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
     }
     total = total + contrib;
 
-    // contrib = max(c, 0.001) * e * (weight * cos_term)
+    // contrib = max(c, 0.001) * e * (weight * cos_term) (* fog)
     V3 g_sr = zero3();
+    float g_ts_fog = 0.0f;  // kMedium: the cotangent of ts through the fog
+    if constexpr (kMedium) {
+      if (medium_args(a).use_volumetrics)
+        g_ts_fog = dot(g_c, lc * le) * (weight * cos_term) * fog * -medium_args(a).sigma_t;
+    }
     if (!textured) {
       G.add3(hidx, C_CR, pass_ge(lc_raw, 0.001f, g_c * le * sc));
+      if constexpr (kMedium) {
+        if (g_ts_fog != 0.0f) {
+          const V3 so = x + nl * eps;
+          V3 g_so = zero3();
+          if (sdf_shadow)
+            sdf_t_bwd<true, kAll>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts_fog, g_so, g_sr, G, lut,
+                                  lut_n);
+          else
+            isect_bwd(s, hidx, so, sr, eps, g_ts_fog, g_so, g_sr, G);
+          g_x = g_x + g_so;
+          g_nl = g_nl + g_so * eps;
+        }
+      }
     } else {
       // c' = c + (texel - c) alpha, the texel at hp = so + sr ts(so, sr, scene)
       const V3 g_lr = pass_ge(lc_raw, 0.001f, g_c * le * sc);
@@ -484,7 +533,8 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
                                    dot(g_lr, trgb - c0)}, G);
       V3 g_so = g_hp;
       g_sr = g_hp * ts;
-      const float g_ts = dot(g_hp, sr);
+      float g_ts = dot(g_hp, sr);
+      if constexpr (kMedium) g_ts += g_ts_fog;
       if (sdf_shadow)
         sdf_t_bwd<true, kAll>(s, sd, so, sr, ts, eps, 2.0f * eps, g_ts, g_so, g_sr, G, lut, lut_n);
       else
@@ -494,9 +544,10 @@ __device__ V3 shade_nee_bwd(const TraceArgs &a, const SceneSmem &s, const SdfSce
     }
     G.add3(hidx, C_ER, g_c * lc * sc);
     float g_sc = dot(g_c, lc * le);
+    if constexpr (kMedium) g_sc = g_sc * fog;  // the cotangent of weight * cos_term
     float g_cos = g_sc * weight;
     if (cos_raw >= 0.001f) {
-      g_sr = textured ? g_sr + nl * g_cos : nl * g_cos;
+      g_sr = (kMedium || textured) ? g_sr + nl * g_cos : nl * g_cos;
       g_nl = g_nl + sr * g_cos;
     }
     V3 g_ld2;
@@ -619,8 +670,14 @@ constexpr int STW = 13;
 // cotangents of the carry leaving it.  Out: g_* hold the cotangents of the
 // carry entering it; the scene's are added into G.  kAll (the whole-SDF
 // copy): every SDF shape, the texel of an SDF hit at the UV of its row's
-// box normal (path_step's), SDF-light NEE.
-template <bool kAll, class Acc>
+// box normal (path_step's), SDF-light NEE.  kMedium (the medium copy, with
+// kAll): the slot's medium event, decided again from its free-path draw
+// and the stashed t, whose adjoint is that of sp = o + d s, mask' = mask
+// sigma_s / sigma_t, the in-scatter NEE at sp (medium_nee_bwd) and the HG
+// direction about d (prev_nl passes through, as the forward leaves it
+// stale); else the surface bounce with Cauchy's IOR under use_spectral and
+// the fog on sphere-light NEE.
+template <bool kAll, bool kMedium = false, class Acc>
 __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const PackedScene &pk,
                               const TraceArgs &a, int depth, uint32_t h_pix, const float *sk,
                               float t, int idx, V3 ct, V3 &g_o, V3 &g_d, V3 &g_mask, V3 &g_pnl,
@@ -630,6 +687,33 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
   const bool specular = sk[12] != 0.0f;
   const V3 go_out = g_o, gd_out = g_d, gm_out = g_mask, gp_out = g_pnl;
   g_o = g_d = g_mask = g_pnl = zero3();
+
+  // ---- medium event: sp = o + d s, mask' = mask w, acc += mask' nee(sp),
+  //      d' = hg(d), prev_nl' = prev_nl ----
+  if constexpr (kMedium) {
+    const MediumArgs &m = medium_args(a);
+    if (m.use_volumetrics) {
+      const uint32_t h_vol = fold_step(h_pix, (uint32_t)depth, 3u);
+      const float scatter_d =
+          -logf(fmaxf(u01(fold_step(h_vol, S_VOL_FREEPATH, 4u)), 1e-6f)) / m.sigma_t;
+      if (scatter_d < fminf(a.inf, t)) {
+        const V3 sp = o + d * scatter_d;
+        V3 g_sp = go_out, g_ms = gm_out;
+        if (a.sample_lights && s.n_lights > 0) {
+          const V3 total = medium_nee_bwd<true, kAll>(s, ps.sd, pk, sp, d, h_vol, m,
+                                                      ct * (mask * m.vol_w), g_sp, g_d, G);
+          g_ms = g_ms + ct * total;
+        }
+        const uint32_t h_hg = fold_step(h_vol, S_VOL_PHASE, 4u);
+        g_d = g_d + sample_hg_bwd(d, m.hg_g, u01(h_hg), u01(pcg(h_hg)), gd_out);
+        g_mask = g_ms * m.vol_w;
+        g_pnl = gp_out;
+        g_o = g_sp;
+        g_d = g_d + g_sp * scatter_d;
+        return;
+      }
+    }
+  }
 
   // ---- miss: acc += mask * environment(d) ----
   if (!(t < a.inf)) {
@@ -705,15 +789,23 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
     const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
     const float u1 = u01(h_dir), u2 = u01(pcg(h_dir));
     const V3 nl = n * inside;
-    const Bounce b = bsdf_sample(s, idx, x, nl, d, c, e, inside, u1, u2,
-                                 u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased);
+    bool spectral = false;
+    float hero_wl = 0.0f;  // the WAVELENGTH draw (no depth), as path_step draws it
+    if constexpr (kMedium) {
+      spectral = medium_args(a).use_spectral != 0;
+      hero_wl = u01(fold_step(h_pix, S_WAVELENGTH, 3u)) * 340.0f + 380.0f;
+    }
+    const Bounce b = bsdf_sample<kMedium>(s, idx, x, nl, d, c, e, inside, u1, u2,
+                                          u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps,
+                                          a.use_biased, spectral, hero_wl);
     const V3 mask_after = mask * b.mult;
     const bool transmit = b.scat != 0;
 
     g_x = go_out;
     V3 g_nl = gp_out + go_out * (transmit ? -a.eps : a.eps);
     V3 g_ma = gm_out;
-    bounce_dir_bwd(s, idx, b, d, nl, e, inside, u1, u2, a.use_biased, gd_out, g_d, g_nl, G);
+    bounce_dir_bwd<kMedium>(s, idx, b, d, nl, e, inside, u1, u2, a.use_biased, gd_out, g_d, g_nl,
+                            G, spectral, hero_wl);
     if (!b.specular) {
       if (a.use_cubemap) {
         // the gather ray: acc += mask' * cubemap(env_dir) where it escapes
@@ -732,8 +824,9 @@ __device__ void wide_slot_bwd(const SceneSmem &s, const PathSmem &ps, const Pack
         }
       }
       if (a.sample_lights) {
-        const V3 total = shade_nee_bwd<true, kAll>(a, s, ps.sd, pk, ps.tex, x, nl, h_depth, a.eps,
-                                             a.inf, a.use_mis, ct * mask_after, g_x, g_nl, G);
+        const V3 total = shade_nee_bwd<true, kAll, kMedium>(a, s, ps.sd, pk, ps.tex, x, nl, h_depth,
+                                                            a.eps, a.inf, a.use_mis,
+                                                            ct * mask_after, g_x, g_nl, G);
         g_ma = g_ma + ct * total;
       }
     }
@@ -873,11 +966,16 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
 // The wide copy: K1's whole non-ReSTIR class (every material, directional
 // lights, uniform sampling, the cubemap, textures, BOX and ROUND_BOX SDF
 // rows), with the scene's column set; kAll, the whole-SDF copy, adds every
-// SDF shape, textured SDF rows and SDF lights, as K1's whole-SDF copy does.
-template <bool kWarpCols, bool kAll>
+// SDF shape, textured SDF rows and SDF lights, as K1's whole-SDF copy does;
+// kMedium (with kAll), the medium copy, adds hero-wavelength spectral
+// transport and the homogeneous medium under their run-time flags, as K1's
+// medium copy does: the forward sweep runs the medium event before the miss
+// test (a ray that misses can scatter) and stashes nothing more, since the
+// reverse sweep decides the event again from the RNG and the stashed t.
+template <bool kWarpCols, bool kAll, bool kMedium = false>
 __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
                                                          : MIN_BLOCKS_THREAD_COLS)
-    bwd_wide_kernel(BwdArgs b) {
+    bwd_wide_kernel(typename std::conditional<kMedium, BwdMediumArgs, BwdArgs>::type b) {
   const TraceArgs &a = b.t;
   extern __shared__ __align__(16) float smem[];
   SceneSmem s;
@@ -918,6 +1016,8 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
     V3 prev_nl = {0.0f, 1.0f, 0.0f};
     bool specular = true;
     int ndif = 0, nspec = 0, nscat = 0, n_run = 0;
+    // kMedium: the hero wavelength (the WAVELENGTH draw, no depth)
+    const float hero_wl = kMedium ? u01(fold_step(h_pix, S_WAVELENGTH, 3u)) * 340.0f + 380.0f : 0.0f;
     for (int depth = 0; depth < a.max_bounces && depth < MAX_SLOTS; ++depth) {
       float *sk = st + depth * STW;
       sk[0] = o.x, sk[1] = o.y, sk[2] = o.z, sk[3] = d.x, sk[4] = d.y, sk[5] = d.z;
@@ -932,6 +1032,27 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
                                                         lut, lut_n);
       st_t[depth] = tmin;
       st_idx[depth] = idx;
+      if constexpr (kMedium) {
+        // the medium event (path_step's): a free path shorter than the hit
+        // scatters along an HG direction; prev_nl stays
+        const MediumArgs &m = medium_args(a);
+        if (m.use_volumetrics) {
+          const uint32_t h_vol = fold_step(h_pix, (uint32_t)depth, 3u);
+          const float scatter_d =
+              -logf(fmaxf(u01(fold_step(h_vol, S_VOL_FREEPATH, 4u)), 1e-6f)) / m.sigma_t;
+          if (scatter_d < fminf(a.inf, tmin)) {
+            mask = mask * m.vol_w;
+            nscat += 1;
+            specular = false;
+            if (nscat >= a.max_scatter || fmaxf(fmaxf(mask.x, mask.y), mask.z) < 0.01f) break;
+            const uint32_t h_hg = fold_step(h_vol, S_VOL_PHASE, 4u);
+            const V3 hg_dir = sample_hg(d, m.hg_g, u01(h_hg), u01(pcg(h_hg)));
+            o = o + d * scatter_d;
+            d = hg_dir;
+            continue;
+          }
+        }
+      }
       // a miss, an emissive or a DIR_LIGHT hit ends the path
       if (!(tmin < a.inf) || s.mat[idx] == MAT_LIGHT || s.mat[idx] == MAT_DIR_LIGHT) break;
       const V3 x = o + d * tmin;
@@ -944,9 +1065,10 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
       const uint32_t h_depth = fold_step(h_pix, (uint32_t)depth, 3u);
       const uint32_t h_dir = fold_step(h_depth, S_BSDF_DIR, 4u);
       const V3 nl = n * inside;
-      const Bounce bb = bsdf_sample(s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
-                                    u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps,
-                                    a.use_biased);
+      const Bounce bb = bsdf_sample<kMedium>(
+          s, idx, x, nl, d, c, e, inside, u01(h_dir), u01(pcg(h_dir)),
+          u01(fold_step(h_depth, S_BSDF_CHOICE, 4u)), a.eps, a.use_biased,
+          kMedium && medium_args(a).use_spectral != 0, hero_wl);
       o = bb.o;
       d = bb.d;
       mask = mask * bb.mult;
@@ -964,8 +1086,8 @@ __global__ void __launch_bounds__(BWD_THREADS, kWarpCols ? MIN_BLOCKS_WARP_COLS
     const V3 ct = {b.ct[3 * p], b.ct[3 * p + 1], b.ct[3 * p + 2]};
     V3 g_o = zero3(), g_d = zero3(), g_mask = zero3(), g_pnl = zero3();
     for (int k = n_run - 1; k >= 0; --k)
-      wide_slot_bwd<kAll>(s, ps, pk, a, k, h_pix, st + k * STW, st_t[k], st_idx[k], ct, g_o, g_d,
-                          g_mask, g_pnl, G);
+      wide_slot_bwd<kAll, kMedium>(s, ps, pk, a, k, h_pix, st + k * STW, st_t[k], st_idx[k], ct,
+                                   g_o, g_d, g_mask, g_pnl, G);
     b.d_ro[3 * p] = g_o.x;
     b.d_ro[3 * p + 1] = g_o.y;
     b.d_ro[3 * p + 2] = g_o.z;
@@ -1034,6 +1156,12 @@ inline int bwd_layout(int n_mesh, int n_lights, int n_sdf, bool wide, int ng, in
   return 0;
 }
 
+#if RT0_K2_MEDIUM
+// The medium copy, a column per warp (`warp_cols`) or per thread.
+inline void (*bwd_medium_copy(bool warp_cols))(BwdMediumArgs) {
+  return warp_cols ? bwd_wide_kernel<true, true, true> : bwd_wide_kernel<false, true, true>;
+}
+#else
 // The copy of K2 for `wide`, a column per warp (`warp_cols`) and the whole
 // SDF class (`all`, which implies `wide`), or nullptr where this library
 // does not hold it (RT0_K2_WHOLE_SDF).
@@ -1047,6 +1175,29 @@ inline void (*bwd_copy(bool wide, bool warp_cols, bool all))(BwdArgs) {
   return warp_cols ? bwd_kernel<true> : bwd_kernel<false>;
 #endif
 }
+#endif
+
+// Launch the copy `kern` with `b` on `st` (`blocks` blocks of `threads`
+// threads, `smem` bytes of dynamic shared memory), then the reduction of
+// its per-block partials into d_table.  Returns the first CUDA error of the
+// two launches, or 0.
+template <class Args>
+inline int launch_backward(void (*kern)(Args), const Args &b, unsigned blocks, int threads,
+                           size_t smem, float *d_table, cudaStream_t st) {
+  if (blocks > 0) {
+    if (kern == nullptr) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<blocks, threads, smem, st>>>(b);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int n = b.t.n_mesh, n_entries = n * NCOLS;
+  reduce_kernel<<<n_entries, RED_THREADS, 0, st>>>(b.partials, (int)blocks, n, b.cols, b.ng, d_table);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1055,8 +1206,11 @@ inline void (*bwd_copy(bool wide, bool warp_cols, bool all))(BwdArgs) {
 // The arguments up to `t0` are K1's (rt0_trace_forward; `out` unused).
 // `cols` is the mask of scene-table columns with a cotangent: the Cornell
 // copy's 10 (CORNELL_COLS) with `wide` 0, the scene's set with `wide` 1
-// (megakernel.bwd_columns); every other column of d_table is 0.  Returns
-// the first CUDA error of the two launches, or 0.
+// (megakernel.bwd_columns); every other column of d_table is 0.  The
+// medium copy's library (RT0_K2_MEDIUM) takes K1's medium arguments after
+// `threads` (rt0_trace_forward's, megakernel.medium_args) and runs the
+// medium copy on any scene of K1's class (`wide` 1).  Returns the first
+// CUDA error of the two launches, or 0.
 extern "C" int rt0_trace_backward(
     const float *table, const int32_t *mesh, const int32_t *mat, int n_mesh,
     const int32_t *lights, int n_lights, const float *ro, const float *rd, const int64_t *pix,
@@ -1067,10 +1221,14 @@ extern "C" int rt0_trace_backward(
     int img_w, const float *noise, int noise_n, int use_tex, const int32_t *sdf, int n_analytic,
     int n_sdf, int steps, float fudge, float t0, const float *ct, float *d_ro, float *d_rd,
     float *partials, float *d_table, unsigned long long cols, int wide, int threads,
+#if RT0_K2_MEDIUM
+    int use_spectral, int use_volumetrics, float sigma_t, float vol_w, float vol_eps, float hg_g,
+    float hg_1pg2, float hg_2g, float hg_1mg2,
+#endif
     void *stream) {
   const int ng = count_cols(cols);
   if (threads <= 0 || threads > BWD_THREADS || n_mesh <= 0 || (cols >> NCOLS) != 0ull ||
-      (!wide && cols != CORNELL_COLS))
+      (!wide && cols != CORNELL_COLS) || (RT0_K2_MEDIUM && !wide))
     return (int)cudaErrorInvalidValue;
   (void)out;
   TraceArgs t = {table,   mesh,   mat,         lights,     n_mesh,      n_lights,
@@ -1079,27 +1237,38 @@ extern "C" int rt0_trace_backward(
                  inf,     sample_lights, use_mis, use_sky, cubemap, cube_h, cube_w,
                  use_cubemap, use_biased, tex, blend, images, img_h, img_w, noise, noise_n,
                  use_tex, sdf, n_analytic, n_sdf, steps, fudge, t0};
-  BwdArgs b = {t, ct, d_ro, d_rd, partials, cols, ng};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = n_pix > 0 ? (unsigned)((n_pix + threads - 1) / threads) : 0u;
+  bool warp_cols = false;
+  size_t smem = 0;
   if (blocks > 0) {
-    bool warp_cols = false;
-    size_t smem = 0;
-    int rc = bwd_layout(n_mesh, n_lights, n_sdf, wide != 0, ng, threads, warp_cols, smem);
+    const int rc = bwd_layout(n_mesh, n_lights, n_sdf, wide != 0, ng, threads, warp_cols, smem);
     if (rc != 0) return rc;
-    void (*kern)(BwdArgs) = bwd_copy(wide != 0, warp_cols, wide != 0 && (use_tex & 4) != 0);
-    if (kern == nullptr) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024)
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<blocks, threads, smem, st>>>(b);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
   }
-  const int n_entries = n_mesh * NCOLS;
-  reduce_kernel<<<n_entries, RED_THREADS, 0, st>>>(partials, (int)blocks, n_mesh, cols, ng, d_table);
-  return (int)cudaGetLastError();
+#if RT0_K2_MEDIUM
+  BwdMediumArgs b = {};
+  static_cast<TraceArgs &>(b.t) = t;
+  b.t.use_spectral = use_spectral;
+  b.t.use_volumetrics = use_volumetrics;
+  b.t.sigma_t = sigma_t;
+  b.t.vol_w = vol_w;
+  b.t.vol_eps = vol_eps;
+  b.t.hg_g = hg_g;
+  b.t.hg_1pg2 = hg_1pg2;
+  b.t.hg_2g = hg_2g;
+  b.t.hg_1mg2 = hg_1mg2;
+  b.ct = ct;
+  b.d_ro = d_ro;
+  b.d_rd = d_rd;
+  b.partials = partials;
+  b.cols = cols;
+  b.ng = ng;
+  return launch_backward(bwd_medium_copy(warp_cols), b, blocks, threads, smem, d_table, st);
+#else
+  const BwdArgs b = {t, ct, d_ro, d_rd, partials, cols, ng};
+  return launch_backward(bwd_copy(wide != 0, warp_cols, wide != 0 && (use_tex & 4) != 0), b,
+                         blocks, threads, smem, d_table, st);
+#endif
 }
 
 // K2's layout for a block of `threads` threads on the current device
@@ -1120,9 +1289,15 @@ extern "C" int rt0_trace_backward_layout(int n_mesh, int n_lights, int n_sdf,
 
 // K2's occupancy at `threads` threads and `smem` bytes of dynamic shared
 // memory (trace_common.cuh::kernel_occupancy) of the copy `flags` names:
-// bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy.
+// bit 0 a column per warp, bit 1 the wide copy, bit 2 the whole-SDF copy,
+// bit 3 the medium copy (its library's alone).
 extern "C" int rt0_trace_backward_occupancy(int flags, int threads, long long smem, int *out) {
+#if RT0_K2_MEDIUM
+  if (!(flags & 8)) return (int)cudaErrorInvalidValue;
+  return kernel_occupancy(bwd_medium_copy((flags & 1) != 0), threads, (size_t)smem, out);
+#else
   void (*kern)(BwdArgs) = bwd_copy((flags & 6) != 0, (flags & 1) != 0, (flags & 4) != 0);
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  if (kern == nullptr || (flags & 8)) return (int)cudaErrorInvalidValue;
   return kernel_occupancy(kern, threads, (size_t)smem, out);
+#endif
 }

@@ -26,16 +26,22 @@ states without ReSTIR (every surface material, textures of all ten types
 on analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
 uniform sampling, SDF meshes of every shape, spectral transport and the
 medium: `unsupported`; a ReSTIR pass runs on K6, `ops/restir_kernel.py`);
-K2 covers the same class without spectral transport and the medium
-(`unsupported_bwd`, ROADMAP queue 1 item 10) in three copies
+K2 covers the same class (`unsupported_bwd`) in four copies
 (`bwd_copy`): the Cornell copy (analytic DIFF and LIGHT meshes, no
 texture, sphere-light slots, no
 cubemap, cosine sampling: `cornell_copy`), the whole-SDF copy for the
 scenes K1 runs its own whole-SDF copy on (`whole_sdf`: every SDF shape's
-distance adjoint, the texel of an SDF hit, SDF-light NEE) and the wide
+distance adjoint, the texel of an SDF hit, SDF-light NEE), the medium
+copy for every scene under spectral transport or the medium (`medium`:
+the whole-SDF copy with the adjoints of Cauchy's IOR at the hero
+wavelength, the medium event with its in-scatter NEE and HG direction and
+the fog on sphere-light shadow rays, a library of its own) and the wide
 copy for the rest, each with its set of scene-table columns that have a
-cotangent (`bwd_columns`).  Their plain PyTorch version is
-`render/integrator.py::trace` (K1) and its `torch.autograd` backward (K2);
+cotangent (`bwd_columns`).  `trace_forward` scales the radiance by the
+hero wavelength's RGB weight outside the kernels on both routes, so K2
+receives the cotangent already scaled, as the JAX adjoint does.  Their
+plain PyTorch version is `render/integrator.py::trace` (K1) and its
+`torch.autograd` backward (K2);
 on the same inputs K1 traces the same paths, pixel for pixel, and K2
 gives the same gradients up to float32 rounding.
 
@@ -86,12 +92,18 @@ LAUNCHES = 0
 #: K2 launches since import (or since a caller reset it to 0); one per
 #: backward of `trace_forward`, adjoint and partial-sum reduction together.
 BWD_LAUNCHES = 0
+#: launches of K2's medium copy since import (or since a caller reset it
+#: to 0), each counted in BWD_LAUNCHES too.
+BWD_MEDIUM_LAUNCHES = 0
 
 SOURCES = ("megakernel.cu",)
 BWD_SOURCES = ("megakernel_bwd.cu",)
 # K2's whole-SDF copy: the same source built alone (RT0_K2_WHOLE_SDF), a
 # library of its own that nvcc compiles beside the other two copies'
 BWD_SDF_SOURCES = ("megakernel_bwd_sdf.cu",)
+# K2's medium copy: the same source built alone (RT0_K2_MEDIUM), whose
+# launcher takes K1's medium arguments
+BWD_MEDIUM_SOURCES = ("megakernel_bwd_medium.cu",)
 _NCOLS = 36
 # dynamic shared memory one block may take without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
@@ -131,6 +143,8 @@ _BWD_ARGTYPES = _ARGTYPES[:-1] + (            # K1's (out unused), then
     ctypes.c_ulonglong, _c_int,                   # column mask, wide copy
     _c_int, _c_void_p,                            # threads per block, stream
 )
+# the medium copy's: the same, then K1's medium arguments before the stream
+_BWD_MEDIUM_ARGTYPES = _BWD_ARGTYPES[:-1] + _FWD_ARGTYPES[len(_ARGTYPES) - 1:]
 
 
 def scene_table(scene):
@@ -215,13 +229,20 @@ _SDF_JOKER = {int(_S.BOX): (0, 1, 2, 3), int(_S.ROUND_BOX): (0, 1, 2, 3), int(_S
 _SDF_AUX = {**{s: 0 for s in _SDF_JOKER}, int(_S.TRIANGLE): 9, int(_S.QUAD): 12}
 
 
+def medium(cfg: RenderConfig) -> bool:
+    """Whether K1 and K2 run their medium copies: hero-wavelength spectral
+    transport or the homogeneous medium is on."""
+    return bool(cfg.use_spectral or cfg.use_volumetrics)
+
+
 def cornell_copy(scene, cfg: RenderConfig) -> bool:
     """Whether K2 runs its Cornell copy on (scene, cfg): analytic DIFF and
     LIGHT meshes, no texture, LIGHT-sphere slots, no cubemap, cosine
-    sampling, 10 cotangent columns a mesh.  Anything else in K2's class
+    sampling, neither spectral transport nor the medium, 10 cotangent
+    columns a mesh.  Anything else in K2's class
     runs the wide copy, which takes 2.6x the Cornell copy's time on Cornell
     (PERF.md §6)."""
-    return (not scene.num_sdfs
+    return (not scene.num_sdfs and not medium(cfg)
             and all(m in _K2_MATS for m in scene.mat_types_static)
             and all(li < 0 or lighting.slot_kind(scene, slot) == "sphere"
                     for slot, li in enumerate(scene.lights_static))
@@ -237,8 +258,10 @@ def bwd_columns(scene, cfg: RenderConfig) -> tuple[int, ...]:
     0:3), the IOR under refraction, a texture's params (CHECK, RIPPLE and
     the noise types; a shadow ray reads the texel of any mesh it hits),
     and the color and emission masks where a mesh blends its texel into
-    its color or emission.  No other column has a gradient in this
-    class."""
+    its color or emission.  The medium copy keeps the wide copy's columns:
+    its in-scatter NEE and fog reach a light sphere's pos, joker.x, color
+    and emission, Cauchy's IOR a refractor's column 13.  No other column
+    has a gradient in this class."""
     return _CORNELL_COLS if cornell_copy(scene, cfg) else wide_columns(scene)
 
 
@@ -268,10 +291,16 @@ def wide_columns(scene) -> tuple[int, ...]:
 
 
 def bwd_copy(scene, cfg: RenderConfig) -> str:
-    """The copy of K2 that runs (scene, cfg): "cornell" (`cornell_copy`),
+    """The copy of K2 that runs (scene, cfg): "medium" (spectral transport
+    or the medium, `medium`: the whole-SDF copy with the adjoints of the
+    hero wavelength, Cauchy's IOR, the medium event and the fog, over K1's
+    whole class, a library of its own), "cornell" (`cornell_copy`),
     "whole_sdf" (K1's whole-SDF class, `whole_sdf`: every SDF shape,
-    textured SDF rows, SDF lights) or "wide" (the rest).  The library picks
-    the same from its `wide` argument and `use_tex` bit 2 (`tex_flags`)."""
+    textured SDF rows, SDF lights) or "wide" (the rest).  The last three
+    share two libraries, which pick the copy from their `wide` argument and
+    `use_tex` bit 2 (`tex_flags`)."""
+    if medium(cfg):
+        return "medium"
     if cornell_copy(scene, cfg):
         return "cornell"
     return "whole_sdf" if whole_sdf(scene) else "wide"
@@ -291,7 +320,7 @@ def bwd_layout(scene, cfg: RenderConfig, threads: int = BWD_THREADS,
     accumulators (where 3 blocks of per-thread columns would not fit an
     SM's shared memory), and the block's dynamic shared memory in bytes."""
     if fn is None:
-        lib = cuda_build.load(*bwd_library(bwd_copy(scene, cfg) == "whole_sdf"))[0]
+        lib = cuda_build.load(*bwd_library(bwd_copy(scene, cfg)))[0]
         fn = lib.rt0_trace_backward_layout
     fn.argtypes = (_c_int, _c_int, _c_int, ctypes.c_ulonglong, _c_int, _c_int,
                    ctypes.c_void_p)
@@ -314,11 +343,11 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     """Why K2 cannot differentiate (scene, cfg), or None when it can: K1's
     whole class (`unsupported`: every surface material, textures on
     analytic and SDF meshes, sphere, directional and SDF lights, cubemaps,
-    uniform sampling, SDF meshes of every shape, a table that fits the
-    shared memory; ReSTIR runs on K6 and K7) without spectral transport
-    and the medium, whose adjoints K2 lacks, with a stash of at most
-    MAX_SLOTS slots.  K2 gives the cotangents of
-    the scene table and of the rays; a gradient asked of a texel array
+    uniform sampling, SDF meshes of every shape, hero-wavelength spectral
+    transport and the homogeneous medium in its medium copy, a table that
+    fits the shared memory; ReSTIR runs on K6 and K7, which refuse both
+    flags), with a stash of at most MAX_SLOTS slots.  K2 gives the
+    cotangents of the scene table and of the rays; a gradient asked of a texel array
     (the images, the noise LUT, the cubemap), which the JAX package also
     computes outside its kernels, is refused.  On many meshes K2 keeps a
     column of cotangent accumulators per warp (`bwd_layout`), so any table
@@ -326,11 +355,6 @@ def unsupported_bwd(scene, cfg: RenderConfig) -> Optional[str]:
     if cfg.use_restir:
         return ("gradients through ReSTIR run on K7 (ops/restir_kernel.py, "
                 "ROADMAP queue 1 item 11), not K2")
-    if cfg.use_spectral or cfg.use_volumetrics:
-        # K1's medium copy renders them; K2 has no adjoint of them yet
-        return ("a gradient through spectral transport or the medium (K2 has no adjoint of "
-                "the medium event, its in-scatter NEE, HG or Cauchy's IOR): ROADMAP queue 1 "
-                "item 10")
     reason = unsupported(scene, cfg)
     if reason is None and _texel_leaves(scene):
         reason = (f"a gradient w.r.t. the texel arrays {', '.join(_texel_leaves(scene))} "
@@ -351,10 +375,15 @@ def build():
     return fn, info
 
 
-def bwd_library(whole: bool = False) -> tuple[str, tuple[str, ...]]:
-    """(name, sources) of the K2 library that holds its whole-SDF copy
-    (`whole`) or its Cornell and wide copies."""
-    return ("megakernel_bwd_sdf", BWD_SDF_SOURCES) if whole else ("megakernel_bwd", BWD_SOURCES)
+def bwd_library(copy: str = "wide") -> tuple[str, tuple[str, ...]]:
+    """(name, sources) of the K2 library that holds the copy `copy`
+    (`bwd_copy`): the whole-SDF copy and the medium copy each have a
+    library of their own, the Cornell and wide copies share one."""
+    if copy == "whole_sdf":
+        return "megakernel_bwd_sdf", BWD_SDF_SOURCES
+    if copy == "medium":
+        return "megakernel_bwd_medium", BWD_MEDIUM_SOURCES
+    return "megakernel_bwd", BWD_SOURCES
 
 
 def build_bwd():
@@ -366,12 +395,18 @@ def build_bwd():
 def build_bwd_sdf():
     """Build (or load from `build/kernels/`) the K2 library of its
     whole-SDF copy.  Returns (ctypes function, cuda_build.BuildInfo)."""
-    return _bind_bwd(*cuda_build.load(*bwd_library(True)))
+    return _bind_bwd(*cuda_build.load(*bwd_library("whole_sdf")))
 
 
-def _bind_bwd(lib, info):
+def build_bwd_medium():
+    """Build (or load from `build/kernels/`) the K2 library of its medium
+    copy.  Returns (ctypes function, cuda_build.BuildInfo)."""
+    return _bind_bwd(*cuda_build.load(*bwd_library("medium")), _BWD_MEDIUM_ARGTYPES)
+
+
+def _bind_bwd(lib, info, argtypes=_BWD_ARGTYPES):
     fn = lib.rt0_trace_backward
-    fn.argtypes = _BWD_ARGTYPES
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn, info
 
@@ -485,8 +520,10 @@ def _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx):
 
 
 def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, ct):
-    """Launch K2 for the radiance cotangent `ct`: (d_table, d_ro, d_rd)."""
-    global BWD_LAUNCHES
+    """Launch K2 for the radiance cotangent `ct`: (d_table, d_ro, d_rd).
+    The copy's library (`bwd_copy`, `bwd_library`) holds the kernel; the
+    medium copy's launcher takes K1's medium arguments too."""
+    global BWD_LAUNCHES, BWD_MEDIUM_LAUNCHES
     reason = unsupported_bwd(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"K2 does not cover this scene: {reason}")
@@ -501,15 +538,18 @@ def _launch_backward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx, ct):
     partials = torch.empty((blocks, scene.num_meshes, len(cols)),
                            dtype=torch.float32, device=dev)
     d_table = torch.empty_like(table)
-    fn, _ = build_bwd_sdf() if bwd_copy(scene, cfg) == "whole_sdf" else build_bwd()
+    copy = bwd_copy(scene, cfg)
+    fn, _ = {"whole_sdf": build_bwd_sdf, "medium": build_bwd_medium}.get(copy, build_bwd)()
+    extra = medium_args(cfg) if copy == "medium" else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, ct.data_ptr(), d_ro.data_ptr(), d_rd.data_ptr(), partials.data_ptr(),
                 d_table.data_ptr(), _cols_mask(cols), int(not cornell_copy(scene, cfg)),
-                threads, stream)
+                threads, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
+    BWD_MEDIUM_LAUNCHES += copy == "medium"
     return d_table, d_ro, d_rd
 
 
@@ -573,11 +613,12 @@ def trace_forward(scene, cfg: RenderConfig, ro, rd, pix, pass_idx, sample_idx):
         reason = unsupported_bwd(scene, cfg)
         if reason is not None:
             raise NotImplementedError(f"K2 does not cover this scene: {reason}")
-        return _TraceCore.apply(table, ro, rd, scene, cfg, pix, pass_idx,
-                                sample_idx)
-    out = _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx)
-    # outside the kernel, as the JAX `trace_forward` applies it (the plain
-    # version on the CPU applies it itself)
+        out = _TraceCore.apply(table, ro, rd, scene, cfg, pix, pass_idx, sample_idx)
+    else:
+        out = _launch_forward(scene, cfg, table, ro, rd, pix, pass_idx, sample_idx)
+    # outside the kernels on both routes, as the JAX `trace_forward` applies
+    # it, so K2 receives the cotangent already scaled (the plain version on
+    # the CPU applies it itself)
     return out * spectral_rgb(pix, pass_idx, sample_idx) if cfg.use_spectral else out
 
 

@@ -6,7 +6,9 @@ dict of *selected* leaves (a mask keeps non-optimized rows frozen), an L2
 loss on the linear-radiance accumulator over a fixed pass budget (fixed
 RNG, so the loss is deterministic and its gradient exact for the realized
 estimator), and Adam.  On a CUDA device each step renders through K1 and
-back-propagates through its adjoint K2 (`ops/megakernel.py`), or, with
+back-propagates through its adjoint K2 (`ops/megakernel.py`; under
+spectral transport or the medium through their medium copies, the
+reference's preset 8 among them), or, with
 `cfg.use_restir`, through the fused ReSTIR kernel K6 and its adjoint K7
 (`ops/restir_kernel.py`) with the reservoir ring threaded through the
 passes; on the CPU through the plain versions and their autograd.

@@ -16,8 +16,9 @@ parameters (and to the camera, through the rays).  On the CPU the plain
 integrator's autograd serves every class the integrator renders.  On CUDA
 K2, the adjoint kernel behind `megakernel.trace_forward`, serves the whole
 class K1 renders without ReSTIR (every material, directional lights,
-uniform sampling, SDF meshes of every shape, the cubemap, textures),
-with respect to the scene table and the rays; a gradient w.r.t. a texel
+uniform sampling, SDF meshes of every shape, the cubemap, textures,
+hero-wavelength spectral transport and the homogeneous medium, the last
+two in its medium copy), with respect to the scene table and the rays; a gradient w.r.t. a texel
 array (the images, the noise LUT, the cubemap) raises NotImplementedError
 before anything is launched (`megakernel.unsupported_bwd`).  A render that
 needs no gradient launches K1 alone.

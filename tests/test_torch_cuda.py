@@ -1388,16 +1388,17 @@ def test_medium_render_goes_through_k1_only(cuda, monkeypatch):
 
 
 def test_medium_refused_by_k2_and_restir_before_any_launch(cuda):
-    """A gradient through preset 8 (K2 has no adjoint of the medium yet)
+    """A gradient through preset 8 w.r.t. a texel array (K2's medium copy,
+    as every copy, differentiates the scene table and the rays: item 14),
     and a ReSTIR pass, the split path and a ReSTIR gradient with spectral
-    transport or the medium raise NotImplementedError naming ROADMAP item
-    10, and launch nothing."""
+    transport or the medium (item 10) raise NotImplementedError naming
+    their ROADMAP item, and launch nothing."""
     scene, cam, cfg = presets.spectral_caustics(device=cuda)
     counts = {(m, a): getattr(m, a) for m, a in LAUNCH_COUNTS}
     ro, rd = generate_rays(cam, 16, 16, 0)
-    em = scene.emission.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd,
+    noise = scene.noise.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        megakernel.trace_forward(scene.replace(noise=noise), cfg, ro, rd,
                                  rng.pixel_ids(16, 16, device=cuda), 0, 0)
     demo, dcam, dcfg = presets.restir_demo(device=cuda)
     for kw in (dict(use_volumetrics=True), dict(use_spectral=True),
@@ -1434,3 +1435,100 @@ def test_medium_copy_and_k1_old_copies(cuda):
         assert (o["registers"], o["local_bytes"]) == want, (flags, o)
     assert occ(scene, 8)["blocks"] >= 1
 
+
+@pytest.mark.parametrize("name", list(MEDIUM_CASES))
+def test_medium_adjoint_matches_plain_autograd(cuda, name):
+    """K2's medium copy against torch.autograd of the plain version on the
+    card at 64x64, each scene at its own depth (preset 8: 12 bounces, where
+    the flint's IOR carries a gradient), per table leaf and the rays within
+    1e-4 relative, arbitrated in float64 as `assert_grads_close_f64` does
+    (`default_scene`'s pos, joker and rays held against float64, as for
+    the whole-SDF copy): one K1, one K2 launch (of the medium copy), K1's
+    radiance the plain version's bit for bit; a second launch of the copy
+    on the same cotangent gives the same bits."""
+    scene, cam, cfg = medium_case(name, device=cuda)
+    assert megakernel.unsupported_bwd(scene, cfg) is None
+    assert megakernel.bwd_copy(scene, cfg) == "medium"
+    h = w = 64
+    ro, rd = generate_rays(cam, h, w, 2)
+    pix = rng.pixel_ids(h, w, device=cuda)
+    counts = lambda: (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, megakernel.BWD_MEDIUM_LAUNCHES)
+    before = counts()
+    out, got = _table_grads(megakernel.trace_forward, scene, cfg, ro, rd, pix)
+    torch.cuda.synchronize()
+    assert counts() == tuple(n + 1 for n in before)
+    ref, want = _table_grads(integrator.trace, scene, cfg, ro, rd, pix)
+    assert torch.equal(out, ref)
+    assert_grads_close_f64(got, want, lambda kind, mask: _table_grads(
+        megakernel.trace_forward if kind == "kernel" else integrator.trace, scene, cfg, ro, rd,
+        pix, torch.float64 if kind == "plain64" else torch.float32, mask),
+        f64_leaves=("pos", "joker", "ro", "rd") if name == "default_scene" else ())
+    assert got["color"].abs().max().item() > 0.0
+    if name in ("spectral_caustics", "spectral_only"):
+        assert got["ior"].abs().max().item() > 0.0
+    table = megakernel.scene_table(scene)
+    ct = torch.rand(ro.shape, generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    first, second = (megakernel._launch_backward(scene, cfg, table, ro, rd, pix, 2, 0, ct)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_medium_recorded_and_unrecorded_forward_agree(cuda):
+    """`trace_forward` on preset 8 gives the same image bits whether the
+    call is recorded for a gradient (K1 under `_TraceCore`) or not: both
+    routes scale K1's radiance by the hero wavelength's RGB weight."""
+    scene, cam, cfg = presets.spectral_caustics(device=cuda)
+    ro, rd = generate_rays(cam, 64, 64, 1)
+    pix = rng.pixel_ids(64, 64, device=cuda)
+    plain = megakernel.trace_forward(scene, cfg, ro, rd, pix, 1, 0)
+    em = scene.emission.clone().requires_grad_(True)
+    recorded = megakernel.trace_forward(scene.replace(emission=em), cfg, ro, rd, pix, 1, 0)
+    assert recorded.requires_grad and torch.equal(recorded.detach(), plain)
+    assert torch.equal(plain, integrator.trace(scene, cfg, ro, rd, pix, 1, 0))
+
+
+def test_medium_fit_goes_through_k1_and_k2_only(cuda, monkeypatch):
+    """`optimize.fit` of preset 8's two lights' emission at 64x64 for 5
+    steps from 0.7 of it: the loss falls, K1's and K2's medium copies
+    launch once per step, the plain version never runs."""
+    scene, cam, cfg = presets.spectral_caustics(device=cuda)
+    rows = torch.zeros(scene.num_meshes, 1, device=cuda)
+    rows[[5, 6]] = 1.0
+    target = megakernel.trace_forward(
+        scene, cfg, *generate_rays(cam, 64, 64, 0), rng.pixel_ids(64, 64, device=cuda), 0, 0)
+    calls = []
+    plain = integrator.trace
+    monkeypatch.setattr(integrator, "trace", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    before = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, megakernel.BWD_MEDIUM_LAUNCHES)
+    start = scene.emission * (1.0 - 0.3 * rows)
+    _, losses = optimize.fit(scene.replace(emission=start), cfg, cam, target, ["emission"],
+                             steps=5, learning_rate=5e-2, param_mask={"emission": rows})
+    torch.cuda.synchronize()
+    after = (megakernel.LAUNCHES, megakernel.BWD_LAUNCHES, megakernel.BWD_MEDIUM_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 5) and not calls
+    assert losses[-1] < losses[0], losses
+
+
+def test_k2_medium_copy_and_old_copies(cuda):
+    """K2's medium copy is a library of its own: the Cornell, wide and
+    whole-SDF copies keep their registers and local memory (phase 2 of
+    chip_smoke.py holds their ptxas lines), and the medium copy fits
+    blocks of 128 on preset 8."""
+    from raytracer0_tpu_torch.ops import cuda_build
+
+    scene, _, cfg = presets.spectral_caustics(device=cuda)
+    warp, smem = megakernel.bwd_layout(scene, cfg)
+    o = cuda_build.occupancy(*megakernel.bwd_library("medium"), "rt0_trace_backward_occupancy",
+                             megakernel.BWD_THREADS, smem, 8 | 2 | int(warp))
+    print(f"K2's medium copy on preset 8: {o}")
+    assert o["blocks"] >= 1
+    for where, want in (("cornell", (128, 928)), ("mis_demo", (128, 2160))):
+        sc, c = ((cornell_default(device=cuda)[0], cornell_default(device=cuda)[2])
+                 if where == "cornell" else presets.mis_demo(device=cuda)[::2])
+        w2, sm2 = megakernel.bwd_layout(sc, c)
+        copy = megakernel.bwd_copy(sc, c)
+        flags = int(w2) | (2 if copy != "cornell" else 0)
+        o2 = cuda_build.occupancy(*megakernel.bwd_library(copy), "rt0_trace_backward_occupancy",
+                                  megakernel.BWD_THREADS, sm2, flags)
+        assert (o2["registers"], o2["local_bytes"]) == want, (where, o2)

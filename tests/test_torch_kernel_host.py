@@ -1687,7 +1687,8 @@ def test_host_medium_forward_matches_plain(kernels_on_cpu, name):
     scene, cam, cfg = medium_case(name)
     cfg = cfg.replace(max_bounces=min(cfg.max_bounces, 4), marching_steps=32)
     assert megakernel.unsupported(scene, cfg) is None
-    assert "item 10" in megakernel.unsupported_bwd(scene, cfg)
+    assert megakernel.unsupported_bwd(scene, cfg) is None   # K2's medium copy
+    assert megakernel.bwd_copy(scene, cfg) == "medium"
     h, w = 16, 32
     ro, rd = generate_rays(cam, h, w, 2)
     pix = rng.pixel_ids(h, w)

@@ -8,10 +8,13 @@ it, the plain `integrator.trace` against the JAX `integrator.trace` on
 that preset in three modes (spectral transport alone, the medium alone,
 both) and on an SDF scene and a cubemap with both, the plain autograd
 against `jax.grad` (the leaves of the JAX adjoint kernel's own test,
-tests/test_megakernel.py:133-160), and the gates: K1 admits both over its
-class, K2 and every ReSTIR route refuse them, naming ROADMAP item 10.
-K1's medium copy is held against the plain version in the host build
-(tests/test_torch_kernel_host.py) and on the card (tests/test_torch_cuda.py).
+tests/test_megakernel.py:133-160, and every table leaf and ray on
+`mis_demo` with both flags), and the gates: K1 and K2 admit both over
+their class (each in its medium copy), every ReSTIR route refuses them,
+naming ROADMAP item 10.  K1's medium copy is held against the plain
+version in the host build (tests/test_torch_kernel_host.py) and on the
+card (tests/test_torch_cuda.py); K2's against the plain autograd in the
+host build (tests/test_torch_kernel_host_medium.py) and on the card.
 
 Tolerances: the spectral functions within 1e-6 (torch's and XLA's CPU exp
 differ by an ULP); the forward under the parity contract of
@@ -64,6 +67,9 @@ GRAD_TOL = 1e-4
 MODES = {"spectral": dict(use_volumetrics=False), "media": dict(use_spectral=False),
          "both": {}}
 T = torch.from_numpy
+#: the NaN entries of jax.grad on `mis_demo` with both flags (8x16, 2
+#: bounces), left out of test_plain_grad_matches_jax_media_scene
+MEDIA_SCENE_NANS = {"pos": 21, "joker": 9, "ro": 42, "rd": 42}
 
 
 def assert_parity(name, out, ref):
@@ -202,8 +208,8 @@ def test_plain_grad_matches_jax(bounces):
     """d sum(trace) / d(color, emission, ior) of preset 8 at 8x16 with 2
     bounces, as the JAX package holds its adjoint kernel, and with 3, where
     the flint's IOR first reaches the image (its refracted ray's in-scatter
-    NEE and its next hit): the plain autograd (the reference of K2's future
-    adjoint of the medium and of Cauchy's IOR) against jax.grad."""
+    NEE and its next hit): the plain autograd (the reference of K2's medium
+    copy, the adjoint of the medium and of Cauchy's IOR) against jax.grad."""
     h, w = 8, 16
     js, ts, cfg, ro, rd = _pair("spectral_caustics", h, w, bounces)
     leaves = ("color", "emission", "ior")
@@ -224,17 +230,64 @@ def test_plain_grad_matches_jax(bounces):
         assert np.abs(np.asarray(want[2])).max() > 0.0
 
 
+def test_plain_grad_matches_jax_media_scene():
+    """Spectral transport and the medium beyond preset 8: d sum(trace * w)
+    / d(pos, joker, color, emission, ro, rd) on `mis_demo` (an SDF box, a
+    tiny sphere light under MIS) with both flags at 8x16 and 2 bounces
+    (seeded weights w), the plain autograd against jax.grad op by op, per
+    leaf within 1e-4 relative.  As in tests/test_torch_grad_wide.py, an
+    entry where jax.grad gives NaN (`vecmath.length` at 0 in the SDF
+    distance; the port's length has a zero gradient there) is left out and
+    the NaNs are counted, so a new one fails the test."""
+    h, w = 8, 16
+    js, ts, cfg, ro, rd = _pair("mis_demo", h, w, 2, use_mis=True, use_spectral=True,
+                                use_volumetrics=True, remat_bounces=False, marching_steps=16)
+    leaves = ("pos", "joker", "color", "emission")
+    wt = np.random.default_rng(3).uniform(0.5, 1.5, (h, w, 3)).astype(np.float32)
+    jpix, tpix = jrng.pixel_ids(h, w), trng.pixel_ids(h, w)
+
+    def jtrace(*args):
+        return jint.trace(js.replace(**dict(zip(leaves, args[:-2]))), cfg, args[-2], args[-1],
+                          jpix, 1, 0, sdf_march=jsdf.march)
+
+    with jax.disable_jit():
+        _, jvjp = jax.vjp(jtrace, *(getattr(js, k) for k in leaves), jnp.asarray(ro),
+                          jnp.asarray(rd))
+        want = dict(zip(leaves + ("ro", "rd"), (np.asarray(g) for g in jvjp(jnp.asarray(wt)))))
+    vals = {k: getattr(ts, k).detach().clone().requires_grad_(True) for k in leaves}
+    o, d = T(ro.copy()).requires_grad_(True), T(rd.copy()).requires_grad_(True)
+    out = tint.trace(ts.replace(**vals), cfg, o, d, tpix, 1, 0)
+    got = torch.autograd.grad((out * T(wt)).sum(), [*vals.values(), o, d])
+    for k, a in zip(leaves + ("ro", "rd"), got):
+        a, b = a.numpy(), want[k]
+        ok = np.isfinite(b)
+        scale = max(np.abs(b[ok]).max(), 1e-12)
+        print(f"d/d {k}: max |a - b| / max |b| = {np.abs(a[ok] - b[ok]).max() / scale:.3e}, "
+              f"{int((~ok).sum())} NaN entries of jax.grad left out")
+        assert np.isfinite(a).all() and np.abs(a[ok] - b[ok]).max() / scale < GRAD_TOL, k
+        assert scale > 1e-12, k
+    counted = {k: int((~np.isfinite(v)).sum()) for k, v in want.items() if not np.isfinite(v).all()}
+    assert counted == MEDIA_SCENE_NANS, counted
+
+
 def test_gates_after_the_widening():
     """K1 admits spectral transport and the medium over its class (the
     plain version renders them, `trace_forward` on CPU tensors is the plain
-    version, scaled once); K2 refuses them (no adjoint of the medium yet),
-    and so does every ReSTIR route (K4, K6 and K6v, the split path, K7 and
-    the plain ReSTIR pass), each naming ROADMAP item 10."""
+    version, scaled once); K2 admits them too, in its medium copy (a stash
+    of 12 slots under the preset's OFFLINE_CONFIG budgets, the wide copy's
+    columns, the IOR's among them), while a gradient w.r.t. a texel array
+    is still refused (item 14); every ReSTIR route (K4, K6 and K6v, the
+    split path, K7 and the plain ReSTIR pass) still refuses them, each
+    naming ROADMAP item 10."""
     ts, cam, cfg = tpresets.spectral_caustics(device="cpu")
     for kw in MODES.values():
         c = cfg.replace(**kw)
         assert tint.unsupported(ts, c) is None and tmk.unsupported(ts, c) is None
-        assert "item 10" in tmk.unsupported_bwd(ts, c)
+        assert tmk.unsupported_bwd(ts, c) is None and tmk.bwd_copy(ts, c) == "medium"
+        assert not tmk.cornell_copy(ts, c) and tmk.bwd_slots(ts, c) == 12 <= tmk.MAX_SLOTS
+        assert tmk.bwd_columns(ts, c) == tmk.wide_columns(ts) and 13 in tmk.bwd_columns(ts, c)
+        assert "item 14" in tmk.unsupported_bwd(
+            ts.replace(noise=ts.noise.clone().requires_grad_(True)), c)
     h, w = 4, 8
     ro, rd = generate_rays(cam, h, w, 0)
     pix = trng.pixel_ids(h, w)
